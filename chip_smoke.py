@@ -2,16 +2,26 @@
 
 Runs on one CUDA card, in phases; any failure exits non-zero:
   1. card and versions;
-  2. build the CUDA kernels from vstar_tpu_torch/csrc;
-  3. K1 (flash attention) against its plain version at the 7B shapes;
-  4. K2 (tower attention) against its plain version at the OWL shapes;
-  5. the main path: the random-init 7B SEAL pair in bf16 answers two
-     requests through SealService.answer, one over HTTP, and one
-     forced-search sample (free-form, 3-step guided search, focused
-     option scoring);
-  6. every kernel of the path launched during phase 5, and no plain
-     attention ran on a CUDA tensor there.
-Prints a JSON line of kernel results, then (last line) the device record.
+  2. build the CUDA kernels from vstar_tpu_torch/csrc (one nvcc per
+     source, in parallel);
+  3. every kernel against its plain PyTorch version at the 7B shapes of
+     the path: K1 flash attention, K2 tower attention, the int8 matvec
+     (K3/K4) at R in {1, 8, 16}, K5 (W4A16) at R in {1, 16, 384} and K6
+     (W4A8) at R in {1, 8}; each case is timed by device time (one CUDA
+     graph of N launches over weight copies that exceed the L2 cache) and
+     by CUDA events around single calls, beside its plain version, its
+     bound and, where one PyTorch call computes the same function, that
+     call (a yardstick the port never calls);
+  4. the bf16 path: the random-init 7B SEAL pair answers two requests
+     through SealService.answer, one over HTTP, and one forced-search
+     sample (free-form, 3-step guided search, focused option scoring);
+  5. the quantized path (--int4mix: int8 VQA decoder, int4mix VSM decoder,
+     int8 towers), after the bf16 pair is freed: one answer on 2048x1536,
+     one forced-search sample, and one more with the act-int8 switch on;
+  6. after each path, every kernel it runs launched, and no plain version
+     ran on a CUDA tensor.
+Prints a JSON line of kernel results, then the card's name and power
+limit, then (last line) the device record.
 
     python3 chip_smoke.py
 """
@@ -19,8 +29,10 @@ Prints a JSON line of kernel results, then (last line) the device record.
 from __future__ import annotations
 
 import base64
+import gc
 import io
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -30,8 +42,15 @@ import urllib.request
 import numpy as np
 import torch
 
-TOL = 2e-2          # bf16 kernel vs plain version (tests/test_vision.py:288)
+TOL = 2e-2          # bf16 attention vs plain version (tests/test_vision.py:288)
+BF16_REL_TOL = 1e-2  # quantized matmuls, bf16 out: of the largest |output|
+F32_REL_TOL = 1e-5   # K6, f32 out (exact integer group dots on both sides)
 SEED = 0
+# H100 SXM: HBM bytes/s and dense peak operations/s by operand type
+# (NVIDIA data sheet, 700 W).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
+L2_BYTES = 50 * 2**20
 # Forced 3-step search regime (scripts/bench_common.py:16-17): accepts
 # disabled, the target-cue split path pinned.
 FORCED_SEARCH = dict(confidence_high=2.0, target_cue_threshold=-1.0,
@@ -43,7 +62,8 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median time of one call of fn, from CUDA events."""
+    """Median time of one call of fn, from CUDA events around the call
+    (host launch gaps included)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -56,6 +76,47 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def graph_ms(calls, reps: int = 7) -> float:
+    """Device time of one call: the closures `calls` (each on its own
+    weight copy, so the weights come from HBM as on the path) are
+    captured into one CUDA graph; the median replay time over reps,
+    divided by len(calls)."""
+    for c in calls:
+        c()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for c in calls:
+            c()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for c in calls:
+            c()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / len(calls))
+    del graph
+    return float(np.median(times))
+
+
+def bound(nbytes: float, ops: float, kind: str):
+    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
+    operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[kind]
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations"
 
 
 # ---------------------------------------------------------------------------
@@ -88,7 +149,7 @@ def phase_build() -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phases 3-4: kernels against their plain versions
+# Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 def _k1_cases(gen, dev):
@@ -136,38 +197,98 @@ def _k1_cases(gen, dev):
     return cases
 
 
-def _compare(name, kernel, plain, args):
+def _rel_err(out, ref) -> float:
+    return float((out.float() - ref.float()).abs().max()
+                 / ref.float().abs().max())
+
+
+def _abs_err(out, ref) -> float:
+    return float((out.float() - ref.float()).abs().max())
+
+
+def _measure(name, kernel, plain, args, rotate, nbytes, ops, kind, tol,
+             err_fn=_abs_err, library=None):
+    """Checks one case against the plain version (err_fn(out, ref) <=
+    tol; the record keeps the absolute and the relative error) and times
+    it. `rotate` names the large inputs that the device-time graph cycles
+    through copies of (at least twice the L2 in all), as the path reads
+    them cold. `library` is a closure of one PyTorch call computing the
+    same function, timed as a yardstick, or None."""
     out = kernel(**args)
     ref = plain(**args)
     torch.cuda.synchronize()
-    err = float((out.float() - ref.float()).abs().max())
+    err = err_fn(out, ref)
     finite = bool(torch.isfinite(out.float()).all())
-    ms = cuda_ms(lambda: kernel(**args))
+    case_bytes = sum(args[k].numel() * args[k].element_size()
+                     for k in rotate)
+    n = min(max(math.ceil(2 * L2_BYTES / case_bytes), 2), 16)
+    variants = [args] + [dict(args, **{k: args[k].clone() for k in rotate})
+                         for _ in range(n - 1)]
+    ms = graph_ms([(lambda a=a: kernel(**a)) for a in variants])
+    del variants
+    ms_events = cuda_ms(lambda: kernel(**args))
     plain_ms = cuda_ms(lambda: plain(**args))
-    ok = finite and err <= TOL
-    log(f"[{name}] max_abs_err {err:.3e} (tol {TOL}) kernel {ms:.4f} ms "
-        f"plain {plain_ms:.4f} ms shape q{tuple(args['q'].shape)} "
-        f"k{tuple(args['k'].shape)} {'ok' if ok else 'FAIL'}")
+    library_ms = cuda_ms(library) if library is not None else None
+    bound_ms, bound_by = bound(nbytes, ops, kind)
+    ok = finite and err <= tol
+    lib = "none" if library_ms is None else f"{library_ms:.4f}"
+    log(f"[{name}] err {err:.3e} (tol {tol}) device {ms:.4f} ms "
+        f"(events {ms_events:.4f}) plain {plain_ms:.4f} library {lib} "
+        f"bound {bound_ms:.4f} ms ({bound_by}) "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: err {err} finite {finite}")
-    return out, err, ms, plain_ms
+    return out, {"max_abs_err": _abs_err(out, ref),
+                 "max_rel_err": _rel_err(out, ref), "ms": ms,
+                 "ms_events": ms_events,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": library_ms,
+                 "copies": n}
+
+
+def _sdpa_mask(Sq, Skv, dev, kv_lens, q_offsets, kv_valid=None):
+    """The boolean mask [B, 1, Sq, Skv] of K1's causal ragged attention."""
+    ki = torch.arange(Skv, device=dev)[None, None, None, :]
+    row = (q_offsets[:, None, None, None]
+           + torch.arange(Sq, device=dev)[None, None, :, None])
+    mask = (ki < kv_lens[:, None, None, None]) & (ki <= row)
+    if kv_valid is not None:
+        mask = mask & kv_valid[:, None, None, :].bool()
+    return mask
 
 
 def phase_k1(dev):
+    import torch.nn.functional as F
     from vstar_tpu_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(SEED)
     res = []
     for case, args in _k1_cases(gen, dev):
-        out, err, ms, plain_ms = _compare(f"K1 {case}", fa.flash_attention,
-                                          fa.mha_reference, args)
+        q, k = args["q"], args["k"]
+        B, Sq, H, D = q.shape
+        Skv = k.shape[1]
+        mask = _sdpa_mask(Sq, Skv, dev, args["kv_lens"], args["q_offsets"],
+                          args.get("kv_valid"))
+        pairs = int(mask.sum())
+        kv_read = int(args["kv_lens"].clamp(max=Skv).sum())
+        nbytes = 2 * (2 * B * Sq * H * D + 2 * kv_read * H * D)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, args["v"]))
+
+        def library(qt=qt, kt=kt, vt=vt, mask=mask):
+            F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+        out, rec = _measure(f"K1 {case}", fa.flash_attention,
+                            fa.mha_reference, args, ("k", "v"), nbytes,
+                            4 * pairs * H * D, "bf16", TOL,
+                            library=library)
         if case == "kv_valid" and float(out[1, 0].float().abs().max()) != 0:
             raise AssertionError("K1: fully masked row is not zero")
-        res.append({"case": case, "max_abs_err": err, "ms": ms,
-                    "plain_ms": plain_ms})
+        res.append({"case": case, "shape": f"q{tuple(q.shape)} "
+                    f"k{tuple(k.shape)}", **rec})
     return res
 
 
 def phase_k2(dev):
+    import torch.nn.functional as F
     from vstar_tpu_torch.kernels import tower_attention as ta
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     res = []
@@ -175,12 +296,107 @@ def phase_k2(dev):
                         ("s600", (2, 600, 12, 64))):
         q, k, v = (torch.randn(*shape, generator=gen, device=dev)
                    .to(torch.bfloat16) for _ in range(3))
-        _, err, ms, plain_ms = _compare(
-            f"K2 {case}", ta.tower_attention, ta.tower_attention_reference,
-            dict(q=q, k=k, v=v))
-        res.append({"case": case, "max_abs_err": err, "ms": ms,
-                    "plain_ms": plain_ms})
+        B, S, H, D = shape
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def library(qt=qt, kt=kt, vt=vt):
+            F.scaled_dot_product_attention(qt, kt, vt)
+
+        _, rec = _measure(f"K2 {case}", ta.tower_attention,
+                          ta.tower_attention_reference, dict(q=q, k=k, v=v),
+                          ("q", "k", "v"), 4 * 2 * B * S * H * D,
+                          4 * B * H * S * S * D, "bf16", TOL,
+                          library=library)
+        res.append({"case": case, "shape": f"q{shape}", **rec})
     return res
+
+
+def _rand(gen, dev, *shape, scale=1.0):
+    return torch.randn(*shape, generator=gen, device=dev) * scale
+
+
+def phase_int8(dev):
+    """K3/K4 at decode rows: gate/up (4096 -> 11008), down (11008 -> 4096)
+    and the VQA lm_head (4096 -> 32003), int8 per-channel."""
+    from vstar_tpu_torch.kernels import int8_matmul as k8
+    from vstar_tpu_torch.nn.quant import quantize_weight
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    res = []
+    for rows, IN, OUT in ((1, 4096, 11008), (8, 11008, 4096),
+                          (16, 4096, 32003)):
+        e = quantize_weight(_rand(gen, dev, IN, OUT, scale=IN ** -0.5))
+        x = _rand(gen, dev, rows, IN).to(torch.bfloat16)
+        args = dict(x=x, q=e["q"], s=e["s"])
+        nbytes = IN * OUT + 4 * OUT + 2 * rows * (IN + OUT)
+        library = _int8pack_library(x, e["q"], e["s"], k8)
+        _, rec = _measure(f"int8 R={rows} {IN}x{OUT}", k8.int8_matmul,
+                          k8.int8_matmul_reference, args, ("q",), nbytes,
+                          2 * rows * IN * OUT, "bf16", BF16_REL_TOL,
+                          _rel_err, library)
+        res.append({"case": f"R{rows}_{IN}x{OUT}", **rec})
+    return res
+
+
+def _int8pack_library(x, q, s, k8):
+    """torch._weight_int8pack_mm computes the same function from the
+    transposed weight (made once, outside the timing); None where the
+    card's torch has no CUDA version of it or it disagrees."""
+    try:
+        qt = q.t().contiguous()
+        sc = s.reshape(-1).to(x.dtype)
+        got = torch._weight_int8pack_mm(x, qt, sc)
+        want = k8.int8_matmul_reference(x, q, s)
+        torch.cuda.synchronize()
+        if _rel_err(got, want) > BF16_REL_TOL:
+            log("[int8] torch._weight_int8pack_mm disagrees; no library "
+                "time")
+            return None
+    except (RuntimeError, NotImplementedError) as exc:
+        log(f"[int8] torch._weight_int8pack_mm unavailable: "
+            f"{str(exc).splitlines()[0][:160]}")
+        return None
+    return lambda: torch._weight_int8pack_mm(x, qt, sc)
+
+
+def phase_int4(dev):
+    """K5 (W4A16) at decode, lm_head and prefill rows, and K6 (W4A8) at
+    decode and verify rows, group-128 int4."""
+    from vstar_tpu_torch.kernels import int4_matmul as k4
+    from vstar_tpu_torch.nn.quant import quantize_weight_int4
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    weights = {}
+
+    def entry(IN, OUT):
+        if (IN, OUT) not in weights:
+            weights[(IN, OUT)] = quantize_weight_int4(
+                _rand(gen, dev, IN, OUT, scale=IN ** -0.5))
+        return weights[(IN, OUT)]
+
+    k5, k6 = [], []
+    for rows, IN, OUT in ((1, 4096, 11008), (16, 4096, 32003),
+                          (384, 4096, 11008)):
+        e = entry(IN, OUT)
+        x = _rand(gen, dev, rows, IN).to(torch.bfloat16)
+        nbytes = (IN // 2 * OUT + 4 * e["s4"].shape[0] * OUT
+                  + 2 * rows * (IN + OUT))
+        _, rec = _measure(f"K5 R={rows} {IN}x{OUT}", k4.int4_matmul,
+                          k4.int4_matmul_reference,
+                          dict(x=x, q4=e["q4"], s4=e["s4"]), ("q4", "s4"),
+                          nbytes, 2 * rows * IN * OUT, "bf16", BF16_REL_TOL,
+                          _rel_err)
+        k5.append({"case": f"R{rows}_{IN}x{OUT}", **rec})
+    for rows, IN, OUT in ((1, 4096, 11008), (8, 4096, 32003)):
+        e = entry(IN, OUT)
+        xq, _ = k4.quantize_activations(_rand(gen, dev, rows, IN))
+        nbytes = (IN // 2 * OUT + 4 * e["s4"].shape[0] * OUT + rows * IN
+                  + 4 * rows * OUT)
+        _, rec = _measure(f"K6 R={rows} {IN}x{OUT}", k4.int4_matmul_w4a8,
+                          k4.int4_matmul_w4a8_reference,
+                          dict(xq=xq, q4=e["q4"], s4=e["s4"]), ("q4", "s4"),
+                          nbytes, 2 * rows * IN * OUT, "int8", F32_REL_TOL,
+                          _rel_err)
+        k6.append({"case": f"R{rows}_{IN}x{OUT}", **rec})
+    return k5, k6
 
 
 # ---------------------------------------------------------------------------
@@ -254,25 +470,91 @@ def _forced_search_sample(vqa, vsm, image, question, options):
             "search_result": search_result, "option_chosen": chosen}
 
 
-def phase_main_path(dev, k1, k2):
+class CountingVSM:
+    """Counts the VSM detect calls the policy makes."""
+
+    def __init__(self, engine):
+        self.engine, self.detects = engine, 0
+
+    def detect(self, image, name):
+        self.detects += 1
+        return self.engine.detect(image, name)
+
+    def vqa(self, image, question):
+        return self.engine.vqa(image, question)
+
+    def segment(self, image, phrase):
+        return self.engine.segment(image, phrase)
+
+
+# name -> (module, key of the wrapper's counters or None for plain ints)
+def _counter_modules():
+    from vstar_tpu_torch.kernels import flash_attention as fa
+    from vstar_tpu_torch.kernels import int4_matmul as k4
+    from vstar_tpu_torch.kernels import int8_matmul as k8
+    from vstar_tpu_torch.kernels import tower_attention as ta
+    return {"flash_attention": (fa, None), "tower_attention": (ta, None),
+            "int8_matvec": (k8, None), "int4_matmul": (k4, "int4_matmul"),
+            "int4_matmul_w4a8": (k4, "int4_matmul_w4a8")}
+
+
+def _read_counts():
+    """name -> (kernel launches, plain-version calls on CUDA tensors)."""
+    out = {}
+    for name, (mod, key) in _counter_modules().items():
+        if key is None:
+            out[name] = (mod.launches, mod.plain_calls_cuda)
+        else:
+            out[name] = (mod.launches[key], mod.plain_calls_cuda[key])
+    return out
+
+
+def _zero_counts():
+    for mod, key in _counter_modules().values():
+        if key is None:
+            mod.launches = mod.plain_calls_cuda = 0
+        else:
+            mod.launches[key] = mod.plain_calls_cuda[key] = 0
+
+
+def _check_path(path, kernels):
+    """Reads the counts after a path: every kernel in `kernels` launched,
+    and no plain version ran on a CUDA tensor."""
+    counts = _read_counts()
+    launches = {k: counts[k][0] for k in counts}
+    plain = {k: counts[k][1] for k in counts}
+    log(f"[{path} path] kernel launches {launches}, plain-version calls on "
+        f"CUDA {plain}")
+    missing = [k for k in kernels if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{path} path: {missing} never launched")
+    if any(plain.values()):
+        raise AssertionError(f"{path} path: plain versions ran on CUDA "
+                             f"tensors: {plain}")
+    return {k: launches[k] for k in kernels}
+
+
+OPTIONS = ["The mug is red.", "The mug is blue.", "The mug is green.",
+           "There is no mug."]
+QUESTION = "What is the color of the mug?"
+
+
+def _log_forced(label, forced, vsm):
+    log(f"[{label}] latency {forced['latency_s']:.3f} s patches visited "
+        f"{len(forced['path'])} detect calls {vsm.detects} path_length "
+        f"{forced['path_length']} search_result {forced['search_result']} "
+        f"option {forced['option_chosen']}")
+    if len(forced["path"]) != 3 or vsm.detects != 3:
+        raise AssertionError(f"{label}: forced search did not visit 3 "
+                             "patches")
+    if forced["option_chosen"] not in range(len(OPTIONS)):
+        raise AssertionError(f"{label}: forced sample chose no option")
+
+
+def phase_bf16_path(dev):
+    """The PR 1 path: the bf16 7B pair, two answers, one over HTTP, one
+    forced-search sample."""
     from vstar_tpu_torch.serve.server import SealService, random_init_engines
-
-    class CountingVSM:
-        """Counts the VSM detect calls the policy makes."""
-
-        def __init__(self, engine):
-            self.engine, self.detects = engine, 0
-
-        def detect(self, image, name):
-            self.detects += 1
-            return self.engine.detect(image, name)
-
-        def vqa(self, image, question):
-            return self.engine.vqa(image, question)
-
-        def segment(self, image, phrase):
-            return self.engine.segment(image, phrase)
-
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     vqa, vsm_engine = random_init_engines("7b", dev)
@@ -282,71 +564,95 @@ def phase_main_path(dev, k1, k2):
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     vsm = CountingVSM(vsm_engine)
     service = SealService(vqa, vsm)
-    options = ["The mug is red.", "The mug is blue.", "The mug is green.",
-               "There is no mug."]
-    question = "What is the color of the mug?"
     img_1k, img_2k = _image(768, 1024, SEED), _image(1536, 2048, SEED + 1)
 
     # warm-up: the first calls of each library kernel pay their set-up
-    vqa.multiple_choice(img_1k, question, options)
+    vqa.multiple_choice(img_1k, QUESTION, OPTIONS)
 
-    counts0 = (k1.launches, k2.launches)
-    k1.plain_calls_cuda = k2.plain_calls_cuda = 0
-    k1.launches = k2.launches = 0
+    _zero_counts()
     results = {}
     for name, img in (("1024x768", img_1k), ("2048x1536", img_2k)):
         t0 = time.perf_counter()
-        rec = service.answer(img, question, options)
+        rec = service.answer(img, QUESTION, OPTIONS)
         torch.cuda.synchronize()
-        _check_record(rec, len(options))
+        _check_record(rec, len(OPTIONS))
         results[name] = rec
         log(f"[answer {name}] latency {time.perf_counter() - t0:.3f} s "
             f"option {rec['option_chosen']} missing "
             f"{rec['missing_objects']} freeform "
             f"{len(rec['prediction_freeform'].split())} words")
     t0 = time.perf_counter()
-    status, rec = _http_answer(service, img_1k, question, options)
+    status, rec = _http_answer(service, img_1k, QUESTION, OPTIONS)
     if status != 200:
         raise AssertionError(f"HTTP {status}: {rec}")
-    _check_record(rec, len(options))
+    _check_record(rec, len(OPTIONS))
     log(f"[answer http] latency {time.perf_counter() - t0:.3f} s "
         f"option {rec['option_chosen']}")
     if rec["option_chosen"] != results["1024x768"]["option_chosen"]:
         raise AssertionError("HTTP answer differs from the direct answer "
                              "on the same image")
-    forced = _forced_search_sample(vqa, vsm, img_2k, question, options)
-    log(f"[forced search 2048x1536] latency {forced['latency_s']:.3f} s "
-        f"patches visited {len(forced['path'])} detect calls "
-        f"{vsm.detects} path_length {forced['path_length']} "
-        f"search_result {forced['search_result']} option "
-        f"{forced['option_chosen']}")
-    if len(forced["path"]) != 3 or vsm.detects != 3:
-        raise AssertionError("forced search did not visit 3 patches")
-    if forced["option_chosen"] not in range(len(options)):
-        raise AssertionError("forced sample chose no option")
-    launches = {"flash_attention": k1.launches,
-                "tower_attention": k2.launches}
-    plain = k1.plain_calls_cuda + k2.plain_calls_cuda
-    log(f"[main path] kernel launches {launches}, plain attention calls on "
-        f"CUDA {plain} (before the counted run: {counts0})")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the path never launched: "
-                             f"{launches}")
-    if plain:
-        raise AssertionError(f"{plain} plain attention calls on CUDA "
-                             "during the main path")
-    return launches
+    forced = _forced_search_sample(vqa, vsm, img_2k, QUESTION, OPTIONS)
+    _log_forced("forced search 2048x1536", forced, vsm)
+    return _check_path("bf16", ("flash_attention", "tower_attention"))
+
+
+def phase_quantized_path(dev):
+    """The --int4mix pair: int8 VQA decoder, int4mix VSM decoder (int4
+    gate/up/lm_head, int8 qkvo/down), int8 towers. One answer, one forced
+    search sample, then one more with the act-int8 switch on (W4A8 for
+    the int4 matrices, int8 x int8 products for the int8 ones)."""
+    from vstar_tpu_torch.nn.quant import set_act_int8
+    from vstar_tpu_torch.serve.server import SealService, random_init_engines
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    vqa, vsm_engine = random_init_engines("7b", dev, int4mix=True)
+    torch.cuda.synchronize()
+    log(f"[init] random 7B --int4mix pair on {dev} in "
+        f"{time.perf_counter() - t0:.1f} s; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, "
+        f"allocated {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+    vsm = CountingVSM(vsm_engine)
+    service = SealService(vqa, vsm)
+    img_2k = _image(1536, 2048, SEED + 1)
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    rec = service.answer(img_2k, QUESTION, OPTIONS)
+    torch.cuda.synchronize()
+    _check_record(rec, len(OPTIONS))
+    log(f"[int4mix answer 2048x1536] latency {time.perf_counter() - t0:.3f}"
+        f" s option {rec['option_chosen']} freeform "
+        f"{len(rec['prediction_freeform'].split())} words")
+    forced = _forced_search_sample(vqa, vsm, img_2k, QUESTION, OPTIONS)
+    _log_forced("int4mix forced search 2048x1536", forced, vsm)
+    vsm.detects = 0
+    set_act_int8(True)
+    try:
+        forced = _forced_search_sample(vqa, vsm, img_2k, QUESTION, OPTIONS)
+    finally:
+        set_act_int8(False)
+    _log_forced("int4mix act-int8 forced search 2048x1536", forced, vsm)
+    log(f"[int4mix] max_memory_allocated over the path "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    return _check_path("int4mix", tuple(_counter_modules()))
 
 
 # ---------------------------------------------------------------------------
 
-def _kernel_entry(name, route, source, replaces, launches, cases):
+def _kernel_entry(name, source, replaces, launches, cases):
+    """The JSON record of one kernel; the top-level numbers are its first
+    (main) case's; `launches` counts the path that brought the kernel in,
+    `launches_by_path` every path."""
     main = cases[0]
-    return {"name": name, "route": route, "source": source,
-            "replaces": replaces, "launches": launches,
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches["own"],
+            "launches_by_path": launches["by_path"],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "max_rel_err": max(c["max_rel_err"] for c in cases),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
-            "timed_case": main["case"], "cases": cases}
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "timed_case": main["case"],
+            "cases": cases}
 
 
 def main() -> int:
@@ -358,27 +664,44 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
-    from vstar_tpu_torch.kernels import flash_attention as k1
-    from vstar_tpu_torch.kernels import tower_attention as k2
 
-    phase_device()
+    smi = phase_device()
     phase_build()
-    k1_cases = phase_k1(dev)
-    k2_cases = phase_k2(dev)
-    launches = phase_main_path(dev, k1, k2)
-    if "jax" in sys.modules:
-        raise AssertionError("JAX was imported")
-    kernels = [
-        _kernel_entry("flash_attention", "cuda",
-                      "vstar_tpu_torch/csrc/flash_attention.cu",
-                      "vstar_tpu/kernels/flash_attention.py:82",
-                      launches["flash_attention"], k1_cases),
-        _kernel_entry("tower_attention", "cuda",
-                      "vstar_tpu_torch/csrc/tower_attention.cu",
-                      "vstar_tpu/kernels/tower_attention.py:39",
-                      launches["tower_attention"], k2_cases),
-    ]
+    cases = {"flash_attention": phase_k1(dev),
+             "tower_attention": phase_k2(dev),
+             "int8_matvec": phase_int8(dev)}
+    cases["int4_matmul"], cases["int4_matmul_w4a8"] = phase_int4(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path = {"bf16": phase_bf16_path(dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["int4mix"] = phase_quantized_path(dev)
+    if "jax" in sys.modules or "vstar_tpu" in sys.modules:
+        raise AssertionError("JAX or the JAX package was imported")
+    sources = {
+        "flash_attention": ("flash_attention.cu",
+                            "vstar_tpu/kernels/flash_attention.py:82", "bf16"),
+        "tower_attention": ("tower_attention.cu",
+                            "vstar_tpu/kernels/tower_attention.py:39", "bf16"),
+        "int8_matvec": ("int8_matvec.cu",
+                        "vstar_tpu/kernels/int8_matmul.py:26, "
+                        "vstar_tpu/kernels/stream_matvec.py:28", "int4mix"),
+        "int4_matmul": ("int4_matmul.cu",
+                        "vstar_tpu/kernels/int4_matmul.py:41", "int4mix"),
+        "int4_matmul_w4a8": ("int4_matmul.cu",
+                             "vstar_tpu/kernels/int4_matmul.py:126",
+                             "int4mix"),
+    }
+    kernels = []
+    for name, (src, replaces, own) in sources.items():
+        launches = {"own": by_path[own][name],
+                    "by_path": {p: n[name] for p, n in by_path.items()
+                                if name in n}}
+        kernels.append(_kernel_entry(name, f"vstar_tpu_torch/csrc/{src}",
+                                     replaces, launches, cases[name]))
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

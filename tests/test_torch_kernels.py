@@ -210,3 +210,91 @@ def test_tower_kernel_on_card(cuda, S):
     torch.cuda.synchronize()
     assert ta.launches == before + 1
     assert float((got.float() - want.float()).abs().max()) <= BF16_TOL
+
+
+# The quantized-weight kernels (K3/K4 int8 matvec, K5 W4A16, K6 W4A8) at
+# shapes that cover their paths: the 16-byte vector loads and the ragged
+# byte-load tail, every row bucket, the split reduction, the tensor-core
+# tiles above 16 rows. Tolerance: relative to the output's largest
+# magnitude, 1e-2 for bf16 outputs and 1e-5 for K6's f32.
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def _int4(g, IN, OUT, dev, group=128):
+    from vstar_tpu_torch.nn.quant import quantize_weight_int4
+    w = torch.randn(IN, OUT, generator=g, device=dev) * 0.05
+    return quantize_weight_int4(w, group)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,IN,OUT", [
+    (1, 4096, 4096), (3, 4096, 2048), (8, 1024, 3000), (16, 11008, 512),
+    (5, 512, 32003)])
+def test_int8_kernel_on_card(cuda, rows, IN, OUT):
+    from vstar_tpu_torch.kernels import int8_matmul as k8
+    from vstar_tpu_torch.nn.quant import quantize_weight
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    e = quantize_weight(torch.randn(IN, OUT, generator=g, device=cuda) * 0.05)
+    x = torch.randn(rows, IN, generator=g, device=cuda).to(torch.bfloat16)
+    before = k8.launches
+    got = k8.int8_matmul(x, e["q"], e["s"])
+    want = k8.int8_matmul_reference(x, e["q"], e["s"])
+    torch.cuda.synchronize()
+    assert k8.launches == before + 1
+    assert _rel(got, want) <= 1e-2
+    with pytest.raises(ValueError, match="rows|x must"):
+        k8.int8_matmul(torch.zeros(17, IN, dtype=torch.bfloat16,
+                                   device=cuda), e["q"], e["s"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,IN,OUT", [
+    (1, 4096, 11008), (2, 4096, 4096), (16, 11008, 4096), (4, 4096, 32003),
+    (40, 4096, 1000), (384, 4096, 11008)])
+def test_int4_kernel_on_card(cuda, rows, IN, OUT):
+    from vstar_tpu_torch.kernels import int4_matmul as k4
+    g = torch.Generator(device=cuda).manual_seed(rows + 1)
+    e = _int4(g, IN, OUT, cuda)
+    x = torch.randn(rows, IN, generator=g, device=cuda).to(torch.bfloat16)
+    before = k4.launches["int4_matmul"]
+    got = k4.int4_matmul(x, e["q4"], e["s4"])
+    want = k4.int4_matmul_reference(x, e["q4"], e["s4"])
+    torch.cuda.synchronize()
+    assert k4.launches["int4_matmul"] == before + 1
+    assert _rel(got, want) <= 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,IN,OUT", [
+    (1, 4096, 11008), (8, 4096, 32003), (16, 11008, 4096), (3, 512, 300)])
+def test_int4_w4a8_kernel_on_card(cuda, rows, IN, OUT):
+    from vstar_tpu_torch.kernels import int4_matmul as k4
+    g = torch.Generator(device=cuda).manual_seed(rows + 2)
+    e = _int4(g, IN, OUT, cuda)
+    xq = torch.randint(-127, 128, (rows, IN), generator=g, device=cuda,
+                       dtype=torch.int32).to(torch.int8)
+    before = k4.launches["int4_matmul_w4a8"]
+    got = k4.int4_matmul_w4a8(xq, e["q4"], e["s4"])
+    want = k4.int4_matmul_w4a8_reference(xq, e["q4"], e["s4"])
+    torch.cuda.synchronize()
+    assert k4.launches["int4_matmul_w4a8"] == before + 1
+    assert got.dtype == torch.float32 and _rel(got, want) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,IN,OUT", [(1, 4096, 4096), (16, 11008, 4096),
+                                         (300, 1024, 3072), (2, 4096, 32003)])
+def test_int32_matmul_exact_on_card(cuda, rows, IN, OUT):
+    """_w8a8_dot's integer product (torch._int_mm where it takes the
+    shape, f64 otherwise) is exact."""
+    from vstar_tpu_torch.nn.quant import _int32_matmul
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    a = torch.randint(-127, 128, (rows, IN), generator=g, device=cuda,
+                      dtype=torch.int32).to(torch.int8)
+    b = torch.randint(-127, 128, (IN, OUT), generator=g, device=cuda,
+                      dtype=torch.int32).to(torch.int8)
+    want = (a.cpu().long() @ b.cpu().long())
+    assert torch.equal(_int32_matmul(a, b).cpu().long(), want)

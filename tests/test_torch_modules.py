@@ -1,8 +1,9 @@
 """Module parity: each ported module against its vstar_tpu counterpart on
 the same numpy-seeded inputs and the same weights (JAX init, bridged by
-vstar_tpu_torch.core.convert), in f32 at tiny widths, atol 1e-4. Also
-checks that the port's 7B parameter trees (built on the meta device) have
-the JAX trees' names, shapes and dtypes."""
+vstar_tpu_torch.core.convert), in f32 at tiny widths, atol 1e-4; each
+side is built from its own package's configs. Also checks that the
+port's 7B parameter trees (built on the meta device), bf16 and quantized,
+have the JAX trees' names, shapes and dtypes."""
 
 import dataclasses
 
@@ -24,6 +25,7 @@ from vstar_tpu.nn import sam as jsam
 from vstar_tpu.nn import vit as jvit
 from vstar_tpu.nn.basic import init_layernorm as jax_init_layernorm
 from vstar_tpu.models import vqa_llm as jvqa
+from vstar_tpu_torch.core import config as tcfg
 from vstar_tpu_torch.core.convert import from_numpy_tree
 from vstar_tpu_torch.models import vqa_llm as tvqa
 from vstar_tpu_torch.models.vqa_llm import init_vqa_llm_params
@@ -32,7 +34,7 @@ from vstar_tpu_torch.multimodal import splicing as tsplice
 from vstar_tpu_torch.nn import llama as tllama
 from vstar_tpu_torch.nn import owl_heads as towl
 from vstar_tpu_torch.nn import projectors as tproj
-from vstar_tpu_torch.nn.quant import qdot
+from vstar_tpu_torch.nn.quant import qdot, quantize_weight
 from vstar_tpu_torch.nn import sam as tsam
 from vstar_tpu_torch.nn import vit as tvit
 
@@ -60,13 +62,14 @@ def close(got, want, atol=ATOL):
 
 def test_llama_prefill_decode_option_chunk():
     cfg = vqa_llm_tiny().llama
+    tc = tcfg.vqa_llm_tiny().llama
     jp = jllama.init_llama_params(jax.random.PRNGKey(3), cfg)
     tp = bridge(jp)
     rng = np.random.RandomState(0)
     B, S, Smax, D = 2, 12, 40, cfg.hidden_size
     lens = np.array([12, 9], np.int32)
     jcache = jllama.init_cache(cfg, B, Smax, jnp.float32)
-    tcache = tllama.init_cache(cfg, B, Smax, torch.float32, device="cpu")
+    tcache = tllama.init_cache(tc, B, Smax, torch.float32, device="cpu")
 
     def step(h, pos, kv_lens, offs):
         nonlocal jcache, tcache
@@ -74,7 +77,7 @@ def test_llama_prefill_decode_option_chunk():
             jp, cfg, jnp.asarray(h), jnp.asarray(pos), jnp.asarray(kv_lens),
             q_offsets=jnp.asarray(offs), cache=jcache)
         th, tcache = tllama.llama_forward(
-            tp, cfg, t(h), t(pos), t(kv_lens), q_offsets=t(offs),
+            tp, tc, t(h), t(pos), t(kv_lens), q_offsets=t(offs),
             cache=tcache)
         close(th, jh)
         for row, n in enumerate(kv_lens):
@@ -110,13 +113,14 @@ def test_llama_gqa_repeat():
     lens = np.array([6], np.int32)
     want, _ = jllama.llama_forward(jp, cfg, jnp.asarray(h),
                                    jnp.asarray(pos), jnp.asarray(lens))
-    got, _ = tllama.llama_forward(bridge(jp), cfg, t(h), t(pos), t(lens))
+    tc = dataclasses.replace(tcfg.vqa_llm_tiny().llama, num_kv_heads=2)
+    got, _ = tllama.llama_forward(bridge(jp), tc, t(h), t(pos), t(lens))
     close(got, want)
 
 
 def test_vqa_prefill_and_decode_step():
     """models/vqa_llm: bank encode, spliced prefill and one decode step."""
-    cfg = vqa_llm_tiny()
+    cfg, tc = vqa_llm_tiny(), tcfg.vqa_llm_tiny()
     jp = jax_init_vqa(jax.random.PRNGKey(9), cfg)
     tp = bridge(jp)
     rng = np.random.RandomState(8)
@@ -124,7 +128,7 @@ def test_vqa_prefill_and_decode_step():
     objs = (rng.rand(2, cfg.max_objects, 28, 28, 3) * 255).astype(np.uint8)
     jbank = jvqa.encode_feature_bank(jp, cfg, jnp.asarray(img),
                                      jnp.asarray(objs))
-    tbank = tvqa.encode_feature_bank(tp, cfg, t(img), t(objs))
+    tbank = tvqa.encode_feature_bank(tp, tc, t(img), t(objs))
     close(tbank, jbank)
     ids = [1, 7, -200, 9, 11]
     lays = [tsplice.build_layout(ids, 16, n_long=4, n_short=4,
@@ -133,13 +137,13 @@ def test_vqa_prefill_and_decode_step():
             for k in ("text_ids", "feat_idx", "is_feat")}
     lens = np.array([lay.length for lay in lays], np.int32)
     jcache = jllama.init_cache(cfg.llama, 2, 32, jnp.float32)
-    tcache = tllama.init_cache(cfg.llama, 2, 32, torch.float32, device="cpu")
+    tcache = tllama.init_cache(tc.llama, 2, 32, torch.float32, device="cpu")
     jl, jh, jcache = jvqa.prefill(
         jp, cfg, jbank, *(jnp.asarray(arrs[k]) for k in
                           ("text_ids", "feat_idx", "is_feat")),
         jnp.asarray(lens), jcache, jnp.float32)
     tl, th, tcache = tvqa.prefill(
-        tp, cfg, tbank, *(t(arrs[k]) for k in
+        tp, tc, tbank, *(t(arrs[k]) for k in
                           ("text_ids", "feat_idx", "is_feat")),
         t(lens), tcache, torch.float32)
     close(tl, jl)
@@ -147,7 +151,7 @@ def test_vqa_prefill_and_decode_step():
     tok = np.array([[5], [6]], np.int32)
     jl, jh, jcache = jvqa.decode_step(jp, cfg, jcache, jnp.asarray(tok),
                                       jnp.float32)
-    tl, th, tcache = tvqa.decode_step(tp, cfg, tcache, t(tok),
+    tl, th, tcache = tvqa.decode_step(tp, tc, tcache, t(tok),
                                       torch.float32)
     close(tl, jl)
     close(th, jh)
@@ -155,6 +159,9 @@ def test_vqa_prefill_and_decode_step():
 
 
 def test_convert_bf16_leaves_and_refuses_quantized():
+    """bf16 leaves cross bit for bit; quantized entries (which the port
+    refused before its quantized kernels existed) now cross with their
+    int8 / uint8 / f32 leaves, and qdot on them matches JAX's."""
     w = np.random.RandomState(0).randn(4, 6).astype(np.float32)
     out = from_numpy_tree({"a": [jax.device_get(jnp.asarray(w, jnp.bfloat16))],
                            "n": np.arange(3, dtype=np.int32)}, "cpu")
@@ -163,11 +170,24 @@ def test_convert_bf16_leaves_and_refuses_quantized():
         out["a"][0].float().numpy(),
         np.asarray(jnp.asarray(w, jnp.bfloat16).astype(jnp.float32)))
     assert out["n"].dtype == torch.int32 and out["n"].tolist() == [0, 1, 2]
-    from vstar_tpu.nn.quant import quantize_weight_np
-    with pytest.raises(NotImplementedError, match="attn.wq"):
-        from_numpy_tree({"attn": {"wq": quantize_weight_np(w)}}, "cpu")
-    with pytest.raises(NotImplementedError, match="quantized"):
-        qdot(torch.zeros(2, 4), {"q": torch.zeros(4, 6), "s": 1})
+    from vstar_tpu.nn.quant import qdot as jax_qdot
+    from vstar_tpu.nn.quant import quantize_weight_int4_np, quantize_weight_np
+    tree = {"attn": {"wq": quantize_weight_np(w),
+                     "w4": quantize_weight_int4_np(w),
+                     "tower": dict(quantize_weight_np(w), b=w[0])}}
+    got = from_numpy_tree(tree, "cpu")
+    assert {k: v.dtype for k, v in got["attn"]["wq"].items()} == \
+        {"q": torch.int8, "s": torch.float32}
+    assert {k: v.dtype for k, v in got["attn"]["w4"].items()} == \
+        {"q4": torch.uint8, "s4": torch.float32}
+    assert sorted(got["attn"]["tower"]) == ["b", "q", "s"]
+    x = np.random.RandomState(1).randn(3, 4).astype(np.float32)
+    for key in ("wq", "w4"):
+        want = jax_qdot(jnp.asarray(x), jax.tree_util.tree_map(
+            jnp.asarray, tree["attn"][key]))
+        close(qdot(t(x), got["attn"][key]), want, atol=1e-5)
+    np.testing.assert_array_equal(
+        got["attn"]["wq"]["q"].numpy(), quantize_weight(t(w))["q"].numpy())
 
 
 # ---------------------------------------------------------------------------
@@ -178,39 +198,43 @@ def test_convert_bf16_leaves_and_refuses_quantized():
 def test_vit_paths(which):
     rng = np.random.RandomState(2)
     if which == "clip":
-        cfg = vqa_llm_tiny().vision
+        cfg, tc = vqa_llm_tiny().vision, tcfg.vqa_llm_tiny().vision
     elif which == "owl":
-        cfg = vsm_tiny().owl_vision
+        cfg, tc = vsm_tiny().owl_vision, tcfg.vsm_tiny().owl_vision
     else:   # 23x23 patches + CLS = 530 tokens: the S >= 512 tower path
-        cfg = ViTConfig(image_size=368, patch_size=16, hidden_size=32,
-                        intermediate_size=64, num_layers=1, num_heads=4,
-                        feature_layer=-1)
+        kw = dict(image_size=368, patch_size=16, hidden_size=32,
+                  intermediate_size=64, num_layers=1, num_heads=4,
+                  feature_layer=-1)
+        cfg, tc = ViTConfig(**kw), tcfg.ViTConfig(**kw)
     jp = jvit.init_vit_params(jax.random.PRNGKey(5), cfg)
     tp = bridge(jp)
     px = rng.randn(2, cfg.image_size, cfg.image_size, 3).astype(np.float32)
     if which == "clip":
         want = jvit.clip_patch_features(jp, cfg, jnp.asarray(px))
-        got = tvit.clip_patch_features(tp, cfg, t(px))
+        got = tvit.clip_patch_features(tp, tc, t(px))
     else:
         ln = jax_init_layernorm(cfg.hidden_size)
         ln = {"scale": ln["scale"] + 0.1, "bias": ln["bias"] - 0.2}
         want = jvit.owlvit_feature_map(jp, cfg, ln, jnp.asarray(px))
-        got = tvit.owlvit_feature_map(tp, cfg, bridge(ln), t(px))
+        got = tvit.owlvit_feature_map(tp, tc, bridge(ln), t(px))
     assert tuple(got.shape) == tuple(want.shape)
     close(got, want)
 
 
 @pytest.mark.parametrize("kind", ["linear", "mlp2x_gelu", "perceiver"])
 def test_projectors(kind):
-    base = vqa_llm_tiny()
-    cfg = {"linear": base.projector_image,
-           "mlp2x_gelu": ProjectorConfig(type="mlp2x_gelu", in_dim=32,
-                                         out_dim=64),
-           "perceiver": base.projector_object}[kind]
+    base, tbase = vqa_llm_tiny(), tcfg.vqa_llm_tiny()
+    cfg, tc = {"linear": (base.projector_image, tbase.projector_image),
+               "mlp2x_gelu": (ProjectorConfig(type="mlp2x_gelu", in_dim=32,
+                                              out_dim=64),
+                              tcfg.ProjectorConfig(type="mlp2x_gelu",
+                                                   in_dim=32, out_dim=64)),
+               "perceiver": (base.projector_object,
+                             tbase.projector_object)}[kind]
     jp = jproj.init_projector_params(jax.random.PRNGKey(6), cfg)
     feats = np.random.RandomState(3).randn(2, 4, 32).astype(np.float32)
     want = jproj.apply_projector(jp, cfg, jnp.asarray(feats))
-    got = tproj.apply_projector(bridge(jp), cfg, t(feats))
+    got = tproj.apply_projector(bridge(jp), tc, t(feats))
     assert tuple(got.shape) == tuple(want.shape)
     close(got, want)
 
@@ -222,7 +246,8 @@ def test_owl_heads():
     fmap = rng.randn(2, 3, 3, cfg.vision_dim).astype(np.float32)
     query = rng.randn(2, 1, cfg.query_dim).astype(np.float32)
     jl, jb = jowl.owl_detect(jp, cfg, jnp.asarray(fmap), jnp.asarray(query))
-    tl, tb = towl.owl_detect(bridge(jp), cfg, t(fmap), t(query))
+    tl, tb = towl.owl_detect(bridge(jp), tcfg.vsm_tiny().owl_head, t(fmap),
+                             t(query))
     close(tl, jl)
     close(tb, jb)
 
@@ -232,7 +257,7 @@ def test_owl_heads():
 # ---------------------------------------------------------------------------
 
 def test_sam_mask_decoder():
-    cfg = vsm_tiny().sam
+    cfg, tc = vsm_tiny().sam, tcfg.vsm_tiny().sam
     k1, k2 = jax.random.split(jax.random.PRNGKey(8))
     jpe = jsam.init_prompt_encoder_params(k1, cfg)
     jdec = jsam.init_mask_decoder_params(k2, cfg)
@@ -243,13 +268,13 @@ def test_sam_mask_decoder():
     text = rng.randn(2, 1, cfg.embed_dim).astype(np.float32)
 
     jpos = jsam.dense_positional_encoding(jpe, cfg)
-    tpos = tsam.dense_positional_encoding(tpe, cfg)
+    tpos = tsam.dense_positional_encoding(tpe, tc)
     close(tpos, jpos)
     js, jd = jsam.encode_text_prompt(jpe, cfg, jnp.asarray(text))
-    ts, td = tsam.encode_text_prompt(tpe, cfg, t(text))
+    ts, td = tsam.encode_text_prompt(tpe, tc, t(text))
     close(td, jd)
     jm, jiou = jsam.mask_decoder(jdec, cfg, jnp.asarray(img), jpos, js, jd)
-    tm, tiou = tsam.mask_decoder(tdec, cfg, t(img), tpos, ts, td)
+    tm, tiou = tsam.mask_decoder(tdec, tc, t(img), tpos, ts, td)
     assert tuple(tm.shape) == tuple(jm.shape)
     close(tm, jm)
     close(tiou, jiou)
@@ -326,12 +351,30 @@ def test_7b_param_tree_matches_jax(model):
         cfg = vqa_llm_7b()
         want = jax.eval_shape(lambda k: jax_init_vqa(k, cfg, jnp.bfloat16),
                               jax.random.PRNGKey(0))
-        got = init_vqa_llm_params(0, cfg, device="meta",
+        got = init_vqa_llm_params(0, tcfg.vqa_llm_7b(), device="meta",
                                   dtype=torch.bfloat16)
     else:
         cfg = vsm_7b()
         want = jax.eval_shape(lambda k: jax_init_vsm(k, cfg, jnp.bfloat16),
                               jax.random.PRNGKey(0))
-        got = init_vsm_params(0, cfg, device="meta", dtype=torch.bfloat16)
+        got = init_vsm_params(0, tcfg.vsm_7b(), device="meta",
+                              dtype=torch.bfloat16)
     assert all(x.device.type == "meta" for _, x in flatten(got))
+    assert _shapes(got) == _shapes(want)
+
+
+@pytest.mark.parametrize("quantize", [True, "int4", "int4mix"])
+def test_7b_quantized_param_tree_matches_jax(quantize):
+    """The quantized 7B trees (the VQA decoder of --mixed / --int4mix is
+    int8, the VSM's int4 or int4mix; towers int8 as quantize_model_towers
+    leaves them) have the JAX trees' names, shapes and dtypes."""
+    from vstar_tpu.nn.quant import quantize_model_towers as jax_towers
+    from vstar_tpu_torch.nn.quant import quantize_model_towers
+    want = jax.eval_shape(
+        lambda k: jax_towers(jax_init_vsm(k, vsm_7b(), jnp.bfloat16,
+                                          quantize_llm=quantize)),
+        jax.random.PRNGKey(0))
+    got = quantize_model_towers(init_vsm_params(
+        0, tcfg.vsm_7b(), device="meta", dtype=torch.bfloat16,
+        quantize_llm=quantize))
     assert _shapes(got) == _shapes(want)

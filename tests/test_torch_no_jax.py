@@ -1,6 +1,7 @@
-"""The port and its chip smoke run without JAX: in a fresh interpreter,
-import every vstar_tpu_torch module (and chip_smoke), answer one tiny SEAL
-request on the CPU, and find no `jax` module loaded."""
+"""The port and its chip smoke run without JAX and without the JAX
+package: in a fresh interpreter, import every vstar_tpu_torch module (and
+chip_smoke), answer one tiny SEAL request on the CPU, and find neither a
+`jax` nor a `vstar_tpu` module loaded; no source imports either."""
 
 import os
 import pathlib
@@ -32,6 +33,9 @@ SCRIPT = textwrap.dedent("""
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "jaxlib")))
     assert not loaded, loaded
+    ported_from = sorted(m for m in sys.modules
+                         if m == "vstar_tpu" or m.startswith("vstar_tpu."))
+    assert not ported_from, ported_from
     print("modules", len(names))
 """)
 
@@ -44,8 +48,20 @@ def test_port_imports_and_serves_without_jax():
     assert int(res.stdout.split()[-1]) >= 20
 
 
+def _port_sources():
+    return sorted((ROOT / "vstar_tpu_torch").rglob("*.py")) + \
+        [ROOT / "chip_smoke.py"]
+
+
 def test_port_sources_never_import_jax():
     pat = re.compile(r"^\s*(import jax|from jax)", re.M)
-    files = sorted((ROOT / "vstar_tpu_torch").rglob("*.py")) + \
-        [ROOT / "chip_smoke.py"]
-    assert [str(f) for f in files if pat.search(f.read_text())] == []
+    assert [str(f) for f in _port_sources() if pat.search(f.read_text())] \
+        == []
+
+
+def test_port_sources_never_import_the_jax_package():
+    pat = re.compile(r"^\s*(from|import)\s+vstar_tpu(\.|\s|$)", re.M)
+    assert not pat.search("from vstar_tpu_torch.nn import quant")
+    assert pat.search("    from vstar_tpu.core.config import X")
+    assert [str(f) for f in _port_sources() if pat.search(f.read_text())] \
+        == []

@@ -1,7 +1,10 @@
 """The ported SEAL slice against the JAX engines at tiny widths (f32 on
-the CPU, same weights through core.convert, the stub tokenizer):
-free-form text, option choice, VSM detection, the guided search path and
-the whole SEAL record must agree (float outputs to atol 1e-4)."""
+the CPU, same weights through core.convert, the stub tokenizer, each side
+built from its own package's configs): free-form text, option choice,
+VSM detection, the guided search path and the whole SEAL record must
+agree (float outputs to atol 1e-4). The quantized slice repeats the
+comparison with int8 / int4 / int4mix decoders and int8 towers, with the
+act-int8 switch off and on."""
 
 import jax
 import jax.numpy as jnp
@@ -17,11 +20,14 @@ from vstar_tpu.eval.vqa_engine import VQAEngine as JaxVQAEngine
 from vstar_tpu.models.vqa_llm import init_vqa_llm_params as jax_init_vqa
 from vstar_tpu.models.vsm import init_vsm_params as jax_init_vsm
 from vstar_tpu.multimodal.stub_tokenizer import StubTokenizer
+from vstar_tpu.nn import quant as jq
 from vstar_tpu.search.engine import VSMEngine as JaxVSMEngine
 from vstar_tpu.search.policy import visual_search
+from vstar_tpu_torch.core import config as tcfg
 from vstar_tpu_torch.core.convert import from_numpy_tree
 from vstar_tpu_torch.eval import seal as tseal
 from vstar_tpu_torch.eval.vqa_engine import VQAEngine
+from vstar_tpu_torch.nn import quant as tq
 from vstar_tpu_torch.search.engine import VSMEngine
 
 torch.set_num_threads(1)
@@ -29,6 +35,8 @@ torch.set_num_threads(1)
 ATOL = 1e-4
 VQA_CFG = vqa_llm_tiny()
 VSM_CFG = vsm_tiny()
+T_VQA_CFG = tcfg.vqa_llm_tiny()
+T_VSM_CFG = tcfg.vsm_tiny()
 TOK = StubTokenizer(VQA_CFG.llama.vocab_size)
 BUCKETS = (64, 128)
 FORCED = dict(confidence_high=2.0, target_cue_threshold=-1.0,
@@ -45,7 +53,7 @@ def vqa_pair():
     jp = jax_init_vqa(jax.random.PRNGKey(21), VQA_CFG)
     jax_eng = JaxVQAEngine(jp, VQA_CFG, TOK, prompt_buckets=BUCKETS,
                            option_bucket=16, compute_dtype=jnp.float32)
-    eng = VQAEngine(from_numpy_tree(jax.device_get(jp), "cpu"), VQA_CFG,
+    eng = VQAEngine(from_numpy_tree(jax.device_get(jp), "cpu"), T_VQA_CFG,
                     TOK, device="cpu", prompt_buckets=BUCKETS,
                     option_bucket=16, compute_dtype=torch.float32)
     return jax_eng, eng
@@ -54,27 +62,36 @@ def vqa_pair():
 LOC = 3   # the stub tokenizer's [LOC] id
 
 
-@pytest.fixture(scope="module")
-def vsm_pair():
-    """Both VSM engines on the same weights, tilted so that the random
-    model answers [LOC] at every step: a large constant on one embedding
-    channel keeps that channel of the final hidden state positive, and
-    the lm_head column of [LOC] reads it. The heads, heatmaps and the
-    search's target-cue path are then exercised on every patch."""
-    host = jax.device_get(jax_init_vsm(jax.random.PRNGKey(11), VSM_CFG))
+def _tilted_vsm_host(seed):
+    """A tiny VSM tree tilted so that the random model answers [LOC] at
+    every step: a large constant on one embedding channel keeps that
+    channel of the final hidden state positive, and the lm_head column of
+    [LOC] reads it. The heads, heatmaps and the search's target-cue path
+    are then exercised on every patch."""
+    host = jax.device_get(jax_init_vsm(jax.random.PRNGKey(seed), VSM_CFG))
     host["llama"]["embed_tokens"] = np.array(host["llama"]["embed_tokens"])
     host["llama"]["embed_tokens"][:, 0] += 100.0
     host["llama"]["lm_head"] = np.array(host["llama"]["lm_head"])
     host["llama"]["lm_head"][0, LOC] = 10.0
+    return host
+
+
+def _vsm_engines(host):
     jax_eng = JaxVSMEngine(jax.tree_util.tree_map(jnp.asarray, host),
                            VSM_CFG, TOK, loc_token_id=LOC, eos_id=2,
                            max_new_tokens=4, prompt_buckets=BUCKETS,
                            compute_dtype=jnp.float32,
                            speculative_template=None)
-    eng = VSMEngine(from_numpy_tree(host, "cpu"), VSM_CFG, TOK,
+    eng = VSMEngine(from_numpy_tree(host, "cpu"), T_VSM_CFG, TOK,
                     loc_token_id=LOC, device="cpu", max_new_tokens=4,
                     prompt_buckets=BUCKETS, compute_dtype=torch.float32)
     return jax_eng, eng
+
+
+@pytest.fixture(scope="module")
+def vsm_pair():
+    """Both VSM engines on the same tilted weights."""
+    return _vsm_engines(_tilted_vsm_host(11))
 
 
 def test_free_form_same_text(vqa_pair):
@@ -154,3 +171,96 @@ def test_seal_record_with_forced_trigger(vqa_pair, vsm_pair, monkeypatch):
         np.testing.assert_allclose(g["bbox"], w["bbox"], atol=1e-2)
     assert {k: v for k, v in got.items() if k != "search_result"} == \
         {k: v for k, v in want.items() if k != "search_result"}
+
+
+# ---------------------------------------------------------------------------
+# The quantized slice
+# ---------------------------------------------------------------------------
+
+def _quantize_host(host, quantize):
+    """The JAX package's quantizers over a host tree: each decoder matrix
+    as resolve_matrix_quant(quantize, name) says (as init_llama_params'
+    quantize does), then the towers (quantize_model_towers)."""
+    llama = dict(host["llama"])
+    layers = {k: dict(v) for k, v in llama["layers"].items()}
+
+    def quant(w, name):
+        mode = jq.resolve_matrix_quant(quantize, name)
+        return (jq.quantize_weight_int4_np(w) if mode == "int4"
+                else jq.quantize_weight_np(w))
+
+    for group in ("attn", "mlp"):
+        layers[group] = {k: quant(w, k) for k, w in layers[group].items()}
+    llama["layers"] = layers
+    llama["lm_head"] = quant(llama["lm_head"], "lm_head")
+    out = jq.quantize_model_towers(jax.tree_util.tree_map(
+        jnp.asarray, dict(host, llama=llama)))
+    return jax.device_get(out)
+
+
+@pytest.fixture
+def act_switch(request):
+    on = request.param
+    jq.set_act_int8(on)
+    tq.set_act_int8(on)
+    yield on
+    jq.set_act_int8(False)
+    tq.set_act_int8(False)
+
+
+@pytest.mark.parametrize("act_switch", [False, True], indirect=True,
+                         ids=["act_off", "act_int8"])
+@pytest.mark.parametrize("quantize", [True, "int4", "int4mix"],
+                         ids=["int8", "int4", "int4mix"])
+def test_quantized_slice_same_results(quantize, act_switch, monkeypatch):
+    """Engines built after the switch is set (the JAX package reads it
+    when it traces): greedy text, option choice, detection outputs, the
+    forced search path and the SEAL record agree with JAX's."""
+    vqa_host = _quantize_host(jax.device_get(
+        jax_init_vqa(jax.random.PRNGKey(21), VQA_CFG)), quantize)
+    jax_vqa = JaxVQAEngine(jax.tree_util.tree_map(jnp.asarray, vqa_host),
+                           VQA_CFG, TOK, prompt_buckets=BUCKETS,
+                           option_bucket=16, compute_dtype=jnp.float32)
+    vqa = VQAEngine(from_numpy_tree(vqa_host, "cpu"), T_VQA_CFG, TOK,
+                    device="cpu", prompt_buckets=BUCKETS, option_bucket=16,
+                    compute_dtype=torch.float32)
+    assert "q4" in vqa.params["llama"]["lm_head"] or quantize is True
+    img = _image(96, 120, 5)
+    assert vqa.free_form(img, "what is here?", max_new_tokens=12) == \
+        jax_vqa.free_form(img, "what is here?", max_new_tokens=12)
+    opts = ["a red cup", "the blue book", "green", "none"]
+    assert vqa.multiple_choice(img, "which one?", opts) == \
+        jax_vqa.multiple_choice(img, "which one?", opts)
+
+    jax_vsm, vsm = _vsm_engines(_quantize_host(_tilted_vsm_host(11),
+                                               quantize))
+    big = _image(300, 520, 3)
+    jb, jl, jh = jax_vsm.detect(big, "cat")
+    tb, tl, th = vsm.detect(big, "cat")
+    assert len(tl) == VSM_CFG.owl_vision.grid_size ** 2   # [LOC] emitted
+    for got, want in ((tb, jb), (tl, jl), (th, jh)):
+        np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    jpath, tpath = [], []
+    want = visual_search(jax_vsm, big, "cat", smallest_size=100,
+                         max_steps=3, path_out=jpath, **FORCED)
+    task = tseal.search_tasks(big, ["cat"], minimum_size=100)[0]
+    task["path_out"] = tpath
+    got = tseal.run_searches(vsm, [task], max_steps=3, **FORCED)[0]
+    assert len(tpath) == len(jpath) == 3
+    assert [st.bbox for st in tpath] == [st.bbox for st in jpath]
+    assert got[1:3] == want[1:3]
+
+    trigger = MISSING_OBJECTS_MSG + " tiny cat."
+    for cls in (type(jax_vqa), type(vqa)):
+        monkeypatch.setattr(cls, "free_form",
+                            lambda self, img, q, **kw: trigger)
+    small = _image(240, 400, 4)
+    want = jax_seal_answer(jax_vqa, jax_vsm, small, "what color?", opts,
+                           max_search_steps=3)
+    got = tseal.seal_answer(vqa, vsm, small, "what color?", opts,
+                            max_search_steps=3)
+    for g, w in zip(got["search_result"], want["search_result"]):
+        np.testing.assert_allclose(g["bbox"], w["bbox"], atol=1e-2)
+    assert {k: v for k, v in got.items() if k != "search_result"} == \
+        {k: v for k, v in want.items() if k != "search_result"}
+    assert len(got["search_result"]) == len(want["search_result"])

@@ -8,8 +8,8 @@ name or a layout would be translated; today none needs to be, because
 the port keeps the JAX layouts at every public function (dense (in, out),
 conv HWIO, stacked layers).
 
-Quantized entries (int8 `{q, s}`, int4 `{q4, s4}`) are refused until the
-quantized kernels (K3-K6) are ported.
+Quantized entries cross as they are: int8 `{q, s}` (the towers' `{q, s,
+b}`) and int4 `{q4, s4}` keep their int8, uint8 and f32 leaves.
 """
 
 from __future__ import annotations
@@ -19,23 +19,13 @@ from typing import Union
 import numpy as np
 import torch
 
-QUANT_KEYS = ({"q", "s"}, {"q4", "s4"})
-
-
-def from_numpy_tree(tree, device: Union[str, torch.device], _path: str = ""):
+def from_numpy_tree(tree, device: Union[str, torch.device]):
     """numpy pytree -> torch tree on `device`, each leaf keeping its dtype
     (bfloat16 leaves included)."""
     if isinstance(tree, dict):
-        if any(keys <= set(tree) for keys in QUANT_KEYS):
-            raise NotImplementedError(
-                f"{_path or 'params'}: quantized weight entry "
-                f"{sorted(tree)}; the port serves bf16/f32 weights until "
-                "the int8/int4 kernels (ROADMAP K3-K6) are ported")
-        return {k: from_numpy_tree(v, device, f"{_path}{k}.")
-                for k, v in tree.items()}
+        return {k: from_numpy_tree(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(from_numpy_tree(v, device, f"{_path}{i}.")
-                          for i, v in enumerate(tree))
+        return type(tree)(from_numpy_tree(v, device) for v in tree)
     arr = np.asarray(tree)
     if str(arr.dtype) == "bfloat16":
         # numpy has no bfloat16 of its own (JAX hands out ml_dtypes'):

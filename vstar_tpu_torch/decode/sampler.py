@@ -15,8 +15,7 @@ from typing import Dict, NamedTuple, Sequence
 
 import torch
 
-from vstar_tpu.core.config import LlamaConfig
-
+from ..core.config import LlamaConfig
 from ..nn.llama import KVCache, embed_tokens, llama_forward, lm_logits
 
 

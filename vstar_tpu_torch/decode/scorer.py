@@ -16,8 +16,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from vstar_tpu.core.config import LlamaConfig
-
+from ..core.config import LlamaConfig
 from ..nn.llama import KVCache, embed_tokens, llama_forward, lm_logits
 
 

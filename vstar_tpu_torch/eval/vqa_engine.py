@@ -21,17 +21,16 @@ import numpy as np
 import torch
 from PIL import Image
 
-from vstar_tpu.core.config import VQALLMConfig
-from vstar_tpu.data.preprocess import clip_resize_u8
-from vstar_tpu.multimodal.constants import DEFAULT_IMAGE_TOKEN
-from vstar_tpu.multimodal.conversation import CONV_TEMPLATES
-from vstar_tpu.multimodal.tokenizer import (tokenize_with_image,
-                                            tokenize_with_image_and_objects)
-
+from ..core.config import VQALLMConfig
+from ..data.preprocess import clip_resize_u8
 from ..decode.sampler import greedy_decode
 from ..decode.scorer import score_options
 from ..models.vqa_llm import encode_feature_bank, prefill
+from ..multimodal.constants import DEFAULT_IMAGE_TOKEN
+from ..multimodal.conversation import CONV_TEMPLATES
 from ..multimodal.splicing import build_layout, spliced_length
+from ..multimodal.tokenizer import (tokenize_with_image,
+                                    tokenize_with_image_and_objects)
 from ..nn.llama import init_cache
 
 

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-`nvcc` compiles every `csrc/*.cu` into one shared library with a plain C
-interface, for sm_90a (Hopper), and `ctypes` loads it. The library lives
+`nvcc` compiles every `csrc/*.cu` for sm_90a (Hopper), one process per
+source, all started together, and links the objects into one shared
+library with a plain C interface, which `ctypes` loads. The library lives
 in `vstar_tpu_torch/_build/`, named by a hash of the sources and flags,
 and is built at first use. There is no fallback: a missing `nvcc` or a
 failed build raises.
@@ -26,12 +27,17 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _LL, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "vstar_flash_attention_fwd": [_P] * 7 + [_LL] * 17 + [_F, _P],
     "vstar_tower_attention_fwd": [_P] * 4 + [_LL] * 15 + [_F, _P],
+    "vstar_int8_matvec": [_P] * 5 + [_LL] * 6 + [_P],
+    "vstar_int4_matmul": [_P] * 5 + [_LL] * 7 + [_P],
+    "vstar_int4_w4a8": [_P] * 5 + [_LL] * 7 + [_P],
+    "vstar_int8_matvec_occupancy": [_LL] * 3 + [_P],
+    "vstar_int4_occupancy": [_LL] * 4 + [_P],
 }
 
 _LOCK = threading.Lock()
@@ -64,22 +70,39 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the sources if their library is not built yet; returns its
-    path. The compiler's report (registers, shared memory, spills) is kept
-    beside it as `<name>.log`."""
+    path. The compilers' reports (registers, shared memory, spills) are
+    kept beside it as `<name>.log`."""
     so = library_path()
     if so.exists():
         return so
     cu, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *map(str, cu)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{f.stem}.o" for f in cu]
+    nvcc = _nvcc()
+    jobs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True))
+            for cmd in ([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(f),
+                         "-o", str(o)] for f, o in zip(cu, objs))]
+    tmp = so.with_name(f"{tag}.tmp")
+    report, failed = [], []
+    for cmd, proc in jobs:
+        out = proc.communicate()[0]
+        report.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out[-4000:]}")
+    if not failed:
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(link, capture_output=True, text=True)
+        report.append(res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(f"{' '.join(link)}\n{res.stderr[-4000:]}")
+    so.with_suffix(".log").write_text("".join(report))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stderr[-4000:]}")
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, so)
     return so
 

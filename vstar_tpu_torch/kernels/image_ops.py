@@ -1,13 +1,13 @@
 """Image normalisation on the device (vstar_tpu/kernels/image_ops.py
 `normalize_u8_images`; plain PyTorch, not a kernel). Host-resized uint8
-images (exact PIL geometry, vstar_tpu.data.preprocess) upload as uint8
+images (exact PIL geometry, data/preprocess.py) upload as uint8
 and are CLIP-normalized here with the host's f32 expression."""
 
 from __future__ import annotations
 
 import torch
 
-from vstar_tpu.multimodal.constants import CLIP_MEAN, CLIP_STD
+from ..multimodal.constants import CLIP_MEAN, CLIP_STD
 
 
 def normalize_u8_images(x_u8: torch.Tensor) -> torch.Tensor:

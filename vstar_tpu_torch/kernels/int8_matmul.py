@@ -1,0 +1,131 @@
+"""Weight-only int8 matvec for decode-shaped rows: the K3/K4 CUDA kernel
+and its plain PyTorch version.
+
+Replaces two Pallas kernels of the JAX package that compute the same
+function, y = x @ (q * s) for at most 16 rows of x:
+vstar_tpu/kernels/int8_matmul.py (`_kernel`, behind `qdot_fast`) and
+vstar_tpu/kernels/stream_matvec.py (`_kernel`, the double-buffered DMA
+variant). One kernel, csrc/int8_matvec.cu, serves both: on the H100 the
+product is bound by the weight bytes, so the kernel streams them once
+with a split reduction that fills the card at one row.
+
+`nn/quant.qdot` sends int8 entries with at most MAX_ROWS rows here, as
+`qdot_fast` does; larger row counts stay a dequantize-and-matmul, as the
+JAX package leaves them to XLA. A CPU tensor takes the plain version
+`int8_matmul_reference`; a CUDA tensor launches the kernel or raises.
+
+The split plan (`split_plan`) is shared with the int4 kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+
+launches = 0
+plain_calls_cuda = 0
+
+MAX_ROWS = 16          # vstar_tpu DECODE_ROW_LIMIT
+STRIP = 256            # output columns of one block (kMvCols)
+SMEM_X_BYTES = 32768   # shared memory the staged x slice may take
+
+
+def int8_matmul_reference(x: torch.Tensor, q: torch.Tensor,
+                          s: torch.Tensor) -> torch.Tensor:
+    """x [R, IN] @ (q [IN, OUT] * s [.., OUT]) in f32, cast to x.dtype."""
+    global plain_calls_cuda
+    if x.is_cuda:
+        plain_calls_cuda += 1
+    w = q.float() * s.float().reshape(1, -1)
+    return (x.float() @ w).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def row_bucket(rows: int) -> int:
+    """The row count a launch is instantiated for: 1, 2, 4, 8 or 16."""
+    return 1 << max(rows - 1, 0).bit_length()
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(entry: str, args: tuple) -> int:
+    lib = _build.library()
+    n = ctypes.c_int(0)
+    _build.check(lib, getattr(lib, entry)(*args, ctypes.addressof(n)), entry)
+    return n.value
+
+
+def capacity(dev: torch.device, entry: str, args: tuple) -> int:
+    """Blocks of one decode-row launch the card holds at once: the CUDA
+    occupancy calculator's blocks per SM (C entry `entry`, queried once
+    per `args`) times the SMs."""
+    return _blocks_per_sm(entry, args) * _sm_count(dev.index or 0)
+
+
+def split_plan(units: int, out: int, max_units: int, resident: int):
+    """Split `units` of the reduction dimension (input rows, or groups)
+    over blocks so that strips x splits fill the card's `resident` block
+    slots without passing them (a second, nearly empty wave costs a whole
+    wave; an idle block slot costs loads in flight), while each split
+    holds at most `max_units`. Returns (units per split, splits); every
+    split is non-empty."""
+    strips = -(-out // STRIP)
+    want = max(resident // strips, -(-units // max_units), 1)
+    chunk = -(-units // min(want, units))
+    return chunk, -(-units // chunk)
+
+
+def check_cuda_operand(name: str, t: torch.Tensor, dtype, shape, dev):
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype} on CUDA, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if t.device != dev:
+        raise ValueError(f"{name}: on {t.device}, x on {dev}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def int8_matmul(x: torch.Tensor, q: torch.Tensor,
+                s: torch.Tensor) -> torch.Tensor:
+    """x [R, IN] (R <= 16) @ (q int8 [IN, OUT] * s f32 [1, OUT]) ->
+    [R, OUT] in x.dtype."""
+    global launches
+    if x.device.type == "cpu":
+        return int8_matmul_reference(x, q, s)
+    if not x.is_cuda:
+        raise ValueError(f"int8_matmul: unsupported device {x.device}")
+    if x.dim() != 2 or not 1 <= x.shape[0] <= MAX_ROWS:
+        raise ValueError(f"int8_matmul: x must be [1..{MAX_ROWS}, IN], got "
+                         f"{tuple(x.shape)}")
+    rows, IN = x.shape
+    OUT = q.shape[-1]
+    dev = x.device
+    check_cuda_operand("x", x, torch.bfloat16, (rows, IN), dev)
+    check_cuda_operand("q", q, torch.int8, (IN, OUT), dev)
+    s = s.reshape(OUT)
+    check_cuda_operand("s", s, torch.float32, (OUT,), dev)
+    vec = OUT % 16 == 0 and q.data_ptr() % 16 == 0
+    rb = row_bucket(rows)
+    cap = capacity(dev, "vstar_int8_matvec_occupancy",
+                   (rb, int(vec), SMEM_X_BYTES + 1024 * rb))
+    kchunk, splits = split_plan(IN, OUT, SMEM_X_BYTES // (4 * rb), cap)
+    ws = torch.empty((splits, rows, OUT), dtype=torch.float32, device=dev)
+    y = torch.empty((rows, OUT), dtype=x.dtype, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.vstar_int8_matvec(
+            x.data_ptr(), q.data_ptr(), s.data_ptr(), ws.data_ptr(),
+            y.data_ptr(), rows, IN, OUT, kchunk, splits, int(vec), stream)
+    _build.check(lib, code, "int8_matmul")
+    launches += 1
+    return y

@@ -10,8 +10,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from vstar_tpu.core.config import VQALLMConfig
-
+from ..core.config import VQALLMConfig
 from ..core.params import Init
 from ..kernels.image_ops import normalize_u8_images
 from ..multimodal.splicing import apply_splice, bank_slot_size
@@ -22,12 +21,12 @@ from ..nn.vit import clip_patch_features, init_vit_params
 
 
 def init_vqa_llm_params(seed: int, cfg: VQALLMConfig, *, device,
-                        dtype=torch.float32) -> Dict:
+                        dtype=torch.float32, quantize_llm=False) -> Dict:
     """Random parameters drawn on `device` (the JAX tree's names and
-    shapes)."""
+    shapes); quantize_llm as init_llama_params' `quantize`."""
     init = Init(seed, device, dtype)
     return {
-        "llama": init_llama_params(init, cfg.llama),
+        "llama": init_llama_params(init, cfg.llama, quantize_llm),
         "vision": init_vit_params(init, cfg.vision),
         "proj_image": init_projector_params(init, cfg.projector_image),
         "proj_object": init_projector_params(init, cfg.projector_object),

@@ -17,8 +17,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from vstar_tpu.core.config import VSMConfig
-
+from ..core.config import VSMConfig
 from ..core.params import Init
 from ..decode.sampler import greedy_decode
 from ..kernels.image_ops import normalize_u8_images
@@ -35,13 +34,13 @@ from ..nn.vit import clip_patch_features, init_vit_params, owlvit_feature_map
 
 
 def init_vsm_params(seed: int, cfg: VSMConfig, *, device,
-                    dtype=torch.float32) -> Dict:
+                    dtype=torch.float32, quantize_llm=False) -> Dict:
     """Random parameters drawn on `device` (the JAX tree's names and
-    shapes)."""
+    shapes); quantize_llm as init_llama_params' `quantize`."""
     init = Init(seed, device, dtype)
     h = cfg.llama.hidden_size
     return {
-        "llama": init_llama_params(init, cfg.llama),
+        "llama": init_llama_params(init, cfg.llama, quantize_llm),
         "vision": init_vit_params(init, cfg.vision),
         "proj": init_projector_params(init, cfg.projector),
         "owl_tower": init_vit_params(init, cfg.owl_vision),

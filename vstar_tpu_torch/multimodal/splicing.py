@@ -18,8 +18,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from vstar_tpu.multimodal.constants import (IMAGE_TOKEN_INDEX,
-                                            OBJECT_TOKEN_INDEX)
+from .constants import IMAGE_TOKEN_INDEX, OBJECT_TOKEN_INDEX
 
 
 @dataclasses.dataclass

@@ -1,6 +1,7 @@
 """Elementary building blocks over parameter dicts (vstar_tpu/nn/basic.py).
 
-  * Dense weights are (in, out): `y = x @ w + b`.
+  * Dense weights are (in, out): `y = x @ w + b`; a tower's int8 entry
+    {q, s, b} goes through nn/quant.qdot.
   * Norms compute in float32 and cast back to the input dtype.
   * `init_*` draw from an `Init` (core/params.py); the others apply.
 """
@@ -42,7 +43,10 @@ def init_dense(init: Init, in_dim: int, out_dim: int, use_bias: bool = True,
 
 
 def dense(p, x):
-    y = qdot(x, p["w"] if "w" in p else p)
+    if "q" in p:            # weight-only int8 entry {q, s, b} (nn/quant.py)
+        y = qdot(x, p)
+    else:
+        y = x @ p["w"].to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y

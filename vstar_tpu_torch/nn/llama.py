@@ -7,7 +7,8 @@ each chunk's keys and values are written at the rows' `q_offsets`, and
 attention reads the layer's cache slice where it lies. Every attention
 call goes through the port's flash_attention (kernel K1 on the card).
 
-Weight layout: dense weights are (in_dim, out_dim).
+Weight layout: dense weights are (in_dim, out_dim), raw or as the
+quantized entries of nn/quant.py; every matmul goes through `qdot`.
 """
 
 from __future__ import annotations
@@ -18,12 +19,12 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from vstar_tpu.core.config import LlamaConfig
-
+from ..core.config import LlamaConfig
 from ..core.params import Init, dense_init, embed_init, layer
 from ..kernels.flash_attention import flash_attention
 from .basic import init_rmsnorm, rmsnorm
-from .quant import qdot
+from .quant import (qdot, quantize_weight, quantize_weight_int4,
+                    resolve_matrix_quant)
 from .rope import apply_rope, rope_angles
 
 
@@ -52,29 +53,52 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
                                       device=device))
 
 
-def init_llama_params(init: Init, cfg: LlamaConfig) -> Dict:
+def _matrices(init: Init, quantize, name: str, in_dim: int, out_dim: int,
+              lead=()):
+    """A (stack of) dense (in, out) matrices, quantized per
+    `resolve_matrix_quant(quantize, name)`: drawn one matrix at a time
+    and quantized at once, so no full-precision stack is ever resident."""
+    mode = resolve_matrix_quant(quantize, name)
+    if not mode:
+        return dense_init(init, in_dim, out_dim, lead)
+    quant = quantize_weight_int4 if mode == "int4" else quantize_weight
+    if not lead:
+        return quant(dense_init(init, in_dim, out_dim))
+    parts = [quant(dense_init(init, in_dim, out_dim))
+             for _ in range(lead[0])]
+    return {k: torch.stack([e[k] for e in parts]) for k in parts[0]}
+
+
+def init_llama_params(init: Init, cfg: LlamaConfig, quantize=False) -> Dict:
+    """quantize: False | True/'int8' | 'int4' | 'int4mix' (int4 for
+    INT4MIX_INT4_KEYS, int8 for the other matrices), as
+    vstar_tpu init_llama_params; embeddings and norms stay in init.dtype."""
     D, L = cfg.hidden_size, cfg.num_layers
     inter = cfg.intermediate_size
+
+    def mats(name, in_dim, out_dim):
+        return _matrices(init, quantize, name, in_dim, out_dim, (L,))
+
     layers = {
         "input_norm": init_rmsnorm(init, D, (L,)),
         "post_norm": init_rmsnorm(init, D, (L,)),
         "attn": {
-            "wq": dense_init(init, D, cfg.q_dim, (L,)),
-            "wk": dense_init(init, D, cfg.kv_dim, (L,)),
-            "wv": dense_init(init, D, cfg.kv_dim, (L,)),
-            "wo": dense_init(init, cfg.q_dim, D, (L,)),
+            "wq": mats("wq", D, cfg.q_dim),
+            "wk": mats("wk", D, cfg.kv_dim),
+            "wv": mats("wv", D, cfg.kv_dim),
+            "wo": mats("wo", cfg.q_dim, D),
         },
         "mlp": {
-            "w_gate": dense_init(init, D, inter, (L,)),
-            "w_up": dense_init(init, D, inter, (L,)),
-            "w_down": dense_init(init, inter, D, (L,)),
+            "w_gate": mats("w_gate", D, inter),
+            "w_up": mats("w_up", D, inter),
+            "w_down": mats("w_down", inter, D),
         },
     }
     return {
         "embed_tokens": embed_init(init, cfg.vocab_size, D),
         "layers": layers,
         "final_norm": init_rmsnorm(init, D),
-        "lm_head": dense_init(init, D, cfg.vocab_size),
+        "lm_head": _matrices(init, quantize, "lm_head", D, cfg.vocab_size),
     }
 
 

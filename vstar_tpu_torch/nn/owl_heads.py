@@ -11,8 +11,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vstar_tpu.core.config import OwlHeadConfig
-
+from ..core.config import OwlHeadConfig
 from ..core.params import Init
 from .basic import dense, init_dense
 

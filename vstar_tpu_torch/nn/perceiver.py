@@ -10,8 +10,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from vstar_tpu.core.config import PerceiverConfig
-
+from ..core.config import PerceiverConfig
 from ..core.params import Init, dense_init, layer
 from .basic import dense, init_dense, init_layernorm, layernorm
 

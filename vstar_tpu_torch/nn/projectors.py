@@ -8,8 +8,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from vstar_tpu.core.config import ProjectorConfig
-
+from ..core.config import ProjectorConfig
 from ..core.params import Init
 from .basic import dense, init_dense
 from .perceiver import init_perceiver_params, perceiver_resample

@@ -14,8 +14,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from vstar_tpu.core.config import SamDecoderConfig
-
+from ..core.config import SamDecoderConfig
 from ..core.params import Init
 from .basic import dense, init_dense, init_layernorm, layernorm
 

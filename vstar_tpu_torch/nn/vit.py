@@ -6,7 +6,8 @@ One implementation serves both towers:
   * OWL-ViT B/16 @768, the VSM detection tower: last layer + post-LN,
     merged CLS (`owlvit_feature_map`).
 
-Inputs are NHWC, already normalized. Sequences of 512 tokens or more
+Inputs are NHWC, already normalized. Dense layers take the raw {w, b}
+entries or the int8 {q, s, b} entries of nn/quant.quantize_vit_params. Sequences of 512 tokens or more
 (the OWL tower's 2305) take the tower attention kernel K2; CLIP's 257
 tokens stay plain PyTorch, as they stay plain XLA in the JAX package.
 """
@@ -17,8 +18,7 @@ from typing import Dict, Optional
 
 import torch
 
-from vstar_tpu.core.config import ViTConfig
-
+from ..core.config import ViTConfig
 from ..core.params import Init, dense_init, layer
 from ..kernels.tower_attention import tower_attention
 from .basic import ACTIVATIONS, dense, init_dense, init_layernorm, layernorm

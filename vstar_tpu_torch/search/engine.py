@@ -1,6 +1,6 @@
 """VSMEngine: the host driver that satisfies `VSMClient`
-(vstar_tpu/search/policy.py) over the port's VSM, so the JAX-free
-`visual_search` policy drives it unchanged (port of
+(search/policy.py, the port's copy of the JAX package's policy) over the
+port's VSM, so `visual_search` drives it unchanged (port of
 vstar_tpu/search/engine.py).
 
 Builds the vicuna-v1 prompt with <im_start><image><im_end>, preprocesses
@@ -16,18 +16,16 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from vstar_tpu.core.config import VSMConfig
-from vstar_tpu.data.preprocess import (clip_resize_u8, expand2square,
-                                       owlvit_resize_u8,
-                                       resize_bilinear_torch)
-from vstar_tpu.multimodal.constants import (DEFAULT_IM_END_TOKEN,
-                                            DEFAULT_IM_START_TOKEN,
-                                            DEFAULT_IMAGE_TOKEN)
-from vstar_tpu.multimodal.conversation import CONV_TEMPLATES
-from vstar_tpu.multimodal.tokenizer import tokenize_with_image
-
+from ..core.config import VSMConfig
+from ..data.preprocess import (clip_resize_u8, expand2square,
+                               owlvit_resize_u8, resize_bilinear_torch)
 from ..models.vsm import VSMOutput, vsm_generate
+from ..multimodal.constants import (DEFAULT_IM_END_TOKEN,
+                                    DEFAULT_IM_START_TOKEN,
+                                    DEFAULT_IMAGE_TOKEN)
+from ..multimodal.conversation import CONV_TEMPLATES
 from ..multimodal.splicing import build_layout
+from ..multimodal.tokenizer import tokenize_with_image
 
 
 def _round128(n: int) -> int:

@@ -9,6 +9,7 @@ Requests with options run the SEAL loop (eval/seal.py). A request without
 options answers 400: the free-form flow is not ported yet.
 
     python -m vstar_tpu_torch.serve.server --random-init 7b --device cuda
+    python -m vstar_tpu_torch.serve.server --random-init 7b --int4mix
 """
 
 from __future__ import annotations
@@ -24,9 +25,8 @@ from typing import Dict, Optional, Sequence
 import torch
 from PIL import Image
 
-from vstar_tpu.serve.sanitize import sanitize_text
-
 from ..eval.seal import seal_answer
+from .sanitize import sanitize_text
 
 FREE_FORM_NOT_PORTED = "free-form flow not yet ported"
 
@@ -110,18 +110,26 @@ def serve(service: SealService, host: str = "0.0.0.0", port: int = 8080):
         httpd.server_close()
 
 
-def random_init_engines(size: str, device):
+def random_init_engines(size: str, device, int8: bool = False,
+                        int4: bool = False, mixed: bool = False,
+                        int4mix: bool = False):
     """Checkpoint-free engines: the real model graphs with random weights
     drawn on `device` and the stub tokenizer, as vstar_tpu's
-    --random-init builds them. 'tiny' is f32 (a CPU smoke), '7b' the
-    full-width seal_vqa_7b / seal_vsm_7b pair in bf16."""
-    from vstar_tpu.core.config import vqa_llm_7b, vqa_llm_tiny, vsm_7b, \
-        vsm_tiny
-    from vstar_tpu.multimodal.stub_tokenizer import StubTokenizer
+    --random-init builds them. 'tiny' is f32 and unquantized (a CPU
+    smoke), '7b' the full-width seal_vqa_7b / seal_vsm_7b pair in bf16.
 
+    The quantization flags resolve as vstar_tpu/serve/server.py does:
+    int8 both decoders; int4 both (group-128 int4); mixed an int8 VQA
+    decoder with an int4 VSM decoder and int8 towers; int4mix alone
+    implies mixed with the VSM decoder in int4mix (int4 gate/up/lm_head,
+    int8 qkvo/down). The default is bf16 (vstar_tpu defaults to int8,
+    which a 16 GB TPU chip needs; the 80 GB card does not)."""
+    from ..core.config import vqa_llm_7b, vqa_llm_tiny, vsm_7b, vsm_tiny
     from ..eval.vqa_engine import VQAEngine
     from ..models.vqa_llm import init_vqa_llm_params
     from ..models.vsm import init_vsm_params
+    from ..multimodal.stub_tokenizer import StubTokenizer
+    from ..nn.quant import quantize_model_towers
     from ..search.engine import VSMEngine
 
     if size not in ("tiny", "7b"):
@@ -130,15 +138,26 @@ def random_init_engines(size: str, device):
     vqa_cfg = vqa_llm_tiny() if tiny else vqa_llm_7b()
     vsm_cfg = vsm_tiny() if tiny else vsm_7b()
     dtype = torch.float32 if tiny else torch.bfloat16
+    mixed = mixed or (int4mix and not int4)
+    int4mode = "int4mix" if int4mix else "int4"
+    vqa_quant = (False if tiny else True if mixed
+                 else int4mode if int4 else int8)
+    vsm_quant = (False if tiny else int4mode if (int4 or mixed) else int8)
     tok = StubTokenizer(vqa_cfg.llama.vocab_size)
-    vqa = VQAEngine(init_vqa_llm_params(0, vqa_cfg, device=device,
-                                        dtype=dtype),
-                    vqa_cfg, tok, device=device,
+    vqa_params = init_vqa_llm_params(0, vqa_cfg, device=device, dtype=dtype,
+                                     quantize_llm=vqa_quant)
+    if mixed:
+        # towers int8 before the second model builds, as vstar_tpu does
+        vqa_params = quantize_model_towers(vqa_params)
+    vsm_params = init_vsm_params(1, vsm_cfg, device=device, dtype=dtype,
+                                 quantize_llm=vsm_quant)
+    if mixed:
+        vsm_params = quantize_model_towers(vsm_params)
+    vqa = VQAEngine(vqa_params, vqa_cfg, tok, device=device,
                     prompt_buckets=(64,) if tiny else (512, 768),
                     option_bucket=16 if tiny else 64, compute_dtype=dtype)
-    vsm = VSMEngine(init_vsm_params(1, vsm_cfg, device=device, dtype=dtype),
-                    vsm_cfg, tok, loc_token_id=3, device=device, eos_id=2,
-                    max_new_tokens=4 if tiny else 16,
+    vsm = VSMEngine(vsm_params, vsm_cfg, tok, loc_token_id=3, device=device,
+                    eos_id=2, max_new_tokens=4 if tiny else 16,
                     prompt_buckets=(64,) if tiny else (384,),
                     compute_dtype=dtype)
     return vqa, vsm
@@ -153,8 +172,19 @@ def main():
     p.add_argument("--device", default="cuda")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", default=8080, type=int)
+    p.add_argument("--int8", action="store_true",
+                   help="weight-only int8 decoders (default: bf16)")
+    p.add_argument("--int4", action="store_true",
+                   help="group-128 int4 decoders (kernels K5/K6)")
+    p.add_argument("--mixed", action="store_true",
+                   help="int8 VQA decoder + int4 VSM decoder + int8 towers")
+    p.add_argument("--int4mix", action="store_true",
+                   help="int4 gate/up/lm_head and int8 qkvo/down on the "
+                        "int4 side; alone it implies --mixed")
     args = p.parse_args()
-    vqa, vsm = random_init_engines(args.random_init, args.device)
+    vqa, vsm = random_init_engines(args.random_init, args.device,
+                                   int8=args.int8, int4=args.int4,
+                                   mixed=args.mixed, int4mix=args.int4mix)
     serve(SealService(vqa, vsm), args.host, args.port)
 
 
