@@ -7,11 +7,13 @@ Runs on one CUDA card, in phases; any failure exits non-zero:
   3. every kernel against its plain PyTorch version at the 7B shapes of
      the path: K1 flash attention, K2 tower attention, the int8 matvec
      (K3/K4) at R in {1, 8, 16}, K5 (W4A16) at R in {1, 16, 384} and K6
-     (W4A8) at R in {1, 8}; each case is timed by device time (one CUDA
+     (W4A8) at R in {1, 8}; K5 also against its own arithmetic (bf16
+     weights above 16 rows) within its output's rounding; each case is timed by device time (one CUDA
      graph of N launches over weight copies that exceed the L2 cache) and
      by CUDA events around single calls, beside its plain version, its
      bound and, where one PyTorch call computes the same function, that
-     call (a yardstick the port never calls);
+     call timed the same two ways (a yardstick the port never calls); the act-int8 route of the
+     int8 entries is timed beside the int8 kernel (log only);
   4. the bf16 path: the random-init 7B SEAL pair answers two requests
      through SealService.answer, one over HTTP, and one forced-search
      sample (free-form, 3-step guided search, focused option scoring);
@@ -45,6 +47,9 @@ import torch
 TOL = 2e-2          # bf16 attention vs plain version (tests/test_vision.py:288)
 BF16_REL_TOL = 1e-2  # quantized matmuls, bf16 out: of the largest |output|
 F32_REL_TOL = 1e-5   # K6, f32 out (exact integer group dots on both sides)
+# K5 against its own arithmetic (int4_matmul_kernel_math): the error beyond
+# the rounding of its bf16 output, of the largest |output|
+K5_MATH_TOL = 1e-3
 SEED = 0
 # H100 SXM: HBM bytes/s and dense peak operations/s by operand type
 # (NVIDIA data sheet, 700 W).
@@ -206,14 +211,24 @@ def _abs_err(out, ref) -> float:
     return float((out.float() - ref.float()).abs().max())
 
 
+def _beyond_rounding(out, ref) -> float:
+    """Largest |out - ref| beyond the rounding of out to bf16 (half an
+    ulp, at most 2**-8 |ref|), relative to the largest |ref|."""
+    ref = ref.float()
+    excess = ((out.float() - ref).abs() - 2.0 ** -8 * ref.abs()).clamp(min=0)
+    return float(excess.max() / ref.abs().max())
+
+
 def _measure(name, kernel, plain, args, rotate, nbytes, ops, kind, tol,
              err_fn=_abs_err, library=None):
     """Checks one case against the plain version (err_fn(out, ref) <=
     tol; the record keeps the absolute and the relative error) and times
     it. `rotate` names the large inputs that the device-time graph cycles
     through copies of (at least twice the L2 in all), as the path reads
-    them cold. `library` is a closure of one PyTorch call computing the
-    same function, timed as a yardstick, or None."""
+    them cold. `library` builds, from one copy of the inputs, a closure of
+    one PyTorch call computing the same function (a yardstick, timed as
+    the kernel is: device time over the same copies, and events), or is
+    None."""
     out = kernel(**args)
     ref = plain(**args)
     torch.cuda.synchronize()
@@ -225,13 +240,19 @@ def _measure(name, kernel, plain, args, rotate, nbytes, ops, kind, tol,
     variants = [args] + [dict(args, **{k: args[k].clone() for k in rotate})
                          for _ in range(n - 1)]
     ms = graph_ms([(lambda a=a: kernel(**a)) for a in variants])
+    library_ms = library_events = None
+    if library is not None:
+        calls = [library(a) for a in variants]
+        library_ms = graph_ms(calls)
+        library_events = cuda_ms(calls[0])
+        del calls
     del variants
     ms_events = cuda_ms(lambda: kernel(**args))
     plain_ms = cuda_ms(lambda: plain(**args))
-    library_ms = cuda_ms(library) if library is not None else None
     bound_ms, bound_by = bound(nbytes, ops, kind)
     ok = finite and err <= tol
-    lib = "none" if library_ms is None else f"{library_ms:.4f}"
+    lib = "none" if library_ms is None else \
+        f"{library_ms:.4f} (events {library_events:.4f})"
     log(f"[{name}] err {err:.3e} (tol {tol}) device {ms:.4f} ms "
         f"(events {ms_events:.4f}) plain {plain_ms:.4f} library {lib} "
         f"bound {bound_ms:.4f} ms ({bound_by}) "
@@ -243,7 +264,7 @@ def _measure(name, kernel, plain, args, rotate, nbytes, ops, kind, tol,
                  "ms_events": ms_events,
                  "plain_ms": plain_ms, "bound_ms": bound_ms,
                  "bound_by": bound_by, "library_ms": library_ms,
-                 "copies": n}
+                 "library_ms_events": library_events, "copies": n}
 
 
 def _sdpa_mask(Sq, Skv, dev, kv_lens, q_offsets, kv_valid=None):
@@ -271,10 +292,11 @@ def phase_k1(dev):
         pairs = int(mask.sum())
         kv_read = int(args["kv_lens"].clamp(max=Skv).sum())
         nbytes = 2 * (2 * B * Sq * H * D + 2 * kv_read * H * D)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, args["v"]))
 
-        def library(qt=qt, kt=kt, vt=vt, mask=mask):
-            F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        def library(a, mask=mask):
+            qt, kt, vt = (a[n].transpose(1, 2) for n in ("q", "k", "v"))
+            return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                          attn_mask=mask)
 
         out, rec = _measure(f"K1 {case}", fa.flash_attention,
                             fa.mha_reference, args, ("k", "v"), nbytes,
@@ -297,10 +319,10 @@ def phase_k2(dev):
         q, k, v = (torch.randn(*shape, generator=gen, device=dev)
                    .to(torch.bfloat16) for _ in range(3))
         B, S, H, D = shape
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
-        def library(qt=qt, kt=kt, vt=vt):
-            F.scaled_dot_product_attention(qt, kt, vt)
+        def library(a):
+            qt, kt, vt = (a[n].transpose(1, 2) for n in ("q", "k", "v"))
+            return lambda: F.scaled_dot_product_attention(qt, kt, vt)
 
         _, rec = _measure(f"K2 {case}", ta.tower_attention,
                           ta.tower_attention_reference, dict(q=q, k=k, v=v),
@@ -334,17 +356,39 @@ def phase_int8(dev):
                           2 * rows * IN * OUT, "bf16", BF16_REL_TOL,
                           _rel_err, library)
         res.append({"case": f"R{rows}_{IN}x{OUT}", **rec})
+        _w8a8_note(x, e, k8)
     return res
+
+
+def _w8a8_note(x, e, k8):
+    """Logs (only) the act-int8 route of the same int8 entry, _w8a8_dot
+    (int8 activations, torch._int_mm on zero-padded operands), beside the
+    int8 kernel; for the 32003-wide lm_head also the exact f64 product
+    that took that shape before the padding."""
+    from vstar_tpu_torch.nn.quant import _w8a8_dot
+    rows, IN = x.shape
+    OUT = e["q"].shape[1]
+    w8a8 = cuda_ms(lambda: _w8a8_dot(x, e))
+    kernel = cuda_ms(lambda: k8.int8_matmul(x, e["q"], e["s"]))
+    msg = (f"[w8a8 R={rows} {IN}x{OUT}] _w8a8_dot {w8a8:.4f} ms, int8 "
+           f"kernel {kernel:.4f} ms (events)")
+    if OUT % 8:
+        xq = torch.randint(-127, 128, (rows, IN), device=x.device,
+                           dtype=torch.int32).to(torch.int8)
+        f64 = cuda_ms(lambda: (xq.double() @ e["q"].double())
+                      .to(torch.int32))
+        msg += f"; its f64 integer product {f64:.4f} ms"
+    log(msg)
 
 
 def _int8pack_library(x, q, s, k8):
     """torch._weight_int8pack_mm computes the same function from the
-    transposed weight (made once, outside the timing); None where the
-    card's torch has no CUDA version of it or it disagrees."""
+    transposed weight (made once per copy, outside the timing): a builder
+    of its closure over one copy of the inputs, or None where the card's
+    torch has no CUDA version of it or it disagrees."""
     try:
-        qt = q.t().contiguous()
-        sc = s.reshape(-1).to(x.dtype)
-        got = torch._weight_int8pack_mm(x, qt, sc)
+        got = torch._weight_int8pack_mm(x, q.t().contiguous(),
+                                        s.reshape(-1).to(x.dtype))
         want = k8.int8_matmul_reference(x, q, s)
         torch.cuda.synchronize()
         if _rel_err(got, want) > BF16_REL_TOL:
@@ -355,7 +399,61 @@ def _int8pack_library(x, q, s, k8):
         log(f"[int8] torch._weight_int8pack_mm unavailable: "
             f"{str(exc).splitlines()[0][:160]}")
         return None
-    return lambda: torch._weight_int8pack_mm(x, qt, sc)
+
+    def build(a):
+        qt = a["q"].t().contiguous()
+        sc = a["s"].reshape(-1).to(a["x"].dtype)
+        return lambda: torch._weight_int8pack_mm(a["x"], qt, sc)
+    return build
+
+
+def _int4pack(q4, s4, k4, even_high):
+    """q4, s4 -> tinygemm's packed weight, its bf16 (scale, zero) pairs
+    and the group size."""
+    u = (k4.unpack_int4(q4).to(torch.int32) + 8).t().contiguous()
+    even, odd = u[:, 0::2], u[:, 1::2]
+    packed = ((even << 4) | odd) if even_high else (even | (odd << 4))
+    w = torch._convert_weight_to_int4pack(packed.to(torch.uint8)
+                                          .contiguous(), 8)
+    sz = torch.stack([s4, torch.zeros_like(s4)], -1).to(torch.bfloat16)
+    return w, sz.contiguous(), 2 * q4.shape[0] // s4.shape[0]
+
+
+def _int4pack_library(x, q4, s4, k4):
+    """torch._weight_int4pack_mm (tinygemm's int4 kernel) computes K5's
+    function: it dequantizes (u - 8) * scale + zero per group, so the
+    unsigned nibbles u = n + 8 with zeros of 0 and the scales cast to bf16
+    give n * s4. A builder of its closure over one copy of the inputs (the
+    packed layout made outside the timing), or None where OUT % 8 (the
+    32003-wide lm_head, which it does not take), where the card's torch
+    lacks it, or where it disagrees. The byte order of its input packing
+    is found by agreement."""
+    if q4.shape[1] % 8:
+        return None
+    want = k4.int4_matmul_reference(x, q4, s4)
+    for even_high in (True, False):
+        order = "even input high" if even_high else "even input low"
+        try:
+            w, sz, group = _int4pack(q4, s4, k4, even_high)
+            got = torch._weight_int4pack_mm(x, w, group, sz)
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError, AttributeError) as exc:
+            log(f"[K5] torch._weight_int4pack_mm unavailable: "
+                f"{str(exc).splitlines()[0][:160]}")
+            return None
+        err = _rel_err(got, want)
+        if err <= BF16_REL_TOL:
+            log(f"[K5] library torch._weight_int4pack_mm ({order}) agrees: "
+                f"{err:.3e} of the largest |output|")
+
+            def build(a, even_high=even_high):
+                w, sz, group = _int4pack(a["q4"], a["s4"], k4, even_high)
+                return lambda: torch._weight_int4pack_mm(a["x"], w, group,
+                                                         sz)
+            return build
+        log(f"[K5] torch._weight_int4pack_mm ({order}) disagrees: {err:.3e}")
+    log("[K5] no library time")
+    return None
 
 
 def phase_int4(dev):
@@ -379,11 +477,21 @@ def phase_int4(dev):
         x = _rand(gen, dev, rows, IN).to(torch.bfloat16)
         nbytes = (IN // 2 * OUT + 4 * e["s4"].shape[0] * OUT
                   + 2 * rows * (IN + OUT))
-        _, rec = _measure(f"K5 R={rows} {IN}x{OUT}", k4.int4_matmul,
-                          k4.int4_matmul_reference,
-                          dict(x=x, q4=e["q4"], s4=e["s4"]), ("q4", "s4"),
-                          nbytes, 2 * rows * IN * OUT, "bf16", BF16_REL_TOL,
-                          _rel_err)
+        library = _int4pack_library(x, e["q4"], e["s4"], k4)
+        out, rec = _measure(f"K5 R={rows} {IN}x{OUT}", k4.int4_matmul,
+                            k4.int4_matmul_reference,
+                            dict(x=x, q4=e["q4"], s4=e["s4"]), ("q4", "s4"),
+                            nbytes, 2 * rows * IN * OUT, "bf16",
+                            BF16_REL_TOL, _rel_err, library)
+        # second check: the kernel's own arithmetic (bf16 weights in the
+        # tensor-core tiles above 16 rows), within its output's rounding
+        math_err = _beyond_rounding(
+            out, k4.int4_matmul_kernel_math(x, e["q4"], e["s4"]))
+        log(f"[K5 R={rows} {IN}x{OUT}] against its own arithmetic: "
+            f"{math_err:.3e} beyond the bf16 rounding (tol {K5_MATH_TOL})")
+        if not math_err <= K5_MATH_TOL:
+            raise AssertionError(f"K5 R={rows}: {math_err} beyond rounding")
+        rec["kernel_math_err"] = math_err
         k5.append({"case": f"R{rows}_{IN}x{OUT}", **rec})
     for rows, IN, OUT in ((1, 4096, 11008), (8, 4096, 32003)):
         e = entry(IN, OUT)

@@ -223,6 +223,14 @@ def _rel(got, want):
                  / want.float().abs().max())
 
 
+def _beyond_rounding(got, want):
+    """Largest |got - want| beyond the rounding of got to bf16 (half an
+    ulp, at most 2**-8 |want|), relative to the largest |want|."""
+    want = want.float()
+    excess = ((got.float() - want).abs() - 2.0 ** -8 * want.abs()).clamp(min=0)
+    return float(excess.max() / want.abs().max())
+
+
 def _int4(g, IN, OUT, dev, group=128):
     from vstar_tpu_torch.nn.quant import quantize_weight_int4
     w = torch.randn(IN, OUT, generator=g, device=dev) * 0.05
@@ -265,6 +273,10 @@ def test_int4_kernel_on_card(cuda, rows, IN, OUT):
     torch.cuda.synchronize()
     assert k4.launches["int4_matmul"] == before + 1
     assert _rel(got, want) <= 1e-2
+    # the kernel's own arithmetic (bf16 weights in the tensor-core tiles
+    # above 16 rows), within the rounding of its bf16 output
+    math = k4.int4_matmul_kernel_math(x, e["q4"], e["s4"])
+    assert _beyond_rounding(got, math) <= 1e-3
 
 
 @pytest.mark.gpu
@@ -286,10 +298,11 @@ def test_int4_w4a8_kernel_on_card(cuda, rows, IN, OUT):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("rows,IN,OUT", [(1, 4096, 4096), (16, 11008, 4096),
-                                         (300, 1024, 3072), (2, 4096, 32003)])
+                                         (300, 1024, 3072), (2, 4096, 32003),
+                                         (3, 1000, 3000), (5, 100, 30)])
 def test_int32_matmul_exact_on_card(cuda, rows, IN, OUT):
-    """_w8a8_dot's integer product (torch._int_mm where it takes the
-    shape, f64 otherwise) is exact."""
+    """_w8a8_dot's integer product (torch._int_mm on operands padded with
+    zeros to the shapes it takes) is exact."""
     from vstar_tpu_torch.nn.quant import _int32_matmul
     g = torch.Generator(device=cuda).manual_seed(rows)
     a = torch.randint(-127, 128, (rows, IN), generator=g, device=cuda,

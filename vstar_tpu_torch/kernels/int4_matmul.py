@@ -67,6 +67,18 @@ def int4_matmul_reference(x, q4, s4):
     return (x.float() @ dequantize_int4(q4, s4)).to(x.dtype)
 
 
+def int4_matmul_kernel_math(x, q4, s4):
+    """K5's own arithmetic in f32, before its output is rounded to
+    x.dtype: above MAX_ROWS rows the tensor-core tiles round nib * scale
+    to bf16 (as the TPU kernel does), at most MAX_ROWS rows the streaming
+    path keeps it in f32. The kernel agrees with it within the rounding of
+    its output; a check, never on the path."""
+    w = dequantize_int4(q4, s4)
+    if x.shape[0] > MAX_ROWS:
+        w = w.to(torch.bfloat16).float()
+    return x.float() @ w
+
+
 def int4_matmul_w4a8_reference(xq, q4, s4):
     """The TPU kernel's math: per group, the exact integer dot of xq with
     the nibbles, scaled by s4; f32 [R, OUT] (no activation scale)."""

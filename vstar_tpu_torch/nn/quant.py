@@ -119,18 +119,22 @@ def set_act_int8(on: bool):
 
 def _int32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Exact int8 [M, K] @ int8 [K, N] -> int32. On the card
-    torch._int_mm where it takes the shape (rows padded past 16 with zero
-    rows, K and N multiples of 8); elsewhere an f64 product, exact while
-    |sum| < 2**53 (K * 127**2 is far below). Never f32: a 4096-long sum of
-    127**2 leaves f32's exact range."""
+    torch._int_mm, on operands padded with zeros to shapes its cuBLASLt
+    int8 kernels take (at least 32 rows, K and N multiples of 16; 17 rows
+    were refused at small K; the zeros add nothing and are sliced off), so
+    the 32003-wide lm_head takes it too; on the CPU an f64 product, exact
+    while |sum| < 2**53 (K * 127**2 is far below). Never f32: a 4096-long
+    sum of 127**2 leaves f32's exact range."""
     M, K = a.shape
     N = b.shape[1]
-    if a.is_cuda and K % 8 == 0 and N % 8 == 0:
-        pad = max(17 - M, 0)
-        out = torch._int_mm(F.pad(a, (0, 0, 0, pad)) if pad else a,
-                            b.contiguous())
-        return out[:M]
-    return (a.double() @ b.double()).to(torch.int32)
+    if not a.is_cuda:
+        return (a.double() @ b.double()).to(torch.int32)
+    pad_m, pad_k, pad_n = max(32 - M, 0), -K % 16, -N % 16
+    if pad_m or pad_k:
+        a = F.pad(a, (0, pad_k, 0, pad_m))
+    if pad_k or pad_n:
+        b = F.pad(b, (0, pad_n, 0, pad_k))
+    return torch._int_mm(a, b.contiguous())[:M, :N]
 
 
 def _w8a8_dot(x: torch.Tensor, entry) -> torch.Tensor:
