@@ -21,7 +21,17 @@ Runs on one CUDA card, in phases; any failure exits non-zero:
      int8 towers), after the bf16 pair is freed: one answer on 2048x1536,
      one forced-search sample, and one more with the act-int8 switch on;
   6. after each path, every kernel it runs launched, and no plain version
-     ran on a CUDA tensor.
+     ran on a CUDA tensor;
+  7. K1 with its log-sum-exp and the K7 backward at the training shape
+     [4, 512, 32, 128] (ragged kv_lens, key holes, a row that sees no key)
+     against their plain versions, timed as above (K7's library yardstick
+     is SDPA's backward, by events);
+  8. the training path: the random-init seal_vsm_7b in bf16 with LoRA
+     r=8, three vsm_train_steps of 8 rows (2 micro-batches of 4, 512-token
+     bucket, 768 masks), with exact K1 / K7 / K2 launch counts per step,
+     frozen leaves bit-identical and trainable ones moved; then
+     run_vsm_training at the tiny config (decoder heads widened to the
+     kernels' 128) over synthetic dataset files, with a resume.
 Prints a JSON line of kernel results, then the card's name and power
 limit, then (last line) the device record.
 
@@ -31,20 +41,25 @@ limit, then (last line) the device record.
 from __future__ import annotations
 
 import base64
+import dataclasses
 import gc
 import io
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import types
 import urllib.request
 
 import numpy as np
 import torch
 
 TOL = 2e-2          # bf16 attention vs plain version (tests/test_vision.py:288)
+LSE_TOL = 1e-3      # K1's log-sum-exp (f32) against the plain version
 BF16_REL_TOL = 1e-2  # quantized matmuls, bf16 out: of the largest |output|
 F32_REL_TOL = 1e-5   # K6, f32 out (exact integer group dots on both sides)
 # K5 against its own arithmetic (int4_matmul_kernel_math): the error beyond
@@ -507,6 +522,106 @@ def phase_int4(dev):
     return k5, k6
 
 
+def phase_k7(dev):
+    """K1 with its log-sum-exp and the K7 backward at the training shape
+    [4, 512, 32, 128] bf16: row 1 ragged at 300 keys, ~10 % of keys
+    invalid, and row 0 of batch 2 sees no key (lse -inf, zero output and
+    gradient). Returns (K1's record, K7's record)."""
+    import torch.nn.functional as F
+    from vstar_tpu_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    B, S, H, D = 4, 512, 32, 128
+    q, k, v, do = (torch.randn(B, S, H, D, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    kv_lens = torch.tensor([512, 300, 512, 512], dtype=torch.int32,
+                           device=dev)
+    q_off = torch.zeros(B, dtype=torch.int32, device=dev)
+    valid = torch.rand(B, S, generator=gen, device=dev) > 0.1
+    valid[2, 0] = False
+    valid = valid.to(torch.uint8)       # the kernels' own mask type
+    masks = dict(kv_lens=kv_lens, q_offsets=q_off, kv_valid=valid)
+
+    out, lse = fa.flash_attention_lse(q, k, v, **masks)
+    ref_out, ref_lse = fa.mha_forward_lse(q, k, v, **masks)
+    delta = (do.float() * out.float()).sum(-1)
+    grads = fa.flash_attention_bwd(q, k, v, do, lse, delta, **masks)
+    want = fa.mha_backward(q, k, v, do, ref_lse, delta, **masks)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(ref_lse)
+    lse_err = float((lse - ref_lse)[finite].abs().max())
+    out_err = _abs_err(out, ref_out)
+    grad_errs = {n: _rel_err(g, w) for n, g, w in zip(("dq", "dk", "dv"),
+                                                      grads, want)}
+    ok = (torch.equal(finite, torch.isfinite(lse)) and lse_err <= LSE_TOL
+          and out_err <= TOL and all(e <= TOL for e in grad_errs.values())
+          and all(bool(torch.isfinite(g.float()).all()) for g in grads)
+          and bool(torch.isfinite(out.float()).all())
+          and float(out[2, 0].float().abs().max()) == 0.0
+          and bool(torch.isinf(lse[2, 0]).all())
+          and float(grads[0][2, 0].float().abs().max()) == 0.0)
+    log(f"[K1 lse train] lse err {lse_err:.3e} (tol {LSE_TOL}), out err "
+        f"{out_err:.3e} (tol {TOL}); [K7] dq/dk/dv err of the largest "
+        f"|value| {grad_errs} (tol {TOL}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"K1 lse / K7 disagree: lse {lse_err}, out "
+                             f"{out_err}, grads {grad_errs}")
+
+    mask = _sdpa_mask(S, S, dev, kv_lens, q_off, valid)
+    pairs = int(mask.sum()) * H
+    elem = B * S * H * D
+    copies = [dict(q=q, k=k, v=v, do=do)] + [
+        dict(q=q.clone(), k=k.clone(), v=v.clone(), do=do.clone())]
+    # K1 with lse: q, k, v read, out and lse written
+    fwd_ms = graph_ms([lambda a=a: fa.flash_attention_lse(
+        a["q"], a["k"], a["v"], **masks) for a in copies])
+    fwd_events = cuda_ms(lambda: fa.flash_attention_lse(q, k, v, **masks))
+    fwd_plain = cuda_ms(lambda: fa.mha_forward_lse(q, k, v, **masks))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa_fwd = graph_ms([lambda a=a: F.scaled_dot_product_attention(
+        a["q"].transpose(1, 2), a["k"].transpose(1, 2),
+        a["v"].transpose(1, 2), attn_mask=mask) for a in copies])
+    sdpa_fwd_events = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask))
+    fwd_bound, fwd_by = bound(2 * 4 * elem + 4 * B * S * H, 4 * pairs * D,
+                              "bf16")
+    # K7: q, k, v, dO, lse, delta read; dq, dk, dv written
+    bwd_ms = graph_ms([lambda a=a: fa.flash_attention_bwd(
+        a["q"], a["k"], a["v"], a["do"], lse, delta, **masks)
+        for a in copies])
+    bwd_events = cuda_ms(lambda: fa.flash_attention_bwd(
+        q, k, v, do, lse, delta, **masks))
+    bwd_plain = cuda_ms(lambda: fa.mha_backward(q, k, v, do, ref_lse, delta,
+                                                **masks), iters=5)
+    leaves = [x.detach().clone().requires_grad_() for x in (qt, kt, vt)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+    do_t = do.transpose(1, 2)
+    sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
+        sdpa_out, leaves, do_t, retain_graph=True))
+    del sdpa_out, leaves, copies
+    bwd_bound, bwd_by = bound(2 * 7 * elem + 2 * 4 * B * S * H,
+                              10 * pairs * D, "bf16")
+    log(f"[K1 lse train] device {fwd_ms:.4f} ms (events {fwd_events:.4f}) "
+        f"plain {fwd_plain:.4f} library {sdpa_fwd:.4f} (events "
+        f"{sdpa_fwd_events:.4f}) bound {fwd_bound:.4f} ms ({fwd_by})")
+    log(f"[K7 train] device {bwd_ms:.4f} ms (events {bwd_events:.4f}) "
+        f"plain {bwd_plain:.4f} library {sdpa_bwd:.4f} (SDPA backward, "
+        f"events) bound {bwd_bound:.4f} ms ({bwd_by})")
+    shape = f"q{(B, S, H, D)} kv_lens {kv_lens.tolist()} kv_valid 90%"
+    k1 = {"case": "train_lse", "shape": shape, "max_abs_err": out_err,
+          "max_rel_err": _rel_err(out, ref_out), "lse_max_abs_err": lse_err,
+          "ms": fwd_ms, "ms_events": fwd_events, "plain_ms": fwd_plain,
+          "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": sdpa_fwd,
+          "library_ms_events": sdpa_fwd_events, "copies": 2}
+    k7 = {"case": "train", "shape": shape,
+          "max_abs_err": max(_abs_err(g, w) for g, w in zip(grads, want)),
+          "max_rel_err": max(grad_errs.values()), "ms": bwd_ms,
+          "ms_events": bwd_events, "plain_ms": bwd_plain,
+          "bound_ms": bwd_bound, "bound_by": bwd_by, "library_ms": sdpa_bwd,
+          "library_ms_events": sdpa_bwd, "library_timing": "events",
+          "copies": 2}
+    return k1, k7
+
+
 # ---------------------------------------------------------------------------
 # Phase 5: the main path
 # ---------------------------------------------------------------------------
@@ -595,34 +710,44 @@ class CountingVSM:
         return self.engine.segment(image, phrase)
 
 
-# name -> (module, key of the wrapper's counters or None for plain ints)
+# name -> (module, attribute of its launches, attribute of its plain-
+# version calls on CUDA tensors, key into dict counters or None for ints)
 def _counter_modules():
     from vstar_tpu_torch.kernels import flash_attention as fa
     from vstar_tpu_torch.kernels import int4_matmul as k4
     from vstar_tpu_torch.kernels import int8_matmul as k8
     from vstar_tpu_torch.kernels import tower_attention as ta
-    return {"flash_attention": (fa, None), "tower_attention": (ta, None),
-            "int8_matvec": (k8, None), "int4_matmul": (k4, "int4_matmul"),
-            "int4_matmul_w4a8": (k4, "int4_matmul_w4a8")}
+    plain = ("launches", "plain_calls_cuda")
+    return {"flash_attention": (fa, *plain, None),
+            "flash_attention_bwd_dq": (fa, "bwd_launches",
+                                       "bwd_plain_calls_cuda", "dq"),
+            "flash_attention_bwd_dkv": (fa, "bwd_launches",
+                                        "bwd_plain_calls_cuda", "dkv"),
+            "tower_attention": (ta, *plain, None),
+            "int8_matvec": (k8, *plain, None),
+            "int4_matmul": (k4, *plain, "int4_matmul"),
+            "int4_matmul_w4a8": (k4, *plain, "int4_matmul_w4a8")}
+
+
+def _counter(mod, attr, key):
+    value = getattr(mod, attr)
+    return value if key is None or not isinstance(value, dict) \
+        else value[key]
 
 
 def _read_counts():
     """name -> (kernel launches, plain-version calls on CUDA tensors)."""
-    out = {}
-    for name, (mod, key) in _counter_modules().items():
-        if key is None:
-            out[name] = (mod.launches, mod.plain_calls_cuda)
-        else:
-            out[name] = (mod.launches[key], mod.plain_calls_cuda[key])
-    return out
+    return {name: (_counter(mod, la, key), _counter(mod, pa, key))
+            for name, (mod, la, pa, key) in _counter_modules().items()}
 
 
 def _zero_counts():
-    for mod, key in _counter_modules().values():
-        if key is None:
-            mod.launches = mod.plain_calls_cuda = 0
-        else:
-            mod.launches[key] = mod.plain_calls_cuda[key] = 0
+    for mod, la, pa, key in _counter_modules().values():
+        for attr in (la, pa):
+            if key is not None and isinstance(getattr(mod, attr), dict):
+                getattr(mod, attr)[key] = 0
+            else:
+                setattr(mod, attr, 0)
 
 
 def _check_path(path, kernels):
@@ -641,6 +766,9 @@ def _check_path(path, kernels):
                              f"tensors: {plain}")
     return {k: launches[k] for k in kernels}
 
+
+SERVING_KERNELS = ("flash_attention", "tower_attention", "int8_matvec",
+                   "int4_matmul", "int4_matmul_w4a8")
 
 OPTIONS = ["The mug is red.", "The mug is blue.", "The mug is green.",
            "There is no mug."]
@@ -742,18 +870,269 @@ def phase_quantized_path(dev):
     _log_forced("int4mix act-int8 forced search 2048x1536", forced, vsm)
     log(f"[int4mix] max_memory_allocated over the path "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    return _check_path("int4mix", tuple(_counter_modules()))
+    return _check_path("int4mix", SERVING_KERNELS)
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the training path
+# ---------------------------------------------------------------------------
+
+TRAIN_NAMES = ["red mug", "bicycle", "street sign", "dog", "window",
+               "green bottle", "person", "clock"]
+
+
+def _train_rows(n, seed):
+    """n synthetic VSM rows: preprocessed-like CLIP (224) and OWL (768)
+    images, a rectangle mask, 1-4 target boxes; row 1 has no valid mask
+    and row 2 no valid boxes, so every loss term is live."""
+    from vstar_tpu_torch.data.vsm_collate import VSMRow
+    rng = np.random.RandomState(seed)
+    rows = []
+    for i in range(n):
+        mask = np.zeros((480, 640), np.float32)
+        y0, x0 = rng.randint(0, 300), rng.randint(0, 400)
+        mask[y0:y0 + 150, x0:x0 + 200] = 1.0
+        nb = 1 + i % 4
+        boxes = np.concatenate([rng.uniform(0.2, 0.8, (nb, 2)),
+                                rng.uniform(0.05, 0.3, (nb, 2))], 1)
+        rows.append(VSMRow(
+            image_clip=rng.randn(224, 224, 3).astype(np.float32),
+            image_owl=rng.randn(768, 768, 3).astype(np.float32),
+            source=[{"from": "human", "value": "<image>\nPlease locate the "
+                     f"{TRAIN_NAMES[i % len(TRAIN_NAMES)]} in this image."},
+                    {"from": "gpt", "value": "Sure, [LOC]."}],
+            gt_mask=mask, mask_valid=i != 1,
+            tgt_boxes=boxes.astype(np.float32), bboxes_valid=i != 2))
+    return rows
+
+
+def _step_flops(cfg, rows, seq, pairs):
+    """Model FLOPs of one training step: the decoder's and lm_head's
+    matmuls over every position of the bucket, run forward, again in the
+    remat recompute and backward to the activations (3x), plus the
+    lm_head's weight gradient; attention as K1 twice (4 ops per attended
+    pair and head dim) and K7 once (10)."""
+    c = cfg.llama
+    tokens = rows * seq
+    dense = 2 * tokens * c.num_layers * (
+        c.hidden_size * (2 * c.q_dim + 2 * c.kv_dim)
+        + 3 * c.hidden_size * c.intermediate_size)
+    head = 2 * tokens * c.hidden_size * c.vocab_size
+    attn = (2 * 4 + 10) * pairs * c.head_dim * c.num_heads * c.num_layers
+    return 3 * dense + 3 * head + attn
+
+
+def phase_train(dev):
+    """Three vsm_train_steps of the random-init seal_vsm_7b (bf16, LoRA r=8
+    alpha=16, f32 masters, warmup 1) on 8 collated rows: exact launch
+    counts per step, finite losses, frozen leaves bit-identical, LoRA B and
+    fc_seg moved."""
+    from vstar_tpu_torch.core.config import vsm_7b
+    from vstar_tpu_torch.core.params import leaves_with_path
+    from vstar_tpu_torch.data.vsm_collate import (batch_to_torch,
+                                                  collate_vsm_rows)
+    from vstar_tpu_torch.models.vsm import init_vsm_params
+    from vstar_tpu_torch.multimodal.constants import IGNORE_INDEX
+    from vstar_tpu_torch.multimodal.stub_tokenizer import StubTokenizer
+    from vstar_tpu_torch.train import auction
+    from vstar_tpu_torch.train.lora import add_lora, vsm_trainable_mask
+    from vstar_tpu_torch.train.vsm_train import (init_train_state,
+                                                 make_vsm_optimizer,
+                                                 vsm_train_step)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = vsm_7b()
+    t0 = time.perf_counter()
+    params = init_vsm_params(SEED, cfg, device=dev, dtype=torch.bfloat16)
+    params["llama"] = add_lora(params["llama"], SEED + 1, r=8, alpha=16)
+    mask = vsm_trainable_mask(params)
+    opt = make_vsm_optimizer(lr=1e-4, warmup_steps=1, trainable_mask=mask,
+                             master_f32=True)
+    state = init_train_state(params, opt)
+    torch.cuda.synchronize()
+    flat_mask = dict(leaves_with_path(mask))
+    n_train = sum(x.numel() for p, x in leaves_with_path(params)
+                  if flat_mask[p])
+    log(f"[train init] seal_vsm_7b bf16 + LoRA r=8 + AdamW state in "
+        f"{time.perf_counter() - t0:.1f} s; {n_train / 1e6:.1f} M trainable;"
+        f" allocated {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+    frozen = {"llama.layers.attn.wq[0]":
+              params["llama"]["layers"]["attn"]["wq"][0].clone(),
+              "vision.patch_embed.w":
+              params["vision"]["patch_embed"]["w"].clone()}
+    moved = {"llama.layers.attn.lora.wq_b":
+             params["llama"]["layers"]["attn"]["lora"]["wq_b"].clone(),
+             "fc_seg.fc0.w": params["fc_seg"]["fc0"]["w"].clone()}
+    del params
+
+    t0 = time.perf_counter()
+    host = collate_vsm_rows(_train_rows(8, SEED), StubTokenizer(
+        cfg.llama.vocab_size), 3, n_image_tokens=cfg.image_tokens,
+        seq_bucket=512, mask_res=768)
+    batch = batch_to_torch(host, dev)
+    labelled = int((host["labels"] != IGNORE_INDEX).sum())
+    log(f"[train batch] 8 rows collated in {time.perf_counter() - t0:.1f} s:"
+        f" lens {host['lens'].tolist()}, {labelled} labelled tokens, "
+        f"{int((~host['kv_valid']).sum())} masked keys")
+    if labelled == 0:
+        raise AssertionError("train batch has no CE labels")
+    L = cfg.llama.num_layers
+    expect = {"flash_attention": L * 2 * 2, "flash_attention_bwd_dq": L * 2,
+              "flash_attention_bwd_dkv": L * 2,
+              "tower_attention": cfg.owl_vision.num_layers * 2,
+              "int8_matvec": 0, "int4_matmul": 0, "int4_matmul_w4a8": 0}
+    kmask = _sdpa_mask(512, 512, dev, batch["lens"],
+                       torch.zeros(8, dtype=torch.int32, device=dev),
+                       batch["kv_valid"])
+    flops = _step_flops(cfg, 8, 512, int(kmask.sum()))
+    steps, totals = [], {k: 0 for k in expect}
+    for i in range(3):
+        _zero_counts()
+        auction.stats.update(calls=0, rounds=0, seconds=0.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = vsm_train_step(state, batch, cfg, opt, mask,
+                                  grad_accum=2)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        metrics = {k: float(v) for k, v in m.items()}
+        counts = _read_counts()
+        launches = {k: c[0] for k, c in counts.items()}
+        plain = {k: c[1] for k, c in counts.items()}
+        log(f"[train step {i}] {dt:.3f} s loss {metrics['loss']:.4f} ce "
+            f"{metrics['ce_loss']:.4f} bce {metrics['mask_bce_loss']:.4f} "
+            f"dice {metrics['mask_dice_loss']:.4f} det "
+            f"{metrics['detection_loss']:.4f} grad_norm "
+            f"{metrics['grad_norm']:.4f}; auction {auction.stats['calls']} "
+            f"calls {auction.stats['rounds']} rounds "
+            f"{auction.stats['seconds'] * 1e3:.1f} ms; launches {launches}")
+        if not all(math.isfinite(x) for x in metrics.values()):
+            raise AssertionError(f"train step {i}: non-finite {metrics}")
+        if launches != expect or any(plain.values()):
+            raise AssertionError(f"train step {i}: launches {launches} "
+                                 f"(expected {expect}), plain {plain}")
+        steps.append({"seconds": dt, "auction_rounds":
+                      auction.stats["rounds"], "auction_ms":
+                      auction.stats["seconds"] * 1e3, **metrics})
+        for k in totals:
+            totals[k] += launches[k]
+    flat = dict(leaves_with_path(state.params))
+    now = {"llama.layers.attn.wq[0]": flat["llama.layers.attn.wq"][0],
+           **{k: flat[k] for k in ("vision.patch_embed.w",
+                                   "llama.layers.attn.lora.wq_b",
+                                   "fc_seg.fc0.w")}}
+    for k, v in frozen.items():
+        if not torch.equal(now[k], v):
+            raise AssertionError(f"frozen {k} changed")
+    for k, v in moved.items():
+        if torch.equal(now[k], v):
+            raise AssertionError(f"trainable {k} did not move")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    steady = float(np.mean([s["seconds"] for s in steps[1:]]))
+    mfu = flops / steady / PEAK_OPS_PER_S["bf16"]
+    log(f"[train] steps 2-3 {steady:.3f} s each; model FLOPs per step "
+        f"{flops:.3e} -> {flops / steady / 1e12:.1f} TFLOP/s, {mfu:.1%} of "
+        f"989 TFLOP/s; peak memory {peak:.2f} GiB; frozen leaves "
+        f"bit-identical, LoRA B and fc_seg moved")
+    del state, batch
+    return totals, {"steps": steps, "steady_step_s": steady,
+                    "step_flops": flops, "mfu": mfu, "peak_gib": peak,
+                    "trainable_params": n_train}
+
+
+def _tiny_kernel_cfg():
+    """vsm_tiny with the decoder's heads at the kernels' width (2 x 128)."""
+    from vstar_tpu_torch.core.config import vsm_tiny
+    cfg = vsm_tiny()
+    llama = dataclasses.replace(cfg.llama, hidden_size=256, num_heads=2,
+                                num_kv_heads=2, head_dim=128)
+    return dataclasses.replace(cfg, llama=llama, projector=dataclasses
+                               .replace(cfg.projector, out_dim=256))
+
+
+def _dataset_files(base):
+    """Synthetic vqa_data + cocostuff files (tests/test_data.py's)."""
+    from PIL import Image
+    rng = np.random.RandomState(SEED)
+    os.makedirs(os.path.join(base, "vqa_data", "coco_images"))
+    Image.fromarray((rng.rand(40, 52, 3) * 255).astype("uint8")).save(
+        os.path.join(base, "vqa_data", "coco_images", "img0.jpg"))
+    json.dump([{"image": "img0.jpg", "conversations": [
+        {"from": "human", "value": "<image>\nwhere is the cup?"},
+        {"from": "gpt", "value": "on the table"}]}],
+        open(os.path.join(base, "vqa_data",
+                          "possible_locations_conv_86k.json"), "w"))
+    os.makedirs(os.path.join(base, "coco", "train2017"))
+    Image.fromarray((rng.rand(40, 60, 3) * 255).astype("uint8")).save(
+        os.path.join(base, "coco", "train2017", "000001.jpg"))
+    json.dump({"000001": {"cat": {"bboxes": [[5, 5, 20, 20],
+                                             [30, 10, 50, 30]],
+                                  "cat_id": 7}}},
+              open(os.path.join(base, "cocostuff_image2bboxes.json"), "w"))
+    os.makedirs(os.path.join(base, "cocostuff", "train2017"))
+    sem = np.full((40, 60), 255, np.uint8)
+    sem[5:20, 5:20] = 7
+    Image.fromarray(sem).save(os.path.join(base, "cocostuff", "train2017",
+                                           "000001.png"))
+
+
+def phase_train_loop(dev):
+    """run_vsm_training at the tiny config on the card: 2 steps with a
+    checkpoint, then a second run that resumes and trains 2 more."""
+    from vstar_tpu_torch.models.vsm import init_vsm_params
+    from vstar_tpu_torch.multimodal.stub_tokenizer import StubTokenizer
+    from vstar_tpu_torch.train.train_vsm_main import run_vsm_training
+    cfg = _tiny_kernel_cfg()
+    tok = StubTokenizer(cfg.llama.vocab_size)
+    with tempfile.TemporaryDirectory() as base:
+        _dataset_files(base)
+
+        def args(epochs):
+            return types.SimpleNamespace(
+                dataset_dir=base, log_base_dir=os.path.join(base, "runs"),
+                exp_name="vsm_tiny", epochs=epochs, steps_per_epoch=2,
+                batch_size=2, grad_accumulation_steps=2, lr=1e-3,
+                ce_loss_weight=1.0, dice_loss_weight=0.5,
+                bce_loss_weight=2.0, det_loss_weight=0.1, warmup_steps=1,
+                seq_bucket=64, prefetch_depth=2, mask_res=12, mesh=None,
+                param_dtype="bf16", auto_resume=True, no_eval=True,
+                dataset="general_segdet||vqa", sample_rates="1,1",
+                save_steps=0)
+
+        _zero_counts()
+        t0 = time.perf_counter()
+        state = run_vsm_training(args(1), cfg, init_vsm_params(
+            SEED, cfg, device=dev, dtype=torch.bfloat16), tok, 3)
+        resumed = run_vsm_training(args(2), cfg, init_vsm_params(
+            SEED + 1, cfg, device=dev, dtype=torch.bfloat16), tok, 3)
+        torch.cuda.synchronize()
+        lines = open(os.path.join(base, "runs", "vsm_tiny",
+                                  "metrics.jsonl")).read().splitlines()
+        losses = [json.loads(x)["loss"] for x in lines]
+        meta = json.load(open(os.path.join(base, "runs", "vsm_tiny",
+                                           "ckpt_model", "meta.json")))
+    launches = {k: c[0] for k, c in _read_counts().items()}
+    log(f"[train loop tiny] steps {state.step} then {resumed.step} after "
+        f"resume in {time.perf_counter() - t0:.1f} s; logged losses "
+        f"{losses}; checkpoint epoch {meta['epoch']}; launches {launches}")
+    if (state.step, resumed.step, meta["epoch"]) != (2, 4, 1) or \
+            not all(math.isfinite(x) for x in losses) or \
+            min(launches["flash_attention"],
+                launches["flash_attention_bwd_dq"]) <= 0:
+        raise AssertionError("tiny run_vsm_training on CUDA failed")
+    _check_path("train loop", ("flash_attention", "flash_attention_bwd_dq",
+                               "flash_attention_bwd_dkv"))
 
 
 # ---------------------------------------------------------------------------
 
 def _kernel_entry(name, source, replaces, launches, cases):
     """The JSON record of one kernel; the top-level numbers are its first
-    (main) case's; `launches` counts the path that brought the kernel in,
-    `launches_by_path` every path."""
+    (main) case's; `launches` counts the path that brought the kernel in
+    (`path`), `launches_by_path` every path."""
     main = cases[0]
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches["own"],
+            "replaces": replaces, "path": launches["path"],
+            "launches": launches["own"],
             "launches_by_path": launches["by_path"],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "max_rel_err": max(c["max_rel_err"] for c in cases),
@@ -779,17 +1158,31 @@ def main() -> int:
              "tower_attention": phase_k2(dev),
              "int8_matvec": phase_int8(dev)}
     cases["int4_matmul"], cases["int4_matmul_w4a8"] = phase_int4(dev)
+    k1_lse, k7 = phase_k7(dev)
+    cases["flash_attention"].append(k1_lse)
+    cases["flash_attention_bwd"] = [k7]
     gc.collect()
     torch.cuda.empty_cache()
     by_path = {"bf16": phase_bf16_path(dev)}
     gc.collect()
     torch.cuda.empty_cache()
     by_path["int4mix"] = phase_quantized_path(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["train"], train = phase_train(dev)
+    by_path["train"]["flash_attention_bwd"] = \
+        by_path["train"]["flash_attention_bwd_dq"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_loop(dev)
     if "jax" in sys.modules or "vstar_tpu" in sys.modules:
         raise AssertionError("JAX or the JAX package was imported")
     sources = {
         "flash_attention": ("flash_attention.cu",
                             "vstar_tpu/kernels/flash_attention.py:82", "bf16"),
+        "flash_attention_bwd": ("flash_attention_bwd.cu",
+                                "vstar_tpu/kernels/flash_attention.py:194, "
+                                ":244", "train"),
         "tower_attention": ("tower_attention.cu",
                             "vstar_tpu/kernels/tower_attention.py:39", "bf16"),
         "int8_matvec": ("int8_matvec.cu",
@@ -803,12 +1196,15 @@ def main() -> int:
     }
     kernels = []
     for name, (src, replaces, own) in sources.items():
-        launches = {"own": by_path[own][name],
+        launches = {"path": own, "own": by_path[own][name],
                     "by_path": {p: n[name] for p, n in by_path.items()
                                 if name in n}}
         kernels.append(_kernel_entry(name, f"vstar_tpu_torch/csrc/{src}",
                                      replaces, launches, cases[name]))
-    print(json.dumps({"kernels": kernels}), flush=True)
+    k7_entry = next(k for k in kernels if k["name"] == "flash_attention_bwd")
+    k7_entry["launches_by_kernel"] = {
+        k: by_path["train"][f"flash_attention_bwd_{k}"] for k in ("dq", "dkv")}
+    print(json.dumps({"kernels": kernels, "train": train}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,18 +2,21 @@
 
 On a CPU tensor each wrapper takes its plain PyTorch version; these tests
 hold that version to the Pallas kernel run in interpret mode (K1 at
-Pallas-eligible shapes, K2 at ragged tower lengths) and to the JAX plain
-version at the decoder's other shapes. The CUDA kernels themselves run
+Pallas-eligible shapes, K1's log-sum-exp and the K7 backward at the
+cases of tests/test_flash.py, K2 at ragged tower lengths) and to the JAX
+plain version at the decoder's other shapes. The CUDA kernels themselves run
 only on the card (chip_smoke.py compares them with the same plain
 versions there, and so do the tests marked `gpu`, which skip without a
 card). Tolerances: 1e-5 in f32, 2e-2 in bf16.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from vstar_tpu.kernels.flash_attention import _fwd as jax_flash_fwd
 from vstar_tpu.kernels.flash_attention import flash_attention as jax_flash
 from vstar_tpu.kernels.flash_attention import mha_reference as jax_mha
 from vstar_tpu.kernels.tower_attention import tower_attention as jax_tower
@@ -24,6 +27,8 @@ torch.set_num_threads(1)
 
 F32_TOL = 1e-5
 BF16_TOL = 2e-2
+BWD_TOL = 5e-5      # f32 forward/backward against the Pallas kernels
+LSE_TOL = 1e-3      # K1's log-sum-exp on the card (bf16 inputs)
 
 
 def _qkv(rng, B, Sq, Skv, H, D):
@@ -74,6 +79,97 @@ def test_flash_cpu_matches_reference_ragged(B, Sq, Skv, offs):
     np.testing.assert_allclose(got, want, atol=F32_TOL, rtol=0)
 
 
+# The cases of tests/test_flash.py (D = 128, Sq = Skv = 256) in the port's
+# causal form: (kv_lens, q_offsets, Sq, key holes, fully masked row 0).
+_BWD_CASES = {
+    "causal": (None, None, 256, False, False),
+    "ragged_kv_lens": ((256, 130), None, 256, False, False),
+    "q_offsets": ((192, 228), (64, 100), 128, False, False),
+    "kv_valid_holes": ((256, 200), None, 256, True, False),
+    "fully_masked_row": (None, None, 256, True, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_BWD_CASES))
+def test_flash_lse_and_backward_match_pallas_interpret(case):
+    """mha_forward_lse and mha_backward against the Pallas forward (its
+    lse output) and jax.grad of sum(sin(out)) through the Pallas
+    backward, both in interpret mode; atol = rtol = 5e-5 in f32."""
+    kv_lens, q_off, sq, holes, empty_row = _BWD_CASES[case]
+    B, Skv, H, D = 2, 256, 2, 128
+    rng = np.random.RandomState(len(case))
+    q, k, v = _qkv(rng, B, sq, Skv, H, D)
+    kv_lens = np.array(kv_lens or (Skv, Skv), np.int32)
+    q_off = np.array(q_off or (0, 0), np.int32)
+    valid = np.ones((B, Skv), bool)
+    if holes:
+        valid[0, rng.choice(Skv, 40, replace=False)] = False
+        valid[1, rng.choice(Skv, 25, replace=False)] = False
+    if empty_row:
+        valid[1, 0] = False          # batch 1, row 0 sees only key 0
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    jl, jo, jval = (jnp.asarray(x) for x in (kv_lens, q_off, valid))
+    want_out, want_lse = jax_flash_fwd(
+        jq, jk, jv, jl, jo, jval.astype(jnp.int32)[:, None, :], True,
+        D ** -0.5, 128, 128, interpret=True)
+
+    def loss(q, k, v):
+        return jnp.sum(jnp.sin(jax_flash(q, k, v, kv_lens=jl, q_offsets=jo,
+                                         kv_valid=jval, interpret=True)))
+
+    want_grads = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    masks = (torch.from_numpy(kv_lens), torch.from_numpy(q_off),
+             torch.from_numpy(valid))
+    out, lse = fa.mha_forward_lse(tq, tk, tv, *masks)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out),
+                               atol=BWD_TOL, rtol=BWD_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse),
+                               atol=BWD_TOL, rtol=BWD_TOL)
+    do = torch.cos(out)
+    delta = (do * out).sum(-1)
+    grads = fa.mha_backward(tq, tk, tv, do, lse, delta, *masks)
+    for got, want, name in zip(grads, want_grads, "qkv"):
+        assert torch.isfinite(got).all(), name
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=BWD_TOL, rtol=BWD_TOL,
+                                   err_msg=f"d{name}")
+    if empty_row:
+        assert lse[1, 0].isinf().all() and (grads[0][1, 0] == 0).all()
+
+
+def test_flash_autograd_cpu_matches_reference_autograd():
+    """flash_attention under grad (the autograd.Function over the plain
+    forward-with-lse and backward) against torch autograd through
+    mha_reference, with ragged lengths, offsets and key holes."""
+    rng = np.random.RandomState(7)
+    q, k, v = _qkv(rng, 2, 40, 72, 3, 16)
+    kv_lens = torch.tensor([72, 50])
+    q_off = torch.tensor([32, 5])
+    valid = torch.from_numpy(rng.rand(2, 72) > 0.2)
+    valid[1, :6] = False               # batch 1, row 0 sees no key
+    dout = torch.from_numpy(rng.randn(2, 40, 3, 16).astype(np.float32))
+    grads = []
+    for fn in (fa.flash_attention, fa.mha_reference):
+        leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+        out = fn(*leaves, kv_lens, q_off, valid)
+        grads.append(torch.autograd.grad(out, leaves, dout))
+    assert fa.flash_attention(*leaves, kv_lens, q_off, valid).grad_fn \
+        .name() == "_FlashAttentionBackward"
+    for got, want in zip(*grads):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=F32_TOL,
+                                   rtol=0)
+
+
+def test_tower_attention_refuses_grad():
+    x = torch.zeros(1, 8, 2, 64, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ta.tower_attention(x, x, x)
+    with torch.no_grad():
+        assert ta.tower_attention(x, x, x).shape == x.shape
+
+
 @pytest.mark.parametrize("S,dtype", [(257, "float32"), (600, "float32"),
                                      (257, "bfloat16")])
 def test_tower_cpu_matches_pallas_interpret(S, dtype):
@@ -90,17 +186,28 @@ def test_tower_cpu_matches_pallas_interpret(S, dtype):
     np.testing.assert_allclose(got, want, atol=tol, rtol=0)
 
 
+def _counts():
+    return (fa.launches, ta.launches, fa.plain_calls_cuda,
+            ta.plain_calls_cuda, dict(fa.bwd_launches),
+            fa.bwd_plain_calls_cuda)
+
+
 def test_wrappers_take_plain_version_on_cpu_only():
-    before = (fa.launches, ta.launches, fa.plain_calls_cuda,
-              ta.plain_calls_cuda)
+    before = _counts()
     x = torch.zeros(1, 4, 2, 128)
     fa.flash_attention(x, x, x)
+    out, lse = fa.flash_attention_lse(x, x, x)
+    fa.flash_attention_bwd(x, x, x, x, lse, lse)
+    xg = x.clone().requires_grad_()
+    fa.flash_attention(xg, x, x).sum().backward()
     y = torch.zeros(1, 4, 2, 64)
     ta.tower_attention(y, y, y)
-    assert (fa.launches, ta.launches, fa.plain_calls_cuda,
-            ta.plain_calls_cuda) == before
+    assert _counts() == before
     with pytest.raises(ValueError, match="unsupported device"):
         fa.flash_attention(x.to("meta"), x.to("meta"), x.to("meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_attention_bwd(*(t.to("meta") for t in (x, x, x, x, lse,
+                                                       lse)))
     with pytest.raises(ValueError, match="unsupported device"):
         ta.tower_attention(y.to("meta"), y.to("meta"), y.to("meta"))
 
@@ -196,6 +303,51 @@ def test_flash_kernel_on_card(cuda, B, Sq, Skv, offs, masked):
         assert float(got[0, 0].float().abs().max()) == 0.0
     with pytest.raises(TypeError, match="bfloat16"):
         fa.flash_attention(q.float(), k.float(), v.float())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Skv,offs,lens,masked", [
+    (2, 256, 256, (0, 0), (256, 256), False),   # causal, full tiles
+    (2, 130, 130, (0, 0), (130, 77), True),     # ragged tiles, holes
+    (3, 64, 200, (0, 17, 136), (64, 81, 200), True),  # offsets
+    (4, 512, 512, (0, 0, 0, 0), (512, 300, 512, 512), True),  # training
+])
+def test_flash_bwd_kernel_on_card(cuda, B, Sq, Skv, offs, lens, masked):
+    """K1's lse (abs 1e-3) and K7's dq, dk, dv (2e-2 of each one's largest
+    |value|) against the plain versions, directly and through autograd,
+    with ragged lengths, key holes and a row that sees no key."""
+    g = torch.Generator(device=cuda).manual_seed(Sq + B)
+    q, k, v, do = (torch.randn(B, s, 8, 128, generator=g, device=cuda)
+                   .to(torch.bfloat16) for s in (Sq, Skv, Skv, Sq))
+    q_off = torch.tensor(offs, dtype=torch.int32, device=cuda)
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    valid = None
+    if masked:
+        valid = torch.rand(B, Skv, generator=g, device=cuda) > 0.1
+        valid[0, 0] = False          # batch 0, row 0 sees no key
+    masks = (kv_lens, q_off, valid)
+    before = (fa.launches, dict(fa.bwd_launches))
+    out, lse = fa.flash_attention_lse(q, k, v, *masks)
+    ref_out, ref_lse = fa.mha_forward_lse(q, k, v, *masks)
+    delta = (do.float() * out.float()).sum(-1)
+    got = fa.flash_attention_bwd(q, k, v, do, lse, delta, *masks)
+    want = fa.mha_backward(q, k, v, do, ref_lse, delta, *masks)
+    torch.cuda.synchronize()
+    assert fa.launches == before[0] + 1
+    assert fa.bwd_launches == {n: c + 1 for n, c in before[1].items()}
+    finite = torch.isfinite(ref_lse)
+    assert torch.equal(finite, torch.isfinite(lse))
+    assert float((lse - ref_lse)[finite].abs().max()) <= LSE_TOL
+    assert float((out.float() - ref_out.float()).abs().max()) <= BF16_TOL
+    for a, b in zip(got, want):
+        assert torch.isfinite(a.float()).all()
+        assert _rel(a, b) <= BF16_TOL
+    if masked:
+        assert float(got[0][0, 0].float().abs().max()) == 0.0
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.flash_attention(*leaves, *masks).backward(do)
+    for leaf, b in zip(leaves, want):
+        assert _rel(leaf.grad, b) <= BF16_TOL
 
 
 @pytest.mark.gpu

@@ -1,7 +1,9 @@
 """The port and its chip smoke run without JAX and without the JAX
 package: in a fresh interpreter, import every vstar_tpu_torch module (and
-chip_smoke), answer one tiny SEAL request on the CPU, and find neither a
-`jax` nor a `vstar_tpu` module loaded; no source imports either."""
+chip_smoke; the train/, data/ and utils/ modules included), answer one
+tiny SEAL request and take one tiny LoRA training step on the CPU, and
+find neither a `jax` nor a `vstar_tpu` module loaded; no source imports
+either."""
 
 import os
 import pathlib
@@ -30,6 +32,35 @@ SCRIPT = textwrap.dedent("""
                            * 255).astype("uint8"))
     rec = SealService(vqa, vsm).answer(img, "what color?", ["red", "blue"])
     assert rec["option_chosen"] in (0, 1), rec
+    from vstar_tpu_torch.core.config import vsm_tiny
+    from vstar_tpu_torch.data.vsm_collate import (VSMRow, batch_to_torch,
+                                                  collate_vsm_rows)
+    from vstar_tpu_torch.models.vsm import init_vsm_params
+    from vstar_tpu_torch.multimodal.stub_tokenizer import StubTokenizer
+    from vstar_tpu_torch.train.lora import add_lora, vsm_trainable_mask
+    from vstar_tpu_torch.train.vsm_train import (
+        init_train_state, make_vsm_optimizer, vsm_train_step)
+    cfg = vsm_tiny()
+    params = init_vsm_params(0, cfg, device="cpu")
+    params["llama"] = add_lora(params["llama"], 1, r=2, alpha=4)
+    mask = vsm_trainable_mask(params)
+    opt = make_vsm_optimizer(warmup_steps=0, trainable_mask=mask)
+    rng = np.random.RandomState(0)
+    rows = [VSMRow(image_clip=rng.randn(28, 28, 3).astype("float32"),
+                   image_owl=rng.randn(48, 48, 3).astype("float32"),
+                   source=[{"from": "human",
+                            "value": "<image>\\nPlease locate the cup."},
+                           {"from": "gpt", "value": "Sure, [LOC]."}],
+                   gt_mask=(rng.rand(20, 20) > 0.5).astype("float32"),
+                   mask_valid=True,
+                   tgt_boxes=np.array([[0.5, 0.5, 0.2, 0.3]], "float32"),
+                   bboxes_valid=True)] * 2
+    batch = batch_to_torch(collate_vsm_rows(
+        rows, StubTokenizer(cfg.llama.vocab_size), 3, n_image_tokens=4,
+        seq_bucket=64, t_max=4, mask_res=12), "cpu")
+    state, m = vsm_train_step(init_train_state(params, opt), batch, cfg,
+                              opt, mask, grad_accum=2)
+    assert state.step == 1 and bool(torch.isfinite(m["loss"])), m
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "jaxlib")))
     assert not loaded, loaded

@@ -11,7 +11,7 @@ seed; the tests feed both sides the same weights through core/convert.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Sequence, Union
+from typing import Any, Callable, Dict, Iterator, Sequence, Tuple, Union
 
 import torch
 
@@ -62,3 +62,43 @@ def layer(tree: Params, i: int) -> Params:
     if isinstance(tree, dict):
         return {k: layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def map_with_path(fn: Callable[[str, Any], Any], tree: Params,
+                  prefix: str = "") -> Params:
+    """Map fn(dotted path, leaf) over a tree of dicts, lists and tuples
+    (vstar_tpu map_with_path; the paths name the trainable set)."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, f"{prefix}{k}.")
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_with_path(fn, v, f"{prefix}{i}.")
+                          for i, v in enumerate(tree))
+    return fn(prefix.rstrip("."), tree)
+
+
+def leaves_with_path(tree: Params, prefix: str = ""
+                     ) -> Iterator[Tuple[str, Any]]:
+    """(dotted path, leaf) in JAX's leaf order (dict keys sorted at each
+    level), so sums over leaves add in the order JAX adds them."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves_with_path(tree[k], f"{prefix}{k}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from leaves_with_path(v, f"{prefix}{i}.")
+    else:
+        yield prefix.rstrip("."), tree
+
+
+def replace_leaves(tree: Params, new: Dict[str, Any],
+                   prefix: str = "") -> Params:
+    """A copy of the tree's containers with the leaves at the paths of
+    `new` replaced; every other leaf is the same object."""
+    if isinstance(tree, dict):
+        return {k: replace_leaves(v, new, f"{prefix}{k}.")
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(replace_leaves(v, new, f"{prefix}{i}.")
+                          for i, v in enumerate(tree))
+    return new.get(prefix.rstrip("."), tree)

@@ -82,6 +82,9 @@ __device__ __forceinline__ void load_rows(bf16* __restrict__ dst, int ld,
 //   kv_len:    keys at columns >= kv_len are masked (kv_len <= number of keys)
 //   q_off:     kv coordinate of query row 0 (causal: col <= q_off + row)
 //   kv_valid:  optional per-key byte mask of this batch row, or nullptr
+//   lse:       optional f32 log-sum-exp of each row's scaled logits (row r
+//              at lse + r * lse_rs), -inf where every key is masked; the
+//              flash backward (flash_attention_bwd.cu) reads it
 // A row whose keys are all masked writes zeros.
 template <int D, int BQ, int BK>
 __device__ void attention_tile(const bf16* __restrict__ q, long long q_rs,
@@ -90,7 +93,9 @@ __device__ void attention_tile(const bf16* __restrict__ q, long long q_rs,
                                bf16* __restrict__ o, long long o_rs, int q0,
                                int sq, int kv_len, int q_off,
                                const uint8_t* __restrict__ kv_valid,
-                               bool causal, float scale) {
+                               bool causal, float scale,
+                               float* __restrict__ lse = nullptr,
+                               long long lse_rs = 0) {
   static_assert(D % 16 == 0 && BQ % 16 == 0 && BK % 32 == 0, "tile shape");
   using L = Smem<D, BQ, BK>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -210,6 +215,16 @@ __device__ void attention_tile(const bf16* __restrict__ q, long long q_rs,
     if (q0 + r < sq)
       o[(long long)(q0 + r) * o_rs + c] =
           __float2bfloat16(Os[r * L::LDO + c] / fmaxf(l_s[r], 1e-30f));
+  }
+  if (lse != nullptr) {
+    // m + log(l), as the TPU kernel writes it (flash_attention.py:137-138);
+    // l > 0 means some key was attended, so m is finite
+    for (int r = tid; r < BQ; r += kThreads) {
+      if (q0 + r >= sq) continue;
+      const float l = l_s[r];
+      lse[(long long)(q0 + r) * lse_rs] =
+          l > 0.f ? m_s[r] + logf(l) : -CUDART_INF_F;
+    }
   }
 }
 

@@ -31,7 +31,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _LL, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "vstar_flash_attention_fwd": [_P] * 7 + [_LL] * 17 + [_F, _P],
+    "vstar_flash_attention_fwd": [_P] * 8 + [_LL] * 20 + [_F, _P],
+    "vstar_flash_attention_bwd_dq": [_P] * 12 + [_LL] * 29 + [_F, _P],
+    "vstar_flash_attention_bwd_dkv": [_P] * 12 + [_LL] * 29 + [_F, _P],
     "vstar_tower_attention_fwd": [_P] * 4 + [_LL] * 15 + [_F, _P],
     "vstar_int8_matvec": [_P] * 5 + [_LL] * 6 + [_P],
     "vstar_int4_matmul": [_P] * 5 + [_LL] * 7 + [_P],

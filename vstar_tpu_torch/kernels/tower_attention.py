@@ -9,7 +9,10 @@ S itself. On the H100 it is compute-bound (4*S^2*D*H = 16.3 GFLOP per
 layer per image); its gain is keeping the [S, S] scores on chip.
 
 A CPU tensor takes the plain version `tower_attention_reference`; a
-CUDA tensor launches the kernel or raises.
+CUDA tensor launches the kernel or raises. The kernel has no backward
+(the towers are frozen in training and run under no_grad), so an input
+that requires grad raises under grad mode on either device rather than
+cutting the graph.
 """
 
 from __future__ import annotations
@@ -55,6 +58,10 @@ def tower_attention(q, k, v):
     """Full bidirectional attention, scale D**-0.5. q, k, v: [B, S, H, D]
     -> [B, S, H, D]."""
     global launches
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError("tower_attention has no backward: run the tower "
+                           "under torch.no_grad()")
     if q.device.type == "cpu":
         return tower_attention_reference(q, k, v)
     if not q.is_cuda:

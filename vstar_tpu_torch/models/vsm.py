@@ -30,7 +30,8 @@ from ..nn.projectors import apply_projector, init_projector_params
 from ..nn.sam import (dense_positional_encoding, encode_text_prompt,
                       init_mask_decoder_params, init_prompt_encoder_params,
                       mask_decoder)
-from ..nn.vit import clip_patch_features, init_vit_params, owlvit_feature_map
+from ..nn.vit import (clip_patch_features, init_vit_params,
+                      owlvit_feature_map, vit_forward)
 
 
 def init_vsm_params(seed: int, cfg: VSMConfig, *, device,
@@ -77,6 +78,15 @@ def owl_features(params: Dict, cfg: VSMConfig,
     return owlvit_feature_map(
         params["owl_tower"], cfg.owl_vision, params["owl_merge_ln"],
         _tower_input(params["owl_tower"], images_owl))
+
+
+def owl_tower_states(params: Dict, cfg: VSMConfig,
+                     images_owl: torch.Tensor) -> torch.Tensor:
+    """The OWL tower's post-LN states [B, 1 + 48*48, 768] (the merge
+    layernorm not applied: training keeps it trainable)."""
+    return vit_forward(params["owl_tower"], cfg.owl_vision,
+                       _tower_input(params["owl_tower"], images_owl),
+                       feature_layer=-1, apply_post_ln=True)
 
 
 def _text_fc(p: Dict, x: torch.Tensor) -> torch.Tensor:

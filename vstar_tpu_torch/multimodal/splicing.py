@@ -18,7 +18,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from .constants import IMAGE_TOKEN_INDEX, OBJECT_TOKEN_INDEX
+from .constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX, OBJECT_TOKEN_INDEX
 
 
 @dataclasses.dataclass
@@ -29,6 +29,7 @@ class SpliceLayout:
     feat_idx: np.ndarray      # int32 [S]; bank index at feature positions
     is_feat: np.ndarray       # bool  [S]
     length: int               # valid length
+    labels: Optional[np.ndarray] = None  # int32 [S]; IGNORE at features
 
 
 def bank_slot_size(n_long: int, n_short: int) -> int:
@@ -38,22 +39,25 @@ def bank_slot_size(n_long: int, n_short: int) -> int:
 def build_layout(input_ids: Sequence[int], pad_len: int, *,
                  n_long: int = 256, n_short: int = 32,
                  image_long: bool = True,
-                 objects_long: Optional[Sequence[bool]] = None
-                 ) -> SpliceLayout:
+                 objects_long: Optional[Sequence[bool]] = None,
+                 labels: Optional[Sequence[int]] = None) -> SpliceLayout:
     """Expand sentinel ids into a static gather map: <image> -> n_long
     (image_long) or n_short tokens of slot 0; the i-th <object> -> n_long
-    (objects_long[i]) or n_short tokens of slot 1 + i."""
+    (objects_long[i]) or n_short tokens of slot 1 + i. `labels` (one per
+    input id) are laid out alike, IGNORE_INDEX at feature positions."""
     slot = bank_slot_size(n_long, n_short)
     text_ids = np.zeros(pad_len, np.int32)
     feat_idx = np.zeros(pad_len, np.int32)
     is_feat = np.zeros(pad_len, bool)
+    out_labels = np.full(pad_len, IGNORE_INDEX, np.int32) \
+        if labels is not None else None
 
     def too_long():
         return ValueError(f"sequence bucket {pad_len} too small")
 
     p = 0
     obj_i = 0
-    for tok in input_ids:
+    for j, tok in enumerate(input_ids):
         if tok in (IMAGE_TOKEN_INDEX, OBJECT_TOKEN_INDEX):
             if tok == IMAGE_TOKEN_INDEX:
                 base, long = 0, image_long
@@ -73,9 +77,11 @@ def build_layout(input_ids: Sequence[int], pad_len: int, *,
             if p >= pad_len:
                 raise too_long()
             text_ids[p] = tok
+            if labels is not None:
+                out_labels[p] = labels[j]
             p += 1
     return SpliceLayout(text_ids=text_ids, feat_idx=feat_idx,
-                        is_feat=is_feat, length=p)
+                        is_feat=is_feat, length=p, labels=out_labels)
 
 
 def spliced_length(input_ids: Sequence[int], *, n_long: int = 256,

@@ -5,7 +5,13 @@ package, and the stack is walked by a Python loop. The KV cache is
 ragged (right-padded rows, per-row lengths) and is updated IN PLACE:
 each chunk's keys and values are written at the rows' `q_offsets`, and
 attention reads the layer's cache slice where it lies. Every attention
-call goes through the port's flash_attention (kernel K1 on the card).
+call goes through the port's flash_attention (kernel K1 on the card; in
+training also its backward K7).
+
+Training: LoRA adapters (`layers.attn.lora`, train/lora.py) add their
+delta to q and v before the reshape and rope, as in JAX; `remat`
+recomputes each layer in the backward (torch.utils.checkpoint, the
+JAX package's jax.checkpoint); `kv_valid` masks single keys.
 
 Weight layout: dense weights are (in_dim, out_dim), raw or as the
 quantized entries of nn/quant.py; every matmul goes through `qdot`.
@@ -26,6 +32,7 @@ from .basic import init_rmsnorm, rmsnorm
 from .quant import (qdot, quantize_weight, quantize_weight_int4,
                     resolve_matrix_quant)
 from .rope import apply_rope, rope_angles
+from ..train.lora import lora_delta
 
 
 @dataclasses.dataclass
@@ -119,12 +126,18 @@ def _attention_block(lp: Dict, cfg: LlamaConfig, x: torch.Tensor,
                      kv_lens: torch.Tensor,
                      q_offsets: Optional[torch.Tensor],
                      cache_k: Optional[torch.Tensor],
-                     cache_v: Optional[torch.Tensor]):
+                     cache_v: Optional[torch.Tensor],
+                     kv_valid: Optional[torch.Tensor] = None):
     B, S, _ = x.shape
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = apply_rope(qdot(x, lp["wq"]).reshape(B, S, H, Dh), cos, sin)
+    q = qdot(x, lp["wq"])
+    v = qdot(x, lp["wv"])
+    if "lora" in lp:
+        q = q + lora_delta(lp["lora"], lp["lora_scale"], "wq", x)
+        v = v + lora_delta(lp["lora"], lp["lora_scale"], "wv", x)
+    q = apply_rope(q.reshape(B, S, H, Dh), cos, sin)
     k = apply_rope(qdot(x, lp["wk"]).reshape(B, S, Hkv, Dh), cos, sin)
-    v = qdot(x, lp["wv"]).reshape(B, S, Hkv, Dh)
+    v = v.reshape(B, S, Hkv, Dh)
 
     if cache_k is not None:
         offs = q_offsets if q_offsets is not None else \
@@ -141,7 +154,7 @@ def _attention_block(lp: Dict, cfg: LlamaConfig, x: torch.Tensor,
         v_all = v_all.repeat_interleave(rep, dim=2)
 
     out = flash_attention(q, k_all, v_all, kv_lens=kv_lens,
-                          q_offsets=q_offsets)
+                          q_offsets=q_offsets, kv_valid=kv_valid)
     return qdot(out.reshape(B, S, H * Dh), lp["wo"])
 
 
@@ -153,7 +166,8 @@ def _mlp_block(lp: Dict, x: torch.Tensor) -> torch.Tensor:
 def llama_forward(params: Dict, cfg: LlamaConfig, hidden: torch.Tensor,
                   positions: torch.Tensor, kv_lens: torch.Tensor,
                   q_offsets: Optional[torch.Tensor] = None,
-                  cache: Optional[KVCache] = None
+                  cache: Optional[KVCache] = None, remat: bool = False,
+                  kv_valid: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the decoder stack over input embeddings.
 
@@ -163,22 +177,33 @@ def llama_forward(params: Dict, cfg: LlamaConfig, hidden: torch.Tensor,
     q_offsets: [B] kv coordinate of the chunk start (None = 0)
     cache:     optional KVCache, written in place at q_offsets; attention
                then runs over the whole cache.
+    remat:     under grad, keep only each layer's input and recompute
+               the layer in the backward
+    kv_valid:  optional bool [B, S_kv] per-key mask (invalid [LOC] keys)
 
     Returns (hidden [B,S,D] after the final norm, cache with length
     kv_lens sharing the input cache's storage, or None)."""
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+
+    def one_layer(x, lp, ck, cv):
+        h = rmsnorm(lp["input_norm"], x, cfg.rms_norm_eps)
+        x = x + _attention_block(lp["attn"], cfg, h, cos, sin, kv_lens,
+                                 q_offsets, ck, cv, kv_valid)
+        h = rmsnorm(lp["post_norm"], x, cfg.rms_norm_eps)
+        return x + _mlp_block(lp["mlp"], h)
+
     x = hidden
     for i in range(cfg.num_layers):
         lp = layer(params["layers"], i)
         ck = cv = None
         if cache is not None:
             ck, cv = cache.k[i], cache.v[i]
-        h = rmsnorm(lp["input_norm"], x, cfg.rms_norm_eps)
-        x = x + _attention_block(lp["attn"], cfg, h, cos, sin, kv_lens,
-                                 q_offsets, ck, cv)
-        h = rmsnorm(lp["post_norm"], x, cfg.rms_norm_eps)
-        x = x + _mlp_block(lp["mlp"], h)
+        if remat and torch.is_grad_enabled():
+            x = torch.utils.checkpoint.checkpoint(one_layer, x, lp, ck, cv,
+                                                  use_reentrant=False)
+        else:
+            x = one_layer(x, lp, ck, cv)
     new_cache = None
     if cache is not None:
         new_cache = KVCache(k=cache.k, v=cache.v,

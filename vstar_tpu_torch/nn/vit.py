@@ -128,6 +128,14 @@ def owlvit_feature_map(params: Dict, cfg: ViTConfig, merge_ln: Dict,
     times the CLS state, one more layernorm."""
     feats = vit_forward(params, cfg, pixel_values, feature_layer=-1,
                         apply_post_ln=True)
+    return owl_merge(merge_ln, cfg, feats)
+
+
+def owl_merge(merge_ln: Dict, cfg: ViTConfig,
+              feats: torch.Tensor) -> torch.Tensor:
+    """The OWL tower's post-LN states [B, 1 + grid^2, D] -> the merged-CLS
+    map [B, grid, grid, D] (patches times CLS, then `merge_ln`); training
+    keeps this layernorm trainable behind a frozen tower."""
     patches = layernorm(merge_ln, feats[:, 1:] * feats[:, :1],
                         cfg.layer_norm_eps)
     g = cfg.grid_size

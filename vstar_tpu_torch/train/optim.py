@@ -1,0 +1,151 @@
+"""The optax pieces the VSM trainer uses, with optax's semantics, over
+flat parameter dicts ({dotted path: tensor}, core/params.leaves_with_path).
+
+The JAX package builds its optimizer from optax (vstar_tpu/train/
+vsm_train.py:45-67): clip_by_global_norm, then adamw on the trainable
+leaves only (optax.masked), optionally over f32 masters (train/master.py).
+What optax does, and torch.optim does not, is kept exactly:
+  * the clip scales by max_norm / norm only when norm >= max_norm, with no
+    epsilon (torch's clip_grad_norm_ adds 1e-6);
+  * the schedule is evaluated at the step count BEFORE its increment, so a
+    warmup starts at learning rate 0;
+  * Adam's eps sits outside the square root (eps_root 0), bias corrections
+    divide in the moment's dtype, moments start in the parameter's dtype
+    and follow JAX's type promotion; the VSM's weight decay is 0, so
+    adamw's decayed-weights term (u + 0 * p) is left out;
+  * a leaf outside the mask gets no state and its (zero) gradient passes
+    through.
+A transformation is (init(params) -> state, update(grads, state, params)
+-> (updates, state)), as in optax; states are dicts, lists and ints, so a
+checkpoint stores them with torch.save.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+Flat = Dict[str, torch.Tensor]
+
+
+class Transformation(NamedTuple):
+    init: Callable
+    update: Callable
+
+
+def apply_updates(params: Flat, updates: Flat) -> Flat:
+    """p + u in p's dtype, for every path of `updates`."""
+    return {p: (params[p] + u).to(params[p].dtype) for p, u in updates.items()}
+
+
+def global_norm(tree: Flat) -> torch.Tensor:
+    """sqrt(sum of squares), leaves added in the dict's order (JAX's leaf
+    order when the dict comes from leaves_with_path)."""
+    return torch.sqrt(sum((x * x).sum() for x in tree.values()))
+
+
+def chain(*transforms: Transformation) -> Transformation:
+    def init(params):
+        return [t.init(params) for t in transforms]
+
+    def update(updates, state, params=None):
+        new_state = []
+        for t, s in zip(transforms, state):
+            updates, s = t.update(updates, s, params)
+            new_state.append(s)
+        return updates, new_state
+
+    return Transformation(init, update)
+
+
+def clip_by_global_norm(max_norm: float) -> Transformation:
+    def update(updates, state, params=None):
+        g_norm = global_norm(updates)
+        trigger = g_norm < max_norm
+        return {p: torch.where(trigger, t, (t / g_norm.to(t.dtype)) * max_norm)
+                for p, t in updates.items()}, state
+
+    return Transformation(lambda params: {}, update)
+
+
+def linear_schedule(init_value: float, end_value: float,
+                    transition_steps: int) -> Callable[[int], np.float32]:
+    """optax.linear_schedule in float32 (constant when transition_steps
+    <= 0)."""
+    if transition_steps <= 0:
+        return lambda count: np.float32(init_value)
+
+    def schedule(count):
+        c = np.float32(min(max(count, 0), transition_steps))
+        frac = np.float32(1) - c / np.float32(transition_steps)
+        return np.float32(init_value - end_value) * frac + np.float32(end_value)
+    return schedule
+
+
+def join_schedules(schedules: Sequence[Callable], boundaries: Sequence[int]
+                   ) -> Callable[[int], np.float32]:
+    def schedule(step):
+        out = schedules[0](step)
+        for boundary, s in zip(boundaries, schedules[1:]):
+            out = out if step < boundary else s(step - boundary)
+        return out
+    return schedule
+
+
+def scale_by_adam(b1: float, b2: float, eps: float = 1e-8) -> Transformation:
+    def init(params):
+        return {"count": 0,
+                "mu": {p: torch.zeros_like(x) for p, x in params.items()},
+                "nu": {p: torch.zeros_like(x) for p, x in params.items()}}
+
+    def update(updates, state, params=None):
+        mu = {p: (1 - b1) * g + b1 * state["mu"][p] for p, g in updates.items()}
+        nu = {p: (1 - b2) * (g * g) + b2 * state["nu"][p]
+              for p, g in updates.items()}
+        count = state["count"] + 1
+        bc1 = 1 - torch.tensor(b1, dtype=torch.float32) ** count
+        bc2 = 1 - torch.tensor(b2, dtype=torch.float32) ** count
+        out = {}
+        for p, m in mu.items():
+            m_hat = m / bc1.to(m.dtype).to(m.device)
+            v = nu[p]
+            v_hat = v / bc2.to(v.dtype).to(v.device)
+            out[p] = m_hat / (torch.sqrt(v_hat) + eps)
+        return out, {"count": count, "mu": mu, "nu": nu}
+
+    return Transformation(init, update)
+
+
+def scale_by_schedule(step_size_fn: Callable[[int], np.float32]
+                      ) -> Transformation:
+    def update(updates, state, params=None):
+        step = float(step_size_fn(state["count"]))
+        return {p: step * g for p, g in updates.items()}, \
+            {"count": state["count"] + 1}
+
+    return Transformation(lambda params: {"count": 0}, update)
+
+
+def adamw(schedule: Callable[[int], np.float32], b1: float, b2: float,
+          eps: float = 1e-8) -> Transformation:
+    """optax.adamw with a schedule and weight decay 0: adam, then
+    -lr(count)."""
+    return chain(scale_by_adam(b1, b2, eps),
+                 scale_by_schedule(lambda count: -schedule(count)))
+
+
+def masked(inner: Transformation, mask: Dict[str, bool]) -> Transformation:
+    """inner on the paths whose mask is True; the others pass through."""
+    def init(params):
+        return inner.init({p: x for p, x in params.items() if mask[p]})
+
+    def update(updates, state, params=None):
+        sub = {p: u for p, u in updates.items() if mask[p]}
+        sub_params = None if params is None else \
+            {p: params[p] for p in sub}
+        new, state = inner.update(sub, state, sub_params)
+        return {p: new.get(p, u) for p, u in updates.items()}, state
+
+    return Transformation(init, update)

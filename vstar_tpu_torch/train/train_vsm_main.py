@@ -1,0 +1,257 @@
+"""VSM training procedure (port of vstar_tpu/train/train_vsm_main.py, the
+counterpart of VisualSearch/train.py) on one device.
+
+`run_vsm_training` is the whole procedure after model construction:
+optimizer with the trainable-set mask, auto-resume (the rolling 'latest'
+checkpoint first, then the best one), prefetched epochs of the hybrid
+dataset, validation-gated checkpoints (train.py:389-411). It runs where
+the parameters live; batches move there. The JAX package's mesh and
+memory plan come with the mesh slice, so `--mesh` is accepted only when
+it names one device. Building the model from an HF checkpoint (`main`
+in the JAX package) comes with the HF import slice. TensorBoard scalars
+are left out; metrics.jsonl keeps them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+from ..core.checkpoint import load_params, save_params
+from ..core.params import leaves_with_path
+from ..data.prefetch import prefetch
+from ..data.vsm_collate import batch_to_torch, collate_vsm_rows
+from ..utils.metrics import AverageMeter, ProgressMeter, StepTimer
+from .lora import vsm_trainable_mask
+from .vsm_train import (VSMLossWeights, VSMTrainState, init_train_state,
+                        make_vsm_optimizer, vsm_train_step, vsm_val_forward)
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser("vstar_tpu_torch VSM training")
+    p.add_argument("--version", default="craigwu/seal_vsm_7b")
+    p.add_argument("--dataset_dir", default="./dataset")
+    p.add_argument("--log_base_dir", default="./runs")
+    p.add_argument("--exp_name", default="vsm")
+    p.add_argument("--epochs", default=40, type=int)
+    p.add_argument("--steps_per_epoch", default=2500, type=int)
+    p.add_argument("--batch_size", default=4, type=int,
+                   help="conversation rows per device per step")
+    p.add_argument("--grad_accumulation_steps", default=2, type=int)
+    p.add_argument("--lr", default=1e-4, type=float)
+    p.add_argument("--ce_loss_weight", default=1.0, type=float)
+    p.add_argument("--dice_loss_weight", default=0.5, type=float)
+    p.add_argument("--bce_loss_weight", default=2.0, type=float)
+    p.add_argument("--det_loss_weight", default=0.1, type=float)
+    p.add_argument("--lora_r", default=8, type=int)
+    p.add_argument("--lora_alpha", default=16, type=int)
+    p.add_argument("--warmup_steps", default=100, type=int)
+    p.add_argument("--seq_bucket", default=512, type=int)
+    p.add_argument("--prefetch_depth", default=2, type=int,
+                   help="batches decoded+collated ahead of the device "
+                        "(DataLoader workers/prefetch equivalent)")
+    p.add_argument("--mask_res", default=768, type=int,
+                   help="fixed mask-loss resolution (gt resized on host, "
+                        "pred upsampled)")
+    p.add_argument("--mesh", default=None,
+                   help="DxFxM mesh shape; one device only: None or 1x1x1")
+    p.add_argument("--param_dtype", choices=["bf16", "f32"], default="bf16",
+                   help="parameter storage dtype; bf16 + f32 masters in the"
+                   " optimizer is the DeepSpeed-bf16-mode equivalent")
+    p.add_argument("--auto_resume", action="store_true", default=True)
+    p.add_argument("--save_steps", default=500, type=int,
+                   help="rolling 'latest' TrainState checkpoint every N "
+                        "steps (0 disables)")
+    p.add_argument("--no_eval", action="store_true", default=False)
+    p.add_argument("--dataset", default="general_segdet||refer_seg||"
+                   "mixed_grounding||vqa")
+    p.add_argument("--sample_rates", default="15,4,4,15")
+    return p.parse_args(argv)
+
+
+def _check_one_device(mesh) -> None:
+    if mesh is not None and any(int(d) != 1 for d in str(mesh).split("x")):
+        raise ValueError(f"--mesh {mesh}: the port trains on one device "
+                         "(the mesh slice is not ported)")
+
+
+def build_datasets(args, tokenizer, clip_size: int = 224,
+                   owl_size: int = 768):
+    from ..data.vsm_datasets import (HybridDataset, MixedGroundingDataset,
+                                     ReferSegDataset, SegDetDataset,
+                                     VQADataset)
+    names = args.dataset.split("||")
+    rates = [float(r) for r in args.sample_rates.split(",")]
+    children = []
+    kept_rates = []
+    ctor = {"general_segdet": SegDetDataset, "refer_seg": ReferSegDataset,
+            "mixed_grounding": MixedGroundingDataset, "vqa": VQADataset}
+    for i, (name, rate) in enumerate(zip(names, rates)):
+        try:
+            children.append(ctor[name](args.dataset_dir,
+                                       clip_size=clip_size,
+                                       owl_size=owl_size, seed=i))
+            kept_rates.append(rate)
+        except FileNotFoundError as e:
+            print(f"[data] skipping {name}: {e}")
+    if not children:
+        raise FileNotFoundError("no datasets available under "
+                                f"{args.dataset_dir}")
+    return HybridDataset(children, kept_rates,
+                         samples_per_epoch=args.steps_per_epoch
+                         * args.batch_size * args.grad_accumulation_steps,
+                         seed=len(names))
+
+
+def _load_state(path: str, device) -> VSMTrainState:
+    return VSMTrainState(*load_params(path, device))
+
+
+def _read_json(path: str):
+    with open(path) as f:
+        return json.load(f)
+
+
+def _write_json(obj, path: str, mode: str = "w"):
+    with open(path, mode) as f:
+        f.write(json.dumps(obj) + ("\n" if mode == "a" else ""))
+
+
+def run_vsm_training(args, cfg, params, tokenizer, loc_token_id):
+    """The whole VSM training procedure after model construction; returns
+    the final VSMTrainState."""
+    log_dir = os.path.join(args.log_base_dir, args.exp_name)
+    os.makedirs(log_dir, exist_ok=True)
+    _check_one_device(args.mesh)
+    device = next(x.device for _, x in leaves_with_path(params))
+    mask = vsm_trainable_mask(params)
+    total_steps = args.epochs * args.steps_per_epoch
+    opt = make_vsm_optimizer(args.lr, args.warmup_steps, total_steps,
+                             trainable_mask=mask,
+                             master_f32=args.param_dtype == "bf16")
+    state = init_train_state(params, opt)
+
+    ckpt_dir = os.path.join(log_dir, "ckpt_model")
+    latest_dir = os.path.join(log_dir, "ckpt_latest")
+    start_epoch = 0
+    start_step = 0
+    resumed_best = None
+    if args.auto_resume:
+        # prefer the rolling step-granular 'latest' over the epoch-gated
+        # best checkpoint: a crash mid-epoch loses <= save_steps steps
+        if os.path.exists(os.path.join(latest_dir, "meta.json")):
+            meta = _read_json(os.path.join(latest_dir, "meta.json"))
+            state = _load_state(os.path.join(latest_dir, "state"), device)
+            start_epoch = meta["epoch"]
+            start_step = meta["step"] + 1
+            if start_step >= args.steps_per_epoch:
+                start_epoch, start_step = start_epoch + 1, 0
+            resumed_best = meta.get("best_det_acc")
+            print(f"[resume] from epoch {meta['epoch']} "
+                  f"step {meta['step']} (latest)")
+        elif os.path.exists(os.path.join(ckpt_dir, "meta.json")):
+            meta = _read_json(os.path.join(ckpt_dir, "meta.json"))
+            state = _load_state(os.path.join(ckpt_dir, "state"), device)
+            start_epoch = meta["epoch"] + 1
+            resumed_best = meta.get("best_det_acc", meta.get("det_acc"))
+            print(f"[resume] from epoch {meta['epoch']}")
+
+    weights = VSMLossWeights(ce=args.ce_loss_weight,
+                             dice=args.dice_loss_weight,
+                             bce=args.bce_loss_weight,
+                             det=args.det_loss_weight)
+    hybrid = build_datasets(args, tokenizer,
+                            clip_size=cfg.vision.image_size,
+                            owl_size=cfg.owl_vision.image_size)
+    meters = {k: AverageMeter(k, ":.4f") for k in
+              ("loss", "ce_loss", "mask_bce_loss", "mask_dice_loss",
+               "detection_loss")}
+    timer = StepTimer()
+    metrics_log = os.path.join(log_dir, "metrics.jsonl")
+
+    best_det_acc = -1.0 if resumed_best is None else resumed_best
+    for epoch in range(start_epoch, args.epochs):
+        epoch_start_step = start_step if epoch == start_epoch else 0
+        gen = hybrid.batches(args.batch_size * args.grad_accumulation_steps,
+                             skip_batches=epoch_start_step, epoch=epoch)
+
+        def _produce(g=gen):
+            # sampling is seeded and stateful, so it stays serial; the
+            # whole decode+collate pipeline runs off the step thread
+            for rows in g:
+                yield collate_vsm_rows(
+                    rows, tokenizer, loc_token_id,
+                    n_image_tokens=cfg.image_tokens,
+                    seq_bucket=args.seq_bucket, mask_res=args.mask_res)
+
+        loader = prefetch(_produce(), depth=args.prefetch_depth)
+        progress = ProgressMeter(args.steps_per_epoch, list(meters.values()),
+                                 prefix=f"epoch {epoch} ")
+        try:
+            for step_i in range(epoch_start_step, args.steps_per_epoch):
+                batch = batch_to_torch(next(loader), device)
+                timer.data_loaded()
+                state, m = vsm_train_step(
+                    state, batch, cfg, opt, mask, weights,
+                    grad_accum=args.grad_accumulation_steps)
+                timer.step_done()
+                for k in meters:
+                    meters[k].update(float(m[k]))
+                if args.save_steps and (step_i + 1) % args.save_steps == 0 \
+                        and step_i + 1 < args.steps_per_epoch:
+                    _save_latest(latest_dir, state, epoch, step_i,
+                                 best_det_acc)
+                if step_i % 50 == 0:
+                    progress.display(step_i)
+                    _write_json({"epoch": epoch, "step": step_i,
+                                 **{k: v.avg for k, v in meters.items()},
+                                 "secs_per_batch": timer.batch_time.avg},
+                                metrics_log, "a")
+        finally:
+            loader.close()
+
+        # checkpoint (best-det-acc gating when a val set exists)
+        det_acc = None
+        if not args.no_eval:
+            try:
+                from ..data.val_dataset import ValDataset
+                from .validate import validate
+                val_ds = ValDataset(args.dataset_dir,
+                                    clip_size=cfg.vision.image_size,
+                                    owl_size=cfg.owl_vision.image_size)
+                metrics_val = validate(
+                    state.params, cfg,
+                    val_ds.batches(tokenizer, loc_token_id,
+                                   batch_size=args.batch_size,
+                                   n_image_tokens=cfg.image_tokens,
+                                   seq_bucket=args.seq_bucket),
+                    lambda p, b: vsm_val_forward(
+                        p, cfg, batch_to_torch(b, device)))
+                det_acc = metrics_val["det_acc"]
+                print(f"[val] epoch {epoch}: {metrics_val}", flush=True)
+            except FileNotFoundError:
+                det_acc = None
+        save = True if det_acc is None else det_acc > best_det_acc
+        if save:
+            if det_acc is not None:
+                best_det_acc = det_acc
+            os.makedirs(ckpt_dir, exist_ok=True)
+            save_params(tuple(state), os.path.join(ckpt_dir, "state"))
+            _write_json({"epoch": epoch, "det_acc": det_acc,
+                         "best_det_acc": best_det_acc},
+                        os.path.join(ckpt_dir, "meta.json"))
+        if args.save_steps:
+            # epoch-end rolling save regardless of best-gating, so a crash
+            # early next epoch never replays this epoch's tail
+            _save_latest(latest_dir, state, epoch, args.steps_per_epoch - 1,
+                         best_det_acc)
+    return state
+
+
+def _save_latest(latest_dir: str, state, epoch: int, step: int,
+                 best_det_acc: float):
+    os.makedirs(latest_dir, exist_ok=True)
+    save_params(tuple(state), os.path.join(latest_dir, "state"))
+    _write_json({"epoch": epoch, "step": step, "best_det_acc": best_det_acc},
+                os.path.join(latest_dir, "meta.json"))
