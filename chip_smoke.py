@@ -22,11 +22,23 @@ Runs on one CUDA card, in phases; any failure exits non-zero:
      one forced-search sample, and one more with the act-int8 switch on;
   6. after each path, every kernel it runs launched, and no plain version
      ran on a CUDA tensor;
-  7. K1 with its log-sum-exp and the K7 backward at the training shape
+  7. P1-P4, the int4 profile's kernels, against their plain versions at
+     the 7B shapes: P1 (the lo-nibble unpack probe, both candidates,
+     exact) on the packed w_gate [2048, 11008]; P2 (every lo-nibble
+     unpack) and P4 (transposed storage) at R in {1, 8} on 4096x11008 and
+     the 4096x32000 lm_head, P2 also at 512 columns per block on
+     11008x4096; P3 (row blocks) at R=1 on 11008x4096; timed as in 3,
+     with the bound of the JAX CostEstimate's bytes;
+  8. K1 with its log-sum-exp and the K7 backward at the training shape
      [4, 512, 32, 128] (ragged kv_lens, key holes, a row that sees no key)
      against their plain versions, timed as above (K7's library yardstick
      is SDPA's backward, by events);
-  8. the training path: the random-init seal_vsm_7b in bf16 with LoRA
+  9. the int4 profile path (vstar_tpu_torch.scripts.int4_profile, in
+     process): --probe, a short --matmul (W4A8 off, rows and transposed at
+     every 7B shape) and the full-7B --decode ablation (eight rows, ms per
+     token by CUDA graph and by events), with exact launches per token
+     for each row's route;
+  10. the training path: the random-init seal_vsm_7b in bf16 with LoRA
      r=8, three vsm_train_steps of 8 rows (2 micro-batches of 4, 512-token
      bucket, 768 masks), with exact K1 / K7 / K2 launch counts per step,
      frozen leaves bit-identical and trainable ones moved; then
@@ -47,7 +59,6 @@ import io
 import json
 import math
 import os
-import subprocess
 import sys
 import tempfile
 import threading
@@ -57,6 +68,8 @@ import urllib.request
 
 import numpy as np
 import torch
+
+from vstar_tpu_torch.utils.timing import card_line, events_ms, graph_ms
 
 TOL = 2e-2          # bf16 attention vs plain version (tests/test_vision.py:288)
 LSE_TOL = 1e-3      # K1's log-sum-exp (f32) against the plain version
@@ -81,55 +94,6 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median time of one call of fn, from CUDA events around the call
-    (host launch gaps included)."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-def graph_ms(calls, reps: int = 7) -> float:
-    """Device time of one call: the closures `calls` (each on its own
-    weight copy, so the weights come from HBM as on the path) are
-    captured into one CUDA graph; the median replay time over reps,
-    divided by len(calls)."""
-    for c in calls:
-        c()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for c in calls:
-            c()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-        for c in calls:
-            c()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / len(calls))
-    del graph
-    return float(np.median(times))
-
-
 def bound(nbytes: float, ops: float, kind: str):
     """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
     operations over the peak rate of their type."""
@@ -144,10 +108,7 @@ def bound(nbytes: float, ops: float, kind: str):
 # ---------------------------------------------------------------------------
 
 def phase_device() -> str:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card_line()
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} "
@@ -259,11 +220,11 @@ def _measure(name, kernel, plain, args, rotate, nbytes, ops, kind, tol,
     if library is not None:
         calls = [library(a) for a in variants]
         library_ms = graph_ms(calls)
-        library_events = cuda_ms(calls[0])
+        library_events = events_ms(calls[0])
         del calls
     del variants
-    ms_events = cuda_ms(lambda: kernel(**args))
-    plain_ms = cuda_ms(lambda: plain(**args))
+    ms_events = events_ms(lambda: kernel(**args))
+    plain_ms = events_ms(lambda: plain(**args))
     bound_ms, bound_by = bound(nbytes, ops, kind)
     ok = finite and err <= tol
     lib = "none" if library_ms is None else \
@@ -330,7 +291,8 @@ def phase_k2(dev):
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     res = []
     for case, shape in (("owl_768", (1, 2305, 12, 64)),
-                        ("s600", (2, 600, 12, 64))):
+                        ("s600", (2, 600, 12, 64)),
+                        ("owl_768_b4", (4, 2305, 12, 64))):   # training
         q, k, v = (torch.randn(*shape, generator=gen, device=dev)
                    .to(torch.bfloat16) for _ in range(3))
         B, S, H, D = shape
@@ -383,14 +345,14 @@ def _w8a8_note(x, e, k8):
     from vstar_tpu_torch.nn.quant import _w8a8_dot
     rows, IN = x.shape
     OUT = e["q"].shape[1]
-    w8a8 = cuda_ms(lambda: _w8a8_dot(x, e))
-    kernel = cuda_ms(lambda: k8.int8_matmul(x, e["q"], e["s"]))
+    w8a8 = events_ms(lambda: _w8a8_dot(x, e))
+    kernel = events_ms(lambda: k8.int8_matmul(x, e["q"], e["s"]))
     msg = (f"[w8a8 R={rows} {IN}x{OUT}] _w8a8_dot {w8a8:.4f} ms, int8 "
            f"kernel {kernel:.4f} ms (events)")
     if OUT % 8:
         xq = torch.randint(-127, 128, (rows, IN), device=x.device,
                            dtype=torch.int32).to(torch.int8)
-        f64 = cuda_ms(lambda: (xq.double() @ e["q"].double())
+        f64 = events_ms(lambda: (xq.double() @ e["q"].double())
                       .to(torch.int32))
         msg += f"; its f64 integer product {f64:.4f} ms"
     log(msg)
@@ -422,18 +384,6 @@ def _int8pack_library(x, q, s, k8):
     return build
 
 
-def _int4pack(q4, s4, k4, even_high):
-    """q4, s4 -> tinygemm's packed weight, its bf16 (scale, zero) pairs
-    and the group size."""
-    u = (k4.unpack_int4(q4).to(torch.int32) + 8).t().contiguous()
-    even, odd = u[:, 0::2], u[:, 1::2]
-    packed = ((even << 4) | odd) if even_high else (even | (odd << 4))
-    w = torch._convert_weight_to_int4pack(packed.to(torch.uint8)
-                                          .contiguous(), 8)
-    sz = torch.stack([s4, torch.zeros_like(s4)], -1).to(torch.bfloat16)
-    return w, sz.contiguous(), 2 * q4.shape[0] // s4.shape[0]
-
-
 def _int4pack_library(x, q4, s4, k4):
     """torch._weight_int4pack_mm (tinygemm's int4 kernel) computes K5's
     function: it dequantizes (u - 8) * scale + zero per group, so the
@@ -445,11 +395,12 @@ def _int4pack_library(x, q4, s4, k4):
     is found by agreement."""
     if q4.shape[1] % 8:
         return None
+    from vstar_tpu_torch.scripts.int4_profile import tinygemm_pack
     want = k4.int4_matmul_reference(x, q4, s4)
     for even_high in (True, False):
         order = "even input high" if even_high else "even input low"
         try:
-            w, sz, group = _int4pack(q4, s4, k4, even_high)
+            w, sz, group = tinygemm_pack(q4, s4, even_high)
             got = torch._weight_int4pack_mm(x, w, group, sz)
             torch.cuda.synchronize()
         except (RuntimeError, NotImplementedError, AttributeError) as exc:
@@ -462,7 +413,7 @@ def _int4pack_library(x, q4, s4, k4):
                 f"{err:.3e} of the largest |output|")
 
             def build(a, even_high=even_high):
-                w, sz, group = _int4pack(a["q4"], a["s4"], k4, even_high)
+                w, sz, group = tinygemm_pack(a["q4"], a["s4"], even_high)
                 return lambda: torch._weight_int4pack_mm(a["x"], w, group,
                                                          sz)
             return build
@@ -522,6 +473,84 @@ def phase_int4(dev):
     return k5, k6
 
 
+def _w4a8_bytes(R, IN, OUT, NG):
+    """Bytes of a W4A8 product (the JAX CostEstimate, int4_profile.py
+    :310-311): packed weights, scales, int8 activations, f32 output."""
+    return IN // 2 * OUT + 4 * NG * OUT + R * (IN + 4 * OUT)
+
+
+def phase_p(dev):
+    """P1-P4 against their plain versions at the 7B shapes: P1 both
+    candidates on w_gate (exact; library: one uint8 shift), P2 every
+    unpack at 256 columns and P4 at R in {1, 8} on 4096x11008 and
+    4096x32000, P2 at 512 columns on 11008x4096 (32000 and 11008 are no
+    multiples of 512), P3 at R=1 on 11008x4096 (its default blocks)."""
+    from vstar_tpu_torch.kernels import int4_matmul as k4
+    from vstar_tpu_torch.kernels import int4_variants as kv
+    from vstar_tpu_torch.nn.quant import quantize_weight_int4
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    q = torch.randint(0, 256, (2048, 11008), generator=gen, device=dev,
+                      dtype=torch.int32).to(torch.uint8)
+    shift = torch.bitwise_left_shift(q, 4).view(torch.int8)
+    if not torch.equal(shift, kv.want_lo(q)):
+        raise AssertionError("P1 library yardstick disagrees")
+    res = {n: [] for n in kv.NAMES}
+    for how in kv.PROBES:
+        _, rec = _measure(
+            f"P1 {how} w_gate [2048,11008]",
+            lambda q, how=how: kv.unpack_probe(q, how),
+            lambda q, how=how: kv.unpack_probe_reference(q, how), dict(q=q),
+            ("q",), 2 * q.numel(), 0, "int8", 0.0, _abs_err,
+            lambda a: (lambda: torch.bitwise_left_shift(a["q"], 4)))
+        res["unpack_probe"].append({"case": f"{how}_w_gate", **rec})
+    weights = {}
+
+    def case(R, IN, OUT):
+        if (IN, OUT) not in weights:
+            weights[(IN, OUT)] = quantize_weight_int4(
+                _rand(gen, dev, IN, OUT, scale=IN ** -0.5))
+        e = weights[(IN, OUT)]
+        xq, _ = k4.quantize_activations(_rand(gen, dev, R, IN))
+        NG = e["s4"].shape[0]
+        return (e, xq, _w4a8_bytes(R, IN, OUT, NG), 2 * R * IN * OUT)
+
+    def variant(unpack, block_o):
+        return (lambda xq, q4, s4: kv.w4a8_variant(xq, q4, s4, unpack,
+                                                   block_o),
+                lambda xq, q4, s4: kv.w4a8_variant_reference(
+                    xq, q4, s4, unpack, block_o))
+
+    for R, IN, OUT in ((1, 4096, 11008), (8, 4096, 11008), (1, 4096, 32000),
+                       (8, 4096, 32000)):
+        e, xq, nbytes, ops = case(R, IN, OUT)
+        for unpack in kv.UNPACKS:
+            _, rec = _measure(f"P2 {unpack} R={R} {IN}x{OUT}",
+                              *variant(unpack, 256),
+                              dict(xq=xq, q4=e["q4"], s4=e["s4"]),
+                              ("q4", "s4"), nbytes, ops, "int8", F32_REL_TOL,
+                              _rel_err)
+            res["w4a8_variant"].append(
+                {"case": f"{unpack}_R{R}_{IN}x{OUT}", **rec})
+        _, rec = _measure(f"P4 R={R} {IN}x{OUT}", kv.w4a8_t,
+                          kv.w4a8_t_reference,
+                          dict(xq=xq, q4t=e["q4"].t().contiguous(),
+                               s4t=e["s4"].t().contiguous()),
+                          ("q4t", "s4t"), nbytes, ops, "int8", F32_REL_TOL,
+                          _rel_err)
+        res["w4a8_t"].append({"case": f"R{R}_{IN}x{OUT}", **rec})
+    e, xq, nbytes, ops = case(1, 11008, 4096)
+    args = dict(xq=xq, q4=e["q4"], s4=e["s4"])
+    _, rec = _measure("P2 ship block_o=512 R=1 11008x4096",
+                      *variant("ship", 512), args, ("q4", "s4"), nbytes, ops,
+                      "int8", F32_REL_TOL, _rel_err)
+    res["w4a8_variant"].append({"case": "ship_bo512_R1_11008x4096", **rec})
+    _, rec = _measure("P3 R=1 11008x4096", kv.w4a8_rows,
+                      kv.w4a8_rows_reference, args, ("q4", "s4"), nbytes,
+                      ops, "int8", F32_REL_TOL, _rel_err)
+    res["w4a8_rows"].append({"case": "R1_11008x4096", **rec})
+    return res
+
+
 def phase_k7(dev):
     """K1 with its log-sum-exp and the K7 backward at the training shape
     [4, 512, 32, 128] bf16: row 1 ragged at 300 keys, ~10 % of keys
@@ -574,13 +603,13 @@ def phase_k7(dev):
     # K1 with lse: q, k, v read, out and lse written
     fwd_ms = graph_ms([lambda a=a: fa.flash_attention_lse(
         a["q"], a["k"], a["v"], **masks) for a in copies])
-    fwd_events = cuda_ms(lambda: fa.flash_attention_lse(q, k, v, **masks))
-    fwd_plain = cuda_ms(lambda: fa.mha_forward_lse(q, k, v, **masks))
+    fwd_events = events_ms(lambda: fa.flash_attention_lse(q, k, v, **masks))
+    fwd_plain = events_ms(lambda: fa.mha_forward_lse(q, k, v, **masks))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa_fwd = graph_ms([lambda a=a: F.scaled_dot_product_attention(
         a["q"].transpose(1, 2), a["k"].transpose(1, 2),
         a["v"].transpose(1, 2), attn_mask=mask) for a in copies])
-    sdpa_fwd_events = cuda_ms(lambda: F.scaled_dot_product_attention(
+    sdpa_fwd_events = events_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask))
     fwd_bound, fwd_by = bound(2 * 4 * elem + 4 * B * S * H, 4 * pairs * D,
                               "bf16")
@@ -588,14 +617,14 @@ def phase_k7(dev):
     bwd_ms = graph_ms([lambda a=a: fa.flash_attention_bwd(
         a["q"], a["k"], a["v"], a["do"], lse, delta, **masks)
         for a in copies])
-    bwd_events = cuda_ms(lambda: fa.flash_attention_bwd(
+    bwd_events = events_ms(lambda: fa.flash_attention_bwd(
         q, k, v, do, lse, delta, **masks))
-    bwd_plain = cuda_ms(lambda: fa.mha_backward(q, k, v, do, ref_lse, delta,
+    bwd_plain = events_ms(lambda: fa.mha_backward(q, k, v, do, ref_lse, delta,
                                                 **masks), iters=5)
     leaves = [x.detach().clone().requires_grad_() for x in (qt, kt, vt)]
     sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
     do_t = do.transpose(1, 2)
-    sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
+    sdpa_bwd = events_ms(lambda: torch.autograd.grad(
         sdpa_out, leaves, do_t, retain_graph=True))
     del sdpa_out, leaves, copies
     bwd_bound, bwd_by = bound(2 * 7 * elem + 2 * 4 * B * S * H,
@@ -715,10 +744,12 @@ class CountingVSM:
 def _counter_modules():
     from vstar_tpu_torch.kernels import flash_attention as fa
     from vstar_tpu_torch.kernels import int4_matmul as k4
+    from vstar_tpu_torch.kernels import int4_variants as kv
     from vstar_tpu_torch.kernels import int8_matmul as k8
     from vstar_tpu_torch.kernels import tower_attention as ta
     plain = ("launches", "plain_calls_cuda")
-    return {"flash_attention": (fa, *plain, None),
+    return {**{n: (kv, *plain, n) for n in P_KERNELS},
+            "flash_attention": (fa, *plain, None),
             "flash_attention_bwd_dq": (fa, "bwd_launches",
                                        "bwd_plain_calls_cuda", "dq"),
             "flash_attention_bwd_dkv": (fa, "bwd_launches",
@@ -767,6 +798,7 @@ def _check_path(path, kernels):
     return {k: launches[k] for k in kernels}
 
 
+P_KERNELS = ("unpack_probe", "w4a8_variant", "w4a8_rows", "w4a8_t")
 SERVING_KERNELS = ("flash_attention", "tower_attention", "int8_matvec",
                    "int4_matmul", "int4_matmul_w4a8")
 
@@ -874,7 +906,63 @@ def phase_quantized_path(dev):
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: the training path
+# Phase 9: the int4 profile path
+# ---------------------------------------------------------------------------
+
+def _decode_route(kind, headless, act8, layers):
+    """Launches per token that a decode row's route implies: K1 per
+    layer, and per quantized matrix (7 per layer, the lm_head unless
+    headless) K3 or _w8a8_dot for int8, K5 or K6 for int4 (act-int8 off
+    or on; every 7B matrix passes the W4A8 gate at one row)."""
+    quant = {"int8": ("int8", "int8"), "int4": ("int4", "int4"),
+             "bf16": (None, None), "int4_head8": ("int4", "int8"),
+             "int8_head4": ("int8", "int4")}[kind]
+    route = {"int8": "_w8a8_dot" if act8 else "K3",
+             "int4": "K6" if act8 else "K5", None: None}
+    counts = {"K1": layers, "K3": 0, "K5": 0, "K6": 0, "_w8a8_dot": 0}
+    for mode, n in ((quant[0], 7 * layers), (quant[1], 0 if headless else 1)):
+        if route[mode]:
+            counts[route[mode]] += n
+    return counts
+
+
+def phase_int4_profile(dev):
+    """The int4 profile's main path, as `python3 -m
+    vstar_tpu_torch.scripts.int4_profile --probe --matmul --decode` runs
+    it (a shorter --matmul: W4A8 off, rows and transposed at every 7B
+    shape): both probe candidates right, every candidate held to K6, and
+    every decode row's launches per token exactly its route's, with no
+    plain version on a CUDA tensor. Returns (launches by kernel, the
+    stages' records)."""
+    from vstar_tpu_torch.core.config import vsm_7b
+    from vstar_tpu_torch.scripts import int4_profile as ip
+    _zero_counts()
+    probe = ip.probe(dev)
+    if not all(r["correct"] and r["exact_7b"] for r in probe.values()):
+        raise AssertionError(f"int4 profile probe failed: {probe}")
+    matmul = ip.bench_matmuls(("w4a8_off", "w4a8_rows", "w4a8_t"), dev)
+    rows = ip.bench_decode(dev)
+    layers = vsm_7b().llama.num_layers
+    for r in rows:
+        want = _decode_route(r["params"], r["headless"], r["act_int8"],
+                             layers)
+        ok = (r["launches_per_token"] == want and r["plain_on_cuda"] == 0
+              and math.isfinite(r["value"]) and r["ms_graph"] > 0)
+        if not ok:
+            raise AssertionError(f"decode row {r['name']}: launches per "
+                                 f"token {r['launches_per_token']} (route "
+                                 f"{want}), plain on CUDA "
+                                 f"{r['plain_on_cuda']}, out {r['value']}")
+    launches = _check_path("int4_profile", P_KERNELS + (
+        "flash_attention", "int8_matvec", "int4_matmul", "int4_matmul_w4a8"))
+    return launches, {
+        "probe": probe, "decode": rows,
+        "matmul": {f"{IN}x{OUT} {mode}": rec
+                   for (IN, OUT, mode), rec in matmul.items()}}
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the training path
 # ---------------------------------------------------------------------------
 
 TRAIN_NAMES = ["red mug", "bicycle", "street sign", "dog", "window",
@@ -979,7 +1067,8 @@ def phase_train(dev):
     expect = {"flash_attention": L * 2 * 2, "flash_attention_bwd_dq": L * 2,
               "flash_attention_bwd_dkv": L * 2,
               "tower_attention": cfg.owl_vision.num_layers * 2,
-              "int8_matvec": 0, "int4_matmul": 0, "int4_matmul_w4a8": 0}
+              "int8_matvec": 0, "int4_matmul": 0, "int4_matmul_w4a8": 0,
+              **{n: 0 for n in P_KERNELS}}
     kmask = _sdpa_mask(512, 512, dev, batch["lens"],
                        torch.zeros(8, dtype=torch.int32, device=dev),
                        batch["kv_valid"])
@@ -1158,6 +1247,7 @@ def main() -> int:
              "tower_attention": phase_k2(dev),
              "int8_matvec": phase_int8(dev)}
     cases["int4_matmul"], cases["int4_matmul_w4a8"] = phase_int4(dev)
+    cases.update(phase_p(dev))
     k1_lse, k7 = phase_k7(dev)
     cases["flash_attention"].append(k1_lse)
     cases["flash_attention_bwd"] = [k7]
@@ -1167,6 +1257,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     by_path["int4mix"] = phase_quantized_path(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["int4_profile"], profile = phase_int4_profile(dev)
     gc.collect()
     torch.cuda.empty_cache()
     by_path["train"], train = phase_train(dev)
@@ -1193,6 +1286,14 @@ def main() -> int:
         "int4_matmul_w4a8": ("int4_matmul.cu",
                              "vstar_tpu/kernels/int4_matmul.py:126",
                              "int4mix"),
+        "unpack_probe": ("int4_variants.cu", "scripts/int4_profile.py:90",
+                         "int4_profile"),
+        "w4a8_variant": ("int4_variants.cu", "scripts/int4_profile.py:324",
+                         "int4_profile"),
+        "w4a8_rows": ("int4_variants.cu", "scripts/int4_profile.py:298",
+                      "int4_profile"),
+        "w4a8_t": ("int4_variants.cu", "scripts/int4_profile.py:265",
+                   "int4_profile"),
     }
     kernels = []
     for name, (src, replaces, own) in sources.items():
@@ -1204,7 +1305,8 @@ def main() -> int:
     k7_entry = next(k for k in kernels if k["name"] == "flash_attention_bwd")
     k7_entry["launches_by_kernel"] = {
         k: by_path["train"][f"flash_attention_bwd_{k}"] for k in ("dq", "dkv")}
-    print(json.dumps({"kernels": kernels, "train": train}), flush=True)
+    print(json.dumps({"kernels": kernels, "train": train,
+                      "int4_profile": profile}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

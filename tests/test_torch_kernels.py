@@ -463,3 +463,128 @@ def test_int32_matmul_exact_on_card(cuda, rows, IN, OUT):
                       dtype=torch.int32).to(torch.int8)
     want = (a.cpu().long() @ b.cpu().long())
     assert torch.equal(_int32_matmul(a, b).cpu().long(), want)
+
+
+# The int4 profile's kernels (P1 unpack probe, P2 W4A8 unpack variants, P3
+# row blocks, P4 transposed storage) against their plain versions: P1
+# exact; P2-P4 f32 within 1e-5 of the largest |output| (exact integer group
+# dots; the f32 sums split differently), and against K6 on the same inputs.
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("how", ["mul", "add"])
+@pytest.mark.parametrize("shape,offset", [((2048, 11008), 0), ((257, 33), 3)])
+def test_unpack_probe_kernel_on_card(cuda, how, shape, offset):
+    from vstar_tpu_torch.kernels import int4_variants as kv
+    g = torch.Generator(device=cuda).manual_seed(shape[1])
+    base = torch.randint(0, 256, (shape[0] * shape[1] + offset,), generator=g,
+                         device=cuda, dtype=torch.int32).to(torch.uint8)
+    q = base[offset:].view(shape)          # offset 3: the byte path
+    before = kv.launches["unpack_probe"]
+    got = kv.unpack_probe(q, how)
+    torch.cuda.synchronize()
+    assert kv.launches["unpack_probe"] == before + 1
+    assert torch.equal(got, kv.want_lo(q))
+    assert torch.equal(got, kv.unpack_probe_reference(q, how))
+
+
+def _w4a8_inputs(cuda, rows, IN, OUT, group=128):
+    g = torch.Generator(device=cuda).manual_seed(rows * 31 + OUT)
+    e = _int4(g, IN, OUT, cuda, group)
+    xq = torch.randint(-127, 128, (rows, IN), generator=g, device=cuda,
+                       dtype=torch.int32).to(torch.int8)
+    return xq, e["q4"], e["s4"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("unpack", ["ship", "mul", "2and", "off"])
+@pytest.mark.parametrize("rows,IN,OUT,block_o,group", [
+    (1, 4096, 11008, 256, 128), (8, 4096, 32000, 256, 128),
+    (16, 11008, 4096, 512, 128), (3, 11008, 4096, 512, 11008)])
+def test_w4a8_variant_kernel_on_card(cuda, unpack, rows, IN, OUT, block_o,
+                                     group):
+    from vstar_tpu_torch.kernels import int4_matmul as k4
+    from vstar_tpu_torch.kernels import int4_variants as kv
+    xq, q4, s4 = _w4a8_inputs(cuda, rows, IN, OUT, group)
+    before = kv.launches["w4a8_variant"]
+    got = kv.w4a8_variant(xq, q4, s4, unpack, block_o)
+    want = kv.w4a8_variant_reference(xq, q4, s4, unpack, block_o)
+    torch.cuda.synchronize()
+    assert kv.launches["w4a8_variant"] == before + 1
+    assert got.dtype == torch.float32 and _rel(got, want) <= 1e-5
+    assert _rel(got, k4.int4_matmul_w4a8_reference(xq, q4, s4)) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,IN,OUT,block_i", [
+    (1, 11008, 4096, None), (8, 4096, 512, 128), (16, 1024, 768, 64),
+    (2, 4096, 32000, None)])
+def test_w4a8_rows_kernel_on_card(cuda, rows, IN, OUT, block_i):
+    from vstar_tpu_torch.kernels import int4_variants as kv
+    xq, q4, s4 = _w4a8_inputs(cuda, rows, IN, OUT)
+    before = kv.launches["w4a8_rows"]
+    got = kv.w4a8_rows(xq, q4, s4, block_i)
+    want = kv.w4a8_rows_reference(xq, q4, s4, block_i)
+    torch.cuda.synchronize()
+    assert kv.launches["w4a8_rows"] == before + 1
+    assert _rel(got, want) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,IN,OUT,block_o", [
+    (1, 4096, 11008, 256), (8, 4096, 32000, 256), (16, 11008, 4096, 512),
+    (3, 512, 768, 256)])
+def test_w4a8_t_kernel_on_card(cuda, rows, IN, OUT, block_o):
+    from vstar_tpu_torch.kernels import int4_variants as kv
+    xq, q4, s4 = _w4a8_inputs(cuda, rows, IN, OUT)
+    q4t, s4t = q4.t().contiguous(), s4.t().contiguous()
+    before = kv.launches["w4a8_t"]
+    got = kv.w4a8_t(xq, q4t, s4t, block_o)
+    want = kv.w4a8_t_reference(xq, q4t, s4t, block_o)
+    torch.cuda.synchronize()
+    assert kv.launches["w4a8_t"] == before + 1
+    assert got.shape == (rows, OUT) and _rel(got, want) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_decode_routes_capture_in_a_cuda_graph(cuda):
+    """The decode's quantized routes (K3, K5, K6, _w8a8_dot, a P kernel)
+    and K1 at decode are captured into one CUDA graph; a replay gives the
+    eager results."""
+    from vstar_tpu_torch.kernels import int4_matmul as k4
+    from vstar_tpu_torch.kernels import int4_variants as kv
+    from vstar_tpu_torch.nn import quant
+    g = torch.Generator(device=cuda).manual_seed(5)
+    e4 = _int4(g, 4096, 11008, cuda)
+    e8 = quant.quantize_weight(torch.randn(4096, 4096, generator=g,
+                                           device=cuda) * 0.05)
+    x = torch.randn(1, 4096, generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = (torch.randn(1, s, 32, 128, generator=g, device=cuda)
+               .to(torch.bfloat16) for s in (1, 512, 512))
+    lens = torch.tensor([385], dtype=torch.int32, device=cuda)
+    offs = torch.tensor([384], dtype=torch.int32, device=cuda)
+
+    def step():
+        quant.set_act_int8(True)
+        try:
+            w8a8 = quant.qdot(x, e8)
+            w4a8 = quant.qdot(x, e4)
+        finally:
+            quant.set_act_int8(False)
+        xq, _ = k4.quantize_activations(x.float())
+        return (quant.qdot(x, e8), k4.qdot4(x, e4), w8a8, w4a8,
+                kv.w4a8_variant(xq, e4["q4"], e4["s4"], "off"),
+                fa.flash_attention(q, k, v, kv_lens=lens, q_offsets=offs))
+
+    eager = step()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = step()
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(captured, eager):
+        assert torch.equal(a, b)

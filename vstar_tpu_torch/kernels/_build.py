@@ -40,6 +40,11 @@ _SIGNATURES = {
     "vstar_int4_w4a8": [_P] * 5 + [_LL] * 7 + [_P],
     "vstar_int8_matvec_occupancy": [_LL] * 3 + [_P],
     "vstar_int4_occupancy": [_LL] * 4 + [_P],
+    "vstar_unpack_probe": [_P] * 2 + [_LL] * 2 + [_P],
+    "vstar_w4a8_variant": [_P] * 5 + [_LL] * 8 + [_P],
+    "vstar_w4a8_rows": [_P] * 5 + [_LL] * 5 + [_P],
+    "vstar_w4a8_t": [_P] * 5 + [_LL] * 7 + [_P],
+    "vstar_int4_variants_occupancy": [_LL] * 4 + [_P],
 }
 
 _LOCK = threading.Lock()

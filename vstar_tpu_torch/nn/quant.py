@@ -111,6 +111,10 @@ def resolve_matrix_quant(quantize, name: str):
 # every qdot call (the JAX package reads it when it traces).
 _ACT_INT8 = False
 
+# Calls of _w8a8_dot (the act-int8 route of int8 entries: torch._int_mm,
+# no kernel of the port), counted as the kernels count their launches.
+w8a8_calls = 0
+
 
 def set_act_int8(on: bool):
     global _ACT_INT8
@@ -140,6 +144,8 @@ def _int32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _w8a8_dot(x: torch.Tensor, entry) -> torch.Tensor:
     """Per-row int8 activations against per-channel int8 weights, int32
     accumulation (vstar_tpu nn/quant._w8a8_dot)."""
+    global w8a8_calls
+    w8a8_calls += 1
     xf = x.float()
     sx = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-8)
     xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
