@@ -3,7 +3,8 @@
 Runs on one CUDA card, in phases; any failure exits non-zero:
   1. card and versions;
   2. build the CUDA kernels from vstar_tpu_torch/csrc (one nvcc per
-     source, in parallel);
+     source, in parallel), and log every K1/K2 instantiation's registers,
+     local (spill) bytes, shared memory and resident blocks per SM;
   3. every kernel against its plain PyTorch version at the 7B shapes of
      the path: K1 flash attention, K2 tower attention, the int8 matvec
      (K3/K4) at R in {1, 8, 16}, K5 (W4A16) at R in {1, 16, 384} and K6
@@ -21,7 +22,9 @@ Runs on one CUDA card, in phases; any failure exits non-zero:
      int8 towers), after the bf16 pair is freed: one answer on 2048x1536,
      one forced-search sample, and one more with the act-int8 switch on;
   6. after each path, every kernel it runs launched, and no plain version
-     ran on a CUDA tensor;
+     ran on a CUDA tensor; K1's launches by route (tile above 16 query
+     rows, split at decode and verify, with its combine): the bf16 path
+     takes both routes, training the tile route only;
   7. P1-P4, the int4 profile's kernels, against their plain versions at
      the 7B shapes: P1 (the lo-nibble unpack probe, both candidates,
      exact) on the packed w_gate [2048, 11008]; P2 (every lo-nibble
@@ -32,7 +35,8 @@ Runs on one CUDA card, in phases; any failure exits non-zero:
   8. K1 with its log-sum-exp and the K7 backward at the training shape
      [4, 512, 32, 128] (ragged kv_lens, key holes, a row that sees no key)
      against their plain versions, timed as above (K7's library yardstick
-     is SDPA's backward, by events);
+     is SDPA's backward: by events, and by device time as one graph of
+     forward + backward less one of the forward);
   9. the int4 profile path (vstar_tpu_torch.scripts.int4_profile, in
      process): --probe, a short --matmul (W4A8 off, rows and transposed at
      every 7B shape) and the full-7B --decode ablation (eight rows, ms per
@@ -116,7 +120,7 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build() -> None:
+def phase_build():
     from vstar_tpu_torch.kernels import _build
     t0 = time.perf_counter()
     so = _build.build()
@@ -127,6 +131,15 @@ def phase_build() -> None:
     for line in report.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"[build] {line.strip()}")
+    from vstar_tpu_torch.kernels.flash_attention import attention_kernel_info
+    info = attention_kernel_info()
+    for i in info:
+        log(f"[build] {i['kernel']}: {i['registers']} registers, "
+            f"{i['local_bytes']} local (spill) bytes, static smem "
+            f"{i['static_smem']} B, dynamic smem {i['dynamic_smem']} B, "
+            f"{i['threads']} threads, {i['blocks_per_sm']} resident blocks "
+            f"per SM")
+    return info
 
 
 # ---------------------------------------------------------------------------
@@ -626,15 +639,36 @@ def phase_k7(dev):
     do_t = do.transpose(1, 2)
     sdpa_bwd = events_ms(lambda: torch.autograd.grad(
         sdpa_out, leaves, do_t, retain_graph=True))
-    del sdpa_out, leaves, copies
+    del sdpa_out, leaves
+
+    def sdpa_train(a, backward):
+        lv = [a[n].transpose(1, 2).detach().requires_grad_()
+              for n in ("q", "k", "v")]
+        d = a["do"].transpose(1, 2)
+
+        def call():
+            o = F.scaled_dot_product_attention(*lv, attn_mask=mask)
+            if backward:
+                torch.autograd.grad(o, lv, d)
+        return call
+
+    # SDPA's backward by device time: one graph of forward + backward
+    # (autograd captured whole) less one of the forward with grad on
+    try:
+        sdpa_bwd_graph = (graph_ms([sdpa_train(a, True) for a in copies])
+                          - graph_ms([sdpa_train(a, False) for a in copies]))
+    except RuntimeError as e:      # a yardstick only; the port is not in it
+        log(f"[K7 train] SDPA backward not capturable: {e}")
+        sdpa_bwd_graph = None
+    del copies
     bwd_bound, bwd_by = bound(2 * 7 * elem + 2 * 4 * B * S * H,
                               10 * pairs * D, "bf16")
     log(f"[K1 lse train] device {fwd_ms:.4f} ms (events {fwd_events:.4f}) "
         f"plain {fwd_plain:.4f} library {sdpa_fwd:.4f} (events "
         f"{sdpa_fwd_events:.4f}) bound {fwd_bound:.4f} ms ({fwd_by})")
     log(f"[K7 train] device {bwd_ms:.4f} ms (events {bwd_events:.4f}) "
-        f"plain {bwd_plain:.4f} library {sdpa_bwd:.4f} (SDPA backward, "
-        f"events) bound {bwd_bound:.4f} ms ({bwd_by})")
+        f"plain {bwd_plain:.4f} library {sdpa_bwd_graph} (events "
+        f"{sdpa_bwd:.4f}; SDPA backward) bound {bwd_bound:.4f} ms ({bwd_by})")
     shape = f"q{(B, S, H, D)} kv_lens {kv_lens.tolist()} kv_valid 90%"
     k1 = {"case": "train_lse", "shape": shape, "max_abs_err": out_err,
           "max_rel_err": _rel_err(out, ref_out), "lse_max_abs_err": lse_err,
@@ -645,8 +679,9 @@ def phase_k7(dev):
           "max_abs_err": max(_abs_err(g, w) for g, w in zip(grads, want)),
           "max_rel_err": max(grad_errs.values()), "ms": bwd_ms,
           "ms_events": bwd_events, "plain_ms": bwd_plain,
-          "bound_ms": bwd_bound, "bound_by": bwd_by, "library_ms": sdpa_bwd,
-          "library_ms_events": sdpa_bwd, "library_timing": "events",
+          "bound_ms": bwd_bound, "bound_by": bwd_by,
+          "library_ms": sdpa_bwd_graph, "library_ms_events": sdpa_bwd,
+          "library_timing": "graph of forward + backward less forward",
           "copies": 2}
     return k1, k7
 
@@ -772,7 +807,15 @@ def _read_counts():
             for name, (mod, la, pa, key) in _counter_modules().items()}
 
 
+def _routes():
+    """K1's launches by route since the last _zero_counts."""
+    from vstar_tpu_torch.kernels import flash_attention as fa
+    return dict(fa.route_launches)
+
+
 def _zero_counts():
+    from vstar_tpu_torch.kernels import flash_attention as fa
+    fa.route_launches.update(tile=0, split=0, combine=0)
     for mod, la, pa, key in _counter_modules().values():
         for attr in (la, pa):
             if key is not None and isinstance(getattr(mod, attr), dict):
@@ -787,8 +830,8 @@ def _check_path(path, kernels):
     counts = _read_counts()
     launches = {k: counts[k][0] for k in counts}
     plain = {k: counts[k][1] for k in counts}
-    log(f"[{path} path] kernel launches {launches}, plain-version calls on "
-        f"CUDA {plain}")
+    log(f"[{path} path] kernel launches {launches}, K1 routes {_routes()}, "
+        f"plain-version calls on CUDA {plain}")
     missing = [k for k in kernels if launches[k] <= 0]
     if missing:
         raise AssertionError(f"{path} path: {missing} never launched")
@@ -796,6 +839,17 @@ def _check_path(path, kernels):
         raise AssertionError(f"{path} path: plain versions ran on CUDA "
                              f"tensors: {plain}")
     return {k: launches[k] for k in kernels}
+
+
+def _check_routes(path, want):
+    """K1's routes after a path: {"tile": n, "split": n, "combine": n}, each
+    route in `want` taken (want[r] None) or taken exactly want[r] times."""
+    routes = _routes()
+    for r, n in want.items():
+        if (routes[r] <= 0) if n is None else (routes[r] != n):
+            raise AssertionError(f"{path} path: K1 routes {routes}, wanted "
+                                 f"{want}")
+    return routes
 
 
 P_KERNELS = ("unpack_probe", "w4a8_variant", "w4a8_rows", "w4a8_t")
@@ -861,7 +915,15 @@ def phase_bf16_path(dev):
                              "on the same image")
     forced = _forced_search_sample(vqa, vsm, img_2k, QUESTION, OPTIONS)
     _log_forced("forced search 2048x1536", forced, vsm)
-    return _check_path("bf16", ("flash_attention", "tower_attention"))
+    counts = _check_path("bf16", ("flash_attention", "tower_attention"))
+    # prefill on the tile route, decode on the split route
+    counts["flash_attention_routes"] = _check_routes(
+        "bf16", {"tile": None, "split": None, "combine": None})
+    if counts["flash_attention_routes"]["split"] != \
+            counts["flash_attention_routes"]["combine"]:
+        raise AssertionError("bf16 path: K1 split launches without their "
+                             "combine")
+    return counts
 
 
 def phase_quantized_path(dev):
@@ -902,7 +964,9 @@ def phase_quantized_path(dev):
     _log_forced("int4mix act-int8 forced search 2048x1536", forced, vsm)
     log(f"[int4mix] max_memory_allocated over the path "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    return _check_path("int4mix", SERVING_KERNELS)
+    counts = _check_path("int4mix", SERVING_KERNELS)
+    counts["flash_attention_routes"] = _routes()
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -955,6 +1019,7 @@ def phase_int4_profile(dev):
                                  f"{r['plain_on_cuda']}, out {r['value']}")
     launches = _check_path("int4_profile", P_KERNELS + (
         "flash_attention", "int8_matvec", "int4_matmul", "int4_matmul_w4a8"))
+    launches["flash_attention_routes"] = _routes()
     return launches, {
         "probe": probe, "decode": rows,
         "matmul": {f"{IN}x{OUT} {mode}": rec
@@ -1074,6 +1139,7 @@ def phase_train(dev):
                        batch["kv_valid"])
     flops = _step_flops(cfg, 8, 512, int(kmask.sum()))
     steps, totals = [], {k: 0 for k in expect}
+    route_totals = {"tile": 0, "split": 0, "combine": 0}
     for i in range(3):
         _zero_counts()
         auction.stats.update(calls=0, rounds=0, seconds=0.0)
@@ -1099,11 +1165,16 @@ def phase_train(dev):
         if launches != expect or any(plain.values()):
             raise AssertionError(f"train step {i}: launches {launches} "
                                  f"(expected {expect}), plain {plain}")
+        # every decoder attention of a step is a 512-row tile-route launch
+        routes = _check_routes(f"train step {i}", {
+            "tile": expect["flash_attention"], "split": 0, "combine": 0})
         steps.append({"seconds": dt, "auction_rounds":
                       auction.stats["rounds"], "auction_ms":
                       auction.stats["seconds"] * 1e3, **metrics})
         for k in totals:
             totals[k] += launches[k]
+        for r, n in routes.items():
+            route_totals[r] += n
     flat = dict(leaves_with_path(state.params))
     now = {"llama.layers.attn.wq[0]": flat["llama.layers.attn.wq"][0],
            **{k: flat[k] for k in ("vision.patch_embed.w",
@@ -1123,6 +1194,7 @@ def phase_train(dev):
         f"989 TFLOP/s; peak memory {peak:.2f} GiB; frozen leaves "
         f"bit-identical, LoRA B and fc_seg moved")
     del state, batch
+    totals["flash_attention_routes"] = route_totals
     return totals, {"steps": steps, "steady_step_s": steady,
                     "step_flops": flops, "mfu": mfu, "peak_gib": peak,
                     "trainable_params": n_train}
@@ -1242,7 +1314,7 @@ def main() -> int:
     dev = torch.device("cuda:0")
 
     smi = phase_device()
-    phase_build()
+    kernel_info = phase_build()
     cases = {"flash_attention": phase_k1(dev),
              "tower_attention": phase_k2(dev),
              "int8_matvec": phase_int8(dev)}
@@ -1302,10 +1374,15 @@ def main() -> int:
                                 if name in n}}
         kernels.append(_kernel_entry(name, f"vstar_tpu_torch/csrc/{src}",
                                      replaces, launches, cases[name]))
+    k1_entry = next(k for k in kernels if k["name"] == "flash_attention")
+    k1_entry["routes_by_path"] = {p: n["flash_attention_routes"]
+                                  for p, n in by_path.items()
+                                  if "flash_attention_routes" in n}
     k7_entry = next(k for k in kernels if k["name"] == "flash_attention_bwd")
     k7_entry["launches_by_kernel"] = {
         k: by_path["train"][f"flash_attention_bwd_{k}"] for k in ("dq", "dkv")}
-    print(json.dumps({"kernels": kernels, "train": train,
+    print(json.dumps({"kernels": kernels, "kernel_info": kernel_info,
+                      "train": train,
                       "int4_profile": profile}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

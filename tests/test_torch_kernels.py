@@ -277,7 +277,7 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,Sq,Skv,offs,masked", [
-    (1, 1, 300, (200,), False),         # decode (16-row query tile)
+    (1, 1, 300, (200,), False),         # decode (split route)
     (2, 8, 130, (3, 100), False),       # verify chunk, ragged
     (3, 64, 200, (0, 17, 120), True),   # option chunk + key holes
     (2, 130, 130, (0, 0), True),        # prefill, ragged q tiles

@@ -1,17 +1,29 @@
-// Block-level attention tile shared by the port's two attention kernels
-// (flash_attention.cu: decoder attention over the ragged KV cache;
-// tower_attention.cu: full attention inside the OWL-ViT tower).
+// The register-resident attention tile of K1's tile route
+// (flash_attention.cu: decoder attention over the ragged KV cache), and
+// the PTX helpers (cp.async, ldmatrix, mma.sync, the online softmax step)
+// that K1's split route and K2 (tower_attention.cu) share with it; K7
+// (flash_attention_bwd.cu) takes its includes and bf16 alias from here.
 //
-// One block of kThreads threads owns BQ query rows of one (batch, head)
-// and walks the keys in tiles of BK rows:
-//   S = Q K^T      bf16 WMMA 16x16x16, f32 accumulate, written to shared
-//   online softmax in f32, one warp per row (masks applied here)
-//   O = O*alpha + P V   P rounded to bf16, bf16 WMMA, O kept in shared f32
-// Q, K, V, S, P and O all live in shared memory, so nothing but the
-// inputs and the output touches device memory. The row strides are given
-// per tensor, so a [B, S, H, D] tensor (a KV-cache layer included) is read
-// in place; the last dimension must be contiguous and every row 16-byte
-// aligned (the wrappers check both).
+// FlashAttention-2 layout: a block of BQ / 16 warps owns BQ query rows of
+// one (batch, head); each warp owns 16 of them and walks the keys in
+// tiles of BK rows.
+//   Q      loaded once (cp.async), then held in registers as mma.sync A
+//          fragments (ldmatrix)
+//   S      = Q K^T in mma.sync.m16n8k16 bf16 -> f32 fragments, registers
+//   masks  kv_lens, kv_valid (bytes staged beside each K/V tile) and the
+//          causal column, evaluated only on tiles that straddle a bound
+//   softmax online, in f32, per row across the 4-lane quad (shuffles);
+//          log2 domain (exp2 of logits * scale * log2 e)
+//   P      rounded to bf16 in registers: the m16n8 C fragment of S is the
+//          m16n8k16 A fragment of P V, so P never leaves the registers
+//   O      f32 fragments in registers, rescaled there
+//   K, V   a STAGES-deep cp.async ring (16-byte cp.async.cg, tile j + 1
+//          in flight while tile j computes), XOR-swizzled rows so that
+//          ldmatrix (and ldmatrix.trans for V) is free of bank conflicts;
+//          one block barrier per key tile
+// The row strides are given per tensor, so a [B, S, H, D] tensor (a
+// KV-cache layer included) is read in place; the last dimension must be
+// contiguous and every row 16-byte aligned (the wrappers check both).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -23,207 +35,336 @@
 namespace vstar {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-// Shared-memory layout. Row strides are padded (+8 bf16 / +4 f32) against
-// bank conflicts; every region and every 16-row fragment start stays
-// 32-byte aligned, as load/store_matrix_sync require.
-template <int D, int BQ, int BK>
-struct Smem {
-  static constexpr int LDH = D + 8;   // bf16 Q, K, V rows
-  static constexpr int LDS = BK + 4;  // f32 S rows
-  static constexpr int LDP = BK + 8;  // bf16 P rows
-  static constexpr int LDO = D + 4;   // f32 O rows
-  static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = q_off + sizeof(bf16) * BQ * LDH;
-  static constexpr size_t v_off = k_off + sizeof(bf16) * BK * LDH;
-  static constexpr size_t s_off = v_off + sizeof(bf16) * BK * LDH;
-  static constexpr size_t p_off = s_off + sizeof(float) * BQ * LDS;
-  static constexpr size_t o_off = p_off + sizeof(bf16) * BQ * LDP;
-  static constexpr size_t row_off = o_off + sizeof(float) * BQ * LDO;
-  static constexpr size_t bytes = row_off + sizeof(float) * 3 * BQ;
-};
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// 16-byte global -> shared copy; with pred false the 16 bytes are zeros
+// (src-size 0: nothing is read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// Copies `rows` rows of D bf16 (16 bytes per thread and step) into a
-// shared tile of `tile_rows` rows; rows at or past `valid` are zero.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// c += a b: m16n8k16, bf16 operands, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats as bf16x2 (lo in the low half, as the fragments hold them).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Byte offset of 16-byte chunk c of row r in a tile of D-wide bf16 rows:
+// the chunk index is XORed with r % 8, so the 8 rows an ldmatrix reads
+// at one logical chunk sit in 8 different bank groups.
 template <int D>
-__device__ __forceinline__ void load_rows(bf16* __restrict__ dst, int ld,
-                                          const bf16* __restrict__ src,
-                                          long long src_rs, int first,
-                                          int tile_rows, int valid) {
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return static_cast<uint32_t>(r * (D * 2) + ((c ^ (r & 7)) << 4));
+}
+
+// Rows [first, first + ROWS) of a [rows, D] bf16 operand (row stride rs)
+// into a swizzled shared tile by cp.async, NT threads; rows at or past
+// `valid` are zero-filled.
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void load_tile_async(uint32_t dst,
+                                                const bf16* __restrict__ src,
+                                                long long rs, int first,
+                                                int valid, int tid) {
   constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < tile_rows * CH; i += kThreads) {
-    const int r = i / CH, c = (i % CH) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (first + r < valid)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(first + r) * src_rs + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+  static_assert((ROWS * CH) % NT == 0, "tile load shape");
+#pragma unroll
+  for (int it = 0; it < ROWS * CH / NT; ++it) {
+    const int i = tid + it * NT;
+    const int r = i / CH, c = i % CH;
+    const bool ok = first + r < valid;
+    const bf16* s = ok ? src + (long long)(first + r) * rs + c * 8 : src;
+    cp_async16(dst + swz<D>(r, c), s, ok);
   }
 }
 
-// Attention for query rows [q0, q0 + BQ) of one (batch, head).
+// S (16 x 8*NS, this warp's rows) = Q K^T over D: qf holds Q's A
+// fragments, kst the swizzled K tile.
+template <int D, int NS>
+__device__ __forceinline__ void qk_tile(float (&s)[NS][4],
+                                        const uint32_t (&qf)[D / 16][4],
+                                        uint32_t kst, int lane) {
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int n = 0; n < NS; n += 2) {
+      uint32_t b[4];
+      const int key = n * 8 + (lane & 7) + ((lane >> 4) << 3);
+      ldmatrix_x4(b, kst + swz<D>(key, kk * 2 + ((lane >> 3) & 1)));
+      mma_bf16(s[n], qf[kk], b[0], b[1]);
+      mma_bf16(s[n + 1], qf[kk], b[2], b[3]);
+    }
+  }
+}
+
+// O (16 x D) += P V for KS k-steps of 16 keys: pf holds P's A fragments,
+// vst the swizzled V tile, read transposed.
+template <int D, int KS>
+__device__ __forceinline__ void pv_tile(float (&o)[D / 8][4],
+                                        const uint32_t (&pf)[KS][4],
+                                        uint32_t vst, int lane) {
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+    for (int dn = 0; dn < D / 8; dn += 2) {
+      uint32_t b[4];
+      const int key = ks * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
+      ldmatrix_x4_trans(b, vst + swz<D>(key, dn + (lane >> 4)));
+      mma_bf16(o[dn], pf[ks], b[0], b[1]);
+      mma_bf16(o[dn + 1], pf[ks], b[2], b[3]);
+    }
+  }
+}
+
+// One online-softmax step on a warp's S fragments (already scaled to the
+// log2 domain, masked entries -inf): updates the row maxima m and the
+// per-thread partial row sums l (rows g and g + 8), rescales o, and
+// returns P as bf16 A fragments in pf. A row that has seen no key keeps
+// m = -inf, l = 0 and o = 0.
+template <int NS, int NO>
+__device__ __forceinline__ void softmax_step(float (&s)[NS][4], float (&m)[2],
+                                             float (&l)[2], float (&o)[NO][4],
+                                             uint32_t (&pf)[NS / 2][4]) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int n = 0; n < NS; ++n) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+  }
+  float base[2], alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = quad_max(mx[r]);
+    base[r] = mx[r] == -CUDART_INF_F ? 0.f : mx[r];
+    alpha[r] = fast_exp2(m[r] - base[r]);   // 0 while m[r] = -inf
+    m[r] = mx[r];
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < NS; ++n) {
+    const float p0 = fast_exp2(s[n][0] - base[0]);
+    const float p1 = fast_exp2(s[n][1] - base[0]);
+    const float p2 = fast_exp2(s[n][2] - base[1]);
+    const float p3 = fast_exp2(s[n][3] - base[1]);
+    rs[0] += p0 + p1;
+    rs[1] += p2 + p3;
+    pf[n / 2][(n & 1) * 2] = pack_bf16(p0, p1);
+    pf[n / 2][(n & 1) * 2 + 1] = pack_bf16(p2, p3);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    o[n][0] *= alpha[0];
+    o[n][1] *= alpha[0];
+    o[n][2] *= alpha[1];
+    o[n][3] *= alpha[1];
+  }
+}
+
+template <int D, int BQ, int BK, int STAGES>
+struct TileSmem {
+  static constexpr size_t q_off = 0;
+  static constexpr size_t k_off = q_off + (size_t)BQ * D * 2;
+  static constexpr size_t v_off = k_off + (size_t)STAGES * BK * D * 2;
+  static constexpr size_t valid_off = v_off + (size_t)STAGES * BK * D * 2;
+  static constexpr size_t bytes = valid_off + (size_t)STAGES * BK;
+};
+
+// Attention for query rows [q0, q0 + BQ) of one (batch, head), by
+// BQ / 16 warps.
 //   q, k, v, o: base pointers of this (batch, head); row r at base + r * rs
 //   sq:        number of query rows
 //   kv_len:    keys at columns >= kv_len are masked (kv_len <= number of keys)
 //   q_off:     kv coordinate of query row 0 (causal: col <= q_off + row)
 //   kv_valid:  optional per-key byte mask of this batch row, or nullptr
-//   lse:       optional f32 log-sum-exp of each row's scaled logits (row r
-//              at lse + r * lse_rs), -inf where every key is masked; the
+//   lse:       (LSE) f32 log-sum-exp of each row's scaled logits (row r at
+//              lse + r * lse_rs), -inf where every key is masked; the
 //              flash backward (flash_attention_bwd.cu) reads it
 // A row whose keys are all masked writes zeros.
-template <int D, int BQ, int BK>
-__device__ void attention_tile(const bf16* __restrict__ q, long long q_rs,
-                               const bf16* __restrict__ k, long long k_rs,
-                               const bf16* __restrict__ v, long long v_rs,
-                               bf16* __restrict__ o, long long o_rs, int q0,
-                               int sq, int kv_len, int q_off,
-                               const uint8_t* __restrict__ kv_valid,
-                               bool causal, float scale,
-                               float* __restrict__ lse = nullptr,
-                               long long lse_rs = 0) {
-  static_assert(D % 16 == 0 && BQ % 16 == 0 && BK % 32 == 0, "tile shape");
-  using L = Smem<D, BQ, BK>;
+template <int D, int BQ, int BK, int STAGES, bool CAUSAL, bool LSE>
+__device__ __forceinline__ void attention_tile(
+    const bf16* __restrict__ q, long long q_rs, const bf16* __restrict__ k,
+    long long k_rs, const bf16* __restrict__ v, long long v_rs,
+    bf16* __restrict__ o, long long o_rs, int q0, int sq, int kv_len,
+    int q_off, const uint8_t* __restrict__ kv_valid, float scale,
+    float* __restrict__ lse, long long lse_rs) {
+  static_assert(D % 64 == 0 && BQ % 16 == 0 && BK % 16 == 0 && STAGES >= 2,
+                "tile shape");
+  constexpr int NT = BQ / 16 * 32;
+  constexpr int NS = BK / 8, NO = D / 8;
+  using L = TileSmem<D, BQ, BK, STAGES>;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q_off);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::k_off);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::v_off);
-  float* Ss = reinterpret_cast<float*>(smem + L::s_off);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L::p_off);
-  float* Os = reinterpret_cast<float*>(smem + L::o_off);
-  float* m_s = reinterpret_cast<float*>(smem + L::row_off);
-  float* l_s = m_s + BQ;
-  float* a_s = l_s + BQ;
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-
-  load_rows<D>(Qs, L::LDH, q, q_rs, q0, BQ, sq);
-  for (int i = tid; i < BQ * L::LDO; i += kThreads) Os[i] = 0.f;
-  for (int r = tid; r < BQ; r += kThreads) {
-    m_s[r] = -CUDART_INF_F;
-    l_s[r] = 0.f;
-  }
+  const uint32_t s_q = smem_u32(smem + L::q_off);
+  const uint32_t s_k = smem_u32(smem + L::k_off);
+  const uint32_t s_v = smem_u32(smem + L::v_off);
+  uint8_t* s_valid = smem + L::valid_off;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
 
   // Keys past the last causal column of this tile never contribute
   // (the TPU kernel's num_kv_blocks bound).
   int n_end = kv_len;
-  if (causal) n_end = min(n_end, q_off + min(q0 + BQ, sq));
+  if (CAUSAL) n_end = min(n_end, q_off + min(q0 + BQ, sq));
+  const int n_tiles = n_end > 0 ? (n_end + BK - 1) / BK : 0;
+
+  auto load_kv = [&](int j, int stage) {
+    const int j0 = j * BK;
+    load_tile_async<D, BK, NT>(s_k + stage * BK * D * 2, k, k_rs, j0, n_end, tid);
+    load_tile_async<D, BK, NT>(s_v + stage * BK * D * 2, v, v_rs, j0, n_end, tid);
+    if (kv_valid != nullptr)
+      for (int c = tid; c < BK; c += NT)
+        s_valid[stage * BK + c] = j0 + c < n_end ? kv_valid[j0 + c] : 0;
+  };
+
+  load_tile_async<D, BQ, NT>(s_q, q, q_rs, q0, sq, tid);
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n_tiles) load_kv(st, st);
+    cp_async_commit();
+  }
+
+  const int wrow = q0 + warp * 16;          // this warp's first query row
+  const bool warp_live = wrow < sq;
+  // the last kv column any row of this warp may see
+  const int warp_cols = CAUSAL ? q_off + min(wrow + 15, sq - 1) + 1 : n_end;
+  const int qcol0 = q_off + wrow + g;       // causal limits of rows g, g + 8
+  const float sl = scale * kLog2e;
+
+  uint32_t qf[D / 16][4];
+  float oacc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (j + STAGES - 1 < n_tiles) load_kv(j + STAGES - 1, (j + STAGES - 1) % STAGES);
+    cp_async_commit();
+    if (j == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        ldmatrix_x4(qf[kk], s_q + swz<D>(warp * 16 + (lane & 15), kk * 2 + (lane >> 4)));
+    }
+    const int stage = j % STAGES, j0 = j * BK;
+    if (!warp_live || j0 >= warp_cols) continue;
+
+    float s[NS][4];
+    qk_tile<D, NS>(s, qf, s_k + stage * BK * D * 2, lane);
+    const bool edge = j0 + BK > kv_len || kv_valid != nullptr ||
+                      (CAUSAL && j0 + BK - 1 > q_off + wrow);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * sl;
+        if (edge) {
+          const int c = n * 8 + 2 * t4 + (e & 1), col = j0 + c;
+          bool ok = col < kv_len;
+          if (kv_valid != nullptr) ok = ok && s_valid[stage * BK + c] != 0;
+          if (CAUSAL) ok = ok && col <= qcol0 + (e >> 1) * 8;
+          x = ok ? x : -CUDART_INF_F;
+        }
+        s[n][e] = x;
+      }
+    uint32_t pf[NS / 2][4];
+    softmax_step<NS, NO>(s, m, l, oacc, pf);
+    pv_tile<D, NS / 2>(oacc, pf, s_v + stage * BK * D * 2, lane);
+  }
+  // every thread's copies (the Q rows of other warps included) have
+  // landed before the Q tile is reused below
+  cp_async_wait<0>();
   __syncthreads();
 
-  for (int j0 = 0; j0 < n_end; j0 += BK) {
-    load_rows<D>(Ks, L::LDH, k, k_rs, j0, BK, n_end);
-    load_rows<D>(Vs, L::LDH, v, v_rs, j0, BK, n_end);
-    __syncthreads();
-
-    // S = Q K^T
-    constexpr int SF_COLS = BK / 16;
-    for (int f = warp; f < (BQ / 16) * SF_COLS; f += kWarps) {
-      const int fr = f / SF_COLS, fc = f % SF_COLS;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
+  // Epilogue: O / l through this warp's rows of the Q tile (Q lives in
+  // registers by now), then 16-byte row stores.
+  float inv[2];
 #pragma unroll
-      for (int kk = 0; kk < D; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, Qs + fr * 16 * L::LDH + kk, L::LDH);
-        wmma::load_matrix_sync(b, Ks + fc * 16 * L::LDH + kk, L::LDH);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(Ss + fr * 16 * L::LDS + fc * 16, acc, L::LDS,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // Online softmax, one warp per row, BK / 32 columns per lane.
-    for (int r = warp; r < BQ; r += kWarps) {
-      const int row = q_off + q0 + r;
-      float s[BK / 32];
-      float mx = -CUDART_INF_F;
-#pragma unroll
-      for (int t = 0; t < BK / 32; ++t) {
-        const int c = lane + 32 * t, col = j0 + c;
-        bool ok = col < kv_len;
-        if (ok && kv_valid != nullptr) ok = kv_valid[col] != 0;
-        if (ok && causal) ok = col <= row;
-        s[t] = ok ? Ss[r * L::LDS + c] * scale : -CUDART_INF_F;
-        mx = fmaxf(mx, s[t]);
-      }
-      mx = warp_max(mx);
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const float m_safe = m_new == -CUDART_INF_F ? 0.f : m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int t = 0; t < BK / 32; ++t) {
-        const float p = s[t] == -CUDART_INF_F ? 0.f : __expf(s[t] - m_safe);
-        Ps[r * L::LDP + lane + 32 * t] = __float2bfloat16(p);
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = m_prev == -CUDART_INF_F ? 0.f : __expf(m_prev - m_safe);
-        m_s[r] = m_new;
-        l_s[r] = l_s[r] * alpha + sum;
-        a_s[r] = alpha;
-      }
-    }
-    __syncthreads();
-
-    for (int i = tid; i < BQ * D; i += kThreads) {
-      const int r = i / D, c = i % D;
-      Os[r * L::LDO + c] *= a_s[r];
-    }
-    __syncthreads();
-
-    // O += P V
-    constexpr int OF_COLS = D / 16;
-    for (int f = warp; f < (BQ / 16) * OF_COLS; f += kWarps) {
-      const int fr = f / OF_COLS, fc = f % OF_COLS;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      float* optr = Os + fr * 16 * L::LDO + fc * 16;
-      wmma::load_matrix_sync(acc, optr, L::LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, Ps + fr * 16 * L::LDP + kk, L::LDP);
-        wmma::load_matrix_sync(b, Vs + kk * L::LDH + fc * 16, L::LDH);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(optr, acc, L::LDO, wmma::mem_row_major);
-    }
-    __syncthreads();
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
   }
-
-  for (int i = tid; i < BQ * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    if (q0 + r < sq)
-      o[(long long)(q0 + r) * o_rs + c] =
-          __float2bfloat16(Os[r * L::LDO + c] / fmaxf(l_s[r], 1e-30f));
+  __syncwarp();
+  unsigned char* sq_bytes = smem + L::q_off;
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<uint32_t*>(sq_bytes + swz<D>(warp * 16 + g + 8 * r, n) + t4 * 4) =
+          pack_bf16(oacc[n][2 * r] * inv[r], oacc[n][2 * r + 1] * inv[r]);
+  __syncwarp();
+  constexpr int CH = D / 8;
+#pragma unroll
+  for (int it = 0; it < 16 * CH / 32; ++it) {
+    const int i = lane + it * 32, r = i / CH, c = i % CH;
+    if (wrow + r < sq)
+      *reinterpret_cast<uint4*>(o + (long long)(wrow + r) * o_rs + c * 8) =
+          *reinterpret_cast<const uint4*>(sq_bytes + swz<D>(warp * 16 + r, c));
   }
-  if (lse != nullptr) {
+  if (LSE && t4 == 0) {
     // m + log(l), as the TPU kernel writes it (flash_attention.py:137-138);
     // l > 0 means some key was attended, so m is finite
-    for (int r = tid; r < BQ; r += kThreads) {
-      if (q0 + r >= sq) continue;
-      const float l = l_s[r];
-      lse[(long long)(q0 + r) * lse_rs] =
-          l > 0.f ? m_s[r] + logf(l) : -CUDART_INF_F;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = wrow + g + 8 * r;
+      if (row < sq)
+        lse[(long long)row * lse_rs] =
+            l[r] > 0.f ? (m[r] + log2f(l[r])) * kLn2 : -CUDART_INF_F;
     }
   }
 }

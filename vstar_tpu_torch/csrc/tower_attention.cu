@@ -10,8 +10,22 @@
 // What bounds it on the H100: compute. One OWL layer at 768x768 does
 // 4 * S^2 * D * H = 16.3 GFLOP against 4 * S * H * D * 2 = 14 MB of
 // inputs and output. The design keeps the [S, S] scores out of device
-// memory (the plain version writes 255 MB of f32 scores per layer) and
-// runs both products on the tensor cores (bf16 WMMA, f32 accumulate).
+// memory and feeds Hopper's own tensor-core path:
+//   - a D = 64 bf16 row is 128 bytes, one 128-byte swizzle atom, so the
+//     Tensor Memory Accelerator (TMA) copies each [64 rows, 64] tile of
+//     the [B, S, H, 64] operands (read in place through a 4-D tensor map
+//     of their strides) straight into the swizzled layout wgmma reads;
+//   - one producer warp issues the TMA loads: Q once, then K/V tiles into
+//     a kStages ring of full/empty mbarriers;
+//   - kWG consumer warpgroups each own 64 query rows: S = Q K^T is
+//     wgmma.m64n64k16 with both operands in shared memory, the online
+//     softmax runs on the accumulator fragment in registers, and O += P V
+//     is wgmma with P from registers (the accumulator layout is the A
+//     fragment layout) and V read transposed through its descriptor;
+//   - TMA zero-fills rows past S; keys >= S are masked to -inf and output
+//     rows >= S are not stored.
+#include <cuda.h>  // CUtensorMap and the encoder's types; no libcuda link
+
 #include "attention_common.cuh"
 
 namespace {
@@ -19,33 +33,318 @@ namespace {
 using vstar::bf16;
 
 constexpr int kD = 64;
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
+constexpr int kRows = 64;    // query rows per consumer warpgroup; keys per tile
+constexpr int kWG = 2;       // consumer warpgroups per block
+constexpr int kStages = 3;   // K/V ring depth
+constexpr int kThreads = kWG * 128 + 32;
+constexpr int kTileBytes = kRows * kD * 2;   // 8 KB, 1024-byte aligned
+
+struct TowerSmem {
+  static constexpr size_t q_off = 0;
+  static constexpr size_t k_off = q_off + (size_t)kWG * kTileBytes;
+  static constexpr size_t v_off = k_off + (size_t)kStages * kTileBytes;
+  static constexpr size_t bar_off = v_off + (size_t)kStages * kTileBytes;
+  static constexpr size_t bytes = bar_off + (2 * kStages + 1) * 8;
+  static constexpr size_t alloc = bytes + 1024;   // room to align to 1024
+};
 
 struct TowerParams {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
   bf16* o;
   long long s, h;
-  long long q_sb, q_ss, q_sh;
-  long long k_sb, k_ss, k_sh;
-  long long v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
   float scale;
 };
 
-__global__ void __launch_bounds__(vstar::kThreads)
-    tower_attention_kernel(const TowerParams p) {
-  const long long b = blockIdx.y / p.h, h = blockIdx.y % p.h;
-  vstar::attention_tile<kD, kBQ, kBK>(
-      p.q + b * p.q_sb + h * p.q_sh, p.q_ss, p.k + b * p.k_sb + h * p.k_sh,
-      p.k_ss, p.v + b * p.v_sb + h * p.v_sh, p.v_ss,
-      p.o + b * p.o_sb + h * p.o_sh, p.o_ss, blockIdx.x * kBQ, (int)p.s,
-      (int)p.s, 0, nullptr, false, p.scale);
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra WAIT;\n"
+      "DONE:\n"
+      "}\n" :: "r"(bar), "r"(parity) : "memory");
+}
+
+// One [64 rows, 64] box of a 4-D tensor map (d, h, s, b) into shared
+// memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int h, int s, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0),
+         "r"(h), "r"(s), "r"(b)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a tile of 128-byte rows in the
+// 128-byte swizzle (layout type 1), 8-row groups 1024 bytes apart (SBO);
+// the leading offset is unused at these widths.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+#define VSTAR_ACC32(a)                                                         \
+  "+f"(a[0][0]), "+f"(a[0][1]), "+f"(a[0][2]), "+f"(a[0][3]), "+f"(a[1][0]),   \
+      "+f"(a[1][1]), "+f"(a[1][2]), "+f"(a[1][3]), "+f"(a[2][0]),              \
+      "+f"(a[2][1]), "+f"(a[2][2]), "+f"(a[2][3]), "+f"(a[3][0]),              \
+      "+f"(a[3][1]), "+f"(a[3][2]), "+f"(a[3][3]), "+f"(a[4][0]),              \
+      "+f"(a[4][1]), "+f"(a[4][2]), "+f"(a[4][3]), "+f"(a[5][0]),              \
+      "+f"(a[5][1]), "+f"(a[5][2]), "+f"(a[5][3]), "+f"(a[6][0]),              \
+      "+f"(a[6][1]), "+f"(a[6][2]), "+f"(a[6][3]), "+f"(a[7][0]),              \
+      "+f"(a[7][1]), "+f"(a[7][2]), "+f"(a[7][3])
+
+#define VSTAR_D32                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "    \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "     \
+  "%30, %31}"
+
+// d (64 x 64) (+)= A B, A and B from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VSTAR_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : VSTAR_ACC32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64) += A B, A from registers, B from shared memory read
+// transposed (stored [k, n], n contiguous).
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VSTAR_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : VSTAR_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from touching accumulators across an async wgmma.
+__device__ __forceinline__ void fence_acc(float (&d)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e]) :: "memory");
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+    tower_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const TowerParams p) {
+  using L = TowerSmem;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = vstar::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t s_q = base + L::q_off, s_k = base + L::k_off, s_v = base + L::v_off;
+  const uint32_t full = base + L::bar_off, empty = full + kStages * 8,
+                 qbar = empty + kStages * 8;
+
+  const int S = (int)p.s;
+  const int b = blockIdx.y / (int)p.h, h = blockIdx.y % (int)p.h;
+  const int q0 = blockIdx.x * kWG * kRows;
+  const int n_tiles = (S + kRows - 1) / kRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full + st * 8, 1);
+      mbar_init(empty + st * 8, kWG * 4);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kWG * 4) {
+    // producer
+    if (lane == 0) {
+      mbar_expect_tx(qbar, kWG * kTileBytes);
+      for (int w = 0; w < kWG; ++w)
+        tma_load(s_q + w * kTileBytes, &tm_q, qbar, h, q0 + w * kRows, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kStages;
+        if (t >= kStages) mbar_wait(empty + st * 8, ((t / kStages) - 1) & 1);
+        mbar_expect_tx(full + st * 8, 2 * kTileBytes);
+        tma_load(s_k + st * kTileBytes, &tm_k, full + st * 8, h, t * kRows, b);
+        tma_load(s_v + st * kTileBytes, &tm_v, full + st * 8, h, t * kRows, b);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows [q0 + 64 wg, q0 + 64 wg + 64)
+  const int wg = warp >> 2, wl = warp & 3;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row0 = q0 + wg * kRows;
+  const bool live = row0 < S;
+  const float sl = p.scale * vstar::kLog2e;
+  float o[8][4], s[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  const uint64_t dq = desc_sw128(s_q + wg * kTileBytes);
+
+  mbar_wait(qbar, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kStages;
+    mbar_wait(full + st * 8, (t / kStages) & 1);
+    if (live) {
+      const uint64_t dk = desc_sw128(s_k + st * kTileBytes);
+      const uint64_t dv = desc_sw128(s_v + st * kTileBytes);
+      fence_acc(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)    // 32 bytes along the row per step
+        wgmma_ss(s, dq + 2 * kk, dk + 2 * kk, kk);
+      wgmma_commit_wait();
+      fence_acc(s);
+      const int j0 = t * kRows;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = j0 + j * 8 + 2 * t4 + (e & 1);
+          s[j][e] = (j0 + kRows <= S || col < S) ? s[j][e] * sl : -CUDART_INF_F;
+        }
+      uint32_t pf[4][4];
+      vstar::softmax_step<8, 8>(s, m, l, o, pf);
+      fence_acc(o);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kRows / 16; ++ks)  // 16 keys = 2048 bytes per step
+        wgmma_rs(o, pf[ks], dv + ks * (2048 >> 4));
+      wgmma_commit_wait();
+      fence_acc(o);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + st * 8);
+  }
+  if (!live) return;
+
+  // Epilogue: O / l through this warpgroup's Q tile, then 16-byte stores.
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+  unsigned char* tile = smem + L::q_off + wg * kTileBytes;
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = vstar::quad_sum(l[r]);
+    inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<uint32_t*>(tile + vstar::swz<kD>(wl * 16 + g + 8 * r, j) + t4 * 4) =
+          vstar::pack_bf16(o[j][2 * r] * inv[r], o[j][2 * r + 1] * inv[r]);
+  __syncwarp();
+  bf16* out = p.o + (long long)b * p.o_sb + (long long)h * p.o_sh;
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {
+    const int i = lane + it * 32, r = i / 8, c = i % 8;
+    const int row = row0 + wl * 16 + r;
+    if (row < S)
+      *reinterpret_cast<uint4*>(out + (long long)row * p.o_ss + c * 8) =
+          *reinterpret_cast<const uint4*>(tile + vstar::swz<kD>(wl * 16 + r, c));
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime's entry
+// point query (the library links no libcuda).
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                              cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f) : nullptr;
+  }();
+  return fn;
+}
+
+// The 4-D map (d, h, s, b) of a [B, S, H, 64] bf16 operand, boxes of
+// [rows, 64], 128-byte swizzle, zeros past S.
+bool encode(CUtensorMap* map, const void* ptr, long long B, long long S,
+            long long H, long long sb, long long ss, long long sh, int rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
+  cuuint32_t box[4] = {(cuuint32_t)kD, 1, (cuuint32_t)rows, 1};
+  cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaError_t prepare() {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      tower_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)TowerSmem::alloc);
+  return err;
 }
 
 }  // namespace
+
+extern "C" int vstar_tower_kernel_info(int i, const char** name, long long* vals) {
+  if (i != 0) return -1;
+  cudaError_t err = prepare();
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, tower_attention_kernel);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, tower_attention_kernel, kThreads, TowerSmem::alloc);
+  if (err != cudaSuccess) return (int)err;
+  *name = "tower_wgmma";
+  vals[0] = attr.numRegs;
+  vals[1] = (long long)attr.localSizeBytes;
+  vals[2] = (long long)attr.sharedSizeBytes;
+  vals[3] = (long long)TowerSmem::alloc;
+  vals[4] = blocks;
+  vals[5] = kThreads;
+  return 0;
+}
 
 extern "C" int vstar_tower_attention_fwd(
     const void* q, const void* k, const void* v, void* o, long long b,
@@ -53,21 +352,16 @@ extern "C" int vstar_tower_attention_fwd(
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, long long o_sb, long long o_ss,
     long long o_sh, float scale, void* stream) {
-  TowerParams p{static_cast<const bf16*>(q),
-                static_cast<const bf16*>(k),
-                static_cast<const bf16*>(v),
-                static_cast<bf16*>(o),
-                s, h,
-                q_sb, q_ss, q_sh,
-                k_sb, k_ss, k_sh,
-                v_sb, v_ss, v_sh,
-                o_sb, o_ss, o_sh,
-                scale};
-  constexpr size_t smem = vstar::Smem<kD, kBQ, kBK>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      tower_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!encode(&tm_q, q, b, s, h, q_sb, q_ss, q_sh, kRows) ||
+      !encode(&tm_k, k, b, s, h, k_sb, k_ss, k_sh, kRows) ||
+      !encode(&tm_v, v, b, s, h, v_sb, v_ss, v_sh, kRows))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare();
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)((s + kBQ - 1) / kBQ), (unsigned)(b * h));
-  tower_attention_kernel<<<grid, vstar::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  TowerParams p{static_cast<bf16*>(o), s, h, o_sb, o_ss, o_sh, scale};
+  dim3 grid((unsigned)((s + kWG * kRows - 1) / (kWG * kRows)), (unsigned)(b * h));
+  tower_attention_kernel<<<grid, kThreads, TowerSmem::alloc,
+                           static_cast<cudaStream_t>(stream)>>>(tm_q, tm_k, tm_v, p);
   return (int)cudaGetLastError();
 }

@@ -22,6 +22,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -31,7 +33,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _LL, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "vstar_flash_attention_fwd": [_P] * 8 + [_LL] * 20 + [_F, _P],
+    "vstar_flash_attention_fwd": [_P] * 10 + [_LL] * 21 + [_F, _P],
+    "vstar_attention_kernel_info": [ctypes.c_int, ctypes.POINTER(ctypes.c_char_p),
+                                    ctypes.POINTER(ctypes.c_longlong)],
     "vstar_flash_attention_bwd_dq": [_P] * 12 + [_LL] * 29 + [_F, _P],
     "vstar_flash_attention_bwd_dkv": [_P] * 12 + [_LL] * 29 + [_F, _P],
     "vstar_tower_attention_fwd": [_P] * 4 + [_LL] * 15 + [_F, _P],
@@ -117,6 +121,8 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _LIB
+    if _LIB is not None:
+        return _LIB
     with _LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
@@ -128,6 +134,15 @@ def library() -> ctypes.CDLL:
             lib.vstar_error_string.restype = ctypes.c_char_p
             _LIB = lib
         return _LIB
+
+
+def launch(fn, dev, *args) -> int:
+    """Calls a launcher with its arguments and the current stream of
+    `dev` (made the current device for the call if it is not)."""
+    if dev.index is not None and dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

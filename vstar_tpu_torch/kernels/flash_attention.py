@@ -4,16 +4,20 @@ their plain PyTorch versions.
 K1 replaces the Pallas forward of vstar_tpu/kernels/flash_attention.py
 (`_fwd_kernel`); K7 replaces its backward (`_bwd_dq_kernel`,
 `_bwd_dkv_kernel`). K1 (csrc/flash_attention.cu) takes every shape the
-decoder gives it: prefill at the prompt buckets, 1-token decode, verify
-and option chunks at `q_offsets` over a ragged cache, and the training
-forward, where it also writes each row's log-sum-exp. K7
-(csrc/flash_attention_bwd.cu) computes dQ and dK/dV from that
+decoder gives it, on two routes: the tile route (Sq > 16: prefill,
+option chunks, the training forward, where it also writes each row's
+log-sum-exp), a register-resident FlashAttention-2 tile per block of
+query rows; and the split route (Sq <= 16: 1-token decode and verify
+chunks), which cuts each (batch, head)'s keys into `split_plan` shares
+over the whole card and merges the partials in a second, ordered kernel
+(`split_kv_reference` is its algebra in plain PyTorch, for the tests).
+K7 (csrc/flash_attention_bwd.cu) computes dQ and dK/dV from that
 log-sum-exp and delta = sum(dO * O), as the TPU backward does.
 
 On the H100 decode and short chunks are bound by the KV bytes read, and
-prefill by the 4*Sq*Skv*D operations per head; the kernel reads the
+prefill by the 4*Sq*Skv*D operations per head; the kernels read the
 cache in place through its strides (the TPU wrapper transposed to
-head-major first) and stops at `kv_lens` and at the last causal column.
+head-major first) and stop at `kv_lens` and at the last causal column.
 
 API (seq-major, as in the JAX package; always causal, scale D**-0.5, the
 decoder's only use):
@@ -34,6 +38,9 @@ or raises.
 
 from __future__ import annotations
 
+import ctypes
+import math
+
 import torch
 
 from . import _build
@@ -46,8 +53,15 @@ launches = 0
 plain_calls_cuda = 0
 bwd_launches = {"dq": 0, "dkv": 0}
 bwd_plain_calls_cuda = 0
+# K1's launches by route (each wrapper call is one "tile" or one "split"
+# launch, counted in `launches` too); "combine" counts the split route's
+# second kernel, which merges the partials.
+route_launches = {"tile": 0, "split": 0, "combine": 0}
 
 HEAD_DIM = 128   # the head width the kernels are instantiated for
+SPLIT_MAX_SQ = 16    # query rows up to which K1 takes the split route
+SPLIT_GROUP = 16     # keys per group: the split route's unit of work
+SPLIT_MAX = 64       # most splits per (batch, head)
 
 
 def _mask(q, k, kv_lens, q_offsets, kv_valid):
@@ -108,6 +122,77 @@ def mha_forward_lse(q, k, v, kv_lens=None, q_offsets=None, kv_valid=None):
     return out.to(q.dtype), lse[..., 0].permute(0, 2, 1).contiguous()
 
 
+def split_plan(B: int, Sq: int, H: int, Skv: int, sm_count: int) -> int:
+    """Splits per (batch, head) on K1's split route, from shapes and the
+    card's SM count only (never from kv_lens, so the launch needs no host
+    sync and can be captured in a CUDA graph): enough blocks for two per
+    SM, at most one 16-key group of the cache capacity each."""
+    del Sq      # every split covers all (<= 16) query rows
+    want = -(-2 * sm_count // max(1, B * H))
+    groups = max(1, -(-Skv // SPLIT_GROUP))
+    return max(1, min(want, groups, SPLIT_MAX))
+
+
+def split_ranges(kv_lens, q_offsets, Sq: int, n_splits: int):
+    """[B, n_splits] start and end key of each split: the keys a row may
+    see, [0, min(kv_len, q_offset + Sq)), in equal shares of whole 16-key
+    groups; a short row leaves later splits empty (start == end)."""
+    rng = torch.clamp(torch.minimum(kv_lens.long(), q_offsets.long() + Sq),
+                      min=0)
+    groups = (rng + SPLIT_GROUP - 1) // SPLIT_GROUP
+    per = (groups + n_splits - 1) // n_splits
+    s = torch.arange(n_splits, device=rng.device)[None, :]
+    g0 = torch.minimum(s * per[:, None], groups[:, None])
+    g1 = torch.minimum(g0 + per[:, None], groups[:, None])
+    return (torch.minimum(g0 * SPLIT_GROUP, rng[:, None]),
+            torch.minimum(g1 * SPLIT_GROUP, rng[:, None]))
+
+
+def split_kv_reference(q, k, v, kv_lens=None, q_offsets=None, kv_valid=None,
+                       n_splits: int = 1):
+    """K1's split route step by step in f32: per split, the partial
+    (m, l, unnormalised O) over its keys, then the merge in split order,
+    O = sum_s e^(m_s - M) O_s / sum_s e^(m_s - M) l_s. Returns (out [B,Sq,H,D]
+    in q's dtype, lse f32 [B,Sq,H], -inf on a row that sees no key, whose
+    output is exactly 0). Used by the tests only."""
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
+    dev = q.device
+    if q_offsets is None:
+        q_offsets = torch.zeros((B,), dtype=torch.int32, device=dev)
+    if kv_lens is None:
+        kv_lens = torch.full((B,), Skv, dtype=torch.int32, device=dev)
+    kv_lens = torch.clamp(kv_lens.long(), 0, Skv)
+    mask = _mask(q, k, kv_lens, q_offsets, kv_valid)       # [B,1,Sq,Skv]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * D ** -0.5, k.float())
+    start, end = split_ranges(kv_lens, q_offsets, Sq, n_splits)
+    ki = torch.arange(Skv, device=dev)[None, :]
+    parts = []
+    for i in range(n_splits):
+        own = (ki >= start[:, i:i + 1]) & (ki < end[:, i:i + 1])  # [B,Skv]
+        mi = mask & own[:, None, None, :]
+        si = s.masked_fill(~mi, float("-inf"))
+        m = si.amax(dim=-1, keepdim=True)                     # [B,H,Sq,1]
+        base = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+        p = torch.where(mi, torch.exp(si - base), torch.zeros_like(si))
+        parts.append((m, p.sum(-1, keepdim=True),
+                      torch.einsum("bhqk,bkhd->bhqd", p, v.float())))
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    Mb = torch.where(torch.isinf(M), torch.zeros_like(M), M)
+    L = torch.zeros_like(M)
+    O = torch.zeros((B, H, Sq, D), dtype=torch.float32, device=dev)
+    for m, l, o in parts:
+        w = torch.where(torch.isinf(m), torch.zeros_like(m),
+                        torch.exp(m - Mb))
+        L = L + w * l
+        O = O + w * o
+    out = torch.where(L > 0, O / L.clamp_min(1e-30), torch.zeros_like(O))
+    lse = torch.where(L > 0, M + torch.log(L.clamp_min(1e-30)),
+                      torch.full_like(L, float("-inf")))
+    return (out.permute(0, 2, 1, 3).to(q.dtype),
+            lse[..., 0].permute(0, 2, 1).contiguous())
+
+
 def mha_backward(q, k, v, do, lse, delta, kv_lens=None, q_offsets=None,
                  kv_valid=None):
     """K7 step by step in f32 (the TPU `_bwd`): dq, dk, dv in the inputs'
@@ -134,21 +219,25 @@ def mha_backward(q, k, v, do, lse, delta, kv_lens=None, q_offsets=None,
 def _check_operand(name: str, x: torch.Tensor, shape) -> None:
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{name}: expected bfloat16 on CUDA, got {x.dtype}")
-    if tuple(x.shape) != tuple(shape):
+    if x.shape != shape:
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(x.shape)}")
-    if x.stride(-1) != 1:
+    st = x.stride()
+    if st[-1] != 1:
         raise ValueError(f"{name}: last dimension must be contiguous")
-    if any(s % 8 for s in x.stride()[:-1]) or x.data_ptr() % 16:
+    # every outer stride a multiple of 8 elements <=> so is their gcd
+    if math.gcd(*st[:-1]) % 8 or x.data_ptr() % 16:
         raise ValueError(f"{name}: rows must be 16-byte aligned (strides "
-                         f"{x.stride()})")
+                         f"{st})")
 
 
 def _row_vector(name, x, B, default, dev):
     if x is None:
         return torch.full((B,), default, dtype=torch.int32, device=dev)
-    if tuple(x.shape) != (B,) or x.device != dev:
+    if x.shape != (B,) or x.device != dev:
         raise ValueError(f"{name}: expected shape ({B},) on {dev}")
+    if x.dtype == torch.int32 and x.is_contiguous():
+        return x
     return x.to(torch.int32).contiguous()
 
 
@@ -172,11 +261,23 @@ def _validate(q, k, v, kv_lens, q_offsets, kv_valid):
     kv_lens = _row_vector("kv_lens", kv_lens, B, Skv, dev)
     q_offsets = _row_vector("q_offsets", q_offsets, B, 0, dev)
     if kv_valid is not None:
-        if tuple(kv_valid.shape) != (B, Skv) or kv_valid.device != dev:
+        if kv_valid.shape != (B, Skv) or kv_valid.device != dev:
             raise ValueError(f"kv_valid: expected shape ({B}, {Skv}) on "
                              f"{dev}")
-        kv_valid = kv_valid.to(torch.uint8).contiguous()
+        if kv_valid.dtype != torch.uint8 or not kv_valid.is_contiguous():
+            kv_valid = kv_valid.to(torch.uint8).contiguous()
     return kv_lens, q_offsets, kv_valid
+
+
+_SM_COUNT = {}
+
+
+def _sm_count(dev) -> int:
+    n = _SM_COUNT.get(dev.index)
+    if n is None:
+        n = _SM_COUNT[dev.index] = \
+            torch.cuda.get_device_properties(dev).multi_processor_count
+    return n
 
 
 def _forward_kernel(q, k, v, kv_lens, q_offsets, kv_valid, with_lse):
@@ -184,27 +285,60 @@ def _forward_kernel(q, k, v, kv_lens, q_offsets, kv_valid, with_lse):
     global launches
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
-    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device) \
+    dev = q.device
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=dev)
+    lse = torch.empty((B, Sq, H), dtype=torch.float32, device=dev) \
         if with_lse else None
     if out.numel() == 0:
         return out, lse
+    n_splits = split_plan(B, Sq, H, Skv, _sm_count(dev)) \
+        if Sq <= SPLIT_MAX_SQ else 0
+    ws_o = ws_ml = None
+    if n_splits:
+        # one f32 workspace: the partial O [B, H, n, Sq, D], then (m, l)
+        parts = B * H * n_splits * Sq
+        ws = torch.empty((parts * (D + 2),), dtype=torch.float32, device=dev)
+        ws_o = ws.data_ptr()
+        ws_ml = ws_o + parts * D * 4
     lib = _build.library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.vstar_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            kv_lens.data_ptr(), q_offsets.data_ptr(),
-            None if kv_valid is None else kv_valid.data_ptr(),
-            None if lse is None else lse.data_ptr(),
-            B, Sq, Skv, H, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], *out.stride()[:3],
-            0 if kv_valid is None else kv_valid.stride(0),
-            *((0, 0, 0) if lse is None else lse.stride()), D ** -0.5,
-            stream)
+    code = _build.launch(
+        lib.vstar_flash_attention_fwd, dev,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        kv_lens.data_ptr(), q_offsets.data_ptr(),
+        None if kv_valid is None else kv_valid.data_ptr(),
+        None if lse is None else lse.data_ptr(),
+        ws_o, ws_ml, n_splits,
+        B, Sq, Skv, H, *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *out.stride()[:3],
+        0 if kv_valid is None else kv_valid.stride(0),
+        *((0, 0, 0) if lse is None else lse.stride()), D ** -0.5)
     _build.check(lib, code, "flash_attention")
     launches += 1
+    if n_splits:
+        route_launches["split"] += 1
+        route_launches["combine"] += 1
+    else:
+        route_launches["tile"] += 1
     return out, lse
+
+
+def attention_kernel_info():
+    """Build facts of every K1 and K2 instantiation (one C call each):
+    registers and local (spill) bytes per thread, static and dynamic
+    shared memory, resident blocks per SM, threads per block."""
+    lib = _build.library()
+    name = ctypes.c_char_p()
+    vals = (ctypes.c_longlong * 6)()
+    info, i = [], 0
+    while True:
+        code = lib.vstar_attention_kernel_info(i, ctypes.byref(name), vals)
+        if code == -1:
+            return info
+        _build.check(lib, code, "attention kernel info")
+        info.append(dict(zip(("registers", "local_bytes", "static_smem",
+                              "dynamic_smem", "blocks_per_sm", "threads"),
+                             list(vals)), kernel=name.value.decode()))
+        i += 1
 
 
 def _device_route(q, what: str) -> bool:
@@ -248,22 +382,18 @@ def flash_attention_bwd(q, k, v, do, lse, delta, kv_lens=None,
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     lib = _build.library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), kv_lens.data_ptr(),
-                q_offsets.data_ptr(),
-                None if kv_valid is None else kv_valid.data_ptr(),
-                B, Sq, Skv, H, *q.stride()[:3], *k.stride()[:3],
-                *v.stride()[:3], *do.stride()[:3], *dq.stride()[:3],
-                *dk.stride()[:3], *dv.stride()[:3], *lse.stride(),
-                0 if kv_valid is None else kv_valid.stride(0), D ** -0.5,
-                stream)
-        code = lib.vstar_flash_attention_bwd_dq(*args)
-        _build.check(lib, code, "flash_attention_bwd (dq)")
-        bwd_launches["dq"] += 1
-        code = lib.vstar_flash_attention_bwd_dkv(*args)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), kv_lens.data_ptr(), q_offsets.data_ptr(),
+            None if kv_valid is None else kv_valid.data_ptr(),
+            B, Sq, Skv, H, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *do.stride()[:3], *dq.stride()[:3],
+            *dk.stride()[:3], *dv.stride()[:3], *lse.stride(),
+            0 if kv_valid is None else kv_valid.stride(0), D ** -0.5)
+    code = _build.launch(lib.vstar_flash_attention_bwd_dq, q.device, *args)
+    _build.check(lib, code, "flash_attention_bwd (dq)")
+    bwd_launches["dq"] += 1
+    code = _build.launch(lib.vstar_flash_attention_bwd_dkv, q.device, *args)
     _build.check(lib, code, "flash_attention_bwd (dkv)")
     bwd_launches["dkv"] += 1
     return dq, dk, dv

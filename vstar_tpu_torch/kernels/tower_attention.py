@@ -4,9 +4,11 @@ Replaces the Pallas `_kernel` of vstar_tpu/kernels/tower_attention.py,
 which serves the OWL-ViT B/16 tower at 768x768 (S = 2305, 12 heads,
 head_dim 64). That kernel kept all of K and V of a head resident, which
 exceeds a Hopper block's shared memory; csrc/tower_attention.cu streams
-K/V tiles with an online f32 softmax instead and masks the ragged tail of
-S itself. On the H100 it is compute-bound (4*S^2*D*H = 16.3 GFLOP per
-layer per image); its gain is keeping the [S, S] scores on chip.
+K/V tiles with an online f32 softmax instead (TMA loads into a ring of
+mbarriers, wgmma products, the softmax in registers) and masks the
+ragged tail of S itself. On the H100 it is compute-bound (4*S^2*D*H =
+16.3 GFLOP per layer per image); its gain is keeping the [S, S] scores
+on chip.
 
 A CPU tensor takes the plain version `tower_attention_reference`; a
 CUDA tensor launches the kernel or raises. The kernel has no backward
@@ -72,12 +74,11 @@ def tower_attention(q, k, v):
     if out.numel() == 0:
         return out
     lib = _build.library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.vstar_tower_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, H, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], D ** -0.5, stream)
+    code = _build.launch(
+        lib.vstar_tower_attention_fwd, q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, S, H, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3], D ** -0.5)
     _build.check(lib, code, "tower_attention")
     launches += 1
     return out
