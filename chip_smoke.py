@@ -3,13 +3,15 @@
 Runs on one CUDA card, in phases; any failure exits non-zero:
   1. card and versions;
   2. build the CUDA kernels from vstar_tpu_torch/csrc (one nvcc per
-     source, in parallel), and log every K1/K2 instantiation's registers,
+     source, in parallel), and log every K1/K7/K2 instantiation's and K5's
+     decode-row instantiations' registers,
      local (spill) bytes, shared memory and resident blocks per SM;
   3. every kernel against its plain PyTorch version at the 7B shapes of
      the path: K1 flash attention, K2 tower attention, the int8 matvec
-     (K3/K4) at R in {1, 8, 16}, K5 (W4A16) at R in {1, 16, 384} and K6
+     (K3/K4) at R in {1, 8, 16}, K5 (W4A16) at R in {1, 8, 16, 384} and K6
      (W4A8) at R in {1, 8}; K5 also against its own arithmetic (bf16
-     weights above 16 rows) within its output's rounding; each case is timed by device time (one CUDA
+     weights above 16 rows) within its output's rounding, with one launch
+     per call and its factor against tinygemm at R=1; each case is timed by device time (one CUDA
      graph of N launches over weight copies that exceed the L2 cache) and
      by CUDA events around single calls, beside its plain version, its
      bound and, where one PyTorch call computes the same function, that
@@ -36,7 +38,8 @@ Runs on one CUDA card, in phases; any failure exits non-zero:
      [4, 512, 32, 128] (ragged kv_lens, key holes, a row that sees no key)
      against their plain versions, timed as above (K7's library yardstick
      is SDPA's backward: by events, and by device time as one graph of
-     forward + backward less one of the forward);
+     forward + backward less one of the forward; K7's factor against it
+     logged), K7 bit-identical from one launch to the next;
   9. the int4 profile path (vstar_tpu_torch.scripts.int4_profile, in
      process): --probe, a short --matmul (W4A8 off, rows and transposed at
      every 7B shape) and the full-7B --decode ablation (eight rows, ms per
@@ -120,6 +123,20 @@ def phase_device() -> str:
     return smi
 
 
+KERNEL_INFO = []
+
+
+def log_kernel_info(tag, prefix):
+    """Logs the build facts of the kernels whose names start with
+    `prefix` (from phase_build's query)."""
+    for i in KERNEL_INFO:
+        if i["kernel"].startswith(prefix):
+            log(f"[{tag}] {i['kernel']}: {i['registers']} registers, "
+                f"{i['local_bytes']} local (spill) bytes, dynamic smem "
+                f"{i['dynamic_smem']} B, {i['threads']} threads, "
+                f"{i['blocks_per_sm']} resident blocks per SM")
+
+
 def phase_build():
     from vstar_tpu_torch.kernels import _build
     t0 = time.perf_counter()
@@ -132,13 +149,15 @@ def phase_build():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"[build] {line.strip()}")
     from vstar_tpu_torch.kernels.flash_attention import attention_kernel_info
-    info = attention_kernel_info()
+    from vstar_tpu_torch.kernels.int4_matmul import int4_kernel_info
+    info = attention_kernel_info() + int4_kernel_info()
     for i in info:
         log(f"[build] {i['kernel']}: {i['registers']} registers, "
             f"{i['local_bytes']} local (spill) bytes, static smem "
             f"{i['static_smem']} B, dynamic smem {i['dynamic_smem']} B, "
             f"{i['threads']} threads, {i['blocks_per_sm']} resident blocks "
             f"per SM")
+    KERNEL_INFO[:] = info
     return info
 
 
@@ -451,7 +470,7 @@ def phase_int4(dev):
 
     k5, k6 = [], []
     for rows, IN, OUT in ((1, 4096, 11008), (16, 4096, 32003),
-                          (384, 4096, 11008)):
+                          (8, 4096, 11008), (384, 4096, 11008)):
         e = entry(IN, OUT)
         x = _rand(gen, dev, rows, IN).to(torch.bfloat16)
         nbytes = (IN // 2 * OUT + 4 * e["s4"].shape[0] * OUT
@@ -471,7 +490,16 @@ def phase_int4(dev):
         if not math_err <= K5_MATH_TOL:
             raise AssertionError(f"K5 R={rows}: {math_err} beyond rounding")
         rec["kernel_math_err"] = math_err
+        before = k4.launches["int4_matmul"]
+        k4.int4_matmul(x, e["q4"], e["s4"])
+        if k4.launches["int4_matmul"] != before + 1:
+            raise AssertionError(f"K5 R={rows}: not one launch per call")
         k5.append({"case": f"R{rows}_{IN}x{OUT}", **rec})
+    if k5[0]["library_ms"]:
+        log(f"[K5 R=1 4096x11008] device {k5[0]['ms']:.4f} ms, "
+            f"{k5[0]['ms'] / k5[0]['library_ms']:.2f}x tinygemm's "
+            f"{k5[0]['library_ms']:.4f}")
+    log_kernel_info("K5", "int4_decode")
     for rows, IN, OUT in ((1, 4096, 11008), (8, 4096, 32003)):
         e = entry(IN, OUT)
         xq, _ = k4.quantize_activations(_rand(gen, dev, rows, IN))
@@ -587,8 +615,12 @@ def phase_k7(dev):
     ref_out, ref_lse = fa.mha_forward_lse(q, k, v, **masks)
     delta = (do.float() * out.float()).sum(-1)
     grads = fa.flash_attention_bwd(q, k, v, do, lse, delta, **masks)
+    again = fa.flash_attention_bwd(q, k, v, do, lse, delta, **masks)
     want = fa.mha_backward(q, k, v, do, ref_lse, delta, **masks)
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        raise AssertionError("K7: two launches on the same inputs differ")
+    del again
     finite = torch.isfinite(ref_lse)
     lse_err = float((lse - ref_lse)[finite].abs().max())
     out_err = _abs_err(out, ref_out)
@@ -669,6 +701,10 @@ def phase_k7(dev):
     log(f"[K7 train] device {bwd_ms:.4f} ms (events {bwd_events:.4f}) "
         f"plain {bwd_plain:.4f} library {sdpa_bwd_graph} (events "
         f"{sdpa_bwd:.4f}; SDPA backward) bound {bwd_bound:.4f} ms ({bwd_by})")
+    if sdpa_bwd_graph:
+        log(f"[K7 train] {bwd_ms / sdpa_bwd_graph:.2f}x SDPA's backward by "
+            f"device time")
+    log_kernel_info("K7", "flash_bwd")
     shape = f"q{(B, S, H, D)} kv_lens {kv_lens.tolist()} kv_valid 90%"
     k1 = {"case": "train_lse", "shape": shape, "max_abs_err": out_err,
           "max_rel_err": _rel_err(out, ref_out), "lse_max_abs_err": lse_err,

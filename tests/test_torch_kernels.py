@@ -307,15 +307,19 @@ def test_flash_kernel_on_card(cuda, B, Sq, Skv, offs, masked):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,Sq,Skv,offs,lens,masked", [
-    (2, 256, 256, (0, 0), (256, 256), False),   # causal, full tiles
-    (2, 130, 130, (0, 0), (130, 77), True),     # ragged tiles, holes
-    (3, 64, 200, (0, 17, 136), (64, 81, 200), True),  # offsets
-    (4, 512, 512, (0, 0, 0, 0), (512, 300, 512, 512), True),  # training
+    (2, 256, 256, (0, 0), (256, 256), 0),       # causal, full tiles
+    (2, 130, 130, (0, 0), (130, 77), 1),        # ragged tiles, holes
+    (3, 64, 200, (0, 17, 136), (64, 81, 200), 1),  # offsets
+    (4, 512, 512, (0, 0, 0, 0), (512, 300, 512, 512), 1),  # training
+    # Sq, Skv no multiple of any tile; holes; rows 0-4 of batch 0 see no key
+    (3, 77, 93, (0, 5, 16), (93, 40, 93), 5),
 ])
 def test_flash_bwd_kernel_on_card(cuda, B, Sq, Skv, offs, lens, masked):
     """K1's lse (abs 1e-3) and K7's dq, dk, dv (2e-2 of each one's largest
     |value|) against the plain versions, directly and through autograd,
-    with ragged lengths, key holes and a row that sees no key."""
+    with ragged lengths, key holes and `masked` leading rows of batch 0
+    that see no key (their dq exactly 0); a second launch on the same
+    inputs gives bit-identical dq, dk and dv."""
     g = torch.Generator(device=cuda).manual_seed(Sq + B)
     q, k, v, do = (torch.randn(B, s, 8, 128, generator=g, device=cuda)
                    .to(torch.bfloat16) for s in (Sq, Skv, Skv, Sq))
@@ -324,7 +328,7 @@ def test_flash_bwd_kernel_on_card(cuda, B, Sq, Skv, offs, lens, masked):
     valid = None
     if masked:
         valid = torch.rand(B, Skv, generator=g, device=cuda) > 0.1
-        valid[0, 0] = False          # batch 0, row 0 sees no key
+        valid[0, :masked] = False    # batch 0, rows < masked see no key
     masks = (kv_lens, q_off, valid)
     before = (fa.launches, dict(fa.bwd_launches))
     out, lse = fa.flash_attention_lse(q, k, v, *masks)
@@ -343,7 +347,11 @@ def test_flash_bwd_kernel_on_card(cuda, B, Sq, Skv, offs, lens, masked):
         assert torch.isfinite(a.float()).all()
         assert _rel(a, b) <= BF16_TOL
     if masked:
-        assert float(got[0][0, 0].float().abs().max()) == 0.0
+        assert torch.isinf(lse[0, :masked]).all()
+        assert float(got[0][0, :masked].float().abs().max()) == 0.0
+    again = fa.flash_attention_bwd(q, k, v, do, lse, delta, *masks)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     fa.flash_attention(*leaves, *masks).backward(do)
     for leaf, b in zip(leaves, want):
@@ -412,7 +420,9 @@ def test_int8_kernel_on_card(cuda, rows, IN, OUT):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("rows,IN,OUT", [
-    (1, 4096, 11008), (2, 4096, 4096), (16, 11008, 4096), (4, 4096, 32003),
+    (1, 4096, 11008), (3, 4096, 11008), (8, 4096, 11008), (16, 4096, 11008),
+    (1, 4096, 32003), (3, 4096, 32003), (8, 4096, 32003), (16, 4096, 32003),
+    (2, 4096, 4096), (16, 11008, 4096), (4, 4096, 32003),
     (40, 4096, 1000), (384, 4096, 11008)])
 def test_int4_kernel_on_card(cuda, rows, IN, OUT):
     from vstar_tpu_torch.kernels import int4_matmul as k4
@@ -429,6 +439,10 @@ def test_int4_kernel_on_card(cuda, rows, IN, OUT):
     # above 16 rows), within the rounding of its bf16 output
     math = k4.int4_matmul_kernel_math(x, e["q4"], e["s4"])
     assert _beyond_rounding(got, math) <= 1e-3
+    if rows <= 16:    # the decode rows: whole ring stages per group
+        e32 = _int4(g, 256, 64, cuda, group=32)
+        with pytest.raises(ValueError, match="multiple of 64"):
+            k4.int4_matmul(x[:, :256].contiguous(), e32["q4"], e32["s4"])
 
 
 @pytest.mark.gpu

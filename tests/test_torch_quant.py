@@ -284,6 +284,25 @@ def test_split_plan_fills_the_card_and_covers_the_reduction():
         [1, 2, 4, 8, 8, 16, 16]
 
 
+@pytest.mark.parametrize("groups,out,resident", [
+    (32, 11008, 264), (32, 32003, 264), (86, 4096, 264), (32, 4096, 396),
+    (1, 512, 264), (32, 11008, 40), (3, 64, 1000)])
+def test_decode_plan_fills_the_card_in_one_wave(groups, out, resident):
+    """K5's decode rows: one cluster of 1, 2, 4 or 8 blocks per strip of
+    DECODE_COLS columns, every block holding DECODE_SPLITS splits of whole
+    groups; one wave of the card's resident blocks where the strips allow
+    it, and no cluster larger than the groups can feed."""
+    c = k4.decode_plan(groups, out, resident)
+    strips = -(-out // k4.DECODE_COLS)
+    assert c in (1, 2, 4, 8) and c <= k4.DECODE_MAX_CLUSTER
+    assert c == 1 or strips * c <= resident
+    assert c == 1 or k4.DECODE_SPLITS * (c - 1) < groups
+    # the largest power of two those three limits let it be
+    limit = min(k4.DECODE_MAX_CLUSTER, max(1, resident // strips),
+                -(-groups // k4.DECODE_SPLITS))
+    assert c <= limit < 2 * c
+
+
 def test_wrappers_take_plain_version_on_cpu_only():
     counts = (k8.launches, dict(k4.launches), k8.plain_calls_cuda,
               dict(k4.plain_calls_cuda))

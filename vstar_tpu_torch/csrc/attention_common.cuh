@@ -1,8 +1,9 @@
 // The register-resident attention tile of K1's tile route
 // (flash_attention.cu: decoder attention over the ragged KV cache), and
 // the PTX helpers (cp.async, ldmatrix, mma.sync, the online softmax step)
-// that K1's split route and K2 (tower_attention.cu) share with it; K7
-// (flash_attention_bwd.cu) takes its includes and bf16 alias from here.
+// that K1's split route, K2 (tower_attention.cu) and K7's two backward
+// kernels (flash_attention_bwd.cu: qk_tile / qk_tile_sa, pv_tile,
+// store_warp_rows) share with it.
 //
 // FlashAttention-2 layout: a block of BQ / 16 warps owns BQ query rows of
 // one (batch, head); each warp owns 16 of them and walks the keys in
@@ -49,6 +50,12 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool pred) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(dst), "l"(src), "r"(pred ? 16 : 0));
+}
+// 4-byte global -> shared copy (zeros with pred false).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(pred ? 4 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -146,6 +153,63 @@ __device__ __forceinline__ void qk_tile(float (&s)[NS][4],
       mma_bf16(s[n], qf[kk], b[0], b[1]);
       mma_bf16(s[n + 1], qf[kk], b[2], b[3]);
     }
+  }
+}
+
+// S (16 x 8*NS) = A B^T over D with A's 16 rows read from a swizzled
+// shared tile (rows arow .. arow + 15 of ast) at each k-step, instead of
+// held in registers; bst is the swizzled B tile (K1's K, or Q / dO in
+// the flash backward's dK/dV kernel).
+template <int D, int NS>
+__device__ __forceinline__ void qk_tile_sa(float (&s)[NS][4], uint32_t ast,
+                                           int arow, uint32_t bst, int lane) {
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    ldmatrix_x4(a, ast + swz<D>(arow + (lane & 15), kk * 2 + (lane >> 4)));
+#pragma unroll
+    for (int n = 0; n < NS; n += 2) {
+      uint32_t b[4];
+      const int key = n * 8 + (lane & 7) + ((lane >> 4) << 3);
+      ldmatrix_x4(b, bst + swz<D>(key, kk * 2 + ((lane >> 3) & 1)));
+      mma_bf16(s[n], a, b[0], b[1]);
+      mma_bf16(s[n + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// Writes a warp's 16 x D f32 accumulator fragments, times `factor`, as
+// bf16 rows [row0, row0 + 16) of dst (row stride rs; rows at or past
+// `rows` skipped): through the warp's own rows trow .. trow + 15 of a
+// swizzled shared tile `tile`, then 16-byte row stores. The caller makes
+// sure nothing else reads or writes those shared rows meanwhile.
+template <int D>
+__device__ __forceinline__ void store_warp_rows(const float (&acc)[D / 8][4],
+                                                float factor,
+                                                unsigned char* tile, int trow,
+                                                bf16* __restrict__ dst,
+                                                long long rs, int row0,
+                                                int rows, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+  __syncwarp();
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<uint32_t*>(tile + swz<D>(trow + g + 8 * r, n) + t4 * 4) =
+          pack_bf16(acc[n][2 * r] * factor, acc[n][2 * r + 1] * factor);
+  __syncwarp();
+  constexpr int CH = D / 8;
+#pragma unroll
+  for (int it = 0; it < 16 * CH / 32; ++it) {
+    const int i = lane + it * 32, r = i / CH, c = i % CH;
+    if (row0 + r < rows)
+      *reinterpret_cast<uint4*>(dst + (long long)(row0 + r) * rs + c * 8) =
+          *reinterpret_cast<const uint4*>(tile + swz<D>(trow + r, c));
   }
 }
 

@@ -317,15 +317,20 @@ constexpr int kNumKernels = sizeof(kKernels) / sizeof(kKernels[0]);
 
 }  // namespace
 
-// Defined in tower_attention.cu (same library).
+// Defined in flash_attention_bwd.cu and tower_attention.cu (same library).
+extern "C" int vstar_bwd_kernel_info(int i, const char** name, long long* vals);
 extern "C" int vstar_tower_kernel_info(int i, const char** name, long long* vals);
+constexpr int kNumBwdKernels = 2;   // K7's dQ and dK/dV kernels
 
 // Build facts of the i-th attention kernel instantiation (K1's, then
-// K2's): vals = {registers per thread, local (spill) bytes per thread,
-// static shared bytes, dynamic shared bytes, resident blocks per SM,
-// threads per block}. Returns 0, -1 past the last one, or a CUDA error.
+// K7's, then K2's): vals = {registers per thread, local (spill) bytes per
+// thread, static shared bytes, dynamic shared bytes, resident blocks per
+// SM, threads per block}. Returns 0, -1 past the last one, or a CUDA
+// error.
 extern "C" int vstar_attention_kernel_info(int i, const char** name, long long* vals) {
-  if (i >= kNumKernels) return vstar_tower_kernel_info(i - kNumKernels, name, vals);
+  if (i >= kNumKernels + kNumBwdKernels)
+    return vstar_tower_kernel_info(i - kNumKernels - kNumBwdKernels, name, vals);
+  if (i >= kNumKernels) return vstar_bwd_kernel_info(i - kNumKernels, name, vals);
   if (i < 0) return -1;
   const KernelInfo& kinfo = kKernels[i];
   cudaError_t err = kinfo.prep(kinfo.smem);

@@ -40,10 +40,13 @@ _SIGNATURES = {
     "vstar_flash_attention_bwd_dkv": [_P] * 12 + [_LL] * 29 + [_F, _P],
     "vstar_tower_attention_fwd": [_P] * 4 + [_LL] * 15 + [_F, _P],
     "vstar_int8_matvec": [_P] * 5 + [_LL] * 6 + [_P],
-    "vstar_int4_matmul": [_P] * 5 + [_LL] * 7 + [_P],
+    "vstar_int4_matmul": [_P] * 4 + [_LL] * 6 + [_P],
     "vstar_int4_w4a8": [_P] * 5 + [_LL] * 7 + [_P],
     "vstar_int8_matvec_occupancy": [_LL] * 3 + [_P],
-    "vstar_int4_occupancy": [_LL] * 4 + [_P],
+    "vstar_int4_occupancy": [_LL] * 3 + [_P],
+    "vstar_int4_decode_occupancy": [_LL] * 2 + [_P],
+    "vstar_int4_kernel_info": [ctypes.c_int, ctypes.POINTER(ctypes.c_char_p),
+                               ctypes.POINTER(ctypes.c_longlong)],
     "vstar_unpack_probe": [_P] * 2 + [_LL] * 2 + [_P],
     "vstar_w4a8_variant": [_P] * 5 + [_LL] * 8 + [_P],
     "vstar_w4a8_rows": [_P] * 5 + [_LL] * 5 + [_P],
@@ -143,6 +146,26 @@ def launch(fn, dev, *args) -> int:
         with torch.cuda.device(dev):
             return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+
+
+def kernel_info(entry: str):
+    """Build facts of every instantiation that the C entry `entry`
+    reports (one call each, until it returns -1): registers and local
+    (spill) bytes per thread, static and dynamic shared memory, resident
+    blocks per SM, threads per block."""
+    lib = library()
+    name = ctypes.c_char_p()
+    vals = (ctypes.c_longlong * 6)()
+    info, i = [], 0
+    while True:
+        code = getattr(lib, entry)(i, ctypes.byref(name), vals)
+        if code == -1:
+            return info
+        check(lib, code, entry)
+        info.append(dict(zip(("registers", "local_bytes", "static_smem",
+                              "dynamic_smem", "blocks_per_sm", "threads"),
+                             list(vals)), kernel=name.value.decode()))
+        i += 1
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -38,7 +38,6 @@ or raises.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -323,22 +322,10 @@ def _forward_kernel(q, k, v, kv_lens, q_offsets, kv_valid, with_lse):
 
 
 def attention_kernel_info():
-    """Build facts of every K1 and K2 instantiation (one C call each):
+    """Build facts of every K1, K7 and K2 instantiation (one C call each):
     registers and local (spill) bytes per thread, static and dynamic
     shared memory, resident blocks per SM, threads per block."""
-    lib = _build.library()
-    name = ctypes.c_char_p()
-    vals = (ctypes.c_longlong * 6)()
-    info, i = [], 0
-    while True:
-        code = lib.vstar_attention_kernel_info(i, ctypes.byref(name), vals)
-        if code == -1:
-            return info
-        _build.check(lib, code, "attention kernel info")
-        info.append(dict(zip(("registers", "local_bytes", "static_smem",
-                              "dynamic_smem", "blocks_per_sm", "threads"),
-                             list(vals)), kernel=name.value.decode()))
-        i += 1
+    return _build.kernel_info("vstar_attention_kernel_info")
 
 
 def _device_route(q, what: str) -> bool:

@@ -8,8 +8,10 @@ Weight format, from nn/quant.quantize_weight_int4:
   s4  f32 [IN/group, OUT]: one scale per (group, column).
 
   int4_matmul(x, q4, s4)       x [R, IN] @ dequant -> [R, OUT] in x.dtype,
-                               every R (K5; csrc/int4_matmul.cu streams the
-                               bytes at R <= 16, tensor-core tiles above)
+                               every R (K5; csrc/int4_matmul.cu: decode
+                               rows on tensor cores at R <= 16, one launch
+                               per call, group a multiple of 64; tensor-core
+                               tiles above)
   int4_matmul_w4a8(xq, q4, s4) int8 xq [R <= 16, IN] -> f32 [R, OUT] with
                                exact int32 group dots, no activation scale
                                (K6)
@@ -36,6 +38,15 @@ launches = {"int4_matmul": 0, "int4_matmul_w4a8": 0}
 plain_calls_cuda = {"int4_matmul": 0, "int4_matmul_w4a8": 0}
 
 W4A8_IN_MULTIPLE = 256   # vstar_tpu int4_matmul.py:204, :252
+# K5's decode rows (csrc/int4_matmul.cu, VSTAR_K5_DECODE): a block owns a
+# strip of DECODE_COLS output columns and DECODE_SPLITS splits of whole
+# groups; the blocks of a strip form one cluster of at most
+# DECODE_MAX_CLUSTER; a ring stage is 64 inputs, so a group spans whole
+# stages.
+DECODE_COLS = 128
+DECODE_SPLITS = 4
+DECODE_MAX_CLUSTER = 8
+DECODE_GROUP_MULTIPLE = 64
 
 
 def unpack_int4(q4: torch.Tensor) -> torch.Tensor:
@@ -70,13 +81,20 @@ def int4_matmul_reference(x, q4, s4):
 def int4_matmul_kernel_math(x, q4, s4):
     """K5's own arithmetic in f32, before its output is rounded to
     x.dtype: above MAX_ROWS rows the tensor-core tiles round nib * scale
-    to bf16 (as the TPU kernel does), at most MAX_ROWS rows the streaming
-    path keeps it in f32. The kernel agrees with it within the rounding of
-    its output; a check, never on the path."""
+    to bf16 (as the TPU kernel does); at most MAX_ROWS rows the decode
+    rows keep the weights exact (the nibbles, with f32 group dots scaled
+    by s4 in f32). The kernel agrees with it within the rounding of its
+    output; a check, never on the path."""
     w = dequantize_int4(q4, s4)
     if x.shape[0] > MAX_ROWS:
         w = w.to(torch.bfloat16).float()
     return x.float() @ w
+
+
+def int4_kernel_info():
+    """Build facts of K5's decode-row instantiations (8 / 16 rows,
+    aligned / ragged), as `flash_attention.attention_kernel_info`."""
+    return _build.kernel_info("vstar_int4_kernel_info")
 
 
 def int4_matmul_w4a8_reference(xq, q4, s4):
@@ -109,30 +127,36 @@ def _int4_shapes(q4, s4, IN):
     return OUT, NG, IN // NG
 
 
-def _launch(name, fn, x, q4, s4, y, rows, IN, OUT, group, x_bytes):
-    """Plan the split (decode rows), allocate the workspace and launch."""
-    dev = x.device
-    gchunk = splits = 0
-    ws = y
+def decode_plan(groups: int, out: int, resident: int,
+                cols: int = DECODE_COLS, splits: int = DECODE_SPLITS) -> int:
+    """Blocks per strip of `cols` output columns (the thread-block cluster
+    size: 1, 2, 4 or 8) of K5's decode rows: the most that fill the card's
+    `resident` block slots in one wave, each block taking `splits` splits
+    of whole groups, and no more blocks than a split needs a group each.
+    Powers of two only: clusters of 3 measured slower than of 2 or 4 on
+    the H100 (their blocks fit the GPCs worse)."""
+    strips = -(-out // cols)
+    limit = min(DECODE_MAX_CLUSTER, resident // strips, -(-groups // splits))
+    return 1 << (max(limit, 1).bit_length() - 1)
+
+
+def _launch_w4a8(xq, q4, s4, y, rows, IN, OUT, group):
+    """Plan the split, allocate the workspace and launch K6."""
+    dev = xq.device
     vec = OUT % 16 == 0 and q4.data_ptr() % 16 == 0
-    if rows <= MAX_ROWS:
-        rb = row_bucket(rows)
-        max_groups = max(SMEM_X_BYTES // (x_bytes * rb * group), 1)
-        cap = capacity(dev, "vstar_int4_occupancy",
-                       (int(name == "int4_matmul_w4a8"), rb, int(vec),
-                        SMEM_X_BYTES + 1024 * rb))
-        gchunk, splits = split_plan(IN // group, OUT, max_groups, cap)
-        ws = torch.empty((splits, rows, OUT), dtype=torch.float32,
-                         device=dev)
+    rb = row_bucket(rows)
+    max_groups = max(SMEM_X_BYTES // (rb * group), 1)
+    cap = capacity(dev, "vstar_int4_occupancy",
+                   (rb, int(vec), SMEM_X_BYTES + 1024 * rb))
+    gchunk, splits = split_plan(IN // group, OUT, max_groups, cap)
+    ws = torch.empty((splits, rows, OUT), dtype=torch.float32, device=dev)
     lib = _build.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = getattr(lib, fn)(
-            x.data_ptr(), q4.data_ptr(), s4.data_ptr(), ws.data_ptr(),
-            y.data_ptr(), rows, IN, OUT, group, gchunk, splits, int(vec),
-            stream)
-    _build.check(lib, code, name)
-    launches[name] += 1
+    code = _build.launch(lib.vstar_int4_w4a8, dev, xq.data_ptr(),
+                         q4.data_ptr(), s4.data_ptr(), ws.data_ptr(),
+                         y.data_ptr(), rows, IN, OUT, group, gchunk, splits,
+                         int(vec))
+    _build.check(lib, code, "int4_matmul_w4a8")
+    launches["int4_matmul_w4a8"] += 1
     return y
 
 
@@ -155,13 +179,28 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor,
     check_cuda_operand("x", x, torch.bfloat16, (rows, IN), dev)
     check_cuda_operand("q4", q4, torch.uint8, (IN // 2, OUT), dev)
     check_cuda_operand("s4", s4, torch.float32, (NG, OUT), dev)
-    if x.data_ptr() % 16:    # the tensor-core path loads 16-byte vectors
+    if rows <= MAX_ROWS and group % DECODE_GROUP_MULTIPLE:
+        raise ValueError(f"int4_matmul: group {group} must be a multiple of "
+                         f"{DECODE_GROUP_MULTIPLE} at <= {MAX_ROWS} rows")
+    if x.data_ptr() % 16:    # both routes load 16-byte vectors of x
         x = x.clone()
     y = torch.empty((rows, OUT), dtype=x.dtype, device=dev)
     if rows == 0:
         return y
-    return _launch("int4_matmul", "vstar_int4_matmul", x, q4, s4, y, rows,
-                   IN, OUT, group, 4)
+    aligned = OUT % 16 == 0 and q4.data_ptr() % 16 == 0
+    cluster = 0
+    if rows <= MAX_ROWS:
+        aligned = aligned and s4.data_ptr() % 16 == 0
+        cap = capacity(dev, "vstar_int4_decode_occupancy",
+                       (16 if rows > 8 else 8, int(aligned)))
+        cluster = decode_plan(NG, OUT, cap)
+    lib = _build.library()
+    code = _build.launch(lib.vstar_int4_matmul, dev, x.data_ptr(),
+                         q4.data_ptr(), s4.data_ptr(), y.data_ptr(), rows, IN,
+                         OUT, group, cluster, int(aligned))
+    _build.check(lib, code, "int4_matmul")
+    launches["int4_matmul"] += 1
+    return y
 
 
 def int4_matmul_w4a8(xq: torch.Tensor, q4: torch.Tensor,
@@ -188,8 +227,7 @@ def int4_matmul_w4a8(xq: torch.Tensor, q4: torch.Tensor,
     check_cuda_operand("q4", q4, torch.uint8, (IN // 2, OUT), dev)
     check_cuda_operand("s4", s4, torch.float32, (NG, OUT), dev)
     y = torch.empty((rows, OUT), dtype=torch.float32, device=dev)
-    return _launch("int4_matmul_w4a8", "vstar_int4_w4a8", xq, q4, s4, y,
-                   rows, IN, OUT, group, 1)
+    return _launch_w4a8(xq, q4, s4, y, rows, IN, OUT, group)
 
 
 def quantize_activations(xf: torch.Tensor):

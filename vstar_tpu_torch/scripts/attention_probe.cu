@@ -5,8 +5,9 @@
 // whole (FlashParams and the shipped launchers come from there).
 #include "../csrc/flash_attention.cu"
 
-// The library's K2 half is not linked into the probe.
+// The library's K2 and K7 halves are not linked into the probe.
 extern "C" int vstar_tower_kernel_info(int, const char**, long long*) { return -1; }
+extern "C" int vstar_bwd_kernel_info(int, const char**, long long*) { return -1; }
 
 namespace {
 

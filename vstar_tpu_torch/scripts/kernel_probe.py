@@ -1,0 +1,366 @@
+"""K7 (flash-attention backward) and K5's decode rows, measured on the H100.
+
+  --ab        device ms (one CUDA graph over input copies that exceed the
+              L2 cache, median of 7 replays) of K7 at the training case
+              ([4, 512, 32, 128], kv_lens 512/300, ~10 % key holes, a row
+              that sees no key) and at the shapes of the `gpu` test
+              `test_flash_bwd_kernel_on_card`, beside SDPA's backward (one
+              graph of forward + backward less one of the forward); and of
+              K5 at 1, 3, 8 and 16 rows on 4096x11008, 11008x4096 and the
+              32003-wide lm_head, beside torch._weight_int4pack_mm
+              (tinygemm) where it takes the shape. Each case is held to its
+              plain version first. `--root DIR` measures the checkout at DIR
+              instead (run this file by its path, so that DIR's
+              vstar_tpu_torch is imported), which compares two trees on one
+              card, in turns:
+                python3 vstar_tpu_torch/scripts/kernel_probe.py --ab --root ../parent
+  --k7-tiles  K7's dQ and dK/dV kernels at other tiles (DQ_VARIANTS,
+              DKV_VARIANTS; kernel_probe.cu instantiates them and is built
+              beside the kernel library): registers, spills, resident
+              blocks, and device ms and error against the plain backward
+              at the training case. The shipped tile is the first variant.
+  --k5-shapes K5's decode rows at other ring shapes (K5_VARIANTS: packed
+              rows per stage, stages, warps side by side along the
+              columns, k-splits per block, L2 prefetch size of the weight
+              copies, and the shipped shape with parts of its work left
+              out, which splits its time; int4_probe.cu) and cluster sizes
+              (the plan's, 1, 2, 4, 8): build facts, device ms and error
+              against the plain version at R = 1 and 16 on 4096x11008,
+              11008x4096 and the 32003-wide lm_head, beside tinygemm. The
+              shipped shape is the first variant.
+
+    python3 -m vstar_tpu_torch.scripts.kernel_probe --ab --k7-tiles --k5-shapes
+
+The JSON result is printed and, with --out FILE, written there too.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+# (query rows, key tile, stages) of the dQ kernel; (keys, query tile,
+# stages) of the dK/dV kernel; kernel_probe.cu's order
+DQ_VARIANTS = [(64, 64, 2), (64, 32, 2), (64, 32, 3), (64, 64, 3)]
+DKV_VARIANTS = [(64, 64, 2), (64, 32, 2), (64, 32, 3), (64, 32, 4)]
+# (packed rows per stage, stages, warps along the 128-column slices of a
+# block's strip, k-splits per block, L2 prefetch: 0 none, 1 128 B, 2 256
+# B; + 4 no products, + 8 no weight copies, + 16 nothing, + 32 no split
+# reduction: the time's breakdown, with wrong results); int4_probe.cu's
+# order
+K5_VARIANTS = [(32, 3, 1, 4, 0), (32, 4, 1, 4, 0), (32, 3, 2, 2, 0), (16, 6, 1, 4, 0),
+               (32, 3, 1, 4, 2), (32, 3, 1, 4, 4), (32, 3, 1, 4, 8), (32, 3, 1, 4, 12),
+               (32, 3, 1, 4, 44), (32, 3, 1, 4, 16)]
+HERE = Path(__file__).resolve().parent
+L2_BYTES = 50 * 2**20
+
+
+def _bf16(gen, dev, *shape):
+    return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+
+def _i32(x, dev):
+    return torch.tensor(x, dtype=torch.int32, device=dev)
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+def _copies(args, rotate):
+    """args and enough copies of its `rotate` entries to pass twice the
+    L2 cache in all (2 to 16 sets)."""
+    nbytes = sum(args[k].numel() * args[k].element_size() for k in rotate)
+    n = min(max(math.ceil(2 * L2_BYTES / nbytes), 2), 16)
+    return [args] + [dict(args, **{k: args[k].clone() for k in rotate})
+                     for _ in range(n - 1)]
+
+
+def bwd_cases(dev):
+    """(name, q, k, v, do, kv_lens, q_offsets, kv_valid): the training case
+    first, then the `gpu` test's shapes (8 heads)."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    B, S, H, D = 4, 512, 32, 128
+    q, k, v, do = (_bf16(gen, dev, B, S, H, D) for _ in range(4))
+    valid = torch.rand(B, S, generator=gen, device=dev) > 0.1
+    valid[2, 0] = False
+    cases = [("train [4,512,32,128]", q, k, v, do, _i32([512, 300, 512, 512], dev),
+              _i32([0] * 4, dev), valid.to(torch.uint8))]
+    for B, Sq, Skv, offs, lens, masked in [
+            (2, 256, 256, (0, 0), (256, 256), 0),
+            (2, 130, 130, (0, 0), (130, 77), 1),
+            (3, 64, 200, (0, 17, 136), (64, 81, 200), 1),
+            (4, 512, 512, (0, 0, 0, 0), (512, 300, 512, 512), 1),
+            (3, 77, 93, (0, 5, 16), (93, 40, 93), 5)]:
+        q, k, v, do = (_bf16(gen, dev, B, s, 8, D) for s in (Sq, Skv, Skv, Sq))
+        kv_valid = None
+        if masked:
+            kv_valid = torch.rand(B, Skv, generator=gen, device=dev) > 0.1
+            kv_valid[0, :masked] = False
+            kv_valid = kv_valid.to(torch.uint8)
+        cases.append((f"test [{B},{Sq},{Skv}] x 8 heads", q, k, v, do,
+                      _i32(lens, dev), _i32(offs, dev), kv_valid))
+    return cases
+
+
+def _sdpa_mask(q, k, kv_lens, q_offsets, kv_valid):
+    Sq, Skv = q.shape[1], k.shape[1]
+    dev = q.device
+    ki = torch.arange(Skv, device=dev)[None, None, None, :]
+    row = q_offsets[:, None, None, None] + torch.arange(Sq, device=dev)[None, None, :, None]
+    mask = (ki < kv_lens[:, None, None, None]) & (ki <= row)
+    if kv_valid is not None:
+        mask = mask & kv_valid[:, None, None, :].bool()
+    return mask
+
+
+def ab_k7(dev):
+    from vstar_tpu_torch.kernels import flash_attention as fa
+    from vstar_tpu_torch.utils.timing import graph_ms
+    import torch.nn.functional as F
+    res = []
+    for name, q, k, v, do, kl, qo, kvv in bwd_cases(dev):
+        masks = dict(kv_lens=kl, q_offsets=qo, kv_valid=kvv)
+        out, lse = fa.flash_attention_lse(q, k, v, **masks)
+        delta = (do.float() * out.float()).sum(-1)
+        got = fa.flash_attention_bwd(q, k, v, do, lse, delta, **masks)
+        want = fa.mha_backward(q, k, v, do, lse, delta, **masks)
+        err = max(_rel(a, b) for a, b in zip(got, want))
+        variants = _copies(dict(q=q, k=k, v=v, do=do), ("q", "k", "v", "do"))
+        ms = graph_ms([lambda a=a: fa.flash_attention_bwd(
+            a["q"], a["k"], a["v"], a["do"], lse, delta, **masks) for a in variants])
+        mask = _sdpa_mask(q, k, kl, qo, kvv)
+
+        def sdpa(a, backward):
+            lv = [a[n].transpose(1, 2).detach().requires_grad_() for n in "qkv"]
+            d = a["do"].transpose(1, 2)
+
+            def call():
+                o = F.scaled_dot_product_attention(*lv, attn_mask=mask)
+                if backward:
+                    torch.autograd.grad(o, lv, d)
+            return call
+        try:
+            lib = (graph_ms([sdpa(a, True) for a in variants])
+                   - graph_ms([sdpa(a, False) for a in variants]))
+        except RuntimeError as e:
+            lib = f"not capturable: {str(e)[:100]}"
+        res.append({"case": name, "ms": ms, "sdpa_bwd_ms": lib,
+                    "max_rel_err": err, "copies": len(variants)})
+        del variants
+    return res
+
+
+def ab_k5(dev):
+    from vstar_tpu_torch.kernels import int4_matmul as k4
+    from vstar_tpu_torch.nn.quant import quantize_weight_int4
+    from vstar_tpu_torch.scripts.int4_profile import tinygemm_pack
+    from vstar_tpu_torch.utils.timing import graph_ms
+    gen = torch.Generator(device=dev).manual_seed(3)
+    res = []
+    for IN, OUT in ((4096, 11008), (11008, 4096), (4096, 32003)):
+        e = quantize_weight_int4(torch.randn(IN, OUT, generator=gen, device=dev) * IN ** -0.5)
+        for rows in (1, 3, 8, 16):
+            x = _bf16(gen, dev, rows, IN)
+            before = k4.launches["int4_matmul"]
+            got = k4.int4_matmul(x, e["q4"], e["s4"])
+            launches = k4.launches["int4_matmul"] - before
+            err = _rel(got, k4.int4_matmul_reference(x, e["q4"], e["s4"]))
+            variants = _copies(dict(x=x, q4=e["q4"], s4=e["s4"]), ("q4", "s4"))
+            ms = graph_ms([lambda a=a: k4.int4_matmul(a["x"], a["q4"], a["s4"])
+                           for a in variants])
+            lib = None
+            if OUT % 8 == 0:
+                packed = [(a["x"], *tinygemm_pack(a["q4"], a["s4"], True)) for a in variants]
+                y = torch._weight_int4pack_mm(packed[0][0], packed[0][1], packed[0][3],
+                                              packed[0][2])
+                if _rel(y, got) <= 1e-2:
+                    lib = graph_ms([lambda p=p: torch._weight_int4pack_mm(p[0], p[1], p[3], p[2])
+                                    for p in packed])
+                del packed
+            nbytes = IN // 2 * OUT + 4 * e["s4"].shape[0] * OUT + 2 * rows * (IN + OUT)
+            res.append({"case": f"R={rows} {IN}x{OUT}", "ms": ms, "tinygemm_ms": lib,
+                        "bound_ms": nbytes / 3.35e12 * 1e3, "max_rel_err": err,
+                        "launches_per_call": launches, "copies": len(variants)})
+            del variants
+    return res
+
+
+def _probe_library():
+    """kernel_probe.cu and int4_probe.cu built into one library."""
+    from vstar_tpu_torch.kernels import _build
+    so = _build.BUILD_DIR / "kernel_probe.so"
+    if not so.exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
+                        str(_build.CSRC), "-o", str(so), str(HERE / "kernel_probe.cu"),
+                        str(HERE / "int4_probe.cu")],
+                       check=True, capture_output=True, text=True)
+    return ctypes.CDLL(str(so))
+
+
+def k5_shapes(dev):
+    """Each K5_VARIANT's build facts, and per case and cluster size its
+    device ms and error against the plain version."""
+    from vstar_tpu_torch.kernels import _build
+    from vstar_tpu_torch.kernels import int4_matmul as k4
+    from vstar_tpu_torch.nn.quant import quantize_weight_int4
+    from vstar_tpu_torch.utils.timing import graph_ms
+    lib = _probe_library()
+    ll, p = ctypes.c_longlong, ctypes.c_void_p
+    lib.probe_k5.argtypes = [ctypes.c_int] + [p] * 4 + [ll] * 6 + [p]
+    lib.probe_k5.restype = ctypes.c_int
+    lib.probe_k5_info.argtypes = [ctypes.c_int, ll, ll, ctypes.POINTER(ll)]
+    lib.probe_k5_info.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(3)
+    res = {"build": {}, "cases": {}}
+    for vi, shape in enumerate(K5_VARIANTS):
+        for rows, aligned in ((1, 1), (16, 1), (1, 0), (16, 0)):
+            info = (ll * 6)()
+            _build.check(_build.library(), lib.probe_k5_info(vi, rows, aligned, info),
+                         f"k5 info {vi}")
+            res["build"][f"{shape} R{rows} aligned {aligned}"] = {
+                "registers": info[0], "local_bytes": info[1], "dynamic_smem": info[3],
+                "blocks_per_sm": info[4]}
+    for IN, OUT in ((4096, 11008), (11008, 4096), (4096, 32003)):
+        e = quantize_weight_int4(torch.randn(IN, OUT, generator=gen, device=dev) * IN ** -0.5)
+        NG = e["s4"].shape[0]
+        for rows in (1, 16):
+            x = _bf16(gen, dev, rows, IN)
+            want = k4.int4_matmul_reference(x, e["q4"], e["s4"])
+            variants = _copies(dict(x=x, q4=e["q4"], s4=e["s4"]), ("q4", "s4"))
+            aligned = int(OUT % 16 == 0)
+            row = {}
+            if OUT % 8 == 0:
+                from vstar_tpu_torch.scripts.int4_profile import tinygemm_pack
+                packed = [(a["x"], *tinygemm_pack(a["q4"], a["s4"], True))
+                          for a in variants]
+                row["tinygemm"] = {
+                    "ms": graph_ms([lambda p=p: torch._weight_int4pack_mm(
+                        p[0], p[1], p[3], p[2]) for p in packed]),
+                    "max_rel_err": _rel(torch._weight_int4pack_mm(
+                        x, packed[0][1], packed[0][3], packed[0][2]), want)}
+                del packed
+            for vi, shape in enumerate(K5_VARIANTS):
+                info = (ll * 6)()
+                lib.probe_k5_info(vi, rows, aligned, info)
+                wc, wk = shape[2:4]
+                plan = k4.decode_plan(NG, OUT, info[4] * sms, 128 * wc, wk)
+                for cl in sorted({plan, 1, 2, 4, 8}):
+                    if -(-NG // wk) < cl:
+                        continue
+                    ys = [torch.empty(rows, OUT, dtype=torch.bfloat16, device=dev)
+                          for _ in variants]
+
+                    def call(a, y, vi=vi, cl=cl):
+                        code = lib.probe_k5(vi, a["x"].data_ptr(), a["q4"].data_ptr(),
+                                            a["s4"].data_ptr(), y.data_ptr(), rows, IN,
+                                            OUT, IN // NG, cl, aligned,
+                                            torch.cuda.current_stream(dev).cuda_stream)
+                        _build.check(_build.library(), code, f"k5 variant {vi}")
+                    call(variants[0], ys[0])
+                    torch.cuda.synchronize()
+                    row[f"{shape} cluster {cl}{' (plan)' if cl == plan else ''}"] = {
+                        "ms": graph_ms([lambda a=a, y=y: call(a, y)
+                                        for a, y in zip(variants, ys)]),
+                        "max_rel_err": _rel(ys[0], want)}
+            res["cases"][f"R={rows} {IN}x{OUT}"] = row
+            del variants
+    return res
+
+
+def k7_tiles(dev):
+    """Each DQ / DKV variant's build facts, and its device ms and error
+    against the plain backward at the training case."""
+    from vstar_tpu_torch.kernels import _build
+    from vstar_tpu_torch.kernels import flash_attention as fa
+    from vstar_tpu_torch.utils.timing import graph_ms
+    lib = _probe_library()
+    fn = lib.probe_bwd
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + _build._SIGNATURES["vstar_flash_attention_bwd_dq"]
+    fn.restype = ctypes.c_int
+    lib.probe_bwd_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+    lib.probe_bwd_info.restype = ctypes.c_int
+    name, q, k, v, do, kl, qo, kvv = bwd_cases(dev)[0]
+    masks = dict(kv_lens=kl, q_offsets=qo, kv_valid=kvv)
+    out, lse = fa.flash_attention_lse(q, k, v, **masks)
+    delta = (do.float() * out.float()).sum(-1)
+    want = fa.mha_backward(q, k, v, do, lse, delta, **masks)
+    kl32, qo32, kvv8 = fa._validate(q, k, v, kl, qo, kvv)
+    B, Sq, H, D = q.shape
+    res = {"case": name, "dq": {}, "dkv": {}}
+    for which, variants in ((0, DQ_VARIANTS), (1, DKV_VARIANTS)):
+        key = ("dq", "dkv")[which]
+        for vi, tile in enumerate(variants):
+            info = (ctypes.c_longlong * 6)()
+            code = lib.probe_bwd_info(which, vi, info)
+            if code != 0:
+                raise RuntimeError(f"{key} {tile}: no kernel attributes ({code})")
+            grads = [torch.empty_like(t) for t in (q, k, v)]
+
+            def call(vi=vi, grads=grads, which=which):
+                code = fn(which, vi, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                          *(g.data_ptr() for g in grads), kl32.data_ptr(),
+                          qo32.data_ptr(), None if kvv8 is None else kvv8.data_ptr(),
+                          B, Sq, k.shape[1], H, *q.stride()[:3], *k.stride()[:3],
+                          *v.stride()[:3], *do.stride()[:3], *grads[0].stride()[:3],
+                          *grads[1].stride()[:3], *grads[2].stride()[:3],
+                          *lse.stride(), 0 if kvv8 is None else kvv8.stride(0),
+                          D ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
+                _build.check(_build.library(), code, f"{key} {tile}")
+            call()
+            torch.cuda.synchronize()
+            outs = grads[:1] if which == 0 else grads[1:]
+            refs = want[:1] if which == 0 else want[1:]
+            res[key][str(tile)] = {
+                "registers": info[0], "local_bytes": info[1], "dynamic_smem": info[3],
+                "blocks_per_sm": info[4], "ms": graph_ms([call] * 8),
+                "max_rel_err": max(_rel(a, b) for a, b in zip(outs, refs))}
+    return res
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ab", action="store_true")
+    ap.add_argument("--k7-tiles", action="store_true")
+    ap.add_argument("--k5-shapes", action="store_true")
+    ap.add_argument("--root", default=None,
+                    help="checkout whose vstar_tpu_torch --ab measures")
+    ap.add_argument("--out", default=None, help="also write the JSON here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_probe: no CUDA device; it measures the card", file=sys.stderr)
+        return 1
+    if args.root is not None:
+        sys.path.insert(0, os.path.abspath(args.root))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from vstar_tpu_torch.utils.timing import card_line
+    import vstar_tpu_torch
+    dev = torch.device("cuda:0")
+    out = {"card": card_line(), "package": os.path.dirname(vstar_tpu_torch.__file__)}
+    if args.ab:
+        out["k7"] = ab_k7(dev)
+        out["k5"] = ab_k5(dev)
+    if args.k7_tiles:
+        out["k7_tiles"] = k7_tiles(dev)
+    if args.k5_shapes:
+        out["k5_shapes"] = k5_shapes(dev)
+    text = json.dumps(out)
+    print(text, flush=True)
+    if args.out:
+        Path(args.out).write_text(text + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

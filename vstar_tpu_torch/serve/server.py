@@ -110,6 +110,20 @@ def serve(service: SealService, host: str = "0.0.0.0", port: int = 8080):
         httpd.server_close()
 
 
+def check_random_init(size: str, device) -> None:
+    """Raise ValueError for a --random-init size the device cannot run:
+    'tiny' is an f32 CPU smoke at head_dim 16, and the CUDA attention
+    kernels take bf16 at head_dim 128 (no wrapper falls back to its plain
+    version on a CUDA tensor)."""
+    if size not in ("tiny", "7b"):
+        raise ValueError(f"random init size {size!r}: 'tiny' or '7b'")
+    if size == "tiny" and torch.device(device).type == "cuda":
+        raise ValueError(
+            "random init 'tiny' is an f32 CPU smoke at head_dim 16, and the "
+            "CUDA attention kernels take bf16 at head_dim 128: pass "
+            "--device cpu, or use '7b' on the card")
+
+
 def random_init_engines(size: str, device, int8: bool = False,
                         int4: bool = False, mixed: bool = False,
                         int4mix: bool = False):
@@ -132,8 +146,7 @@ def random_init_engines(size: str, device, int8: bool = False,
     from ..nn.quant import quantize_model_towers
     from ..search.engine import VSMEngine
 
-    if size not in ("tiny", "7b"):
-        raise ValueError(f"random init size {size!r}: 'tiny' or '7b'")
+    check_random_init(size, device)
     tiny = size == "tiny"
     vqa_cfg = vqa_llm_tiny() if tiny else vqa_llm_7b()
     vsm_cfg = vsm_tiny() if tiny else vsm_7b()
@@ -182,6 +195,10 @@ def main():
                    help="int4 gate/up/lm_head and int8 qkvo/down on the "
                         "int4 side; alone it implies --mixed")
     args = p.parse_args()
+    try:
+        check_random_init(args.random_init, args.device)
+    except ValueError as e:
+        p.error(str(e))
     vqa, vsm = random_init_engines(args.random_init, args.device,
                                    int8=args.int8, int4=args.int4,
                                    mixed=args.mixed, int4mix=args.int4mix)
