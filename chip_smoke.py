@@ -3,15 +3,17 @@
 Runs on one CUDA card, in phases; any failure exits non-zero:
   1. card and versions;
   2. build the CUDA kernels from vstar_tpu_torch/csrc (one nvcc per
-     source, in parallel), and log every K1/K7/K2 instantiation's and K5's
-     decode-row instantiations' registers,
-     local (spill) bytes, shared memory and resident blocks per SM;
+     source, in parallel), and log every K1/K7/K2 instantiation's, K3's
+     and K5's (decode rows and tiles) registers, local (spill) bytes,
+     shared memory and resident blocks per SM;
   3. every kernel against its plain PyTorch version at the 7B shapes of
      the path: K1 flash attention, K2 tower attention, the int8 matvec
-     (K3/K4) at R in {1, 8, 16}, K5 (W4A16) at R in {1, 8, 16, 384} and K6
-     (W4A8) at R in {1, 8}; K5 also against its own arithmetic (bf16
-     weights above 16 rows) within its output's rounding, with one launch
-     per call and its factor against tinygemm at R=1; each case is timed by device time (one CUDA
+     (K3/K4) at R in {1, 8, 16} and at R=1 on 4096x4096 and 11008x4096,
+     with one launch per call; K5 (W4A16) at R in {1, 8, 16} (decode rows)
+     and {17, 384, 768} (tiles) and K6 (W4A8) at R in {1, 8}; K5 also
+     against its own arithmetic (bf16 weights above 16 rows) within its
+     output's rounding, with one launch per call and its factor against
+     tinygemm at R=1; each case is timed by device time (one CUDA
      graph of N launches over weight copies that exceed the L2 cache) and
      by CUDA events around single calls, beside its plain version, its
      bound and, where one PyTorch call computes the same function, that
@@ -26,7 +28,8 @@ Runs on one CUDA card, in phases; any failure exits non-zero:
   6. after each path, every kernel it runs launched, and no plain version
      ran on a CUDA tensor; K1's launches by route (tile above 16 query
      rows, split at decode and verify, with its combine): the bf16 path
-     takes both routes, training the tile route only;
+     takes both routes, training the tile route only; K5's launches by
+     route (decode rows, tiles) logged for every path;
   7. P1-P4, the int4 profile's kernels, against their plain versions at
      the 7B shapes: P1 (the lo-nibble unpack probe, both candidates,
      exact) on the packed w_gate [2048, 11008]; P2 (every lo-nibble
@@ -150,7 +153,8 @@ def phase_build():
             log(f"[build] {line.strip()}")
     from vstar_tpu_torch.kernels.flash_attention import attention_kernel_info
     from vstar_tpu_torch.kernels.int4_matmul import int4_kernel_info
-    info = attention_kernel_info() + int4_kernel_info()
+    from vstar_tpu_torch.kernels.int8_matmul import int8_kernel_info
+    info = attention_kernel_info() + int8_kernel_info() + int4_kernel_info()
     for i in info:
         log(f"[build] {i['kernel']}: {i['registers']} registers, "
             f"{i['local_bytes']} local (spill) bytes, static smem "
@@ -347,14 +351,16 @@ def _rand(gen, dev, *shape, scale=1.0):
 
 
 def phase_int8(dev):
-    """K3/K4 at decode rows: gate/up (4096 -> 11008), down (11008 -> 4096)
-    and the VQA lm_head (4096 -> 32003), int8 per-channel."""
+    """K3/K4 at decode rows: gate/up (4096 -> 11008), down (11008 -> 4096),
+    the VQA lm_head (4096 -> 32003) and wq/wk/wv/wo (4096 -> 4096), int8
+    per-channel; one launch per call."""
     from vstar_tpu_torch.kernels import int8_matmul as k8
     from vstar_tpu_torch.nn.quant import quantize_weight
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     res = []
     for rows, IN, OUT in ((1, 4096, 11008), (8, 11008, 4096),
-                          (16, 4096, 32003)):
+                          (16, 4096, 32003), (1, 4096, 4096),
+                          (1, 11008, 4096)):
         e = quantize_weight(_rand(gen, dev, IN, OUT, scale=IN ** -0.5))
         x = _rand(gen, dev, rows, IN).to(torch.bfloat16)
         args = dict(x=x, q=e["q"], s=e["s"])
@@ -364,8 +370,13 @@ def phase_int8(dev):
                           k8.int8_matmul_reference, args, ("q",), nbytes,
                           2 * rows * IN * OUT, "bf16", BF16_REL_TOL,
                           _rel_err, library)
+        before = k8.launches
+        k8.int8_matmul(x, e["q"], e["s"])
+        if k8.launches != before + 1:
+            raise AssertionError(f"int8 R={rows}: not one launch per call")
         res.append({"case": f"R{rows}_{IN}x{OUT}", **rec})
         _w8a8_note(x, e, k8)
+    log_kernel_info("K3", "int8_decode")
     return res
 
 
@@ -470,7 +481,8 @@ def phase_int4(dev):
 
     k5, k6 = [], []
     for rows, IN, OUT in ((1, 4096, 11008), (16, 4096, 32003),
-                          (8, 4096, 11008), (384, 4096, 11008)):
+                          (8, 4096, 11008), (384, 4096, 11008),
+                          (17, 4096, 11008), (768, 4096, 11008)):
         e = entry(IN, OUT)
         x = _rand(gen, dev, rows, IN).to(torch.bfloat16)
         nbytes = (IN // 2 * OUT + 4 * e["s4"].shape[0] * OUT
@@ -499,7 +511,7 @@ def phase_int4(dev):
         log(f"[K5 R=1 4096x11008] device {k5[0]['ms']:.4f} ms, "
             f"{k5[0]['ms'] / k5[0]['library_ms']:.2f}x tinygemm's "
             f"{k5[0]['library_ms']:.4f}")
-    log_kernel_info("K5", "int4_decode")
+    log_kernel_info("K5", "int4_")
     for rows, IN, OUT in ((1, 4096, 11008), (8, 4096, 32003)):
         e = entry(IN, OUT)
         xq, _ = k4.quantize_activations(_rand(gen, dev, rows, IN))
@@ -851,7 +863,9 @@ def _routes():
 
 def _zero_counts():
     from vstar_tpu_torch.kernels import flash_attention as fa
+    from vstar_tpu_torch.kernels import int4_matmul as k4
     fa.route_launches.update(tile=0, split=0, combine=0)
+    k4.route_launches.update(decode=0, tile=0)
     for mod, la, pa, key in _counter_modules().values():
         for attr in (la, pa):
             if key is not None and isinstance(getattr(mod, attr), dict):
@@ -866,15 +880,22 @@ def _check_path(path, kernels):
     counts = _read_counts()
     launches = {k: counts[k][0] for k in counts}
     plain = {k: counts[k][1] for k in counts}
+    from vstar_tpu_torch.kernels import int4_matmul as k4
+    k5_routes = dict(k4.route_launches)
     log(f"[{path} path] kernel launches {launches}, K1 routes {_routes()}, "
-        f"plain-version calls on CUDA {plain}")
+        f"K5 routes {k5_routes}, plain-version calls on CUDA {plain}")
     missing = [k for k in kernels if launches[k] <= 0]
     if missing:
         raise AssertionError(f"{path} path: {missing} never launched")
     if any(plain.values()):
         raise AssertionError(f"{path} path: plain versions ran on CUDA "
                              f"tensors: {plain}")
-    return {k: launches[k] for k in kernels}
+    if sum(k5_routes.values()) != launches["int4_matmul"]:
+        raise AssertionError(f"{path} path: K5 routes {k5_routes} do not add "
+                             f"up to its {launches['int4_matmul']} launches")
+    counts = {k: launches[k] for k in kernels}
+    counts["int4_matmul_routes"] = k5_routes
+    return counts
 
 
 def _check_routes(path, want):
@@ -1414,6 +1435,10 @@ def main() -> int:
     k1_entry["routes_by_path"] = {p: n["flash_attention_routes"]
                                   for p, n in by_path.items()
                                   if "flash_attention_routes" in n}
+    k5_entry = next(k for k in kernels if k["name"] == "int4_matmul")
+    k5_entry["routes_by_path"] = {p: n["int4_matmul_routes"]
+                                  for p, n in by_path.items()
+                                  if "int4_matmul_routes" in n}
     k7_entry = next(k for k in kernels if k["name"] == "flash_attention_bwd")
     k7_entry["launches_by_kernel"] = {
         k: by_path["train"][f"flash_attention_bwd_{k}"] for k in ("dq", "dkv")}

@@ -397,10 +397,15 @@ def _int4(g, IN, OUT, dev, group=128):
     return quantize_weight_int4(w, group)
 
 
+SHAPES_7B = ((4096, 4096), (11008, 4096), (4096, 11008), (4096, 32003))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("rows,IN,OUT", [
     (1, 4096, 4096), (3, 4096, 2048), (8, 1024, 3000), (16, 11008, 512),
-    (5, 512, 32003)])
+    (5, 512, 32003), (3, 100, 300), (16, 40, 64), (9, 4104, 1000)] + [
+        (rows, IN, OUT) for IN, OUT in SHAPES_7B
+        for rows in (1, 2, 3, 5, 8, 9, 16)])
 def test_int8_kernel_on_card(cuda, rows, IN, OUT):
     from vstar_tpu_torch.kernels import int8_matmul as k8
     from vstar_tpu_torch.nn.quant import quantize_weight
@@ -418,31 +423,96 @@ def test_int8_kernel_on_card(cuda, rows, IN, OUT):
                                    device=cuda), e["q"], e["s"])
 
 
+def _offset_copy(t, offset):
+    """A contiguous copy of t whose data starts `offset` bytes past a
+    16-byte boundary (an offset view into a larger buffer)."""
+    nbytes = t.numel() * t.element_size()
+    buf = torch.empty(nbytes + 16, dtype=torch.uint8, device=t.device)
+    view = buf[offset:offset + nbytes].view(t.dtype).view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,IN,OUT,offset", [
+    (1, 4096, 4096, 1), (16, 4096, 11008, 3), (8, 1000, 512, 8)])
+def test_int8_kernel_unaligned_q_on_card(cuda, rows, IN, OUT, offset):
+    """q and x starting off a 16-byte boundary (offset views)."""
+    from vstar_tpu_torch.kernels import int8_matmul as k8
+    from vstar_tpu_torch.nn.quant import quantize_weight
+    g = torch.Generator(device=cuda).manual_seed(rows + offset)
+    e = quantize_weight(torch.randn(IN, OUT, generator=g, device=cuda) * 0.05)
+    x = torch.randn(rows, IN, generator=g, device=cuda).to(torch.bfloat16)
+    q = _offset_copy(e["q"], offset)
+    assert q.data_ptr() % 16 == offset % 16
+    got = k8.int8_matmul(_offset_copy(x, 2), q, e["s"])
+    torch.cuda.synchronize()
+    assert _rel(got, k8.int8_matmul_reference(x, e["q"], e["s"])) <= 1e-2
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("rows,IN,OUT", [
     (1, 4096, 11008), (3, 4096, 11008), (8, 4096, 11008), (16, 4096, 11008),
     (1, 4096, 32003), (3, 4096, 32003), (8, 4096, 32003), (16, 4096, 32003),
     (2, 4096, 4096), (16, 11008, 4096), (4, 4096, 32003),
-    (40, 4096, 1000), (384, 4096, 11008)])
+    (40, 4096, 1000), (384, 4096, 11008), (20, 256, 40)] + [
+        (rows, IN, OUT) for IN, OUT in SHAPES_7B
+        for rows in (17, 33, 64, 300, 384, 768)])
 def test_int4_kernel_on_card(cuda, rows, IN, OUT):
     from vstar_tpu_torch.kernels import int4_matmul as k4
     g = torch.Generator(device=cuda).manual_seed(rows + 1)
     e = _int4(g, IN, OUT, cuda)
     x = torch.randn(rows, IN, generator=g, device=cuda).to(torch.bfloat16)
     before = k4.launches["int4_matmul"]
+    routes = dict(k4.route_launches)
     got = k4.int4_matmul(x, e["q4"], e["s4"])
     want = k4.int4_matmul_reference(x, e["q4"], e["s4"])
     torch.cuda.synchronize()
     assert k4.launches["int4_matmul"] == before + 1
+    route = "decode" if rows <= 16 else "tile"
+    assert k4.route_launches[route] == routes[route] + 1
     assert _rel(got, want) <= 1e-2
     # the kernel's own arithmetic (bf16 weights in the tensor-core tiles
     # above 16 rows), within the rounding of its bf16 output
     math = k4.int4_matmul_kernel_math(x, e["q4"], e["s4"])
     assert _beyond_rounding(got, math) <= 1e-3
-    if rows <= 16:    # the decode rows: whole ring stages per group
-        e32 = _int4(g, 256, 64, cuda, group=32)
-        with pytest.raises(ValueError, match="multiple of 64"):
-            k4.int4_matmul(x[:, :256].contiguous(), e32["q4"], e32["s4"])
+    # both routes: whole ring stages / k-tiles per group
+    e32 = _int4(g, 256, 64, cuda, group=32)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        k4.int4_matmul(x[:, :256].contiguous(), e32["q4"], e32["s4"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,IN,OUT,offset", [
+    (1, 4096, 11008, 1), (16, 4096, 4096, 5), (33, 4096, 11008, 3),
+    (384, 4096, 4096, 8), (64, 512, 1000, 2)])
+def test_int4_kernel_unaligned_q4_on_card(cuda, rows, IN, OUT, offset):
+    """q4 (and s4) starting off a 16-byte boundary (offset views)."""
+    from vstar_tpu_torch.kernels import int4_matmul as k4
+    g = torch.Generator(device=cuda).manual_seed(rows + offset)
+    e = _int4(g, IN, OUT, cuda)
+    x = torch.randn(rows, IN, generator=g, device=cuda).to(torch.bfloat16)
+    q4, s4 = _offset_copy(e["q4"], offset), _offset_copy(e["s4"], 4)
+    got = k4.int4_matmul(x, q4, s4)
+    torch.cuda.synchronize()
+    assert _rel(got, k4.int4_matmul_reference(x, e["q4"], e["s4"])) <= 1e-2
+    math = k4.int4_matmul_kernel_math(x, e["q4"], e["s4"])
+    assert _beyond_rounding(got, math) <= 1e-3
+
+
+@pytest.mark.gpu
+def test_quant_kernel_info(cuda):
+    """Build facts of K3's and K5's instantiations: each one launches at
+    least one block per SM."""
+    from vstar_tpu_torch.kernels import int4_matmul as k4
+    from vstar_tpu_torch.kernels import int8_matmul as k8
+    k3, k5 = k8.int8_kernel_info(), k4.int4_kernel_info()
+    assert [i["kernel"] for i in k3] == [
+        f"int8_decode<{r}, {a}>" for a in ("aligned", "ragged") for r in (8, 16)]
+    assert [i["kernel"] for i in k5[4:]] == [
+        f"int4_tile<{t}, {a}>" for a in ("aligned", "ragged")
+        for t in ("64x128", "128x256")]
+    assert all(i["blocks_per_sm"] >= 1 and i["registers"] <= 255 for i in k3 + k5)
 
 
 @pytest.mark.gpu

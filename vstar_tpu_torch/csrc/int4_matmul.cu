@@ -9,372 +9,45 @@
 // K5  y[R, OUT] (bf16) = x[R, IN] (bf16) @ (nib * s4)
 //   R <= 16 (decode, verify, lm_head rows): bound by the packed bytes
 //   (4096 x 11008 is 22.5 MB of nibbles plus 0.2 MB of scales, ~7.1 us at
-//   3.35 TB/s). Tensor-core decode rows (below): nibbles unpacked by bit
-//   operations straight into bf16 mma operands, a cp.async ring per warp,
-//   split-K added in order across a thread-block cluster; one launch.
-//   R > 16 (prefill at 384-768 rows, option chunks): compute-bound tiles.
-//   A block of 8 warps owns a 64 x 128 output tile; per 64-deep step it
-//   stages x as bf16 and the dequantized weights (16 packed bytes per
-//   thread, nib * scale rounded to bf16 as the TPU kernel does) in shared
-//   memory and runs bf16 WMMA 16x16x16 with f32 accumulation. Weights are
-//   re-read once per 64-row tile (from L2 at these sizes).
+//   3.35 TB/s). Tensor-core decode rows (decode_rows.cuh, shared with K3):
+//   nibbles unpacked by bit operations straight into bf16 mma operands, a
+//   cp.async ring per warp, split-K added in order across a thread-block
+//   cluster; one launch.
+//   R > 16 (prefill at 384-768 rows, option chunks): compute-bound tiles
+//   (below): a cp.async ring of x, nibbles and scales, the weight tile
+//   dequantized once per block (nib * scale rounded to bf16 as the TPU
+//   kernel does) into shared memory, mma.sync on ldmatrix fragments, one
+//   barrier per k-tile; one launch.
 // K6  y[R, OUT] (f32) = xq[R, IN] (int8) @ nib, with each group's exact
 //   int32 dot scaled by s4 / 16 (the activation scale is the caller's), for
 //   R <= 16. The packed bytes are turned into 16 * nib without unpacking
 //   (high nibble: b & 0xF0; low nibble: (b << 4) & 0xF0, as int8), four
 //   consecutive inputs of one column are gathered into one word with
 //   __byte_perm, and __dp4a does four exact int8 products per instruction.
-//   Streamed and split as the int8 matvec (quant_common.cuh).
+//   Streamed and split as quant_common.cuh describes.
 //
 // Both take any OUT, including the ragged 32003-wide lm_head: columns past
 // OUT are masked.
-#include <cooperative_groups.h>
-#include <mma.h>
-
-#include "attention_common.cuh"
+#include "decode_rows.cuh"
 #include "quant_common.cuh"
 
 namespace {
 
-using vstar::bf16;
 using vstar::kMvCols;
 using vstar::kMvThreads;
-namespace wmma = nvcuda::wmma;
-namespace cg = cooperative_groups;
 
-// ---------------------------------------------------------------------------
-// K5, R <= 16: decode rows on tensor cores
-// ---------------------------------------------------------------------------
-//
-// y^T [OUT, R] = W^T x^T on mma.sync.m16n8k16 (bf16 in, f32 accumulate):
-// the output columns are the M rows, the activation rows the N columns
-// (8 per n-tile, two at 16 rows), the inputs the K depth. The product does
-// not depend on the order of the output columns or of the inputs within a
-// group, so both are permuted to fit the bytes as they lie:
-//   A  thread (g, t4) of a warp reads, per k-step of 16 inputs, 16
-//      neighbouring columns (16g .. 16g + 15 of the warp's 128) of packed
-//      rows t4 and 4 + t4. __byte_perm pairs the two rows' bytes of a
-//      column, so that one 32-bit register holds the low (or high) nibbles
-//      of both rows: the inputs 2p, 2p' (or 2p + 1, 2p' + 1) of that
-//      column, which mma takes as the k-pair (2t4, 2t4 + 1) (or (8 + 2t4,
-//      9 + 2t4)). M row g of m-tile T is column 16g + 2T, M row g + 8 is
-//      column 16g + 2T + 1.
-//   unpack  no integer-to-float conversion: lop3 masks two nibbles into
-//      the mantissas of bf16x2 128 + (n ^ 8) (one instruction, the XOR
-//      included), and one fma.rn.bf16x2 subtracts 136, exactly.
-//   B  x in the same input order: the pair words (2t4, 2t4 + 1) and (8 +
-//      2t4, 9 + 2t4) of row g, re-paired by __byte_perm.
-// Per group the f32 mma sums are the group dot; it is scaled by s4 in f32
-// and added to the accumulator, as int4_matmul_kernel_math does for at
-// most 16 rows.
-//
-// Streaming: a block of 4 warps owns a strip of 128 columns; each warp a
-// split of whole groups, streamed through a warp-private 3-stage cp.async
-// ring (32 packed rows, their 64 inputs of x, and at a group's end its
-// 128 scales per stage), so each SM keeps its blocks' stages in flight.
-// That shape (VSTAR_K5_DECODE) won a sweep of stage rows, stages, warps
-// side by side along the columns and k-splits per block, cluster sizes
-// and L2 prefetch hints (vstar_tpu_torch/scripts/kernel_probe.py
-// --k5-shapes; PERF.md); the template keeps those knobs for the sweep.
-// The blocks of one strip form a thread-block cluster (1, 2, 4 or 8
-// blocks, from the host's plan). After the stream each warp leaves its partial [R,
-// 128] f32 in its own ring; after a cluster barrier every block adds, for
-// its share of the strip's outputs, the partials of all splits in split
-// order (block rank, then warp) through distributed shared memory and
-// writes y in bf16. No workspace, no second launch, no atomics.
+// The shipped decode-row shape of K5 (decode_rows.cuh): packed rows of a
+// ring stage, ring stages, warps side by side along the columns (WC) and
+// k-splits (WK) per block, L2 prefetch. It won a sweep of those knobs,
+// cluster sizes and L2 prefetch hints (vstar_tpu_torch/scripts/
+// kernel_probe.py --k5-shapes; PERF.md).
 //
 // What bounds it (H100, measured at R = 1 on 4096x11008, 0.019 ms): about
 // half is fixed cost: ~3.5 us for a launch of blocks that do nothing,
 // ~4 us for the ring's x and scale copies and waits, ~2 us for the
 // cluster reduction. The weight stream adds ~6 us (22.5 MB at about the
 // 3.35 TB/s peak) and the products ~3 us beyond it.
-//
-// Ragged rows (OUT % 16, the 32003-wide lm_head, or unaligned operands):
-// a row's 128 columns are copied as the nine aligned 16-byte chunks that
-// cover them (chunks outside the tensor are zero-filled), and a thread
-// funnel-shifts its 16 bytes out of five words by the row's byte offset.
-
-constexpr int kDcCols = 128;                // columns of a warp
-constexpr int kDcMaxCluster = 8;            // portable cluster size
-
-// The shipped decode-row shape: packed rows of a ring stage, ring stages,
-// warps side by side along the columns (WC) and k-splits (WK) per block.
-#define VSTAR_K5_DECODE 32, 3, 1, 4, 0
-
-// A k-split's ring, shared by its WC warps: STAGES stages of SROWS packed
-// rows of the block's 128 * WC columns (the weights), their 2 * SROWS
-// inputs of x for RB rows, and the scales of the group a stage ends.
-// PF: the L2 prefetch size the weight copies ask for (0: none, 1: 128
-// bytes, 2: 256 bytes); kernel_probe.py's timing breakdown adds 4 (no
-// products), 8 (no weight copies), 16 (nothing at all) or 32 (no
-// reduction of the splits), which give wrong results.
-template <int RB, bool ALIGNED, int SROWS, int STAGES, int WC, int WK, int PF>
-struct DecodeSmem {
-  static constexpr int cols = kDcCols * WC;                         // strip
-  static constexpr int w_chunks = cols / 16 + (ALIGNED ? 0 : 1);   // per row
-  static constexpr int w_row = w_chunks * 16;                       // bytes
-  static constexpr size_t w_bytes = (size_t)SROWS * w_row;
-  static constexpr int x_row = SROWS * 4;                           // bytes
-  static constexpr int x_chunks = x_row / 16;
-  static constexpr int x_swz = (x_chunks < 8 ? x_chunks : 8) - 1;
-  static constexpr size_t x_bytes = (size_t)RB * x_row;
-  static constexpr size_t s_bytes = (size_t)cols * 4;
-  static constexpr size_t stage = w_bytes + x_bytes + s_bytes;
-  static constexpr size_t ring = STAGES * stage;
-  static constexpr size_t bytes = WK * ring;
-  static_assert(SROWS % 8 == 0 && SROWS >= 16 && STAGES >= 3, "decode ring shape");
-  static_assert((size_t)WC * RB * kDcCols * 4 <= ring, "the partials fit the ring");
-};
-
-// cp.async16 asking L2 to prefetch 128 (PF 1) or 256 (PF 2) bytes around
-// the copy.
-template <int PF>
-__device__ __forceinline__ void cp_async16_pf(uint32_t dst, const void* src, bool pred) {
-  if constexpr ((PF & 3) == 0)
-    vstar::cp_async16(dst, src, pred);
-  else if constexpr ((PF & 3) == 1)
-    asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16, %2;\n"
-                 :: "r"(dst), "l"(src), "r"(pred ? 16 : 0));
-  else
-    asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n"
-                 :: "r"(dst), "l"(src), "r"(pred ? 16 : 0));
-}
-
-// Two nibbles of v (bits 0-3 and 16-19, two's-complement) as bf16x2.
-__device__ __forceinline__ uint32_t nibbles_bf16x2(uint32_t v) {
-  uint32_t r;
-  // (v & 0x000F000F) ^ 0x43084308: bf16 128 + (n ^ 8) in each half
-  asm("lop3.b32 %0, %1, %2, %3, 0x6a;" : "=r"(r) : "r"(v), "r"(0x000F000Fu), "r"(0x43084308u));
-  // * 1 - 136: n, exactly
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(r) : "r"(r), "r"(0x3F803F80u), "r"(0xC308C308u));
-  return r;
-}
-
-template <int RB, bool ALIGNED, int SROWS, int STAGES, int WC, int WK, int PF>
-__global__ void __launch_bounds__(WC * WK * 32)
-    int4_decode_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ q4,
-                       const float* __restrict__ s4, bf16* __restrict__ y, int rows,
-                       long long in, long long out, int group, int per) {
-  using L = DecodeSmem<RB, ALIGNED, SROWS, STAGES, WC, WK, PF>;
-  constexpr int NT = RB / 8, GT = WC * 32, NTHR = WC * WK * 32;
-  if constexpr ((PF & 16) != 0) return;
-  extern __shared__ __align__(128) unsigned char dc_smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int csize = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wc = warp % WC, wk = warp / WC, gtid = wc * 32 + lane;
-  const int g = lane >> 2, t4 = lane & 3;
-  const long long c0 = (long long)(blockIdx.x / csize) * L::cols;   // the strip's
-  const long long ng = in / group;
-  const long long g0 = min(ng, (long long)(rank * WK + wk) * per);
-  const long long g1 = min(ng, g0 + per);
-  const int spg = group / (2 * SROWS);        // ring stages per group
-  const int n_st = (int)(g1 - g0) * spg;
-  const long long p_first = g0 * group / 2;   // the split's first packed row
-  unsigned char* ring = dc_smem + wk * L::ring;
-  const uint32_t ring_u = vstar::smem_u32(ring);
-  const uint8_t* q4_end = q4 + in / 2 * out;
-  // the k-split's WC warps move through the ring together
-  auto split_sync = [&]() {
-    if constexpr (WC == 1)
-      __syncwarp();
-    else
-      asm volatile("bar.sync %0, %1;" :: "r"(1 + wk), "r"(GT) : "memory");
-  };
-
-  auto load_stage = [&](int i, int slot) {
-    const uint32_t dst = ring_u + slot * (uint32_t)L::stage;
-    const long long p0 = p_first + (long long)i * SROWS;
-    if constexpr ((PF & 8) != 0) {
-    } else if constexpr (ALIGNED) {
-      // rows of 128 * WC contiguous bytes; 16-byte chunk c of row r goes
-      // to warp slice c / 8 at (c % 8) ^ 2 (r % 4), so that a
-      // quarter-warp's reads (rows t4, chunks g) miss each other
-#pragma unroll
-      for (int it = 0; it < SROWS / 4; ++it) {
-        const int idx = gtid + GT * it, r = idx / (L::cols / 16), c = idx % (L::cols / 16);
-        const bool ok = c0 + 16 * c < out;
-        const uint8_t* src = ok ? q4 + (p0 + r) * out + c0 + 16 * c : q4;
-        cp_async16_pf<PF>(dst + r * L::w_row + (c >> 3) * kDcCols +
-                              (((c & 7) ^ ((r & 3) << 1)) << 4), src, ok);
-      }
-    } else {
-      // the aligned 16-byte chunks that cover each row's 128 * WC columns
-      for (int idx = gtid; idx < SROWS * L::w_chunks; idx += GT) {
-        const int r = idx / L::w_chunks, c = idx % L::w_chunks;
-        const uintptr_t a =
-            (reinterpret_cast<uintptr_t>(q4 + (p0 + r) * out + c0) & ~(uintptr_t)15) + 16 * c;
-        const bool ok = a + 16 > reinterpret_cast<uintptr_t>(q4) &&
-                        a < reinterpret_cast<uintptr_t>(q4_end);
-        cp_async16_pf<PF>(dst + r * L::w_row + 16 * c,
-                          ok ? reinterpret_cast<const void*>(a) : q4, ok);
-      }
-    }
-    // x rows [0, rows), inputs [2 p0, 2 p0 + 2 SROWS): chunk c of row r
-    // at c ^ (r % 8) (fewer chunks: r modulo their count)
-    const uint32_t xd = dst + (uint32_t)L::w_bytes;
-    for (int idx = gtid; idx < rows * L::x_chunks; idx += GT) {
-      const int r = idx / L::x_chunks, c = idx % L::x_chunks;
-      // through L1 (.ca): every k-split of every strip on the SM reads the
-      // same x, which through L2 alone makes one hot line per stage
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n"
-                   :: "r"(xd + r * L::x_row + ((c ^ (r & L::x_swz)) << 4)),
-                      "l"(x + r * in + 2 * p0 + 8 * c));
-    }
-    if (i % spg == spg - 1) {   // the stage ends a group: its scales
-      const float* src = s4 + (g0 + i / spg) * out + c0;
-      const uint32_t sd = xd + (uint32_t)L::x_bytes;
-      if constexpr (ALIGNED) {
-        const bool ok = c0 + 4 * gtid < out;
-        vstar::cp_async16(sd + 16 * gtid, ok ? src + 4 * gtid : s4, ok);
-      } else {
-#pragma unroll
-        for (int it = 0; it < L::cols / GT; ++it) {
-          const int col = gtid + GT * it;
-          const bool ok = c0 + col < out;
-          vstar::cp_async4(sd + 4 * col, ok ? src + col : s4, ok);
-        }
-      }
-    }
-  };
-
-  // 16 bytes (this warp's columns 16g .. 16g + 15) of ring row r of the
-  // stage at sw; p is the row's packed-row index
-  auto row_bytes = [&](const unsigned char* sw, int r, long long p, uint32_t (&w)[4]) {
-    if constexpr (ALIGNED) {
-      const uint4 v = *reinterpret_cast<const uint4*>(sw + r * L::w_row + wc * kDcCols +
-                                                      ((g ^ ((r & 3) << 1)) << 4));
-      w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-    } else {
-      const int sh = (int)(reinterpret_cast<uintptr_t>(q4 + p * out + c0) & 15);
-      const uint32_t* base = reinterpret_cast<const uint32_t*>(sw + r * L::w_row) +
-                             (sh >> 2) + 32 * wc + 4 * g;
-      uint32_t v[5];
-#pragma unroll
-      for (int j = 0; j < 5; ++j) v[j] = base[j];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = __funnelshift_r(v[j], v[j + 1], 8 * (sh & 3));
-    }
-  };
-
-#pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < n_st) load_stage(st, st);
-    vstar::cp_async_commit();
-  }
-  float acc[8][NT][4], part[8][NT][4];
-#pragma unroll
-  for (int t = 0; t < 8; ++t)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[t][nt][e] = part[t][nt][e] = 0.f;
-
-  for (int i = 0; i < n_st; ++i) {
-    vstar::cp_async_wait<STAGES - 2>();
-    split_sync();
-    if (i + STAGES - 1 < n_st) load_stage(i + STAGES - 1, (i + STAGES - 1) % STAGES);
-    vstar::cp_async_commit();
-    const unsigned char* sw = ring + (i % STAGES) * L::stage;
-    const long long p0 = p_first + (long long)i * SROWS;
-    if (i % spg == 0) {
-#pragma unroll
-      for (int t = 0; t < 8; ++t)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) part[t][nt][e] = 0.f;
-    }
-#pragma unroll
-    for (int s = 0; s < ((PF & 4) ? 0 : SROWS / 8); ++s) {   // k-steps of 16 inputs
-      uint32_t wa[4], wb[4];
-      row_bytes(sw, 8 * s + t4, p0 + 8 * s + t4, wa);
-      row_bytes(sw, 8 * s + 4 + t4, p0 + 8 * s + 4 + t4, wb);
-      uint32_t bx[NT][2];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int n = 8 * nt + g;
-        const unsigned char* xr = sw + L::w_bytes + n * L::x_row + 4 * t4;
-        const int sw_n = n & L::x_swz;
-        const uint32_t x0 = *reinterpret_cast<const uint32_t*>(xr + (((2 * s) ^ sw_n) << 4));
-        const uint32_t x1 =
-            *reinterpret_cast<const uint32_t*>(xr + (((2 * s + 1) ^ sw_n) << 4));
-        bx[nt][0] = __byte_perm(x0, x1, 0x5410);
-        bx[nt][1] = __byte_perm(x0, x1, 0x7632);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // [row p col 4j, row p col 4j+1, row p' col 4j, row p' col 4j+1]
-        const uint32_t lo = __byte_perm(wa[j], wb[j], 0x5410);
-        const uint32_t hi = __byte_perm(wa[j], wb[j], 0x7632);
-        const uint32_t a0[4] = {nibbles_bf16x2(lo), nibbles_bf16x2(lo >> 8),
-                                nibbles_bf16x2(lo >> 4), nibbles_bf16x2(lo >> 12)};
-        const uint32_t a1[4] = {nibbles_bf16x2(hi), nibbles_bf16x2(hi >> 8),
-                                nibbles_bf16x2(hi >> 4), nibbles_bf16x2(hi >> 12)};
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          vstar::mma_bf16(part[2 * j][nt], a0, bx[nt][0], bx[nt][1]);
-          vstar::mma_bf16(part[2 * j + 1][nt], a1, bx[nt][0], bx[nt][1]);
-        }
-      }
-    }
-    if (i % spg == spg - 1) {   // the group's dot, times its scales
-      const float4* sc = reinterpret_cast<const float4*>(sw + L::w_bytes + L::x_bytes) +
-                         32 * wc + 4 * g;
-      float s16[16];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float4 v = sc[j];
-        s16[4 * j] = v.x; s16[4 * j + 1] = v.y; s16[4 * j + 2] = v.z; s16[4 * j + 3] = v.w;
-      }
-#pragma unroll
-      for (int t = 0; t < 8; ++t)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          acc[t][nt][0] = fmaf(part[t][nt][0], s16[2 * t], acc[t][nt][0]);
-          acc[t][nt][1] = fmaf(part[t][nt][1], s16[2 * t], acc[t][nt][1]);
-          acc[t][nt][2] = fmaf(part[t][nt][2], s16[2 * t + 1], acc[t][nt][2]);
-          acc[t][nt][3] = fmaf(part[t][nt][3], s16[2 * t + 1], acc[t][nt][3]);
-        }
-    }
-  }
-  vstar::cp_async_wait<0>();
-  split_sync();   // the k-split's warps are done with its ring
-  // this warp's partial [RB][128] f32, in its k-split's ring
-  float* red = reinterpret_cast<float*>(ring) + wc * RB * kDcCols;
-#pragma unroll
-  for (int t = 0; t < 8; ++t)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        red[(8 * nt + 2 * t4 + (e & 1)) * kDcCols + 16 * g + 2 * t + (e >> 1)] = acc[t][nt][e];
-  if constexpr ((PF & 32) != 0) return;
-  cluster.sync();
-  // the splits of this strip, in order (block rank, then k-split), for
-  // this block's share of the strip's outputs
-  for (int idx = rank * NTHR + (int)threadIdx.x; idx < rows * L::cols; idx += csize * NTHR) {
-    const int r = idx / L::cols, col = idx % L::cols;
-    const int off = (col / kDcCols) * RB * kDcCols + r * kDcCols + col % kDcCols;
-    // all the remote reads first (they overlap), then the sum in order
-    float v[kDcMaxCluster][WK];
-#pragma unroll
-    for (int blk = 0; blk < kDcMaxCluster; ++blk)
-      if (blk < csize) {
-        const float* part_b = cluster.map_shared_rank(reinterpret_cast<float*>(dc_smem), blk);
-#pragma unroll
-        for (int k = 0; k < WK; ++k) v[blk][k] = part_b[k * (L::ring / 4) + off];
-      }
-    float sum = 0.f;
-#pragma unroll
-    for (int blk = 0; blk < kDcMaxCluster; ++blk)
-      if (blk < csize)
-#pragma unroll
-        for (int k = 0; k < WK; ++k) sum += v[blk][k];
-    if (c0 + col < out) y[r * out + c0 + col] = __float2bfloat16(sum);
-  }
-  cluster.sync();   // no block leaves while its partials are read
-}
+#define VSTAR_K5_DECODE kFmtInt4, 32, 3, 1, 4, 0
 
 // ---------------------------------------------------------------------------
 // K6, R <= 16: W4A8 streaming matvec with exact int32 group dots
@@ -455,101 +128,304 @@ __global__ void __launch_bounds__(kMvThreads)
 }
 
 // ---------------------------------------------------------------------------
-// K5, R > 16: bf16 tensor-core tiles
+// K5, R > 16: pipelined tensor-core tiles with in-block dequantization
 // ---------------------------------------------------------------------------
+//
+// What bounds it: the products. R = 384 on 4096x11008 is 34.6 GFLOP, 35 us
+// at the 989 TFLOP/s bf16 peak, against 22.5 MB of nibbles (7 us). The
+// arithmetic is the TPU kernel's: each weight nib * s4 in f32, rounded to
+// bf16, then bf16 x bf16 products summed in f32.
+//
+// A block of 8 warps (2 along M x 4 along N) owns a BM x BN output tile
+// (and, split across a thread-block cluster of KS blocks, 1 / KS of the
+// inputs) and walks the inputs in k-tiles of 64:
+//   ring     a STAGES-deep cp.async ring (16-byte copies) of the x tile
+//            [BM, 64] bf16 (swizzled rows, as K1's Q), the packed nibbles
+//            [32, BN] and the BN scales of the k-tile's group;
+//   dequant  once per block and k-tile: each thread turns 8 columns of a
+//            few packed rows into two rows of the bf16 weight tile [64, BN]
+//            (nibble exact as f32 2^23 + (n ^ 8) - (2^23 + 8) by one byte
+//            permute, times the f32 scale, one cvt.rn.bf16x2.f32 per pair),
+//            stored as 16-byte words into a swizzled, double-buffered tile;
+//   mma      mma.sync.m16n8k16 on ldmatrix fragments: x as A, the weight
+//            tile through ldmatrix.trans as B, f32 accumulators in
+//            registers (a warp tile of BM / 2 x BN / 4).
+// One block barrier per k-tile: at iteration i the ring holds k-tile i + 1
+// before the barrier, the warps run the products of k-tile i on weight
+// buffer i % 2 and then dequantize k-tile i + 1 into the other buffer,
+// while the copies of k-tile i + STAGES - 1 are in flight.
+// Epilogue: the bf16 tile through shared memory and 16-byte row stores;
+// with KS > 1 the f32 partials of the cluster's blocks are added in rank
+// order through distributed shared memory (no workspace, no atomics).
+// The tile shape, ring depth and KS were swept with kernel_probe.py
+// --k5-tiles (int4_probe.cu); the host's plan picks the shape and KS.
+// Ragged OUT and unaligned operands copy the aligned 16-byte chunks that
+// cover each packed row and funnel-shift, as the decode rows do.
 
-constexpr int kTm = 64, kTn = 128, kTk = 64;  // output tile and depth step
-constexpr int kTcThreads = 256;               // 8 warps, 2 x 4 of 32x32
-constexpr int kLda = kTk + 8;                 // bf16 row stride of the x tile
-constexpr int kLdb = kTn + 8;                 // bf16 row stride of the w tile
-constexpr int kLdf = kTn + 4;                 // f32 row stride of the out tile
+constexpr int kTk = 64;             // inputs of a k-tile (32 packed rows)
+constexpr int kTileThreads = 256;   // 8 warps: 2 along M x 4 along N
 
-// Shared memory: the bf16 x tile [64 rows][64 k] and weight tile
-// [64 k][128 cols] during the k loop, then (reused) the f32 output tile.
-constexpr int kTcInBytes = (kTm * kLda + kTk * kLdb) * (int)sizeof(bf16);
-constexpr int kTcOutBytes = kTm * kLdf * (int)sizeof(float);
-constexpr int kTcSmemBytes = kTcInBytes > kTcOutBytes ? kTcInBytes : kTcOutBytes;
+template <int BM, int BN, int STAGES, bool ALIGNED>
+struct TileLayout {
+  static constexpr int p_row = ALIGNED ? BN : BN + 16;   // ring bytes of a packed row
+  static constexpr size_t x_bytes = (size_t)BM * kTk * 2;
+  static constexpr size_t p_bytes = (size_t)(kTk / 2) * p_row;
+  static constexpr size_t s_bytes = (size_t)BN * 4;
+  static constexpr size_t stage = x_bytes + p_bytes + s_bytes;
+  static constexpr size_t ring = STAGES * stage;
+  static constexpr size_t w_bytes = (size_t)kTk * BN * 2;    // one bf16 weight tile
+  static constexpr int part_row = BN + 4;                    // floats of a partial row
+  static constexpr size_t main_bytes = ring + 2 * w_bytes;
+  static constexpr size_t part_bytes = (size_t)BM * part_row * 4;
+  static constexpr size_t bytes = main_bytes > part_bytes ? main_bytes : part_bytes;
+  static_assert(BM % 32 == 0 && BN % 64 == 0 && STAGES >= 3, "tile shape");
+};
 
-template <bool VEC>
-__global__ void __launch_bounds__(kTcThreads)
-    int4_matmul_tc_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ q4,
-                          const float* __restrict__ s4, bf16* __restrict__ y,
-                          long long rows, long long in, long long out, int group) {
-  __shared__ __align__(128) unsigned char smem[kTcSmemBytes];
-  bf16* xa = reinterpret_cast<bf16*>(smem);
-  bf16* wb = xa + kTm * kLda;
-  float* o = reinterpret_cast<float*>(smem);
-  const long long r0 = (long long)blockIdx.y * kTm, n0 = (long long)blockIdx.x * kTn;
-  const int warp = threadIdx.x / 32;
-  const int wr = (warp / 4) * 32, wc = (warp % 4) * 32;   // warp's 32x32 sub-tile
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+// Nibble k of u, where u holds four nibbles n ^ 8 in the low bits of its
+// bytes, as the f32 value n (magic: 0x4B000000, as for byte_f32).
+__device__ __forceinline__ float nibble_f32(uint32_t u, int k, uint32_t magic) {
+  return __uint_as_float(__byte_perm(u, magic, 0x7440 | k)) - 8388616.f;
+}
+
+// (v & 0x0F0F0F0F) ^ 0x08080808
+__device__ __forceinline__ uint32_t nibbles_xor8(uint32_t v) {
+  uint32_t r;
+  asm("lop3.b32 %0, %1, %2, %3, 0x6a;" : "=r"(r) : "r"(v), "r"(0x0F0F0F0Fu), "r"(0x08080808u));
+  return r;
+}
+
+// PF: 0 ships; kernel_probe.py --k5-tiles's timing breakdown adds 2 (no
+// dequantization), 4 (no products) or 8 (no global copies), which give
+// wrong results.
+template <int BM, int BN, int STAGES, bool ALIGNED, int KS, int PF>
+__global__ void __launch_bounds__(kTileThreads)
+    int4_tile_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ q4,
+                     const float* __restrict__ s4, bf16* __restrict__ y, int rows,
+                     long long in, long long out, int group) {
+  using L = TileLayout<BM, BN, STAGES, ALIGNED>;
+  constexpr int MT = BM / 32, NT = BN / 32;            // m16 / n8 tiles of a warp
+  constexpr int CG = BN / 8, PR = kTileThreads / CG;   // 8-column groups; rows a pass
+  constexpr int XI = BM * 8 / kTileThreads, QI = BN / 128;   // copies a thread issues
+  extern __shared__ __align__(128) unsigned char tile_smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp >> 2, wn = warp & 3, g = lane >> 2, t4 = lane & 3;
+  int rank = 0;
+  if constexpr (KS > 1) rank = (int)cg::this_cluster().block_rank();
+  const long long n0 = (long long)(blockIdx.x / KS) * BN, m0 = (long long)blockIdx.y * BM;
+  const int nk_all = (int)(in / kTk), per = (nk_all + KS - 1) / KS;
+  const int kt0 = min(nk_all, rank * per), nk = min(nk_all, kt0 + per) - kt0;
+  const uint32_t base = vstar::smem_u32(tile_smem);
+  const uint32_t wd0 = base + (uint32_t)L::ring;
+  const uint8_t* q4_end = q4 + in / 2 * out;
+
+  // The copies' addresses, worked out once: x chunk tid % 8 of tile rows
+  // tid / 8 + 32 it; packed chunk tid % (BN / 16) of packed rows
+  // tid / (BN / 16) + (4096 / BN) it (aligned); a k-tile adds its offset.
+  const int xr0 = tid >> 3, xc = tid & 7;
+  const bf16* x_src = x + (m0 + xr0) * in + 8 * xc;
+  const uint32_t x_dst = vstar::swz<kTk>(xr0, xc);
+  bool x_ok[XI];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  for (int it = 0; it < XI; ++it) x_ok[it] = m0 + xr0 + 32 * it < rows;
+  const int qr0 = tid / (BN / 16), qc = tid % (BN / 16);
+  const bool q_ok = n0 + 16 * qc < out;
+  const uint8_t* q_src = q4 + qr0 * out + n0 + 16 * qc;
+  const float* s_src = s4 + n0 + 4 * tid;
+  const bool s_ok = tid < BN / 4 && n0 + 4 * tid < out;
 
-  // weight tile: thread -> (packed row pr, 16 columns from cs)
-  const int pr = threadIdx.x / (kTn / 16), cs = (threadIdx.x % (kTn / 16)) * 16;
-  const long long n = n0 + cs;
-  for (long long k0 = 0; k0 < in; k0 += kTk) {
-    // x tile: 64 rows x 64 k, 8 bf16 (16 bytes) per load; in % 8 == 0
-    for (int i = threadIdx.x; i < kTm * (kTk / 8); i += kTcThreads) {
-      const int r = i / (kTk / 8), c = (i % (kTk / 8)) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (r0 + r < rows && k0 + c < in)
-        v = *reinterpret_cast<const uint4*>(x + (r0 + r) * in + k0 + c);
-      *reinterpret_cast<uint4*>(xa + r * kLda + c) = v;
+  auto load_stage = [&](int i, int slot) {
+    if constexpr ((PF & 8) != 0) return;
+    const uint32_t xd = base + slot * (uint32_t)L::stage;
+    const uint32_t pd = xd + (uint32_t)L::x_bytes, sd = pd + (uint32_t)L::p_bytes;
+    const long long k0 = (long long)(kt0 + i) * kTk, p0 = k0 / 2;
+#pragma unroll
+    for (int it = 0; it < XI; ++it)
+      vstar::cp_async16(xd + x_dst + it * 32 * kTk * 2,
+                        x_ok[it] ? x_src + 32 * it * in + k0 : x, x_ok[it]);
+    if constexpr (ALIGNED) {
+      const uint8_t* src = q_src + p0 * out;
+#pragma unroll
+      for (int it = 0; it < QI; ++it)   // 32 rows of BN / 16 chunks
+        vstar::cp_async16(pd + (qr0 + 4096 / BN * it) * L::p_row + 16 * qc,
+                          q_ok ? src + 4096 / BN * it * out : q4, q_ok);
+      if (tid < BN / 4)
+        vstar::cp_async16(sd + 16 * tid, s_ok ? s_src + (k0 / group) * out : s4, s_ok);
+    } else {
+      for (int idx = tid; idx < 32 * (BN / 16 + 1); idx += kTileThreads) {
+        const int r = idx / (BN / 16 + 1), c = idx % (BN / 16 + 1);
+        const uintptr_t a =
+            (reinterpret_cast<uintptr_t>(q4 + (p0 + r) * out + n0) & ~(uintptr_t)15) + 16 * c;
+        const bool ok = a + 16 > reinterpret_cast<uintptr_t>(q4) &&
+                        a < reinterpret_cast<uintptr_t>(q4_end);
+        vstar::cp_async16(pd + r * L::p_row + 16 * c,
+                          ok ? reinterpret_cast<const void*>(a) : q4, ok);
+      }
+      const float* src = s4 + (k0 / group) * out + n0;
+      for (int c = tid; c < BN; c += kTileThreads) {
+        const bool ok = n0 + c < out;
+        vstar::cp_async4(sd + 4 * c, ok ? src + c : s4, ok);
+      }
     }
-    {
-      const long long p = k0 / 2 + pr;
-      uint32_t w[4] = {0u, 0u, 0u, 0u};
-      float sc[16];
-      if (2 * p < in && n < out) {
-        vstar::load_words<16, VEC>(q4 + p * out + n, out - n, w);
-        const float* srow = s4 + ((2 * p) / group) * out + n;
+  };
+
+  // this thread's share of the dequantization: 8-column group cg8 of the
+  // packed rows pr0, pr0 + PR, ... (rows 2 pr and 2 pr + 1 of the tile)
+  const int cg8 = tid % CG, pr0 = tid / CG;
+  const uint32_t magic = magic_2p23();
+  auto dequant = [&](int i, int slot, int buf) {
+    if constexpr ((PF & 2) != 0) return;
+    const unsigned char* ps = tile_smem + slot * L::stage + L::x_bytes;
+    const float4* sc = reinterpret_cast<const float4*>(ps + L::p_bytes) + 2 * cg8;
+    const float4 sa = sc[0], sb = sc[1];
+    const float s8[8] = {sa.x, sa.y, sa.z, sa.w, sb.x, sb.y, sb.z, sb.w};
+    const long long p0 = (long long)(kt0 + i) * (kTk / 2);
+    const uint32_t wd = wd0 + buf * (uint32_t)L::w_bytes;
 #pragma unroll
-        for (int j = 0; j < 16; ++j) sc[j] = n + j < out ? __ldg(srow + j) : 0.f;
+    for (int j = 0; j < 32 / PR; ++j) {
+      const int pr = pr0 + PR * j;
+      uint32_t w[2];
+      if constexpr (ALIGNED) {
+        const uint2 v = *reinterpret_cast<const uint2*>(ps + pr * L::p_row + 8 * cg8);
+        w[0] = v.x; w[1] = v.y;
       } else {
+        const int sh = (int)(reinterpret_cast<uintptr_t>(q4 + (p0 + pr) * out + n0) & 15);
+        const uint32_t* wp =
+            reinterpret_cast<const uint32_t*>(ps + pr * L::p_row) + (sh >> 2) + 2 * cg8;
+        const uint32_t v0 = wp[0], v1 = wp[1], v2 = wp[2];
+        w[0] = __funnelshift_r(v0, v1, 8 * (sh & 3));
+        w[1] = __funnelshift_r(v1, v2, 8 * (sh & 3));
+      }
+      uint32_t o[2][4];   // rows 2 pr (low nibbles) and 2 pr + 1 (high)
 #pragma unroll
-        for (int j = 0; j < 16; ++j) sc[j] = 0.f;
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t lo = nibbles_xor8(w[h]), hi = nibbles_xor8(w[h] >> 4);
+#pragma unroll
+        for (int k = 0; k < 4; k += 2) {
+          o[0][2 * h + k / 2] = vstar::pack_bf16(nibble_f32(lo, k, magic) * s8[4 * h + k],
+                                                 nibble_f32(lo, k + 1, magic) * s8[4 * h + k + 1]);
+          o[1][2 * h + k / 2] = vstar::pack_bf16(nibble_f32(hi, k, magic) * s8[4 * h + k],
+                                                 nibble_f32(hi, k + 1, magic) * s8[4 * h + k + 1]);
+        }
       }
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int b = vstar::byte_s8(w, j);
-        wb[(2 * pr) * kLdb + cs + j] =
-            __float2bfloat16((float)((int)(int8_t)(b << 4) >> 4) * sc[j]);
-        wb[(2 * pr + 1) * kLdb + cs + j] = __float2bfloat16((float)(b >> 4) * sc[j]);
+      for (int r = 0; r < 2; ++r)
+        asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
+                     :: "r"(wd + vstar::swz<BN>(2 * pr + r, cg8)), "r"(o[r][0]), "r"(o[r][1]),
+                        "r"(o[r][2]), "r"(o[r][3]) : "memory");
+    }
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  auto mma_tile = [&](int slot, int buf) {
+    if constexpr ((PF & 4) != 0) return;
+    const uint32_t xs = base + slot * (uint32_t)L::stage;
+    const uint32_t wd = wd0 + buf * (uint32_t)L::w_bytes;
+#pragma unroll
+    for (int kk = 0; kk < kTk / 16; ++kk) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        vstar::ldmatrix_x4(a[mt], xs + vstar::swz<kTk>(wm * (BM / 2) + 16 * mt + (lane & 15),
+                                                       2 * kk + (lane >> 4)));
+#pragma unroll
+      for (int nb = 0; nb < NT / 2; ++nb) {
+        uint32_t b[4];
+        const int key = 16 * kk + (lane & 7) + (((lane >> 3) & 1) << 3);
+        vstar::ldmatrix_x4_trans(b, wd + vstar::swz<BN>(key, wn * NT + 2 * nb + (lane >> 4)));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          vstar::mma_bf16(acc[mt][2 * nb], a[mt], b[0], b[1]);
+          vstar::mma_bf16(acc[mt][2 * nb + 1], a[mt], b[2], b[3]);
+        }
       }
     }
-    __syncthreads();
+  };
+
 #pragma unroll
-    for (int kk = 0; kk < kTk; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], xa + (wr + 16 * i) * kLda + kk, kLda);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], wb + kk * kLdb + wc + 16 * j, kLdb);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nk) load_stage(st, st);
+    vstar::cp_async_commit();
   }
+  if (nk > 0) {
+    vstar::cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    dequant(0, 0, 0);
+  }
+  for (int i = 0; i < nk; ++i) {
+    // k-tile i + 1 has landed (this thread's copies), and after the
+    // barrier everybody's copies, weight buffer i % 2, and the end of
+    // iteration i - 1 (its ring slot and weight buffer are free)
+    vstar::cp_async_wait<STAGES - 3>();
+    __syncthreads();
+    if (i + STAGES - 1 < nk) load_stage(i + STAGES - 1, (i + STAGES - 1) % STAGES);
+    vstar::cp_async_commit();
+    mma_tile(i % STAGES, i & 1);
+    if (i + 1 < nk) dequant(i + 1, (i + 1) % STAGES, (i + 1) & 1);
+  }
+  vstar::cp_async_wait<0>();
+  __syncthreads();   // the ring and weight tiles are free for the epilogue
+
+  if constexpr (KS == 1) {
+    // the bf16 tile [BM, BN] in swizzled rows, then 16-byte row stores
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(o + (wr + 16 * i) * kLdf + wc + 16 * j, acc[i][j], kLdf,
-                              wmma::mem_row_major);
-  __syncthreads();
-  for (int i = threadIdx.x; i < kTm * kTn; i += kTcThreads) {
-    const int r = i / kTn, c = i % kTn;
-    if (r0 + r < rows && n0 + c < out)
-      y[(r0 + r) * out + n0 + c] = __float2bfloat16(o[r * kLdf + c]);
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<uint32_t*>(
+              tile_smem + vstar::swz<BN>(wm * (BM / 2) + 16 * mt + g + 8 * r, wn * NT + nt) +
+              4 * t4) = vstar::pack_bf16(acc[mt][nt][2 * r], acc[mt][nt][2 * r + 1]);
+    __syncthreads();
+    for (int idx = tid; idx < BM * CG; idx += kTileThreads) {
+      const int r = idx / CG, c = idx % CG;
+      const long long row = m0 + r, col = n0 + 8 * c;
+      if (row >= rows) continue;
+      const unsigned char* src = tile_smem + vstar::swz<BN>(r, c);
+      if constexpr (ALIGNED) {
+        if (col < out)
+          *reinterpret_cast<uint4*>(y + row * out + col) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        const bf16* v = reinterpret_cast<const bf16*>(src);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (col + j < out) y[row * out + col + j] = v[j];
+      }
+    }
+  } else {
+    // the f32 partials of the cluster's k-splits, added in rank order
+    cg::cluster_group cluster = cg::this_cluster();
+    float* part = reinterpret_cast<float*>(tile_smem);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<float2*>(part + (wm * (BM / 2) + 16 * mt + g + 8 * r) * L::part_row +
+                                     wn * (BN / 4) + 8 * nt + 2 * t4) =
+              make_float2(acc[mt][nt][2 * r], acc[mt][nt][2 * r + 1]);
+    cluster.sync();
+    constexpr int RPB = BM / KS;   // tile rows each block writes
+    for (int idx = tid; idx < RPB * BN; idx += kTileThreads) {
+      const int r = rank * RPB + idx / BN, c = idx % BN;
+      float v[KS];
+#pragma unroll
+      for (int blk = 0; blk < KS; ++blk)
+        v[blk] = cluster.map_shared_rank(part, blk)[r * L::part_row + c];
+      float total = 0.f;
+#pragma unroll
+      for (int blk = 0; blk < KS; ++blk) total += v[blk];
+      if (m0 + r < rows && n0 + c < out) y[(m0 + r) * out + n0 + c] = __float2bfloat16(total);
+    }
+    cluster.sync();   // no block leaves while its partials are read
   }
 }
 
@@ -557,75 +433,68 @@ __global__ void __launch_bounds__(kTcThreads)
 // Launchers
 // ---------------------------------------------------------------------------
 
-// Opts a kernel into its dynamic shared memory once per process.
-template <auto Kernel>
-cudaError_t prepare(size_t smem) {
-  static const cudaError_t err = cudaFuncSetAttribute(
-      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  return err;
-}
-
-// K5 at R <= 16: strips of 128 columns, `cluster` blocks (4 splits each)
-// per strip, one cluster per strip.
-template <int RB, bool ALIGNED, int SROWS, int STAGES, int WC, int WK, int PF>
-int launch_k5_decode(const bf16* x, const uint8_t* q4, const float* s4, bf16* y,
-                     int rows, long long in, long long out, int group, int cluster,
-                     cudaStream_t st) {
-  constexpr size_t smem = DecodeSmem<RB, ALIGNED, SROWS, STAGES, WC, WK, PF>::bytes;
-  constexpr auto kernel = int4_decode_kernel<RB, ALIGNED, SROWS, STAGES, WC, WK, PF>;
-  if (group % (2 * SROWS) || cluster < 1 || cluster > kDcMaxCluster)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = prepare<kernel>(smem);
+// K5 at R > 16: tiles of BM x BN, KS blocks (a cluster) per tile along the
+// inputs; group % 64 == 0; PF as for int4_tile_kernel.
+template <int BM, int BN, int STAGES, bool ALIGNED, int KS, int PF = 0>
+int launch_k5_tiles(const bf16* x, const uint8_t* q4, const float* s4, bf16* y, int rows,
+                    long long in, long long out, int group, cudaStream_t st) {
+  using L = TileLayout<BM, BN, STAGES, ALIGNED>;
+  constexpr auto kernel = int4_tile_kernel<BM, BN, STAGES, ALIGNED, KS, PF>;
+  if (group % kTk || in % group) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare<kernel>(L::bytes);
   if (err != cudaSuccess) return (int)err;
-  const long long strips = (out + kDcCols * WC - 1) / (kDcCols * WC);
-  const long long splits = (long long)WK * cluster;
-  const int per = (int)((in / group + splits - 1) / splits);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(strips * cluster));
-  cfg.blockDim = dim3(WC * WK * 32);
-  cfg.dynamicSmemBytes = smem;
+  cfg.gridDim = dim3((unsigned)((out + BN - 1) / BN * KS), (unsigned)((rows + BM - 1) / BM));
+  cfg.blockDim = dim3(kTileThreads);
+  cfg.dynamicSmemBytes = L::bytes;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.x = (unsigned)KS;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, x, q4, s4, y, rows, in, out, group, per);
+  cfg.numAttrs = KS > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, x, q4, s4, y, rows, in, out, group);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// Build facts of one decode-row instantiation: {registers, local (spill)
-// bytes, static smem, dynamic smem, resident blocks per SM, threads}.
-template <int RB, bool ALIGNED, int SROWS, int STAGES, int WC, int WK, int PF>
-int info_k5(long long* vals) {
-  constexpr size_t smem = DecodeSmem<RB, ALIGNED, SROWS, STAGES, WC, WK, PF>::bytes;
-  constexpr auto kernel = int4_decode_kernel<RB, ALIGNED, SROWS, STAGES, WC, WK, PF>;
-  cudaError_t err = prepare<kernel>(smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaFuncAttributes a;
-  err = cudaFuncGetAttributes(&a, kernel);
-  if (err != cudaSuccess) return (int)err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, WC * WK * 32, smem);
-  vals[0] = a.numRegs;
-  vals[1] = (long long)a.localSizeBytes;
-  vals[2] = (long long)a.sharedSizeBytes;
-  vals[3] = (long long)smem;
-  vals[4] = blocks;
-  vals[5] = WC * WK * 32;
-  return (int)err;
+template <int BM, int BN, int STAGES, bool ALIGNED, int KS, int PF = 0>
+int info_k5_tiles(long long* vals) {
+  return kernel_facts<int4_tile_kernel<BM, BN, STAGES, ALIGNED, KS, PF>>(
+      TileLayout<BM, BN, STAGES, ALIGNED>::bytes, kTileThreads, vals);
 }
 
-template <int RB, bool ALIGNED, int SROWS, int STAGES, int WC, int WK, int PF>
-int occupancy_k5(int* blocks) {
-  constexpr size_t smem = DecodeSmem<RB, ALIGNED, SROWS, STAGES, WC, WK, PF>::bytes;
-  constexpr auto kernel = int4_decode_kernel<RB, ALIGNED, SROWS, STAGES, WC, WK, PF>;
-  cudaError_t err = prepare<kernel>(smem);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, WC * WK * 32, smem);
+// The shipped tile shapes (index `tile` of the host's plan, int4_matmul.py
+// TILE_SHAPES) and k-splits: launches one, or with vals != nullptr reports
+// its build facts.
+#define VSTAR_K5_TILE_STAGES 3
+int run_k5_tiles(int tile, int ks, bool aligned, long long* vals, const bf16* x,
+                 const uint8_t* q4, const float* s4, bf16* y, int rows, long long in,
+                 long long out, int group, cudaStream_t st) {
+#define VSTAR_TILE(BM, BN, KS)                                                          \
+  if (aligned)                                                                          \
+    return vals ? info_k5_tiles<BM, BN, VSTAR_K5_TILE_STAGES, true, KS>(vals)           \
+                : launch_k5_tiles<BM, BN, VSTAR_K5_TILE_STAGES, true, KS>(              \
+                      x, q4, s4, y, rows, in, out, group, st);                          \
+  return vals ? info_k5_tiles<BM, BN, VSTAR_K5_TILE_STAGES, false, KS>(vals)            \
+              : launch_k5_tiles<BM, BN, VSTAR_K5_TILE_STAGES, false, KS>(x, q4, s4, y, rows, \
+                                                                         in, out, group, st)
+#define VSTAR_TILE_KS(BM, BN) \
+  switch (ks) {               \
+    case 1: VSTAR_TILE(BM, BN, 1); \
+    case 2: VSTAR_TILE(BM, BN, 2); \
+    case 4: VSTAR_TILE(BM, BN, 4); \
+  }                           \
+  break
+  switch (tile) {
+    case 0: VSTAR_TILE_KS(64, 128);
+    case 1: VSTAR_TILE_KS(128, 256);
+  }
+#undef VSTAR_TILE_KS
+#undef VSTAR_TILE
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int RB>
@@ -682,57 +551,62 @@ extern "C" int vstar_int4_occupancy(long long rows, long long vec, long long sme
 // Blocks of K5's decode-row kernel (rows <= 16) that one SM holds, into
 // *blocks; `aligned` as for vstar_int4_matmul.
 extern "C" int vstar_int4_decode_occupancy(long long rows, long long aligned, void* blocks) {
-  auto* b = static_cast<int*>(blocks);
-  if (rows <= 8) return aligned ? occupancy_k5<8, true, VSTAR_K5_DECODE>(b) : occupancy_k5<8, false, VSTAR_K5_DECODE>(b);
-  return aligned ? occupancy_k5<16, true, VSTAR_K5_DECODE>(b) : occupancy_k5<16, false, VSTAR_K5_DECODE>(b);
+  long long vals[6];
+  const int err = run_decode<VSTAR_K5_DECODE>(true, (int)rows, aligned != 0, vals, nullptr,
+                                              nullptr, nullptr, nullptr, 0, 0, 0, 0, 0,
+                                              nullptr);
+  *static_cast<int*>(blocks) = (int)vals[4];
+  return err;
 }
 
-// Build facts of K5's i-th decode-row instantiation (rows 8 / 16,
-// aligned / ragged), as vstar_attention_kernel_info reports them; -1 past
-// the last.
+// Blocks of K5's tile `tile` with `ks` k-splits that one SM holds.
+extern "C" int vstar_int4_tile_occupancy(long long tile, long long ks, long long aligned,
+                                         void* blocks) {
+  long long vals[6];
+  const int err = run_k5_tiles((int)tile, (int)ks, aligned != 0, vals, nullptr, nullptr,
+                               nullptr, nullptr, 0, 0, 0, 0, nullptr);
+  *static_cast<int*>(blocks) = (int)vals[4];
+  return err;
+}
+
+// Build facts of K5's i-th instantiation: the decode rows (rows 8 / 16,
+// aligned / ragged), then the shipped tiles (aligned, one k-split), as
+// vstar_attention_kernel_info reports them; -1 past the last.
 extern "C" int vstar_int4_kernel_info(int i, const char** name, long long* vals) {
-  switch (i) {
-    case 0: *name = "int4_decode<8, aligned>"; return info_k5<8, true, VSTAR_K5_DECODE>(vals);
-    case 1: *name = "int4_decode<16, aligned>"; return info_k5<16, true, VSTAR_K5_DECODE>(vals);
-    case 2: *name = "int4_decode<8, ragged>"; return info_k5<8, false, VSTAR_K5_DECODE>(vals);
-    case 3: *name = "int4_decode<16, ragged>"; return info_k5<16, false, VSTAR_K5_DECODE>(vals);
-  }
-  return -1;
+  static const char* names[] = {"int4_decode<8, aligned>", "int4_decode<16, aligned>",
+                                "int4_decode<8, ragged>", "int4_decode<16, ragged>",
+                                "int4_tile<64x128, aligned>", "int4_tile<128x256, aligned>",
+                                "int4_tile<64x128, ragged>", "int4_tile<128x256, ragged>"};
+  if (i < 0 || i > 7) return -1;
+  *name = names[i];
+  if (i < 4)
+    return run_decode<VSTAR_K5_DECODE>(true, i % 2 ? 16 : 8, i < 2, vals, nullptr, nullptr,
+                                       nullptr, nullptr, 0, 0, 0, 0, 0, nullptr);
+  return run_k5_tiles(i % 2, 1, i < 6, vals, nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 0,
+                      nullptr);
 }
 
 // K5: y [rows, out] bf16 = x [rows, in] bf16 @ dequant(q4 [in/2, out],
-// s4 [in/group, out]); contiguous operands, x 16-byte aligned, group
-// even, in % 8 == 0. rows <= 16 takes the tensor-core decode rows
-// (`cluster` 1..8 blocks per 128-column strip; group % 64 == 0; aligned:
-// out % 16 == 0 and q4, s4 16-byte aligned), rows > 16 the tensor-core
-// tiles (cluster unused; aligned: 16-byte weight loads).
+// s4 [in/group, out]); contiguous operands, x 16-byte aligned, group % 64
+// == 0. rows <= 16 takes the tensor-core decode rows (`cluster` 1..8
+// blocks per 128-column strip), rows > 16 the tensor-core tiles (shape
+// `tile`, `cluster` k-splits per tile: 1, 2 or 4). aligned: out % 16 ==
+// 0 and q4, s4 16-byte aligned.
 extern "C" int vstar_int4_matmul(const void* x, const void* q4, const void* s4, void* y,
                                  long long rows, long long in, long long out,
                                  long long group, long long cluster, long long aligned,
-                                 void* stream) {
-  if (group < 2 || group % 2 || in % group || in % 8 || rows < 1)
-    return (int)cudaErrorInvalidValue;
+                                 long long tile, void* stream) {
+  if (group < 64 || group % 64 || in % group || rows < 1) return (int)cudaErrorInvalidValue;
   auto* xb = static_cast<const bf16*>(x);
   auto* qb = static_cast<const uint8_t*>(q4);
   auto* sf = static_cast<const float*>(s4);
   auto* yb = static_cast<bf16*>(y);
   auto st = static_cast<cudaStream_t>(stream);
-  if (rows > vstar::kMaxRows) {
-    dim3 grid((unsigned)((out + kTn - 1) / kTn), (unsigned)((rows + kTm - 1) / kTm));
-    if (aligned)
-      int4_matmul_tc_kernel<true><<<grid, kTcThreads, 0, st>>>(xb, qb, sf, yb, rows, in,
-                                                               out, (int)group);
-    else
-      int4_matmul_tc_kernel<false><<<grid, kTcThreads, 0, st>>>(xb, qb, sf, yb, rows, in,
-                                                                out, (int)group);
-    return (int)cudaGetLastError();
-  }
-  const int r = (int)rows, g = (int)group, c = (int)cluster;
-  if (rows <= 8)
-    return aligned ? launch_k5_decode<8, true, VSTAR_K5_DECODE>(xb, qb, sf, yb, r, in, out, g, c, st)
-                   : launch_k5_decode<8, false, VSTAR_K5_DECODE>(xb, qb, sf, yb, r, in, out, g, c, st);
-  return aligned ? launch_k5_decode<16, true, VSTAR_K5_DECODE>(xb, qb, sf, yb, r, in, out, g, c, st)
-                 : launch_k5_decode<16, false, VSTAR_K5_DECODE>(xb, qb, sf, yb, r, in, out, g, c, st);
+  if (rows > vstar::kMaxRows)
+    return run_k5_tiles((int)tile, (int)cluster, aligned != 0, nullptr, xb, qb, sf, yb,
+                        (int)rows, in, out, (int)group, st);
+  return run_decode<VSTAR_K5_DECODE>(false, (int)rows, aligned != 0, nullptr, xb, qb, sf, yb,
+                                     in, out, in, (int)group, (int)cluster, st);
 }
 
 // K6: y [rows, out] f32 = xq [rows, in] int8 @ nib(q4) with per-group

@@ -1,7 +1,7 @@
 // K3 + K4: weight-only int8 matvec for decode-shaped rows on sm_90a.
 //
 // Replaces two Pallas kernels of the JAX package that compute the same
-// function, y[R, OUT] = x[R, IN] @ (q int8 [IN, OUT] * s f32 [1, OUT]) for
+// function, y[R, OUT] = (x[R, IN] @ q int8 [IN, OUT]) * s f32 [OUT] for
 // R <= 16: vstar_tpu/kernels/int8_matmul.py:_kernel (K3, a grid over output
 // blocks with x resident) and vstar_tpu/kernels/stream_matvec.py:_kernel
 // (K4, the same product with the weight streamed through a two-slot VMEM
@@ -9,136 +9,60 @@
 // latency).
 //
 // What bounds it on the H100: the weight bytes. At R <= 16 the product
-// does 2*R operations per weight byte, far below the ~590 int8-equivalent
-// operations per byte where the tensor cores would become the limit;
-// 4096 x 11008 int8 is 45.1 MB, 13.5 us at 3.35 TB/s. The design streams
-// every weight byte exactly once with 16-byte loads along OUT (coalesced
-// across a warp), keeps the block's slice of x in shared memory as f32,
-// accumulates in f32 registers, and splits the reduction dimension across
-// blocks (quant_common.cuh) so that even OUT = 4096 at R = 1 puts ~2 blocks
-// on each of the 132 SMs. The per-column scale is applied once, in the
-// split-K finish. Ragged OUT (the 32003-wide lm_head) takes byte loads.
-#include "quant_common.cuh"
+// does 2 * R operations per weight byte, far below the ~295 per byte where
+// the bf16 tensor cores would become the limit; 4096 x 11008 int8 is 45.1
+// MB, 13.5 us at 3.35 TB/s. The design is K5's tensor-core decode rows
+// (decode_rows.cuh) for int8 bytes: each weight byte is unpacked exactly
+// into a bf16 mma operand without an integer-to-float conversion, x and
+// the weights stream through a cp.async ring per k-split, the products run
+// on mma.sync with f32 accumulation, the k-splits of a strip are added in
+// order through distributed shared memory across a thread-block cluster,
+// and the column scale is applied once, after that sum. One launch, no
+// workspace, no atomics. The earlier CUDA-core design (an I2F per weight
+// byte, 2R FMAs per byte on CUDA cores, a split-K workspace and a second
+// launch to add it up) was 2.2-6.1x the byte bound.
+//
+// VSTAR_K3_DECODE is the shipped (format, ring rows per stage, stages,
+// warps along the columns, k-splits per block, L2 prefetch); it won
+// kernel_probe.py --k3-shapes (k3_probe.cu; PERF.md), which sweeps the
+// others.
+#include "decode_rows.cuh"
 
-namespace {
+#define VSTAR_K3_DECODE kFmtInt8, 32, 3, 1, 2, 0
 
-using vstar::bf16;
-using vstar::kMvCols;
-using vstar::kMvThreads;
-
-template <int RB, int CPT, bool VEC>
-__global__ void __launch_bounds__(kMvThreads)
-    int8_matvec_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q,
-                       float* __restrict__ ws, int rows, long long in,
-                       long long out, long long kchunk) {
-  constexpr int TC = kMvCols / CPT;
-  constexpr int TR = kMvThreads / TC;
-  extern __shared__ float smem[];
-  float* xs = smem;                  // [RB][kchunk] f32 slice of x
-  float* red = smem + RB * kchunk;   // [RB][kMvCols] lane reduction
-  const long long k0 = (long long)blockIdx.y * kchunk;
-  const int nk = (int)min(kchunk, in - k0);
-  for (long long i = threadIdx.x; i < RB * kchunk; i += kMvThreads) {
-    const int r = (int)(i / kchunk), k = (int)(i % kchunk);
-    xs[i] = (r < rows && k < nk) ? __bfloat162float(x[r * in + k0 + k]) : 0.f;
-  }
-  __syncthreads();
-
-  const int tc = threadIdx.x % TC, lane = threadIdx.x / TC;
-  const long long c0 = (long long)blockIdx.x * kMvCols + tc * CPT;
-  float acc[RB][CPT];
-#pragma unroll
-  for (int r = 0; r < RB; ++r)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[r][j] = 0.f;
-  if (c0 < out) {
-    const uint8_t* wp = reinterpret_cast<const uint8_t*>(q) + (k0 + lane) * out + c0;
-#pragma unroll 4
-    for (int k = lane; k < nk; k += TR, wp += TR * out) {
-      uint32_t w[CPT / 4];
-      vstar::load_words<CPT, VEC>(wp, out - c0, w);
-      float wf[CPT];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) wf[j] = (float)vstar::byte_s8(w, j);
-#pragma unroll
-      for (int r = 0; r < RB; ++r) {
-        const float xv = xs[r * kchunk + k];
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) acc[r][j] = fmaf(xv, wf[j], acc[r][j]);
-      }
-    }
-  }
-  vstar::reduce_and_store<RB, CPT>(acc, red, ws, rows, out, blockIdx.y);
+// Blocks of K3's kernel for `rows` (<= 16) that one SM holds, into
+// *blocks; `aligned` as for vstar_int8_matvec.
+extern "C" int vstar_int8_decode_occupancy(long long rows, long long aligned, void* blocks) {
+  long long vals[6];
+  const int err = run_decode<VSTAR_K3_DECODE>(true, (int)rows, aligned != 0, vals, nullptr,
+                                              nullptr, nullptr, nullptr, 0, 0, 0, 0, 0,
+                                              nullptr);
+  *static_cast<int*>(blocks) = (int)vals[4];
+  return err;
 }
 
-template <int RB, int CPT>
-int launch(const bf16* x, const int8_t* q, const float* s, float* ws,
-           void* y, int rows, long long in, long long out, long long kchunk,
-           int splits, bool vec, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * RB * (kchunk + kMvCols);
-  dim3 grid((unsigned)((out + kMvCols - 1) / kMvCols), (unsigned)splits);
-  if (vec)
-    int8_matvec_kernel<RB, CPT, true><<<grid, kMvThreads, smem, stream>>>(
-        x, q, ws, rows, in, out, kchunk);
-  else
-    int8_matvec_kernel<RB, CPT, false><<<grid, kMvThreads, smem, stream>>>(
-        x, q, ws, rows, in, out, kchunk);
-  const int err = (int)cudaGetLastError();
-  if (err) return err;
-  return launch_finish(ws, splits, rows, out, s, y, 1, stream);
+// Build facts of K3's i-th instantiation (rows 8 / 16, aligned / ragged),
+// as vstar_attention_kernel_info reports them; -1 past the last.
+extern "C" int vstar_int8_kernel_info(int i, const char** name, long long* vals) {
+  static const char* names[] = {"int8_decode<8, aligned>", "int8_decode<16, aligned>",
+                                "int8_decode<8, ragged>", "int8_decode<16, ragged>"};
+  if (i < 0 || i > 3) return -1;
+  *name = names[i];
+  return run_decode<VSTAR_K3_DECODE>(true, i % 2 ? 16 : 8, i < 2, vals, nullptr, nullptr,
+                                     nullptr, nullptr, 0, 0, 0, 0, 0, nullptr);
 }
 
-template <int RB, int CPT>
-int occupancy(bool vec, size_t smem, int* blocks) {
-  return (int)(vec ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                         blocks, int8_matvec_kernel<RB, CPT, true>, kMvThreads, smem)
-                   : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                         blocks, int8_matvec_kernel<RB, CPT, false>, kMvThreads, smem));
-}
-
-}  // namespace
-
-// Blocks of the launch for `rows` (<= 16) and `vec` that one SM holds at
-// `smem` bytes of dynamic shared memory, into *blocks.
-extern "C" int vstar_int8_matvec_occupancy(long long rows, long long vec,
-                                           long long smem, void* blocks) {
-  auto* b = static_cast<int*>(blocks);
-  switch (row_bucket(rows)) {
-    case 1: return occupancy<1, 16>(vec, smem, b);
-    case 2: return occupancy<2, 16>(vec, smem, b);
-    case 4: return occupancy<4, 16>(vec, smem, b);
-    case 8: return occupancy<8, 8>(vec, smem, b);
-    default: return occupancy<16, 4>(vec, smem, b);
-  }
-}
-
-// y [rows, out] bf16 = x [rows, in] bf16 @ (q [in, out] int8 * s [out] f32),
-// rows <= 16, all contiguous. ws: f32 [splits, rows, out]; split i covers
-// rows [i * kchunk, (i + 1) * kchunk) of q, and RB * kchunk f32 of x must
-// fit 48 KB of shared memory with the reduction buffer. vec: out % 16 == 0
-// and q is 16-byte aligned.
-extern "C" int vstar_int8_matvec(const void* x, const void* q, const void* s,
-                                 void* ws, void* y, long long rows,
-                                 long long in, long long out,
-                                 long long kchunk, long long splits,
-                                 long long vec, void* stream) {
-  if (rows < 1 || rows > vstar::kMaxRows || kchunk < 1 || splits < 1 ||
-      (splits - 1) * kchunk >= in || splits * kchunk < in)
+// y [rows, out] bf16 = (x [rows, in] bf16 @ q [in, out] int8) * s [out] f32,
+// rows <= 16, q and s contiguous; x rows xs apart (xs % 8 == 0, xs >= in,
+// x zero in [in, xs), x 16-byte aligned). `cluster` (1..8) blocks per
+// strip of 128 columns; aligned: out % 16 == 0 and q 16-byte aligned.
+extern "C" int vstar_int8_matvec(const void* x, const void* q, const void* s, void* y,
+                                 long long rows, long long in, long long out, long long xs,
+                                 long long cluster, long long aligned, void* stream) {
+  if (rows < 1 || rows > 16 || in < 1 || xs < in || xs % 8)
     return (int)cudaErrorInvalidValue;
-  const int rb = row_bucket(rows);
-  if (sizeof(float) * rb * (kchunk + kMvCols) > 48 * 1024)
-    return (int)cudaErrorInvalidValue;
-  auto* xb = static_cast<const bf16*>(x);
-  auto* qb = static_cast<const int8_t*>(q);
-  auto* sf = static_cast<const float*>(s);
-  auto* wf = static_cast<float*>(ws);
-  auto st = static_cast<cudaStream_t>(stream);
-  const int r = (int)rows, sp = (int)splits;
-  switch (rb) {
-    case 1: return launch<1, 16>(xb, qb, sf, wf, y, r, in, out, kchunk, sp, vec, st);
-    case 2: return launch<2, 16>(xb, qb, sf, wf, y, r, in, out, kchunk, sp, vec, st);
-    case 4: return launch<4, 16>(xb, qb, sf, wf, y, r, in, out, kchunk, sp, vec, st);
-    case 8: return launch<8, 8>(xb, qb, sf, wf, y, r, in, out, kchunk, sp, vec, st);
-    default: return launch<16, 4>(xb, qb, sf, wf, y, r, in, out, kchunk, sp, vec, st);
-  }
+  return run_decode<VSTAR_K3_DECODE>(
+      false, (int)rows, aligned != 0, nullptr, static_cast<const bf16*>(x),
+      static_cast<const uint8_t*>(q), static_cast<const float*>(s), static_cast<bf16*>(y), in,
+      out, xs, 0, (int)cluster, static_cast<cudaStream_t>(stream));
 }

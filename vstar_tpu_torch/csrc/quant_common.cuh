@@ -1,5 +1,5 @@
-// Pieces shared by the quantized-weight matmul kernels (int8_matvec.cu,
-// int4_matmul.cu).
+// Pieces shared by the CUDA-core quantized-weight matvecs (K6 in
+// int4_matmul.cu, P2-P4 in int4_variants.cu).
 //
 // Decode-shaped products (R <= 16 activation rows) are weight-streaming
 // matvecs bound by the bytes of the weight: a block of kMvThreads threads
@@ -12,7 +12,8 @@
 // in order, applies an optional per-column scale and writes the output.
 // The host chooses the split count so that the grid fills every SM to
 // the kernel's occupancy (these kernels are bound by the loads each SM
-// keeps in flight, so idle block slots cost bandwidth).
+// keeps in flight, so idle block slots cost bandwidth). K3 and K5 moved to
+// the tensor-core decode rows of decode_rows.cuh.
 #pragma once
 
 #include <cuda_bf16.h>

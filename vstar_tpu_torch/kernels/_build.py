@@ -39,12 +39,15 @@ _SIGNATURES = {
     "vstar_flash_attention_bwd_dq": [_P] * 12 + [_LL] * 29 + [_F, _P],
     "vstar_flash_attention_bwd_dkv": [_P] * 12 + [_LL] * 29 + [_F, _P],
     "vstar_tower_attention_fwd": [_P] * 4 + [_LL] * 15 + [_F, _P],
-    "vstar_int8_matvec": [_P] * 5 + [_LL] * 6 + [_P],
-    "vstar_int4_matmul": [_P] * 4 + [_LL] * 6 + [_P],
+    "vstar_int8_matvec": [_P] * 4 + [_LL] * 6 + [_P],
+    "vstar_int4_matmul": [_P] * 4 + [_LL] * 7 + [_P],
     "vstar_int4_w4a8": [_P] * 5 + [_LL] * 7 + [_P],
-    "vstar_int8_matvec_occupancy": [_LL] * 3 + [_P],
+    "vstar_int8_decode_occupancy": [_LL] * 2 + [_P],
+    "vstar_int8_kernel_info": [ctypes.c_int, ctypes.POINTER(ctypes.c_char_p),
+                               ctypes.POINTER(ctypes.c_longlong)],
     "vstar_int4_occupancy": [_LL] * 3 + [_P],
     "vstar_int4_decode_occupancy": [_LL] * 2 + [_P],
+    "vstar_int4_tile_occupancy": [_LL] * 3 + [_P],
     "vstar_int4_kernel_info": [ctypes.c_int, ctypes.POINTER(ctypes.c_char_p),
                                ctypes.POINTER(ctypes.c_longlong)],
     "vstar_unpack_probe": [_P] * 2 + [_LL] * 2 + [_P],

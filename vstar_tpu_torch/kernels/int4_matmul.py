@@ -9,9 +9,9 @@ Weight format, from nn/quant.quantize_weight_int4:
 
   int4_matmul(x, q4, s4)       x [R, IN] @ dequant -> [R, OUT] in x.dtype,
                                every R (K5; csrc/int4_matmul.cu: decode
-                               rows on tensor cores at R <= 16, one launch
-                               per call, group a multiple of 64; tensor-core
-                               tiles above)
+                               rows on tensor cores at R <= 16, pipelined
+                               tensor-core tiles above; one launch per
+                               call; group a multiple of 64)
   int4_matmul_w4a8(xq, q4, s4) int8 xq [R <= 16, IN] -> f32 [R, OUT] with
                                exact int32 group dots, no activation scale
                                (K6)
@@ -31,22 +31,27 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .int8_matmul import (MAX_ROWS, SMEM_X_BYTES, capacity,
-                          check_cuda_operand, row_bucket, split_plan)
+from .int8_matmul import (DECODE_COLS, DECODE_MAX_CLUSTER, MAX_ROWS,
+                          SMEM_X_BYTES, _blocks_per_sm, _sm_count, capacity,
+                          check_cuda_operand, decode_plan, row_bucket,
+                          split_plan)
 
 launches = {"int4_matmul": 0, "int4_matmul_w4a8": 0}
+# K5's launches by route: decode rows (R <= 16) and tiles (R > 16)
+route_launches = {"decode": 0, "tile": 0}
 plain_calls_cuda = {"int4_matmul": 0, "int4_matmul_w4a8": 0}
 
 W4A8_IN_MULTIPLE = 256   # vstar_tpu int4_matmul.py:204, :252
-# K5's decode rows (csrc/int4_matmul.cu, VSTAR_K5_DECODE): a block owns a
-# strip of DECODE_COLS output columns and DECODE_SPLITS splits of whole
-# groups; the blocks of a strip form one cluster of at most
-# DECODE_MAX_CLUSTER; a ring stage is 64 inputs, so a group spans whole
-# stages.
-DECODE_COLS = 128
+# K5's decode rows (VSTAR_K5_DECODE): DECODE_SPLITS k-splits of whole
+# groups per block; a ring stage is 64 inputs, so a group spans whole
+# stages. The tiles take k-tiles of 64 inputs inside one group.
 DECODE_SPLITS = 4
-DECODE_MAX_CLUSTER = 8
-DECODE_GROUP_MULTIPLE = 64
+GROUP_MULTIPLE = 64
+# K5's tile shapes (rows, columns), in the order of run_k5_tiles, and the
+# k-splits a tile may take (a cluster along the inputs)
+TILE_SHAPES = ((64, 128), (128, 256))
+TILE_SPLITS = (1, 2, 4)
+TILE_K = 64
 
 
 def unpack_int4(q4: torch.Tensor) -> torch.Tensor:
@@ -93,7 +98,8 @@ def int4_matmul_kernel_math(x, q4, s4):
 
 def int4_kernel_info():
     """Build facts of K5's decode-row instantiations (8 / 16 rows,
-    aligned / ragged), as `flash_attention.attention_kernel_info`."""
+    aligned / ragged) and shipped tiles, as
+    `flash_attention.attention_kernel_info`."""
     return _build.kernel_info("vstar_int4_kernel_info")
 
 
@@ -127,17 +133,22 @@ def _int4_shapes(q4, s4, IN):
     return OUT, NG, IN // NG
 
 
-def decode_plan(groups: int, out: int, resident: int,
-                cols: int = DECODE_COLS, splits: int = DECODE_SPLITS) -> int:
-    """Blocks per strip of `cols` output columns (the thread-block cluster
-    size: 1, 2, 4 or 8) of K5's decode rows: the most that fill the card's
-    `resident` block slots in one wave, each block taking `splits` splits
-    of whole groups, and no more blocks than a split needs a group each.
-    Powers of two only: clusters of 3 measured slower than of 2 or 4 on
-    the H100 (their blocks fit the GPCs worse)."""
-    strips = -(-out // cols)
-    limit = min(DECODE_MAX_CLUSTER, resident // strips, -(-groups // splits))
-    return 1 << (max(limit, 1).bit_length() - 1)
+def tile_plan(rows: int, out: int, k_tiles: int, sms: int, resident) -> tuple:
+    """K5's tile shape (index into TILE_SHAPES) and k-splits for `rows` >
+    MAX_ROWS: 64 x 128 tiles up to 128 rows, 128 x 256 above; then the
+    most k-splits (a cluster of blocks per tile) that still fit the card's
+    block slots in one wave and leave each split at least 4 k-tiles; one
+    where the tiles alone pass a wave (splits then add waves, which
+    measured slower). `resident(tile, ks)` is the blocks of that
+    instantiation one SM holds."""
+    tile = 0 if rows <= 128 else 1
+    bm, bn = TILE_SHAPES[tile]
+    tiles = -(-rows // bm) * -(-out // bn)
+    best = 1
+    for ks in TILE_SPLITS[1:]:
+        if k_tiles >= 4 * ks and tiles * ks <= resident(tile, ks) * sms:
+            best = ks
+    return tile, best
 
 
 def _launch_w4a8(xq, q4, s4, y, rows, IN, OUT, group):
@@ -179,27 +190,34 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor,
     check_cuda_operand("x", x, torch.bfloat16, (rows, IN), dev)
     check_cuda_operand("q4", q4, torch.uint8, (IN // 2, OUT), dev)
     check_cuda_operand("s4", s4, torch.float32, (NG, OUT), dev)
-    if rows <= MAX_ROWS and group % DECODE_GROUP_MULTIPLE:
+    if group % GROUP_MULTIPLE:
         raise ValueError(f"int4_matmul: group {group} must be a multiple of "
-                         f"{DECODE_GROUP_MULTIPLE} at <= {MAX_ROWS} rows")
+                         f"{GROUP_MULTIPLE}")
     if x.data_ptr() % 16:    # both routes load 16-byte vectors of x
         x = x.clone()
     y = torch.empty((rows, OUT), dtype=x.dtype, device=dev)
     if rows == 0:
         return y
-    aligned = OUT % 16 == 0 and q4.data_ptr() % 16 == 0
-    cluster = 0
+    aligned = (OUT % 16 == 0 and q4.data_ptr() % 16 == 0
+               and s4.data_ptr() % 16 == 0)
     if rows <= MAX_ROWS:
-        aligned = aligned and s4.data_ptr() % 16 == 0
+        route, tile = "decode", 0
         cap = capacity(dev, "vstar_int4_decode_occupancy",
                        (16 if rows > 8 else 8, int(aligned)))
-        cluster = decode_plan(NG, OUT, cap)
+        cluster = decode_plan(NG, OUT, cap, splits=DECODE_SPLITS)
+    else:
+        route = "tile"
+        tile, cluster = tile_plan(
+            rows, OUT, IN // TILE_K, _sm_count(dev.index or 0),
+            lambda t, ks: _blocks_per_sm("vstar_int4_tile_occupancy",
+                                         (t, ks, int(aligned))))
     lib = _build.library()
     code = _build.launch(lib.vstar_int4_matmul, dev, x.data_ptr(),
                          q4.data_ptr(), s4.data_ptr(), y.data_ptr(), rows, IN,
-                         OUT, group, cluster, int(aligned))
+                         OUT, group, cluster, int(aligned), tile)
     _build.check(lib, code, "int4_matmul")
     launches["int4_matmul"] += 1
+    route_launches[route] += 1
     return y
 
 

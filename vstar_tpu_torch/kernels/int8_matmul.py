@@ -2,19 +2,23 @@
 and its plain PyTorch version.
 
 Replaces two Pallas kernels of the JAX package that compute the same
-function, y = x @ (q * s) for at most 16 rows of x:
+function, y = (x @ q) * s for at most 16 rows of x:
 vstar_tpu/kernels/int8_matmul.py (`_kernel`, behind `qdot_fast`) and
 vstar_tpu/kernels/stream_matvec.py (`_kernel`, the double-buffered DMA
 variant). One kernel, csrc/int8_matvec.cu, serves both: on the H100 the
-product is bound by the weight bytes, so the kernel streams them once
-with a split reduction that fills the card at one row.
+product is bound by the weight bytes, so it runs K5's tensor-core decode
+rows (csrc/decode_rows.cuh) on int8 bytes, one launch per call, with the
+k-splits of each 128-column strip added across a thread-block cluster
+(`k3_plan`).
 
 `nn/quant.qdot` sends int8 entries with at most MAX_ROWS rows here, as
 `qdot_fast` does; larger row counts stay a dequantize-and-matmul, as the
 JAX package leaves them to XLA. A CPU tensor takes the plain version
 `int8_matmul_reference`; a CUDA tensor launches the kernel or raises.
 
-The split plan (`split_plan`) is shared with the int4 kernels.
+The occupancy query (`capacity`), the split plan of the CUDA-core K6
+(`split_plan`) and the cluster plan of the decode rows (`decode_plan`)
+are shared with the int4 kernels.
 """
 
 from __future__ import annotations
@@ -30,8 +34,20 @@ launches = 0
 plain_calls_cuda = 0
 
 MAX_ROWS = 16          # vstar_tpu DECODE_ROW_LIMIT
-STRIP = 256            # output columns of one block (kMvCols)
-SMEM_X_BYTES = 32768   # shared memory the staged x slice may take
+STRIP = 256            # output columns of one K6 block (kMvCols)
+SMEM_X_BYTES = 32768   # shared memory K6's staged x slice may take
+# The tensor-core decode rows (csrc/decode_rows.cuh): a block owns a strip
+# of DECODE_COLS output columns and its k-splits; the blocks of a strip
+# form one cluster of at most DECODE_MAX_CLUSTER.
+DECODE_COLS = 128
+DECODE_MAX_CLUSTER = 8
+# K3's shipped shape (VSTAR_K3_DECODE): weight rows of a ring stage (the
+# unit its k-splits take), warps side by side along a strip's columns and
+# k-splits per block; its clusters may take 16 blocks (non-portable).
+K3_STAGE_ROWS = 32
+K3_WARP_COLS = 1
+K3_SPLITS = 2
+K3_MAX_CLUSTER = 16
 
 
 def int8_matmul_reference(x: torch.Tensor, q: torch.Tensor,
@@ -82,6 +98,33 @@ def split_plan(units: int, out: int, max_units: int, resident: int):
     return chunk, -(-units // chunk)
 
 
+def decode_plan(units: int, out: int, resident: int, cols: int = DECODE_COLS,
+                splits: int = 4, max_cluster: int = DECODE_MAX_CLUSTER) -> int:
+    """Blocks per strip of `cols` output columns (the thread-block cluster
+    size: a power of two up to `max_cluster`) of the tensor-core decode
+    rows: the most that fill the card's `resident` block slots in one
+    wave, each block taking `splits` k-splits of whole units (K5: groups;
+    K3: ring stages), and no more blocks than give every split a unit.
+    Powers of two only: clusters of 3 measured slower than of 2 or 4 on
+    the H100 (their blocks fit the GPCs worse)."""
+    strips = -(-out // cols)
+    limit = min(max_cluster, resident // strips, -(-units // splits))
+    return 1 << (max(limit, 1).bit_length() - 1)
+
+
+def k3_plan(IN: int, out: int, resident: int) -> int:
+    """K3's cluster size: `decode_plan` over ring stages of K3_STAGE_ROWS
+    inputs, in strips of DECODE_COLS * K3_WARP_COLS columns."""
+    return decode_plan(-(-IN // K3_STAGE_ROWS), out, resident,
+                       DECODE_COLS * K3_WARP_COLS, K3_SPLITS, K3_MAX_CLUSTER)
+
+
+def int8_kernel_info():
+    """Build facts of K3's instantiations (8 / 16 rows, aligned / ragged),
+    as `flash_attention.attention_kernel_info`."""
+    return _build.kernel_info("vstar_int8_kernel_info")
+
+
 def check_cuda_operand(name: str, t: torch.Tensor, dtype, shape, dev):
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype} on CUDA, got {t.dtype}")
@@ -113,19 +156,18 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
     check_cuda_operand("q", q, torch.int8, (IN, OUT), dev)
     s = s.reshape(OUT)
     check_cuda_operand("s", s, torch.float32, (OUT,), dev)
-    vec = OUT % 16 == 0 and q.data_ptr() % 16 == 0
-    rb = row_bucket(rows)
-    cap = capacity(dev, "vstar_int8_matvec_occupancy",
-                   (rb, int(vec), SMEM_X_BYTES + 1024 * rb))
-    kchunk, splits = split_plan(IN, OUT, SMEM_X_BYTES // (4 * rb), cap)
-    ws = torch.empty((splits, rows, OUT), dtype=torch.float32, device=dev)
+    xs = -(-IN // 8) * 8       # the kernel reads x in 16-byte chunks
+    if xs != IN or x.data_ptr() % 16:
+        x = torch.nn.functional.pad(x, (0, xs - IN))
+    aligned = OUT % 16 == 0 and q.data_ptr() % 16 == 0
+    cap = capacity(dev, "vstar_int8_decode_occupancy",
+                   (16 if rows > 8 else 8, int(aligned)))
+    cluster = k3_plan(IN, OUT, cap)
     y = torch.empty((rows, OUT), dtype=x.dtype, device=dev)
     lib = _build.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.vstar_int8_matvec(
-            x.data_ptr(), q.data_ptr(), s.data_ptr(), ws.data_ptr(),
-            y.data_ptr(), rows, IN, OUT, kchunk, splits, int(vec), stream)
+    code = _build.launch(lib.vstar_int8_matvec, dev, x.data_ptr(),
+                         q.data_ptr(), s.data_ptr(), y.data_ptr(), rows, IN,
+                         OUT, xs, cluster, int(aligned))
     _build.check(lib, code, "int8_matmul")
     launches += 1
     return y

@@ -1,18 +1,23 @@
-"""K7 (flash-attention backward) and K5's decode rows, measured on the H100.
+"""K7 (flash-attention backward), K3/K4 (int8 decode rows) and K5 (decode
+rows and tiles), measured on the H100.
 
   --ab        device ms (one CUDA graph over input copies that exceed the
               L2 cache, median of 7 replays) of K7 at the training case
               ([4, 512, 32, 128], kv_lens 512/300, ~10 % key holes, a row
               that sees no key) and at the shapes of the `gpu` test
               `test_flash_bwd_kernel_on_card`, beside SDPA's backward (one
-              graph of forward + backward less one of the forward); and of
-              K5 at 1, 3, 8 and 16 rows on 4096x11008, 11008x4096 and the
-              32003-wide lm_head, beside torch._weight_int4pack_mm
-              (tinygemm) where it takes the shape. Each case is held to its
-              plain version first. `--root DIR` measures the checkout at DIR
-              instead (run this file by its path, so that DIR's
-              vstar_tpu_torch is imported), which compares two trees on one
-              card, in turns:
+              graph of forward + backward less one of the forward); of K3
+              at 1, 2, 3, 8 and 16 rows on 4096x4096, 4096x11008,
+              11008x4096 and the 32003-wide lm_head; of K5's decode rows at
+              1, 3, 8 and 16 rows on 4096x11008, 11008x4096 and the lm_head,
+              beside torch._weight_int4pack_mm (tinygemm) where it takes the
+              shape; and of K5's tiles at 17, 64, 128, 384 and 768 rows on
+              4096x11008 and 11008x4096 (with, at 384 rows, one bf16
+              torch.matmul on the dequantized weights as context: not the
+              same function). Each case is held to its plain version first.
+              `--root DIR` measures the checkout at DIR instead (run this
+              file by its path, so that DIR's vstar_tpu_torch is imported),
+              which compares two trees on one card, in turns:
                 python3 vstar_tpu_torch/scripts/kernel_probe.py --ab --root ../parent
   --k7-tiles  K7's dQ and dK/dV kernels at other tiles (DQ_VARIANTS,
               DKV_VARIANTS; kernel_probe.cu instantiates them and is built
@@ -28,8 +33,22 @@
               against the plain version at R = 1 and 16 on 4096x11008,
               11008x4096 and the 32003-wide lm_head, beside tinygemm. The
               shipped shape is the first variant.
+  --k3-shapes K3's decode rows at other shapes (K3_VARIANTS: ring rows
+              per stage, stages, warps along the columns, k-splits per
+              block, and the shipped shape with parts of its work left
+              out; k3_probe.cu) and cluster sizes (the plan's, 1,
+              2, 4, 8): build facts, device ms and error at R = 1, 8 and 16
+              on 4096x4096, 4096x11008, 11008x4096 and the lm_head. The
+              shipped shape is the first variant.
+  --calibrate the device-time method's own cost on this card: a graph of
+              1 to 16 one-element adds (the replay's fixed cost spread over
+              its launches) and torch.sum over three 45 MB weight copies.
+  --k5-tiles  K5's tiles at each (BM, BN, stages, k-splits, order) of
+              K5_TILE_VARIANTS (int4_probe.cu): build facts, device ms and
+              error against the plain version at R = 17, 64, 128, 384 and
+              768 on 4096x11008 and 11008x4096, beside the plan's choice.
 
-    python3 -m vstar_tpu_torch.scripts.kernel_probe --ab --k7-tiles --k5-shapes
+    python3 -m vstar_tpu_torch.scripts.kernel_probe --ab --k3-shapes --k5-tiles
 
 The JSON result is printed and, with --out FILE, written there too.
 """
@@ -59,6 +78,22 @@ DKV_VARIANTS = [(64, 64, 2), (64, 32, 2), (64, 32, 3), (64, 32, 4)]
 K5_VARIANTS = [(32, 3, 1, 4, 0), (32, 4, 1, 4, 0), (32, 3, 2, 2, 0), (16, 6, 1, 4, 0),
                (32, 3, 1, 4, 2), (32, 3, 1, 4, 4), (32, 3, 1, 4, 8), (32, 3, 1, 4, 12),
                (32, 3, 1, 4, 44), (32, 3, 1, 4, 16)]
+# (weight rows per ring stage, stages, warps along the columns, k-splits
+# per block, PF bits of decode_rows.cuh: + 4 no products, + 8 no weight
+# copies, + 16 nothing, + 32 no split reduction, + 128 unpack without mma,
+# + 256 mma without unpack); k3_probe.cu's order
+K3_VARIANTS = [(32, 3, 1, 2, 0), (32, 4, 1, 2, 0), (32, 3, 1, 4, 0), (32, 3, 1, 1, 0),
+               (64, 3, 1, 2, 0), (32, 3, 2, 1, 0), (32, 3, 1, 2, 128), (32, 3, 1, 2, 256),
+               (32, 3, 1, 2, 4), (32, 3, 1, 2, 8), (32, 3, 1, 2, 16), (32, 3, 1, 2, 32)]
+# (BM, BN, stages, k-splits, PF bits of int4_tile_kernel: + 2 no
+# dequantization, + 4 no products, + 8 no global copies) of K5's tiles;
+# int4_probe.cu's order
+K5_TILE_VARIANTS = [(64, 128, 3, 1, 0), (128, 256, 3, 1, 0), (128, 128, 3, 1, 0),
+                    (64, 128, 3, 2, 0), (64, 128, 3, 4, 0), (128, 256, 3, 2, 0),
+                    (128, 256, 3, 4, 0), (128, 256, 4, 1, 0), (128, 256, 3, 1, 2),
+                    (128, 256, 3, 1, 4), (128, 256, 3, 1, 8), (128, 256, 3, 1, 6)]
+K3_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32003))
+TILE_ROWS = (17, 64, 128, 384, 768)
 HERE = Path(__file__).resolve().parent
 L2_BYTES = 50 * 2**20
 
@@ -195,14 +230,23 @@ def ab_k5(dev):
 
 
 def _probe_library():
-    """kernel_probe.cu and int4_probe.cu built into one library."""
+    """kernel_probe.cu, int4_probe.cu and k3_probe.cu built into one
+    library (one nvcc per source, in parallel)."""
     from vstar_tpu_torch.kernels import _build
     so = _build.BUILD_DIR / "kernel_probe.so"
     if not so.exists():
         _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
-                        str(_build.CSRC), "-o", str(so), str(HERE / "kernel_probe.cu"),
-                        str(HERE / "int4_probe.cu")],
+        names = ("kernel_probe", "int4_probe", "k3_probe")
+        objs = [_build.BUILD_DIR / f"{n}.o" for n in names]
+        jobs = [subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+                                  "-c", str(HERE / f"{n}.cu"), "-o", str(o)],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for n, o in zip(names, objs)]
+        for job in jobs:
+            out = job.communicate()[0]
+            if job.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {job.args[-3]}:\n{out[-4000:]}")
+        subprocess.run([_build._nvcc(), "-shared", "-o", str(so), *map(str, objs)],
                        check=True, capture_output=True, text=True)
     return ctypes.CDLL(str(so))
 
@@ -255,7 +299,7 @@ def k5_shapes(dev):
                 lib.probe_k5_info(vi, rows, aligned, info)
                 wc, wk = shape[2:4]
                 plan = k4.decode_plan(NG, OUT, info[4] * sms, 128 * wc, wk)
-                for cl in sorted({plan, 1, 2, 4, 8}):
+                for cl in sorted({plan, 1, 2, 4, 8, 16}):
                     if -(-NG // wk) < cl:
                         continue
                     ys = [torch.empty(rows, OUT, dtype=torch.bfloat16, device=dev)
@@ -275,6 +319,218 @@ def k5_shapes(dev):
                         "max_rel_err": _rel(ys[0], want)}
             res["cases"][f"R={rows} {IN}x{OUT}"] = row
             del variants
+    return res
+
+
+def _int8_entry(gen, dev, IN, OUT):
+    from vstar_tpu_torch.nn.quant import quantize_weight
+    return quantize_weight(torch.randn(IN, OUT, generator=gen, device=dev) * IN ** -0.5)
+
+
+def ab_k3(dev):
+    """K3 at 1, 2, 3, 8 and 16 rows on K3_SHAPES, through the wrapper."""
+    from vstar_tpu_torch.kernels import int8_matmul as k8
+    from vstar_tpu_torch.utils.timing import graph_ms
+    gen = torch.Generator(device=dev).manual_seed(2)
+    res = []
+    for IN, OUT in K3_SHAPES:
+        e = _int8_entry(gen, dev, IN, OUT)
+        for rows in (1, 2, 3, 8, 16):
+            x = _bf16(gen, dev, rows, IN)
+            before = k8.launches
+            got = k8.int8_matmul(x, e["q"], e["s"])
+            launches = k8.launches - before
+            err = _rel(got, k8.int8_matmul_reference(x, e["q"], e["s"]))
+            variants = _copies(dict(x=x, q=e["q"], s=e["s"]), ("q",))
+            ms = graph_ms([lambda a=a: k8.int8_matmul(a["x"], a["q"], a["s"])
+                           for a in variants])
+            nbytes = IN * OUT + 4 * OUT + 2 * rows * (IN + OUT)
+            res.append({"case": f"R={rows} {IN}x{OUT}", "ms": ms,
+                        "bound_ms": nbytes / 3.35e12 * 1e3, "max_rel_err": err,
+                        "launches_per_call": launches, "copies": len(variants)})
+            del variants
+    return res
+
+
+def _int4_entry(gen, dev, IN, OUT):
+    from vstar_tpu_torch.nn.quant import quantize_weight_int4
+    return quantize_weight_int4(torch.randn(IN, OUT, generator=gen, device=dev) * IN ** -0.5)
+
+
+def _beyond_rounding(out, ref):
+    ref = ref.float()
+    excess = ((out.float() - ref).abs() - 2.0 ** -8 * ref.abs()).clamp(min=0)
+    return float(excess.max() / ref.abs().max())
+
+
+def ab_k5_tiles(dev):
+    """K5's tiles at TILE_ROWS on 4096x11008 and 11008x4096, through the
+    wrapper; at 384 rows also one bf16 torch.matmul on the dequantized
+    weights (context, not the same function)."""
+    from vstar_tpu_torch.kernels import int4_matmul as k4
+    from vstar_tpu_torch.utils.timing import graph_ms
+    gen = torch.Generator(device=dev).manual_seed(5)
+    res = []
+    for IN, OUT in ((4096, 11008), (11008, 4096)):
+        e = _int4_entry(gen, dev, IN, OUT)
+        for rows in TILE_ROWS:
+            x = _bf16(gen, dev, rows, IN)
+            before = k4.launches["int4_matmul"]
+            got = k4.int4_matmul(x, e["q4"], e["s4"])
+            launches = k4.launches["int4_matmul"] - before
+            err = _rel(got, k4.int4_matmul_reference(x, e["q4"], e["s4"]))
+            math_err = _beyond_rounding(got, k4.int4_matmul_kernel_math(x, e["q4"], e["s4"]))
+            variants = _copies(dict(x=x, q4=e["q4"], s4=e["s4"]), ("q4", "s4"))
+            ms = graph_ms([lambda a=a: k4.int4_matmul(a["x"], a["q4"], a["s4"])
+                           for a in variants])
+            rec = {"case": f"R={rows} {IN}x{OUT}", "ms": ms,
+                   "bound_ms": max(2 * rows * IN * OUT / 989e12,
+                                   (IN // 2 * OUT + 4 * e["s4"].shape[0] * OUT
+                                    + 2 * rows * (IN + OUT)) / 3.35e12) * 1e3,
+                   "max_rel_err": err, "kernel_math_err": math_err,
+                   "launches_per_call": launches, "copies": len(variants)}
+            if rows == 384:
+                ws = [k4.dequantize_int4(a["q4"], a["s4"]).to(torch.bfloat16)
+                      for a in variants]
+                rec["bf16_matmul_ms"] = graph_ms([lambda w=w: torch.matmul(x, w) for w in ws])
+                del ws
+            res.append(rec)
+            del variants
+    return res
+
+
+def _timed_variant(call, variants, ys, want):
+    from vstar_tpu_torch.utils.timing import graph_ms
+    call(variants[0], ys[0])
+    torch.cuda.synchronize()
+    return {"ms": graph_ms([lambda a=a, y=y: call(a, y) for a, y in zip(variants, ys)]),
+            "max_rel_err": _rel(ys[0], want)}
+
+
+def k3_shapes(dev):
+    """Each K3_VARIANT's build facts, and per case and cluster size its
+    device ms and error against the plain version."""
+    from vstar_tpu_torch.kernels import _build
+    from vstar_tpu_torch.kernels import int8_matmul as k8
+    lib = _probe_library()
+    ll, p = ctypes.c_longlong, ctypes.c_void_p
+    lib.probe_k3.argtypes = [ctypes.c_int] + [p] * 4 + [ll] * 6 + [p]
+    lib.probe_k3.restype = ctypes.c_int
+    lib.probe_k3_info.argtypes = [ctypes.c_int, ll, ll, ctypes.POINTER(ll)]
+    lib.probe_k3_info.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(2)
+    res = {"build": {}, "cases": {}}
+    for vi, shape in enumerate(K3_VARIANTS):
+        for rows, aligned in ((1, 1), (16, 1), (1, 0), (16, 0)):
+            info = (ll * 6)()
+            _build.check(_build.library(), lib.probe_k3_info(vi, rows, aligned, info),
+                         f"k3 info {vi}")
+            res["build"][f"{shape} R{rows} aligned {aligned}"] = {
+                "registers": info[0], "local_bytes": info[1], "dynamic_smem": info[3],
+                "blocks_per_sm": info[4]}
+    for IN, OUT in K3_SHAPES:
+        e = _int8_entry(gen, dev, IN, OUT)
+        aligned = int(OUT % 16 == 0)
+        for rows in (1, 8, 16):
+            x = _bf16(gen, dev, rows, IN)
+            want = k8.int8_matmul_reference(x, e["q"], e["s"])
+            variants = _copies(dict(x=x, q=e["q"], s=e["s"]), ("q",))
+            ys = [torch.empty(rows, OUT, dtype=torch.bfloat16, device=dev) for _ in variants]
+            row = {}
+            for vi, shape in enumerate(K3_VARIANTS):
+                info = (ll * 6)()
+                lib.probe_k3_info(vi, rows, aligned, info)
+                srows, wc, wk = shape[0], shape[2], shape[3]
+                plan = k8.decode_plan(-(-IN // srows), OUT, info[4] * sms, 128 * wc, wk,
+                                      k8.K3_MAX_CLUSTER)
+                for cl in sorted({plan, 1, 2, 4, 8, 16}):
+                    if -(-IN // srows) < wk * cl:
+                        continue
+
+                    def call(a, y, vi=vi, cl=cl):
+                        code = lib.probe_k3(vi, a["x"].data_ptr(), a["q"].data_ptr(),
+                                            a["s"].data_ptr(), y.data_ptr(), rows, IN, OUT,
+                                            IN, cl, aligned,
+                                            torch.cuda.current_stream(dev).cuda_stream)
+                        _build.check(_build.library(), code, f"k3 variant {vi}")
+                    row[f"{shape} cluster {cl}{' (plan)' if cl == plan else ''}"] = \
+                        _timed_variant(call, variants, ys, want)
+            res["cases"][f"R={rows} {IN}x{OUT}"] = row
+            del variants, ys
+    return res
+
+
+def k5_tiles(dev):
+    """Each K5_TILE_VARIANT's build facts, and per case its device ms and
+    error against the plain version, beside the wrapper (the plan's)."""
+    from vstar_tpu_torch.kernels import _build
+    from vstar_tpu_torch.kernels import int4_matmul as k4
+    from vstar_tpu_torch.utils.timing import graph_ms
+    lib = _probe_library()
+    ll, p = ctypes.c_longlong, ctypes.c_void_p
+    lib.probe_tile.argtypes = [ctypes.c_int] + [p] * 4 + [ll] * 4 + [p]
+    lib.probe_tile.restype = ctypes.c_int
+    lib.probe_tile_info.argtypes = [ctypes.c_int, ctypes.POINTER(ll)]
+    lib.probe_tile_info.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(5)
+    res = {"build": {}, "cases": {}}
+    for vi, shape in enumerate(K5_TILE_VARIANTS):
+        info = (ll * 6)()
+        _build.check(_build.library(), lib.probe_tile_info(vi, info), f"tile info {vi}")
+        res["build"][str(shape)] = {"registers": info[0], "local_bytes": info[1],
+                                    "dynamic_smem": info[3], "blocks_per_sm": info[4]}
+    for IN, OUT in ((4096, 11008), (11008, 4096)):
+        e = _int4_entry(gen, dev, IN, OUT)
+        NG = e["s4"].shape[0]
+        for rows in TILE_ROWS:
+            x = _bf16(gen, dev, rows, IN)
+            want = k4.int4_matmul_reference(x, e["q4"], e["s4"])
+            variants = _copies(dict(x=x, q4=e["q4"], s4=e["s4"]), ("q4", "s4"))
+            ys = [torch.empty(rows, OUT, dtype=torch.bfloat16, device=dev) for _ in variants]
+            tile, ks = k4.tile_plan(rows, OUT, IN // k4.TILE_K, sms, lambda t, k: _tile_occ(
+                lib, t, k))
+            row = {"plan": {"tile": k4.TILE_SHAPES[tile], "k_splits": ks, "ms": graph_ms(
+                [lambda a=a: k4.int4_matmul(a["x"], a["q4"], a["s4"]) for a in variants])}}
+            for vi, shape in enumerate(K5_TILE_VARIANTS):
+                if -(-IN // k4.TILE_K) < 4 * shape[3]:
+                    continue
+
+                def call(a, y, vi=vi):
+                    code = lib.probe_tile(vi, a["x"].data_ptr(), a["q4"].data_ptr(),
+                                          a["s4"].data_ptr(), y.data_ptr(), rows, IN, OUT,
+                                          IN // NG, torch.cuda.current_stream(dev).cuda_stream)
+                    _build.check(_build.library(), code, f"tile variant {vi}")
+                row[str(shape)] = _timed_variant(call, variants, ys, want)
+            res["cases"][f"R={rows} {IN}x{OUT}"] = row
+            del variants, ys
+    return res
+
+
+def _tile_occ(lib, tile, ks):
+    """Resident blocks of the shipped tile `tile` at `ks` k-splits, from
+    K5_TILE_VARIANTS' build facts (the shipped ones are among them)."""
+    from vstar_tpu_torch.kernels import int4_matmul as k4
+    vi = K5_TILE_VARIANTS.index((*k4.TILE_SHAPES[tile], 3, ks, 0))
+    info = (ctypes.c_longlong * 6)()
+    lib.probe_tile_info(vi, info)
+    return info[4]
+
+
+def calibrate(dev):
+    """What the device-time method itself costs on this card: graph_ms of
+    a one-element add captured 1 to 16 times (the replay's fixed cost,
+    spread over the graph's launches), and of torch.sum over int32 views of
+    three 45 MB weight copies (a library read of K3's 4096x11008 bytes)."""
+    from vstar_tpu_torch.utils.timing import graph_ms
+    t = torch.zeros(1, device=dev)
+    res = {"tiny_kernel_ms": {n: graph_ms([lambda: t.add_(1)] * n) for n in (1, 2, 4, 8, 16)}}
+    ws = [torch.randint(-127, 128, (4096, 11008), dtype=torch.int8, device=dev)
+          for _ in range(3)]
+    outs = [torch.empty((), dtype=torch.int64, device=dev) for _ in ws]
+    res["sum_45MB_ms"] = graph_ms([lambda w=w, o=o: torch.sum(w.view(torch.int32), (0, 1), out=o)
+                                   for w, o in zip(ws, outs)])
     return res
 
 
@@ -334,6 +590,9 @@ def main(argv=None) -> int:
     ap.add_argument("--ab", action="store_true")
     ap.add_argument("--k7-tiles", action="store_true")
     ap.add_argument("--k5-shapes", action="store_true")
+    ap.add_argument("--k3-shapes", action="store_true")
+    ap.add_argument("--k5-tiles", action="store_true")
+    ap.add_argument("--calibrate", action="store_true")
     ap.add_argument("--root", default=None,
                     help="checkout whose vstar_tpu_torch --ab measures")
     ap.add_argument("--out", default=None, help="also write the JSON here")
@@ -350,11 +609,19 @@ def main(argv=None) -> int:
     out = {"card": card_line(), "package": os.path.dirname(vstar_tpu_torch.__file__)}
     if args.ab:
         out["k7"] = ab_k7(dev)
+        out["k3"] = ab_k3(dev)
         out["k5"] = ab_k5(dev)
+        out["k5_tile"] = ab_k5_tiles(dev)
     if args.k7_tiles:
         out["k7_tiles"] = k7_tiles(dev)
     if args.k5_shapes:
         out["k5_shapes"] = k5_shapes(dev)
+    if args.calibrate:
+        out["calibrate"] = calibrate(dev)
+    if args.k3_shapes:
+        out["k3_shapes"] = k3_shapes(dev)
+    if args.k5_tiles:
+        out["k5_tile_sweep"] = k5_tiles(dev)
     text = json.dumps(out)
     print(text, flush=True)
     if args.out:
