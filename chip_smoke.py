@@ -3,17 +3,22 @@
 Runs on one CUDA card, in phases; any failure exits non-zero:
   1. card and versions;
   2. build the CUDA kernels from vstar_tpu_torch/csrc (one nvcc per
-     source, in parallel), and log every K1/K7/K2 instantiation's, K3's
-     and K5's (decode rows and tiles) registers, local (spill) bytes,
-     shared memory and resident blocks per SM;
+     source, in parallel), and log every K1/K7/K2 instantiation's, K3's,
+     K5's (decode rows and tiles), K6's and P4's registers, local (spill)
+     bytes, shared memory and resident blocks per SM;
   3. every kernel against its plain PyTorch version at the 7B shapes of
      the path: K1 flash attention, K2 tower attention, the int8 matvec
      (K3/K4) at R in {1, 8, 16} and at R=1 on 4096x4096 and 11008x4096,
      with one launch per call; K5 (W4A16) at R in {1, 8, 16} (decode rows)
-     and {17, 384, 768} (tiles) and K6 (W4A8) at R in {1, 8}; K5 also
-     against its own arithmetic (bf16 weights above 16 rows) within its
-     output's rounding, with one launch per call and its factor against
-     tinygemm at R=1; each case is timed by device time (one CUDA
+     and {17, 384, 768} (tiles), K6 (W4A8) at R in {1, 8, 16} on
+     4096x11008 and at R=1 on 11008x4096 and 4096x4096 (the shapes the
+     W4A8 gate sends it), with one launch and no workspace a call; K6's
+     qdot on bf16 x (its row quantization bit-equal to
+     quantize_activations, at most two kernels a call, read from its CUDA
+     graph) and the row quantization alone; K5 also against its own
+     arithmetic (bf16 weights above 16 rows) within its output's rounding,
+     with one launch per call and its factor against tinygemm at R=1;
+     each case is timed by device time (one CUDA
      graph of N launches over weight copies that exceed the L2 cache) and
      by CUDA events around single calls, beside its plain version, its
      bound and, where one PyTorch call computes the same function, that
@@ -33,8 +38,9 @@ Runs on one CUDA card, in phases; any failure exits non-zero:
   7. P1-P4, the int4 profile's kernels, against their plain versions at
      the 7B shapes: P1 (the lo-nibble unpack probe, both candidates,
      exact) on the packed w_gate [2048, 11008]; P2 (every lo-nibble
-     unpack) and P4 (transposed storage) at R in {1, 8} on 4096x11008 and
-     the 4096x32000 lm_head, P2 also at 512 columns per block on
+     unpack) and P4 (transposed storage; also held to K6 on the same
+     product) at R in {1, 8} on 4096x11008 and the 4096x32000 lm_head, P2
+     also at 512 columns per block on
      11008x4096; P3 (row blocks) at R=1 on 11008x4096; timed as in 3,
      with the bound of the JAX CostEstimate's bytes;
   8. K1 with its log-sum-exp and the K7 backward at the training shape
@@ -47,7 +53,8 @@ Runs on one CUDA card, in phases; any failure exits non-zero:
      process): --probe, a short --matmul (W4A8 off, rows and transposed at
      every 7B shape) and the full-7B --decode ablation (eight rows, ms per
      token by CUDA graph and by events), with exact launches per token
-     for each row's route;
+     for each row's route (under act-int8 the 32003-wide int4 lm_head
+     takes K5, as the W4A8 gate sends it);
   10. the training path: the random-init seal_vsm_7b in bf16 with LoRA
      r=8, three vsm_train_steps of 8 rows (2 micro-batches of 4, 512-token
      bucket, 768 masks), with exact K1 / K7 / K2 launch counts per step,
@@ -79,7 +86,8 @@ import urllib.request
 import numpy as np
 import torch
 
-from vstar_tpu_torch.utils.timing import card_line, events_ms, graph_ms
+from vstar_tpu_torch.utils.timing import (card_line, events_ms, graph_kernels,
+                                          graph_ms)
 
 TOL = 2e-2          # bf16 attention vs plain version (tests/test_vision.py:288)
 LSE_TOL = 1e-3      # K1's log-sum-exp (f32) against the plain version
@@ -152,9 +160,12 @@ def phase_build():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"[build] {line.strip()}")
     from vstar_tpu_torch.kernels.flash_attention import attention_kernel_info
-    from vstar_tpu_torch.kernels.int4_matmul import int4_kernel_info
+    from vstar_tpu_torch.kernels.int4_matmul import (int4_kernel_info,
+                                                     w4a8_kernel_info)
+    from vstar_tpu_torch.kernels.int4_variants import w4a8_t_kernel_info
     from vstar_tpu_torch.kernels.int8_matmul import int8_kernel_info
-    info = attention_kernel_info() + int8_kernel_info() + int4_kernel_info()
+    info = (attention_kernel_info() + int8_kernel_info() + int4_kernel_info()
+            + w4a8_kernel_info() + w4a8_t_kernel_info())
     for i in info:
         log(f"[build] {i['kernel']}: {i['registers']} registers, "
             f"{i['local_bytes']} local (spill) bytes, static smem "
@@ -512,18 +523,79 @@ def phase_int4(dev):
             f"{k5[0]['ms'] / k5[0]['library_ms']:.2f}x tinygemm's "
             f"{k5[0]['library_ms']:.4f}")
     log_kernel_info("K5", "int4_")
-    for rows, IN, OUT in ((1, 4096, 11008), (8, 4096, 32003)):
+    for rows, IN, OUT in ((1, 4096, 11008), (8, 4096, 11008),
+                          (16, 4096, 11008), (1, 11008, 4096),
+                          (1, 4096, 4096)):
         e = entry(IN, OUT)
-        xq, _ = k4.quantize_activations(_rand(gen, dev, rows, IN))
-        nbytes = (IN // 2 * OUT + 4 * e["s4"].shape[0] * OUT + rows * IN
-                  + 4 * rows * OUT)
+        xq = torch.randint(-127, 128, (rows, IN), generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.int8)
+        NG = e["s4"].shape[0]
         _, rec = _measure(f"K6 R={rows} {IN}x{OUT}", k4.int4_matmul_w4a8,
                           k4.int4_matmul_w4a8_reference,
                           dict(xq=xq, q4=e["q4"], s4=e["s4"]), ("q4", "s4"),
-                          nbytes, 2 * rows * IN * OUT, "int8", F32_REL_TOL,
-                          _rel_err)
+                          _w4a8_bytes(rows, IN, OUT, NG), 2 * rows * IN * OUT,
+                          "int8", F32_REL_TOL, _rel_err)
+        rec["launches_per_call"], rec["allocations_per_call"] = _one_call(
+            lambda: k4.int4_matmul_w4a8(xq, e["q4"], e["s4"]),
+            k4.launches, "int4_matmul_w4a8", dev)
+        if rec["launches_per_call"] != 1 or rec["allocations_per_call"] != 1:
+            raise AssertionError(f"K6 R={rows}: {rec['launches_per_call']} "
+                                 f"launches, {rec['allocations_per_call']} "
+                                 "allocations a call (want 1, 1: no "
+                                 "workspace)")
         k6.append({"case": f"R{rows}_{IN}x{OUT}", **rec})
-    return k5, k6
+    log_kernel_info("K6", "w4a8_decode")
+    quant = []
+    for rows, IN, OUT in ((1, 4096, 11008), (16, 4096, 11008)):
+        e = entry(IN, OUT)
+        x = _rand(gen, dev, rows, IN).to(torch.bfloat16)
+        xq, sx = k4.quantize_rows(x)
+        want_xq, want_sx = k4.quantize_activations(x.float())
+        if not (torch.equal(xq, want_xq) and torch.equal(sx, want_sx)):
+            raise AssertionError(f"quantize_rows R={rows}: xq / sx differ "
+                                 "from quantize_activations")
+        # xq held here (sx above, bit for bit); one launch gives both
+        _, rec = _measure(f"quantize_rows R={rows} {IN}",
+                          lambda x: k4.quantize_rows(x)[0],
+                          lambda x: k4.quantize_activations(x.float())[0],
+                          dict(x=x), ("x",), 2 * rows * IN + rows * (IN + 4),
+                          0, "int8", 0.0, _abs_err)
+        rec["bit_equal"] = True
+        quant.append({"case": f"R{rows}_{IN}", **rec})
+        NG = e["s4"].shape[0]
+        _, rec = _measure(
+            f"K6 qdot R={rows} {IN}x{OUT}",
+            lambda x, q4, s4: k4.qdot4_w4a8(x, {"q4": q4, "s4": s4}),
+            _plain_qdot_w4a8, dict(x=x, q4=e["q4"], s4=e["s4"]),
+            ("q4", "s4"), IN // 2 * OUT + 4 * NG * OUT + 2 * rows * (IN + OUT),
+            2 * rows * IN * OUT, "int8", F32_REL_TOL, _beyond_rounding)
+        rec["kernels_per_call"] = graph_kernels(
+            lambda: k4.qdot4_w4a8(x, e))[0]
+        log(f"[K6 qdot R={rows} {IN}x{OUT}] {rec['kernels_per_call']} "
+            f"kernels a call (K6 alone {k6[0 if rows == 1 else 2]['ms']:.4f}"
+            f" ms)")
+        if rec["kernels_per_call"] > 2:
+            raise AssertionError(f"K6 qdot R={rows}: "
+                                 f"{rec['kernels_per_call']} kernels a call")
+        k6.append({"case": f"qdot_R{rows}_{IN}x{OUT}", **rec})
+    return k5, k6, quant
+
+
+def _one_call(fn, counter, key, dev):
+    """(launches of counter[key], allocations) of one call of fn."""
+    before = counter[key]
+    allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+    fn()
+    return (counter[key] - before,
+            torch.cuda.memory_stats(dev)["allocation.all.allocated"] - allocs)
+
+
+def _plain_qdot_w4a8(x, q4, s4):
+    """K6's qdot by its plain versions: quantize_activations, K6's plain
+    version, times sx, in f32 (the kernel's output rounds it to bf16)."""
+    from vstar_tpu_torch.kernels import int4_matmul as k4
+    xq, sx = k4.quantize_activations(x.float())
+    return k4.int4_matmul_w4a8_reference(xq, q4, s4) * sx
 
 
 def _w4a8_bytes(R, IN, OUT, NG):
@@ -584,12 +656,19 @@ def phase_p(dev):
                               _rel_err)
             res["w4a8_variant"].append(
                 {"case": f"{unpack}_R{R}_{IN}x{OUT}", **rec})
-        _, rec = _measure(f"P4 R={R} {IN}x{OUT}", kv.w4a8_t,
-                          kv.w4a8_t_reference,
-                          dict(xq=xq, q4t=e["q4"].t().contiguous(),
-                               s4t=e["s4"].t().contiguous()),
-                          ("q4t", "s4t"), nbytes, ops, "int8", F32_REL_TOL,
-                          _rel_err)
+        out, rec = _measure(f"P4 R={R} {IN}x{OUT}", kv.w4a8_t,
+                            kv.w4a8_t_reference,
+                            dict(xq=xq, q4t=e["q4"].t().contiguous(),
+                                 s4t=e["s4"].t().contiguous()),
+                            ("q4t", "s4t"), nbytes, ops, "int8", F32_REL_TOL,
+                            _rel_err)
+        # the same product on K6 (untransposed storage)
+        rec["rel_err_vs_k6"] = _rel_err(
+            out, k4.int4_matmul_w4a8(xq, e["q4"], e["s4"]))
+        log(f"[P4 R={R} {IN}x{OUT}] against K6: {rec['rel_err_vs_k6']:.3e} "
+            f"(tol {F32_REL_TOL})")
+        if not rec["rel_err_vs_k6"] <= F32_REL_TOL:
+            raise AssertionError(f"P4 R={R}: {rec['rel_err_vs_k6']} off K6")
         res["w4a8_t"].append({"case": f"R{R}_{IN}x{OUT}", **rec})
     e, xq, nbytes, ops = case(1, 11008, 4096)
     args = dict(xq=xq, q4=e["q4"], s4=e["s4"])
@@ -840,7 +919,8 @@ def _counter_modules():
             "tower_attention": (ta, *plain, None),
             "int8_matvec": (k8, *plain, None),
             "int4_matmul": (k4, *plain, "int4_matmul"),
-            "int4_matmul_w4a8": (k4, *plain, "int4_matmul_w4a8")}
+            "int4_matmul_w4a8": (k4, *plain, "int4_matmul_w4a8"),
+            "quantize_rows": (k4, *plain, "quantize_rows")}
 
 
 def _counter(mod, attr, key):
@@ -911,7 +991,7 @@ def _check_routes(path, want):
 
 P_KERNELS = ("unpack_probe", "w4a8_variant", "w4a8_rows", "w4a8_t")
 SERVING_KERNELS = ("flash_attention", "tower_attention", "int8_matvec",
-                   "int4_matmul", "int4_matmul_w4a8")
+                   "int4_matmul", "int4_matmul_w4a8", "quantize_rows")
 
 OPTIONS = ["The mug is red.", "The mug is blue.", "The mug is green.",
            "There is no mug."]
@@ -1030,20 +1110,33 @@ def phase_quantized_path(dev):
 # Phase 9: the int4 profile path
 # ---------------------------------------------------------------------------
 
-def _decode_route(kind, headless, act8, layers):
-    """Launches per token that a decode row's route implies: K1 per
-    layer, and per quantized matrix (7 per layer, the lm_head unless
-    headless) K3 or _w8a8_dot for int8, K5 or K6 for int4 (act-int8 off
-    or on; every 7B matrix passes the W4A8 gate at one row)."""
+def _decode_route(kind, headless, act8, cfg):
+    """Launches per token that a decode row's route implies, and qdot's
+    int4 routes: K1 per layer, and per quantized matrix (7 per layer, the
+    lm_head unless headless) K3 or _w8a8_dot for int8, and for int4 K5
+    (W4A16) or, under act-int8 where the W4A8 gate holds (OUT % 128 ==
+    0), K6 and its row quantization. Every 7B layer matrix passes the gate
+    at one row; the 32003-wide lm_head does not, so under act-int8 it
+    takes K5, as the JAX package takes W4A16 there."""
     quant = {"int8": ("int8", "int8"), "int4": ("int4", "int4"),
              "bf16": (None, None), "int4_head8": ("int4", "int8"),
              "int8_head4": ("int8", "int4")}[kind]
-    route = {"int8": "_w8a8_dot" if act8 else "K3",
-             "int4": "K6" if act8 else "K5", None: None}
-    counts = {"K1": layers, "K3": 0, "K5": 0, "K6": 0, "_w8a8_dot": 0}
-    for mode, n in ((quant[0], 7 * layers), (quant[1], 0 if headless else 1)):
-        if route[mode]:
-            counts[route[mode]] += n
+    layers = cfg.num_layers
+    counts = dict.fromkeys(("K1", "K3", "K5", "K6", "quantize_rows",
+                            "_w8a8_dot", "qdot_w4a8", "qdot_w4a16"), 0)
+    counts["K1"] = layers
+    layer_outs = (cfg.hidden_size, cfg.intermediate_size)
+    for mode, n, w4a8 in (
+            (quant[0], 7 * layers, all(o % 128 == 0 for o in layer_outs)),
+            (quant[1], 0 if headless else 1, cfg.vocab_size % 128 == 0)):
+        if mode == "int8":
+            counts["_w8a8_dot" if act8 else "K3"] += n
+        elif mode == "int4" and act8 and w4a8:
+            for k in ("K6", "quantize_rows", "qdot_w4a8"):
+                counts[k] += n
+        elif mode == "int4":
+            counts["K5"] += n
+            counts["qdot_w4a16"] += n
     return counts
 
 
@@ -1063,10 +1156,9 @@ def phase_int4_profile(dev):
         raise AssertionError(f"int4 profile probe failed: {probe}")
     matmul = ip.bench_matmuls(("w4a8_off", "w4a8_rows", "w4a8_t"), dev)
     rows = ip.bench_decode(dev)
-    layers = vsm_7b().llama.num_layers
+    cfg = vsm_7b().llama
     for r in rows:
-        want = _decode_route(r["params"], r["headless"], r["act_int8"],
-                             layers)
+        want = _decode_route(r["params"], r["headless"], r["act_int8"], cfg)
         ok = (r["launches_per_token"] == want and r["plain_on_cuda"] == 0
               and math.isfinite(r["value"]) and r["ms_graph"] > 0)
         if not ok:
@@ -1074,8 +1166,13 @@ def phase_int4_profile(dev):
                                  f"token {r['launches_per_token']} (route "
                                  f"{want}), plain on CUDA "
                                  f"{r['plain_on_cuda']}, out {r['value']}")
+        if r["params"] == "int4" and r["act_int8"] and not r["headless"]:
+            log(f"[int4 profile] W4A8 decode row: {r['ms_graph']:.3f} ms a "
+                f"token by graph, {r['ms_eager']:.3f} eager; per token "
+                f"{want}")
     launches = _check_path("int4_profile", P_KERNELS + (
-        "flash_attention", "int8_matvec", "int4_matmul", "int4_matmul_w4a8"))
+        "flash_attention", "int8_matvec", "int4_matmul", "int4_matmul_w4a8",
+        "quantize_rows"))
     launches["flash_attention_routes"] = _routes()
     return launches, {
         "probe": probe, "decode": rows,
@@ -1190,7 +1287,7 @@ def phase_train(dev):
               "flash_attention_bwd_dkv": L * 2,
               "tower_attention": cfg.owl_vision.num_layers * 2,
               "int8_matvec": 0, "int4_matmul": 0, "int4_matmul_w4a8": 0,
-              **{n: 0 for n in P_KERNELS}}
+              "quantize_rows": 0, **{n: 0 for n in P_KERNELS}}
     kmask = _sdpa_mask(512, 512, dev, batch["lens"],
                        torch.zeros(8, dtype=torch.int32, device=dev),
                        batch["kv_valid"])
@@ -1375,7 +1472,8 @@ def main() -> int:
     cases = {"flash_attention": phase_k1(dev),
              "tower_attention": phase_k2(dev),
              "int8_matvec": phase_int8(dev)}
-    cases["int4_matmul"], cases["int4_matmul_w4a8"] = phase_int4(dev)
+    (cases["int4_matmul"], cases["int4_matmul_w4a8"],
+     cases["quantize_rows"]) = phase_int4(dev)
     cases.update(phase_p(dev))
     k1_lse, k7 = phase_k7(dev)
     cases["flash_attention"].append(k1_lse)
@@ -1415,6 +1513,9 @@ def main() -> int:
         "int4_matmul_w4a8": ("int4_matmul.cu",
                              "vstar_tpu/kernels/int4_matmul.py:126",
                              "int4mix"),
+        # no Pallas kernel: XLA fuses qdot4_w4a8's quantization around K6
+        "quantize_rows": ("int4_matmul.cu",
+                          "vstar_tpu/kernels/int4_matmul.py:255", "int4mix"),
         "unpack_probe": ("int4_variants.cu", "scripts/int4_profile.py:90",
                          "int4_profile"),
         "w4a8_variant": ("int4_variants.cu", "scripts/int4_profile.py:324",

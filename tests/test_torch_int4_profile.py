@@ -12,10 +12,19 @@ seeds; shapes are small.
   * P3: bit-equal to `_w4a8_call_rows` (explicit block_i of 2-4 blocks and
     the default heuristic), and within 1e-5 of the largest |output| of K6's
     plain version (the block order is another f32 order);
+  * K6's and P4's tensor-core arithmetic (csrc/decode_rows.cuh, formats
+    W4A8 and W4A8T): a warp's m16n8k32 s8 fragments emulated in numpy,
+    instruction by instruction (K6: the 4 x 4 byte transpose, then the two
+    masks; P4: the two masks on the words of one output's row), give the
+    exact int32 group dots of `_w4a8_kernel` / `_w4a8_kernel_t` bit for
+    bit, over the permuted input order of their B fragments;
   * the wrappers' domain checks;
   * the decode ablation at a tiny width (all eight rows) against JAX
     make_decode on the same weights, act-int8 off and on, to 1e-5 (f32;
-    rows with int8 activations to 1e-2 of the value, ACT8_REL_TOL).
+    rows with int8 activations to 1e-2 of the value, ACT8_REL_TOL); and
+    its W4A8 rows at a vocab that 128 does not divide, where JAX's W4A8
+    kernel declines the int4 lm_head: qdot takes it W4A16 (one call a
+    token) and the layers W4A8 (7 a layer).
 """
 
 import dataclasses
@@ -158,6 +167,138 @@ def test_w4a8_rows_bit_equal_to_jax(R, IN, OUT, block_i, blocks):
 # Wrappers
 # ---------------------------------------------------------------------------
 
+# --- K6's and P4's m16n8k32 fragments, emulated ----------------------------
+
+U32 = np.uint32
+
+
+def _prmt(a, b, sel):
+    """__byte_perm(a, b, sel) on uint32 scalars."""
+    both = int(a) | (int(b) << 32)
+    return U32(sum(((both >> (8 * ((sel >> (4 * i)) & 7))) & 0xFF) << (8 * i)
+                   for i in range(4)))
+
+
+def _lo16(w):
+    return U32((int(w) << 4) & 0xF0F0F0F0)
+
+
+def _hi16(w):
+    return U32(int(w) & 0xF0F0F0F0)
+
+
+def _s8(w):
+    """The four bytes of a word as int8, lowest first."""
+    return np.array([int(w)], "<u4").view(np.int8).astype(np.int64)
+
+
+def _word(byte_row, k):
+    """Little-endian word k of a uint8 row."""
+    return U32(np.ascontiguousarray(byte_row[4 * k:4 * k + 4]).view("<u4")[0])
+
+
+def _mma_s8(a, b):
+    """mma.sync.m16n8k32.row.col.s32.s8.s8.s32 from a warp's registers:
+    a [32][4], b [32][2] words; C [16, 8] (exact)."""
+    A = np.zeros((16, 32), np.int64)
+    B = np.zeros((32, 8), np.int64)
+    for lane in range(32):
+        g, t4 = lane >> 2, lane & 3
+        for r, (m, k) in enumerate(((g, 4 * t4), (g + 8, 4 * t4),
+                                    (g, 16 + 4 * t4), (g + 8, 16 + 4 * t4))):
+            A[m, k:k + 4] = _s8(a[lane][r])
+        for r, k in enumerate((4 * t4, 16 + 4 * t4)):
+            B[k:k + 4, g] = _s8(b[lane][r])
+    return A @ B
+
+
+def _warp_group_dots(layout, q, xq):
+    """One warp, one group of 128 inputs, 8 activation rows: the int32
+    dots [8, 128] that the W4A8 decode rows sum, from their fragments.
+    q4: q uint8 [64 packed rows, 128 columns]; q4t: q uint8 [128 outputs,
+    64 packed bytes], read as two ring stages of 32 bytes; xq int8 [8,
+    128]."""
+    xb = xq.view(np.uint8)
+    y = np.zeros((8, 128), np.int64)
+    if layout == "q4":
+        for ks in range(4):                      # k-steps of 32 inputs
+            bx = []
+            for lane in range(32):
+                g, t4 = lane >> 2, lane & 3
+                off = 32 * ks + 8 * t4
+                x0, x1 = _word(xb[g], off // 4), _word(xb[g], off // 4 + 1)
+                bx.append((_prmt(x0, x1, 0x6420), _prmt(x0, x1, 0x7531)))
+            regs = {}
+            for lane in range(32):
+                g, t4 = lane >> 2, lane & 3
+                for j in range(4):
+                    w = [_word(q[16 * ks + 4 * t4 + i, 16 * g:16 * g + 16], j)
+                         for i in range(4)]
+                    t0, t1 = _prmt(w[0], w[1], 0x5140), _prmt(w[0], w[1], 0x7362)
+                    t2, t3 = _prmt(w[2], w[3], 0x5140), _prmt(w[2], w[3], 0x7362)
+                    c = [_prmt(t0, t2, 0x5410), _prmt(t0, t2, 0x7632),
+                         _prmt(t1, t3, 0x5410), _prmt(t1, t3, 0x7632)]
+                    for h in range(2):
+                        regs.setdefault(2 * j + h, []).append(
+                            [_lo16(c[2 * h]), _lo16(c[2 * h + 1]),
+                             _hi16(c[2 * h]), _hi16(c[2 * h + 1])])
+            for t, a in regs.items():
+                cm = _mma_s8(a, bx)
+                for m in range(16):              # M row m: column 16g + 2t (+ 1)
+                    y[:, 16 * (m % 8) + 2 * t + m // 8] += cm[m]
+        return y
+    for st in range(2):                          # ring stages of 32 bytes
+        stage = q[:, 32 * st:32 * st + 32]
+        for ks in range(2):
+            bx = []
+            for lane in range(32):
+                g, t4 = lane >> 2, lane & 3
+                off = 64 * st + 8 * (2 * t4 + ks)
+                x0, x1 = _word(xb[g], off // 4), _word(xb[g], off // 4 + 1)
+                bx.append((_prmt(x0, x1, 0x6420), _prmt(x0, x1, 0x7531)))
+            for t in range(8):
+                a = []
+                for lane in range(32):
+                    g, t4 = lane >> 2, lane & 3
+                    wa = _word(stage[16 * t + g], 2 * t4 + ks)
+                    wb = _word(stage[16 * t + 8 + g], 2 * t4 + ks)
+                    a.append([_lo16(wa), _lo16(wb), _hi16(wa), _hi16(wb)])
+                cm = _mma_s8(a, bx)
+                y[:, 16 * t:16 * t + 16] += cm.T     # M row m: output 16t + m
+    return y
+
+
+@pytest.mark.parametrize("layout", ["q4", "q4t"])
+@pytest.mark.parametrize("group", [0, 1])
+def test_w4a8_fragments_give_the_kernels_group_dots(layout, group):
+    rng = np.random.RandomState(11 + group)
+    R, IN, OUT = 8, 256, 128
+    q4 = rng.randint(0, 256, size=(IN // 2, OUT)).astype(np.uint8)
+    xq = rng.randint(-127, 128, size=(R, IN)).astype(np.int8)
+    # s4 / 16 = 1 on this group, 0 on the other: the kernels' f32 output is
+    # the group's int32 dot, exactly
+    s4 = np.zeros((2, OUT), np.float32)
+    s4[group] = 16.0
+    with pltpu.force_tpu_interpret_mode():
+        if layout == "q4":
+            want = jk4.int4_matmul_w4a8(jnp.asarray(xq), jnp.asarray(q4),
+                                        jnp.asarray(s4), interpret=True)
+        else:
+            want = jip._w4a8_call_t(jnp.asarray(xq),
+                                    jnp.asarray(np.ascontiguousarray(q4.T)),
+                                    jnp.asarray(np.ascontiguousarray(s4.T)),
+                                    block_o=OUT)
+    rows = slice(64 * group, 64 * group + 64)
+    q = q4[rows] if layout == "q4" else np.ascontiguousarray(q4[rows].T)
+    got = _warp_group_dots(layout, q, np.ascontiguousarray(
+        xq[:, 128 * group:128 * group + 128]))
+    np.testing.assert_array_equal(got.astype(np.float32), np.asarray(want))
+    # and the exact dot of x with the nibbles, times 16
+    nib = k4.unpack_int4(torch.from_numpy(q4[rows])).numpy().astype(np.int64)
+    np.testing.assert_array_equal(
+        got, 16 * xq[:, 128 * group:128 * group + 128].astype(np.int64) @ nib)
+
+
 def test_wrappers_check_their_domain_and_take_plain_version_on_cpu():
     xq, q4, s4 = map(t, _inputs(2, 512, 768, 1))
     before = (dict(kv.launches), dict(kv.plain_calls_cuda))
@@ -243,11 +384,9 @@ def decoders():
     return jcfg, host
 
 
-@pytest.mark.parametrize("row", ip.DECODE_ROWS, ids=lambda r: r[1] + (
-    "_headless" if r[2] else "") + ("_act8" if r[3] else ""))
-def test_decode_row_matches_jax(decoders, row, monkeypatch):
+def _decode_row(jcfg, host, cfg, row, monkeypatch):
+    """(the port's record, JAX make_decode's value) of one decode row."""
     name, kind, headless, act8 = row
-    jcfg, host = decoders
     monkeypatch.setattr(jk4, "qdot4_w4a8", _jax_qdot4_w4a8)
     jq.set_act_int8(act8)
     try:
@@ -256,14 +395,63 @@ def test_decode_row_matches_jax(decoders, row, monkeypatch):
             jnp.float32(1.0)))
     finally:
         jq.set_act_int8(False)
-    rec, = ip.bench_decode("cpu", cfg=_tiny(vsm_tiny().llama),
+    rec, = ip.bench_decode("cpu", cfg=cfg,
                            params={kind: from_numpy_tree(host[kind], "cpu")},
                            act_dtype=torch.float32, rows=[row])
     assert rec["plain_on_cuda"] == 0
     tol = ACT8_REL_TOL * abs(want) if act8 else F32_TOL
     assert abs(rec["value"] - want) <= tol, (name, rec["value"], want)
+    assert not tq._ACT_INT8
+    return rec, want
+
+
+@pytest.mark.parametrize("row", ip.DECODE_ROWS, ids=lambda r: r[1] + (
+    "_headless" if r[2] else "") + ("_act8" if r[3] else ""))
+def test_decode_row_matches_jax(decoders, row, monkeypatch):
+    name, kind, headless, act8 = row
+    jcfg, host = decoders
+    rec, _ = _decode_row(jcfg, host, _tiny(vsm_tiny().llama), row,
+                         monkeypatch)
     if act8 and kind != "int4":
         # the int8 matrices take _w8a8_dot under act-int8
         assert rec["launches_per_token"]["_w8a8_dot"] == \
             (1 if kind == "int4_head8" else 14)
-    assert not tq._ACT_INT8
+
+
+RAGGED_VOCAB = 500      # no multiple of 128 (the 7B lm_head: 32003)
+
+
+@pytest.fixture(scope="module")
+def ragged_decoders():
+    jcfg = dataclasses.replace(_tiny(jax_vsm_tiny().llama),
+                               vocab_size=RAGGED_VOCAB)
+    key = jax.random.PRNGKey(3)      # the decoders fixture's
+    host = {k: jax.device_get(jax_init_llama(key, jcfg, jnp.bfloat16,
+                                             quantize=q))
+            for k, q in (("int8", True), ("int4", "int4"))}
+    host["int8_head4"] = dict(host["int8"], lm_head=host["int4"]["lm_head"])
+    return jcfg, host
+
+
+@pytest.mark.parametrize("row", [r for r in ip.DECODE_ROWS
+                                 if r[3] and r[1] in ("int4", "int8_head4")],
+                         ids=lambda r: r[1] + ("_headless" if r[2] else ""))
+def test_decode_row_ragged_vocab_takes_w4a16_for_the_head(ragged_decoders,
+                                                          row, monkeypatch):
+    """The W4A8 rows with an int4 lm_head at a vocab of 500: the values
+    match JAX make_decode, whose W4A8 kernel declines that lm_head; per
+    token qdot sends the int4 layers to W4A8 (7 matrices a layer) and the
+    int4 lm_head to W4A16 (one call)."""
+    name, kind, headless, act8 = row
+    jcfg, host = ragged_decoders
+    assert jk4.int4_matmul_w4a8(
+        jnp.zeros((1, jcfg.hidden_size), jnp.int8),
+        jnp.asarray(host["int4"]["lm_head"]["q4"]),
+        jnp.asarray(host["int4"]["lm_head"]["s4"]), interpret=True) is None
+    cfg = dataclasses.replace(_tiny(vsm_tiny().llama),
+                              vocab_size=RAGGED_VOCAB)
+    rec, _ = _decode_row(jcfg, host, cfg, row, monkeypatch)
+    per = rec["launches_per_token"]
+    layers = cfg.num_layers
+    assert per["qdot_w4a8"] == (7 * layers if kind == "int4" else 0)
+    assert per["qdot_w4a16"] == (0 if headless else 1)

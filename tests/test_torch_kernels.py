@@ -516,20 +516,80 @@ def test_quant_kernel_info(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows,IN,OUT", [
-    (1, 4096, 11008), (8, 4096, 32003), (16, 11008, 4096), (3, 512, 300)])
+def test_w4a8_kernel_info(cuda):
+    """Build facts of K6's and P4's decode-row instantiations: no spills,
+    at least one resident block per SM."""
+    from vstar_tpu_torch.kernels import int4_matmul as k4
+    from vstar_tpu_torch.kernels import int4_variants as kv
+    k6, p4 = k4.w4a8_kernel_info(), kv.w4a8_t_kernel_info()
+    assert [i["kernel"] for i in k6] == [
+        f"w4a8_decode<{r}, {a}>" for a in ("aligned", "ragged") for r in (8, 16)]
+    assert [i["kernel"] for i in p4] == ["w4a8t_decode<8>", "w4a8t_decode<16>"]
+    assert all(i["blocks_per_sm"] >= 1 and i["local_bytes"] == 0 for i in k6 + p4)
+
+
+def _allocations(dev):
+    return torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+
+
+K6_CASES = [(r, IN, OUT) for IN, OUT in ((4096, 11008), (11008, 4096),
+                                         (4096, 4096)) for r in (1, 2, 8, 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,IN,OUT", K6_CASES + [
+    (8, 4096, 32003), (3, 512, 300)])
 def test_int4_w4a8_kernel_on_card(cuda, rows, IN, OUT):
+    """K6 (the W4A8 decode rows) against its plain version within 1e-5 of
+    the largest |output|; one launch and one allocation (the output) a
+    call: no workspace."""
     from vstar_tpu_torch.kernels import int4_matmul as k4
     g = torch.Generator(device=cuda).manual_seed(rows + 2)
     e = _int4(g, IN, OUT, cuda)
     xq = torch.randint(-127, 128, (rows, IN), generator=g, device=cuda,
                        dtype=torch.int32).to(torch.int8)
     before = k4.launches["int4_matmul_w4a8"]
+    allocs = _allocations(cuda)
     got = k4.int4_matmul_w4a8(xq, e["q4"], e["s4"])
+    assert _allocations(cuda) == allocs + 1
     want = k4.int4_matmul_w4a8_reference(xq, e["q4"], e["s4"])
     torch.cuda.synchronize()
     assert k4.launches["int4_matmul_w4a8"] == before + 1
     assert got.dtype == torch.float32 and _rel(got, want) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,IN,OUT", K6_CASES + [(3, 512, 384)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_w4a8_qdot_on_card(cuda, rows, IN, OUT, dtype):
+    """K6's qdot on a CUDA tensor: the row quantization gives
+    quantize_activations' xq and sx bit for bit; the result is the plain
+    composition (quantize, K6's plain version, times sx) within the
+    rounding of x's type and 1e-5; two kernel launches, one of each
+    counter, and three allocations (xq, sx, y)."""
+    from vstar_tpu_torch.kernels import int4_matmul as k4
+    from vstar_tpu_torch.utils.timing import graph_kernels
+    g = torch.Generator(device=cuda).manual_seed(rows * 3 + OUT)
+    e = _int4(g, IN, OUT, cuda)
+    x = torch.randn(rows, IN, generator=g, device=cuda).to(dtype)
+    xq, sx = k4.quantize_rows(x)
+    want_xq, want_sx = k4.quantize_activations(x.float())
+    assert torch.equal(xq, want_xq) and torch.equal(sx, want_sx)
+    before = dict(k4.launches)
+    allocs = _allocations(cuda)
+    got = k4.qdot4_w4a8(x, e)
+    assert _allocations(cuda) == allocs + 3
+    assert k4.launches == dict(
+        before, quantize_rows=before["quantize_rows"] + 1,
+        int4_matmul_w4a8=before["int4_matmul_w4a8"] + 1)
+    want = k4.int4_matmul_w4a8_reference(want_xq, e["q4"], e["s4"]) * want_sx
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (rows, OUT)
+    if dtype == torch.float32:
+        assert _rel(got, want) <= 1e-5
+    else:
+        assert _beyond_rounding(got, want) <= 1e-5
+    assert graph_kernels(lambda: k4.qdot4_w4a8(x, e))[0] == 2
 
 
 @pytest.mark.gpu
@@ -622,18 +682,24 @@ def test_w4a8_t_kernel_on_card(cuda, rows, IN, OUT, block_o):
     xq, q4, s4 = _w4a8_inputs(cuda, rows, IN, OUT)
     q4t, s4t = q4.t().contiguous(), s4.t().contiguous()
     before = kv.launches["w4a8_t"]
+    allocs = _allocations(cuda)
     got = kv.w4a8_t(xq, q4t, s4t, block_o)
+    assert _allocations(cuda) == allocs + 1      # the output, no workspace
     want = kv.w4a8_t_reference(xq, q4t, s4t, block_o)
     torch.cuda.synchronize()
     assert kv.launches["w4a8_t"] == before + 1
     assert got.shape == (rows, OUT) and _rel(got, want) <= 1e-5
+    # P4 and K6 on the same product (the transposed layout's own check)
+    from vstar_tpu_torch.kernels import int4_matmul as k4
+    assert _rel(got, k4.int4_matmul_w4a8(xq, q4, s4)) <= 1e-5
 
 
 @pytest.mark.gpu
 def test_decode_routes_capture_in_a_cuda_graph(cuda):
-    """The decode's quantized routes (K3, K5, K6, _w8a8_dot, a P kernel)
-    and K1 at decode are captured into one CUDA graph; a replay gives the
-    eager results."""
+    """The decode's quantized routes (K3, K5, K6's qdot with its row
+    quantization launched dependent on it, K5 for the ragged int4 lm_head
+    under act-int8, _w8a8_dot, a P kernel) and K1 at decode are captured
+    into one CUDA graph; a replay gives the eager results."""
     from vstar_tpu_torch.kernels import int4_matmul as k4
     from vstar_tpu_torch.kernels import int4_variants as kv
     from vstar_tpu_torch.nn import quant
@@ -641,6 +707,7 @@ def test_decode_routes_capture_in_a_cuda_graph(cuda):
     e4 = _int4(g, 4096, 11008, cuda)
     e8 = quant.quantize_weight(torch.randn(4096, 4096, generator=g,
                                            device=cuda) * 0.05)
+    head = _int4(g, 4096, 32003, cuda)
     x = torch.randn(1, 4096, generator=g, device=cuda).to(torch.bfloat16)
     q, k, v = (torch.randn(1, s, 32, 128, generator=g, device=cuda)
                .to(torch.bfloat16) for s in (1, 512, 512))
@@ -652,10 +719,12 @@ def test_decode_routes_capture_in_a_cuda_graph(cuda):
         try:
             w8a8 = quant.qdot(x, e8)
             w4a8 = quant.qdot(x, e4)
+            ragged = quant.qdot(x, head)         # the gate: K5
         finally:
             quant.set_act_int8(False)
-        xq, _ = k4.quantize_activations(x.float())
-        return (quant.qdot(x, e8), k4.qdot4(x, e4), w8a8, w4a8,
+        xq, _ = k4.quantize_rows(x)
+        return (quant.qdot(x, e8), k4.qdot4(x, e4), w8a8, w4a8, ragged,
+                k4.int4_matmul_w4a8(xq, e4["q4"], e4["s4"]),
                 kv.w4a8_variant(xq, e4["q4"], e4["s4"], "off"),
                 fa.flash_attention(q, k, v, kv_lens=lens, q_offsets=offs))
 

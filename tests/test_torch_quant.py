@@ -213,6 +213,24 @@ def test_qdot4_w4a8_matches_jax_composition(act_int8):
     got = tq.qdot(t(x), {k: t(v) for k, v in e.items()})
     assert got.shape == (1, 3, 256)
     assert rel_err(got.numpy().reshape(3, 256), want) <= F32_TOL
+    # the row quantization of the fused qdot (quantize_rows: its plain
+    # version here, which the kernel matches bit for bit on the card) at 16
+    # rows with values on rounding boundaries: x / sx at k + 0.5 (ties to
+    # even), a row of zeros (sx = 1e-8 / 127) and a row of one value
+    xb = rng.randn(16, 512).astype(np.float32)
+    xb[0, :16] = (np.arange(-8, 8) + 0.5).astype(np.float32)
+    xb[0, 16] = 127.0                       # sx = 1: the ties stay ties
+    xb[1] = 0.0
+    xb[2] = -3.0
+    xf = jnp.asarray(xb)
+    sx = jnp.maximum(jnp.max(jnp.abs(xf), axis=-1, keepdims=True),
+                     1e-8) / 127.0
+    xq = jnp.clip(jnp.round(xf / sx), -127, 127).astype(jnp.int8)
+    for txq, tsx in (k4.quantize_activations(t(xb)), k4.quantize_rows(t(xb))):
+        np.testing.assert_array_equal(txq.numpy(), np.asarray(xq))
+        np.testing.assert_array_equal(tsx.numpy(), np.asarray(sx))
+    assert np.asarray(xq)[0, :16].tolist() == [
+        -8, -6, -6, -4, -4, -2, -2, 0, 0, 2, 2, 4, 4, 6, 6, 8]
 
 
 @pytest.mark.parametrize("IN,rows", [(64, 2), (512, 20)])
@@ -228,6 +246,28 @@ def test_int4_qdot_gate_falls_to_w4a16(act_int8, IN, rows):
                               jax.tree_util.tree_map(jnp.asarray, e)))
     np.testing.assert_allclose(tq.qdot(t(x), entry).numpy(), want,
                                atol=F32_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("rows,OUT", [(1, 200), (3, 333), (16, 200)])
+def test_int4_qdot_gate_ragged_out_takes_w4a16(act_int8, rows, OUT):
+    """Where 128 does not divide OUT (the 32003-wide lm_head) JAX's W4A8
+    kernel declines, so qdot takes W4A16 even under act-int8, with rows <=
+    16 and IN % 256 == 0; the port's gate names that condition too."""
+    rng = np.random.RandomState(OUT + rows)
+    e = _int4_entry(rng, 512, OUT)
+    x = rng.randn(rows, 512).astype(np.float32)
+    xq = rng.randint(-127, 128, size=(rows, 512)).astype(np.int8)
+    assert jax_int4_matmul_w4a8(jnp.asarray(xq), jnp.asarray(e["q4"]),
+                                jnp.asarray(e["s4"]), interpret=True) is None
+    entry = {k: t(v) for k, v in e.items()}
+    assert not k4.w4a8_applies(t(x), entry)
+    want = np.asarray(jq.qdot(jnp.asarray(x),
+                              jax.tree_util.tree_map(jnp.asarray, e)))
+    got = tq.qdot(t(x), entry).numpy()
+    np.testing.assert_allclose(got, want, atol=F32_TOL, rtol=0)
+    routes = dict(tq.int4_routes)
+    tq.qdot(t(x), entry)
+    assert tq.int4_routes == dict(routes, w4a16=routes["w4a16"] + 1)
 
 
 @pytest.mark.parametrize("rows,OUT", [(3, 96), (20, 203)])
@@ -266,20 +306,35 @@ def test_dense_tower_int8_entry(act, request):
 # ---------------------------------------------------------------------------
 
 def test_split_plan_fills_the_card_and_covers_the_reduction():
-    for units, out, max_units, cap in [
-            (4096, 11008, 512, 528), (4096, 4096, 2048, 264),
-            (4096, 32003, 512, 264), (32, 11008, 64, 1056),
-            (86, 4096, 4, 132), (3, 256, 8, 528)]:
-        chunk, splits = k8.split_plan(units, out, max_units, cap)
-        strips = -(-out // k8.STRIP)
-        assert chunk <= max_units
-        assert (splits - 1) * chunk < units <= splits * chunk
-        # at most the card's resident blocks, unless the shared-memory
-        # bound on a split forces more
-        assert strips * splits <= max(cap, strips * -(-units // max_units))
-        # and not much fewer, unless the reduction runs out of units
-        assert splits == units or strips * splits > cap // 2 \
-            or splits >= -(-units // max_units)
+    """K6's split plan (w4a8_plan over its groups in 256-column strips,
+    W4A8_SPLITS k-splits a block, csrc/decode_rows.cuh): every group of a
+    strip is summed by exactly one k-split of its cluster, in order; the
+    clusters stay in one wave of the card's resident blocks; a block
+    streams at least W4A8_MIN_GROUPS groups unless that would leave SMs
+    without a block; and the 7B shapes get the sizes measured best."""
+    for units, out, cap in [
+            (32, 11008, 528), (32, 4096, 264), (86, 4096, 396),
+            (32, 32000, 264), (86, 4096, 132), (1, 4096, 132),
+            (3, 256, 528)]:
+        cols = k4.DECODE_COLS * k4.W4A8_WARP_COLS
+        c = k4.w4a8_plan(units, out, cap, 132)
+        strips = -(-out // cols)
+        splits = c * k4.W4A8_SPLITS
+        per = -(-units // splits)          # launch_decode's units a split
+        covered = []
+        for k in range(splits):            # rank * WK + wk
+            g0 = min(units, k * per)
+            covered += range(g0, min(units, g0 + per))
+        assert covered == list(range(units))
+        assert c == 1 or strips * c <= cap
+        assert per >= k4.W4A8_MIN_GROUPS or strips * (c // 2) < 132 \
+            or c == 1
+        full = k4.decode_plan(units, out, cap, cols, k4.W4A8_SPLITS,
+                              k4.W4A8_MAX_CLUSTER)
+        assert c <= full and (c == full or strips * c >= 132)
+    # one row at 3 blocks an SM (vstar_w4a8_decode_occupancy on the H100)
+    assert [k4.w4a8_plan(ng, out, 396, 132) for ng, out in (
+        (32, 11008), (86, 4096), (32, 4096))] == [4, 8, 8]
     assert [k8.row_bucket(r) for r in (1, 2, 3, 5, 8, 9, 16)] == \
         [1, 2, 4, 8, 8, 16, 16]
 

@@ -20,11 +20,28 @@
 //   barrier per k-tile; one launch.
 // K6  y[R, OUT] (f32) = xq[R, IN] (int8) @ nib, with each group's exact
 //   int32 dot scaled by s4 / 16 (the activation scale is the caller's), for
-//   R <= 16. The packed bytes are turned into 16 * nib without unpacking
-//   (high nibble: b & 0xF0; low nibble: (b << 4) & 0xF0, as int8), four
-//   consecutive inputs of one column are gathered into one word with
-//   __byte_perm, and __dp4a does four exact int8 products per instruction.
-//   Streamed and split as quant_common.cuh describes.
+//   R <= 16; bound by the packed bytes, as K5's decode rows. The decode rows
+//   in their W4A8 format (decode_rows.cuh): the packed bytes become 16 *
+//   nibble int8 mma operands by two masks (high nibble b & 0xF0, low
+//   nibble (b << 4) & 0xF0), after a 4 x 4 byte transpose that puts four
+//   packed rows of one column into one register, and m16n8k32 s8 mma.sync
+//   sums each group exactly in int32; one launch, no workspace. Its work
+//   does not grow with R up to 8 rows (one n-tile) and doubles at 16.
+// K6's qdot (qdot4_w4a8 on a CUDA tensor) is two launches: the per-row
+//   activation quantization below (one block a row: the row's largest
+//   |x|, sx = max(amax, 1e-8) / 127 by IEEE division, xq = clamp(rint(x /
+//   sx), -127, 127), the bits of quantize_activations), then K6 launched
+//   dependent on it (programmatic dependent launch: K6's blocks start and
+//   copy their first weight stages while the quantization runs, and wait
+//   for it before they read x), whose store multiplies by sx and writes
+//   x's type. (With 128-thread blocks of 168 registers, K6's wave filled
+//   the register file at 16 rows, and the quantization's blocks pushed
+//   part of it into a second wave; the 64-thread blocks are bound by
+//   shared memory, which the quantization does not take.) The
+//   alternative, each K6 block quantizing its rows itself
+//   (kFmtW4A8Q: the rows' maxima read whole by every block, an IEEE
+//   division per input at each B fragment), measured 1.5-2.7x slower at R
+//   = 1 and 16 (kernel_probe.py --w4a8-quant; PERF.md).
 //
 // Both take any OUT, including the ragged 32003-wide lm_head: columns past
 // OUT are masked.
@@ -32,9 +49,6 @@
 #include "quant_common.cuh"
 
 namespace {
-
-using vstar::kMvCols;
-using vstar::kMvThreads;
 
 // The shipped decode-row shape of K5 (decode_rows.cuh): packed rows of a
 // ring stage, ring stages, warps side by side along the columns (WC) and
@@ -48,84 +62,11 @@ using vstar::kMvThreads;
 // cluster reduction. The weight stream adds ~6 us (22.5 MB at about the
 // 3.35 TB/s peak) and the products ~3 us beyond it.
 #define VSTAR_K5_DECODE kFmtInt4, 32, 3, 1, 4, 0
-
-// ---------------------------------------------------------------------------
-// K6, R <= 16: W4A8 streaming matvec with exact int32 group dots
-// ---------------------------------------------------------------------------
-
-// xq is staged as words: word kw of row r holds inputs 4kw .. 4kw+3.
-template <int RB, bool VEC>
-__global__ void __launch_bounds__(kMvThreads)
-    int4_w4a8_kernel(const int8_t* __restrict__ xq, const uint8_t* __restrict__ q4,
-                     const float* __restrict__ s4, float* __restrict__ ws,
-                     int rows, long long in, long long out, int group,
-                     long long gchunk, long long ng) {
-  constexpr int CPT = 4;
-  constexpr int TC = kMvCols / CPT;
-  constexpr int TR = kMvThreads / TC;
-  extern __shared__ float smem[];
-  const long long wchunk = gchunk * group / 4;        // x words per row
-  int* xw = reinterpret_cast<int*>(smem);             // [RB][wchunk]
-  float* red = smem + RB * wchunk;                    // [RB][kMvCols]
-  const long long g0 = (long long)blockIdx.y * gchunk;
-  const long long g1 = min(ng, g0 + gchunk);
-  const long long w0 = g0 * group / 4;
-  const long long nw = (g1 - g0) * group / 4;
-  const int* xrow = reinterpret_cast<const int*>(xq);
-  for (long long i = threadIdx.x; i < RB * wchunk; i += kMvThreads) {
-    const int r = (int)(i / wchunk);
-    const long long kw = i % wchunk;
-    xw[i] = (r < rows && kw < nw) ? xrow[r * (in / 4) + w0 + kw] : 0;
-  }
-  __syncthreads();
-
-  const int tc = threadIdx.x % TC, lane = threadIdx.x / TC;
-  const long long c0 = (long long)blockIdx.x * kMvCols + tc * CPT;
-  const int pairs = group / 4;       // packed-row pairs per group
-  float acc[RB][CPT];
-#pragma unroll
-  for (int r = 0; r < RB; ++r)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[r][j] = 0.f;
-  if (c0 < out) {
-    for (long long g = g0; g < g1; ++g) {
-      int dot[RB][CPT];
-#pragma unroll
-      for (int r = 0; r < RB; ++r)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) dot[r][j] = 0;
-      // pair pp covers packed rows 2pp, 2pp+1 of the group = inputs 4pp..4pp+3
-      const uint8_t* wp = q4 + (g * (group / 2) + 2 * lane) * out + c0;
-#pragma unroll 2
-      for (int pp = lane; pp < pairs; pp += TR, wp += 2 * TR * out) {
-        uint32_t a[1], b[1];
-        vstar::load_words<CPT, VEC>(wp, out - c0, a);
-        vstar::load_words<CPT, VEC>(wp + out, out - c0, b);
-        const uint32_t l0 = (a[0] << 4) & 0xF0F0F0F0u, h0 = a[0] & 0xF0F0F0F0u;
-        const uint32_t l1 = (b[0] << 4) & 0xF0F0F0F0u, h1 = b[0] & 0xF0F0F0F0u;
-        const uint32_t t0 = __byte_perm(l0, h0, 0x5140), t1 = __byte_perm(l0, h0, 0x7362);
-        const uint32_t u0 = __byte_perm(l1, h1, 0x5140), u1 = __byte_perm(l1, h1, 0x7362);
-        // column j: [16*lo(row 2pp), 16*hi(row 2pp), 16*lo(row 2pp+1), 16*hi(row 2pp+1)]
-        const int col[CPT] = {(int)__byte_perm(t0, u0, 0x5410), (int)__byte_perm(t0, u0, 0x7632),
-                              (int)__byte_perm(t1, u1, 0x5410), (int)__byte_perm(t1, u1, 0x7632)};
-        const long long kw = (g - g0) * pairs + pp;
-#pragma unroll
-        for (int r = 0; r < RB; ++r) {
-          const int xv = xw[r * wchunk + kw];
-#pragma unroll
-          for (int j = 0; j < CPT; ++j) dot[r][j] = __dp4a(xv, col[j], dot[r][j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const float s = c0 + j < out ? __ldg(s4 + g * out + c0 + j) * (1.f / 16.f) : 0.f;
-#pragma unroll
-        for (int r = 0; r < RB; ++r) acc[r][j] = fmaf((float)dot[r][j], s, acc[r][j]);
-      }
-    }
-  }
-  vstar::reduce_and_store<RB, CPT>(acc, red, ws, rows, out, blockIdx.y);
-}
+// K6's decode-row shape: 64 packed rows (one group) a stage, 3 stages,
+// two warps side by side along 256-column strips, one k-split a block;
+// it won kernel_probe.py --k6-shapes at one row on the three 7B shapes
+// (PERF.md), over K5's shape among others.
+#define VSTAR_K6_DECODE kFmtW4A8, 64, 3, 2, 1, 0
 
 // ---------------------------------------------------------------------------
 // K5, R > 16: pipelined tensor-core tiles with in-block dequantization
@@ -497,56 +438,7 @@ int run_k5_tiles(int tile, int ks, bool aligned, long long* vals, const bf16* x,
   return (int)cudaErrorInvalidValue;
 }
 
-template <int RB>
-int launch_k6(const int8_t* xq, const uint8_t* q4, const float* s4, float* ws,
-              void* y, int rows, long long in, long long out, int group,
-              long long gchunk, int splits, bool vec, cudaStream_t st) {
-  const size_t smem = sizeof(float) * RB * (gchunk * group / 4 + kMvCols);
-  const long long ng = in / group;
-  dim3 grid((unsigned)((out + kMvCols - 1) / kMvCols), (unsigned)splits);
-  if (vec)
-    int4_w4a8_kernel<RB, true><<<grid, kMvThreads, smem, st>>>(
-        xq, q4, s4, ws, rows, in, out, group, gchunk, ng);
-  else
-    int4_w4a8_kernel<RB, false><<<grid, kMvThreads, smem, st>>>(
-        xq, q4, s4, ws, rows, in, out, group, gchunk, ng);
-  const int err = (int)cudaGetLastError();
-  if (err) return err;
-  return launch_finish(ws, splits, rows, out, nullptr, y, 0, st);
-}
-
-template <int RB>
-int occupancy_k6(bool vec, size_t smem, int* blocks) {
-  return (int)(vec ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                         blocks, int4_w4a8_kernel<RB, true>, kMvThreads, smem)
-                   : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                         blocks, int4_w4a8_kernel<RB, false>, kMvThreads, smem));
-}
-
-// Shared checks of the split plan: splits * gchunk groups cover the ng
-// groups with no empty split, and the staged x slice fits 48 KB with the
-// reduction buffer.
-bool bad_plan(long long rows, long long ng, long long gchunk, long long splits,
-              size_t smem) {
-  return rows < 1 || rows > vstar::kMaxRows || gchunk < 1 || splits < 1 ||
-         (splits - 1) * gchunk >= ng || splits * gchunk < ng || smem > 48 * 1024;
-}
-
 }  // namespace
-
-// Blocks of K6's decode-row launch for `rows` (<= 16) and `vec` that
-// one SM holds at `smem` bytes of dynamic shared memory, into *blocks.
-extern "C" int vstar_int4_occupancy(long long rows, long long vec, long long smem,
-                                    void* blocks) {
-  auto* b = static_cast<int*>(blocks);
-  switch (row_bucket(rows)) {
-    case 1: return occupancy_k6<1>(vec, smem, b);
-    case 2: return occupancy_k6<2>(vec, smem, b);
-    case 4: return occupancy_k6<4>(vec, smem, b);
-    case 8: return occupancy_k6<8>(vec, smem, b);
-    default: return occupancy_k6<16>(vec, smem, b);
-  }
-}
 
 // Blocks of K5's decode-row kernel (rows <= 16) that one SM holds, into
 // *blocks; `aligned` as for vstar_int4_matmul.
@@ -609,30 +501,121 @@ extern "C" int vstar_int4_matmul(const void* x, const void* q4, const void* s4, 
                                      in, out, in, (int)group, (int)cluster, st);
 }
 
-// K6: y [rows, out] f32 = xq [rows, in] int8 @ nib(q4) with per-group
-// int32 dots scaled by s4 / 16 (no activation scale); rows <= 16,
-// group % 4 == 0, contiguous operands, xq 4-byte aligned. ws, gchunk,
-// splits and vec as for K5's streaming path.
-extern "C" int vstar_int4_w4a8(const void* xq, const void* q4, const void* s4,
-                               void* ws, void* y, long long rows, long long in,
-                               long long out, long long group, long long gchunk,
-                               long long splits, long long vec, void* stream) {
-  if (group < 4 || group % 4 || in % group) return (int)cudaErrorInvalidValue;
-  const int rb = row_bucket(rows);
-  if (bad_plan(rows, in / group, gchunk, splits,
-               sizeof(float) * rb * (gchunk * group / 4 + kMvCols)))
-    return (int)cudaErrorInvalidValue;
-  auto* xb = static_cast<const int8_t*>(xq);
-  auto* qb = static_cast<const uint8_t*>(q4);
-  auto* sf = static_cast<const float*>(s4);
-  auto* wf = static_cast<float*>(ws);
-  auto st = static_cast<cudaStream_t>(stream);
-  const int r = (int)rows, g = (int)group, sp = (int)splits;
-  switch (rb) {
-    case 1: return launch_k6<1>(xb, qb, sf, wf, y, r, in, out, g, gchunk, sp, vec, st);
-    case 2: return launch_k6<2>(xb, qb, sf, wf, y, r, in, out, g, gchunk, sp, vec, st);
-    case 4: return launch_k6<4>(xb, qb, sf, wf, y, r, in, out, g, gchunk, sp, vec, st);
-    case 8: return launch_k6<8>(xb, qb, sf, wf, y, r, in, out, g, gchunk, sp, vec, st);
-    default: return launch_k6<16>(xb, qb, sf, wf, y, r, in, out, g, gchunk, sp, vec, st);
+
+// ---------------------------------------------------------------------------
+// K6: the W4A8 decode rows, and the row quantization of its qdot
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int kQuantThreads = 256;
+
+// One block per row r of x [rows, in] (bf16, or f32 with T = float; in %
+// 8 == 0, 16-byte aligned): sx[r] = max(max |x[r]|, 1e-8) / 127 and xq[r]
+// = clamp(rint(x[r] / sx[r]), -127, 127), quantize_activations' bits. It
+// lets the launch dependent on it (K6) start at once.
+template <typename T>
+__global__ void __launch_bounds__(kQuantThreads)
+    w4a8_quantize_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
+                         float* __restrict__ sx, long long in) {
+  constexpr int EV = 16 / sizeof(T);   // values a 16-byte load
+  asm volatile("griddepcontrol.launch_dependents;");
+  __shared__ float wmax[kQuantThreads / 32];
+  const T* xr = x + blockIdx.x * in;
+  auto value = [](const uint4& v, int e) -> float {
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    if constexpr (EV == 8)
+      return __uint_as_float(e & 1 ? w[e >> 1] & 0xFFFF0000u : w[e >> 1] << 16);
+    else
+      return __uint_as_float(w[e]);
+  };
+  float m = 0.f;
+  for (long long k = EV * threadIdx.x; k < in; k += EV * kQuantThreads) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(xr + k));
+#pragma unroll
+    for (int e = 0; e < EV; ++e) m = fmaxf(m, fabsf(value(v, e)));
   }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if ((threadIdx.x & 31) == 0) wmax[threadIdx.x >> 5] = m;
+  __syncthreads();
+  m = 0.f;
+#pragma unroll
+  for (int w = 0; w < kQuantThreads / 32; ++w) m = fmaxf(m, wmax[w]);
+  const float s = __fdiv_rn(fmaxf(m, 1e-8f), 127.f);
+  if (threadIdx.x == 0) sx[blockIdx.x] = s;
+  int8_t* qr = xq + blockIdx.x * in;
+  for (long long k = EV * threadIdx.x; k < in; k += EV * kQuantThreads) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(xr + k));
+    uint32_t out[EV / 4];
+#pragma unroll
+    for (int e = 0; e < EV; e += 4)
+      out[e / 4] = pack_s8(quant_s8(value(v, e), s), quant_s8(value(v, e + 1), s),
+                           quant_s8(value(v, e + 2), s), quant_s8(value(v, e + 3), s));
+    if constexpr (EV == 8)
+      *reinterpret_cast<uint2*>(qr + k) = make_uint2(out[0], out[1]);
+    else
+      *reinterpret_cast<uint32_t*>(qr + k) = out[0];
+  }
+}
+
+}  // namespace
+
+// Blocks of K6's decode-row kernel (rows <= 16) that one SM holds, into
+// *blocks; `aligned` as for vstar_int4_w4a8.
+extern "C" int vstar_w4a8_decode_occupancy(long long rows, long long aligned, void* blocks) {
+  long long vals[6];
+  const int err = run_w4a8<VSTAR_K6_DECODE>(true, (int)rows, aligned != 0, vals, nullptr,
+                                            nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 0,
+                                            0, false, nullptr);
+  *static_cast<int*>(blocks) = (int)vals[4];
+  return err;
+}
+
+// Build facts of K6's i-th instantiation (rows 8 / 16, aligned / ragged);
+// -1 past the last.
+extern "C" int vstar_w4a8_kernel_info(int i, const char** name, long long* vals) {
+  static const char* names[] = {"w4a8_decode<8, aligned>", "w4a8_decode<16, aligned>",
+                                "w4a8_decode<8, ragged>", "w4a8_decode<16, ragged>"};
+  if (i < 0 || i > 3) return -1;
+  *name = names[i];
+  return run_w4a8<VSTAR_K6_DECODE>(true, i % 2 ? 16 : 8, i < 2, vals, nullptr, nullptr,
+                                   nullptr, nullptr, nullptr, 0, 0, 0, 0, 0, false, nullptr);
+}
+
+// K6: y [rows, out] = xq [rows, in] int8 @ nib(q4 [in/2, out]) with each
+// group's int32 dot times s4 [in/group, out] / 16; then times sx [rows]
+// when sx is not null; y f32 (y_f32) or bf16. rows <= 16, group % 64 ==
+// 0, contiguous operands, xq 16-byte aligned with in % 16 == 0; `cluster`
+// (1..16) blocks per 256-column strip; aligned: out % 16 == 0 and q4, s4
+// 16-byte aligned; pdl: launched dependent on the kernel before it.
+extern "C" int vstar_int4_w4a8(const void* xq, const void* q4, const void* s4, const void* sx,
+                               void* y, long long rows, long long in, long long out,
+                               long long group, long long cluster, long long aligned,
+                               long long y_f32, long long pdl, void* stream) {
+  if (rows < 1 || rows > vstar::kMaxRows || group < 128 || group % 128 || in % group ||
+      in % 16)
+    return (int)cudaErrorInvalidValue;
+  return run_w4a8<VSTAR_K6_DECODE>(
+      false, (int)rows, aligned != 0, nullptr, xq, static_cast<const uint8_t*>(q4),
+      static_cast<const float*>(s4), static_cast<const float*>(sx), y, in, out, (int)group,
+      (int)cluster, (int)y_f32, pdl != 0, static_cast<cudaStream_t>(stream));
+}
+
+// The row quantization of K6's qdot: xq [rows, in] int8 and sx [rows] f32
+// from x [rows, in] (bf16, or f32 with x_f32); in % 8 == 0, x 16-byte and
+// xq 8-byte aligned.
+extern "C" int vstar_w4a8_quantize(const void* x, void* xq, void* sx, long long rows,
+                                   long long in, long long x_f32, void* stream) {
+  if (rows < 1 || in < 8 || in % 8) return (int)cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto* q = static_cast<int8_t*>(xq);
+  auto* s = static_cast<float*>(sx);
+  if (x_f32)
+    w4a8_quantize_kernel<float><<<(unsigned)rows, kQuantThreads, 0, st>>>(
+        static_cast<const float*>(x), q, s, in);
+  else
+    w4a8_quantize_kernel<bf16><<<(unsigned)rows, kQuantThreads, 0, st>>>(
+        static_cast<const bf16*>(x), q, s, in);
+  return (int)cudaGetLastError();
 }

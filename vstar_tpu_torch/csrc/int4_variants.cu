@@ -29,14 +29,19 @@
 //   over its groups goes to an f32 workspace [blocks, R, OUT] that
 //   splitk_finish adds in block order, as the TPU's `o_ref += acc` did.
 // P4 (_w4a8_call_t): K6's function on transposed storage, q4t u8 [OUT, IN/2]
-//   and s4t f32 [OUT, NG]; a block owns block_o output rows and one split
-//   of the groups; a warp reads one contiguous row at a time, 4 packed bytes
-//   per lane, and adds its int32 group dot over the lanes by shuffles.
+//   and s4t f32 [OUT, NG]: K6's decode rows in their W4A8T format
+//   (decode_rows.cuh). A word of one output's row is four packed inputs,
+//   so the two masks give two m16n8k32 A registers with no byte permute;
+//   a ring stage holds 32 packed bytes of each of a strip's 128 rows, and
+//   the scales of a group are gathered one per row. One launch, no
+//   workspace, the k-splits added across a cluster, as K6. block_o (the
+//   TPU's grid) selects nothing here: every strip is 128 rows.
 //
 // Every group dot is exact in int32 and scaled as d * (s4 / 16); splits are
 // added in order (deterministic, no atomics). The domain is the TPU
 // functions': R <= 16, OUT % block_o == 0; the quads need IN % 8 == 0 and a
-// group of a multiple of 8 inputs.
+// group of a multiple of 8 inputs (P4: of 64, IN % 32 == 0).
+#include "decode_rows.cuh"
 #include "quant_common.cuh"
 
 namespace {
@@ -308,65 +313,6 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// P4
-// ---------------------------------------------------------------------------
-
-// Block (row block of block_o output rows, split): warp w takes rows w, w +
-// 8, ... of the block; for each group of the split its lanes read the
-// row's packed bytes as words (word k = packed rows 4k..4k+3 of one output,
-// so lo and hi nibbles pair with xe and xo directly), and the warp adds its
-// int32 dots by shuffles; ws [splits, rows, out].
-template <int RB>
-__global__ void __launch_bounds__(kThreads)
-    w4a8_t_kernel(const int8_t* __restrict__ xq, const uint8_t* __restrict__ q4t,
-                  const float* __restrict__ s4t, float* __restrict__ ws, int rows,
-                  long long in, long long out, int group, int block_o, long long gchunk,
-                  long long ng) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long in2 = in / 2;
-  const int words = group / 8;                    // per group and output row
-  const long long g0 = (long long)blockIdx.y * gchunk;
-  const long long g1 = min(ng, g0 + gchunk);
-  for (int o = warp; o < block_o; o += kThreads / 32) {
-    const long long row = (long long)blockIdx.x * block_o + o;
-    const uint8_t* qrow = q4t + row * in2;
-    float acc[RB];
-#pragma unroll
-    for (int r = 0; r < RB; ++r) acc[r] = 0.f;
-    for (long long g = g0; g < g1; ++g) {
-      int d[RB];
-#pragma unroll
-      for (int r = 0; r < RB; ++r) d[r] = 0;
-      for (int k = lane; k < words; k += 32) {
-        const long long quad = g * words + k;
-        const uint32_t w = __ldg(reinterpret_cast<const uint32_t*>(qrow) + quad);
-        const int lo = (int)((w << 4) & 0xF0F0F0F0u), hi = (int)(w & 0xF0F0F0F0u);
-#pragma unroll
-        for (int r = 0; r < RB; ++r) {
-          if (r < rows) {
-            int xe, xo;
-            x_words(xq + r * in, quad, xe, xo);
-            d[r] = __dp4a(xo, hi, __dp4a(xe, lo, d[r]));
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < RB; ++r)
-#pragma unroll
-        for (int off = 16; off > 0; off /= 2) d[r] += __shfl_xor_sync(0xffffffffu, d[r], off);
-      const float s = __ldg(s4t + row * ng + g) * (1.f / 16.f);
-#pragma unroll
-      for (int r = 0; r < RB; ++r) acc[r] += (float)d[r] * s;
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int r = 0; r < RB; ++r)
-        if (r < rows) ws[((long long)blockIdx.y * rows + r) * out + row] = acc[r];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
 
@@ -421,22 +367,7 @@ int launch_p3(const int8_t* xq, const uint8_t* q4, const float* s4, float* ws, v
 }
 
 template <int RB>
-int launch_p4(const int8_t* xq, const uint8_t* q4t, const float* s4t, float* ws, void* y,
-              int rows, long long in, long long out, int group, int block_o,
-              long long gchunk, int splits, cudaStream_t st) {
-  dim3 grid((unsigned)(out / block_o), (unsigned)splits);
-  w4a8_t_kernel<RB><<<grid, kThreads, 0, st>>>(xq, q4t, s4t, ws, rows, in, out, group,
-                                               block_o, gchunk, in / group);
-  const int err = (int)cudaGetLastError();
-  if (err) return err;
-  return launch_finish(ws, splits, rows, out, nullptr, y, 0, st);
-}
-
-template <int RB>
-int occupancy_p(int kernel, int unpack, int cols, int* blocks) {
-  if (kernel == 1)
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, w4a8_t_kernel<RB>,
-                                                              kThreads, 0);
+int occupancy_p2(int unpack, int cols, int* blocks) {
   const size_t smem = sizeof(float) * RB * cols;
 #define VSTAR_P2_OCC(U)                                                                  \
   return (int)(cols == 512 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(              \
@@ -494,13 +425,13 @@ extern "C" int vstar_unpack_probe(const void* q, void* o, long long n, long long
   return (int)cudaGetLastError();
 }
 
-// Blocks per SM of P2 (kernel 0; `unpack` 0-3, `cols` 256 / 512) or P4
-// (kernel 1) for `rows`, into *blocks.
-extern "C" int vstar_int4_variants_occupancy(long long kernel, long long unpack,
-                                             long long rows, long long cols, void* blocks) {
+// Blocks per SM of P2 (`unpack` 0-3, `cols` 256 / 512) for `rows`, into
+// *blocks.
+extern "C" int vstar_int4_variants_occupancy(long long unpack, long long rows, long long cols,
+                                             void* blocks) {
   auto* b = static_cast<int*>(blocks);
-  const int k = (int)kernel, u = (int)unpack, c = (int)cols;
-#define VSTAR_OCC(RB) occupancy_p<RB>(k, u, c, b)
+  const int u = (int)unpack, c = (int)cols;
+#define VSTAR_OCC(RB) occupancy_p2<RB>(u, c, b)
   VSTAR_RB_SWITCH(row_bucket(rows), VSTAR_OCC)
 #undef VSTAR_OCC
 }
@@ -548,23 +479,42 @@ extern "C" int vstar_w4a8_rows(const void* xq, const void* q4, const void* s4, v
 #undef VSTAR_P3
 }
 
-// P4: P2's function on transposed storage q4t [out, in/2], s4t [out,
-// in/group]; a block owns block_o (dividing out) output rows; ws f32
-// [splits, rows, out] as P2's. xq 8- and q4t 4-byte aligned.
-extern "C" int vstar_w4a8_t(const void* xq, const void* q4t, const void* s4t, void* ws,
-                            void* y, long long rows, long long in, long long out,
-                            long long group, long long block_o, long long gchunk,
-                            long long splits, void* stream) {
-  if (bad_args(rows, in, out, group) || block_o < 1 || out % block_o ||
-      bad_split(in / group, gchunk, splits))
+// P4's decode-row shape: 64 packed bytes (one group) of each row a
+// stage, 3 stages, one warp per 128-row strip, two k-splits a block
+// (kernel_probe.py --k6-shapes; PERF.md).
+#define VSTAR_P4_DECODE kFmtW4A8T, 64, 3, 1, 2, 0
+
+// Blocks of P4's kernel for `rows` (<= 16) that one SM holds, into *blocks.
+extern "C" int vstar_w4a8_t_occupancy(long long rows, void* blocks) {
+  long long vals[6];
+  const int err = run_w4a8<VSTAR_P4_DECODE>(true, (int)rows, true, vals, nullptr, nullptr,
+                                            nullptr, nullptr, nullptr, 0, 0, 0, 0, 1, false,
+                                            nullptr);
+  *static_cast<int*>(blocks) = (int)vals[4];
+  return err;
+}
+
+// Build facts of P4's i-th instantiation (rows 8 / 16); -1 past the last.
+extern "C" int vstar_w4a8_t_kernel_info(int i, const char** name, long long* vals) {
+  static const char* names[] = {"w4a8t_decode<8>", "w4a8t_decode<16>"};
+  if (i < 0 || i > 1) return -1;
+  *name = names[i];
+  return run_w4a8<VSTAR_P4_DECODE>(true, i ? 16 : 8, true, vals, nullptr, nullptr, nullptr,
+                                   nullptr, nullptr, 0, 0, 0, 0, 1, false, nullptr);
+}
+
+// P4: y [rows, out] f32 = P2's function on transposed storage q4t [out,
+// in/2], s4t [out, in/group]; group % 128 == 0, in % 32 == 0, q4t 16-byte
+// aligned, contiguous operands, xq 16-byte aligned; `cluster` (1..16)
+// blocks per strip of 128 output rows.
+extern "C" int vstar_w4a8_t(const void* xq, const void* q4t, const void* s4t, void* y,
+                            long long rows, long long in, long long out, long long group,
+                            long long cluster, void* stream) {
+  if (bad_args(rows, in, out, group) || group % 128 || in % 32)
     return (int)cudaErrorInvalidValue;
-  auto* xb = static_cast<const int8_t*>(xq);
-  auto* qb = static_cast<const uint8_t*>(q4t);
-  auto* sf = static_cast<const float*>(s4t);
-  auto* wf = static_cast<float*>(ws);
-  auto st = static_cast<cudaStream_t>(stream);
-  const int r = (int)rows, g = (int)group, bo = (int)block_o, sp = (int)splits;
-#define VSTAR_P4(RB) launch_p4<RB>(xb, qb, sf, wf, y, r, in, out, g, bo, gchunk, sp, st)
-  VSTAR_RB_SWITCH(row_bucket(rows), VSTAR_P4)
-#undef VSTAR_P4
+  return run_w4a8<VSTAR_P4_DECODE>(false, (int)rows, true, nullptr, xq,
+                                   static_cast<const uint8_t*>(q4t),
+                                   static_cast<const float*>(s4t), nullptr, y, in, out,
+                                   (int)group, (int)cluster, 1, false,
+                                   static_cast<cudaStream_t>(stream));
 }

@@ -41,11 +41,14 @@ _SIGNATURES = {
     "vstar_tower_attention_fwd": [_P] * 4 + [_LL] * 15 + [_F, _P],
     "vstar_int8_matvec": [_P] * 4 + [_LL] * 6 + [_P],
     "vstar_int4_matmul": [_P] * 4 + [_LL] * 7 + [_P],
-    "vstar_int4_w4a8": [_P] * 5 + [_LL] * 7 + [_P],
+    "vstar_int4_w4a8": [_P] * 5 + [_LL] * 8 + [_P],
+    "vstar_w4a8_quantize": [_P] * 3 + [_LL] * 3 + [_P],
+    "vstar_w4a8_decode_occupancy": [_LL] * 2 + [_P],
+    "vstar_w4a8_kernel_info": [ctypes.c_int, ctypes.POINTER(ctypes.c_char_p),
+                               ctypes.POINTER(ctypes.c_longlong)],
     "vstar_int8_decode_occupancy": [_LL] * 2 + [_P],
     "vstar_int8_kernel_info": [ctypes.c_int, ctypes.POINTER(ctypes.c_char_p),
                                ctypes.POINTER(ctypes.c_longlong)],
-    "vstar_int4_occupancy": [_LL] * 3 + [_P],
     "vstar_int4_decode_occupancy": [_LL] * 2 + [_P],
     "vstar_int4_tile_occupancy": [_LL] * 3 + [_P],
     "vstar_int4_kernel_info": [ctypes.c_int, ctypes.POINTER(ctypes.c_char_p),
@@ -53,8 +56,12 @@ _SIGNATURES = {
     "vstar_unpack_probe": [_P] * 2 + [_LL] * 2 + [_P],
     "vstar_w4a8_variant": [_P] * 5 + [_LL] * 8 + [_P],
     "vstar_w4a8_rows": [_P] * 5 + [_LL] * 5 + [_P],
-    "vstar_w4a8_t": [_P] * 5 + [_LL] * 7 + [_P],
-    "vstar_int4_variants_occupancy": [_LL] * 4 + [_P],
+    "vstar_w4a8_t": [_P] * 4 + [_LL] * 5 + [_P],
+    "vstar_w4a8_t_occupancy": [_LL] + [_P],
+    "vstar_w4a8_t_kernel_info": [ctypes.c_int, ctypes.POINTER(ctypes.c_char_p),
+                                 ctypes.POINTER(ctypes.c_longlong)],
+    "vstar_int4_variants_occupancy": [_LL] * 3 + [_P],
+    "vstar_graph_kernel_nodes": [_P] * 3,
 }
 
 _LOCK = threading.Lock()

@@ -14,13 +14,22 @@ Weight format, from nn/quant.quantize_weight_int4:
                                call; group a multiple of 64)
   int4_matmul_w4a8(xq, q4, s4) int8 xq [R <= 16, IN] -> f32 [R, OUT] with
                                exact int32 group dots, no activation scale
-                               (K6)
-  qdot4 / qdot4_w4a8           the qdot entry points over [..., IN]
+                               (K6, the TPU kernel's own function:
+                               csrc/int4_matmul.cu, the decode rows on
+                               int8 tensor cores, one launch)
+  quantize_rows(x)             x [R, IN] -> per-row int8 xq and f32 sx
+                               (the row quantization of K6's qdot, one
+                               launch)
+  qdot4 / qdot4_w4a8           the qdot entry points over [..., IN]; on a
+                               CUDA tensor qdot4_w4a8 is two launches,
+                               quantize_rows and K6 with the activation
+                               scale and x's type in its store
 
 Both kernels take any OUT, the ragged 32003-wide lm_head included (the
 JAX package sends that shape to an XLA dequantize; the function is the
 same). The dispatch gate of the JAX package stays because it changes the
-result: W4A8 only for at most 16 rows and IN % 256 == 0, else W4A16.
+result: W4A8 only for at most 16 rows, IN % 256 == 0 and OUT % 128 == 0
+(`w4a8_applies`), else W4A16.
 
 A CPU tensor takes the plain versions; a CUDA tensor launches the kernel
 or raises.
@@ -32,21 +41,35 @@ import torch
 
 from . import _build
 from .int8_matmul import (DECODE_COLS, DECODE_MAX_CLUSTER, MAX_ROWS,
-                          SMEM_X_BYTES, _blocks_per_sm, _sm_count, capacity,
-                          check_cuda_operand, decode_plan, row_bucket,
-                          split_plan)
+                          _blocks_per_sm, _sm_count, capacity,
+                          check_cuda_operand, decode_plan)
 
-launches = {"int4_matmul": 0, "int4_matmul_w4a8": 0}
+NAMES = ("int4_matmul", "int4_matmul_w4a8", "quantize_rows")
+launches = dict.fromkeys(NAMES, 0)
 # K5's launches by route: decode rows (R <= 16) and tiles (R > 16)
 route_launches = {"decode": 0, "tile": 0}
-plain_calls_cuda = {"int4_matmul": 0, "int4_matmul_w4a8": 0}
+plain_calls_cuda = dict.fromkeys(NAMES, 0)
 
-W4A8_IN_MULTIPLE = 256   # vstar_tpu int4_matmul.py:204, :252
+# The JAX dispatch gate of W4A8 (vstar_tpu int4_matmul.py): IN a multiple
+# of 256 (:204, :252), and OUT a multiple of the smallest block_o the
+# Pallas kernel takes, 128 (:210-212); elsewhere qdot takes W4A16.
+W4A8_IN_MULTIPLE = 256
+W4A8_OUT_MULTIPLE = 128
 # K5's decode rows (VSTAR_K5_DECODE): DECODE_SPLITS k-splits of whole
 # groups per block; a ring stage is 64 inputs, so a group spans whole
 # stages. The tiles take k-tiles of 64 inputs inside one group.
 DECODE_SPLITS = 4
 GROUP_MULTIPLE = 64
+# K6's decode rows (VSTAR_K6_DECODE): strips of two warps' 256 columns, one
+# k-split of whole groups per block, a ring stage one group (so groups are
+# multiples of 128 inputs), clusters of up to W4A8_MAX_CLUSTER blocks
+# (16, non-portable, measured no faster), each block streaming at least
+# W4A8_MIN_GROUPS groups where the strips still cover the SMs (`w4a8_plan`)
+W4A8_WARP_COLS = 2
+W4A8_SPLITS = 1
+W4A8_GROUP_MULTIPLE = 128
+W4A8_MAX_CLUSTER = 8
+W4A8_MIN_GROUPS = 8
 # K5's tile shapes (rows, columns), in the order of run_k5_tiles, and the
 # k-splits a tile may take (a cluster along the inputs)
 TILE_SHAPES = ((64, 128), (128, 256))
@@ -151,21 +174,61 @@ def tile_plan(rows: int, out: int, k_tiles: int, sms: int, resident) -> tuple:
     return tile, best
 
 
-def _launch_w4a8(xq, q4, s4, y, rows, IN, OUT, group):
-    """Plan the split, allocate the workspace and launch K6."""
+def w4a8_kernel_info():
+    """Build facts of K6's instantiations (8 / 16 rows, aligned /
+    ragged), as `int4_kernel_info`."""
+    return _build.kernel_info("vstar_w4a8_kernel_info")
+
+
+def w4a8_plan(groups: int, out: int, resident: int, sms: int) -> int:
+    """K6's cluster size: decode_plan's (the most blocks a strip that fill
+    the card's resident slots in one wave), halved while a block would
+    stream fewer than W4A8_MIN_GROUPS groups and half the blocks would
+    still give every SM one. Measured at one and 16 rows (kernel_probe.py
+    --k6-shapes): 4096x11008 runs faster on clusters of 4 (8 groups a
+    block, 172 blocks) than of 8; the 4096-wide outputs (16 strips) on 8."""
+    cols = DECODE_COLS * W4A8_WARP_COLS
+    c = decode_plan(groups, out, resident, cols, W4A8_SPLITS, W4A8_MAX_CLUSTER)
+    strips = -(-out // cols)
+    while (c > 1 and -(-groups // (c * W4A8_SPLITS)) < W4A8_MIN_GROUPS
+           and strips * (c // 2) >= sms):
+        c //= 2
+    return c
+
+
+def _w4a8_operands(name, xq, q4, s4):
+    """(rows, IN, OUT, NG, group) of a K6 launch, after its checks."""
+    if xq.dim() != 2 or not 1 <= xq.shape[0] <= MAX_ROWS:
+        raise ValueError(f"{name}: x must be [1..{MAX_ROWS}, IN], got "
+                         f"{tuple(xq.shape)}")
+    rows, IN = xq.shape
+    OUT, NG, group = _int4_shapes(q4, s4, IN)
+    if group % W4A8_GROUP_MULTIPLE:
+        raise ValueError(f"{name}: group {group} must be a multiple of "
+                         f"{W4A8_GROUP_MULTIPLE}")
     dev = xq.device
-    vec = OUT % 16 == 0 and q4.data_ptr() % 16 == 0
-    rb = row_bucket(rows)
-    max_groups = max(SMEM_X_BYTES // (rb * group), 1)
-    cap = capacity(dev, "vstar_int4_occupancy",
-                   (rb, int(vec), SMEM_X_BYTES + 1024 * rb))
-    gchunk, splits = split_plan(IN // group, OUT, max_groups, cap)
-    ws = torch.empty((splits, rows, OUT), dtype=torch.float32, device=dev)
+    check_cuda_operand("q4", q4, torch.uint8, (IN // 2, OUT), dev)
+    check_cuda_operand("s4", s4, torch.float32, (NG, OUT), dev)
+    return rows, IN, OUT, NG, group
+
+
+def _launch_w4a8(xq, q4, s4, sx, y, pdl):
+    """Plan the cluster and launch K6: y = (xq @ nib) per group times s4
+    / 16, times sx [rows, 1] unless it is None, in y's type."""
+    dev = xq.device
+    rows, IN = xq.shape
+    NG, OUT = s4.shape
+    aligned = (OUT % 16 == 0 and q4.data_ptr() % 16 == 0
+               and s4.data_ptr() % 16 == 0)
+    cap = capacity(dev, "vstar_w4a8_decode_occupancy",
+                   (16 if rows > 8 else 8, int(aligned)))
+    cluster = w4a8_plan(NG, OUT, cap, _sm_count(dev.index or 0))
     lib = _build.library()
     code = _build.launch(lib.vstar_int4_w4a8, dev, xq.data_ptr(),
-                         q4.data_ptr(), s4.data_ptr(), ws.data_ptr(),
-                         y.data_ptr(), rows, IN, OUT, group, gchunk, splits,
-                         int(vec))
+                         q4.data_ptr(), s4.data_ptr(),
+                         None if sx is None else sx.data_ptr(), y.data_ptr(),
+                         rows, IN, OUT, IN // NG, cluster, int(aligned),
+                         int(y.dtype == torch.float32), int(pdl))
     _build.check(lib, code, "int4_matmul_w4a8")
     launches["int4_matmul_w4a8"] += 1
     return y
@@ -230,48 +293,90 @@ def int4_matmul_w4a8(xq: torch.Tensor, q4: torch.Tensor,
         return int4_matmul_w4a8_reference(xq, q4, s4)
     if not xq.is_cuda:
         raise ValueError(f"int4_matmul_w4a8: unsupported device {xq.device}")
-    if xq.dim() != 2 or not 1 <= xq.shape[0] <= MAX_ROWS:
-        raise ValueError(f"int4_matmul_w4a8: xq must be [1..{MAX_ROWS}, IN],"
-                         f" got {tuple(xq.shape)}")
-    rows, IN = xq.shape
-    OUT, NG, group = _int4_shapes(q4, s4, IN)
-    if group % 4:
-        raise ValueError(f"int4_matmul_w4a8: group {group} must be a "
-                         "multiple of 4")
-    dev = xq.device
-    check_cuda_operand("xq", xq, torch.int8, (rows, IN), dev)
-    if xq.data_ptr() % 4:
-        raise ValueError("int4_matmul_w4a8: xq must be 4-byte aligned")
-    check_cuda_operand("q4", q4, torch.uint8, (IN // 2, OUT), dev)
-    check_cuda_operand("s4", s4, torch.float32, (NG, OUT), dev)
-    y = torch.empty((rows, OUT), dtype=torch.float32, device=dev)
-    return _launch_w4a8(xq, q4, s4, y, rows, IN, OUT, group)
+    rows, IN, OUT, _, _ = _w4a8_operands("int4_matmul_w4a8", xq, q4, s4)
+    check_cuda_operand("xq", xq, torch.int8, (rows, IN), xq.device)
+    if xq.data_ptr() % 16:   # the kernel copies 16-byte chunks of x
+        xq = xq.clone()
+    y = torch.empty((rows, OUT), dtype=torch.float32, device=xq.device)
+    return _launch_w4a8(xq, q4, s4, None, y, pdl=False)
 
 
 def quantize_activations(xf: torch.Tensor):
     """Per-row symmetric int8 of f32 rows (qdot4_w4a8's rule):
-    (xq int8, sx f32 [R, 1])."""
-    sx = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8) / 127.0
+    (xq int8, sx f32 [R, 1]); the plain version of quantize_rows."""
+    if xf.is_cuda:
+        plain_calls_cuda["quantize_rows"] += 1
+    amax = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8)
+    # divided by a tensor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, one ulp off the IEEE quotient (JAX's,
+    # and the CPU's) for ~4 % of values
+    sx = amax / torch.full_like(amax, 127.0)
     xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
     return xq, sx
 
 
+def quantize_rows(x: torch.Tensor):
+    """x [R, IN] (bf16 or f32) -> (xq int8 [R, IN], sx f32 [R, 1]) by
+    qdot4_w4a8's rule, the bits of quantize_activations(x.float()) (K6's
+    row quantization, one launch)."""
+    if x.device.type == "cpu":
+        return quantize_activations(x.float())
+    if not x.is_cuda:
+        raise ValueError(f"quantize_rows: unsupported device {x.device}")
+    if x.dim() != 2 or x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"quantize_rows: x must be bf16 or f32 [R, IN], got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    rows, IN = x.shape
+    if IN % 8:
+        raise ValueError(f"quantize_rows: IN = {IN} must be a multiple of 8")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        x = x.contiguous().clone()
+    xq = torch.empty((rows, IN), dtype=torch.int8, device=x.device)
+    sx = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
+    if rows == 0:
+        return xq, sx
+    lib = _build.library()
+    code = _build.launch(lib.vstar_w4a8_quantize, x.device, x.data_ptr(),
+                         xq.data_ptr(), sx.data_ptr(), rows, IN,
+                         int(x.dtype == torch.float32))
+    _build.check(lib, code, "quantize_rows")
+    launches["quantize_rows"] += 1
+    return xq, sx
+
+
 def w4a8_applies(x: torch.Tensor, entry) -> bool:
-    """The JAX dispatch gate: at most 16 rows and IN % 256 == 0."""
+    """The JAX dispatch gate, all three of its conditions: at most 16
+    rows, IN % 256 == 0 and OUT % 128 == 0 (the JAX kernel declines every
+    other shape, and qdot then takes W4A16)."""
     rows = x.numel() // x.shape[-1]
     IN = x.shape[-1]
     return (rows <= MAX_ROWS and IN % W4A8_IN_MULTIPLE == 0
-            and IN % entry["s4"].shape[-2] == 0)
+            and IN % entry["s4"].shape[-2] == 0
+            and entry["q4"].shape[-1] % W4A8_OUT_MULTIPLE == 0)
 
 
 def qdot4_w4a8(x: torch.Tensor, entry) -> torch.Tensor:
     """W4A8 qdot over [..., IN]: per-row int8 activations, K6, then the
-    activation scale (vstar_tpu qdot4_w4a8)."""
-    q4, s4 = entry["q4"], entry["s4"]
+    activation scale (vstar_tpu qdot4_w4a8). On a CUDA tensor two
+    launches: quantize_rows, and K6 with the scale and x's type in its
+    store."""
+    q4, s4 = entry["q4"], entry["s4"].float()
     lead, IN = x.shape[:-1], x.shape[-1]
-    xq, sx = quantize_activations(x.reshape(-1, IN).float())
-    y = int4_matmul_w4a8(xq, q4, s4.float())
-    return (y * sx).to(x.dtype).reshape(*lead, q4.shape[-1])
+    x2 = x.reshape(-1, IN)
+    if x.device.type == "cpu":
+        xq, sx = quantize_activations(x2.float())
+        y = (int4_matmul_w4a8(xq, q4, s4) * sx).to(x.dtype)
+        return y.reshape(*lead, q4.shape[-1])
+    if not x.is_cuda:
+        raise ValueError(f"qdot4_w4a8: unsupported device {x.device}")
+    rows, _, OUT, _, _ = _w4a8_operands("qdot4_w4a8", x2, q4, s4)
+    xq, sx = quantize_rows(x2)
+    y = torch.empty((rows, OUT), dtype=x.dtype, device=x.device)
+    # dependent on the row quantization (programmatic dependent launch):
+    # K6's first weight copies overlap that kernel, whose blocks take no
+    # shared memory, the resource that bounds K6's wave
+    _launch_w4a8(xq, q4, s4, sx, y, pdl=True)
+    return y.reshape(*lead, OUT)
 
 
 def qdot4(x: torch.Tensor, entry) -> torch.Tensor:

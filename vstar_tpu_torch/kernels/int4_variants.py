@@ -18,7 +18,9 @@ package launches them (its --probe and --matmul stages):
                                 packed input rows, partial sums added in
                                 block order
   w4a8_t(xq, q4t, s4t, block_o) P4, _w4a8_call_t: transposed storage q4t
-                                uint8 [OUT, IN/2], s4t f32 [OUT, NG]
+                                uint8 [OUT, IN/2], s4t f32 [OUT, NG]; K6's
+                                tensor-core decode rows on that layout
+                                (one launch), block_o checked only
 
 K6's function: int8 xq [R, IN] against the signed nibbles of q4 uint8
 [IN/2, OUT], each group's exact int32 dot (of 16 * nibble) times s4 / 16,
@@ -30,7 +32,7 @@ agree within 1e-5 of the largest |output|. Domain, the JAX functions':
 1 <= R <= 16, block_o 256 or 512 dividing OUT (the JAX grid is OUT //
 block_o), block_i a multiple of the group's packed rows dividing IN/2;
 the kernels' quads of 4 packed rows also need a group of a multiple of 8
-inputs.
+inputs (P4's decode rows: of 128, IN % 32 == 0, q4t 16-byte aligned).
 
 A CPU tensor takes the plain versions; a CUDA tensor launches the kernel
 or raises.
@@ -41,7 +43,8 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .int4_matmul import unpack_int4
+from .int4_matmul import (W4A8_GROUP_MULTIPLE, W4A8_MAX_CLUSTER, decode_plan,
+                          unpack_int4)
 from .int8_matmul import MAX_ROWS, capacity, check_cuda_operand, row_bucket
 
 NAMES = ("unpack_probe", "w4a8_variant", "w4a8_rows", "w4a8_t")
@@ -51,7 +54,7 @@ plain_calls_cuda = dict.fromkeys(NAMES, 0)
 PROBES = ("mul", "add")                   # P1's candidates, in C order
 UNPACKS = ("ship", "mul", "2and", "off")  # P2's lo-nibble unpacks
 BLOCK_O = (256, 512)
-_P2, _P4 = 0, 1                           # kernels of the occupancy entry
+P4_SPLITS = 2                 # k-splits a block (VSTAR_P4_DECODE)
 
 
 def _count_plain(name, t):
@@ -225,11 +228,11 @@ def _operands(name, xq, q, s, shape_q, shape_s):
                          "aligned")
 
 
-def _split(dev, kernel, unpack, rows, cols, tiles, ng):
-    """Groups per split and splits, so that tiles x splits fill the
+def _split(dev, unpack, rows, cols, tiles, ng):
+    """P2's groups per split and splits, so that tiles x splits fill the
     card's resident blocks; every split is non-empty."""
     cap = capacity(dev, "vstar_int4_variants_occupancy",
-                   (kernel, unpack, row_bucket(rows), cols))
+                   (unpack, row_bucket(rows), cols))
     want = max(cap // tiles, 1)
     chunk = -(-ng // min(want, ng))
     return chunk, -(-ng // chunk)
@@ -251,8 +254,7 @@ def w4a8_variant(xq: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor,
     rows, IN = xq.shape
     _operands("w4a8_variant", xq, q4, s4, (IN2, OUT), (NG, OUT))
     u = UNPACKS.index(unpack)
-    gchunk, splits = _split(xq.device, _P2, u, rows, block_o, OUT // block_o,
-                            NG)
+    gchunk, splits = _split(xq.device, u, rows, block_o, OUT // block_o, NG)
     ws = torch.empty((splits, rows, OUT), dtype=torch.float32,
                      device=xq.device)
     y = torch.empty((rows, OUT), dtype=torch.float32, device=xq.device)
@@ -296,12 +298,23 @@ def w4a8_t(xq: torch.Tensor, q4t: torch.Tensor, s4t: torch.Tensor,
         return w4a8_t_reference(xq, q4t, s4t, block_o)
     rows, IN = xq.shape
     _operands("w4a8_t", xq, q4t, s4t, (OUT, IN2), (OUT, NG))
-    gchunk, splits = _split(xq.device, _P4, 0, rows, block_o, OUT // block_o,
-                            NG)
-    ws = torch.empty((splits, rows, OUT), dtype=torch.float32,
-                     device=xq.device)
+    if (IN // NG) % W4A8_GROUP_MULTIPLE or IN % 32 or q4t.data_ptr() % 16:
+        raise ValueError(f"w4a8_t: a group of {IN // NG} inputs must be a "
+                         f"multiple of {W4A8_GROUP_MULTIPLE}, IN = {IN} of "
+                         "32, and q4t 16-byte aligned")
+    if xq.data_ptr() % 16:   # the kernel copies 16-byte chunks of x
+        xq = xq.clone()
+    cap = capacity(xq.device, "vstar_w4a8_t_occupancy",
+                   (16 if rows > 8 else 8,))
+    cluster = decode_plan(NG, OUT, cap, splits=P4_SPLITS,
+                          max_cluster=W4A8_MAX_CLUSTER)
     y = torch.empty((rows, OUT), dtype=torch.float32, device=xq.device)
     _launch("w4a8_t", "vstar_w4a8_t", xq.device, xq.data_ptr(),
-            q4t.data_ptr(), s4t.data_ptr(), ws.data_ptr(), y.data_ptr(), rows,
-            IN, OUT, IN // NG, block_o, gchunk, splits)
+            q4t.data_ptr(), s4t.data_ptr(), y.data_ptr(), rows, IN, OUT,
+            IN // NG, cluster)
     return y
+
+
+def w4a8_t_kernel_info():
+    """Build facts of P4's instantiations (8 / 16 rows)."""
+    return _build.kernel_info("vstar_w4a8_t_kernel_info")

@@ -16,9 +16,8 @@ k-splits of each 128-column strip added across a thread-block cluster
 JAX package leaves them to XLA. A CPU tensor takes the plain version
 `int8_matmul_reference`; a CUDA tensor launches the kernel or raises.
 
-The occupancy query (`capacity`), the split plan of the CUDA-core K6
-(`split_plan`) and the cluster plan of the decode rows (`decode_plan`)
-are shared with the int4 kernels.
+The occupancy query (`capacity`) and the cluster plan of the decode rows
+(`decode_plan`) are shared with the int4 kernels (K5, K6, P4).
 """
 
 from __future__ import annotations
@@ -34,8 +33,6 @@ launches = 0
 plain_calls_cuda = 0
 
 MAX_ROWS = 16          # vstar_tpu DECODE_ROW_LIMIT
-STRIP = 256            # output columns of one K6 block (kMvCols)
-SMEM_X_BYTES = 32768   # shared memory K6's staged x slice may take
 # The tensor-core decode rows (csrc/decode_rows.cuh): a block owns a strip
 # of DECODE_COLS output columns and its k-splits; the blocks of a strip
 # form one cluster of at most DECODE_MAX_CLUSTER.
@@ -85,26 +82,14 @@ def capacity(dev: torch.device, entry: str, args: tuple) -> int:
     return _blocks_per_sm(entry, args) * _sm_count(dev.index or 0)
 
 
-def split_plan(units: int, out: int, max_units: int, resident: int):
-    """Split `units` of the reduction dimension (input rows, or groups)
-    over blocks so that strips x splits fill the card's `resident` block
-    slots without passing them (a second, nearly empty wave costs a whole
-    wave; an idle block slot costs loads in flight), while each split
-    holds at most `max_units`. Returns (units per split, splits); every
-    split is non-empty."""
-    strips = -(-out // STRIP)
-    want = max(resident // strips, -(-units // max_units), 1)
-    chunk = -(-units // min(want, units))
-    return chunk, -(-units // chunk)
-
-
 def decode_plan(units: int, out: int, resident: int, cols: int = DECODE_COLS,
                 splits: int = 4, max_cluster: int = DECODE_MAX_CLUSTER) -> int:
     """Blocks per strip of `cols` output columns (the thread-block cluster
     size: a power of two up to `max_cluster`) of the tensor-core decode
     rows: the most that fill the card's `resident` block slots in one
-    wave, each block taking `splits` k-splits of whole units (K5: groups;
-    K3: ring stages), and no more blocks than give every split a unit.
+    wave, each block taking `splits` k-splits of whole units (K5, K6, P4:
+    groups; K3: ring stages), and no more blocks than give every split a
+    unit.
     Powers of two only: clusters of 3 measured slower than of 2 or 4 on
     the H100 (their blocks fit the GPCs worse)."""
     strips = -(-out // cols)

@@ -9,7 +9,7 @@ Entries, as in the JAX package:
 
 `qdot` dispatches as the JAX `qdot` does: int4 entries take the W4A8
 kernel (K6) under the act-int8 switch where its gate holds (at most 16
-rows, IN % 256 == 0), else the W4A16 kernel (K5); int8 entries take
+rows, IN % 256 == 0, OUT % 128 == 0), else the W4A16 kernel (K5); int8 entries take
 `_w8a8_dot` under the switch, else the int8 matvec kernel (K3/K4) for
 at most 16 rows and a dequantize-and-matmul above (where the JAX package
 leaves the product to XLA). The quantizers round half to even, as
@@ -114,6 +114,8 @@ _ACT_INT8 = False
 # Calls of _w8a8_dot (the act-int8 route of int8 entries: torch._int_mm,
 # no kernel of the port), counted as the kernels count their launches.
 w8a8_calls = 0
+# qdot's route for int4 entries (W4A8 or W4A16), counted on every device
+int4_routes = {"w4a8": 0, "w4a16": 0}
 
 
 def set_act_int8(on: bool):
@@ -170,7 +172,9 @@ def qdot(x: torch.Tensor, entry: WeightEntry) -> torch.Tensor:
     weight entry."""
     if isinstance(entry, dict) and "q4" in entry:
         if _ACT_INT8 and w4a8_applies(x, entry):
+            int4_routes["w4a8"] += 1
             return qdot4_w4a8(x, entry)
+        int4_routes["w4a16"] += 1
         return qdot4(x, entry)
     if isinstance(entry, dict) and "q" in entry:
         if _ACT_INT8:

@@ -5,7 +5,12 @@
 //                a cluster size the caller gives;
 //   --k5-tiles   the tiles (R > 16) at each (BM, BN, stages, k-splits, PF
 //                bits of int4_tile_kernel) of the script's
-//                K5_TILE_VARIANTS (aligned operands only).
+//                K5_TILE_VARIANTS (aligned operands only);
+//   --k6-shapes  K6's and P4's decode rows (W4A8, W4A8T) at each (format,
+//                packed rows per stage, stages, warps along the columns,
+//                k-splits per block, PF bits) of the script's K6_VARIANTS;
+//   --w4a8-quant K6 quantizing its bf16 rows itself (kFmtW4A8Q), against
+//                the shipped row quantization launch + K6.
 // Built with kernel_probe.cu and k3_probe.cu into one library; includes
 // the kernel library's int4_matmul.cu whole.
 #include "../csrc/int4_matmul.cu"
@@ -57,7 +62,63 @@ int dispatch_tile(int v, long long* vals, const bf16* x, const uint8_t* q4, cons
   return (int)cudaErrorInvalidValue;
 }
 
+// P4's shipped shape (int4_variants.cu VSTAR_P4_DECODE, which this
+// library does not include).
+#define VSTAR_P4_SHAPE kFmtW4A8T, 64, 3, 1, 2, 0
+
+// The order of kernel_probe.py's K6_VARIANTS: (format, packed rows per
+// stage, stages, warps along the columns, k-splits per block, PF).
+int dispatch_k6(int v, bool info_only, int rows, bool aligned, long long* vals, const void* x,
+                const uint8_t* q4, const float* s4, const float* sx, void* y, long long in,
+                long long out, int group, int cluster, int y_f32, bool pdl, cudaStream_t st) {
+#define VSTAR_ARGS \
+  info_only, rows, aligned, vals, x, q4, s4, sx, y, in, out, group, cluster, y_f32, pdl, st
+  switch (v) {
+    case 0: return run_w4a8<VSTAR_K6_DECODE>(VSTAR_ARGS);              // shipped
+    case 1: return run_w4a8<kFmtW4A8Q, 64, 3, 2, 1, 0>(VSTAR_ARGS);   // rows quantized inside
+    case 2: return run_w4a8<kFmtW4A8, 32, 3, 1, 4, 0>(VSTAR_ARGS);    // K5's shape
+    case 3: return run_w4a8<kFmtW4A8, 32, 4, 1, 4, 0>(VSTAR_ARGS);
+    case 4: return run_w4a8<kFmtW4A8, 32, 3, 1, 2, 0>(VSTAR_ARGS);
+    case 5: return run_w4a8<kFmtW4A8, 64, 3, 1, 2, 0>(VSTAR_ARGS);
+    case 6: return run_w4a8<kFmtW4A8, 32, 3, 2, 2, 0>(VSTAR_ARGS);
+    case 7: return run_w4a8<kFmtW4A8, 64, 4, 1, 2, 0>(VSTAR_ARGS);
+    case 8: return run_w4a8<kFmtW4A8, 64, 3, 1, 4, 0>(VSTAR_ARGS);
+    case 9: return run_w4a8<kFmtW4A8, 64, 4, 1, 1, 0>(VSTAR_ARGS);
+    case 10: return run_w4a8<kFmtW4A8, 64, 3, 2, 1, 4>(VSTAR_ARGS);   // no products
+    case 11: return run_w4a8<kFmtW4A8, 64, 3, 2, 1, 8>(VSTAR_ARGS);   // no weight copies
+    case 12: return run_w4a8<kFmtW4A8, 64, 3, 2, 1, 16>(VSTAR_ARGS);  // nothing
+    case 13: return run_w4a8<VSTAR_P4_SHAPE>(VSTAR_ARGS);              // P4 shipped
+    case 14: return run_w4a8<kFmtW4A8T, 32, 3, 1, 4, 0>(VSTAR_ARGS);
+    case 15: return run_w4a8<kFmtW4A8T, 32, 4, 1, 4, 0>(VSTAR_ARGS);
+    case 16: return run_w4a8<kFmtW4A8T, 64, 4, 1, 2, 0>(VSTAR_ARGS);
+    case 17: return run_w4a8<kFmtW4A8T, 64, 3, 1, 4, 0>(VSTAR_ARGS);
+    case 18: return run_w4a8<kFmtW4A8T, 64, 3, 2, 1, 0>(VSTAR_ARGS);  // K6's shape
+    case 19: return run_w4a8<kFmtW4A8T, 64, 3, 1, 2, 4>(VSTAR_ARGS);  // no products
+  }
+#undef VSTAR_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
+
+// Build facts of K6 variant v (vstar_int4_kernel_info's six values).
+extern "C" int probe_k6_info(int v, long long rows, long long aligned, long long* vals) {
+  return dispatch_k6(v, true, (int)rows, aligned != 0, vals, nullptr, nullptr, nullptr,
+                     nullptr, nullptr, 0, 0, 0, 0, 0, false, nullptr);
+}
+
+// vstar_int4_w4a8's arguments (x int8; bf16 for the W4A8Q variant; q4t
+// and s4t for the W4A8T ones), with the variant first.
+extern "C" int probe_k6(int v, const void* x, const void* q4, const void* s4, const void* sx,
+                        void* y, long long rows, long long in, long long out, long long group,
+                        long long cluster, long long aligned, long long y_f32, long long pdl,
+                        void* stream) {
+  if (rows < 1 || rows > 16 || group % 64 || in % group) return (int)cudaErrorInvalidValue;
+  return dispatch_k6(v, false, (int)rows, aligned != 0, nullptr, x,
+                     static_cast<const uint8_t*>(q4), static_cast<const float*>(s4),
+                     static_cast<const float*>(sx), y, in, out, (int)group, (int)cluster,
+                     (int)y_f32, pdl != 0, static_cast<cudaStream_t>(stream));
+}
 
 // Build facts of decode-row variant v (vstar_int4_kernel_info's six values).
 extern "C" int probe_k5_info(int v, long long rows, long long aligned, long long* vals) {

@@ -15,7 +15,9 @@ experiment that decides the W4A8 (K6) design. Stages (flags):
                   first held to K6 on one weight. Reports the kernel's
                   device ms, the ms of the whole qdot (activation
                   quantization and scale inside the timing, as the decode
-                  runs it) and GB/s on the weight bytes.
+                  runs it: K6's qdot4_w4a8 in its two launches, a
+                  candidate after quantize_rows and times sx) and GB/s on
+                  the weight bytes.
   --library-int4  the library question (the JAX script's --xla-int4), on the
                   first shape only: tinygemm (torch._weight_int4pack_mm), a
                   bf16 dequantize then torch.matmul, and torch._int_mm on the
@@ -27,7 +29,8 @@ experiment that decides the W4A8 (K6) design. Stages (flags):
                   an int8 lm_head, int8 layers with an int4 lm_head, and the
                   unquantized bf16 decoder. Per row: ms per token from one
                   CUDA graph of the 8-token loop (device), ms per token of
-                  the eager loop (CUDA events), and kernel launches per token.
+                  the eager loop (CUDA events), and kernel launches and
+                  qdot's int4 routes (W4A8, W4A16) per token.
 
 Device time comes from CUDA graphs: one graph over the L distinct weight
 copies (more than the 50 MB L2 in all, so weights come from HBM, as in
@@ -177,12 +180,15 @@ def kernel_call(mode: str, e: Dict, x, xq):
 def apply(mode: str, e: Dict, x):
     """The whole qdot of the mode on bf16 x: for W4A8 the per-row int8
     activation quantization, the kernel and the activation scale (the
-    decode's work per matrix, qdot4_w4a8)."""
+    decode's work per matrix): K6's own qdot4_w4a8, or a candidate after
+    quantize_rows."""
     if mode == "int8":
         return quant.qdot(x, e)
     if mode == "w4a16":
         return k4.qdot4(x, e)
-    xq, sx = k4.quantize_activations(x.float())
+    if mode in ("w4a8", "w4a8_pc"):
+        return k4.qdot4_w4a8(x, e)
+    xq, sx = k4.quantize_rows(x)
     return (kernel_call(mode, e, None, xq) * sx).to(x.dtype)
 
 
@@ -215,7 +221,7 @@ def bench_matmuls(modes=DEFAULT_MODES, device="cuda", shapes=SHAPES,
             stack = _stacked(mode, IN, OUT, L, gen, device)
             x = torch.randn(1, IN, generator=gen, device=device).to(
                 torch.bfloat16)
-            xq, _ = k4.quantize_activations(x.float())
+            xq, _ = k4.quantize_rows(x)
             rec = {}
             if mode.startswith("w4a8_") and mode != "w4a8_pc":
                 xq1 = torch.randint(-127, 128, (1, IN), generator=gen,
@@ -387,7 +393,10 @@ def decode_params(cfg: LlamaConfig, device, seed: int = 0) -> Dict:
 COUNTED = {"K1": (fa, "launches", None), "K3": (k8, "launches", None),
            "K5": (k4, "launches", "int4_matmul"),
            "K6": (k4, "launches", "int4_matmul_w4a8"),
-           "_w8a8_dot": (quant, "w8a8_calls", None)}
+           "quantize_rows": (k4, "launches", "quantize_rows"),
+           "_w8a8_dot": (quant, "w8a8_calls", None),
+           "qdot_w4a8": (quant, "int4_routes", "w4a8"),
+           "qdot_w4a16": (quant, "int4_routes", "w4a16")}
 
 
 def _counts() -> Dict[str, int]:
@@ -406,9 +415,11 @@ def _plain_on_cuda() -> int:
 def bench_decode(device="cuda", cfg: Optional[LlamaConfig] = None,
                  params: Optional[Dict] = None, act_dtype=torch.bfloat16,
                  rows=DECODE_ROWS, seed: int = 0) -> List[Dict]:
-    """Each row's decode: its output, launches per token (K1, K3, K5, K6,
-    _w8a8_dot) and plain-version calls on CUDA tensors; on the card also
-    ms per token by CUDA graph (device) and by events (eager)."""
+    """Each row's decode: its output, launches per token (K1, K3, K5, K6
+    and its row quantization, _w8a8_dot), qdot's int4 routes per token
+    (counted on every device) and plain-version calls on CUDA tensors; on
+    the card also ms per token by CUDA graph (device) and by events
+    (eager)."""
     cfg = cfg or vsm_7b().llama
     on_card = torch.device(device).type == "cuda"
     if params is None:

@@ -5,6 +5,9 @@
 // library, which it includes whole (BwdParams, the kernels and their
 // launchers come from there).
 #include "../csrc/flash_attention_bwd.cu"
+// vstar_graph_kernel_nodes, which --ab reads for the launches of a call in
+// any checkout (--root)
+#include "../csrc/graph_info.cu"
 
 namespace {
 

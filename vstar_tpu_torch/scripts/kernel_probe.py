@@ -1,5 +1,6 @@
-"""K7 (flash-attention backward), K3/K4 (int8 decode rows) and K5 (decode
-rows and tiles), measured on the H100.
+"""K7 (flash-attention backward), K3/K4 (int8 decode rows), K5 (decode
+rows and tiles), K6 (W4A8 decode rows) with its qdot, and P4, measured on
+the H100.
 
   --ab        device ms (one CUDA graph over input copies that exceed the
               L2 cache, median of 7 replays) of K7 at the training case
@@ -19,6 +20,14 @@ rows and tiles), measured on the H100.
               file by its path, so that DIR's vstar_tpu_torch is imported),
               which compares two trees on one card, in turns:
                 python3 vstar_tpu_torch/scripts/kernel_probe.py --ab --root ../parent
+              --ab also runs --w4a8-ab.
+  --w4a8-ab   K6 at 1, 2, 8 and 16 rows on 4096x11008, 11008x4096 and
+              4096x4096 (and 8 rows on the 32003-wide lm_head), its whole
+              qdot on bf16 x at the same cases (device ms, and the kernels
+              one call launches, read from its CUDA graph), and P4 at 1
+              and 8 rows on 4096x11008 and 4096x32000 beside K6 on the same
+              product (the layout's verdict); each held to its plain
+              version first. Takes --root as --ab does.
   --k7-tiles  K7's dQ and dK/dV kernels at other tiles (DQ_VARIANTS,
               DKV_VARIANTS; kernel_probe.cu instantiates them and is built
               beside the kernel library): registers, spills, resident
@@ -47,6 +56,18 @@ rows and tiles), measured on the H100.
               K5_TILE_VARIANTS (int4_probe.cu): build facts, device ms and
               error against the plain version at R = 17, 64, 128, 384 and
               768 on 4096x11008 and 11008x4096, beside the plan's choice.
+  --k6-shapes K6's and P4's decode rows at each K6_VARIANT (format, ring
+              shape, and parts of the work left out; int4_probe.cu): build
+              facts, device ms and error against the plain version at R =
+              1 and 16 on 4096x11008, 11008x4096 and 4096x4096.
+  --w4a8-quant where K6's qdot quantizes its rows, at R = 1 and 16 on
+              4096x11008 and 11008x4096: the shipped two launches
+              (quantize_rows, then K6 dependent on it), the same without
+              the programmatic dependent launch, and K6 quantizing its
+              bf16 rows itself in one launch (K6_VARIANTS[1], every block
+              reading its rows whole); beside the quantization and K6
+              alone. Device ms, launches from the CUDA graph, and the
+              one-launch result bit-equal to the shipped one.
 
     python3 -m vstar_tpu_torch.scripts.kernel_probe --ab --k3-shapes --k5-tiles
 
@@ -93,6 +114,21 @@ K5_TILE_VARIANTS = [(64, 128, 3, 1, 0), (128, 256, 3, 1, 0), (128, 128, 3, 1, 0)
                     (128, 256, 3, 4, 0), (128, 256, 4, 1, 0), (128, 256, 3, 1, 2),
                     (128, 256, 3, 1, 4), (128, 256, 3, 1, 8), (128, 256, 3, 1, 6)]
 K3_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32003))
+# (format, packed rows per stage, stages, warps along the columns, k-splits
+# per block, PF bits of decode_rows.cuh: + 4 no products, + 8 no weight
+# copies, + 16 nothing); int4_probe.cu's order. Formats: "w4a8" (K6, the
+# first is shipped), "w4a8q" (K6 quantizing its bf16 rows itself),
+# "w4a8t" (P4's transposed storage, P4_SHIPPED first of them)
+K6_VARIANTS = [("w4a8", 64, 3, 2, 1, 0), ("w4a8q", 64, 3, 2, 1, 0), ("w4a8", 32, 3, 1, 4, 0),
+               ("w4a8", 32, 4, 1, 4, 0), ("w4a8", 32, 3, 1, 2, 0), ("w4a8", 64, 3, 1, 2, 0),
+               ("w4a8", 32, 3, 2, 2, 0), ("w4a8", 64, 4, 1, 2, 0), ("w4a8", 64, 3, 1, 4, 0),
+               ("w4a8", 64, 4, 1, 1, 0), ("w4a8", 64, 3, 2, 1, 4), ("w4a8", 64, 3, 2, 1, 8),
+               ("w4a8", 64, 3, 2, 1, 16), ("w4a8t", 64, 3, 1, 2, 0), ("w4a8t", 32, 3, 1, 4, 0),
+               ("w4a8t", 32, 4, 1, 4, 0), ("w4a8t", 64, 4, 1, 2, 0), ("w4a8t", 64, 3, 1, 4, 0),
+               ("w4a8t", 64, 3, 2, 1, 0), ("w4a8t", 64, 3, 1, 2, 4)]
+K6_SHIPPED, P4_SHIPPED = 0, 13   # their cluster sizes are swept too
+K6_SHAPES = ((4096, 11008), (11008, 4096), (4096, 4096))
+HBM = 3.35e12
 TILE_ROWS = (17, 64, 128, 384, 768)
 HERE = Path(__file__).resolve().parent
 L2_BYTES = 50 * 2**20
@@ -585,6 +621,232 @@ def k7_tiles(dev):
     return res
 
 
+def _w4a8_bound(rows, IN, OUT, NG, x_bytes, out_bytes):
+    """The byte bound of a W4A8 product: packed weights, scales, x (int8,
+    or bf16 for a qdot), the output."""
+    return (IN // 2 * OUT + 4 * NG * OUT + x_bytes * rows * IN
+            + out_bytes * rows * OUT) / HBM * 1e3
+
+
+def _graph_launches(fn):
+    """Kernels one call of fn launches, read from its CUDA graph
+    (graph_info.cu, built into the probe library, so that it serves any
+    checkout)."""
+    lib = _probe_library()
+    lib.vstar_graph_kernel_nodes.argtypes = [ctypes.c_void_p] * 3
+    lib.vstar_graph_kernel_nodes.restype = ctypes.c_int
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    k, n = ctypes.c_longlong(), ctypes.c_longlong()
+    code = lib.vstar_graph_kernel_nodes(ctypes.c_void_p(graph.raw_cuda_graph()),
+                                        ctypes.byref(k), ctypes.byref(n))
+    if code != 0:
+        raise RuntimeError(f"vstar_graph_kernel_nodes: CUDA error {code}")
+    del graph
+    return k.value
+
+
+def ab_w4a8(dev):
+    """K6, its qdot and P4 through the checkout's wrappers (--w4a8-ab)."""
+    from vstar_tpu_torch.kernels import int4_matmul as k4
+    from vstar_tpu_torch.kernels import int4_variants as kv
+    from vstar_tpu_torch.utils.timing import graph_ms
+    gen = torch.Generator(device=dev).manual_seed(6)
+    res = {"k6": [], "qdot": [], "p4": []}
+    cases = [(r, IN, OUT) for IN, OUT in K6_SHAPES for r in (1, 2, 8, 16)]
+    for rows, IN, OUT in cases + [(8, 4096, 32003)]:
+        e = _int4_entry(gen, dev, IN, OUT)
+        NG = e["s4"].shape[0]
+        xq = torch.randint(-127, 128, (rows, IN), generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.int8)
+        before = k4.launches["int4_matmul_w4a8"]
+        got = k4.int4_matmul_w4a8(xq, e["q4"], e["s4"])
+        launches = k4.launches["int4_matmul_w4a8"] - before
+        err = _rel(got, k4.int4_matmul_w4a8_reference(xq, e["q4"], e["s4"]))
+        variants = _copies(dict(xq=xq, q4=e["q4"], s4=e["s4"]), ("q4", "s4"))
+        ms = graph_ms([lambda a=a: k4.int4_matmul_w4a8(a["xq"], a["q4"], a["s4"])
+                       for a in variants])
+        res["k6"].append({"case": f"R={rows} {IN}x{OUT}", "ms": ms,
+                          "bound_ms": _w4a8_bound(rows, IN, OUT, NG, 1, 4), "max_rel_err": err,
+                          "launches_per_call": launches, "copies": len(variants)})
+        if OUT % 128 == 0:   # the qdot: the W4A8 gate's shapes only
+            x = _bf16(gen, dev, rows, IN)
+            want_xq, want_sx = k4.quantize_activations(x.float())
+            want = k4.int4_matmul_w4a8_reference(want_xq, e["q4"], e["s4"]) * want_sx
+            q = k4.qdot4_w4a8(x, e)
+            err = float(((q.float() - want).abs() - 2.0 ** -8 * want.abs()).clamp(min=0).max()
+                        / want.abs().max())
+            qms = graph_ms([lambda a=a: k4.qdot4_w4a8(x, {"q4": a["q4"], "s4": a["s4"]})
+                            for a in variants])
+            res["qdot"].append({"case": f"R={rows} {IN}x{OUT}", "ms": qms, "kernel_ms": ms,
+                                "bound_ms": _w4a8_bound(rows, IN, OUT, NG, 2, 2),
+                                "err_beyond_bf16": err,
+                                "kernels_per_call": _graph_launches(
+                                    lambda: k4.qdot4_w4a8(x, e))})
+        del variants
+    for rows, IN, OUT in ((1, 4096, 11008), (8, 4096, 11008), (1, 4096, 32000),
+                          (8, 4096, 32000)):
+        e = _int4_entry(gen, dev, IN, OUT)
+        NG = e["s4"].shape[0]
+        xq = torch.randint(-127, 128, (rows, IN), generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.int8)
+        q4t, s4t = e["q4"].t().contiguous(), e["s4"].t().contiguous()
+        k6 = k4.int4_matmul_w4a8(xq, e["q4"], e["s4"])
+        got = kv.w4a8_t(xq, q4t, s4t, 256)
+        err = _rel(got, kv.w4a8_t_reference(xq, q4t, s4t, 256))
+        variants = _copies(dict(xq=xq, q4t=q4t, s4t=s4t, q4=e["q4"], s4=e["s4"]),
+                           ("q4t", "s4t", "q4", "s4"))
+        p4_ms = graph_ms([lambda a=a: kv.w4a8_t(a["xq"], a["q4t"], a["s4t"], 256)
+                          for a in variants])
+        k6_ms = graph_ms([lambda a=a: k4.int4_matmul_w4a8(a["xq"], a["q4"], a["s4"])
+                          for a in variants])
+        res["p4"].append({"case": f"R={rows} {IN}x{OUT}", "ms": p4_ms, "k6_ms": k6_ms,
+                          "bound_ms": _w4a8_bound(rows, IN, OUT, NG, 1, 4), "max_rel_err": err,
+                          "rel_err_vs_k6": _rel(got, k6), "copies": len(variants)})
+        del variants
+    return res
+
+
+def _k6_lib():
+    lib = _probe_library()
+    ll, p = ctypes.c_longlong, ctypes.c_void_p
+    lib.probe_k6.argtypes = [ctypes.c_int] + [p] * 5 + [ll] * 8 + [p]
+    lib.probe_k6.restype = ctypes.c_int
+    lib.probe_k6_info.argtypes = [ctypes.c_int, ll, ll, ctypes.POINTER(ll)]
+    lib.probe_k6_info.restype = ctypes.c_int
+    return lib
+
+
+def _k6_call(lib, vi, dev, x, q, s, sx, y, rows, IN, OUT, group, cluster):
+    from vstar_tpu_torch.kernels import _build
+    code = lib.probe_k6(vi, x.data_ptr(), q.data_ptr(), s.data_ptr(),
+                        None if sx is None else sx.data_ptr(), y.data_ptr(), rows, IN, OUT,
+                        group, cluster, int(OUT % 16 == 0), int(y.dtype == torch.float32),
+                        0, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(_build.library(), code, f"k6 variant {vi}")
+
+
+def _k6_cluster(lib, vi, rows, NG, OUT, sms):
+    """The plan's cluster size for K6_VARIANTS[vi] (K6's own for the
+    shipped shape, decode_plan's at K6's largest cluster for the others),
+    and the variant's build facts."""
+    from vstar_tpu_torch.kernels import int4_matmul as k4
+    info = (ctypes.c_longlong * 6)()
+    lib.probe_k6_info(vi, rows, int(OUT % 16 == 0), info)
+    if vi == K6_SHIPPED:
+        return k4.w4a8_plan(NG, OUT, info[4] * sms, sms), info
+    wc, wk = K6_VARIANTS[vi][3:5]
+    return k4.decode_plan(NG, OUT, info[4] * sms, 128 * wc, wk,
+                          k4.W4A8_MAX_CLUSTER), info
+
+
+def k6_shapes(dev):
+    """Each K6_VARIANT's build facts, and its device ms and error against
+    the plain version at R = 1 and 16 on K6_SHAPES (the plan's cluster)."""
+    from vstar_tpu_torch.kernels import int4_matmul as k4
+    lib = _k6_lib()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(7)
+    res = {"build": {}, "cases": {}}
+    for vi, shape in enumerate(K6_VARIANTS):
+        for rows in (1, 16):
+            _, info = _k6_cluster(lib, vi, rows, 32, 11008, sms)
+            res["build"][f"{shape} R{rows}"] = {
+                "registers": info[0], "local_bytes": info[1], "dynamic_smem": info[3],
+                "blocks_per_sm": info[4]}
+    for IN, OUT in K6_SHAPES:
+        e = _int4_entry(gen, dev, IN, OUT)
+        NG = e["s4"].shape[0]
+        for rows in (1, 16):
+            xq = torch.randint(-127, 128, (rows, IN), generator=gen, device=dev,
+                               dtype=torch.int32).to(torch.int8)
+            x = _bf16(gen, dev, rows, IN)
+            want = k4.int4_matmul_w4a8_reference(xq, e["q4"], e["s4"])
+            qxq, qsx = k4.quantize_activations(x.float())
+            want_q = (k4.int4_matmul_w4a8_reference(qxq, e["q4"], e["s4"]) * qsx)
+            variants = _copies(dict(q4=e["q4"], s4=e["s4"], q4t=e["q4"].t().contiguous(),
+                                    s4t=e["s4"].t().contiguous()), ("q4", "s4", "q4t", "s4t"))
+            row = {}
+            for vi, shape in enumerate(K6_VARIANTS):
+                fmt, wk = shape[0], shape[4]
+                plan, _ = _k6_cluster(lib, vi, rows, NG, OUT, sms)
+                clusters = {plan}
+                if vi in (K6_SHIPPED, P4_SHIPPED):   # and the plan at 16
+                    clusters |= {c for c in (2, 4, 8, 16) if -(-NG // wk) >= c}
+                qk, sk = ("q4t", "s4t") if fmt == "w4a8t" else ("q4", "s4")
+                xin = x if fmt == "w4a8q" else xq
+                ydt = torch.bfloat16 if fmt == "w4a8q" else torch.float32
+                ys = [torch.empty(rows, OUT, dtype=ydt, device=dev) for _ in variants]
+                ref = want_q if fmt == "w4a8q" else want
+                for cl in sorted(clusters):
+                    def call(a, y, vi=vi, cl=cl, qk=qk, sk=sk, xin=xin):
+                        _k6_call(lib, vi, dev, xin, a[qk], a[sk], None, y, rows, IN, OUT,
+                                 IN // NG, cl)
+                    tag = " (plan)" if cl == plan else ""
+                    row[f"{shape} cluster {cl}{tag}"] = _timed_variant(call, variants, ys, ref)
+            res["cases"][f"R={rows} {IN}x{OUT}"] = row
+            del variants
+    return res
+
+
+def w4a8_quant(dev):
+    """Where K6's qdot quantizes its rows (--w4a8-quant)."""
+    from vstar_tpu_torch.kernels import int4_matmul as k4
+    from vstar_tpu_torch.utils.timing import graph_ms
+    lib = _k6_lib()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(8)
+    res = []
+    for IN, OUT in ((4096, 11008), (11008, 4096)):
+        e = _int4_entry(gen, dev, IN, OUT)
+        NG = e["s4"].shape[0]
+        for rows in (1, 16):
+            x = _bf16(gen, dev, rows, IN)
+            variants = _copies(dict(q4=e["q4"], s4=e["s4"]), ("q4", "s4"))
+            # its own plan (more shared memory: maybe fewer blocks), and the
+            # shipped one's, under which the sums are the shipped ones
+            cl, _ = _k6_cluster(lib, 1, rows, NG, OUT, sms)
+            cl0, _ = _k6_cluster(lib, 0, rows, NG, OUT, sms)
+            ys = [torch.empty(rows, OUT, dtype=torch.bfloat16, device=dev) for _ in variants]
+
+            def one_launch(a, y, cl=cl):
+                _k6_call(lib, 1, dev, x, a["q4"], a["s4"], None, y, rows, IN, OUT,
+                         IN // NG, cl)
+
+            def shipped(a):
+                return k4.qdot4_w4a8(x, a)
+
+            def no_pdl(a):   # the shipped qdot without the dependent launch
+                xq, sx = k4.quantize_rows(x)
+                y = torch.empty((rows, OUT), dtype=x.dtype, device=dev)
+                return k4._launch_w4a8(xq, a["q4"], a["s4"], sx, y, pdl=False)
+            one_launch(variants[0], ys[0], cl0)
+            ref = shipped(variants[0])
+            torch.cuda.synchronize()
+            xq, sx = k4.quantize_rows(x)
+            rec = {"case": f"R={rows} {IN}x{OUT}", "clusters": [cl, cl0],
+                   "one_launch_bit_equal": bool(torch.equal(ys[0], ref)),
+                   "shipped_ms": graph_ms([lambda a=a: shipped(a) for a in variants]),
+                   "no_pdl_ms": graph_ms([lambda a=a: no_pdl(a) for a in variants]),
+                   "one_launch_ms": graph_ms([lambda a=a, y=y: one_launch(a, y)
+                                              for a, y in zip(variants, ys)]),
+                   "quantize_ms": graph_ms([lambda: k4.quantize_rows(x)] * len(variants)),
+                   "k6_ms": graph_ms([lambda a=a: k4.int4_matmul_w4a8(xq, a["q4"], a["s4"])
+                                      for a in variants]),
+                   "kernels": {"shipped": _graph_launches(lambda: shipped(variants[0])),
+                               "one_launch": _graph_launches(
+                                   lambda: one_launch(variants[0], ys[0]))}}
+            res.append(rec)
+            del variants, ys
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ab", action="store_true")
@@ -592,6 +854,9 @@ def main(argv=None) -> int:
     ap.add_argument("--k5-shapes", action="store_true")
     ap.add_argument("--k3-shapes", action="store_true")
     ap.add_argument("--k5-tiles", action="store_true")
+    ap.add_argument("--w4a8-ab", action="store_true")
+    ap.add_argument("--k6-shapes", action="store_true")
+    ap.add_argument("--w4a8-quant", action="store_true")
     ap.add_argument("--calibrate", action="store_true")
     ap.add_argument("--root", default=None,
                     help="checkout whose vstar_tpu_torch --ab measures")
@@ -612,6 +877,8 @@ def main(argv=None) -> int:
         out["k3"] = ab_k3(dev)
         out["k5"] = ab_k5(dev)
         out["k5_tile"] = ab_k5_tiles(dev)
+    if args.ab or args.w4a8_ab:
+        out["w4a8"] = ab_w4a8(dev)
     if args.k7_tiles:
         out["k7_tiles"] = k7_tiles(dev)
     if args.k5_shapes:
@@ -622,6 +889,10 @@ def main(argv=None) -> int:
         out["k3_shapes"] = k3_shapes(dev)
     if args.k5_tiles:
         out["k5_tile_sweep"] = k5_tiles(dev)
+    if args.k6_shapes:
+        out["k6_shapes"] = k6_shapes(dev)
+    if args.w4a8_quant:
+        out["w4a8_quant"] = w4a8_quant(dev)
     text = json.dumps(out)
     print(text, flush=True)
     if args.out:

@@ -64,6 +64,34 @@ def graph_ms(calls, reps: int = 7) -> float:
     return float(np.median(times))
 
 
+def graph_kernels(fn, lib=None) -> tuple:
+    """(kernel launches, graph nodes) of one call of fn, read from the
+    CUDA graph it is captured into (warmed up on a side stream first, so
+    that no first-call set-up is captured). `lib` is a loaded library with
+    vstar_graph_kernel_nodes (csrc/graph_info.cu); the kernel library by
+    default."""
+    import ctypes
+    if lib is None:
+        from ..kernels import _build
+        lib = _build.library()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    kernels, nodes = ctypes.c_longlong(), ctypes.c_longlong()
+    code = lib.vstar_graph_kernel_nodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.byref(kernels),
+        ctypes.byref(nodes))
+    if code != 0:
+        raise RuntimeError(f"vstar_graph_kernel_nodes: CUDA error {code}")
+    del graph
+    return kernels.value, nodes.value
+
+
 def card_line() -> str:
     """The card's name and power limit, as `nvidia-smi
     --query-gpu=name,power.limit --format=csv,noheader` prints them."""
