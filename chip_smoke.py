@@ -4,8 +4,9 @@ Runs on one CUDA card, in phases; any failure exits non-zero:
   1. card and versions;
   2. build the CUDA kernels from vstar_tpu_torch/csrc (one nvcc per
      source, in parallel), and log every K1/K7/K2 instantiation's, K3's,
-     K5's (decode rows and tiles), K6's and P4's registers, local (spill)
-     bytes, shared memory and resident blocks per SM;
+     K5's (decode rows and tiles), K6's and P2-P4's registers, local
+     (spill) bytes, shared memory and resident blocks per SM; the weight
+     and activation quantizers on the card give numpy's bits;
   3. every kernel against its plain PyTorch version at the 7B shapes of
      the path: K1 flash attention, K2 tower attention, the int8 matvec
      (K3/K4) at R in {1, 8, 16} and at R=1 on 4096x4096 and 11008x4096,
@@ -174,6 +175,35 @@ def phase_build():
             f"per SM")
     KERNEL_INFO[:] = info
     return info
+
+
+def phase_quantizers(dev):
+    """The quantizers that run on the card when the server quantizes its
+    weights there (quantize_weight, quantize_weight_int4) and _w8a8_dot's
+    row quantization give numpy's bits (IEEE division, as JAX divides):
+    a 4096x11008 weight and a [256, 4096] activation from the seed."""
+    from vstar_tpu_torch.nn import quant
+    rng = np.random.RandomState(SEED + 9)
+    w = (rng.randn(4096, 11008) * 0.02).astype(np.float32)
+    wd = torch.from_numpy(w).to(dev)
+    pairs = [("quantize_weight", quant.quantize_weight(wd),
+              quant.quantize_weight_np(w)),
+             ("quantize_weight_int4", quant.quantize_weight_int4(wd),
+              quant.quantize_weight_int4_np(w))]
+    x = rng.randn(256, 4096).astype(np.float32)
+    xq, sx = quant.w8a8_quantize(torch.from_numpy(x).to(dev))
+    s_np = np.maximum(np.abs(x).max(axis=-1, keepdims=True) / 127.0,
+                      np.float32(1e-8)).astype(np.float32)
+    pairs.append(("w8a8_quantize", {"q": xq, "s": sx},
+                  {"q": np.clip(np.round(x / s_np), -127, 127)
+                   .astype(np.int8), "s": s_np}))
+    for name, got, want in pairs:
+        for k, v in want.items():
+            diff = int((got[k].cpu().numpy() != v).sum())
+            log(f"[quantizers] {name} {k}: {diff} of {v.size} differ from "
+                "numpy's bits")
+            if diff:
+                raise AssertionError(f"{name} {k}: {diff} values off numpy")
 
 
 # ---------------------------------------------------------------------------
@@ -1469,6 +1499,7 @@ def main() -> int:
 
     smi = phase_device()
     kernel_info = phase_build()
+    phase_quantizers(dev)
     cases = {"flash_attention": phase_k1(dev),
              "tower_attention": phase_k2(dev),
              "int8_matvec": phase_int8(dev)}

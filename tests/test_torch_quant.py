@@ -376,3 +376,43 @@ def test_wrappers_take_plain_version_on_cpu_only():
         k4.int4_matmul(meta[0], *meta[3:])
     with pytest.raises(ValueError, match="unsupported device"):
         k4.int4_matmul_w4a8(meta[0].to(torch.int8), *meta[3:])
+
+
+def _w8a8_quantize_np(xf):
+    """JAX _w8a8_dot's activation rule in numpy: divide, then clamp."""
+    sx = np.maximum(np.max(np.abs(xf), axis=-1, keepdims=True) / 127.0,
+                    np.float32(1e-8)).astype(np.float32)
+    return np.clip(np.round(xf / sx), -127, 127).astype(np.int8), sx
+
+
+def test_w8a8_quantize_gives_numpy_bits():
+    x = np.random.RandomState(4).randn(64, 512).astype(np.float32)
+    x[0] = 0.0                                  # the 1e-8 floor
+    xq, sx = tq.w8a8_quantize(t(x))
+    want_q, want_s = _w8a8_quantize_np(x)
+    np.testing.assert_array_equal(sx.numpy(), want_s)
+    np.testing.assert_array_equal(xq.numpy(), want_q)
+
+
+@pytest.mark.gpu
+def test_quantizers_on_card_give_numpy_bits():
+    """On CUDA, quantize_weight, quantize_weight_int4 and _w8a8_dot's row
+    quantization divide as IEEE does (PyTorch divides by a Python scalar
+    through its reciprocal there): their scales and codes are numpy's
+    bits on a 4096x11008 weight and a [256, 4096] activation."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.RandomState(2024)
+    w = (rng.randn(4096, 11008) * 0.02).astype(np.float32)
+    wd = t(w).cuda()
+    for got, want in ((tq.quantize_weight(wd), tq.quantize_weight_np(w)),
+                      (tq.quantize_weight_int4(wd),
+                       tq.quantize_weight_int4_np(w))):
+        for k in want:
+            np.testing.assert_array_equal(got[k].cpu().numpy(), want[k],
+                                          err_msg=k)
+    x = rng.randn(256, 4096).astype(np.float32)
+    xq, sx = tq.w8a8_quantize(t(x).cuda())
+    want_q, want_s = _w8a8_quantize_np(x)
+    np.testing.assert_array_equal(sx.cpu().numpy(), want_s)
+    np.testing.assert_array_equal(xq.cpu().numpy(), want_q)

@@ -39,11 +39,18 @@ INT4MIX_INT4_KEYS = ("w_gate", "w_up", "lm_head")
 _LLAMA_QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
+def _ieee_div(a: torch.Tensor, d: float) -> torch.Tensor:
+    """a / d by IEEE division, as JAX and the CPU divide: on CUDA, PyTorch
+    divides by a Python scalar as a multiply by its reciprocal, one ulp
+    off the quotient for ~4 % of values; a tensor divisor divides."""
+    return a / torch.full_like(a, d)
+
+
 def quantize_weight(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     """w: [..., in, out] float -> {'q': int8, 's': f32 per-out-channel}.
     The reduction (in) axis shares a scale."""
     wf = w.float()
-    scale = torch.clamp(wf.abs().amax(dim=-2, keepdim=True) / 127.0,
+    scale = torch.clamp(_ieee_div(wf.abs().amax(dim=-2, keepdim=True), 127.0),
                         min=1e-8)
     q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
     return {"q": q, "s": scale}
@@ -74,7 +81,8 @@ def quantize_weight_int4(w: torch.Tensor, group: int = GROUP4
     if IN % 2:
         raise ValueError(f"int4 needs an even reduction dim, got {IN}")
     g = wf.reshape(*lead, IN // group, group, OUT)
-    scale = torch.clamp(g.abs().amax(dim=-2, keepdim=True) / 7.0, min=1e-8)
+    scale = torch.clamp(_ieee_div(g.abs().amax(dim=-2, keepdim=True), 7.0),
+                        min=1e-8)
     q = torch.clamp(torch.round(g / scale), -8, 7).to(torch.int16) & 0xF
     q = q.reshape(*lead, IN, OUT)
     packed = (q[..., 0::2, :] | (q[..., 1::2, :] << 4)).to(torch.uint8)
@@ -143,14 +151,21 @@ def _int32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a, b.contiguous())[:M, :N]
 
 
+def w8a8_quantize(xf: torch.Tensor):
+    """_w8a8_dot's per-row int8 activations of f32 rows: sx = max(amax /
+    127, 1e-8) (JAX's order: divide, then clamp), xq = clamp(round(xf /
+    sx), -127, 127); (xq int8, sx f32 [..., 1])."""
+    sx = torch.clamp(_ieee_div(xf.abs().amax(dim=-1, keepdim=True), 127.0),
+                     min=1e-8)
+    return torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8), sx
+
+
 def _w8a8_dot(x: torch.Tensor, entry) -> torch.Tensor:
     """Per-row int8 activations against per-channel int8 weights, int32
     accumulation (vstar_tpu nn/quant._w8a8_dot)."""
     global w8a8_calls
     w8a8_calls += 1
-    xf = x.float()
-    sx = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-8)
-    xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
+    xq, sx = w8a8_quantize(x.float())
     q = entry["q"]
     acc = _int32_matmul(xq.reshape(-1, x.shape[-1]), q)
     acc = acc.reshape(*x.shape[:-1], q.shape[-1])
