@@ -39,11 +39,11 @@ Runs on one CUDA card, in phases; any failure exits non-zero:
   7. P1-P4, the int4 profile's kernels, against their plain versions at
      the 7B shapes: P1 (the lo-nibble unpack probe, both candidates,
      exact) on the packed w_gate [2048, 11008]; P2 (every lo-nibble
-     unpack) and P4 (transposed storage; also held to K6 on the same
-     product) at R in {1, 8} on 4096x11008 and the 4096x32000 lm_head, P2
-     also at 512 columns per block on
-     11008x4096; P3 (row blocks) at R=1 on 11008x4096; timed as in 3,
-     with the bound of the JAX CostEstimate's bytes;
+     unpack) and P4 (transposed storage) at R in {1, 8} on 4096x11008 and
+     the 4096x32000 lm_head, P2 also at R=16 on 4096x11008 and at 512
+     columns per block on 11008x4096; P3 (row blocks) at R in {1, 16} on
+     11008x4096; P3 and P4 also held to K6 on the same product; timed as
+     in 3, with the bound of the JAX CostEstimate's bytes;
   8. K1 with its log-sum-exp and the K7 backward at the training shape
      [4, 512, 32, 128] (ragged kv_lens, key holes, a row that sees no key)
      against their plain versions, timed as above (K7's library yardstick
@@ -163,10 +163,12 @@ def phase_build():
     from vstar_tpu_torch.kernels.flash_attention import attention_kernel_info
     from vstar_tpu_torch.kernels.int4_matmul import (int4_kernel_info,
                                                      w4a8_kernel_info)
-    from vstar_tpu_torch.kernels.int4_variants import w4a8_t_kernel_info
+    from vstar_tpu_torch.kernels.int4_variants import (variants_kernel_info,
+                                                       w4a8_t_kernel_info)
     from vstar_tpu_torch.kernels.int8_matmul import int8_kernel_info
     info = (attention_kernel_info() + int8_kernel_info() + int4_kernel_info()
-            + w4a8_kernel_info() + w4a8_t_kernel_info())
+            + w4a8_kernel_info() + variants_kernel_info()
+            + w4a8_t_kernel_info())
     for i in info:
         log(f"[build] {i['kernel']}: {i['registers']} registers, "
             f"{i['local_bytes']} local (spill) bytes, static smem "
@@ -638,8 +640,10 @@ def phase_p(dev):
     """P1-P4 against their plain versions at the 7B shapes: P1 both
     candidates on w_gate (exact; library: one uint8 shift), P2 every
     unpack at 256 columns and P4 at R in {1, 8} on 4096x11008 and
-    4096x32000, P2 at 512 columns on 11008x4096 (32000 and 11008 are no
-    multiples of 512), P3 at R=1 on 11008x4096 (its default blocks)."""
+    4096x32000, P2 every unpack at R=16 on 4096x11008 and at 512 columns
+    on 11008x4096 (32000 and 11008 are no multiples of 512), P3 at R in
+    {1, 16} on 11008x4096 (its default blocks); P3 and P4 also held to K6
+    on the same product."""
     from vstar_tpu_torch.kernels import int4_matmul as k4
     from vstar_tpu_torch.kernels import int4_variants as kv
     from vstar_tpu_torch.nn.quant import quantize_weight_int4
@@ -675,17 +679,30 @@ def phase_p(dev):
                 lambda xq, q4, s4: kv.w4a8_variant_reference(
                     xq, q4, s4, unpack, block_o))
 
-    for R, IN, OUT in ((1, 4096, 11008), (8, 4096, 11008), (1, 4096, 32000),
-                       (8, 4096, 32000)):
+    def against_k6(tag, out, xq, e, rec):
+        rec["rel_err_vs_k6"] = _rel_err(
+            out, k4.int4_matmul_w4a8(xq, e["q4"], e["s4"]))
+        log(f"[{tag}] against K6: {rec['rel_err_vs_k6']:.3e} "
+            f"(tol {F32_REL_TOL})")
+        if not rec["rel_err_vs_k6"] <= F32_REL_TOL:
+            raise AssertionError(f"{tag}: {rec['rel_err_vs_k6']} off K6")
+
+    def p2(R, IN, OUT, block_o):
         e, xq, nbytes, ops = case(R, IN, OUT)
         for unpack in kv.UNPACKS:
-            _, rec = _measure(f"P2 {unpack} R={R} {IN}x{OUT}",
-                              *variant(unpack, 256),
+            _, rec = _measure(f"P2 {unpack} block_o={block_o} R={R} "
+                              f"{IN}x{OUT}", *variant(unpack, block_o),
                               dict(xq=xq, q4=e["q4"], s4=e["s4"]),
                               ("q4", "s4"), nbytes, ops, "int8", F32_REL_TOL,
                               _rel_err)
+            tag = "" if block_o == 256 else f"_bo{block_o}"
             res["w4a8_variant"].append(
-                {"case": f"{unpack}_R{R}_{IN}x{OUT}", **rec})
+                {"case": f"{unpack}{tag}_R{R}_{IN}x{OUT}", **rec})
+        return e, xq, nbytes, ops
+
+    for R, IN, OUT in ((1, 4096, 11008), (8, 4096, 11008), (1, 4096, 32000),
+                       (8, 4096, 32000)):
+        e, xq, nbytes, ops = p2(R, IN, OUT, 256)
         out, rec = _measure(f"P4 R={R} {IN}x{OUT}", kv.w4a8_t,
                             kv.w4a8_t_reference,
                             dict(xq=xq, q4t=e["q4"].t().contiguous(),
@@ -693,23 +710,19 @@ def phase_p(dev):
                             ("q4t", "s4t"), nbytes, ops, "int8", F32_REL_TOL,
                             _rel_err)
         # the same product on K6 (untransposed storage)
-        rec["rel_err_vs_k6"] = _rel_err(
-            out, k4.int4_matmul_w4a8(xq, e["q4"], e["s4"]))
-        log(f"[P4 R={R} {IN}x{OUT}] against K6: {rec['rel_err_vs_k6']:.3e} "
-            f"(tol {F32_REL_TOL})")
-        if not rec["rel_err_vs_k6"] <= F32_REL_TOL:
-            raise AssertionError(f"P4 R={R}: {rec['rel_err_vs_k6']} off K6")
+        against_k6(f"P4 R={R} {IN}x{OUT}", out, xq, e, rec)
         res["w4a8_t"].append({"case": f"R{R}_{IN}x{OUT}", **rec})
-    e, xq, nbytes, ops = case(1, 11008, 4096)
-    args = dict(xq=xq, q4=e["q4"], s4=e["s4"])
-    _, rec = _measure("P2 ship block_o=512 R=1 11008x4096",
-                      *variant("ship", 512), args, ("q4", "s4"), nbytes, ops,
-                      "int8", F32_REL_TOL, _rel_err)
-    res["w4a8_variant"].append({"case": "ship_bo512_R1_11008x4096", **rec})
-    _, rec = _measure("P3 R=1 11008x4096", kv.w4a8_rows,
-                      kv.w4a8_rows_reference, args, ("q4", "s4"), nbytes,
-                      ops, "int8", F32_REL_TOL, _rel_err)
-    res["w4a8_rows"].append({"case": "R1_11008x4096", **rec})
+    p2(16, 4096, 11008, 256)
+    p2(1, 11008, 4096, 512)
+    for R in (1, 16):
+        e, xq, nbytes, ops = case(R, 11008, 4096)
+        out, rec = _measure(f"P3 R={R} 11008x4096", kv.w4a8_rows,
+                            kv.w4a8_rows_reference,
+                            dict(xq=xq, q4=e["q4"], s4=e["s4"]),
+                            ("q4", "s4"), nbytes, ops, "int8", F32_REL_TOL,
+                            _rel_err)
+        against_k6(f"P3 R={R} 11008x4096", out, xq, e, rec)
+        res["w4a8_rows"].append({"case": f"R{R}_11008x4096", **rec})
     return res
 
 

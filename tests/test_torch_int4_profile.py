@@ -12,12 +12,16 @@ seeds; shapes are small.
   * P3: bit-equal to `_w4a8_call_rows` (explicit block_i of 2-4 blocks and
     the default heuristic), and within 1e-5 of the largest |output| of K6's
     plain version (the block order is another f32 order);
-  * K6's and P4's tensor-core arithmetic (csrc/decode_rows.cuh, formats
-    W4A8 and W4A8T): a warp's m16n8k32 s8 fragments emulated in numpy,
+  * K6's, P2's and P4's tensor-core arithmetic (csrc/decode_rows.cuh,
+    formats W4A8 and W4A8T): a warp's s8 mma fragments emulated in numpy,
     instruction by instruction (K6: the 4 x 4 byte transpose, then the two
-    masks; P4: the two masks on the words of one output's row), give the
-    exact int32 group dots of `_w4a8_kernel` / `_w4a8_kernel_t` bit for
-    bit, over the permuted input order of their B fragments;
+    masks; P2: the same with each low-nibble unpack, 2and and off with
+    their own low accumulator and off's sums of x; P4: the two masks on
+    the words of one output's row), give the exact int32 group dots of
+    `_w4a8_kernel`, `_w4a8_kernel_mul / _2and / _off` and `_w4a8_kernel_t`
+    bit for bit, over the permuted input order of their B fragments; P3's
+    blocking (whole row blocks a k-split, block order, then rank order)
+    gives `_w4a8_kernel_rows`' group dots and holds its output to 1e-5;
   * the wrappers' domain checks;
   * the decode ablation at a tiny width (all eight rows) against JAX
     make_decode on the same weights, act-int8 off and on, to 1e-5 (f32;
@@ -212,15 +216,56 @@ def _mma_s8(a, b):
     return A @ B
 
 
-def _warp_group_dots(layout, q, xq):
+def _mma_s8_k16(a, b):
+    """mma.sync.m16n8k16.row.col.s32.s8.s8.s32: a [32][2] words (rows g,
+    g + 8 at k-slots 4t4 ..), b [32] words (k-slots 4t4 .. of column g);
+    C [16, 8] (exact)."""
+    A = np.zeros((16, 16), np.int64)
+    B = np.zeros((16, 8), np.int64)
+    for lane in range(32):
+        g, t4 = lane >> 2, lane & 3
+        A[g, 4 * t4:4 * t4 + 4] = _s8(a[lane][0])
+        A[g + 8, 4 * t4:4 * t4 + 4] = _s8(a[lane][1])
+        B[4 * t4:4 * t4 + 4, g] = _s8(b[lane])
+    return A @ B
+
+
+def _mul16(w):
+    """P2 mul's unpack: each byte as int8 times 16, wrapped to a byte."""
+    return U32(sum(((int(b) * 16) & 0xFF) << (8 * i)
+                   for i, b in enumerate(_s8(w))))
+
+
+def _off(w):
+    return U32((int(w) ^ 0x08080808) & 0x0F0F0F0F)
+
+
+def _and_a(ca, cb):
+    """2and's A registers of one m-tile and k-step: b & 7 of both columns
+    at k-slots 0-15, -(b & 8) (0 or 8, times 31) at 16-31."""
+    ca, cb = int(ca), int(cb)
+    return [U32(ca & 0x07070707), U32(cb & 0x07070707),
+            U32((ca & 0x08080808) * 31 & 0xFFFFFFFF),
+            U32((cb & 0x08080808) * 31 & 0xFFFFFFFF)]
+
+
+def _warp_group_dots(layout, q, xq, unpack="ship"):
     """One warp, one group of 128 inputs, 8 activation rows: the int32
     dots [8, 128] that the W4A8 decode rows sum, from their fragments.
-    q4: q uint8 [64 packed rows, 128 columns]; q4t: q uint8 [128 outputs,
-    64 packed bytes], read as two ring stages of 32 bytes; xq int8 [8,
-    128]."""
+    q4: q uint8 [64 packed rows, 128 columns], with P2's low-nibble
+    `unpack` (ship and mul: one m16n8k32 a k-step; 2and and off: the high
+    nibbles on an m16n8k16 against the odd inputs, the unscaled low part
+    in an accumulator of its own (2and: an m16n8k32 against (xe, xe); off:
+    an m16n8k16 against xe), off's sum(xe) from an m16n8k16 of A = 1, and
+    d = 16 lo (- 128 sum) + hi at the group's end); q4t: q uint8 [128
+    outputs, 64 packed bytes], read as two ring stages of 32 bytes; xq
+    int8 [8, 128]."""
     xb = xq.view(np.uint8)
     y = np.zeros((8, 128), np.int64)
     if layout == "q4":
+        d = {t: np.zeros((16, 8), np.int64) for t in range(8)}
+        dlo = {t: np.zeros((16, 8), np.int64) for t in range(8)}
+        xsum = np.zeros((16, 8), np.int64)
         for ks in range(4):                      # k-steps of 32 inputs
             bx = []
             for lane in range(32):
@@ -240,12 +285,28 @@ def _warp_group_dots(layout, q, xq):
                          _prmt(t1, t3, 0x5410), _prmt(t1, t3, 0x7632)]
                     for h in range(2):
                         regs.setdefault(2 * j + h, []).append(
-                            [_lo16(c[2 * h]), _lo16(c[2 * h + 1]),
-                             _hi16(c[2 * h]), _hi16(c[2 * h + 1])])
-            for t, a in regs.items():
-                cm = _mma_s8(a, bx)
-                for m in range(16):              # M row m: column 16g + 2t (+ 1)
-                    y[:, 16 * (m % 8) + 2 * t + m // 8] += cm[m]
+                            (c[2 * h], c[2 * h + 1]))
+            even, odd = [b[0] for b in bx], [b[1] for b in bx]
+            for t, cs in regs.items():
+                if unpack in ("ship", "mul"):
+                    lo = _lo16 if unpack == "ship" else _mul16
+                    d[t] += _mma_s8([[lo(ca), lo(cb), _hi16(ca), _hi16(cb)]
+                                     for ca, cb in cs], bx)
+                    continue
+                d[t] += _mma_s8_k16([[_hi16(ca), _hi16(cb)] for ca, cb in cs],
+                                    odd)
+                if unpack == "2and":
+                    dlo[t] += _mma_s8([_and_a(ca, cb) for ca, cb in cs],
+                                      [(b, b) for b in even])
+                else:
+                    dlo[t] += _mma_s8_k16([[_off(ca), _off(cb)]
+                                           for ca, cb in cs], even)
+            if unpack == "off":
+                xsum += _mma_s8_k16([[U32(0x01010101)] * 2] * 32, even)
+        for t in range(8):
+            cm = d[t] + 16 * dlo[t] - (128 * xsum if unpack == "off" else 0)
+            for m in range(16):                  # M row m: column 16g + 2t (+ 1)
+                y[:, 16 * (m % 8) + 2 * t + m // 8] += cm[m]
         return y
     for st in range(2):                          # ring stages of 32 bytes
         stage = q[:, 32 * st:32 * st + 32]
@@ -268,13 +329,16 @@ def _warp_group_dots(layout, q, xq):
     return y
 
 
-@pytest.mark.parametrize("layout", ["q4", "q4t"])
+@pytest.mark.parametrize("layout", ["q4", "q4t", "mul", "2and", "off"])
 @pytest.mark.parametrize("group", [0, 1])
 def test_w4a8_fragments_give_the_kernels_group_dots(layout, group):
+    """K6's and P4's fragments, and P2's unpacks (layouts mul, 2and, off:
+    q4 with that low-nibble unpack), against the JAX kernel of each."""
     rng = np.random.RandomState(11 + group)
     R, IN, OUT = 8, 256, 128
     q4 = rng.randint(0, 256, size=(IN // 2, OUT)).astype(np.uint8)
-    xq = rng.randint(-127, 128, size=(R, IN)).astype(np.int8)
+    # -128 too: 2and negates the weights' b & 8, never x
+    xq = rng.randint(-128, 128, size=(R, IN)).astype(np.int8)
     # s4 / 16 = 1 on this group, 0 on the other: the kernels' f32 output is
     # the group's int32 dot, exactly
     s4 = np.zeros((2, OUT), np.float32)
@@ -283,20 +347,88 @@ def test_w4a8_fragments_give_the_kernels_group_dots(layout, group):
         if layout == "q4":
             want = jk4.int4_matmul_w4a8(jnp.asarray(xq), jnp.asarray(q4),
                                         jnp.asarray(s4), interpret=True)
-        else:
+        elif layout == "q4t":
             want = jip._w4a8_call_t(jnp.asarray(xq),
                                     jnp.asarray(np.ascontiguousarray(q4.T)),
                                     jnp.asarray(np.ascontiguousarray(s4.T)),
                                     block_o=OUT)
+        else:
+            want = jip._w4a8_call(JAX_KERNELS[layout], jnp.asarray(xq),
+                                  jnp.asarray(q4), jnp.asarray(s4),
+                                  block_o=OUT)
     rows = slice(64 * group, 64 * group + 64)
-    q = q4[rows] if layout == "q4" else np.ascontiguousarray(q4[rows].T)
-    got = _warp_group_dots(layout, q, np.ascontiguousarray(
-        xq[:, 128 * group:128 * group + 128]))
+    q = np.ascontiguousarray(q4[rows].T) if layout == "q4t" else q4[rows]
+    got = _warp_group_dots("q4t" if layout == "q4t" else "q4", q,
+                           np.ascontiguousarray(
+                               xq[:, 128 * group:128 * group + 128]),
+                           "ship" if layout in ("q4", "q4t") else layout)
     np.testing.assert_array_equal(got.astype(np.float32), np.asarray(want))
     # and the exact dot of x with the nibbles, times 16
     nib = k4.unpack_int4(torch.from_numpy(q4[rows])).numpy().astype(np.int64)
     np.testing.assert_array_equal(
         got, 16 * xq[:, 128 * group:128 * group + 128].astype(np.int64) @ nib)
+
+
+def _p3_emulate(xq, q4, s4, block_i, splits):
+    """P3's decode rows in numpy: each 128-column slice's group dots from
+    its warp fragments; the k-splits take whole blocks of block_i packed
+    rows (`per` groups each, as launch_decode plans them), a split sums a
+    block's groups as fmaf(d, s4 / 16, acc) in f32 and adds the block's
+    sum to its total, and the splits' totals are added in rank order.
+    Returns (the group dots [NG, R, OUT], the f32 output [R, OUT])."""
+    R, IN = xq.shape
+    OUT = q4.shape[1]
+    NG = s4.shape[0]
+    gh = IN // 2 // NG
+    blk = block_i // gh
+    per = blk * -(-(NG // blk) // splits)
+    dots = np.zeros((NG, R, OUT), np.int64)
+    xp = np.zeros((8, IN), np.int8)
+    xp[:R] = xq
+    for gi in range(NG):
+        for c in range(0, OUT, 128):
+            dots[gi, :, c:c + 128] = _warp_group_dots(
+                "q4", q4[gh * gi:gh * gi + gh, c:c + 128],
+                np.ascontiguousarray(xp[:, 2 * gh * gi:2 * gh * (gi + 1)]))[:R]
+    sc = (s4 * np.float32(1 / 16)).astype(np.float32)
+    out = np.zeros((R, OUT), np.float32)
+    for rank in range(splits):
+        total = np.zeros((R, OUT), np.float32)
+        acc = np.zeros((R, OUT), np.float32)
+        for gi in range(min(NG, rank * per), min(NG, rank * per + per)):
+            # fmaf: the exact product (< 2^48) plus acc, rounded once (the
+            # f64 sum is exact here: every term is a multiple of 2^-24 and
+            # far below 2^29)
+            acc = (dots[gi].astype(np.float64) * sc[gi].astype(np.float64)
+                   + acc.astype(np.float64)).astype(np.float32)
+            if (gi + 1) % blk == 0:
+                total = total + acc
+                acc = np.zeros_like(acc)
+        out = out + total
+    return dots, out
+
+
+@pytest.mark.parametrize("R,IN,OUT,block_i,splits", [
+    (3, 1024, 256, 128, 2), (8, 1024, 128, 64, 3), (1, 512, 384, 256, 1)])
+def test_w4a8_rows_blocking_gives_the_kernels_group_dots(R, IN, OUT, block_i,
+                                                         splits):
+    """P3's group dots (K6's fragments) equal `_w4a8_kernel_rows`'s, group
+    by group, and its blocked f32 sums (whole blocks a k-split, block order
+    inside a split, rank order across) hold the JAX kernel to 1e-5 of the
+    largest |output|."""
+    xq, q4, s4 = _inputs(R, IN, OUT, 5 * R + OUT)
+    NG = s4.shape[0]
+    dots, out = _p3_emulate(xq, q4, s4, block_i, splits)
+    with pltpu.force_tpu_interpret_mode():
+        for gi in range(NG):
+            one = np.zeros_like(s4)
+            one[gi] = 16.0
+            want = np.asarray(jip._w4a8_call_rows(
+                jnp.asarray(xq), jnp.asarray(q4), jnp.asarray(one), block_i))
+            np.testing.assert_array_equal(dots[gi].astype(np.float32), want)
+        want = np.asarray(jip._w4a8_call_rows(
+            jnp.asarray(xq), jnp.asarray(q4), jnp.asarray(s4), block_i))
+    assert np.abs(out - want).max() <= F32_TOL * np.abs(want).max()
 
 
 def test_wrappers_check_their_domain_and_take_plain_version_on_cpu():
@@ -327,6 +459,32 @@ def test_wrappers_check_their_domain_and_take_plain_version_on_cpu():
         kv.unpack_probe(q4, "shift")
     with pytest.raises(ValueError, match="unsupported device"):
         kv.w4a8_variant(xq.to("meta"), q4.to("meta"), s4.to("meta"))
+    # the decode rows' domain on CUDA (_check_cuda, called directly here):
+    # a group of 64 inputs, IN % 32 != 0, q4 or s4 off 16 bytes; the CPU
+    # path keeps the JAX domain and takes those shapes
+    x64, q64, s64 = map(t, _inputs(2, 512, 768, 2))
+    s64 = s64.repeat_interleave(2, dim=0).contiguous()     # groups of 64
+    assert kv.w4a8_variant(x64, q64, s64, "2and").shape == (2, 768)
+    assert kv.w4a8_rows(x64, q64, s64, block_i=32).shape == (2, 768)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        kv._check_cuda("w4a8_variant", x64, q64, s64, (256, 768), (8, 768),
+                       64)
+    x48, q48 = t(np.zeros((1, 48), np.int8)), t(np.zeros((24, 768), np.uint8))
+    s48 = t(np.ones((1, 768), np.float32))
+    assert kv.w4a8_variant(x48, q48, s48, "off").shape == (1, 768)
+    with pytest.raises(ValueError, match="of 32"):
+        kv._check_cuda("w4a8_rows", x48, q48, s48, (24, 768), (1, 768), 48)
+    base = t(np.zeros(256 * 768 + 4, np.uint8))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kv._check_cuda("w4a8_variant", xq, base[4:].view(256, 768), s4,
+                       (256, 768), (4, 768), 128)
+    odd = t(np.zeros(4 * 768 + 1, np.float32))[1:].view(4, 768)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kv._check_cuda("w4a8_rows", xq, q4, odd, (256, 768), (4, 768), 128)
+    xoff = t(np.zeros(2 * 512 + 8, np.int8))[8:].view(2, 512)
+    assert kv._check_cuda("w4a8_t", xoff, q4.t().contiguous(),
+                          s4.t().contiguous(), (768, 256), (768, 4),
+                          128).data_ptr() % 16 == 0      # cloned
     assert kv.default_block_i(2048, 512, 32) == 1024      # IN 4096, OUT 512
     assert kv.default_block_i(5504, 4096, 86) == 128      # 11008 x 4096
     assert ip._variant("w4a8_bo512") == ("ship", 512)

@@ -643,34 +643,79 @@ def _w4a8_inputs(cuda, rows, IN, OUT, group=128):
 @pytest.mark.parametrize("unpack", ["ship", "mul", "2and", "off"])
 @pytest.mark.parametrize("rows,IN,OUT,block_o,group", [
     (1, 4096, 11008, 256, 128), (8, 4096, 32000, 256, 128),
-    (16, 11008, 4096, 512, 128), (3, 11008, 4096, 512, 11008)])
+    (16, 11008, 4096, 512, 128), (3, 11008, 4096, 512, 11008),
+    (16, 4096, 4096, 256, 128), (1, 4096, 4096, 512, 256)])
 def test_w4a8_variant_kernel_on_card(cuda, unpack, rows, IN, OUT, block_o,
                                      group):
+    """P2 on K6's decode rows: one launch and no workspace a call, within
+    1e-5 of its plain version and of K6; ship at 256 columns is K6's own
+    instantiation and plan, so its bits are K6's."""
     from vstar_tpu_torch.kernels import int4_matmul as k4
     from vstar_tpu_torch.kernels import int4_variants as kv
     xq, q4, s4 = _w4a8_inputs(cuda, rows, IN, OUT, group)
     before = kv.launches["w4a8_variant"]
+    allocs = _allocations(cuda)
     got = kv.w4a8_variant(xq, q4, s4, unpack, block_o)
+    assert _allocations(cuda) == allocs + 1      # the output, no workspace
     want = kv.w4a8_variant_reference(xq, q4, s4, unpack, block_o)
     torch.cuda.synchronize()
     assert kv.launches["w4a8_variant"] == before + 1
     assert got.dtype == torch.float32 and _rel(got, want) <= 1e-5
-    assert _rel(got, k4.int4_matmul_w4a8_reference(xq, q4, s4)) <= 1e-5
+    k6 = k4.int4_matmul_w4a8(xq, q4, s4)
+    assert _rel(got, k6) <= 1e-5
+    if unpack == "ship" and block_o == 256:
+        assert torch.equal(got, k6)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("rows,IN,OUT,block_i", [
     (1, 11008, 4096, None), (8, 4096, 512, 128), (16, 1024, 768, 64),
-    (2, 4096, 32000, None)])
+    (2, 4096, 32000, None), (16, 11008, 4096, None), (8, 11008, 4096, 5504)])
 def test_w4a8_rows_kernel_on_card(cuda, rows, IN, OUT, block_i):
+    """P3 on K6's decode rows: one launch and no workspace a call, within
+    1e-5 of its plain version (the block-order sum) and of K6."""
+    from vstar_tpu_torch.kernels import int4_matmul as k4
     from vstar_tpu_torch.kernels import int4_variants as kv
     xq, q4, s4 = _w4a8_inputs(cuda, rows, IN, OUT)
     before = kv.launches["w4a8_rows"]
+    allocs = _allocations(cuda)
     got = kv.w4a8_rows(xq, q4, s4, block_i)
+    assert _allocations(cuda) == allocs + 1      # the output, no workspace
     want = kv.w4a8_rows_reference(xq, q4, s4, block_i)
     torch.cuda.synchronize()
     assert kv.launches["w4a8_rows"] == before + 1
     assert _rel(got, want) <= 1e-5
+    assert _rel(got, k4.int4_matmul_w4a8(xq, q4, s4)) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_w4a8_variants_raise_outside_their_domain_on_card(cuda):
+    """P2 and P3 on CUDA raise ValueError outside the decode rows' domain
+    (a group of 64 inputs, OUT % 16 for P3, unaligned weights) and outside
+    the JAX functions' (block_o 512 on 32000 columns), with no launch."""
+    from vstar_tpu_torch.kernels import int4_variants as kv
+    counts = dict(kv.launches)
+    xq, q4, s4 = _w4a8_inputs(cuda, 2, 4096, 32000)
+    with pytest.raises(ValueError, match="block_o"):
+        kv.w4a8_variant(xq, q4, s4, "off", 512)
+    x64, q64, s64 = _w4a8_inputs(cuda, 2, 4096, 4096, group=64)
+    for unpack in ("ship", "2and"):
+        with pytest.raises(ValueError, match="multiple of 128"):
+            kv.w4a8_variant(x64, q64, s64, unpack)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        kv.w4a8_rows(x64, q64, s64)
+    x8, q8, s8 = _w4a8_inputs(cuda, 2, 1024, 1000)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        kv.w4a8_rows(x8, q8, s8)
+    xa, qa, sa = _w4a8_inputs(cuda, 2, 1024, 512)
+    buf = torch.zeros(qa.numel() + 4, dtype=torch.uint8, device=cuda)
+    qoff = buf[4:].view(qa.shape)
+    qoff.copy_(qa)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kv.w4a8_variant(xa, qoff, sa, "mul")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kv.w4a8_rows(xa, qoff, sa)
+    assert kv.launches == counts
 
 
 @pytest.mark.gpu

@@ -2,9 +2,10 @@
 // shared by K5 (int4_matmul.cu: two's-complement nibbles with one f32
 // scale per group and column), K3/K4 (int8_matvec.cu: int8 with one f32
 // scale per column), K6 (int4_matmul.cu: K5's nibbles against int8
-// activations) and P4 (int4_variants.cu: K6 on transposed storage). All
-// are bound by the bytes of the weight, so one kernel template streams
-// them, in any of these formats.
+// activations) and P2-P4 (int4_variants.cu: K6 with another low-nibble
+// unpack, K6 summed in row blocks, K6 on transposed storage). All are
+// bound by the bytes of the weight, so one kernel template streams them,
+// in any of these formats.
 //
 // y^T [OUT, R] = W^T x^T on mma.sync: the output columns are the M rows,
 // the activation rows the N columns (8 per n-tile, two at 16 rows), the
@@ -38,7 +39,7 @@
 // scale is applied once, after the split reduction (y = (x q) s, as the
 // TPU kernel computes it).
 //
-// K6 and P4 (W4A8), m16n8k32 (s8 in, s32 accumulate): an A register holds
+// K6, P2-P4 (W4A8), m16n8k32 (s8 in, s32 accumulate): an A register holds
 // four inputs of one output column as 16 x nibble in int8, the high nibble
 // b & 0xF0 and the low one (b << 4) & 0xF0, the TPU kernel's hi16 / lo16
 // (vstar_tpu/kernels/int4_matmul.py:175-176). A register of 4 packed bytes
@@ -62,6 +63,31 @@
 // accumulator, as the TPU kernel does (:182-188). The activation scale is
 // the caller's: K6's qdot passes the per-row sx, and the store multiplies
 // by it and writes x's type; else the f32 sums are stored.
+// P2's low-nibble unpacks (LO; W4A8 on q4 only), after the same transpose:
+//   ship  (b << 4) & 0xF0, K6's; mul  b * 16 per int8 byte (the same bytes
+//   by another arithmetic): both share K6's one m16n8k32 a k-step.
+//   2and, off  unscaled low parts, which cannot share an accumulator with
+//         the high nibbles (16 x): an accumulator of their own, and the
+//         high nibbles on an m16n8k16 a k-step against the odd inputs.
+//         (Pairing two k-steps into one m16n8k32 for the high nibbles
+//         holds both steps' rows, 16 more registers: it spilled at 16 rows
+//         and measured up to 40 % slower there, no faster at 8.)
+//   2and  b & 7 and -(b & 8) (the weights negated, never x: x may be
+//         -128): one m16n8k32 a k-step of A {b & 7 of both columns, -(b &
+//         8) of both} against B {xe, xe}; three operand streams, 1.5x
+//         ship's products.
+//   off   (b ^ 8) & 0xF = lo + 8: one m16n8k16 a k-step against the even
+//         inputs (the multiply-adds of ship's one m16n8k32, in two
+//         instructions); the correction 8 * sum(xe) of each row and group
+//         is one m16n8k16 of A = 1 on the same B fragments a k-step and
+//         n-tile (its C is the sums, already in the accumulators' layout),
+//         not per column.
+//   At the group's end d = 16 dlo (- 128 sum(xe)) + dhi in int32: the exact
+//   dot K6 sums, so every unpack gives K6's f32 sums bit for bit.
+// P3 (W4A8R): K6 with its sums in blocks of `blk` groups, as the TPU's
+// row blocks: each k-split takes whole blocks, sums a block's groups in
+// its accumulator and adds the block's sum to its total in block order;
+// the cluster adds the splits' totals in rank order.
 //
 // Streaming: a block of WC * WK warps owns a strip of 128 * WC columns;
 // each group of WC warps a k-split of whole units (int4, W4A8: groups;
@@ -90,6 +116,12 @@
 
 #include "attention_common.cuh"
 
+namespace vstar {
+
+constexpr int kMaxRows = 16;   // activation rows of the decode rows
+
+}  // namespace vstar
+
 namespace {
 
 using vstar::bf16;
@@ -106,6 +138,14 @@ constexpr int kFmtW4A8T = 3;  // P4: K6's on transposed storage [OUT, IN/2]
 // read whole, then xq = rint(x / sx) at each B fragment): the alternative
 // to a row-quantization launch, kept for kernel_probe.py's --w4a8-quant
 constexpr int kFmtW4A8Q = 4;
+// P3: K6 summed in blocks of groups, added in block order
+constexpr int kFmtW4A8R = 5;
+
+// The low-nibble unpacks of the W4A8 formats on q4 (P2's LO).
+constexpr int kLoShip = 0;
+constexpr int kLoMul = 1;
+constexpr int kLoTwoAnd = 2;
+constexpr int kLoOff = 3;
 
 // Opts a kernel into its dynamic shared memory once per process.
 template <auto Kernel>
@@ -129,6 +169,7 @@ struct DecodeSmem {
   static constexpr bool w4a8 = FMT >= kFmtW4A8;
   static constexpr bool trans = FMT == kFmtW4A8T;
   static constexpr bool qx = FMT == kFmtW4A8Q;
+  static constexpr bool blocked = FMT == kFmtW4A8R;
   // blocks a strip's cluster may have: 8 (portable) for int4; 16 (the
   // H100's non-portable limit) for int8 and W4A8, whose 4096-wide outputs
   // have only 32 (or, at 256 columns a strip, 16) strips for 132 SMs
@@ -223,9 +264,40 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// c += a b: m16n8k16, s8 operands (A reg0 row g, reg1 row g + 8, k-slots
+// 4t4 .. 4t4 + 3; B k-slots 4t4 .. 4t4 + 3 of column g), s32 accumulate.
+__device__ __forceinline__ void mma_s8_k16(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(b));
+}
+
 // 16 x the low / high nibble of each byte of w, as int8 bytes.
 __device__ __forceinline__ uint32_t lo16(uint32_t w) { return (w << 4) & 0xF0F0F0F0u; }
 __device__ __forceinline__ uint32_t hi16(uint32_t w) { return w & 0xF0F0F0F0u; }
+
+// The low nibble times 16 of each byte of w, as int8 bytes: a per-byte
+// int8 multiply by 16 (HOW 0, wrapping mod 256) or four doublings (HOW 1).
+template <int HOW>
+__device__ __forceinline__ uint32_t lo_times16(uint32_t w) {
+  uint32_t r = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    int8_t v = (int8_t)(w >> (8 * j));
+    if constexpr (HOW == 0) {
+      v = (int8_t)(v * 16);
+    } else {
+      v = (int8_t)(v + v);
+      v = (int8_t)(v + v);
+      v = (int8_t)(v + v);
+      v = (int8_t)(v + v);
+    }
+    r |= (uint32_t)(uint8_t)v << (8 * j);
+  }
+  return r;
+}
 
 // qdot4_w4a8's activation rule for one value: clamp(rint(v / s), -127,
 // 127), IEEE division, round half to even.
@@ -248,14 +320,20 @@ __device__ __forceinline__ uint32_t pack_s8(int a, int b, int c, int d) {
 //         scales), stored as f32 (y_f32) or bf16
 // Units: int4 and W4A8 groups, int8 ring stages of SROWS rows; each k-split
 // takes `per` of them. y is bf16 but for W4A8 with y_f32.
-template <int FMT, int RB, bool ALIGNED, int SROWS, int STAGES, int WC, int WK, int PF>
+// LO: the low-nibble unpack (W4A8 on q4; kLoShip otherwise). blk: W4A8R's
+// groups a block (each split takes `per`, a multiple of it).
+template <int FMT, int RB, bool ALIGNED, int SROWS, int STAGES, int WC, int WK, int PF,
+          int LO = kLoShip>
 __global__ void __launch_bounds__(WC * WK * 32)
     decode_rows_kernel(const void* __restrict__ xv, const uint8_t* __restrict__ q,
                        const float* __restrict__ s, void* __restrict__ yv,
                        const float* __restrict__ sx, int rows, long long in, long long out,
-                       long long xs, int group, int per, int y_f32) {
+                       long long xs, int group, int per, int y_f32, int blk) {
   using L = DecodeSmem<FMT, RB, ALIGNED, SROWS, STAGES, WC, WK, PF>;
-  constexpr bool I8 = L::int8, W8 = L::w4a8, TR = L::trans, QX = L::qx;
+  constexpr bool I8 = L::int8, W8 = L::w4a8, TR = L::trans, QX = L::qx, BO = L::blocked;
+  // the unpacks whose low nibbles are unscaled: a low accumulator of their own
+  constexpr bool LOACC = LO == kLoTwoAnd || LO == kLoOff;
+  static_assert(LO == kLoShip || FMT == kFmtW4A8, "P2's unpacks: q4 only");
   constexpr int NT = RB / 8, GT = WC * 32, NTHR = WC * WK * 32, XE = L::x_elem;
   if constexpr ((PF & 16) != 0) return;
   extern __shared__ __align__(128) unsigned char dc_smem[];
@@ -493,10 +571,13 @@ __global__ void __launch_bounds__(WC * WK * 32)
     __syncthreads();
   }
   // int4 sums each group in part and adds it, scaled, to acc; int8 sums
-  // into acc directly; W4A8 sums each group's int32 dot in dsum
+  // into acc directly; W4A8 sums each group's int32 dot in dsum (2and,
+  // off: its high part; the low one in dlo, off's sums of x in xsum);
+  // W4A8R adds each block's acc to its total in part
   float acc[8][NT][4], part[8][NT][4];
-  int dsum[8][NT][4];
+  int dsum[8][NT][4], dlo[LOACC ? 8 : 1][NT][4], xsum[NT][4];
   float (&sum)[8][NT][4] = I8 ? acc : part;
+  float (&total)[8][NT][4] = BO ? part : acc;
 #pragma unroll
   for (int t = 0; t < 8; ++t)
 #pragma unroll
@@ -531,7 +612,11 @@ __global__ void __launch_bounds__(WC * WK * 32)
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) dsum[t][nt][e] = 0;
+            for (int e = 0; e < 4; ++e) {
+              dsum[t][nt][e] = 0;
+              if constexpr (LOACC) dlo[t][nt][e] = 0;
+              if (t == 0) xsum[nt][e] = 0;
+            }
       }
     } else if constexpr (!I8) {
       if (i % spg == 0) {
@@ -577,33 +662,69 @@ __global__ void __launch_bounds__(WC * WK * 32)
               bx[ks][nt][1] = __byte_perm(v.x, v.y, 0x7531);
             }
           }
+        // packed rows 16 ks + 4 t4 + i4, columns 16g .. 16g + 15
+        auto rows4 = [&](int ks, uint32_t (&w)[4][4]) {
+#pragma unroll
+          for (int i4 = 0; i4 < 4; ++i4) {
+            const int r = 16 * ks + 4 * t4 + i4;
+            row_bytes(sw, r, p0 + r, w[i4]);
+          }
+        };
+        // their 4 x 4 bytes of columns 16g + 4j + e transposed: c[e] holds
+        // column e's four packed rows
+        auto columns = [&](const uint32_t (&w)[4][4], int j, uint32_t (&c)[4]) {
+          const uint32_t t0 = __byte_perm(w[0][j], w[1][j], 0x5140);
+          const uint32_t t1 = __byte_perm(w[0][j], w[1][j], 0x7362);
+          const uint32_t t2 = __byte_perm(w[2][j], w[3][j], 0x5140);
+          const uint32_t t3 = __byte_perm(w[2][j], w[3][j], 0x7362);
+          c[0] = __byte_perm(t0, t2, 0x5410);
+          c[1] = __byte_perm(t0, t2, 0x7632);
+          c[2] = __byte_perm(t1, t3, 0x5410);
+          c[3] = __byte_perm(t1, t3, 0x7632);
+        };
         if constexpr (!TR) {
 #pragma unroll
           for (int ks = 0; ks < KPS; ++ks) {
-            uint32_t w[4][4];   // packed rows 16 ks + 4 t4 + i, columns 16g .. 16g + 15
-#pragma unroll
-            for (int i4 = 0; i4 < 4; ++i4) {
-              const int r = 16 * ks + 4 * t4 + i4;
-              row_bytes(sw, r, p0 + r, w[i4]);
-            }
+            uint32_t w[4][4];
+            rows4(ks, w);
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
-              // the 4 x 4 bytes (rows i4, columns 16g + 4j + e) transposed:
-              // c[e] holds column e's four packed rows
-              const uint32_t t0 = __byte_perm(w[0][j], w[1][j], 0x5140);
-              const uint32_t t1 = __byte_perm(w[0][j], w[1][j], 0x7362);
-              const uint32_t t2 = __byte_perm(w[2][j], w[3][j], 0x5140);
-              const uint32_t t3 = __byte_perm(w[2][j], w[3][j], 0x7362);
-              const uint32_t c[4] = {__byte_perm(t0, t2, 0x5410), __byte_perm(t0, t2, 0x7632),
-                                     __byte_perm(t1, t3, 0x5410), __byte_perm(t1, t3, 0x7632)};
+              uint32_t c[4];
+              columns(w, j, c);
 #pragma unroll
               for (int h = 0; h < 2; ++h) {   // m-tile 2j + h: columns 4j + 2h, + 1
-                const uint32_t a[4] = {lo16(c[2 * h]), lo16(c[2 * h + 1]), hi16(c[2 * h]),
-                                       hi16(c[2 * h + 1])};
+                const uint32_t ca = c[2 * h], cb = c[2 * h + 1];
+                int (&d)[NT][4] = dsum[2 * j + h];
+                if constexpr (!LOACC) {
+                  const uint32_t a[4] = {LO == kLoShip ? lo16(ca) : lo_times16<0>(ca),
+                                         LO == kLoShip ? lo16(cb) : lo_times16<0>(cb),
+                                         hi16(ca), hi16(cb)};
 #pragma unroll
-                for (int nt = 0; nt < NT; ++nt)
-                  mma_s8(dsum[2 * j + h][nt], a, bx[ks][nt][0], bx[ks][nt][1]);
+                  for (int nt = 0; nt < NT; ++nt) mma_s8(d[nt], a, bx[ks][nt][0], bx[ks][nt][1]);
+                } else {
+#pragma unroll
+                  for (int nt = 0; nt < NT; ++nt)
+                    mma_s8_k16(d[nt], hi16(ca), hi16(cb), bx[ks][nt][1]);
+                  if constexpr (LO == kLoTwoAnd) {
+                    // -(b & 8) per byte: 0 or 8, times 31, is 0 or 0xF8 (-8)
+                    const uint32_t a[4] = {ca & 0x07070707u, cb & 0x07070707u,
+                                           (ca & 0x08080808u) * 31u, (cb & 0x08080808u) * 31u};
+#pragma unroll
+                    for (int nt = 0; nt < NT; ++nt)
+                      mma_s8(dlo[2 * j + h][nt], a, bx[ks][nt][0], bx[ks][nt][0]);
+                  } else {
+#pragma unroll
+                    for (int nt = 0; nt < NT; ++nt)
+                      mma_s8_k16(dlo[2 * j + h][nt], (ca ^ 0x08080808u) & 0x0F0F0F0Fu,
+                                 (cb ^ 0x08080808u) & 0x0F0F0F0Fu, bx[ks][nt][0]);
+                  }
+                }
               }
+            }
+            if constexpr (LO == kLoOff) {   // the sums of xe: A = 1
+#pragma unroll
+              for (int nt = 0; nt < NT; ++nt)
+                mma_s8_k16(xsum[nt], 0x01010101u, 0x01010101u, bx[ks][nt][0]);
             }
           }
         } else {
@@ -646,6 +767,15 @@ __global__ void __launch_bounds__(WC * WK * 32)
             sa[2 * j + 1] = v.z * 0.0625f; sb[2 * j + 1] = v.w * 0.0625f;
           }
         }
+        if constexpr (LOACC) {   // the low part, times 16, less off's 8 * 16 sum(xe)
+#pragma unroll
+          for (int t = 0; t < 8; ++t)
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                dsum[t][nt][e] += 16 * dlo[t][nt][e] - (LO == kLoOff ? 128 * xsum[nt][e] : 0);
+        }
 #pragma unroll
         for (int t = 0; t < 8; ++t)
 #pragma unroll
@@ -655,6 +785,19 @@ __global__ void __launch_bounds__(WC * WK * 32)
             acc[t][nt][2] = fmaf((float)dsum[t][nt][2], sb[t], acc[t][nt][2]);
             acc[t][nt][3] = fmaf((float)dsum[t][nt][3], sb[t], acc[t][nt][3]);
           }
+        if constexpr (BO) {
+          if ((i / spg + 1) % blk == 0) {   // the block's end: its sum to the total
+#pragma unroll
+            for (int t = 0; t < 8; ++t)
+#pragma unroll
+              for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  part[t][nt][e] += acc[t][nt][e];
+                  acc[t][nt][e] = 0.f;
+                }
+          }
+        }
       }
     } else {
 #pragma unroll
@@ -764,7 +907,7 @@ __global__ void __launch_bounds__(WC * WK * 32)
       for (int e = 0; e < 4; ++e) {
         // the column of M row g (e < 2) or g + 8 of m-tile t
         const int col = TR ? 16 * t + g + 8 * (e >> 1) : 16 * g + 2 * t + (e >> 1);
-        red[(8 * nt + 2 * t4 + (e & 1)) * kDcCols + col] = acc[t][nt][e];
+        red[(8 * nt + 2 * t4 + (e & 1)) * kDcCols + col] = total[t][nt][e];
       }
   if constexpr ((PF & 32) != 0) return;
   __syncthreads();   // every k-split's partial is in place
@@ -811,14 +954,17 @@ __global__ void __launch_bounds__(WC * WK * 32)
 // one cluster per strip.
 // W4A8: sx, y_f32 as for the kernel; pdl launches it dependent on the
 // kernel before it on the stream (programmatic dependent launch).
-template <int FMT, int RB, bool ALIGNED, int SROWS, int STAGES, int WC, int WK, int PF>
+// W4A8R: blk groups a block, a split takes whole blocks (1 otherwise).
+template <int FMT, int RB, bool ALIGNED, int SROWS, int STAGES, int WC, int WK, int PF,
+          int LO = kLoShip>
 int launch_decode(const void* x, const uint8_t* q, const float* s, void* y, int rows,
                   long long in, long long out, long long xs, int group, int cluster,
                   cudaStream_t st, const float* sx = nullptr, int y_f32 = 0,
-                  bool pdl = false) {
+                  bool pdl = false, int blk = 1) {
   using L = DecodeSmem<FMT, RB, ALIGNED, SROWS, STAGES, WC, WK, PF>;
-  constexpr auto kernel = decode_rows_kernel<FMT, RB, ALIGNED, SROWS, STAGES, WC, WK, PF>;
-  if (cluster < 1 || cluster > L::max_cluster || (!L::int8 && group % (2 * SROWS)))
+  constexpr auto kernel = decode_rows_kernel<FMT, RB, ALIGNED, SROWS, STAGES, WC, WK, PF, LO>;
+  if (cluster < 1 || cluster > L::max_cluster || (!L::int8 && group % (2 * SROWS)) ||
+      blk < 1 || (blk > 1 && !L::blocked) || (!L::int8 && (in / group) % blk))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = prepare<kernel>(L::bytes);
   if (err != cudaSuccess) return (int)err;
@@ -830,7 +976,7 @@ int launch_decode(const void* x, const uint8_t* q, const float* s, void* y, int 
   const long long strips = (out + L::cols - 1) / L::cols;
   const long long splits = (long long)WK * cluster;
   const long long units = L::int8 ? (in + SROWS - 1) / SROWS : in / group;
-  const int per = (int)((units + splits - 1) / splits);
+  const int per = (int)(blk * ((units / blk + splits - 1) / splits));
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(strips * cluster));
   cfg.blockDim = dim3(WC * WK * 32);
@@ -845,7 +991,8 @@ int launch_decode(const void* x, const uint8_t* q, const float* s, void* y, int 
   attr[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = pdl ? 2 : 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, x, q, s, y, sx, rows, in, out, xs, group, per, y_f32);
+  err = cudaLaunchKernelEx(&cfg, kernel, x, q, s, y, sx, rows, in, out, xs, group, per, y_f32,
+                           blk);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -870,10 +1017,11 @@ int kernel_facts(size_t smem, int threads, long long* vals) {
   return (int)err;
 }
 
-template <int FMT, int RB, bool ALIGNED, int SROWS, int STAGES, int WC, int WK, int PF>
+template <int FMT, int RB, bool ALIGNED, int SROWS, int STAGES, int WC, int WK, int PF,
+          int LO = kLoShip>
 int info_decode(long long* vals) {
   using L = DecodeSmem<FMT, RB, ALIGNED, SROWS, STAGES, WC, WK, PF>;
-  return kernel_facts<decode_rows_kernel<FMT, RB, ALIGNED, SROWS, STAGES, WC, WK, PF>>(
+  return kernel_facts<decode_rows_kernel<FMT, RB, ALIGNED, SROWS, STAGES, WC, WK, PF, LO>>(
       L::bytes, WC * WK * 32, vals);
 }
 
@@ -908,16 +1056,18 @@ int run_decode(bool info, int rows, bool aligned, long long* vals, const bf16* x
 
 // run_decode for the W4A8 formats: x int8 (W4A8Q: bf16) with rows `in`
 // apart, the row scales sx or nullptr, y f32 (y_f32) or bf16, and pdl as
-// for launch_decode. W4A8T has aligned instantiations only.
-template <int FMT, int SROWS, int STAGES, int WC, int WK, int PF>
+// for launch_decode; LO and blk as for the kernel. W4A8T, W4A8R and the
+// unpacks other than ship have aligned instantiations only.
+template <int FMT, int SROWS, int STAGES, int WC, int WK, int PF, int LO = kLoShip>
 int run_w4a8(bool info, int rows, bool aligned, long long* vals, const void* x,
              const uint8_t* q, const float* s, const float* sx, void* y, long long in,
-             long long out, int group, int cluster, int y_f32, bool pdl, cudaStream_t st) {
+             long long out, int group, int cluster, int y_f32, bool pdl, cudaStream_t st,
+             int blk = 1) {
 #define VSTAR_W4A8_CALL(RB, AL)                                                           \
-  return info ? info_decode<FMT, RB, AL, SROWS, STAGES, WC, WK, PF>(vals)                 \
-              : launch_decode<FMT, RB, AL, SROWS, STAGES, WC, WK, PF>(                    \
-                    x, q, s, y, rows, in, out, in, group, cluster, st, sx, y_f32, pdl)
-  if constexpr (FMT == kFmtW4A8T) {
+  return info ? info_decode<FMT, RB, AL, SROWS, STAGES, WC, WK, PF, LO>(vals)             \
+              : launch_decode<FMT, RB, AL, SROWS, STAGES, WC, WK, PF, LO>(                \
+                    x, q, s, y, rows, in, out, in, group, cluster, st, sx, y_f32, pdl, blk)
+  if constexpr (FMT == kFmtW4A8T || FMT == kFmtW4A8R || LO != kLoShip) {
     if (!aligned) return (int)cudaErrorInvalidValue;
     if (rows > 8) VSTAR_W4A8_CALL(16, true);
     VSTAR_W4A8_CALL(8, true);

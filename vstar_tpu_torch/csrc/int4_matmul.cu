@@ -46,7 +46,6 @@
 // Both take any OUT, including the ragged 32003-wide lm_head: columns past
 // OUT are masked.
 #include "decode_rows.cuh"
-#include "quant_common.cuh"
 
 namespace {
 

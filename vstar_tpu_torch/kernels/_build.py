@@ -54,13 +54,15 @@ _SIGNATURES = {
     "vstar_int4_kernel_info": [ctypes.c_int, ctypes.POINTER(ctypes.c_char_p),
                                ctypes.POINTER(ctypes.c_longlong)],
     "vstar_unpack_probe": [_P] * 2 + [_LL] * 2 + [_P],
-    "vstar_w4a8_variant": [_P] * 5 + [_LL] * 8 + [_P],
-    "vstar_w4a8_rows": [_P] * 5 + [_LL] * 5 + [_P],
+    "vstar_w4a8_variant": [_P] * 4 + [_LL] * 7 + [_P],
+    "vstar_w4a8_variant_occupancy": [_LL] * 3 + [_P],
+    "vstar_w4a8_rows": [_P] * 4 + [_LL] * 6 + [_P],
+    "vstar_w4a8_variants_kernel_info": [ctypes.c_int, ctypes.POINTER(ctypes.c_char_p),
+                                        ctypes.POINTER(ctypes.c_longlong)],
     "vstar_w4a8_t": [_P] * 4 + [_LL] * 5 + [_P],
     "vstar_w4a8_t_occupancy": [_LL] + [_P],
     "vstar_w4a8_t_kernel_info": [ctypes.c_int, ctypes.POINTER(ctypes.c_char_p),
                                  ctypes.POINTER(ctypes.c_longlong)],
-    "vstar_int4_variants_occupancy": [_LL] * 3 + [_P],
     "vstar_graph_kernel_nodes": [_P] * 3,
 }
 

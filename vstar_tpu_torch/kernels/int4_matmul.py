@@ -180,14 +180,15 @@ def w4a8_kernel_info():
     return _build.kernel_info("vstar_w4a8_kernel_info")
 
 
-def w4a8_plan(groups: int, out: int, resident: int, sms: int) -> int:
+def w4a8_plan(groups: int, out: int, resident: int, sms: int,
+              cols: int = DECODE_COLS * W4A8_WARP_COLS) -> int:
     """K6's cluster size: decode_plan's (the most blocks a strip that fill
     the card's resident slots in one wave), halved while a block would
     stream fewer than W4A8_MIN_GROUPS groups and half the blocks would
     still give every SM one. Measured at one and 16 rows (kernel_probe.py
     --k6-shapes): 4096x11008 runs faster on clusters of 4 (8 groups a
-    block, 172 blocks) than of 8; the 4096-wide outputs (16 strips) on 8."""
-    cols = DECODE_COLS * W4A8_WARP_COLS
+    block, 172 blocks) than of 8; the 4096-wide outputs (16 strips) on 8.
+    `cols`: the strip (P2's block_o; K6's 256 by default)."""
     c = decode_plan(groups, out, resident, cols, W4A8_SPLITS, W4A8_MAX_CLUSTER)
     strips = -(-out // cols)
     while (c > 1 and -(-groups // (c * W4A8_SPLITS)) < W4A8_MIN_GROUPS

@@ -11,12 +11,14 @@ package launches them (its --probe and --matmul stages):
   w4a8_variant(xq, q4, s4, unpack, block_o)
                                 P2, _w4a8_call: K6's function with the lo
                                 nibble unpacked as 'ship' (K6's shift and
-                                mask), 'mul', '2and' or 'off', block_o
-                                columns per block
+                                mask), 'mul', '2and' or 'off'; K6's
+                                tensor-core decode rows in strips of block_o
+                                columns (one launch)
   w4a8_rows(xq, q4, s4, block_i=None)
                                 P3, _w4a8_call_rows: blocks over block_i
                                 packed input rows, partial sums added in
-                                block order
+                                block order; the decode rows in 512-column
+                                strips, whole blocks a k-split (one launch)
   w4a8_t(xq, q4t, s4t, block_o) P4, _w4a8_call_t: transposed storage q4t
                                 uint8 [OUT, IN/2], s4t f32 [OUT, NG]; K6's
                                 tensor-core decode rows on that layout
@@ -30,9 +32,11 @@ a sum over each block's groups, then the blocks; `_kernel_sum`), so they
 give their bits on the CPU. The kernels split the sums differently and
 agree within 1e-5 of the largest |output|. Domain, the JAX functions':
 1 <= R <= 16, block_o 256 or 512 dividing OUT (the JAX grid is OUT //
-block_o), block_i a multiple of the group's packed rows dividing IN/2;
-the kernels' quads of 4 packed rows also need a group of a multiple of 8
-inputs (P4's decode rows: of 128, IN % 32 == 0, q4t 16-byte aligned).
+block_o), block_i a multiple of the group's packed rows dividing IN/2,
+a group of a multiple of 8 inputs. On CUDA the decode rows also need
+(`_check_cuda`) a group of a multiple of W4A8_GROUP_MULTIPLE inputs, IN %
+32 == 0 and 16-byte aligned weights and scales (P3: OUT % 16 == 0), and
+raise ValueError outside it.
 
 A CPU tensor takes the plain versions; a CUDA tensor launches the kernel
 or raises.
@@ -44,8 +48,8 @@ import torch
 
 from . import _build
 from .int4_matmul import (W4A8_GROUP_MULTIPLE, W4A8_MAX_CLUSTER, decode_plan,
-                          unpack_int4)
-from .int8_matmul import MAX_ROWS, capacity, check_cuda_operand, row_bucket
+                          unpack_int4, w4a8_plan)
+from .int8_matmul import MAX_ROWS, _sm_count, capacity, check_cuda_operand
 
 NAMES = ("unpack_probe", "w4a8_variant", "w4a8_rows", "w4a8_t")
 launches = dict.fromkeys(NAMES, 0)
@@ -55,6 +59,11 @@ PROBES = ("mul", "add")                   # P1's candidates, in C order
 UNPACKS = ("ship", "mul", "2and", "off")  # P2's lo-nibble unpacks
 BLOCK_O = (256, 512)
 P4_SPLITS = 2                 # k-splits a block (VSTAR_P4_DECODE)
+# P3's decode rows (VSTAR_P3_DECODE): strips of P3_COLS columns, one
+# k-split of whole row blocks a block, clusters of up to P3_MAX_CLUSTER
+# blocks (non-portable above 8)
+P3_COLS = 512
+P3_MAX_CLUSTER = 16
 
 
 def _count_plain(name, t):
@@ -218,24 +227,28 @@ def _check(name, xq, IN2, OUT, NG, block_o=None):
                          f"{BLOCK_O} and divide OUT = {OUT}")
 
 
-def _operands(name, xq, q, s, shape_q, shape_s):
+def _check_cuda(name, xq, q, s, shape_q, shape_s, group):
+    """The operands of a decode-row launch, and the kernels' domain beyond
+    the JAX functions': a group of a multiple of W4A8_GROUP_MULTIPLE
+    inputs (whole ring stages), IN % 32 == 0, q and s 16-byte aligned.
+    Returns xq, cloned if it is not 16-byte aligned (the kernels copy
+    16-byte chunks of it)."""
     dev = xq.device
     check_cuda_operand("xq", xq, torch.int8, xq.shape, dev)
     check_cuda_operand("q4", q, torch.uint8, shape_q, dev)
     check_cuda_operand("s4", s, torch.float32, shape_s, dev)
-    if xq.data_ptr() % 8 or q.data_ptr() % 4 or s.data_ptr() % 16:
-        raise ValueError(f"{name}: xq, q4, s4 must be 8-, 4- and 16-byte "
-                         "aligned")
+    IN = xq.shape[1]
+    if group % W4A8_GROUP_MULTIPLE or IN % 32 or q.data_ptr() % 16 \
+            or s.data_ptr() % 16:
+        raise ValueError(f"{name}: a group of {group} inputs must be a "
+                         f"multiple of {W4A8_GROUP_MULTIPLE}, IN = {IN} of "
+                         "32, and q4, s4 16-byte aligned")
+    return xq.clone() if xq.data_ptr() % 16 else xq
 
 
-def _split(dev, unpack, rows, cols, tiles, ng):
-    """P2's groups per split and splits, so that tiles x splits fill the
-    card's resident blocks; every split is non-empty."""
-    cap = capacity(dev, "vstar_int4_variants_occupancy",
-                   (unpack, row_bucket(rows), cols))
-    want = max(cap // tiles, 1)
-    chunk = -(-ng // min(want, ng))
-    return chunk, -(-ng // chunk)
+def _rows_key(rows):
+    """The instantiation (8 or 16 rows) a launch of `rows` takes."""
+    return 16 if rows > 8 else 8
 
 
 def w4a8_variant(xq: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor,
@@ -252,15 +265,17 @@ def w4a8_variant(xq: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor,
     if _on_cpu(xq, "w4a8_variant"):
         return w4a8_variant_reference(xq, q4, s4, unpack, block_o)
     rows, IN = xq.shape
-    _operands("w4a8_variant", xq, q4, s4, (IN2, OUT), (NG, OUT))
+    xq = _check_cuda("w4a8_variant", xq, q4, s4, (IN2, OUT), (NG, OUT),
+                     IN // NG)
     u = UNPACKS.index(unpack)
-    gchunk, splits = _split(xq.device, u, rows, block_o, OUT // block_o, NG)
-    ws = torch.empty((splits, rows, OUT), dtype=torch.float32,
-                     device=xq.device)
+    cap = capacity(xq.device, "vstar_w4a8_variant_occupancy",
+                   (u, _rows_key(rows), block_o))
+    cluster = w4a8_plan(NG, OUT, cap, _sm_count(xq.device.index or 0),
+                        block_o)
     y = torch.empty((rows, OUT), dtype=torch.float32, device=xq.device)
     _launch("w4a8_variant", "vstar_w4a8_variant", xq.device, xq.data_ptr(),
-            q4.data_ptr(), s4.data_ptr(), ws.data_ptr(), y.data_ptr(), rows,
-            IN, OUT, IN // NG, u, block_o, gchunk, splits)
+            q4.data_ptr(), s4.data_ptr(), y.data_ptr(), rows, IN, OUT,
+            IN // NG, u, block_o, cluster)
     return y
 
 
@@ -275,15 +290,18 @@ def w4a8_rows(xq: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor,
     if _on_cpu(xq, "w4a8_rows"):
         return w4a8_rows_reference(xq, q4, s4, block_i)
     rows, IN = xq.shape
-    if OUT % 4:
-        raise ValueError(f"w4a8_rows: OUT = {OUT} must be a multiple of 4")
-    _operands("w4a8_rows", xq, q4, s4, (IN2, OUT), (NG, OUT))
-    ws = torch.empty((IN2 // block_i, rows, OUT), dtype=torch.float32,
-                     device=xq.device)
+    if OUT % 16:
+        raise ValueError(f"w4a8_rows: OUT = {OUT} must be a multiple of 16")
+    xq = _check_cuda("w4a8_rows", xq, q4, s4, (IN2, OUT), (NG, OUT), IN // NG)
+    # at one block an SM: the plan at the occupancy calculator's 2-3 blocks
+    # lost up to 1.4x on the 32000-wide lm_head (kernel_probe.py
+    # --p23-shapes)
+    cluster = decode_plan(IN2 // block_i, OUT, _sm_count(xq.device.index or 0),
+                          P3_COLS, 1, P3_MAX_CLUSTER)
     y = torch.empty((rows, OUT), dtype=torch.float32, device=xq.device)
     _launch("w4a8_rows", "vstar_w4a8_rows", xq.device, xq.data_ptr(),
-            q4.data_ptr(), s4.data_ptr(), ws.data_ptr(), y.data_ptr(), rows,
-            IN, OUT, IN // NG, block_i)
+            q4.data_ptr(), s4.data_ptr(), y.data_ptr(), rows, IN, OUT,
+            IN // NG, block_i, cluster)
     return y
 
 
@@ -297,15 +315,8 @@ def w4a8_t(xq: torch.Tensor, q4t: torch.Tensor, s4t: torch.Tensor,
     if _on_cpu(xq, "w4a8_t"):
         return w4a8_t_reference(xq, q4t, s4t, block_o)
     rows, IN = xq.shape
-    _operands("w4a8_t", xq, q4t, s4t, (OUT, IN2), (OUT, NG))
-    if (IN // NG) % W4A8_GROUP_MULTIPLE or IN % 32 or q4t.data_ptr() % 16:
-        raise ValueError(f"w4a8_t: a group of {IN // NG} inputs must be a "
-                         f"multiple of {W4A8_GROUP_MULTIPLE}, IN = {IN} of "
-                         "32, and q4t 16-byte aligned")
-    if xq.data_ptr() % 16:   # the kernel copies 16-byte chunks of x
-        xq = xq.clone()
-    cap = capacity(xq.device, "vstar_w4a8_t_occupancy",
-                   (16 if rows > 8 else 8,))
+    xq = _check_cuda("w4a8_t", xq, q4t, s4t, (OUT, IN2), (OUT, NG), IN // NG)
+    cap = capacity(xq.device, "vstar_w4a8_t_occupancy", (_rows_key(rows),))
     cluster = decode_plan(NG, OUT, cap, splits=P4_SPLITS,
                           max_cluster=W4A8_MAX_CLUSTER)
     y = torch.empty((rows, OUT), dtype=torch.float32, device=xq.device)
@@ -313,6 +324,12 @@ def w4a8_t(xq: torch.Tensor, q4t: torch.Tensor, s4t: torch.Tensor,
             q4t.data_ptr(), s4t.data_ptr(), y.data_ptr(), rows, IN, OUT,
             IN // NG, cluster)
     return y
+
+
+def variants_kernel_info():
+    """Build facts of P2's (unpack x 256 / 512 columns x 8 / 16 rows) and
+    P3's (8 / 16 rows) instantiations."""
+    return _build.kernel_info("vstar_w4a8_variants_kernel_info")
 
 
 def w4a8_t_kernel_info():

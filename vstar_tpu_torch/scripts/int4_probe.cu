@@ -10,7 +10,11 @@
 //                packed rows per stage, stages, warps along the columns,
 //                k-splits per block, PF bits) of the script's K6_VARIANTS;
 //   --w4a8-quant K6 quantizing its bf16 rows itself (kFmtW4A8Q), against
-//                the shipped row quantization launch + K6.
+//                the shipped row quantization launch + K6;
+//   --p23-shapes P3's decode rows (W4A8R) and P2's at 512 columns at each
+//                (format, packed rows per stage, stages, warps along the
+//                columns, k-splits per block, PF bits, unpack) of the
+//                script's P23_VARIANTS.
 // Built with kernel_probe.cu and k3_probe.cu into one library; includes
 // the kernel library's int4_matmul.cu whole.
 #include "../csrc/int4_matmul.cu"
@@ -99,7 +103,57 @@ int dispatch_k6(int v, bool info_only, int rows, bool aligned, long long* vals, 
   return (int)cudaErrorInvalidValue;
 }
 
+// P3's shipped shape (int4_variants.cu VSTAR_P3_DECODE).
+#define VSTAR_P3_SHAPE kFmtW4A8R, 32, 3, 4, 1, 0
+
+// The order of kernel_probe.py's P23_VARIANTS: (format, packed rows per
+// stage, stages, warps along the columns, k-splits per block, PF, unpack).
+int dispatch_p23(int v, bool info_only, int rows, long long* vals, const void* x,
+                 const uint8_t* q4, const float* s4, void* y, long long in, long long out,
+                 int group, int cluster, int blk, cudaStream_t st) {
+#define VSTAR_ARGS \
+  info_only, rows, true, vals, x, q4, s4, nullptr, y, in, out, group, cluster, 1, false, st, blk
+  switch (v) {
+    case 0: return run_w4a8<VSTAR_P3_SHAPE>(VSTAR_ARGS);               // P3 shipped
+    case 1: return run_w4a8<kFmtW4A8R, 32, 3, 8, 1, 0>(VSTAR_ARGS);   // 1024 columns
+    case 2: return run_w4a8<kFmtW4A8R, 64, 3, 4, 1, 0>(VSTAR_ARGS);
+    case 3: return run_w4a8<kFmtW4A8R, 64, 3, 2, 1, 0>(VSTAR_ARGS);   // K6's shape
+    case 4: return run_w4a8<kFmtW4A8R, 32, 4, 4, 1, 0>(VSTAR_ARGS);   // a deeper ring
+    case 5: return run_w4a8<kFmtW4A8R, 32, 3, 4, 2, 0>(VSTAR_ARGS);   // two k-splits
+    case 6: return run_w4a8<kFmtW4A8R, 32, 3, 4, 1, 4>(VSTAR_ARGS);   // no products
+    case 7: return run_w4a8<kFmtW4A8R, 32, 3, 4, 1, 8>(VSTAR_ARGS);   // no weight copies
+    case 8: return run_w4a8<kFmtW4A8R, 32, 3, 4, 1, 12>(VSTAR_ARGS);  // neither
+    case 9: return run_w4a8<kFmtW4A8R, 32, 3, 4, 1, 16>(VSTAR_ARGS);  // nothing
+    case 10: return run_w4a8<kFmtW4A8, 64, 3, 4, 1, 0>(VSTAR_ARGS);    // P2 at 512 shipped
+    case 11: return run_w4a8<kFmtW4A8, 32, 3, 4, 1, 0>(VSTAR_ARGS);
+    case 12: return run_w4a8<kFmtW4A8, 64, 3, 4, 1, 4>(VSTAR_ARGS);    // no products
+    case 13: return run_w4a8<kFmtW4A8, 64, 3, 4, 1, 8>(VSTAR_ARGS);    // no weight copies
+    case 14: return run_w4a8<kFmtW4A8, 64, 3, 4, 1, 16>(VSTAR_ARGS);   // nothing
+  }
+#undef VSTAR_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
+
+// Build facts of P23 variant v at `rows` (vstar_int4_kernel_info's six
+// values).
+extern "C" int probe_p23_info(int v, long long rows, long long* vals) {
+  return dispatch_p23(v, true, (int)rows, vals, nullptr, nullptr, nullptr, nullptr, 0, 0, 0,
+                      0, 1, nullptr);
+}
+
+// P23 variant v: vstar_w4a8_rows' arguments with blk (groups a block; 1
+// for the W4A8 variants) for block_i; aligned operands, group % 128 == 0.
+extern "C" int probe_p23(int v, const void* x, const void* q4, const void* s4, void* y,
+                         long long rows, long long in, long long out, long long group,
+                         long long blk, long long cluster, void* stream) {
+  if (rows < 1 || rows > 16 || group % 128 || in % group || blk < 1 || (in / group) % blk)
+    return (int)cudaErrorInvalidValue;
+  return dispatch_p23(v, false, (int)rows, nullptr, x, static_cast<const uint8_t*>(q4),
+                      static_cast<const float*>(s4), y, in, out, (int)group, (int)cluster,
+                      (int)blk, static_cast<cudaStream_t>(stream));
+}
 
 // Build facts of K6 variant v (vstar_int4_kernel_info's six values).
 extern "C" int probe_k6_info(int v, long long rows, long long aligned, long long* vals) {

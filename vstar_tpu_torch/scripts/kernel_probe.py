@@ -1,6 +1,6 @@
 """K7 (flash-attention backward), K3/K4 (int8 decode rows), K5 (decode
-rows and tiles), K6 (W4A8 decode rows) with its qdot, and P4, measured on
-the H100.
+rows and tiles), K6 (W4A8 decode rows) with its qdot, and P2-P4, measured
+on the H100.
 
   --ab        device ms (one CUDA graph over input copies that exceed the
               L2 cache, median of 7 replays) of K7 at the training case
@@ -60,6 +60,22 @@ the H100.
               shape, and parts of the work left out; int4_probe.cu): build
               facts, device ms and error against the plain version at R =
               1 and 16 on 4096x11008, 11008x4096 and 4096x4096.
+  --p23-ab    P2 (every unpack, block_o 256 and 512 where OUT allows
+              it) and P3 (its default blocks) at 1, 8 and 16 rows on
+              4096x11008, 4096x32000 and 11008x4096, beside K6 (and P4)
+              on the same products: device ms, bound, kernels and
+              allocations a call, each held to its plain version and to
+              K6 first. Takes --root as --ab does, so that the parent's
+              design is timed in the same call.
+  --p23-shapes P3's decode rows at other strip widths and ring shapes, and
+              P2's at 512 columns (P23_VARIANTS, int4_probe.cu), each with
+              parts of its work left out (the time's breakdown): build
+              facts, device ms and error at R = 1 and 16 on 11008x4096
+              (P3 also on 4096x11008 and 4096x32000) at the plan's
+              cluster (P3's shapes and P2's at 512 columns also at 2, 4,
+              8, 16).
+  --sass      whether nvcc emitted the same SASS for P2's mul unpack as
+              for ship (cuobjdump -sass of the kernel library).
   --w4a8-quant where K6's qdot quantizes its rows, at R = 1 and 16 on
               4096x11008 and 11008x4096: the shipped two launches
               (quantize_rows, then K6 dependent on it), the same without
@@ -127,6 +143,19 @@ K6_VARIANTS = [("w4a8", 64, 3, 2, 1, 0), ("w4a8q", 64, 3, 2, 1, 0), ("w4a8", 32,
                ("w4a8t", 32, 4, 1, 4, 0), ("w4a8t", 64, 4, 1, 2, 0), ("w4a8t", 64, 3, 1, 4, 0),
                ("w4a8t", 64, 3, 2, 1, 0), ("w4a8t", 64, 3, 1, 2, 4)]
 K6_SHIPPED, P4_SHIPPED = 0, 13   # their cluster sizes are swept too
+# (format, packed rows per stage, stages, warps along the columns, k-splits
+# per block, PF bits as K6_VARIANTS'); int4_probe.cu's order. "w4a8r": P3
+# (the first is shipped; the second, 1024 columns, is the parent's width),
+# "w4a8": P2 at 512 columns (ship; P2_512 first)
+P23_VARIANTS = [("w4a8r", 32, 3, 4, 1, 0), ("w4a8r", 32, 3, 8, 1, 0), ("w4a8r", 64, 3, 4, 1, 0),
+                ("w4a8r", 64, 3, 2, 1, 0), ("w4a8r", 32, 4, 4, 1, 0), ("w4a8r", 32, 3, 4, 2, 0),
+                ("w4a8r", 32, 3, 4, 1, 4), ("w4a8r", 32, 3, 4, 1, 8), ("w4a8r", 32, 3, 4, 1, 12),
+                ("w4a8r", 32, 3, 4, 1, 16), ("w4a8", 64, 3, 4, 1, 0), ("w4a8", 32, 3, 4, 1, 0),
+                ("w4a8", 64, 3, 4, 1, 4), ("w4a8", 64, 3, 4, 1, 8), ("w4a8", 64, 3, 4, 1, 16)]
+P3_SHIPPED, P2_512 = 0, 10
+# P2's unpacks and strips, P3's cases (R, IN, OUT) of --p23-ab
+P23_UNPACKS = ("ship", "mul", "2and", "off")
+P23_SHAPES = ((4096, 11008), (4096, 32000), (11008, 4096))
 K6_SHAPES = ((4096, 11008), (11008, 4096), (4096, 4096))
 HBM = 3.35e12
 TILE_ROWS = (17, 64, 128, 384, 768)
@@ -847,6 +876,183 @@ def w4a8_quant(dev):
     return res
 
 
+def ab_p23(dev):
+    """P2 (every unpack, both block_o where OUT allows it) and P3 at 1, 8
+    and 16 rows on P23_SHAPES through the checkout's wrappers, beside K6
+    and P4 on the same products (kernels this tree leaves as they were:
+    their spread between the checkouts is the noise floor); each held to
+    its plain version first, with its kernels and allocations a call
+    (--p23-ab)."""
+    from vstar_tpu_torch.kernels import int4_matmul as k4
+    from vstar_tpu_torch.kernels import int4_variants as kv
+    from vstar_tpu_torch.utils.timing import graph_kernels, graph_ms
+    gen = torch.Generator(device=dev).manual_seed(9)
+    res = {"k6": [], "p4": [], "p2": [], "p3": []}
+
+    def one(fn):
+        allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+        fn()
+        return torch.cuda.memory_stats(dev)["allocation.all.allocated"] - allocs
+
+    for IN, OUT in P23_SHAPES:
+        e = _int4_entry(gen, dev, IN, OUT)
+        NG = e["s4"].shape[0]
+        for rows in (1, 8, 16):
+            xq = torch.randint(-127, 128, (rows, IN), generator=gen, device=dev,
+                               dtype=torch.int32).to(torch.int8)
+            variants = _copies(dict(xq=xq, q4=e["q4"], s4=e["s4"]), ("q4", "s4"))
+            bound = _w4a8_bound(rows, IN, OUT, NG, 1, 4)
+            case = f"R={rows} {IN}x{OUT}"
+            k6 = k4.int4_matmul_w4a8(xq, e["q4"], e["s4"])
+            res["k6"].append({"case": case, "bound_ms": bound, "ms": graph_ms(
+                [lambda a=a: k4.int4_matmul_w4a8(a["xq"], a["q4"], a["s4"])
+                 for a in variants])})
+            if rows == 1 and OUT != 4096:
+                t4 = [dict(xq=a["xq"], q4t=a["q4"].t().contiguous(),
+                           s4t=a["s4"].t().contiguous()) for a in variants]
+                res["p4"].append({"case": case, "bound_ms": bound, "ms": graph_ms(
+                    [lambda a=a: kv.w4a8_t(a["xq"], a["q4t"], a["s4t"]) for a in t4])})
+                del t4
+            calls = [(f"{u} block_o={bo}", "p2",
+                      lambda a, u=u, bo=bo: kv.w4a8_variant(a["xq"], a["q4"], a["s4"], u, bo),
+                      lambda u=u, bo=bo: kv.w4a8_variant_reference(xq, e["q4"], e["s4"], u, bo))
+                     for bo in (256, 512) if OUT % bo == 0 for u in P23_UNPACKS]
+            calls.append(("default blocks", "p3",
+                          lambda a: kv.w4a8_rows(a["xq"], a["q4"], a["s4"]),
+                          lambda: kv.w4a8_rows_reference(xq, e["q4"], e["s4"])))
+            for name, key, fn, plain in calls:
+                got = fn(variants[0])
+                rec = {"case": f"{name} {case}", "bound_ms": bound,
+                       "max_rel_err": _rel(got, plain()), "rel_err_vs_k6": _rel(got, k6),
+                       "kernels_per_call": graph_kernels(lambda: fn(variants[0]))[0],
+                       "allocations_per_call": one(lambda: fn(variants[0])),
+                       "ms": graph_ms([lambda a=a: fn(a) for a in variants]),
+                       "copies": len(variants)}
+                res[key].append(rec)
+            del variants
+    return res
+
+
+def _p23_plan(lib, vi, rows, NG, blocks, OUT, sms):
+    """The plan's cluster for P23_VARIANTS[vi] (P3: decode_plan over its
+    blocks at one block an SM, as w4a8_rows plans; P2 at 512 columns:
+    w4a8_plan), and the variant's build facts."""
+    from vstar_tpu_torch.kernels import int4_matmul as k4
+    from vstar_tpu_torch.kernels import int4_variants as kv
+    info = (ctypes.c_longlong * 6)()
+    code = lib.probe_p23_info(vi, rows, info)
+    if code != 0:
+        return None, info
+    fmt, _, _, wc, wk, _ = P23_VARIANTS[vi]
+    if fmt == "w4a8":
+        return k4.w4a8_plan(NG, OUT, info[4] * sms, sms, 128 * wc), info
+    return k4.decode_plan(blocks, OUT, sms, 128 * wc, wk, kv.P3_MAX_CLUSTER), info
+
+
+def p23_shapes(dev):
+    """Each P23_VARIANT's build facts, and its device ms and error against
+    the plain version at R = 1 and 16 on 11008x4096 (P3's also on
+    4096x11008 and 4096x32000), at the plan's cluster (and P3's shapes and
+    P2's at 512 columns at 2, 4, 8 and 16) (--p23-shapes)."""
+    from vstar_tpu_torch.kernels import _build
+    from vstar_tpu_torch.kernels import int4_variants as kv
+    lib = _probe_library()
+    ll, p = ctypes.c_longlong, ctypes.c_void_p
+    lib.probe_p23.argtypes = [ctypes.c_int] + [p] * 4 + [ll] * 6 + [p]
+    lib.probe_p23.restype = ctypes.c_int
+    lib.probe_p23_info.argtypes = [ctypes.c_int, ll, ctypes.POINTER(ll)]
+    lib.probe_p23_info.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(10)
+    res = {"build": {}, "cases": {}}
+    for vi, shape in enumerate(P23_VARIANTS):
+        for rows in (1, 16):
+            _, info = _p23_plan(lib, vi, rows, 86, 43, 4096, sms)
+            res["build"][f"{shape} R{rows}"] = {
+                "registers": info[0], "local_bytes": info[1], "dynamic_smem": info[3],
+                "blocks_per_sm": info[4]}
+    for IN, OUT in ((11008, 4096), (4096, 11008), (4096, 32000)):
+        e = _int4_entry(gen, dev, IN, OUT)
+        NG = e["s4"].shape[0]
+        block_i = kv.default_block_i(IN // 2, OUT, NG)
+        blk = block_i // (IN // 2 // NG)
+        for rows in (1, 16):
+            xq = torch.randint(-127, 128, (rows, IN), generator=gen, device=dev,
+                               dtype=torch.int32).to(torch.int8)
+            want = {"w4a8r": kv.w4a8_rows_reference(xq, e["q4"], e["s4"], block_i),
+                    "w4a8": kv.w4a8_variant_reference(xq, e["q4"], e["s4"])}
+            variants = _copies(dict(q4=e["q4"], s4=e["s4"]), ("q4", "s4"))
+            ys = [torch.empty(rows, OUT, dtype=torch.float32, device=dev) for _ in variants]
+            row = {}
+            for vi, shape in enumerate(P23_VARIANTS):
+                fmt, wc = shape[0], shape[3]
+                if fmt == "w4a8" and (OUT % (128 * wc) or IN != 11008):
+                    continue
+                plan, _ = _p23_plan(lib, vi, rows, NG, NG // blk, OUT, sms)
+                if plan is None:
+                    continue
+                units = NG // blk if fmt == "w4a8r" else NG
+                sweep = vi == P2_512 or (fmt == "w4a8r" and shape[5] == 0)
+                clusters = {plan} | ({c for c in (2, 4, 8, 16) if units >= c * shape[4]}
+                                     if sweep else set())
+                for cl in sorted(clusters):
+                    def call(a, y, vi=vi, cl=cl, b=blk if fmt == "w4a8r" else 1):
+                        code = lib.probe_p23(vi, xq.data_ptr(), a["q4"].data_ptr(),
+                                             a["s4"].data_ptr(), y.data_ptr(), rows, IN, OUT,
+                                             IN // NG, b, cl,
+                                             torch.cuda.current_stream(dev).cuda_stream)
+                        _build.check(_build.library(), code, f"p23 variant {vi}")
+                    tag = " (plan)" if cl == plan else ""
+                    try:
+                        row[f"{shape} cluster {cl}{tag}"] = _timed_variant(
+                            call, variants, ys, want[fmt])
+                    except RuntimeError as err:   # e.g. a cluster no GPC holds
+                        row[f"{shape} cluster {cl}{tag}"] = {"error": str(err)[:200]}
+            res["cases"][f"R={rows} {IN}x{OUT}"] = row
+            del variants, ys
+    return res
+
+
+def sass_unpacks():
+    """Whether nvcc emitted the same SASS for P2's mul as for ship (the
+    kernel library's decode_rows_kernel instantiations that differ only in
+    their unpack), from `cuobjdump -sass`: per (rows, warps) the
+    instruction counts and whether the streams are equal (--sass)."""
+    import re
+    from vstar_tpu_torch.kernels import _build
+    so = _build.build()
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True,
+                          check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+        elif name is not None:
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+            if m:
+                funcs[name].append(m.group(1))
+    # decode_rows_kernel<kFmtW4A8, RB, true, 64, 3, WC, 1, 0, LO>
+    pat = re.compile(r"decode_rows_kernelILi2ELi(\d+)ELb1ELi64ELi3ELi(\d)ELi1ELi0ELi(\d)E")
+    by = {}
+    for fn, ins in funcs.items():
+        m = pat.search(fn)
+        if m:
+            by[(int(m.group(1)), int(m.group(2)), int(m.group(3)))] = ins
+    res = []
+    for (rb, wc, lo), ins in sorted(by.items()):
+        if lo != 1 or (rb, wc, 0) not in by:
+            continue
+        ship = by[(rb, wc, 0)]
+        res.append({"rows": rb, "warps": wc, "ship_instructions": len(ship),
+                    "mul_instructions": len(ins), "identical": ship == ins,
+                    "other_counts": {P23_UNPACKS[k[2]]: len(v) for k, v in by.items()
+                                     if k[:2] == (rb, wc)}})
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ab", action="store_true")
@@ -857,6 +1063,9 @@ def main(argv=None) -> int:
     ap.add_argument("--w4a8-ab", action="store_true")
     ap.add_argument("--k6-shapes", action="store_true")
     ap.add_argument("--w4a8-quant", action="store_true")
+    ap.add_argument("--p23-ab", action="store_true")
+    ap.add_argument("--p23-shapes", action="store_true")
+    ap.add_argument("--sass", action="store_true")
     ap.add_argument("--calibrate", action="store_true")
     ap.add_argument("--root", default=None,
                     help="checkout whose vstar_tpu_torch --ab measures")
@@ -893,6 +1102,12 @@ def main(argv=None) -> int:
         out["k6_shapes"] = k6_shapes(dev)
     if args.w4a8_quant:
         out["w4a8_quant"] = w4a8_quant(dev)
+    if args.p23_ab:
+        out["p23"] = ab_p23(dev)
+    if args.p23_shapes:
+        out["p23_shapes"] = p23_shapes(dev)
+    if args.sass:
+        out["sass_unpacks"] = sass_unpacks()
     text = json.dumps(out)
     print(text, flush=True)
     if args.out:
