@@ -644,7 +644,8 @@ def _w4a8_inputs(cuda, rows, IN, OUT, group=128):
 @pytest.mark.parametrize("rows,IN,OUT,block_o,group", [
     (1, 4096, 11008, 256, 128), (8, 4096, 32000, 256, 128),
     (16, 11008, 4096, 512, 128), (3, 11008, 4096, 512, 11008),
-    (16, 4096, 4096, 256, 128), (1, 4096, 4096, 512, 256)])
+    (16, 4096, 4096, 256, 128), (1, 4096, 4096, 512, 256),
+    (8, 11008, 4096, 512, 128)])
 def test_w4a8_variant_kernel_on_card(cuda, unpack, rows, IN, OUT, block_o,
                                      group):
     """P2 on K6's decode rows: one launch and no workspace a call, within
