@@ -216,16 +216,21 @@ def _mma_s8(a, b):
     return A @ B
 
 
-def _mma_s8_k16(a, b):
-    """mma.sync.m16n8k16.row.col.s32.s8.s8.s32: a [32][2] words (rows g,
-    g + 8 at k-slots 4t4 ..), b [32] words (k-slots 4t4 .. of column g);
-    C [16, 8] (exact)."""
+def _u8(w):
+    """The four bytes of a word as uint8, lowest first."""
+    return np.array([int(w)], "<u4").view(np.uint8).astype(np.int64)
+
+
+def _mma_s8_k16(a, b, a_type=_s8):
+    """mma.sync.m16n8k16.row.col.s32.s8.s8.s32 (a_type _u8: .u8.s8): a
+    [32][2] words (rows g, g + 8 at k-slots 4t4 ..), b [32] words (k-slots
+    4t4 .. of column g); C [16, 8] (exact)."""
     A = np.zeros((16, 16), np.int64)
     B = np.zeros((16, 8), np.int64)
     for lane in range(32):
         g, t4 = lane >> 2, lane & 3
-        A[g, 4 * t4:4 * t4 + 4] = _s8(a[lane][0])
-        A[g + 8, 4 * t4:4 * t4 + 4] = _s8(a[lane][1])
+        A[g, 4 * t4:4 * t4 + 4] = a_type(a[lane][0])
+        A[g + 8, 4 * t4:4 * t4 + 4] = a_type(a[lane][1])
         B[4 * t4:4 * t4 + 4, g] = _s8(b[lane])
     return A @ B
 
@@ -236,35 +241,34 @@ def _mul16(w):
                    for i, b in enumerate(_s8(w))))
 
 
-def _off(w):
-    return U32((int(w) ^ 0x08080808) & 0x0F0F0F0F)
+def _off16(w):
+    """off's unpack, (b ^ 8) & 0xF = lo + 8, times 16 in its byte (a uint8
+    A operand)."""
+    return U32(((int(w) ^ 0x08080808) & 0x0F0F0F0F) << 4)
 
 
-def _and_a(ca, cb):
-    """2and's A registers of one m-tile and k-step: b & 7 of both columns
-    at k-slots 0-15, -(b & 8) (0 or 8, times 31) at 16-31."""
-    ca, cb = int(ca), int(cb)
-    return [U32(ca & 0x07070707), U32(cb & 0x07070707),
-            U32((ca & 0x08080808) * 31 & 0xFFFFFFFF),
-            U32((cb & 0x08080808) * 31 & 0xFFFFFFFF)]
+def _and16(w, mask):
+    """One of 2and's masks (7 or 8 a byte), times 16 in its byte: 16 (b &
+    8) is 0x80, -128 as int8."""
+    return U32((int(w) & mask) << 4)
 
 
 def _warp_group_dots(layout, q, xq, unpack="ship"):
     """One warp, one group of 128 inputs, 8 activation rows: the int32
     dots [8, 128] that the W4A8 decode rows sum, from their fragments.
     q4: q uint8 [64 packed rows, 128 columns], with P2's low-nibble
-    `unpack` (ship and mul: one m16n8k32 a k-step; 2and and off: the high
-    nibbles on an m16n8k16 against the odd inputs, the unscaled low part
-    in an accumulator of its own (2and: an m16n8k32 against (xe, xe); off:
-    an m16n8k16 against xe), off's sum(xe) from an m16n8k16 of A = 1, and
-    d = 16 lo (- 128 sum) + hi at the group's end); q4t: q uint8 [128
+    `unpack`, all into one accumulator (ship and mul: one m16n8k32 a
+    k-step; 2and: 16 (b & 7) beside the high nibbles on that m16n8k32 and
+    16 (b & 8) on an m16n8k16 against the even inputs; off: 16 (lo + 8) as
+    uint8 on an m16n8k16 against the even inputs, the high nibbles on one
+    against the odd inputs, its sum(xe) from an m16n8k16 of A = 1, and
+    128 sum(xe) subtracted at the group's end); q4t: q uint8 [128
     outputs, 64 packed bytes], read as two ring stages of 32 bytes; xq
     int8 [8, 128]."""
     xb = xq.view(np.uint8)
     y = np.zeros((8, 128), np.int64)
     if layout == "q4":
         d = {t: np.zeros((16, 8), np.int64) for t in range(8)}
-        dlo = {t: np.zeros((16, 8), np.int64) for t in range(8)}
         xsum = np.zeros((16, 8), np.int64)
         for ks in range(4):                      # k-steps of 32 inputs
             bx = []
@@ -292,19 +296,22 @@ def _warp_group_dots(layout, q, xq, unpack="ship"):
                     lo = _lo16 if unpack == "ship" else _mul16
                     d[t] += _mma_s8([[lo(ca), lo(cb), _hi16(ca), _hi16(cb)]
                                      for ca, cb in cs], bx)
-                    continue
-                d[t] += _mma_s8_k16([[_hi16(ca), _hi16(cb)] for ca, cb in cs],
-                                    odd)
-                if unpack == "2and":
-                    dlo[t] += _mma_s8([_and_a(ca, cb) for ca, cb in cs],
-                                      [(b, b) for b in even])
+                elif unpack == "2and":
+                    d[t] += _mma_s8([[_and16(ca, 0x07070707),
+                                      _and16(cb, 0x07070707), _hi16(ca),
+                                      _hi16(cb)] for ca, cb in cs], bx)
+                    d[t] += _mma_s8_k16([[_and16(ca, 0x08080808),
+                                          _and16(cb, 0x08080808)]
+                                         for ca, cb in cs], even)
                 else:
-                    dlo[t] += _mma_s8_k16([[_off(ca), _off(cb)]
-                                           for ca, cb in cs], even)
+                    d[t] += _mma_s8_k16([[_off16(ca), _off16(cb)]
+                                         for ca, cb in cs], even, _u8)
+                    d[t] += _mma_s8_k16([[_hi16(ca), _hi16(cb)]
+                                         for ca, cb in cs], odd)
             if unpack == "off":
                 xsum += _mma_s8_k16([[U32(0x01010101)] * 2] * 32, even)
         for t in range(8):
-            cm = d[t] + 16 * dlo[t] - (128 * xsum if unpack == "off" else 0)
+            cm = d[t] - (128 * xsum if unpack == "off" else 0)
             for m in range(16):                  # M row m: column 16g + 2t (+ 1)
                 y[:, 16 * (m % 8) + 2 * t + m // 8] += cm[m]
         return y
@@ -337,7 +344,7 @@ def test_w4a8_fragments_give_the_kernels_group_dots(layout, group):
     rng = np.random.RandomState(11 + group)
     R, IN, OUT = 8, 256, 128
     q4 = rng.randint(0, 256, size=(IN // 2, OUT)).astype(np.uint8)
-    # -128 too: 2and negates the weights' b & 8, never x
+    # -128 too: x is never negated (2and's -128 is the weights' 16 (b & 8))
     xq = rng.randint(-128, 128, size=(R, IN)).astype(np.int8)
     # s4 / 16 = 1 on this group, 0 on the other: the kernels' f32 output is
     # the group's int32 dot, exactly

@@ -662,6 +662,7 @@ def test_w4a8_variant_kernel_on_card(cuda, unpack, rows, IN, OUT, block_o,
     torch.cuda.synchronize()
     assert kv.launches["w4a8_variant"] == before + 1
     assert got.dtype == torch.float32 and _rel(got, want) <= 1e-5
+    assert _rel(got, k4.int4_matmul_w4a8_reference(xq, q4, s4)) <= 1e-5
     k6 = k4.int4_matmul_w4a8(xq, q4, s4)
     assert _rel(got, k6) <= 1e-5
     if unpack == "ship" and block_o == 256:

@@ -63,27 +63,26 @@
 // accumulator, as the TPU kernel does (:182-188). The activation scale is
 // the caller's: K6's qdot passes the per-row sx, and the store multiplies
 // by it and writes x's type; else the f32 sums are stored.
-// P2's low-nibble unpacks (LO; W4A8 on q4 only), after the same transpose:
+// P2's low-nibble unpacks (LO; W4A8 on q4 only), after the same transpose,
+// each into K6's one accumulator of 16 x the dot:
 //   ship  (b << 4) & 0xF0, K6's; mul  b * 16 per int8 byte (the same bytes
-//   by another arithmetic): both share K6's one m16n8k32 a k-step.
-//   2and, off  unscaled low parts, which cannot share an accumulator with
-//         the high nibbles (16 x): an accumulator of their own, and the
-//         high nibbles on an m16n8k16 a k-step against the odd inputs.
-//         (Pairing two k-steps into one m16n8k32 for the high nibbles
-//         holds both steps' rows, 16 more registers: it spilled at 16 rows
-//         and measured up to 40 % slower there, no faster at 8.)
-//   2and  b & 7 and -(b & 8) (the weights negated, never x: x may be
-//         -128): one m16n8k32 a k-step of A {b & 7 of both columns, -(b &
-//         8) of both} against B {xe, xe}; three operand streams, 1.5x
-//         ship's products.
-//   off   (b ^ 8) & 0xF = lo + 8: one m16n8k16 a k-step against the even
-//         inputs (the multiply-adds of ship's one m16n8k32, in two
-//         instructions); the correction 8 * sum(xe) of each row and group
-//         is one m16n8k16 of A = 1 on the same B fragments a k-step and
-//         n-tile (its C is the sums, already in the accumulators' layout),
-//         not per column.
-//   At the group's end d = 16 dlo (- 128 sum(xe)) + dhi in int32: the exact
-//   dot K6 sums, so every unpack gives K6's f32 sums bit for bit.
+//         by another arithmetic): one m16n8k32 a k-step, K6's.
+//   2and  the two masks b & 7 and b & 8, each times 16 in its byte: 16 (b &
+//         7) <= 112 fits int8 and 16 (b & 8) is 0 or 0x80 = -128 = -16 * 8,
+//         the subtraction for free. 16 (b & 7) takes the low k-slots of K6's
+//         m16n8k32 (beside the high nibbles), 16 (b & 8) an m16n8k16 against
+//         the even inputs: a third operand stream, 1.5x ship's products.
+//   off   (b ^ 8) & 0xF = lo + 8, times 16 (<= 240: uint8, which mma takes
+//         as A against int8 B) on an m16n8k16 against the even inputs, the
+//         high nibbles on an s8 m16n8k16 against the odd ones; the
+//         correction 8 * 16 sum(xe) of each row and group is one m16n8k16
+//         of A = 1 on the same B fragments a k-step and n-tile (its C is the
+//         sums, already in the accumulators' layout), not per column,
+//         subtracted at the group's end.
+//   Every unpack's group dot is K6's exact int32 dot, so its f32 sums are
+//   K6's bit for bit. (Unscaled low parts in an accumulator of their own,
+//   scaled by 16 at the group's end, held 27-34 more registers at 8 rows
+//   and spilled at 16: measured 7-16 % slower than ship at one row.)
 // P3 (W4A8R): K6 with its sums in blocks of `blk` groups, as the TPU's
 // row blocks: each k-split takes whole blocks, sums a block's groups in
 // its accumulator and adds the block's sum to its total in block order;
@@ -274,6 +273,15 @@ __device__ __forceinline__ void mma_s8_k16(int (&c)[4], uint32_t a0, uint32_t a1
       : "r"(a0), "r"(a1), "r"(b));
 }
 
+// c += a b: m16n8k16 as mma_s8_k16, with A unsigned (u8) and B s8.
+__device__ __forceinline__ void mma_u8s8_k16(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.u8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(b));
+}
+
 // 16 x the low / high nibble of each byte of w, as int8 bytes.
 __device__ __forceinline__ uint32_t lo16(uint32_t w) { return (w << 4) & 0xF0F0F0F0u; }
 __device__ __forceinline__ uint32_t hi16(uint32_t w) { return w & 0xF0F0F0F0u; }
@@ -331,8 +339,6 @@ __global__ void __launch_bounds__(WC * WK * 32)
                        long long xs, int group, int per, int y_f32, int blk) {
   using L = DecodeSmem<FMT, RB, ALIGNED, SROWS, STAGES, WC, WK, PF>;
   constexpr bool I8 = L::int8, W8 = L::w4a8, TR = L::trans, QX = L::qx, BO = L::blocked;
-  // the unpacks whose low nibbles are unscaled: a low accumulator of their own
-  constexpr bool LOACC = LO == kLoTwoAnd || LO == kLoOff;
   static_assert(LO == kLoShip || FMT == kFmtW4A8, "P2's unpacks: q4 only");
   constexpr int NT = RB / 8, GT = WC * 32, NTHR = WC * WK * 32, XE = L::x_elem;
   if constexpr ((PF & 16) != 0) return;
@@ -571,11 +577,10 @@ __global__ void __launch_bounds__(WC * WK * 32)
     __syncthreads();
   }
   // int4 sums each group in part and adds it, scaled, to acc; int8 sums
-  // into acc directly; W4A8 sums each group's int32 dot in dsum (2and,
-  // off: its high part; the low one in dlo, off's sums of x in xsum);
-  // W4A8R adds each block's acc to its total in part
+  // into acc directly; W4A8 sums each group's int32 dot in dsum (off: its
+  // sums of x in xsum); W4A8R adds each block's acc to its total in part
   float acc[8][NT][4], part[8][NT][4];
-  int dsum[8][NT][4], dlo[LOACC ? 8 : 1][NT][4], xsum[NT][4];
+  int dsum[8][NT][4], xsum[LO == kLoOff ? NT : 1][4];
   float (&sum)[8][NT][4] = I8 ? acc : part;
   float (&total)[8][NT][4] = BO ? part : acc;
 #pragma unroll
@@ -614,8 +619,7 @@ __global__ void __launch_bounds__(WC * WK * 32)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               dsum[t][nt][e] = 0;
-              if constexpr (LOACC) dlo[t][nt][e] = 0;
-              if (t == 0) xsum[nt][e] = 0;
+              if constexpr (LO == kLoOff) xsum[nt][e] = 0;
             }
       }
     } else if constexpr (!I8) {
@@ -662,61 +666,51 @@ __global__ void __launch_bounds__(WC * WK * 32)
               bx[ks][nt][1] = __byte_perm(v.x, v.y, 0x7531);
             }
           }
-        // packed rows 16 ks + 4 t4 + i4, columns 16g .. 16g + 15
-        auto rows4 = [&](int ks, uint32_t (&w)[4][4]) {
-#pragma unroll
-          for (int i4 = 0; i4 < 4; ++i4) {
-            const int r = 16 * ks + 4 * t4 + i4;
-            row_bytes(sw, r, p0 + r, w[i4]);
-          }
-        };
-        // their 4 x 4 bytes of columns 16g + 4j + e transposed: c[e] holds
-        // column e's four packed rows
-        auto columns = [&](const uint32_t (&w)[4][4], int j, uint32_t (&c)[4]) {
-          const uint32_t t0 = __byte_perm(w[0][j], w[1][j], 0x5140);
-          const uint32_t t1 = __byte_perm(w[0][j], w[1][j], 0x7362);
-          const uint32_t t2 = __byte_perm(w[2][j], w[3][j], 0x5140);
-          const uint32_t t3 = __byte_perm(w[2][j], w[3][j], 0x7362);
-          c[0] = __byte_perm(t0, t2, 0x5410);
-          c[1] = __byte_perm(t0, t2, 0x7632);
-          c[2] = __byte_perm(t1, t3, 0x5410);
-          c[3] = __byte_perm(t1, t3, 0x7632);
-        };
         if constexpr (!TR) {
 #pragma unroll
           for (int ks = 0; ks < KPS; ++ks) {
-            uint32_t w[4][4];
-            rows4(ks, w);
+            uint32_t w[4][4];   // packed rows 16 ks + 4 t4 + i, columns 16g .. 16g + 15
+#pragma unroll
+            for (int i4 = 0; i4 < 4; ++i4) {
+              const int r = 16 * ks + 4 * t4 + i4;
+              row_bytes(sw, r, p0 + r, w[i4]);
+            }
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
-              uint32_t c[4];
-              columns(w, j, c);
+              // the 4 x 4 bytes (rows i4, columns 16g + 4j + e) transposed:
+              // c[e] holds column e's four packed rows
+              const uint32_t t0 = __byte_perm(w[0][j], w[1][j], 0x5140);
+              const uint32_t t1 = __byte_perm(w[0][j], w[1][j], 0x7362);
+              const uint32_t t2 = __byte_perm(w[2][j], w[3][j], 0x5140);
+              const uint32_t t3 = __byte_perm(w[2][j], w[3][j], 0x7362);
+              const uint32_t c[4] = {__byte_perm(t0, t2, 0x5410), __byte_perm(t0, t2, 0x7632),
+                                     __byte_perm(t1, t3, 0x5410), __byte_perm(t1, t3, 0x7632)};
 #pragma unroll
               for (int h = 0; h < 2; ++h) {   // m-tile 2j + h: columns 4j + 2h, + 1
                 const uint32_t ca = c[2 * h], cb = c[2 * h + 1];
                 int (&d)[NT][4] = dsum[2 * j + h];
-                if constexpr (!LOACC) {
+                if constexpr (LO == kLoShip || LO == kLoMul) {
                   const uint32_t a[4] = {LO == kLoShip ? lo16(ca) : lo_times16<0>(ca),
                                          LO == kLoShip ? lo16(cb) : lo_times16<0>(cb),
                                          hi16(ca), hi16(cb)};
 #pragma unroll
                   for (int nt = 0; nt < NT; ++nt) mma_s8(d[nt], a, bx[ks][nt][0], bx[ks][nt][1]);
+                } else if constexpr (LO == kLoTwoAnd) {
+                  const uint32_t a[4] = {(ca & 0x07070707u) << 4, (cb & 0x07070707u) << 4,
+                                         hi16(ca), hi16(cb)};
+                  const uint32_t m8a = (ca & 0x08080808u) << 4, m8b = (cb & 0x08080808u) << 4;
+#pragma unroll
+                  for (int nt = 0; nt < NT; ++nt) {
+                    mma_s8(d[nt], a, bx[ks][nt][0], bx[ks][nt][1]);
+                    mma_s8_k16(d[nt], m8a, m8b, bx[ks][nt][0]);
+                  }
                 } else {
+                  const uint32_t la = ((ca ^ 0x08080808u) & 0x0F0F0F0Fu) << 4;
+                  const uint32_t lb = ((cb ^ 0x08080808u) & 0x0F0F0F0Fu) << 4;
 #pragma unroll
-                  for (int nt = 0; nt < NT; ++nt)
+                  for (int nt = 0; nt < NT; ++nt) {
+                    mma_u8s8_k16(d[nt], la, lb, bx[ks][nt][0]);
                     mma_s8_k16(d[nt], hi16(ca), hi16(cb), bx[ks][nt][1]);
-                  if constexpr (LO == kLoTwoAnd) {
-                    // -(b & 8) per byte: 0 or 8, times 31, is 0 or 0xF8 (-8)
-                    const uint32_t a[4] = {ca & 0x07070707u, cb & 0x07070707u,
-                                           (ca & 0x08080808u) * 31u, (cb & 0x08080808u) * 31u};
-#pragma unroll
-                    for (int nt = 0; nt < NT; ++nt)
-                      mma_s8(dlo[2 * j + h][nt], a, bx[ks][nt][0], bx[ks][nt][0]);
-                  } else {
-#pragma unroll
-                    for (int nt = 0; nt < NT; ++nt)
-                      mma_s8_k16(dlo[2 * j + h][nt], (ca ^ 0x08080808u) & 0x0F0F0F0Fu,
-                                 (cb ^ 0x08080808u) & 0x0F0F0F0Fu, bx[ks][nt][0]);
                   }
                 }
               }
@@ -767,14 +761,13 @@ __global__ void __launch_bounds__(WC * WK * 32)
             sa[2 * j + 1] = v.z * 0.0625f; sb[2 * j + 1] = v.w * 0.0625f;
           }
         }
-        if constexpr (LOACC) {   // the low part, times 16, less off's 8 * 16 sum(xe)
+        if constexpr (LO == kLoOff) {   // less 8 * 16 sum(xe) of each row
 #pragma unroll
           for (int t = 0; t < 8; ++t)
 #pragma unroll
             for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-              for (int e = 0; e < 4; ++e)
-                dsum[t][nt][e] += 16 * dlo[t][nt][e] - (LO == kLoOff ? 128 * xsum[nt][e] : 0);
+              for (int e = 0; e < 4; ++e) dsum[t][nt][e] -= 128 * xsum[nt][e];
         }
 #pragma unroll
         for (int t = 0; t < 8; ++t)

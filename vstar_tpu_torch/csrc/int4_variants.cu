@@ -16,16 +16,18 @@
 //   (ship, mul, 2and, off): K6's decode rows (decode_rows.cuh, format W4A8)
 //   with the unpack as a template dimension (LO) and block_o / 128 warps
 //   side by side, so that a block's strip is the TPU's block_o columns;
-//   ship at 256 columns is K6's own instantiation. 2and and off keep their
-//   unscaled low nibbles in an accumulator of their own and scale it by 16
-//   in int32 at the group's end; off's 8 * sum(xe) comes from one mma a
-//   k-step on the B fragments the ring already holds.
+//   ship at 256 columns is K6's own instantiation. 2and and off fold the
+//   16 x into their low bytes (2and's masks times 16 fit int8; off's
+//   16 (lo + 8) is a uint8 A operand), so every unpack sums in K6's one
+//   accumulator; off's 8 * sum(xe) comes from one mma a k-step on the B
+//   fragments the ring already holds.
 // P3 (_w4a8_call_rows): K6's function summed in blocks of block_i packed
 //   rows, the blocks' sums added in block order, as the TPU's `o_ref +=
-//   acc`: the decode rows in their W4A8R format, in strips twice K6's
-//   (the TPU kernel's point was whole-row reads; 1024 columns measured
-//   slower), each k-split a run of whole blocks whose sums it adds to its
-//   total in order, the cluster adding the splits in rank order.
+//   acc`: the decode rows in their W4A8R format at K6's shape and plan,
+//   each k-split a run of whole blocks whose sums it adds to its total in
+//   order, the cluster adding the splits in rank order. (The TPU kernel's
+//   point was whole-row reads: 512- and 1024-column strips measured slower
+//   than K6's 256 on the H100.)
 // P4 (_w4a8_call_t): K6's function on transposed storage, q4t u8 [OUT, IN/2]
 //   and s4t f32 [OUT, NG]: K6's decode rows in their W4A8T format
 //   (decode_rows.cuh). A word of one output's row is four packed inputs,
@@ -81,12 +83,10 @@ __global__ void __launch_bounds__(kThreads)
 // warps side by side, so that a block's strip is block_o columns, and the
 // low-nibble unpack LO.
 #define VSTAR_P2_DECODE(WC, LO) kFmtW4A8, 64, 3, WC, 1, 0, LO
-// P3's: 512-column strips (four warps side by side), 32 packed rows a
-// stage, 3 stages, one k-split (of whole row blocks) a block. It won
-// kernel_probe.py --p23-shapes over 1024-column strips (the parent's
-// width, 40-60 % slower on the 32000-wide lm_head), deeper rings and two
-// k-splits a block (PERF.md).
-#define VSTAR_P3_DECODE kFmtW4A8R, 32, 3, 4, 1, 0
+// P3's: K6's shape (256-column strips), one k-split of whole row blocks a
+// block. It beat 512- and 1024-column strips, deeper rings and two k-splits
+// a block in kernel_probe.py --p23-shapes (PERF.md).
+#define VSTAR_P3_DECODE kFmtW4A8R, 64, 3, 2, 1, 0
 // P4's: 64 packed bytes (one group) of each row a stage, 3 stages, one
 // warp per 128-row strip, two k-splits a block (kernel_probe.py
 // --k6-shapes; PERF.md).
@@ -154,6 +154,16 @@ extern "C" int vstar_w4a8_variant_occupancy(long long unpack, long long rows, lo
   return err;
 }
 
+// Blocks of P3's kernel for `rows` (<= 16) that one SM holds, into *blocks.
+extern "C" int vstar_w4a8_rows_occupancy(long long rows, void* blocks) {
+  long long vals[6];
+  const int err = run_w4a8<VSTAR_P3_DECODE>(true, (int)rows, true, vals, nullptr, nullptr,
+                                            nullptr, nullptr, nullptr, 0, 0, 0, 0, 1, false,
+                                            nullptr);
+  *static_cast<int*>(blocks) = (int)vals[4];
+  return err;
+}
+
 // Build facts of P2's and P3's i-th instantiation (P2: unpack i / 4, 256
 // or 512 columns, rows 8 / 16; then P3 at rows 8 / 16); -1 past the last.
 extern "C" int vstar_w4a8_variants_kernel_info(int i, const char** name, long long* vals) {
@@ -196,7 +206,7 @@ extern "C" int vstar_w4a8_variant(const void* xq, const void* q4, const void* s4
 
 // P3: P2's function (ship) with its sums in blocks of block_i packed rows
 // (a multiple of group / 2 dividing in / 2), added in block order: a
-// k-split takes whole blocks, the cluster (`cluster` blocks a 512-column
+// k-split takes whole blocks, the cluster (`cluster` blocks a 256-column
 // strip) adds the splits in rank order. out % 16 == 0, contiguous operands,
 // 16-byte aligned; bad_args' domain.
 extern "C" int vstar_w4a8_rows(const void* xq, const void* q4, const void* s4, void* y,

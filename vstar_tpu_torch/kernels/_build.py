@@ -57,6 +57,7 @@ _SIGNATURES = {
     "vstar_w4a8_variant": [_P] * 4 + [_LL] * 7 + [_P],
     "vstar_w4a8_variant_occupancy": [_LL] * 3 + [_P],
     "vstar_w4a8_rows": [_P] * 4 + [_LL] * 6 + [_P],
+    "vstar_w4a8_rows_occupancy": [_LL] + [_P],
     "vstar_w4a8_variants_kernel_info": [ctypes.c_int, ctypes.POINTER(ctypes.c_char_p),
                                         ctypes.POINTER(ctypes.c_longlong)],
     "vstar_w4a8_t": [_P] * 4 + [_LL] * 5 + [_P],

@@ -17,8 +17,8 @@ package launches them (its --probe and --matmul stages):
   w4a8_rows(xq, q4, s4, block_i=None)
                                 P3, _w4a8_call_rows: blocks over block_i
                                 packed input rows, partial sums added in
-                                block order; the decode rows in 512-column
-                                strips, whole blocks a k-split (one launch)
+                                block order; K6's decode rows, shape and
+                                plan, whole blocks a k-split (one launch)
   w4a8_t(xq, q4t, s4t, block_o) P4, _w4a8_call_t: transposed storage q4t
                                 uint8 [OUT, IN/2], s4t f32 [OUT, NG]; K6's
                                 tensor-core decode rows on that layout
@@ -59,11 +59,6 @@ PROBES = ("mul", "add")                   # P1's candidates, in C order
 UNPACKS = ("ship", "mul", "2and", "off")  # P2's lo-nibble unpacks
 BLOCK_O = (256, 512)
 P4_SPLITS = 2                 # k-splits a block (VSTAR_P4_DECODE)
-# P3's decode rows (VSTAR_P3_DECODE): strips of P3_COLS columns, one
-# k-split of whole row blocks a block, clusters of up to P3_MAX_CLUSTER
-# blocks (non-portable above 8)
-P3_COLS = 512
-P3_MAX_CLUSTER = 16
 
 
 def _count_plain(name, t):
@@ -293,11 +288,11 @@ def w4a8_rows(xq: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor,
     if OUT % 16:
         raise ValueError(f"w4a8_rows: OUT = {OUT} must be a multiple of 16")
     xq = _check_cuda("w4a8_rows", xq, q4, s4, (IN2, OUT), (NG, OUT), IN // NG)
-    # at one block an SM: the plan at the occupancy calculator's 2-3 blocks
-    # lost up to 1.4x on the 32000-wide lm_head (kernel_probe.py
-    # --p23-shapes)
-    cluster = decode_plan(IN2 // block_i, OUT, _sm_count(xq.device.index or 0),
-                          P3_COLS, 1, P3_MAX_CLUSTER)
+    # K6's plan over the groups, then no more k-splits than blocks
+    cap = capacity(xq.device, "vstar_w4a8_rows_occupancy", (_rows_key(rows),))
+    cluster = w4a8_plan(NG, OUT, cap, _sm_count(xq.device.index or 0))
+    while cluster > IN2 // block_i:
+        cluster //= 2
     y = torch.empty((rows, OUT), dtype=torch.float32, device=xq.device)
     _launch("w4a8_rows", "vstar_w4a8_rows", xq.device, xq.data_ptr(),
             q4.data_ptr(), s4.data_ptr(), y.data_ptr(), rows, IN, OUT,

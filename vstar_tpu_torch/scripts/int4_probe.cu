@@ -103,32 +103,28 @@ int dispatch_k6(int v, bool info_only, int rows, bool aligned, long long* vals, 
   return (int)cudaErrorInvalidValue;
 }
 
-// P3's shipped shape (int4_variants.cu VSTAR_P3_DECODE).
-#define VSTAR_P3_SHAPE kFmtW4A8R, 32, 3, 4, 1, 0
-
 // The order of kernel_probe.py's P23_VARIANTS: (format, packed rows per
-// stage, stages, warps along the columns, k-splits per block, PF, unpack).
+// stage, stages, warps along the columns, k-splits per block, PF).
 int dispatch_p23(int v, bool info_only, int rows, long long* vals, const void* x,
                  const uint8_t* q4, const float* s4, void* y, long long in, long long out,
                  int group, int cluster, int blk, cudaStream_t st) {
 #define VSTAR_ARGS \
   info_only, rows, true, vals, x, q4, s4, nullptr, y, in, out, group, cluster, 1, false, st, blk
   switch (v) {
-    case 0: return run_w4a8<VSTAR_P3_SHAPE>(VSTAR_ARGS);               // P3 shipped
-    case 1: return run_w4a8<kFmtW4A8R, 32, 3, 8, 1, 0>(VSTAR_ARGS);   // 1024 columns
-    case 2: return run_w4a8<kFmtW4A8R, 64, 3, 4, 1, 0>(VSTAR_ARGS);
-    case 3: return run_w4a8<kFmtW4A8R, 64, 3, 2, 1, 0>(VSTAR_ARGS);   // K6's shape
-    case 4: return run_w4a8<kFmtW4A8R, 32, 4, 4, 1, 0>(VSTAR_ARGS);   // a deeper ring
-    case 5: return run_w4a8<kFmtW4A8R, 32, 3, 4, 2, 0>(VSTAR_ARGS);   // two k-splits
-    case 6: return run_w4a8<kFmtW4A8R, 32, 3, 4, 1, 4>(VSTAR_ARGS);   // no products
-    case 7: return run_w4a8<kFmtW4A8R, 32, 3, 4, 1, 8>(VSTAR_ARGS);   // no weight copies
-    case 8: return run_w4a8<kFmtW4A8R, 32, 3, 4, 1, 12>(VSTAR_ARGS);  // neither
-    case 9: return run_w4a8<kFmtW4A8R, 32, 3, 4, 1, 16>(VSTAR_ARGS);  // nothing
-    case 10: return run_w4a8<kFmtW4A8, 64, 3, 4, 1, 0>(VSTAR_ARGS);    // P2 at 512 shipped
-    case 11: return run_w4a8<kFmtW4A8, 32, 3, 4, 1, 0>(VSTAR_ARGS);
-    case 12: return run_w4a8<kFmtW4A8, 64, 3, 4, 1, 4>(VSTAR_ARGS);    // no products
-    case 13: return run_w4a8<kFmtW4A8, 64, 3, 4, 1, 8>(VSTAR_ARGS);    // no weight copies
-    case 14: return run_w4a8<kFmtW4A8, 64, 3, 4, 1, 16>(VSTAR_ARGS);   // nothing
+    // P3 shipped (int4_variants.cu VSTAR_P3_DECODE: K6's shape)
+    case 0: return run_w4a8<kFmtW4A8R, 64, 3, 2, 1, 0>(VSTAR_ARGS);
+    case 1: return run_w4a8<kFmtW4A8R, 32, 3, 4, 1, 0>(VSTAR_ARGS);   // 512 columns
+    case 2: return run_w4a8<kFmtW4A8R, 32, 3, 8, 1, 0>(VSTAR_ARGS);   // 1024 columns
+    case 3: return run_w4a8<kFmtW4A8R, 64, 4, 2, 1, 0>(VSTAR_ARGS);   // a deeper ring
+    case 4: return run_w4a8<kFmtW4A8R, 64, 3, 2, 1, 4>(VSTAR_ARGS);   // no products
+    case 5: return run_w4a8<kFmtW4A8R, 64, 3, 2, 1, 8>(VSTAR_ARGS);   // no weight copies
+    case 6: return run_w4a8<kFmtW4A8R, 64, 3, 2, 1, 12>(VSTAR_ARGS);  // neither
+    case 7: return run_w4a8<kFmtW4A8R, 64, 3, 2, 1, 16>(VSTAR_ARGS);  // nothing
+    case 8: return run_w4a8<kFmtW4A8, 64, 3, 4, 1, 0>(VSTAR_ARGS);    // P2 at 512 shipped
+    case 9: return run_w4a8<kFmtW4A8, 32, 3, 4, 1, 0>(VSTAR_ARGS);
+    case 10: return run_w4a8<kFmtW4A8, 64, 3, 4, 1, 4>(VSTAR_ARGS);   // no products
+    case 11: return run_w4a8<kFmtW4A8, 64, 3, 4, 1, 8>(VSTAR_ARGS);   // no weight copies
+    case 12: return run_w4a8<kFmtW4A8, 64, 3, 4, 1, 16>(VSTAR_ARGS);  // nothing
   }
 #undef VSTAR_ARGS
   return (int)cudaErrorInvalidValue;

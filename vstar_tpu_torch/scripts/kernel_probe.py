@@ -76,6 +76,10 @@ on the H100.
               8, 16).
   --sass      whether nvcc emitted the same SASS for P2's mul unpack as
               for ship (cuobjdump -sass of the kernel library).
+  --sass-vs DIR  whether this tree and the checkout at DIR compiled each
+              decode-row instantiation they share (K3-K6, P4, by format
+              and shape) to the same SASS: a change to the shared template
+              that leaves a kernel's SASS as it was leaves its time too.
   --w4a8-quant where K6's qdot quantizes its rows, at R = 1 and 16 on
               4096x11008 and 11008x4096: the shipped two launches
               (quantize_rows, then K6 dependent on it), the same without
@@ -145,14 +149,14 @@ K6_VARIANTS = [("w4a8", 64, 3, 2, 1, 0), ("w4a8q", 64, 3, 2, 1, 0), ("w4a8", 32,
 K6_SHIPPED, P4_SHIPPED = 0, 13   # their cluster sizes are swept too
 # (format, packed rows per stage, stages, warps along the columns, k-splits
 # per block, PF bits as K6_VARIANTS'); int4_probe.cu's order. "w4a8r": P3
-# (the first is shipped; the second, 1024 columns, is the parent's width),
-# "w4a8": P2 at 512 columns (ship; P2_512 first)
-P23_VARIANTS = [("w4a8r", 32, 3, 4, 1, 0), ("w4a8r", 32, 3, 8, 1, 0), ("w4a8r", 64, 3, 4, 1, 0),
-                ("w4a8r", 64, 3, 2, 1, 0), ("w4a8r", 32, 4, 4, 1, 0), ("w4a8r", 32, 3, 4, 2, 0),
-                ("w4a8r", 32, 3, 4, 1, 4), ("w4a8r", 32, 3, 4, 1, 8), ("w4a8r", 32, 3, 4, 1, 12),
-                ("w4a8r", 32, 3, 4, 1, 16), ("w4a8", 64, 3, 4, 1, 0), ("w4a8", 32, 3, 4, 1, 0),
-                ("w4a8", 64, 3, 4, 1, 4), ("w4a8", 64, 3, 4, 1, 8), ("w4a8", 64, 3, 4, 1, 16)]
-P3_SHIPPED, P2_512 = 0, 10
+# (the first, K6's shape, is shipped; 512 and 1024 columns (the parent's
+# width) follow), "w4a8": P2 at 512 columns (ship; P2_512 first)
+P23_VARIANTS = [("w4a8r", 64, 3, 2, 1, 0), ("w4a8r", 32, 3, 4, 1, 0), ("w4a8r", 32, 3, 8, 1, 0),
+                ("w4a8r", 64, 4, 2, 1, 0), ("w4a8r", 64, 3, 2, 1, 4), ("w4a8r", 64, 3, 2, 1, 8),
+                ("w4a8r", 64, 3, 2, 1, 12), ("w4a8r", 64, 3, 2, 1, 16), ("w4a8", 64, 3, 4, 1, 0),
+                ("w4a8", 32, 3, 4, 1, 0), ("w4a8", 64, 3, 4, 1, 4), ("w4a8", 64, 3, 4, 1, 8),
+                ("w4a8", 64, 3, 4, 1, 16)]
+P3_SHIPPED, P2_512 = 0, 8
 # P2's unpacks and strips, P3's cases (R, IN, OUT) of --p23-ab
 P23_UNPACKS = ("ship", "mul", "2and", "off")
 P23_SHAPES = ((4096, 11008), (4096, 32000), (11008, 4096))
@@ -934,19 +938,19 @@ def ab_p23(dev):
 
 
 def _p23_plan(lib, vi, rows, NG, blocks, OUT, sms):
-    """The plan's cluster for P23_VARIANTS[vi] (P3: decode_plan over its
-    blocks at one block an SM, as w4a8_rows plans; P2 at 512 columns:
-    w4a8_plan), and the variant's build facts."""
+    """The plan's cluster for P23_VARIANTS[vi] (w4a8_plan at the variant's
+    strip and occupancy; P3 no more k-splits than blocks, as w4a8_rows
+    plans), and the variant's build facts."""
     from vstar_tpu_torch.kernels import int4_matmul as k4
-    from vstar_tpu_torch.kernels import int4_variants as kv
     info = (ctypes.c_longlong * 6)()
     code = lib.probe_p23_info(vi, rows, info)
     if code != 0:
         return None, info
-    fmt, _, _, wc, wk, _ = P23_VARIANTS[vi]
-    if fmt == "w4a8":
-        return k4.w4a8_plan(NG, OUT, info[4] * sms, sms, 128 * wc), info
-    return k4.decode_plan(blocks, OUT, sms, 128 * wc, wk, kv.P3_MAX_CLUSTER), info
+    fmt, _, _, wc, _, _ = P23_VARIANTS[vi]
+    plan = k4.w4a8_plan(NG, OUT, info[4] * sms, sms, 128 * wc)
+    while fmt == "w4a8r" and plan > blocks:
+        plan //= 2
+    return plan, info
 
 
 def p23_shapes(dev):
@@ -1020,20 +1024,7 @@ def sass_unpacks():
     instruction counts and whether the streams are equal (--sass)."""
     import re
     from vstar_tpu_torch.kernels import _build
-    so = _build.build()
-    tool = Path(_build._nvcc()).with_name("cuobjdump")
-    text = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True,
-                          check=True).stdout
-    funcs, name = {}, None
-    for line in text.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            name = m.group(1)
-            funcs[name] = []
-        elif name is not None:
-            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
-            if m:
-                funcs[name].append(m.group(1))
+    funcs = _sass_functions(_build.build())
     # decode_rows_kernel<kFmtW4A8, RB, true, 64, 3, WC, 1, 0, LO>
     pat = re.compile(r"decode_rows_kernelILi2ELi(\d+)ELb1ELi64ELi3ELi(\d)ELi1ELi0ELi(\d)E")
     by = {}
@@ -1053,6 +1044,62 @@ def sass_unpacks():
     return res
 
 
+def _sass_functions(so):
+    """{function name: [instructions]} of a library, from cuobjdump -sass
+    (the addresses dropped)."""
+    import re
+    from vstar_tpu_torch.kernels import _build
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True,
+                          check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+        elif name is not None:
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+            if m:
+                funcs[name].append(m.group(1))
+    return funcs
+
+
+def sass_vs(root):
+    """The decode-row instantiations that this tree's kernel library and
+    the one of the checkout at `root` (built there by its own _build)
+    share, keyed by their template arguments up to PF (the trailing
+    low-nibble unpack, where there is one, must be ship): for each, both
+    instruction counts and whether the SASS is identical (--sass-vs)."""
+    import re
+    from vstar_tpu_torch.kernels import _build
+    other = subprocess.run(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+         "from vstar_tpu_torch.kernels import _build; print(_build.build())",
+         os.path.abspath(root)], capture_output=True, text=True, check=True,
+        cwd=os.path.abspath(root)).stdout.strip().splitlines()[-1]
+    pat = re.compile(r"decode_rows_kernelI((?:L[ib]\d+E){8})(?:Li(\d+)E)?E")
+
+    def by_key(so):
+        out = {}
+        for fn, ins in _sass_functions(so).items():
+            m = pat.search(fn)
+            if m and (m.group(2) or "0") == "0":
+                out[m.group(1)] = ins
+        return out
+
+    mine, theirs = by_key(_build.build()), by_key(other)
+    res = []
+    for key in sorted(set(mine) & set(theirs)):
+        args = [int(a) for a in re.findall(r"L[ib](\d+)E", key)]
+        res.append({"format_rows_aligned_srows_stages_wc_wk_pf": args,
+                    "instructions": len(mine[key]), "other_instructions": len(theirs[key]),
+                    "identical": mine[key] == theirs[key]})
+    return {"other_library": other, "shared": res,
+            "only_here": len(set(mine) - set(theirs)),
+            "only_there": len(set(theirs) - set(mine))}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ab", action="store_true")
@@ -1066,6 +1113,7 @@ def main(argv=None) -> int:
     ap.add_argument("--p23-ab", action="store_true")
     ap.add_argument("--p23-shapes", action="store_true")
     ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--sass-vs", default=None, metavar="DIR")
     ap.add_argument("--calibrate", action="store_true")
     ap.add_argument("--root", default=None,
                     help="checkout whose vstar_tpu_torch --ab measures")
@@ -1108,6 +1156,8 @@ def main(argv=None) -> int:
         out["p23_shapes"] = p23_shapes(dev)
     if args.sass:
         out["sass_unpacks"] = sass_unpacks()
+    if args.sass_vs:
+        out["sass_vs"] = sass_vs(args.sass_vs)
     text = json.dumps(out)
     print(text, flush=True)
     if args.out:
