@@ -25,17 +25,33 @@ Runs on one CUDA card, in phases; any failure exits non-zero:
      bound and, where one PyTorch call computes the same function, that
      call timed the same two ways (a yardstick the port never calls); the act-int8 route of the
      int8 entries is timed beside the int8 kernel (log only);
-  4. the bf16 path: the random-init 7B SEAL pair answers two requests
-     through SealService.answer, one over HTTP, and one forced-search
-     sample (free-form, 3-step guided search, focused option scoring);
+  4. the bf16 path: the random-init 7B SEAL pair (both engines drafting
+     from their templates) answers two requests through
+     SealService.answer, one over HTTP, and one forced-search sample
+     (free-form, 3-step guided search, focused option scoring); then the
+     decode slice on the same resident pair, its counts read on their
+     own: a free-form request over HTTP without options and a
+     forced-search free-form flow; greedy, template, oracle (greedy's own
+     tokens) and prompt-lookup decodes of one 2048x1536 free-form answer
+     (200 tokens) and detection (100), with decoder forwards, tokens per
+     forward and ms per answer, the oracle within ceil((n - 1) / 7) + 1
+     forwards, and each drafted decode held to greedy by the card's
+     equivalence rule (tokens equal up to a first difference, which must
+     be a near-tie: its margin in greedy's logits below the largest
+     |logit difference| of the two paths; every one logged);
+     free_form_many at B = 4 against each row's free_form under the same
+     rule; the synthetic V*Bench (one 1024x1024 image a task) through
+     eval_model at the disclosed budgets 32/16;
   5. the quantized path (--int4mix: int8 VQA decoder, int4mix VSM decoder,
      int8 towers), after the bf16 pair is freed: one answer on 2048x1536,
      one forced-search sample, and one more with the act-int8 switch on;
+     then the decode slice of 4 on the --int4mix pair;
   6. after each path, every kernel it runs launched, and no plain version
      ran on a CUDA tensor; K1's launches by route (tile above 16 query
      rows, split at decode and verify, with its combine): the bf16 path
-     takes both routes, training the tile route only; K5's launches by
-     route (decode rows, tiles) logged for every path;
+     takes both routes, training the tile route only, the decode slice
+     the split route at 8 query rows (the verify chunks); K5's launches
+     by route (decode rows, tiles) logged for every path;
   7. P1-P4, the int4 profile's kernels, against their plain versions at
      the 7B shapes: P1 (the lo-nibble unpack probe, both candidates,
      exact) on the packed w_gate [2048, 11008]; P2 (every lo-nibble
@@ -908,6 +924,7 @@ def _forced_search_sample(vqa, vsm, image, question, options):
     3-step guided search for 'red mug' under the forced thresholds, then
     the focused option scoring."""
     from vstar_tpu_torch.eval import seal
+    from vstar_tpu_torch.search.batched import run_grouped_searches
     squared = seal.expand2square(image)[0]
     t0 = time.perf_counter()
     prediction = vqa.free_form(squared, question)
@@ -915,7 +932,7 @@ def _forced_search_sample(vqa, vsm, image, question, options):
     tasks = seal.search_tasks(image, missing)
     path = []
     tasks[0]["path_out"] = path
-    outs = seal.run_searches(vsm, tasks, max_steps=3, **FORCED_SEARCH)
+    outs = run_grouped_searches(vsm, tasks, max_steps=3, **FORCED_SEARCH)
     search_result = seal.collect_search_results(missing, outs)
     squared, q, crops, il, ol = seal.focus_inputs(vqa, image, question,
                                                   search_result)
@@ -988,6 +1005,7 @@ def _zero_counts():
     from vstar_tpu_torch.kernels import flash_attention as fa
     from vstar_tpu_torch.kernels import int4_matmul as k4
     fa.route_launches.update(tile=0, split=0, combine=0)
+    fa.split_launches_by_rows.clear()
     k4.route_launches.update(decode=0, tile=0)
     for mod, la, pa, key in _counter_modules().values():
         for attr in (la, pa):
@@ -1053,6 +1071,393 @@ def _log_forced(label, forced, vsm):
         raise AssertionError(f"{label}: forced sample chose no option")
 
 
+# ---------------------------------------------------------------------------
+# Phase 5b: the decode slice (drafts, the free-form flow, the V*Bench loop)
+# ---------------------------------------------------------------------------
+
+FREE_FORM_TOKENS, DETECT_TOKENS = 200, 100
+# bench.py's disclosed decode budgets: free-form 32, search 16 new tokens
+SYNTHETIC_BUDGETS = (32, 16)
+FREEFORM_KEYS = {"freeform", "answer", "missing_objects", "failed_objects",
+                 "search_result", "latency_s"}
+MANY_QUESTIONS = [QUESTION, "What is on the table?", "Where is the bicycle?",
+                  "How many windows are there?"]
+
+
+class ForcedTrigger:
+    """A VQA engine whose first free-form answer is decoded and then
+    replaced by the trigger for 'red mug' (random weights never emit it),
+    so the free-form flow searches; the focused re-answer is the
+    engine's own."""
+
+    def __init__(self, engine):
+        self.engine = engine
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+    def free_form(self, image, question, **kw):
+        from vstar_tpu_torch.eval.seal import MISSING_OBJECTS_MSG
+        text = self.engine.free_form(image, question, **kw)
+        if "Additional visual information" in question:
+            return text
+        return MISSING_OBJECTS_MSG + " red mug."
+
+
+class Budget:
+    """A VQA engine whose free_form decodes at most n tokens by default."""
+
+    def __init__(self, engine, n):
+        self.engine, self.n = engine, n
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+    def free_form(self, *args, **kwargs):
+        kwargs.setdefault("max_new_tokens", self.n)
+        return self.engine.free_form(*args, **kwargs)
+
+
+def _trace_reader(trace, row):
+    """(locate, token) over a decode's logits trace (greedy_decode's
+    `trace`): locate(p) is the (forward, column) whose logits decided
+    generated position p of `row`, the last forward starting at or
+    before p; token(p) the argmax there."""
+    starts = np.stack([s.cpu().numpy() for s, _ in trace])[:, row]
+    args = [lg[row].argmax(-1).cpu().numpy() for _, lg in trace]
+
+    def locate(p):
+        e = int(np.nonzero(starts <= p)[0][-1])
+        col = p - int(starts[e])
+        if col >= len(args[e]):
+            raise AssertionError(f"no forward decided position {p}")
+        return e, col
+
+    def token(p):
+        e, col = locate(p)
+        return int(args[e][col])
+
+    return locate, token
+
+
+def _first_difference(ref, run, row=0, ref_row=0):
+    """The first generated position where `run`'s token differs from
+    `ref`'s, within ref's tokens; None if there is none."""
+    _, rtok = _trace_reader(ref["trace"], ref_row)
+    _, tok = _trace_reader(run["trace"], row)
+    return next((p for p in range(ref["n"][ref_row])
+                 if rtok(p) != tok(p)), None)
+
+
+def _equivalent(label, ref, run, row=0, ref_row=0):
+    """The card's equivalence rule for a drafted decode (`run`) against
+    greedy (`ref`) on the same prompt: the tokens agree up to the first
+    difference p; at p the two tokens' logits in greedy's step are closer
+    than the largest |logit difference| between the two paths there (a
+    near-tie that rounding decided: the K-row verify forward and the
+    1-row step round differently). A difference at a larger margin fails.
+    Returns the difference, or None."""
+    p = _first_difference(ref, run, row, ref_row)
+    if p is None:
+        if ("n" in run and run["n"][row] != ref["n"][ref_row]) \
+                or run["texts"][row] != ref["texts"][ref_row]:
+            raise AssertionError(f"{label}: greedy's tokens, but another "
+                                 "length or text")
+        return None
+    rloc, rtok = _trace_reader(ref["trace"], ref_row)
+    loc, tok = _trace_reader(run["trace"], row)
+    a, b = rtok(p), tok(p)
+    e, col = rloc(p)
+    lg = ref["trace"][e][1][ref_row, col].float()
+    e, col = loc(p)
+    ls = run["trace"][e][1][row, col].float()
+    diff = {"position": p, "greedy_token": a, "token": b,
+            "margin": float(lg[a] - lg[b]),
+            "max_logit_diff": float((lg - ls).abs().max())}
+    log(f"[{label}] first difference from greedy at token {p}: {a} "
+        f"against {b}, margin {diff['margin']:.6g}, largest |logit "
+        f"difference| {diff['max_logit_diff']:.6g}")
+    if not diff["margin"] < diff["max_logit_diff"]:
+        raise AssertionError(f"{label}: differs from greedy at token {p} "
+                             f"beyond rounding: {diff}")
+    return diff
+
+
+def _timed_decode(engine, call):
+    """Run `call` with the engine's logits trace on: its result, decode
+    stats, trace and wall ms."""
+    engine.decode_trace = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        out = call()
+        torch.cuda.synchronize()
+    finally:
+        trace, engine.decode_trace = engine.decode_trace, None
+    return out, dict(engine.last_decode_stats), trace, \
+        (time.perf_counter() - t0) * 1e3
+
+
+def _row_tokens(run, row=0):
+    """The generated tokens of one traced decode row (n of them)."""
+    _, tok = _trace_reader(run["trace"], row)
+    return [tok(p) for p in range(run["n"][row])]
+
+
+def _oracle_row(tokens, width, eos):
+    row = np.full(width, eos, np.int32)
+    row[:len(tokens)] = tokens
+    return row
+
+
+def _log_run(label, name, run):
+    st = run["stats"]
+    log(f"[{label} {name}] {st['forwards']} forwards, {st['tokens']} "
+        f"tokens, {st['tokens_per_forward']:.4f} tokens per forward after "
+        f"the first, {run['ms']:.1f} ms per answer")
+
+
+def _free_form_variants(label, vqa, image):
+    """Greedy, template, oracle and prompt-lookup free-form answers of one
+    image, FREE_FORM_TOKENS at most."""
+    from vstar_tpu_torch.data.preprocess import expand2square
+    squared = expand2square(image)[0]
+    runs = {}
+
+    def run(name):
+        text, st, trace, ms = _timed_decode(vqa, lambda: vqa.free_form(
+            squared, QUESTION, max_new_tokens=FREE_FORM_TOKENS))
+        runs[name] = {"texts": [text], "n": [st["tokens"]], "stats": st,
+                      "trace": trace, "ms": ms}
+        _log_run(label, f"free-form {name}", runs[name])
+
+    template = vqa._spec_template
+    vqa._spec_template = None
+    try:
+        run("greedy")
+    finally:
+        vqa._spec_template = template
+    run("template")
+    # oracles: greedy's own tokens, and the template run's (the verify
+    # path's own rounding, which a near-tie can part from greedy's)
+    for name, source in (("oracle", "greedy"), ("oracle_verify", "template")):
+        row = _oracle_row(_row_tokens(runs[source]),
+                          FREE_FORM_TOKENS + vqa.spec_chunk, vqa.eos_id)
+        vqa._template_draft = lambda max_new_tokens, row=row: row
+        try:
+            run(name)
+        finally:
+            del vqa._template_draft
+    vqa.prompt_lookup = True
+    try:
+        run("lookup")
+    finally:
+        vqa.prompt_lookup = False
+    return runs
+
+
+def _detect_variants(label, vsm_engine, image):
+    """Greedy, template and oracle detections of one image, on a VSM
+    engine sharing the resident one's weights with DETECT_TOKENS new
+    tokens."""
+    from vstar_tpu_torch.search.engine import VSMEngine
+    eng = VSMEngine(vsm_engine.params, vsm_engine.cfg, vsm_engine.tokenizer,
+                    loc_token_id=vsm_engine.loc_token_id,
+                    device=vsm_engine.device, eos_id=vsm_engine.eos_id,
+                    max_new_tokens=DETECT_TOKENS,
+                    prompt_buckets=vsm_engine.prompt_buckets,
+                    compute_dtype=vsm_engine.compute_dtype)
+    template = eng._draft_row
+    runs = {}
+
+    def run(name, draft):
+        eng._draft_row = draft
+        (boxes, scores, heat), st, trace, ms = _timed_decode(
+            eng, lambda: eng.detect(image, "red mug"))
+        if not (np.isfinite(boxes).all() and np.isfinite(scores).all()
+                and np.isfinite(heat).all()):
+            raise AssertionError(f"{label} detect {name}: non-finite output")
+        runs[name] = {"texts": [None], "n": [st["tokens"]], "stats": st,
+                      "trace": trace, "ms": ms}
+        _log_run(label, f"detect {name}", runs[name])
+
+    run("greedy", None)
+    run("template", template)
+    for name, source in (("oracle", "greedy"), ("oracle_verify", "template")):
+        run(name, _oracle_row(_row_tokens(runs[source]),
+                              DETECT_TOKENS + eng.spec_chunk, eng.eos_id))
+    return runs
+
+
+def _check_oracle(label, source, oracle, chunk):
+    """An oracle draft (the tokens of `source`, unshifted) is accepted:
+    the forwards that decided its first p tokens are at most
+    ceil((p - 1) / (chunk - 1)) + 1, p being all its tokens or, where the
+    oracle's decode left the draft at a near-tie (the equivalence rule),
+    the position where it did. Returns (p, those forwards, the bound)."""
+    n = source["n"][0]
+    p = _first_difference(source, oracle)
+    p = n if p is None else p
+    starts = [int(s[0]) for s, _ in oracle["trace"][1:]]  # [0]: prefill
+    used = sum(s < p for s in starts)
+    most = math.ceil((p - 1) / (chunk - 1)) + 1
+    log(f"[{label}] {used} forwards decided the first {p} of {n} tokens "
+        f"(at most {most}); {oracle['stats']['forwards']} in all")
+    if used > most:
+        raise AssertionError(f"{label}: the oracle draft took {used} "
+                             f"forwards for {p} tokens, more than {most}")
+    return {"accepted_tokens": p, "forwards": used, "bound": most}
+
+
+def _summary(runs, differences):
+    return {name: {"forwards": r["stats"]["forwards"],
+                   "tokens": r["stats"]["tokens"],
+                   "tokens_per_forward": r["stats"]["tokens_per_forward"],
+                   "ms": r["ms"], "difference": differences.get(name)}
+            for name, r in runs.items()}
+
+
+def _many_check(label, vqa, images, first):
+    """free_form_many at B = 4 against each row's free_form (template),
+    under the equivalence rule; `first` is row 0's template run."""
+    from vstar_tpu_torch.data.preprocess import expand2square
+    squared = [expand2square(im)[0] for im in images]
+    texts, st, trace, ms = _timed_decode(vqa, lambda: vqa.free_form_many(
+        squared, MANY_QUESTIONS, max_new_tokens=FREE_FORM_TOKENS))
+    batch = {"texts": texts, "trace": trace, "stats": st, "ms": ms}
+    log(f"[{label} free_form_many B=4] {st['forwards']} forwards, "
+        f"{st['tokens']} tokens, {ms:.1f} ms")
+    differences = []
+    for b in range(len(images)):
+        if b == 0:
+            single = first
+        else:
+            text, sst, strace, sms = _timed_decode(vqa, lambda: vqa.free_form(
+                squared[b], MANY_QUESTIONS[b],
+                max_new_tokens=FREE_FORM_TOKENS))
+            single = {"texts": [text], "n": [sst["tokens"]],
+                      "trace": strace}
+        differences.append(_equivalent(f"{label} free_form_many row {b}",
+                                       single, batch, row=b))
+    return {"forwards": st["forwards"], "tokens": st["tokens"], "ms": ms,
+            "differences": differences}
+
+
+def _synthetic_eval(label, vqa, vsm_engine):
+    """The synthetic V*Bench (one 1024x1024 image a task) through the
+    port's eval_model at the disclosed budgets: a record per image and
+    the accuracy lines (random weights decide nothing)."""
+    import contextlib
+    from vstar_tpu_torch.eval import synthetic, vstar_bench
+    ff_budget, search_budget = SYNTHETIC_BUDGETS
+    if vsm_engine.max_new_tokens != search_budget:
+        raise AssertionError(f"the VSM decodes {vsm_engine.max_new_tokens} "
+                             f"tokens, not the search budget {search_budget}")
+    with tempfile.TemporaryDirectory() as work:
+        bench = os.path.join(work, "bench")
+        specs = synthetic.make_synthetic_benchmark(bench, n_per_task=1)
+        out_path = os.path.join(work, "eval_result.json")
+        args = vstar_bench.build_parser().parse_args(
+            ["--benchmark-folder", bench, "--output-path", out_path])
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            results, per_type, latencies = vstar_bench.eval_model(
+                args, Budget(vqa, ff_budget), vsm_engine)
+        wall = time.perf_counter() - t0
+        with open(out_path) as f:
+            written = json.load(f)
+    lines = printed.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"[{label} synthetic eval_model] {line}")
+    recs = [r for task in written.values() for r in task]
+    if len(recs) != len(specs) or any(
+            "option_chosen" not in r or "image" not in r for r in recs):
+        raise AssertionError(f"{label}: eval_model wrote {written}")
+    if not any("images/s" in line for line in lines) or len(lines) < 4:
+        raise AssertionError(f"{label}: no accuracy lines: {lines}")
+    images_per_s = 1.0 / float(np.mean(latencies))
+    log(f"[{label} synthetic eval_model] {len(recs)} images in {wall:.2f} s"
+        f", {images_per_s:.4f} images/s, p50 "
+        f"{float(np.percentile(latencies, 50)):.3f} s")
+    return {"images": len(recs), "images_per_s": images_per_s,
+            "p50_s": float(np.percentile(latencies, 50)),
+            "latencies_s": latencies}
+
+
+def phase_decode_slice(label, vqa, vsm_engine, kernels):
+    """The slice on resident engines, its counts zeroed before it and read
+    after: a free-form request over HTTP (no options) and a forced-search
+    free-form flow; greedy, template, oracle and prompt-lookup decodes of
+    one 2048x1536 free-form answer and detection, each drafted one held
+    to greedy by the card's equivalence rule; free_form_many at B = 4;
+    the synthetic V*Bench through eval_model. K1's split route takes the
+    8-row verify chunks."""
+    from vstar_tpu_torch.kernels import flash_attention as fa
+    from vstar_tpu_torch.serve.server import SealService
+    img_2k = _image(1536, 2048, SEED + 1)
+    vsm = CountingVSM(vsm_engine)
+    _zero_counts()
+    report = {}
+
+    t0 = time.perf_counter()
+    status, rec = _http_answer(SealService(vqa, vsm), img_2k, QUESTION, None)
+    ms = (time.perf_counter() - t0) * 1e3
+    if status != 200 or set(rec) != FREEFORM_KEYS:
+        raise AssertionError(f"{label}: free-form HTTP {status}: {rec}")
+    log(f"[{label} free-form http] {ms:.1f} ms, answer "
+        f"{len(rec['answer'].split())} words, server latency "
+        f"{rec['latency_s']} s")
+    report["http_free_form_ms"] = ms
+    t0 = time.perf_counter()
+    rec = SealService(ForcedTrigger(vqa), vsm, max_search_steps=3).answer(
+        img_2k, QUESTION)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if set(rec) != FREEFORM_KEYS or rec["missing_objects"] != ["red mug"]:
+        raise AssertionError(f"{label}: forced free-form flow gave {rec}")
+    log(f"[{label} forced-search free-form flow] {ms:.1f} ms, failed "
+        f"{rec['failed_objects']}, search_result {rec['search_result']}")
+    report["forced_free_form_flow_ms"] = ms
+
+    for part, variants in (("free_form", _free_form_variants),
+                           ("detect", _detect_variants)):
+        runs = variants(label, vqa if part == "free_form" else vsm_engine,
+                        img_2k)
+        tag = f"{label} {part.replace('_', '-')}"
+        diffs = {name: _equivalent(f"{tag} {name}", runs["greedy"], run)
+                 for name, run in runs.items() if name != "greedy"}
+        report[part] = _summary(runs, diffs)
+        for name, source in (("oracle", "greedy"),
+                             ("oracle_verify", "template")):
+            report[part][name]["acceptance"] = _check_oracle(
+                f"{tag} {name}", runs[source], runs[name], 8)
+        if part == "free_form":
+            first = runs["template"]
+    del runs
+    images = [img_2k] + [_image(1536, 2048, SEED + 10 + i) for i in range(3)]
+    report["free_form_many"] = _many_check(label, vqa, images, first)
+    report["synthetic"] = _synthetic_eval(label, vqa, vsm_engine)
+
+    counts = _check_path(f"{label} slice", kernels)
+    counts["flash_attention_routes"] = _check_routes(
+        f"{label} slice", {"split": None, "combine": None})
+    by_rows = dict(fa.split_launches_by_rows)
+    if by_rows.get(8, 0) <= 0 or \
+            counts["flash_attention_routes"]["split"] != \
+            counts["flash_attention_routes"]["combine"]:
+        raise AssertionError(f"{label} slice: K1 split launches by rows "
+                             f"{by_rows}, routes "
+                             f"{counts['flash_attention_routes']}")
+    counts["flash_attention_split_by_rows"] = by_rows
+    log(f"[{label} slice] K1 split launches by query rows {by_rows}")
+    report["differences_near_tie"] = sum(
+        d is not None for part in ("free_form", "detect")
+        for d in (v["difference"] for v in report[part].values())) + sum(
+        d is not None for d in report["free_form_many"]["differences"])
+    return counts, report
+
+
 def phase_bf16_path(dev):
     """The PR 1 path: the bf16 7B pair, two answers, one over HTTP, one
     forced-search sample."""
@@ -1103,7 +1508,9 @@ def phase_bf16_path(dev):
             counts["flash_attention_routes"]["combine"]:
         raise AssertionError("bf16 path: K1 split launches without their "
                              "combine")
-    return counts
+    slice_counts, report = phase_decode_slice(
+        "bf16", vqa, vsm_engine, ("flash_attention", "tower_attention"))
+    return counts, slice_counts, report
 
 
 def phase_quantized_path(dev):
@@ -1146,7 +1553,10 @@ def phase_quantized_path(dev):
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     counts = _check_path("int4mix", SERVING_KERNELS)
     counts["flash_attention_routes"] = _routes()
-    return counts
+    slice_counts, report = phase_decode_slice(
+        "int4mix", vqa, vsm_engine,
+        ("flash_attention", "tower_attention", "int8_matvec", "int4_matmul"))
+    return counts, slice_counts, report
 
 
 # ---------------------------------------------------------------------------
@@ -1524,10 +1934,13 @@ def main() -> int:
     cases["flash_attention_bwd"] = [k7]
     gc.collect()
     torch.cuda.empty_cache()
-    by_path = {"bf16": phase_bf16_path(dev)}
+    by_path, decode_slice = {}, {}
+    by_path["bf16"], by_path["bf16_slice"], decode_slice["bf16"] = \
+        phase_bf16_path(dev)
     gc.collect()
     torch.cuda.empty_cache()
-    by_path["int4mix"] = phase_quantized_path(dev)
+    by_path["int4mix"], by_path["int4mix_slice"], \
+        decode_slice["int4mix"] = phase_quantized_path(dev)
     gc.collect()
     torch.cuda.empty_cache()
     by_path["int4_profile"], profile = phase_int4_profile(dev)
@@ -1587,9 +2000,12 @@ def main() -> int:
     k7_entry = next(k for k in kernels if k["name"] == "flash_attention_bwd")
     k7_entry["launches_by_kernel"] = {
         k: by_path["train"][f"flash_attention_bwd_{k}"] for k in ("dq", "dkv")}
+    k1_entry["split_by_rows_by_path"] = {
+        p: n["flash_attention_split_by_rows"] for p, n in by_path.items()
+        if "flash_attention_split_by_rows" in n}
     print(json.dumps({"kernels": kernels, "kernel_info": kernel_info,
-                      "train": train,
-                      "int4_profile": profile}), flush=True)
+                      "train": train, "int4_profile": profile,
+                      "decode_slice": decode_slice}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

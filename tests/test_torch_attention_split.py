@@ -142,6 +142,7 @@ def test_flash_split_route_on_card(cuda, Sq):
     masks = (kv_lens, q_off, valid)
     assert fa.split_plan(B, Sq, H, Skv, fa._sm_count(cuda)) > 2
     before = dict(fa.route_launches)
+    by_rows = fa.split_launches_by_rows.get(Sq, 0)
     got = fa.flash_attention(q, k, v, *masks)
     out, lse = fa.flash_attention_lse(q, k, v, *masks)
     want, want_lse = fa.mha_forward_lse(q, k, v, *masks)
@@ -149,6 +150,7 @@ def test_flash_split_route_on_card(cuda, Sq):
     assert fa.route_launches == {"tile": before["tile"],
                                  "split": before["split"] + 2,
                                  "combine": before["combine"] + 2}
+    assert fa.split_launches_by_rows[Sq] == by_rows + 2
     assert torch.equal(got, out)
     assert float((got.float() - want.float()).abs().max()) <= BF16_TOL
     assert (got[1] == 0).all() and (got[2, 0] == 0).all()

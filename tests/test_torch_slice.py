@@ -1,10 +1,12 @@
 """The ported SEAL slice against the JAX engines at tiny widths (f32 on
 the CPU, same weights through core.convert, the stub tokenizer, each side
-built from its own package's configs): free-form text, option choice,
-VSM detection, the guided search path and the whole SEAL record must
-agree (float outputs to atol 1e-4). The quantized slice repeats the
-comparison with int8 / int4 / int4mix decoders and int8 towers, with the
-act-int8 switch off and on."""
+built from its own package's configs): free-form text (template drafts,
+prompt lookup, stop keywords, batched), option choice, VSM detection,
+the guided search path and the whole SEAL record must agree (float
+outputs to atol 1e-4), and so must the decoder forwards each decode
+took: both engines draft from their templates by default. The quantized
+slice repeats the comparison with int8 / int4 / int4mix decoders and
+int8 towers, with the act-int8 switch off and on."""
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +30,7 @@ from vstar_tpu_torch.core.convert import from_numpy_tree
 from vstar_tpu_torch.eval import seal as tseal
 from vstar_tpu_torch.eval.vqa_engine import VQAEngine
 from vstar_tpu_torch.nn import quant as tq
+from vstar_tpu_torch.search.batched import run_grouped_searches
 from vstar_tpu_torch.search.engine import VSMEngine
 
 torch.set_num_threads(1)
@@ -76,20 +79,55 @@ def _tilted_vsm_host(seed):
     return host
 
 
+# the n_forwards of each speculative decode of the JAX VSM (its engine
+# does not report them), appended by a host callback in its program
+JAX_VSM_FORWARDS = []
+
+
+@pytest.fixture(scope="module")
+def jax_vsm_forwards():
+    """Counts the JAX VSM's verify chunks: vsm_generate's
+    speculative_decode, wrapped for every program traced while the
+    module runs."""
+    import vstar_tpu.models.vsm as jax_vsm
+    orig = jax_vsm.speculative_decode
+
+    def counting(*args, **kwargs):
+        res = orig(*args, **kwargs)
+        jax.debug.callback(lambda n: JAX_VSM_FORWARDS.append(int(n)),
+                           res.n_forwards)
+        return res
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_vsm, "speculative_decode", counting)
+        yield JAX_VSM_FORWARDS
+
+
 def _vsm_engines(host):
+    """Both engines with their default template draft ("Sure, [LOC].")."""
     jax_eng = JaxVSMEngine(jax.tree_util.tree_map(jnp.asarray, host),
                            VSM_CFG, TOK, loc_token_id=LOC, eos_id=2,
                            max_new_tokens=4, prompt_buckets=BUCKETS,
-                           compute_dtype=jnp.float32,
-                           speculative_template=None)
+                           compute_dtype=jnp.float32)
     eng = VSMEngine(from_numpy_tree(host, "cpu"), T_VSM_CFG, TOK,
                     loc_token_id=LOC, device="cpu", max_new_tokens=4,
                     prompt_buckets=BUCKETS, compute_dtype=torch.float32)
     return jax_eng, eng
 
 
+def _detect_both(jax_eng, eng, img, name):
+    """Both detections, and both decodes' forwards equal."""
+    JAX_VSM_FORWARDS.clear()
+    want = jax_eng.detect(img, name)
+    jax.effects_barrier()
+    got = eng.detect(img, name)
+    assert JAX_VSM_FORWARDS and \
+        eng.last_decode_stats["forwards"] == JAX_VSM_FORWARDS[-1]
+    return want, got
+
+
 @pytest.fixture(scope="module")
-def vsm_pair():
+def vsm_pair(jax_vsm_forwards):
     """Both VSM engines on the same tilted weights."""
     return _vsm_engines(_tilted_vsm_host(11))
 
@@ -101,6 +139,66 @@ def test_free_form_same_text(vqa_pair):
                              max_new_tokens=24)
     assert eng.free_form(img, "what is in the picture?",
                          max_new_tokens=24) == want
+    # the template draft: the same verify chunks as JAX's
+    assert eng.last_decode_stats == jax_eng.last_decode_stats
+    assert eng.last_decode_stats["forwards"] >= 1
+
+
+def test_free_form_stop_keywords_same_text(vqa_pair):
+    """Host-chunked decode with keyword stops: a keyword inside the
+    answer cuts it there, one that never appears leaves the answer
+    whole."""
+    jax_eng, eng = vqa_pair
+    img = _image(96, 96, 1)
+    q = "what is in the picture?"
+    full = jax_eng.free_form(img, q, max_new_tokens=24)
+    kw = full.split()[len(full.split()) // 2]
+    for stop in ([kw], ["never-a-word"]):
+        want = jax_eng.free_form(img, q, max_new_tokens=24,
+                                 stop_keywords=stop)
+        assert eng.free_form(img, q, max_new_tokens=24,
+                             stop_keywords=stop) == want
+    assert want == full
+    cut = eng.free_form(img, q, max_new_tokens=24, stop_keywords=[kw])
+    assert cut == full.split(kw)[0].strip() and len(cut) < len(full)
+
+
+def test_free_form_prompt_lookup_same_text(vqa_pair):
+    """prompt_lookup=True: JAX's text and decode stats, and the same text
+    as the template-drafted and plain greedy answers."""
+    jax_base, eng_base = vqa_pair
+    jax_eng = JaxVQAEngine(jax_base.params, VQA_CFG, TOK,
+                           prompt_buckets=BUCKETS, option_bucket=16,
+                           compute_dtype=jnp.float32, prompt_lookup=True)
+    eng = VQAEngine(eng_base.params, T_VQA_CFG, TOK, device="cpu",
+                    prompt_buckets=BUCKETS, option_bucket=16,
+                    compute_dtype=torch.float32, prompt_lookup=True)
+    img = _image(96, 96, 1)
+    q = "what is in the picture?"
+    want = jax_eng.free_form(img, q, max_new_tokens=24)
+    assert eng.free_form(img, q, max_new_tokens=24) == want
+    assert eng.last_decode_stats == jax_eng.last_decode_stats
+    assert eng_base.free_form(img, q, max_new_tokens=24) == want
+    eng_base._spec_template = None      # plain greedy
+    try:
+        assert eng_base.free_form(img, q, max_new_tokens=24) == want
+        assert eng_base.last_decode_stats["tokens_per_forward"] == 1.0
+    finally:
+        eng_base._spec_template = VQAEngine.SPEC_TEMPLATE
+
+
+def test_free_form_many_same_texts(vqa_pair):
+    """Three images in one padded batch (bucket 4): JAX's texts and decode
+    stats, and each row's free_form text."""
+    jax_eng, eng = vqa_pair
+    imgs = [_image(96, 96, 1), _image(80, 120, 2), _image(100, 70, 3)]
+    qs = ["what is in the picture?", "which one?", "what color is it?"]
+    want = jax_eng.free_form_many(imgs, qs, max_new_tokens=16)
+    got = eng.free_form_many(imgs, qs, max_new_tokens=16)
+    assert got == want
+    assert eng.last_decode_stats == jax_eng.last_decode_stats
+    assert got == [eng.free_form(im, q, max_new_tokens=16)
+                   for im, q in zip(imgs, qs)]
 
 
 def test_multiple_choice_same_option(vqa_pair):
@@ -121,8 +219,7 @@ def test_multiple_choice_same_option(vqa_pair):
 def test_detect_same_boxes_logits_heatmap(vsm_pair):
     jax_eng, eng = vsm_pair
     img = _image(360, 460, 0)
-    jb, jl, jh = jax_eng.detect(img, "cat")
-    tb, tl, th = eng.detect(img, "cat")
+    (jb, jl, jh), (tb, tl, th) = _detect_both(jax_eng, eng, img, "cat")
     assert len(tl) == VSM_CFG.owl_vision.grid_size ** 2   # [LOC] emitted
     np.testing.assert_allclose(tb, jb, atol=ATOL, rtol=0)
     np.testing.assert_allclose(tl, jl, atol=ATOL, rtol=0)
@@ -138,7 +235,7 @@ def test_forced_search_same_path(vsm_pair):
                          max_steps=3, path_out=jpath, **FORCED)
     task = tseal.search_tasks(img, ["cat"], minimum_size=100)[0]
     task["path_out"] = tpath
-    got = tseal.run_searches(eng, [task], max_steps=3, **FORCED)[0]
+    got = run_grouped_searches(eng, [task], max_steps=3, **FORCED)[0]
     assert len(tpath) == len(jpath) == 3
     assert want[2] and want[0] is not None     # accepted on the fallback
     assert [s.bbox for s in tpath] == [s.bbox for s in jpath]
@@ -212,7 +309,8 @@ def act_switch(request):
                          ids=["act_off", "act_int8"])
 @pytest.mark.parametrize("quantize", [True, "int4", "int4mix"],
                          ids=["int8", "int4", "int4mix"])
-def test_quantized_slice_same_results(quantize, act_switch, monkeypatch):
+def test_quantized_slice_same_results(quantize, act_switch, monkeypatch,
+                                      jax_vsm_forwards):
     """Engines built after the switch is set (the JAX package reads it
     when it traces): greedy text, option choice, detection outputs, the
     forced search path and the SEAL record agree with JAX's."""
@@ -228,6 +326,7 @@ def test_quantized_slice_same_results(quantize, act_switch, monkeypatch):
     img = _image(96, 120, 5)
     assert vqa.free_form(img, "what is here?", max_new_tokens=12) == \
         jax_vqa.free_form(img, "what is here?", max_new_tokens=12)
+    assert vqa.last_decode_stats == jax_vqa.last_decode_stats
     opts = ["a red cup", "the blue book", "green", "none"]
     assert vqa.multiple_choice(img, "which one?", opts) == \
         jax_vqa.multiple_choice(img, "which one?", opts)
@@ -235,8 +334,7 @@ def test_quantized_slice_same_results(quantize, act_switch, monkeypatch):
     jax_vsm, vsm = _vsm_engines(_quantize_host(_tilted_vsm_host(11),
                                                quantize))
     big = _image(300, 520, 3)
-    jb, jl, jh = jax_vsm.detect(big, "cat")
-    tb, tl, th = vsm.detect(big, "cat")
+    (jb, jl, jh), (tb, tl, th) = _detect_both(jax_vsm, vsm, big, "cat")
     assert len(tl) == VSM_CFG.owl_vision.grid_size ** 2   # [LOC] emitted
     for got, want in ((tb, jb), (tl, jl), (th, jh)):
         np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
@@ -245,7 +343,7 @@ def test_quantized_slice_same_results(quantize, act_switch, monkeypatch):
                          max_steps=3, path_out=jpath, **FORCED)
     task = tseal.search_tasks(big, ["cat"], minimum_size=100)[0]
     task["path_out"] = tpath
-    got = tseal.run_searches(vsm, [task], max_steps=3, **FORCED)[0]
+    got = run_grouped_searches(vsm, [task], max_steps=3, **FORCED)[0]
     assert len(tpath) == len(jpath) == 3
     assert [st.bbox for st in tpath] == [st.bbox for st in jpath]
     assert got[1:3] == want[1:3]
@@ -264,3 +362,28 @@ def test_quantized_slice_same_results(quantize, act_switch, monkeypatch):
     assert {k: v for k, v in got.items() if k != "search_result"} == \
         {k: v for k, v in want.items() if k != "search_result"}
     assert len(got["search_result"]) == len(want["search_result"])
+
+
+def test_more_objects_than_slots_are_all_encoded(vqa_pair):
+    """A focus prompt naming more objects than max_objects (a search that
+    keeps several boxes): the port encodes one bank slot per crop and
+    reads each, where vstar_tpu's 3-slot bank is read past its end (its
+    gather fills NaN; ROADMAP Queue 3)."""
+    _, eng = vqa_pair
+    img = _image(120, 160, 6)
+    n = VQA_CFG.max_objects + 2
+    crops = [eng.get_object_crop(img, [25 * i, 10, 30, 40]) for i in range(n)]
+    q = "focus " + " ".join(["<object>"] * n) + " ; which one?"
+    lays, bucket, _ = eng._layouts([q], [[False]], [[False] * n])
+
+    def last_logits(crops):
+        with torch.inference_mode():
+            return eng._prefill([img], [crops], lays, bucket + 16)[0]
+
+    logits = last_logits(crops)
+    assert torch.isfinite(logits).all()
+    changed = last_logits(crops[:-1] + [255 - crops[-1]])
+    assert not torch.equal(logits, changed)
+    opts = ["a red cup", "the blue book", "green", "none"]
+    assert eng.multiple_choice(img, q, opts, crops, images_long=[False],
+                               objects_long=[False] * n) in range(4)

@@ -2,22 +2,21 @@
 guided visual search -> focused re-answer (port of vstar_tpu/eval/seal.py,
 which mirrors eval_model's inner loop, vstar_bench_eval.py:168-273).
 
-The host helpers are copies of the JAX package's. Only the grouped
-dispatch is replaced: searches run through the serial `visual_search`
-loop, which is the path vstar_tpu's run_grouped_searches takes for an
-engine without `detect_many`, so the records are identical.
+The host helpers are copies of the JAX package's. Searches go through
+search/batched.run_grouped_searches, whose serial path (an engine without
+`detect_many`) is the one ported so far.
 """
 
 from __future__ import annotations
 
 from copy import deepcopy
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 from PIL import Image
 
 from ..data.preprocess import expand2square
-from ..search.policy import visual_search
+from ..search.batched import run_grouped_searches
 
 MISSING_OBJECTS_MSG = ("Sorry, I can not answer the question. Some visual "
                        "information about the following objects is missing "
@@ -76,7 +75,7 @@ def smallest_size(width: int, height: int,
 def search_tasks(image: Image.Image, missing_objects: Sequence[str],
                  minimum_size_scale: float = 4.0,
                  minimum_size: int = 224) -> List[Dict]:
-    """Phase-2 task list for run_searches (one per missing
+    """Phase-2 task list for run_grouped_searches (one per missing
     object; smallest-size rule of vstar_bench_eval.py:207-210)."""
     smallest = smallest_size(image.width, image.height,
                              minimum_size_scale, minimum_size)
@@ -111,11 +110,12 @@ def collect_search_results(missing_objects: Sequence[str],
 
 
 def focus_inputs(vqa_engine, image: Image.Image, question: str,
-                 search_result: Sequence[Dict]):
+                 search_result: Sequence[Dict],
+                 failed_names: Sequence[str] = ()):
     """Phase-3 inputs after a search: (squared image, focus question,
     object crops, images_long, objects_long) — the ≤2-object long/short
     heuristic, 1.2-scale crops and expand2square bbox shift of
-    vstar_bench_eval.py:233-256."""
+    vstar_bench_eval.py:233-256; failed_names as focus_prompt's."""
     object_names = [r["name"] for r in search_result]
     bboxes = deepcopy([r["bbox"] for r in search_result])
     if len(object_names) <= 2:
@@ -132,7 +132,8 @@ def focus_inputs(vqa_engine, image: Image.Image, question: str,
         bbox[1] += top
         bbox_list.append(normalize_bbox(bbox, squared.width,
                                         squared.height))
-    question_with_focus = focus_prompt(question, object_names, bbox_list)
+    question_with_focus = focus_prompt(question, object_names, bbox_list,
+                                       failed_names)
     return squared, question_with_focus, object_crops, images_long, \
         objects_long
 
@@ -153,18 +154,6 @@ def seal_record(question: str, options: Sequence[str], prediction: str,
     }
 
 
-def run_searches(vsm_engine, tasks: Sequence[Dict],
-                 max_steps: Optional[int] = None, **policy_kw) -> List[Tuple]:
-    """One `visual_search` per task dict of `search_tasks` (an optional
-    'path_out' list receives the visited steps). Results in task order,
-    each visual_search's return tuple."""
-    return [visual_search(vsm_engine, t["image"], t["name"],
-                          smallest_size=t["smallest"],
-                          target_bbox=t.get("gt_bbox"), max_steps=max_steps,
-                          path_out=t.get("path_out"), **policy_kw)
-            for t in tasks]
-
-
 def seal_answer(vqa_engine, vsm_engine, image: Image.Image, question: str,
                 options: Sequence[str], minimum_size_scale: float = 4.0,
                 minimum_size: int = 224,
@@ -179,10 +168,10 @@ def seal_answer(vqa_engine, vsm_engine, image: Image.Image, question: str,
                                                    options)
         return seal_record(question, options, prediction, [], [],
                            option_chosen)
-    outs = run_searches(vsm_engine,
-                        search_tasks(image, missing_objects,
-                                     minimum_size_scale, minimum_size),
-                        max_steps=max_search_steps)
+    outs = run_grouped_searches(
+        vsm_engine, search_tasks(image, missing_objects, minimum_size_scale,
+                                 minimum_size),
+        max_steps=max_search_steps)
     search_result = collect_search_results(missing_objects, outs)
     squared, question_with_focus, object_crops, images_long, objects_long = \
         focus_inputs(vqa_engine, image, question, search_result)

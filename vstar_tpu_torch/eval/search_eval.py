@@ -1,0 +1,99 @@
+"""Standalone visual-search evaluation (partial port of
+vstar_tpu/eval/search_eval.py, the reference's `visual_search.py main`,
+visual_search.py:520-564): top-1 localization accuracy (IoU > 0.5) and
+the average successful path length over V*Bench annotations, with the
+optional visualization. The command line waits for the checkpoint
+loaders (ROADMAP Queue 1 item 10); lockstep batches for item 6.
+"""
+
+from __future__ import annotations
+
+import functools
+import json
+import os
+
+import numpy as np
+from PIL import Image
+
+from ..search.batched import run_grouped_searches
+from ..search.policy import iou_xywh
+from .seal import smallest_size
+
+
+def _open_rgb(path: str):
+    return Image.open(path).convert("RGB")
+
+
+def _collect_tasks(benchmark_folder: str, minimum_size_scale: float,
+                   minimum_size: int, visualization: bool,
+                   output_path: str):
+    """One search task per (image, target object); images open lazily at
+    dispatch, so the benchmark's pixels are never resident at once."""
+    tasks = []
+    for test_type in ["direct_attributes", "relative_position"]:
+        folder = os.path.join(benchmark_folder, test_type)
+        image_files = [f for f in sorted(os.listdir(folder))
+                       if ".json" not in f]
+        for image_file in image_files:
+            image_path = os.path.join(folder, image_file)
+            with open(image_path.rsplit(".", 1)[0] + ".json") as f:
+                ann = json.load(f)
+            with Image.open(image_path) as im:      # header only
+                width, height = im.size
+            smallest = smallest_size(width, height, minimum_size_scale,
+                                     minimum_size)
+            for i, (gt_bbox, name) in enumerate(zip(ann["bbox"],
+                                                    ann["target_object"])):
+                vis_path = None
+                if visualization:
+                    vis_path = os.path.join(
+                        output_path, test_type,
+                        f"{image_file.rsplit('.', 1)[0]}_{i}")
+                tasks.append({"image": functools.partial(_open_rgb,
+                                                         image_path),
+                              "name": name, "gt_bbox": gt_bbox,
+                              "smallest": smallest, "vis_path": vis_path})
+    return tasks
+
+
+def evaluate_search(vsm_engine, benchmark_folder: str,
+                    minimum_size_scale: float = 4.0,
+                    minimum_size: int = 224,
+                    confidence_high: float = 0.5,
+                    confidence_low: float = 0.3,
+                    target_cue_threshold: float = 6.0,
+                    target_cue_threshold_decay: float = 0.7,
+                    target_cue_threshold_minimum: float = 3.0,
+                    visualization: bool = False, output_path: str = "",
+                    image_batch: int = 1):
+    """Returns (top-1 accuracy, average successful path length).
+    image_batch sizes the lockstep waves of a batched engine (not ported
+    yet; run_grouped_searches refuses one)."""
+    policy_kw = dict(
+        confidence_high=confidence_high, confidence_low=confidence_low,
+        target_cue_threshold=target_cue_threshold,
+        target_cue_threshold_decay=target_cue_threshold_decay,
+        target_cue_threshold_minimum=target_cue_threshold_minimum)
+    tasks = _collect_tasks(benchmark_folder, minimum_size_scale,
+                           minimum_size, visualization, output_path)
+    outs = run_grouped_searches(vsm_engine, tasks, image_batch=image_batch,
+                                visualize=visualization, **policy_kw)
+    acc_list = []
+    path_lengths = []
+    for t, (final_step, plen, ok, _) in zip(tasks, outs):
+        if ok:
+            sb = np.asarray(final_step.detection_result, np.float64).copy()
+            sb[0] += final_step.bbox[0]
+            sb[1] += final_step.bbox[1]
+            acc_list.append(1.0 if iou_xywh(sb, t["gt_bbox"]) > 0.5
+                            else 0.0)
+            path_lengths.append(plen)
+        else:
+            acc_list.append(0.0)
+            path_lengths.append(0)
+    ok_lengths = [n for n, a in zip(path_lengths, acc_list) if a]
+    avg_len = float(np.mean(ok_lengths)) if ok_lengths else 0.0
+    top1 = float(np.mean(acc_list)) if acc_list else 0.0
+    print("Avg search path length:", avg_len)
+    print("Top 1 Acc:", top1)
+    return top1, avg_len

@@ -1,16 +1,18 @@
 """VQAEngine: host driver for the dual-projector VQA LLM (port of
 vstar_tpu/eval/vqa_engine.py).
 
-  * free_form       greedy generation, stopping at '</s>'
+  * free_form       generation stopping at '</s>' (and optional stop
+                    keywords): prompt-lookup or template-speculative
+                    decode at temperature 0, else greedy or sampled
+  * free_form_many  free_form over a batch of images
   * multiple_choice option with the least mean CE over a shared prefix
   * get_object_crop context-expanded crop preprocessing
 
-Prompts are padded to the same buckets as the JAX engine, so the shapes
-the decoder sees match it. Eager PyTorch compiles nothing per shape, so
-batches and option counts are not padded to buckets. Free-form decoding
-is greedy: the JAX engine's template draft is greedy-equivalent and gives
-the same tokens; sampling, stop keywords and prompt lookup are not ported
-yet.
+Prompts are padded to the same buckets as the JAX engine, and free-form
+batches to its batch buckets, so the shapes the decoder sees match it.
+Eager PyTorch compiles nothing per shape, so option scoring does not pad
+batches or option counts. The drafts change the number of decoder
+forwards, never the tokens (decode/speculative.py).
 """
 
 from __future__ import annotations
@@ -23,9 +25,10 @@ from PIL import Image
 
 from ..core.config import VQALLMConfig
 from ..data.preprocess import clip_resize_u8
-from ..decode.sampler import greedy_decode
+from ..decode.sampler import decode_stats, greedy_decode
 from ..decode.scorer import score_options
-from ..models.vqa_llm import encode_feature_bank, prefill
+from ..decode.speculative import lookup_decode, speculative_decode
+from ..models.vqa_llm import decode_step, encode_feature_bank, prefill
 from ..multimodal.constants import DEFAULT_IMAGE_TOKEN
 from ..multimodal.conversation import CONV_TEMPLATES
 from ..multimodal.splicing import build_layout, spliced_length
@@ -58,11 +61,25 @@ def _round128(n: int) -> int:
 
 class VQAEngine:
     CONV_TYPE = "v1"
+    # The trigger sentence is a fixed training template
+    # (vstar_bench_eval.py:180): the default free-form draft.
+    SPEC_TEMPLATE = ("Sorry, I can not answer the question. Some visual "
+                     "information about the following objects is missing "
+                     "or unclear:")
+    BATCH_BUCKETS = (1, 2, 4, 8, 16)
 
     def __init__(self, params, cfg: VQALLMConfig, tokenizer, *, device,
                  eos_id: int = 2,
                  prompt_buckets: Tuple[int, ...] = (512, 768, 1024),
-                 option_bucket: int = 64, compute_dtype=torch.bfloat16):
+                 option_bucket: int = 64, compute_dtype=torch.bfloat16,
+                 speculative_template: Optional[str] = None,
+                 prompt_lookup: bool = False):
+        """speculative_template None takes SPEC_TEMPLATE, as the JAX
+        engine does (set `_spec_template = None` for plain greedy).
+        prompt_lookup: n-gram drafts from the prompt and the answer so far
+        (decode/speculative.lookup_decode) in place of the template, at
+        temperature 0. Sampling draws from the engine's own generator,
+        seeded 0 at construction (vstar_tpu's PRNGKey(0))."""
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -71,6 +88,21 @@ class VQAEngine:
         self.prompt_buckets = tuple(sorted(prompt_buckets))
         self.option_bucket = option_bucket
         self.compute_dtype = compute_dtype
+        self._spec_template = (self.SPEC_TEMPLATE
+                               if speculative_template is None
+                               else speculative_template)
+        self.spec_chunk = 8
+        self.prompt_lookup = prompt_lookup
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(0)
+        # decode stats of the last free-form call (decode_stats), None
+        # before the first; a list here receives the decoder's logits
+        # trace (greedy_decode's `trace`)
+        self.last_decode_stats = None
+        self.decode_trace: Optional[List] = None
+
+    def _record_decode_stats(self, ngen_rows, n_forwards: int):
+        self.last_decode_stats = decode_stats(ngen_rows, n_forwards)
 
     # -- prompt helpers ------------------------------------------------------
 
@@ -128,14 +160,13 @@ class VQAEngine:
         crop = image.crop(tuple(box)).resize((size, size))
         return clip_resize_u8(crop, size)
 
-    def _object_stack(self, object_crops) -> np.ndarray:
-        """uint8 crops (get_object_crop) in max_objects slots; empty slots
-        are black and never gathered by the layout."""
-        M = self.cfg.max_objects
+    def _object_stack(self, object_crops, slots: int) -> np.ndarray:
+        """uint8 crops (get_object_crop) in `slots` slots; empty slots are
+        black and never gathered by the layout."""
         size = self.cfg.vision.image_size
-        out = np.zeros((M, size, size, 3), np.uint8)
+        out = np.zeros((slots, size, size, 3), np.uint8)
         if object_crops is not None:
-            for i, c in enumerate(object_crops[:M]):
+            for i, c in enumerate(object_crops):
                 out[i] = c
         return out
 
@@ -145,10 +176,15 @@ class VQAEngine:
         dev = self.device
         img = torch.from_numpy(np.stack(
             [self.preprocess_image(im) for im in images])).to(dev)
+        crops = [None] * len(images) if object_crops_list is None \
+            else object_crops_list
+        # max_objects slots, or one per crop when a focus prompt names
+        # more objects (vstar_tpu keeps max_objects: its gather then reads
+        # past the bank and splices NaN; ROADMAP Queue 3)
+        slots = max([self.cfg.max_objects]
+                    + [len(c) for c in crops if c is not None])
         objs = torch.from_numpy(np.stack(
-            [self._object_stack(None if object_crops_list is None
-                                else object_crops_list[i])
-             for i in range(len(images))])).to(dev)
+            [self._object_stack(c, slots) for c in crops])).to(dev)
         bank = encode_feature_bank(self.params, self.cfg, img, objs)
         bank = bank.to(self.compute_dtype)
         cache = init_cache(self.cfg.llama, len(lays), cache_len,
@@ -167,26 +203,177 @@ class VQAEngine:
         last = hidden[torch.arange(len(lays), device=dev), lens.long() - 1]
         return logits, last, cache
 
+    # -- free-form decoding --------------------------------------------------
+
+    def _template_draft(self, max_new_tokens: int) -> np.ndarray:
+        """The template's tokens (no BOS) in an eos-filled draft row
+        max_new_tokens + spec_chunk wide."""
+        ids = self.tokenizer(self._spec_template).input_ids
+        if ids and ids[0] == self.tokenizer.bos_token_id:
+            ids = ids[1:]
+        row = np.full(max_new_tokens + self.spec_chunk, self.eos_id,
+                      np.int32)
+        row[:min(len(ids), len(row))] = ids[:len(row)]
+        return row
+
+    def _free_form_rows(self, images, object_crops_list, lays, bucket: int,
+                        max_new_tokens: int, n: int, temperature=0.0,
+                        top_p=None, use_lookup: bool = False,
+                        use_spec: bool = False) -> List[str]:
+        """Prefill and decode rows of one bucket; the texts of the first n
+        (the rest pad a batch bucket)."""
+        dev = self.device
+        sampling = temperature > 0.0
+        # verify chunks write spec_chunk KV entries past the frontier, so
+        # the room grows by the chunk before rounding
+        room = max_new_tokens + (self.spec_chunk
+                                 if use_lookup or use_spec else 0)
+        with torch.inference_mode():
+            logits, last, cache = self._prefill(
+                images, object_crops_list, lays, bucket + _round128(room))
+            args = (self.params["llama"], self.cfg.llama, cache, logits,
+                    last)
+            if use_lookup:
+                # the prompt's text tokens; image-feature slots can never
+                # match
+                ctx = np.stack([np.where(lay.is_feat, -1, lay.text_ids)
+                                for lay in lays]).astype(np.int32)
+                res = lookup_decode(
+                    *args, torch.from_numpy(ctx).to(dev),
+                    torch.tensor([lay.length for lay in lays],
+                                 dtype=torch.int32, device=dev),
+                    max_new_tokens, [self.eos_id], self.spec_chunk,
+                    self.compute_dtype, trace=self.decode_trace)
+            elif use_spec:
+                draft = np.tile(self._template_draft(max_new_tokens)[None],
+                                (len(lays), 1))
+                res = speculative_decode(
+                    *args, torch.from_numpy(draft).to(dev), max_new_tokens,
+                    [self.eos_id], self.spec_chunk, self.compute_dtype,
+                    trace=self.decode_trace)
+            else:
+                res = greedy_decode(
+                    *args, max_new_tokens, [self.eos_id], self.compute_dtype,
+                    temperature=temperature if sampling else 0.0,
+                    top_p=top_p if sampling else None,
+                    generator=self.generator, trace=self.decode_trace)
+            ngen = res.num_generated[:n].tolist()
+            tokens = res.tokens[:n].tolist()
+        self._record_decode_stats(ngen, res.n_forwards)
+        return [self.tokenizer.decode(row[:k], skip_special_tokens=True)
+                .strip() for row, k in zip(tokens, ngen)]
+
+    def _free_form_keywords(self, image, question, object_crops,
+                            images_long, objects_long, max_new_tokens,
+                            stop_keywords, chunk: int = 8,
+                            temperature: float = 0.0, top_p=None) -> str:
+        """Decode (greedy, or sampled when temperature > 0) in chunks of
+        `chunk` tokens, check the decoded text on the host after each,
+        stop at the first keyword and strip it
+        (KeywordsStoppingCriteria, mm_utils.py:123-148;
+        vstar_bench_eval.py:104-113)."""
+        lays, bucket, _ = self._layouts(
+            [question], None if images_long is None else [images_long],
+            None if objects_long is None else [objects_long])
+        sampling = temperature > 0.0
+        toks: List[int] = []
+
+        def text():
+            return self.tokenizer.decode(
+                [t for t in toks if t != self.eos_id],
+                skip_special_tokens=True).strip()
+
+        with torch.inference_mode():
+            logits, hidden, cache = self._prefill(
+                [image], None if object_crops is None else [object_crops],
+                lays, bucket + _round128(max_new_tokens + chunk))
+            while len(toks) < max_new_tokens:
+                k = min(chunk, max_new_tokens - len(toks))
+                res = greedy_decode(
+                    self.params["llama"], self.cfg.llama, cache, logits,
+                    hidden, k, [self.eos_id], self.compute_dtype,
+                    temperature=temperature if sampling else 0.0,
+                    top_p=top_p if sampling else None,
+                    generator=self.generator)
+                # the continuation: logits and cache after the k-th token
+                logits, hidden, cache = decode_step(
+                    self.params, self.cfg, res.cache,
+                    res.tokens[:, k - 1:k], self.compute_dtype)
+                got = res.tokens[0, :int(res.num_generated[0])].tolist()
+                toks.extend(got)
+                stop_kw = next((kw for kw in stop_keywords
+                                if kw in text()), None)
+                if stop_kw is not None:
+                    return text().split(stop_kw)[0].strip()
+                if got and got[-1] == self.eos_id:
+                    return text()
+        return text()
+
     # -- public API ----------------------------------------------------------
 
     def free_form(self, image: Image.Image, question: str,
                   object_crops=None, images_long=None, objects_long=None,
-                  max_new_tokens: int = 200) -> str:
-        """Greedy free-form answer (vstar_bench_eval.py:78-114); `image`
-        is already expand2square'd by the caller."""
+                  max_new_tokens: int = 200, temperature: float = 0.0,
+                  top_p=None, stop_keywords: Optional[Sequence[str]] = None
+                  ) -> str:
+        """Free-form answer (vstar_bench_eval.py:78-114); `image` is
+        already expand2square'd by the caller. At temperature 0 it drafts
+        by prompt lookup when enabled, else from the template (greedy
+        tokens either way); above 0 it samples. stop_keywords: decoded-
+        text stop strings beyond eos."""
+        if stop_keywords:
+            return self._free_form_keywords(
+                image, question, object_crops, images_long, objects_long,
+                max_new_tokens, stop_keywords, temperature=temperature,
+                top_p=top_p)
         lays, bucket, _ = self._layouts(
             [question], None if images_long is None else [images_long],
             None if objects_long is None else [objects_long])
-        with torch.inference_mode():
-            logits, last, cache = self._prefill(
-                [image], None if object_crops is None else [object_crops],
-                lays, bucket + _round128(max_new_tokens))
-            res = greedy_decode(self.params["llama"], self.cfg.llama, cache,
-                                logits, last, max_new_tokens, [self.eos_id],
-                                self.compute_dtype)
-            n = int(res.num_generated[0])
-            toks = [int(t) for t in res.tokens[0, :n].cpu()]
-        return self.tokenizer.decode(toks, skip_special_tokens=True).strip()
+        use_lookup = temperature <= 0.0 and self.prompt_lookup
+        use_spec = (not use_lookup and temperature <= 0.0
+                    and self._spec_template is not None)
+        return self._free_form_rows(
+            [image], None if object_crops is None else [object_crops], lays,
+            bucket, max_new_tokens, 1, temperature, top_p, use_lookup,
+            use_spec)[0]
+
+    def _batch_bucket(self, n: int) -> int:
+        return next((b for b in self.BATCH_BUCKETS if n <= b),
+                    self.BATCH_BUCKETS[-1])
+
+    def free_form_many(self, images, questions, object_crops_list=None,
+                       images_long=None, objects_long=None,
+                       max_new_tokens: int = 200) -> List[str]:
+        """free_form (temperature 0) over many images in one batch, padded
+        with copies of the first row to a batch bucket; waves above the
+        largest bucket are split. object_crops_list / images_long /
+        objects_long are per-row lists (None entries take the
+        defaults)."""
+        n = len(images)
+        max_bb = self.BATCH_BUCKETS[-1]
+        if n > max_bb:
+            def part(x, a, b):
+                return None if x is None else x[a:b]
+            out = []
+            for a in range(0, n, max_bb):
+                b = min(a + max_bb, n)
+                out.extend(self.free_form_many(
+                    images[a:b], questions[a:b],
+                    part(object_crops_list, a, b), part(images_long, a, b),
+                    part(objects_long, a, b), max_new_tokens))
+            return out
+        lays, bucket, _ = self._layouts(questions, images_long, objects_long)
+        crops = [None] * n if object_crops_list is None \
+            else list(object_crops_list)
+        pad = self._batch_bucket(n) - n
+        images = list(images) + [images[0]] * pad
+        lays = lays + [lays[0]] * pad
+        crops = crops + [crops[0]] * pad
+        use_spec = not self.prompt_lookup and self._spec_template is not None
+        return self._free_form_rows(images, crops, lays, bucket,
+                                    max_new_tokens, n,
+                                    use_lookup=self.prompt_lookup,
+                                    use_spec=use_spec)
 
     def _opt_room(self, max_len: int) -> int:
         """Option chunk width: the option bucket, grown in 16-token steps

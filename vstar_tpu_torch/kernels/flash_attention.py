@@ -56,6 +56,9 @@ bwd_plain_calls_cuda = 0
 # launch, counted in `launches` too); "combine" counts the split route's
 # second kernel, which merges the partials.
 route_launches = {"tile": 0, "split": 0, "combine": 0}
+# the split route's launches by query rows (1: a decode step, 8: a
+# speculative verify chunk), counted in route_launches["split"] too
+split_launches_by_rows = {}
 
 HEAD_DIM = 128   # the head width the kernels are instantiated for
 SPLIT_MAX_SQ = 16    # query rows up to which K1 takes the split route
@@ -316,6 +319,7 @@ def _forward_kernel(q, k, v, kv_lens, q_offsets, kv_valid, with_lse):
     if n_splits:
         route_launches["split"] += 1
         route_launches["combine"] += 1
+        split_launches_by_rows[Sq] = split_launches_by_rows.get(Sq, 0) + 1
     else:
         route_launches["tile"] += 1
     return out, lse

@@ -12,7 +12,7 @@ weights. At f32 (the tests) the two agree.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from ..core.config import VSMConfig
 from ..core.params import Init
 from ..decode.sampler import greedy_decode
+from ..decode.speculative import speculative_decode
 from ..kernels.image_ops import normalize_u8_images
 from ..multimodal.splicing import apply_splice
 from ..nn.basic import dense, init_dense, init_layernorm
@@ -124,6 +125,9 @@ class VSMOutput(NamedTuple):
     det_boxes: torch.Tensor      # f32 [B, N, 4] cxcywh normalized
     mask_logits: torch.Tensor    # f32 [B, 4h, 4w] low-res seg logits
     loc_valid: torch.Tensor      # bool [B]: a [LOC] was generated
+    # decoder forwards after the prefill (DecodeResult.n_forwards; the
+    # port's addition: JAX's VSMOutput does not carry it)
+    n_forwards: int = 0
 
 
 def vsm_generate(params: Dict, cfg: VSMConfig, images_clip: torch.Tensor,
@@ -132,11 +136,21 @@ def vsm_generate(params: Dict, cfg: VSMConfig, images_clip: torch.Tensor,
                  lens: torch.Tensor, loc_token_id: int,
                  max_new_tokens: int = 100, eos_id: int = 2,
                  cache_len: int = 768,
-                 compute_dtype=torch.bfloat16) -> VSMOutput:
-    """Prefill, greedy decode with hidden capture, [LOC] selection, then
-    the detection and segmentation heads (vstar_tpu vsm_generate with
-    greedy decoding). Without a generated [LOC] the heads still run, on
-    the hidden state of generated position 0, and loc_valid is False."""
+                 compute_dtype=torch.bfloat16,
+                 draft_ids: Optional[torch.Tensor] = None,
+                 spec_chunk: int = 8,
+                 trace: Optional[List] = None) -> VSMOutput:
+    """Prefill, decode with hidden capture, [LOC] selection, then the
+    detection and segmentation heads (vstar_tpu vsm_generate). Without a
+    generated [LOC] the heads still run, on the hidden state of generated
+    position 0, and loc_valid is False.
+
+    draft_ids (optional [B, max_new_tokens + spec_chunk]): decode with the
+    greedy-equivalent speculative verifier against this draft
+    (decode/speculative.py); the search answers are templated ("Sure,
+    [LOC].</s>"), so a template draft turns ~7 decode steps into ~2
+    verify chunks. The cache then needs spec_chunk entries of room.
+    trace: the decoders' logits trace (decode/sampler.greedy_decode)."""
     B, S = text_ids.shape
     dev = text_ids.device
     bank = encode_clip_bank(params, cfg, images_clip).to(compute_dtype)
@@ -150,9 +164,15 @@ def vsm_generate(params: Dict, cfg: VSMConfig, images_clip: torch.Tensor,
         cache=cache)
     last_hidden = hidden[torch.arange(B, device=dev), lens.long() - 1]
     last_logits = lm_logits(params["llama"], last_hidden[:, None])[:, 0]
-    res = greedy_decode(params["llama"], cfg.llama, cache, last_logits,
-                        last_hidden, max_new_tokens, [eos_id],
-                        compute_dtype)
+    if draft_ids is not None:
+        res = speculative_decode(params["llama"], cfg.llama, cache,
+                                 last_logits, last_hidden, draft_ids,
+                                 max_new_tokens, [eos_id], spec_chunk,
+                                 compute_dtype, trace=trace)
+    else:
+        res = greedy_decode(params["llama"], cfg.llama, cache, last_logits,
+                            last_hidden, max_new_tokens, [eos_id],
+                            compute_dtype, trace=trace)
 
     pos_ids = torch.arange(max_new_tokens, device=dev)[None]
     is_loc = (res.tokens == loc_token_id) & (pos_ids
@@ -174,4 +194,5 @@ def vsm_generate(params: Dict, cfg: VSMConfig, images_clip: torch.Tensor,
     return VSMOutput(tokens=res.tokens, num_generated=res.num_generated,
                      det_logits=det_logits.float(),
                      det_boxes=det_boxes.float(),
-                     mask_logits=mask_logits.float(), loc_valid=loc_valid)
+                     mask_logits=mask_logits.float(), loc_valid=loc_valid,
+                     n_forwards=res.n_forwards)

@@ -5,13 +5,14 @@ vstar_tpu/search/engine.py).
 
 Builds the vicuna-v1 prompt with <im_start><image><im_end>, preprocesses
 the patch for both towers on the host (CLIP 224, OWL-ViT 768, uint8),
-runs `vsm_generate` and post-processes per mode. Decoding is greedy; the
-template-speculative draft is not ported yet.
+runs `vsm_generate` and post-processes per mode. Decoding verifies the
+template draft "Sure, [LOC]." by default (decode/speculative.py), as the
+JAX engine does; its tokens are greedy's.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,6 +20,7 @@ import torch
 from ..core.config import VSMConfig
 from ..data.preprocess import (clip_resize_u8, expand2square,
                                owlvit_resize_u8, resize_bilinear_torch)
+from ..decode.sampler import decode_stats
 from ..models.vsm import VSMOutput, vsm_generate
 from ..multimodal.constants import (DEFAULT_IM_END_TOKEN,
                                     DEFAULT_IM_START_TOKEN,
@@ -41,7 +43,8 @@ class VSMEngine:
                  loc_token_id: int, *, device, eos_id: int = 2,
                  max_new_tokens: int = 100,
                  prompt_buckets: Tuple[int, ...] = (384, 512),
-                 compute_dtype=torch.bfloat16):
+                 compute_dtype=torch.bfloat16,
+                 speculative_template: Optional[str] = "Sure, [LOC]."):
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -51,6 +54,22 @@ class VSMEngine:
         self.max_new_tokens = max_new_tokens
         self.prompt_buckets = tuple(sorted(prompt_buckets))
         self.compute_dtype = compute_dtype
+        self.spec_chunk = 8
+        # the template's tokens (no BOS) then eos, in an eos-filled row
+        # max_new_tokens + spec_chunk wide; None decodes greedily
+        self._draft_row = None
+        if speculative_template:
+            ids = tokenizer(speculative_template).input_ids
+            if ids and ids[0] == tokenizer.bos_token_id:
+                ids = ids[1:]
+            ids = list(ids) + [eos_id]
+            row = np.full(max_new_tokens + self.spec_chunk, eos_id, np.int32)
+            row[:min(len(ids), len(row))] = ids[:len(row)]
+            self._draft_row = row
+        # decode stats of the last call (decode_stats); a list here
+        # receives the decoder's logits trace (greedy_decode's `trace`)
+        self.last_decode_stats = None
+        self.decode_trace: Optional[List] = None
 
     def _build_prompt(self, question: str) -> str:
         conv = CONV_TEMPLATES[self.CONV_TYPE]()
@@ -91,9 +110,17 @@ class VSMEngine:
                              device=self.device),
                 loc_token_id=self.loc_token_id,
                 max_new_tokens=self.max_new_tokens, eos_id=self.eos_id,
-                cache_len=bucket + _round128(self.max_new_tokens),
-                compute_dtype=self.compute_dtype)
-        out = VSMOutput(*(t.cpu() for t in out))
+                # verify chunks write spec_chunk entries past the frontier
+                cache_len=bucket + _round128(self.max_new_tokens
+                                             + self.spec_chunk),
+                compute_dtype=self.compute_dtype,
+                draft_ids=None if self._draft_row is None
+                else self._to_device(self._draft_row[None]),
+                spec_chunk=self.spec_chunk, trace=self.decode_trace)
+        out = out._replace(**{k: v.cpu() for k, v in out._asdict().items()
+                              if isinstance(v, torch.Tensor)})
+        self.last_decode_stats = decode_stats(
+            [int(n) for n in out.num_generated], out.n_forwards)
         return out, (image.height, image.width)
 
     def _heatmap(self, out: VSMOutput, size: Tuple[int, int]) -> np.ndarray:

@@ -1,12 +1,12 @@
 """SEAL serving on the port: stdlib HTTP JSON API (port of
 vstar_tpu/serve/server.py).
 
-Request:  {"image": <base64 jpg/png>, "question": str, "options": [str]}
-Response: the SEAL record ("prediction_freeform", "missing_objects",
-          "search_result", "option_chosen", ...) plus "latency_s".
-
-Requests with options run the SEAL loop (eval/seal.py). A request without
-options answers 400: the free-form flow is not ported yet.
+Request:  {"image": <base64 jpg/png>, "question": str, "options": [str]?}
+Response with options: the SEAL record ("prediction_freeform",
+          "missing_objects", "search_result", "option_chosen", ...);
+          without: the free-form record ("freeform", "answer",
+          "missing_objects", "failed_objects", "search_result"); both
+          with "latency_s".
 
     python -m vstar_tpu_torch.serve.server --random-init 7b --device cuda
     python -m vstar_tpu_torch.serve.server --random-init 7b --int4mix
@@ -25,10 +25,10 @@ from typing import Dict, Optional, Sequence
 import torch
 from PIL import Image
 
-from ..eval.seal import seal_answer
+from ..data.preprocess import expand2square
+from ..eval.batched_bench import build_focus_inputs, run_search_phase
+from ..eval.seal import parse_missing_objects, seal_answer
 from .sanitize import sanitize_text
-
-FREE_FORM_NOT_PORTED = "free-form flow not yet ported"
 
 
 class SealService:
@@ -44,17 +44,43 @@ class SealService:
 
     def answer(self, image: Image.Image, question: str,
                options: Optional[Sequence[str]] = None) -> Dict:
-        if not options:
-            raise ValueError(FREE_FORM_NOT_PORTED)
         question = sanitize_text(question)
         t0 = time.perf_counter()
         with self._lock:
-            rec = seal_answer(self.vqa, self.vsm, image, question,
-                              [sanitize_text(o) for o in options],
-                              self.minimum_size_scale, self.minimum_size,
-                              self.max_search_steps)
+            if options:
+                rec = seal_answer(self.vqa, self.vsm, image, question,
+                                  [sanitize_text(o) for o in options],
+                                  self.minimum_size_scale,
+                                  self.minimum_size, self.max_search_steps)
+            else:
+                rec = self._freeform_flow(image, question)
         rec["latency_s"] = round(time.perf_counter() - t0, 4)
         return rec
+
+    def _freeform_flow(self, image: Image.Image, question: str) -> Dict:
+        """app.py:130-233 without the option scorer: answer, search when
+        objects are missing, then re-answer with focus crops. As the
+        reference does, an unsuccessful search lands in failed_objects
+        AND keeps its low-confidence fallback box (app.py:165-179), and
+        the focus message carries the 'not existent in the image' clause
+        (app.py:215-223)."""
+        squared, _, _ = expand2square(image)
+        prediction = self.vqa.free_form(squared, question)
+        missing = parse_missing_objects(prediction)
+        srs, fls = run_search_phase(
+            self.vsm, [image], [missing], self.minimum_size_scale,
+            self.minimum_size, self.max_search_steps)
+        search_result, failed = srs[0], fls[0]
+        answer = prediction
+        if missing and search_result:
+            squared, q, crops, il, ol = build_focus_inputs(
+                self.vqa, image, question, search_result, failed,
+                include_failed=True)
+            answer = self.vqa.free_form(squared, q, object_crops=crops,
+                                        images_long=il, objects_long=ol)
+        return {"freeform": prediction, "answer": answer,
+                "missing_objects": missing, "failed_objects": failed,
+                "search_result": search_result}
 
 
 def _make_handler(service: SealService):
@@ -126,7 +152,7 @@ def check_random_init(size: str, device) -> None:
 
 def random_init_engines(size: str, device, int8: bool = False,
                         int4: bool = False, mixed: bool = False,
-                        int4mix: bool = False):
+                        int4mix: bool = False, prompt_lookup: bool = False):
     """Checkpoint-free engines: the real model graphs with random weights
     drawn on `device` and the stub tokenizer, as vstar_tpu's
     --random-init builds them. 'tiny' is f32 and unquantized (a CPU
@@ -137,7 +163,12 @@ def random_init_engines(size: str, device, int8: bool = False,
     decoder with an int4 VSM decoder and int8 towers; int4mix alone
     implies mixed with the VSM decoder in int4mix (int4 gate/up/lm_head,
     int8 qkvo/down). The default is bf16 (vstar_tpu defaults to int8,
-    which a 16 GB TPU chip needs; the 80 GB card does not)."""
+    which a 16 GB TPU chip needs; the 80 GB card does not).
+
+    Both engines keep their template drafts (the VQA engine drafts by
+    prompt lookup instead with prompt_lookup), so the verify chunks run
+    on this path too. vstar_tpu's random-init VSM turns its template off:
+    random weights never answer it, and the tokens are the same."""
     from ..core.config import vqa_llm_7b, vqa_llm_tiny, vsm_7b, vsm_tiny
     from ..eval.vqa_engine import VQAEngine
     from ..models.vqa_llm import init_vqa_llm_params
@@ -168,7 +199,8 @@ def random_init_engines(size: str, device, int8: bool = False,
         vsm_params = quantize_model_towers(vsm_params)
     vqa = VQAEngine(vqa_params, vqa_cfg, tok, device=device,
                     prompt_buckets=(64,) if tiny else (512, 768),
-                    option_bucket=16 if tiny else 64, compute_dtype=dtype)
+                    option_bucket=16 if tiny else 64, compute_dtype=dtype,
+                    prompt_lookup=prompt_lookup)
     vsm = VSMEngine(vsm_params, vsm_cfg, tok, loc_token_id=3, device=device,
                     eos_id=2, max_new_tokens=4 if tiny else 16,
                     prompt_buckets=(64,) if tiny else (384,),
@@ -194,6 +226,11 @@ def main():
     p.add_argument("--int4mix", action="store_true",
                    help="int4 gate/up/lm_head and int8 qkvo/down on the "
                         "int4 side; alone it implies --mixed")
+    p.add_argument("--prompt-lookup", action="store_true",
+                   help="prompt-lookup drafts for free-form answers in "
+                        "place of the template (the same tokens; the "
+                        "speed depends on how much answers echo the "
+                        "prompt)")
     args = p.parse_args()
     try:
         check_random_init(args.random_init, args.device)
@@ -201,7 +238,8 @@ def main():
         p.error(str(e))
     vqa, vsm = random_init_engines(args.random_init, args.device,
                                    int8=args.int8, int4=args.int4,
-                                   mixed=args.mixed, int4mix=args.int4mix)
+                                   mixed=args.mixed, int4mix=args.int4mix,
+                                   prompt_lookup=args.prompt_lookup)
     serve(SealService(vqa, vsm), args.host, args.port)
 
 
