@@ -8,7 +8,9 @@ Runs on one CUDA card, in phases; any failure exits non-zero:
      (spill) bytes, shared memory and resident blocks per SM; the weight
      and activation quantizers on the card give numpy's bits;
   3. every kernel against its plain PyTorch version at the 7B shapes of
-     the path: K1 flash attention, K2 tower attention, the int8 matvec
+     the path: K1 flash attention (the verify chunk also at the lockstep
+     wave batches 4 and 16), K2 tower attention (OWL-ViT at batches 1, 4,
+     8 and 16, the wave buckets), the int8 matvec
      (K3/K4) at R in {1, 8, 16} and at R=1 on 4096x4096 and 11008x4096,
      with one launch per call; K5 (W4A16) at R in {1, 8, 16} (decode rows)
      and {17, 384, 768} (tiles), K6 (W4A8) at R in {1, 8, 16} on
@@ -40,12 +42,28 @@ Runs on one CUDA card, in phases; any failure exits non-zero:
      be a near-tie: its margin in greedy's logits below the largest
      |logit difference| of the two paths; every one logged);
      free_form_many at B = 4 against each row's free_form under the same
-     rule; the synthetic V*Bench (one 1024x1024 image a task) through
-     eval_model at the disclosed budgets 32/16;
+     rule (64 tokens a row); the synthetic V*Bench (one 1024x1024 image a task) through
+     eval_model at the disclosed budgets 32/16; then the lockstep search
+     on the same pair (the server's BatchedVSMEngine), its counts read
+     after each part: (a) four forced 3-step searches on four 2048x1536
+     noise images through run_batched_searches (waves of 4 rows) and
+     through serial visual_search, the visited patches equal or parting
+     first at a near-tie (the two patches' score margin below the largest
+     difference of the two runs' values of those scores; every one
+     logged), with wall times, waves and rows per wave; (b) a
+     device-preprocess engine on the same weights: canvas windows against
+     host preprocessing within JAX's content tolerances, detect_many on
+     PatchRefs beside host patches, one prefetched forced search; (c) one
+     sample with three missing objects through run_search_phase and the
+     focused option scoring; (d) the synthetic V*Bench (two images a
+     task) through eval_model_batched at image_batch 2, with images/s;
+     after each part K1 and K2 launched at the wave's batch bucket
+     (launches logged by shape);
   5. the quantized path (--int4mix: int8 VQA decoder, int4mix VSM decoder,
      int8 towers), after the bf16 pair is freed: one answer on 2048x1536,
      one forced-search sample, and one more with the act-int8 switch on;
-     then the decode slice of 4 on the --int4mix pair;
+     then the decode slice of 4 and part (a) of the lockstep search on
+     the --int4mix pair;
   6. after each path, every kernel it runs launched, and no plain version
      ran on a CUDA tensor; K1's launches by route (tile above 16 query
      rows, split at decode and verify, with its combine): the bf16 path
@@ -255,6 +273,15 @@ def _k1_cases(gen, dev):
                                  v=rnd(2, 512, H, D),
                                  kv_lens=ints([145, 298]),
                                  q_offsets=ints([137, 290]))))
+    # the verify chunk of a lockstep wave of B searches: the VSM's 512-slot
+    # cache, prompts of 300-383 tokens, 0-15 tokens decoded
+    for B in (4, 16):
+        qkv = rnd(B, 8, 3, H, D)
+        offs = [300 + (37 * b) % 84 for b in range(B)]
+        cases.append((f"verify_b{B}", dict(
+            q=qkv[:, :, 0], k=rnd(B, 512, H, D), v=rnd(B, 512, H, D),
+            kv_lens=ints([o + 8 for o in offs]),
+            q_offsets=ints(offs))))
     # option chunk over a shared prefix: q_offsets = prefix lengths
     offs = [300, 301, 420, 511]
     cases.append(("option", dict(q=rnd(4, 64, H, D), k=rnd(4, 576, H, D),
@@ -385,9 +412,13 @@ def phase_k2(dev):
     from vstar_tpu_torch.kernels import tower_attention as ta
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     res = []
+    # B = 4: training, and lockstep waves of 3-4 searches; 8 and 16: the
+    # larger wave buckets
     for case, shape in (("owl_768", (1, 2305, 12, 64)),
                         ("s600", (2, 600, 12, 64)),
-                        ("owl_768_b4", (4, 2305, 12, 64))):   # training
+                        ("owl_768_b4", (4, 2305, 12, 64)),
+                        ("owl_768_b8", (8, 2305, 12, 64)),
+                        ("owl_768_b16", (16, 2305, 12, 64))):
         q, k, v = (torch.randn(*shape, generator=gen, device=dev)
                    .to(torch.bfloat16) for _ in range(3))
         B, S, H, D = shape
@@ -1004,8 +1035,11 @@ def _routes():
 def _zero_counts():
     from vstar_tpu_torch.kernels import flash_attention as fa
     from vstar_tpu_torch.kernels import int4_matmul as k4
+    from vstar_tpu_torch.kernels import tower_attention as ta
     fa.route_launches.update(tile=0, split=0, combine=0)
     fa.split_launches_by_rows.clear()
+    fa.launches_by_shape.clear()
+    ta.launches_by_batch.clear()
     k4.route_launches.update(decode=0, tile=0)
     for mod, la, pa, key in _counter_modules().values():
         for attr in (la, pa):
@@ -1076,6 +1110,9 @@ def _log_forced(label, forced, vsm):
 # ---------------------------------------------------------------------------
 
 FREE_FORM_TOKENS, DETECT_TOKENS = 200, 100
+# free_form_many's rows against their free_form answers: the near-ties of
+# batched rows came at tokens 2-28 on the card, so 64 tokens a row
+MANY_TOKENS = 64
 # bench.py's disclosed decode budgets: free-form 32, search 16 new tokens
 SYNTHETIC_BUDGETS = (32, 16)
 FREEFORM_KEYS = {"freeform", "answer", "missing_objects", "failed_objects",
@@ -1105,7 +1142,8 @@ class ForcedTrigger:
 
 
 class Budget:
-    """A VQA engine whose free_form decodes at most n tokens by default."""
+    """A VQA engine whose free_form and free_form_many decode at most n
+    tokens by default."""
 
     def __init__(self, engine, n):
         self.engine, self.n = engine, n
@@ -1116,6 +1154,10 @@ class Budget:
     def free_form(self, *args, **kwargs):
         kwargs.setdefault("max_new_tokens", self.n)
         return self.engine.free_form(*args, **kwargs)
+
+    def free_form_many(self, *args, **kwargs):
+        kwargs.setdefault("max_new_tokens", self.n)
+        return self.engine.free_form_many(*args, **kwargs)
 
 
 def _trace_reader(trace, row):
@@ -1317,48 +1359,52 @@ def _summary(runs, differences):
             for name, r in runs.items()}
 
 
-def _many_check(label, vqa, images, first):
+def _many_check(label, vqa, images):
     """free_form_many at B = 4 against each row's free_form (template),
-    under the equivalence rule; `first` is row 0's template run."""
+    MANY_TOKENS a row, under the equivalence rule."""
     from vstar_tpu_torch.data.preprocess import expand2square
     squared = [expand2square(im)[0] for im in images]
     texts, st, trace, ms = _timed_decode(vqa, lambda: vqa.free_form_many(
-        squared, MANY_QUESTIONS, max_new_tokens=FREE_FORM_TOKENS))
+        squared, MANY_QUESTIONS, max_new_tokens=MANY_TOKENS))
     batch = {"texts": texts, "trace": trace, "stats": st, "ms": ms}
     log(f"[{label} free_form_many B=4] {st['forwards']} forwards, "
         f"{st['tokens']} tokens, {ms:.1f} ms")
     differences = []
     for b in range(len(images)):
-        if b == 0:
-            single = first
-        else:
-            text, sst, strace, sms = _timed_decode(vqa, lambda: vqa.free_form(
-                squared[b], MANY_QUESTIONS[b],
-                max_new_tokens=FREE_FORM_TOKENS))
-            single = {"texts": [text], "n": [sst["tokens"]],
-                      "trace": strace}
+        text, sst, strace, _ = _timed_decode(vqa, lambda: vqa.free_form(
+            squared[b], MANY_QUESTIONS[b], max_new_tokens=MANY_TOKENS))
+        single = {"texts": [text], "n": [sst["tokens"]], "trace": strace}
         differences.append(_equivalent(f"{label} free_form_many row {b}",
                                        single, batch, row=b))
     return {"forwards": st["forwards"], "tokens": st["tokens"], "ms": ms,
             "differences": differences}
 
 
-def _synthetic_eval(label, vqa, vsm_engine):
-    """The synthetic V*Bench (one 1024x1024 image a task) through the
-    port's eval_model at the disclosed budgets: a record per image and
-    the accuracy lines (random weights decide nothing)."""
+def _synthetic_eval(label, vqa, vsm_engine, image_batch=None,
+                    n_per_task=1):
+    """The synthetic V*Bench (1024x1024 images, n_per_task a task) through
+    the port's eval_model at the disclosed budgets: a record per image and
+    the accuracy lines (random weights decide nothing). image_batch > 1
+    runs the batched loop (eval_model_batched), which prints images/s
+    without per-image latencies; images/s is then images over wall time."""
     import contextlib
+    import re
     from vstar_tpu_torch.eval import synthetic, vstar_bench
     ff_budget, search_budget = SYNTHETIC_BUDGETS
     if vsm_engine.max_new_tokens != search_budget:
         raise AssertionError(f"the VSM decodes {vsm_engine.max_new_tokens} "
                              f"tokens, not the search budget {search_budget}")
+    tag = f"{label} synthetic eval_model" + (
+        f" image_batch={image_batch}" if image_batch else "")
     with tempfile.TemporaryDirectory() as work:
         bench = os.path.join(work, "bench")
-        specs = synthetic.make_synthetic_benchmark(bench, n_per_task=1)
+        specs = synthetic.make_synthetic_benchmark(bench,
+                                                   n_per_task=n_per_task)
         out_path = os.path.join(work, "eval_result.json")
-        args = vstar_bench.build_parser().parse_args(
-            ["--benchmark-folder", bench, "--output-path", out_path])
+        argv = ["--benchmark-folder", bench, "--output-path", out_path]
+        if image_batch:
+            argv += ["--image-batch", str(image_batch)]
+        args = vstar_bench.build_parser().parse_args(argv)
         printed = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(printed):
@@ -1369,20 +1415,27 @@ def _synthetic_eval(label, vqa, vsm_engine):
             written = json.load(f)
     lines = printed.getvalue().strip().splitlines()
     for line in lines:
-        log(f"[{label} synthetic eval_model] {line}")
+        log(f"[{tag}] {line}")
     recs = [r for task in written.values() for r in task]
     if len(recs) != len(specs) or any(
             "option_chosen" not in r or "image" not in r for r in recs):
         raise AssertionError(f"{label}: eval_model wrote {written}")
-    if not any("images/s" in line for line in lines) or len(lines) < 4:
+    printed_rate = [float(m) for m in re.findall(r"([0-9.]+) images/s",
+                                                 printed.getvalue())]
+    if len(printed_rate) != 1 or len(lines) < 4:
         raise AssertionError(f"{label}: no accuracy lines: {lines}")
-    images_per_s = 1.0 / float(np.mean(latencies))
-    log(f"[{label} synthetic eval_model] {len(recs)} images in {wall:.2f} s"
-        f", {images_per_s:.4f} images/s, p50 "
-        f"{float(np.percentile(latencies, 50)):.3f} s")
-    return {"images": len(recs), "images_per_s": images_per_s,
-            "p50_s": float(np.percentile(latencies, 50)),
-            "latencies_s": latencies}
+    if latencies is None:
+        report = {"images": len(recs), "images_per_s": len(recs) / wall,
+                  "printed_images_per_s": printed_rate[0],
+                  "image_batch": image_batch}
+    else:
+        report = {"images": len(recs),
+                  "images_per_s": 1.0 / float(np.mean(latencies)),
+                  "p50_s": float(np.percentile(latencies, 50)),
+                  "latencies_s": latencies}
+    log(f"[{tag}] {len(recs)} images in {wall:.2f} s, "
+        f"{report['images_per_s']:.4f} images/s")
+    return report
 
 
 def phase_decode_slice(label, vqa, vsm_engine, kernels):
@@ -1395,6 +1448,7 @@ def phase_decode_slice(label, vqa, vsm_engine, kernels):
     8-row verify chunks."""
     from vstar_tpu_torch.kernels import flash_attention as fa
     from vstar_tpu_torch.serve.server import SealService
+    t_phase = time.perf_counter()
     img_2k = _image(1536, 2048, SEED + 1)
     vsm = CountingVSM(vsm_engine)
     _zero_counts()
@@ -1432,11 +1486,9 @@ def phase_decode_slice(label, vqa, vsm_engine, kernels):
                              ("oracle_verify", "template")):
             report[part][name]["acceptance"] = _check_oracle(
                 f"{tag} {name}", runs[source], runs[name], 8)
-        if part == "free_form":
-            first = runs["template"]
     del runs
     images = [img_2k] + [_image(1536, 2048, SEED + 10 + i) for i in range(3)]
-    report["free_form_many"] = _many_check(label, vqa, images, first)
+    report["free_form_many"] = _many_check(label, vqa, images)
     report["synthetic"] = _synthetic_eval(label, vqa, vsm_engine)
 
     counts = _check_path(f"{label} slice", kernels)
@@ -1451,11 +1503,366 @@ def phase_decode_slice(label, vqa, vsm_engine, kernels):
                              f"{counts['flash_attention_routes']}")
     counts["flash_attention_split_by_rows"] = by_rows
     log(f"[{label} slice] K1 split launches by query rows {by_rows}")
+    log(f"[time] {label} decode slice {time.perf_counter() - t_phase:.1f} s")
     report["differences_near_tie"] = sum(
         d is not None for part in ("free_form", "detect")
         for d in (v["difference"] for v in report[part].values())) + sum(
         d is not None for d in report["free_form_many"]["differences"])
     return counts, report
+
+
+# ---------------------------------------------------------------------------
+# Phase 5c: the lockstep search (BatchedVSMEngine, run_batched_searches)
+# ---------------------------------------------------------------------------
+
+LOCKSTEP_NAMES = ["red mug", "bicycle", "street sign", "dog"]
+# JAX's content tolerances of device against host preprocessing
+# (tests/test_batched_search.py:163-166): (mean, max) |difference|
+CANVAS_TOL = {"clip": (0.04, 0.6), "owl": (0.03, 0.5)}
+
+
+def _noise(h, w, seed):
+    from PIL import Image
+    return Image.fromarray((np.random.RandomState(seed).rand(h, w, 3)
+                            * 255).astype(np.uint8))
+
+
+def _candidate_scores(path, k):
+    """{bbox: score} of the patches the search could visit as its step k:
+    the unvisited children of path[:k], scored as visual_search_gen
+    pushes them (ancestor-accumulated heatmap mass)."""
+    from vstar_tpu_torch.search.policy import (get_sub_patches,
+                                               get_subpatch_scores,
+                                               split_4subpatches)
+    out = {}
+    for step in path[:k]:
+        subs, _, _ = get_sub_patches(step.bbox,
+                                     *split_4subpatches(step.bbox))
+        scores = [0.0] * len(subs)
+        tmp = step
+        while True:
+            sub = get_subpatch_scores(tmp.final_heatmap, tmp.bbox, subs)
+            scores = [sc + s_ / 4 ** tmp.scale_level
+                      for sc, s_ in zip(scores, sub)]
+            if tmp.parent_index == -1:
+                break
+            tmp = path[tmp.parent_index]
+        out.update({tuple(b): sc for b, sc in zip(subs, scores)})
+    for step in path[1:k]:
+        out.pop(tuple(step.bbox))
+    return out
+
+
+def _same_search(label, serial, lockstep):
+    """The lockstep search visits the serial search's patches, or parts
+    from it first at a near-tie: at the first differing step k the two
+    chosen patches' scores in the serial run are closer (margin) than
+    the largest difference between the two runs' values of those two
+    scores. Returns the difference, or None."""
+    k = next((i for i, (a, b) in enumerate(zip(serial, lockstep))
+              if a.bbox != b.bbox), None)
+    if k is None:
+        if len(serial) != len(lockstep):
+            raise AssertionError(f"{label}: paths of {len(serial)} and "
+                                 f"{len(lockstep)} steps")
+        return None
+    cs, cl = _candidate_scores(serial, k), _candidate_scores(lockstep, k)
+    a, b = tuple(serial[k].bbox), tuple(lockstep[k].bbox)
+    if cs[a] != serial[k].score or cl[b] != lockstep[k].score:
+        raise AssertionError(f"{label}: candidate scores {cs[a]}, {cl[b]} "
+                             f"are not the policy's {serial[k].score}, "
+                             f"{lockstep[k].score}")
+    diff = {"step": k, "serial_patch": list(a), "lockstep_patch": list(b),
+            "margin": cs[a] - cs[b],
+            "max_score_diff": max(abs(cs[a] - cl[a]), abs(cs[b] - cl[b]))}
+    log(f"[{label}] first difference at step {k}: serial {a} against "
+        f"lockstep {b}, margin {diff['margin']:.6g}, largest score "
+        f"difference {diff['max_score_diff']:.6g}")
+    if not diff["margin"] < diff["max_score_diff"]:
+        raise AssertionError(f"{label}: lockstep differs from serial beyond "
+                             f"rounding: {diff}")
+    return diff
+
+
+class WaveLog:
+    """Records the rows of every BatchedVSMEngine wave (_run_many)."""
+
+    def __init__(self, engine):
+        self.engine, self.rows = engine, []
+        self._orig = engine._run_many
+
+    def __enter__(self):
+        def run_many(patches, questions):
+            self.rows.append(len(patches))
+            return self._orig(patches, questions)
+        self.engine._run_many = run_many
+        return self
+
+    def __exit__(self, *exc):
+        del self.engine._run_many
+
+
+def _engine_like(e, params=None, device_preprocess=False):
+    """A BatchedVSMEngine like e, on e's weights or on params."""
+    from vstar_tpu_torch.search.batched import BatchedVSMEngine
+    return BatchedVSMEngine(e.params if params is None else params, e.cfg,
+                            e.tokenizer, loc_token_id=e.loc_token_id,
+                            device=e.device, eos_id=e.eos_id,
+                            max_new_tokens=e.max_new_tokens,
+                            prompt_buckets=e.prompt_buckets,
+                            compute_dtype=e.compute_dtype,
+                            device_preprocess=device_preprocess)
+
+
+def _tilted_engine(e):
+    """A BatchedVSMEngine on e's weights with its embedding and lm_head
+    tilted, as tests/test_torch_slice.py tilts the tiny VSM, so that the
+    random model answers [LOC] at every step and the heads and heatmaps
+    run on every patch: +100 on embedding channel 0 keeps channel 0 of
+    the final hidden state large, and lm_head[0, [LOC]] = 10 reads it
+    (copies of the two tensors). An int4 lm_head gets the same weight
+    through its packing: column [LOC] of the first group becomes (10, 0,
+    ..., 0), row 0's low nibble 7 at scale 10 / 7."""
+    loc = e.loc_token_id
+    llama = dict(e.params["llama"])
+    llama["embed_tokens"] = llama["embed_tokens"].clone()
+    llama["embed_tokens"][:, 0] += 100
+    head = llama["lm_head"]
+    if isinstance(head, torch.Tensor):
+        head = head.clone()
+        head[0, loc] = 10
+    else:
+        q4, s4 = head["q4"].clone(), head["s4"].clone()
+        q4[:q4.shape[0] // s4.shape[0], loc] = 0
+        q4[0, loc] = 7
+        s4[0, loc] = 10 / 7
+        head = {"q4": q4, "s4": s4}
+    llama["lm_head"] = head
+    return _engine_like(e, dict(e.params, llama=llama))
+
+
+def _shapes():
+    """K1's launches by (batch, query rows) and K2's by batch."""
+    from vstar_tpu_torch.kernels import flash_attention as fa
+    from vstar_tpu_torch.kernels import tower_attention as ta
+    return ({f"{b}x{q}": n for (b, q), n in sorted(fa.launches_by_shape
+                                                   .items())},
+            dict(sorted(ta.launches_by_batch.items())))
+
+
+def _batch_bucket(n):
+    from vstar_tpu_torch.search.batched import _batch_bucket
+    return _batch_bucket(n)
+
+
+def _check_lockstep_path(path, kernels, batch):
+    """_check_path, and K1 and K2 launched at the wave's batch bucket."""
+    counts = _check_path(path, kernels)
+    k1, k2 = _shapes()
+    log(f"[{path}] K1 launches by (batch x query rows) {k1}, K2 launches "
+        f"by batch {k2}, K1 routes {_routes()}")
+    if k2.get(batch, 0) <= 0 or not any(
+            key.startswith(f"{batch}x") for key in k1):
+        raise AssertionError(f"{path}: K1 / K2 did not launch at batch "
+                             f"{batch}: {k1}, {k2}")
+    counts["flash_attention_by_shape"] = k1
+    counts["tower_attention_by_batch"] = k2
+    counts["flash_attention_routes"] = _routes()
+    return counts
+
+
+def _lockstep_vs_serial(label, vsm_engine, kernels):
+    """Part (a): four forced 3-step searches on four seeded 2048x1536
+    noise images through run_batched_searches (waves of 4 rows) and one
+    serial visual_search each, on the same engine; the paths held to each
+    other by _same_search."""
+    from vstar_tpu_torch.search.batched import run_batched_searches
+    from vstar_tpu_torch.search.policy import visual_search
+    images = [_noise(1536, 2048, SEED + 20 + i)
+              for i in range(len(LOCKSTEP_NAMES))]
+    kw = dict(smallest_size=224, max_steps=3, **FORCED_SEARCH)
+    # the first 4-row wave pays cuBLAS's and the allocator's set-up
+    vsm_engine.detect_many(images, LOCKSTEP_NAMES)
+    _zero_counts()
+    paths = [[] for _ in images]
+    with WaveLog(vsm_engine) as waves:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lock = run_batched_searches(vsm_engine, images, LOCKSTEP_NAMES,
+                                    path_outs=paths, **kw)
+        torch.cuda.synchronize()
+        lock_s = time.perf_counter() - t0
+    serial_paths = [[] for _ in images]
+    t0 = time.perf_counter()
+    serial = [visual_search(vsm_engine, im, name, path_out=p, **kw)
+              for im, name, p in zip(images, LOCKSTEP_NAMES, serial_paths)]
+    torch.cuda.synchronize()
+    serial_s = time.perf_counter() - t0
+    counts = _check_lockstep_path(f"{label} lockstep (a)", kernels,
+                                  _batch_bucket(len(images)))
+    differences = []
+    for i, name in enumerate(LOCKSTEP_NAMES):
+        if len(paths[i]) != 3:
+            raise AssertionError(f"{label} lockstep {name}: {paths[i]}")
+        differences.append(_same_search(f"{label} lockstep {name}",
+                                        serial_paths[i], paths[i]))
+        log(f"[{label} lockstep {name}] patches {[s.bbox for s in paths[i]]}"
+            f", serial {[s.bbox for s in serial_paths[i]]}; (path length, "
+            f"success) {lock[i][1:3]}, serial {serial[i][1:3]}")
+    log(f"[{label} lockstep (a)] 4 forced 3-step searches: lockstep "
+        f"{lock_s:.3f} s in {len(waves.rows)} waves of {waves.rows} rows, "
+        f"serial {serial_s:.3f} s ({serial_s / lock_s:.2f}x)")
+    if waves.rows != [len(images)] * 3:
+        raise AssertionError(f"{label}: lockstep waves {waves.rows}")
+    return counts, {"lockstep_s": lock_s, "serial_s": serial_s,
+                    "waves": waves.rows, "differences": differences}
+
+
+def _device_preprocess_part(label, vsm_engine, kernels):
+    """Part (b): a device-preprocess engine on vsm_engine's weights. Its
+    tower inputs (a 2048x1536 image's canvas, the CLIP square window and
+    the OWL-ViT crop of four patches) against the host's, within JAX's
+    content tolerances where the window shrinks; detect_many on the
+    PatchRefs beside the host patches; one forced search end to end after
+    prefetch_canvas."""
+    from vstar_tpu_torch.data.preprocess import (clip_preprocess,
+                                                 expand2square,
+                                                 owlvit_preprocess)
+    from vstar_tpu_torch.kernels import image_ops
+    from vstar_tpu_torch.search.batched import run_batched_searches
+    from vstar_tpu_torch.search.policy import PatchRef
+    e = vsm_engine
+    dev = _engine_like(e, device_preprocess=True)
+    img = _image(1536, 2048, SEED + 30)
+    # the first three windows shrink for both towers, as the window of
+    # JAX's bounds does; the fourth (a step-3 patch) grows for OWL-ViT,
+    # where the cubic kernel reads the mask's mean colour past the crop's
+    # edge and PIL's crop replicates the edge (logged, not bounded)
+    refs = [PatchRef(img, b) for b in ([0, 0, 2048, 1536],
+                                       [1024, 0, 1024, 768],
+                                       [400, 300, 900, 800],
+                                       [300, 900, 512, 384])]
+    _zero_counts()
+    canvas = dev._canvas(img)
+    clip, owl = image_ops.pair_windows(
+        canvas, [image_ops.square_window(r.bbox) for r in refs],
+        [r.bbox for r in refs], e.cfg.vision.image_size,
+        e.cfg.owl_vision.image_size)
+    content = []
+    for j, r in enumerate(refs):
+        crop = r.pil()
+        for tower, got, want in (
+                ("clip", clip[j], clip_preprocess(expand2square(crop)[0],
+                                                  e.cfg.vision.image_size)),
+                ("owl", owl[j], owlvit_preprocess(
+                    crop, e.cfg.owl_vision.image_size))):
+            d = np.abs(got.cpu().numpy() - want)
+            mean_tol, max_tol = CANVAS_TOL[tower]
+            bounded = j < 3
+            content.append({"patch": r.bbox, "tower": tower,
+                            "mean": float(d.mean()), "max": float(d.max()),
+                            "bounded": bounded})
+            log(f"[{label} device preprocess] {tower} {r.bbox}: mean "
+                f"{d.mean():.4g}, max {d.max():.4g}" + (
+                    f" (tol {mean_tol}, {max_tol})" if bounded else
+                    " (upscaled: not bounded)"))
+            if bounded and not (d.mean() < mean_tol and d.max() < max_tol):
+                raise AssertionError(f"{label}: device {tower} input of "
+                                     f"{r.bbox} off the host's")
+    names = LOCKSTEP_NAMES[:len(refs)]
+    got = dev.detect_many(refs, names)
+    want = e.detect_many([r.pil() for r in refs], names)
+    heads = []
+    for (gb, gl, gh), (wb, wl, wh) in zip(got, want):
+        if gb.shape != wb.shape or gh.shape != wh.shape or not all(
+                np.isfinite(x).all() for x in (gb, gl, gh)):
+            raise AssertionError(f"{label}: device detect_many gave "
+                                 f"{gb.shape} {gh.shape} against host "
+                                 f"{wb.shape} {wh.shape}")
+        heads.append({"scores": float(np.abs(gl - wl).max(initial=0)),
+                      "boxes": float(np.abs(gb - wb).max(initial=0)),
+                      "heatmap": float(np.abs(gh - wh).max(initial=0))})
+    log(f"[{label} device preprocess] detect_many device against host "
+        f"patches, largest |difference|: {heads}")
+    search_img = _image(1536, 2048, SEED + 31)
+    dev.prefetch_canvas(search_img)
+    path = []
+    t0 = time.perf_counter()
+    res = run_batched_searches(dev, [search_img], ["red mug"],
+                               path_outs=[path], smallest_size=224,
+                               max_steps=3, **FORCED_SEARCH)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    if len(path) != 3 or dev._canvas_inflight \
+            or id(search_img) not in dev._canvas_cache:
+        raise AssertionError(f"{label}: device search visited {path}, "
+                             f"inflight {dev._canvas_inflight}")
+    log(f"[{label} device preprocess] prefetched forced search: "
+        f"{search_s:.3f} s, patches {[s.bbox for s in path]}, result "
+        f"{res[0][1:3]}")
+    counts = _check_lockstep_path(f"{label} lockstep (b)", kernels,
+                                  _batch_bucket(len(refs)))
+    return counts, {"content": content, "heads": heads,
+                    "search_s": search_s}
+
+
+def _three_objects(label, vqa, vsm_engine, kernels):
+    """Part (c): one sample with three missing objects: their forced
+    3-step searches through run_search_phase (three waves of 3 rows) and
+    the focused option scoring with the three crops."""
+    from vstar_tpu_torch.eval.batched_bench import (build_focus_inputs,
+                                                    run_search_phase)
+    img = _image(1536, 2048, SEED + 40)
+    missing = LOCKSTEP_NAMES[:3]
+    _zero_counts()
+    with WaveLog(vsm_engine) as waves:
+        t0 = time.perf_counter()
+        srs, failed = run_search_phase(vsm_engine, [img], [missing],
+                                       max_search_steps=3, **FORCED_SEARCH)
+        squared, q, crops, il, ol = build_focus_inputs(vqa, img, QUESTION,
+                                                       srs[0])
+        chosen = vqa.multiple_choice(squared, q, OPTIONS, crops,
+                                     images_long=il, objects_long=ol)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    log(f"[{label} three missing objects] {ms:.1f} ms, waves {waves.rows}, "
+        f"search_result {srs[0]}, failed {failed[0]}, option {chosen}")
+    if waves.rows != [3, 3, 3] or chosen not in range(len(OPTIONS)):
+        raise AssertionError(f"{label}: three-object sample: waves "
+                             f"{waves.rows}, option {chosen}")
+    counts = _check_lockstep_path(f"{label} lockstep (c)", kernels,
+                                  _batch_bucket(len(missing)))
+    return counts, {"ms": ms, "waves": waves.rows,
+                    "boxes": len(srs[0]), "option_chosen": chosen}
+
+
+def phase_lockstep(label, vqa, vsm_engine, kernels, full):
+    """The lockstep search on resident engines, each part's counts zeroed
+    before it and read after: (a) lockstep against serial forced searches;
+    with full, also (b) the device canvas path, (c) a sample with three
+    missing objects and (d) the synthetic V*Bench through
+    eval_model_batched at image_batch 2. Parts (a)-(c) run on the VSM
+    tilted to answer [LOC] (_tilted_engine), so that the heatmaps, and
+    with them the search's choices, are not all zero."""
+    t0 = time.perf_counter()
+    by_part, report = {}, {}
+    tilted = _tilted_engine(vsm_engine)
+    by_part["a"], report["lockstep_vs_serial"] = _lockstep_vs_serial(
+        label, tilted, kernels)
+    if full:
+        by_part["b"], report["device_preprocess"] = \
+            _device_preprocess_part(label, tilted, kernels)
+        by_part["c"], report["three_objects"] = _three_objects(
+            label, vqa, tilted, kernels)
+        del tilted
+        # random weights ask for no search here: K1 only
+        _zero_counts()
+        report["synthetic_batched"] = _synthetic_eval(
+            label, vqa, vsm_engine, image_batch=2, n_per_task=2)
+        by_part["d"] = _check_path(f"{label} lockstep (d)",
+                                   ("flash_attention",))
+    log(f"[time] {label} lockstep phase {time.perf_counter() - t0:.1f} s")
+    return by_part, report
 
 
 def phase_bf16_path(dev):
@@ -1510,6 +1917,9 @@ def phase_bf16_path(dev):
                              "combine")
     slice_counts, report = phase_decode_slice(
         "bf16", vqa, vsm_engine, ("flash_attention", "tower_attention"))
+    report["lockstep_by_part"], report["lockstep"] = phase_lockstep(
+        "bf16", vqa, vsm_engine, ("flash_attention", "tower_attention"),
+        full=True)
     return counts, slice_counts, report
 
 
@@ -1553,9 +1963,12 @@ def phase_quantized_path(dev):
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     counts = _check_path("int4mix", SERVING_KERNELS)
     counts["flash_attention_routes"] = _routes()
-    slice_counts, report = phase_decode_slice(
-        "int4mix", vqa, vsm_engine,
-        ("flash_attention", "tower_attention", "int8_matvec", "int4_matmul"))
+    kernels = ("flash_attention", "tower_attention", "int8_matvec",
+               "int4_matmul")
+    slice_counts, report = phase_decode_slice("int4mix", vqa, vsm_engine,
+                                              kernels)
+    report["lockstep_by_part"], report["lockstep"] = phase_lockstep(
+        "int4mix", vqa, vsm_engine, kernels, full=False)
     return counts, slice_counts, report
 
 
@@ -1919,10 +2332,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
+    t_start = time.perf_counter()
+
+    def mark(phase):
+        log(f"[time] {phase} done at {time.perf_counter() - t_start:.1f} s")
 
     smi = phase_device()
     kernel_info = phase_build()
     phase_quantizers(dev)
+    mark("quantizers")
     cases = {"flash_attention": phase_k1(dev),
              "tower_attention": phase_k2(dev),
              "int8_matvec": phase_int8(dev)}
@@ -1932,26 +2350,36 @@ def main() -> int:
     k1_lse, k7 = phase_k7(dev)
     cases["flash_attention"].append(k1_lse)
     cases["flash_attention_bwd"] = [k7]
+    mark("kernels")
     gc.collect()
     torch.cuda.empty_cache()
     by_path, decode_slice = {}, {}
     by_path["bf16"], by_path["bf16_slice"], decode_slice["bf16"] = \
         phase_bf16_path(dev)
+    mark("bf16_path")
     gc.collect()
     torch.cuda.empty_cache()
     by_path["int4mix"], by_path["int4mix_slice"], \
         decode_slice["int4mix"] = phase_quantized_path(dev)
+    mark("quantized_path")
+    for label in ("bf16", "int4mix"):
+        for part, counts in decode_slice[label].pop(
+                "lockstep_by_part").items():
+            by_path[f"{label}_lockstep_{part}"] = counts
     gc.collect()
     torch.cuda.empty_cache()
     by_path["int4_profile"], profile = phase_int4_profile(dev)
+    mark("int4_profile")
     gc.collect()
     torch.cuda.empty_cache()
     by_path["train"], train = phase_train(dev)
+    mark("train")
     by_path["train"]["flash_attention_bwd"] = \
         by_path["train"]["flash_attention_bwd_dq"]
     gc.collect()
     torch.cuda.empty_cache()
     phase_train_loop(dev)
+    mark("train_loop")
     if "jax" in sys.modules or "vstar_tpu" in sys.modules:
         raise AssertionError("JAX or the JAX package was imported")
     sources = {

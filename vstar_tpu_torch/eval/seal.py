@@ -3,8 +3,8 @@ guided visual search -> focused re-answer (port of vstar_tpu/eval/seal.py,
 which mirrors eval_model's inner loop, vstar_bench_eval.py:168-273).
 
 The host helpers are copies of the JAX package's. Searches go through
-search/batched.run_grouped_searches, whose serial path (an engine without
-`detect_many`) is the one ported so far.
+search/batched.run_grouped_searches: lockstep waves on a
+BatchedVSMEngine, one serial visual_search per object otherwise.
 """
 
 from __future__ import annotations

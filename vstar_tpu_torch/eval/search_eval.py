@@ -2,8 +2,9 @@
 vstar_tpu/eval/search_eval.py, the reference's `visual_search.py main`,
 visual_search.py:520-564): top-1 localization accuracy (IoU > 0.5) and
 the average successful path length over V*Bench annotations, with the
-optional visualization. The command line waits for the checkpoint
-loaders (ROADMAP Queue 1 item 10); lockstep batches for item 6.
+optional visualization; with image_batch > 1 and a BatchedVSMEngine the
+searches run in lockstep device waves. The command line waits for the
+checkpoint loaders (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -67,8 +68,9 @@ def evaluate_search(vsm_engine, benchmark_folder: str,
                     visualization: bool = False, output_path: str = "",
                     image_batch: int = 1):
     """Returns (top-1 accuracy, average successful path length).
-    image_batch sizes the lockstep waves of a batched engine (not ported
-    yet; run_grouped_searches refuses one)."""
+    image_batch > 1 runs that many searches at a time in lockstep device
+    waves on a BatchedVSMEngine (run_batched_searches); the per-task
+    policy and results are the serial search's."""
     policy_kw = dict(
         confidence_high=confidence_high, confidence_low=confidence_low,
         target_cue_threshold=target_cue_threshold,

@@ -420,3 +420,51 @@ class VQAEngine:
             None if object_crops is None else [object_crops],
             None if images_long is None else [images_long],
             None if objects_long is None else [objects_long])[0]
+
+
+def warmup_vqa_engine(engine: VQAEngine, image_size: int = 256,
+                      batch_buckets=(1, 2, 4, 8),
+                      max_new_tokens: int = 200, log=print,
+                      sampling: bool = False):
+    """Run free-form and option scoring once per (batch bucket x prompt
+    bucket) before live traffic (serve.server --warmup), at the
+    max_new_tokens live traffic passes (free_form's default 200).
+    Eager PyTorch compiles nothing; on the card this builds the kernels
+    on first use and warms cuBLAS and the caching allocator at each
+    shape. sampling: one sampled free-form answer as well."""
+    from ..search.batched import _filler_for_bucket
+
+    def length_of(q):
+        return spliced_length(engine._tokenize(engine._prompt(q)),
+                              n_long=engine.cfg.image_tokens_long,
+                              n_short=engine.cfg.image_tokens_short,
+                              image_long=True)
+
+    texts = ["what is this ?"]
+    lo = engine.prompt_buckets[0]
+    for b in engine.prompt_buckets[1:]:
+        t = _filler_for_bucket(length_of, lo, b)
+        if t is not None:
+            texts.append(t)
+        elif log:
+            log(f"[warmup] vqa prompt bucket {b} unreachable by filler "
+                f"text: the first live prompt in ({lo}, {b}] warms it")
+        lo = b
+
+    rng = np.random.RandomState(0)
+    img = Image.fromarray((rng.rand(image_size, image_size, 3)
+                           * 255).astype("uint8"))
+    opts = ["a thing", "another"]
+    for bb in batch_buckets:
+        for q in texts:
+            engine.free_form_many([img] * bb, [q] * bb,
+                                  max_new_tokens=max_new_tokens)
+            engine.multiple_choice_many([img] * bb, [q] * bb, [opts] * bb)
+        if log:
+            log(f"[warmup] vqa B<={bb} ({len(texts)} prompt buckets) "
+                f"warmed")
+    if sampling:
+        engine.free_form(img, texts[0], max_new_tokens=max_new_tokens,
+                         temperature=0.7, top_p=0.9)
+        if log:
+            log("[warmup] vqa sampled decode warmed")

@@ -4,11 +4,12 @@ vstar_bench_eval.py).
 
 Walks direct_attributes/ and relative_position/, runs the SEAL loop per
 image, prints the per-task and overall accuracy with the p50 latency and
-images/s, and writes the result JSON in the reference schema. Ported: the
-serial loop of `eval_model` and `build_parser`. Not yet: the checkpoint
+images/s, and writes the result JSON in the reference schema. Ported:
+`eval_model` (serial, or with --image-batch > 1 the batched loop of
+eval/batched_bench.py) and `build_parser`. Not yet: the checkpoint
 loaders (so the command line; ROADMAP Queue 1 item 10), the phase-swapped
-run (item 8), lockstep image batches and the compiled search (item 6) and
-the int8 KV cache (item 7).
+run (item 8), the compiled search (item 6), the int8 KV cache (item 7)
+and the mesh (item 12).
 """
 
 from __future__ import annotations
@@ -32,24 +33,31 @@ LOADERS_NOT_PORTED = (
 
 def _refuse_unported(args) -> None:
     for flag, item in (("single_chip_phased", 8), ("compiled", 6),
-                       ("kv_int8", 7), ("device_preprocess", 6),
-                       ("mesh", 12)):
+                       ("kv_int8", 7), ("mesh", 12)):
         if getattr(args, flag, None):
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported yet (ROADMAP "
                 f"Queue 1 item {item})")
-    if (getattr(args, "image_batch", None) or 1) > 1:
-        raise NotImplementedError(
-            "--image-batch > 1 needs the lockstep search engine, not "
-            "ported yet (ROADMAP Queue 1 item 6)")
 
 
 def eval_model(args, vqa_engine=None, vsm_engine=None):
     """The SEAL loop over a V*Bench folder. Returns (results by task,
-    per-task correctness lists, per-image latencies in seconds)."""
+    per-task correctness lists, per-image latencies in seconds); with
+    --image-batch > 1 eval/batched_bench.eval_model_batched runs it, and
+    the return is (results by task, None, None), as in vstar_tpu.
+    --device-preprocess asks for a VSM engine built with
+    device_preprocess=True (the loaders would build one)."""
     if vqa_engine is None or vsm_engine is None:
         raise NotImplementedError(LOADERS_NOT_PORTED)
     _refuse_unported(args)
+    if getattr(args, "device_preprocess", False) \
+            and not getattr(vsm_engine, "device_preprocess", False):
+        raise ValueError("--device-preprocess: the VSM engine was not "
+                         "built with device_preprocess=True")
+    if (getattr(args, "image_batch", None) or 1) > 1:
+        from .batched_bench import eval_model_batched
+        return eval_model_batched(args, vqa_engine, vsm_engine,
+                                  image_batch=args.image_batch), None, None
     results = {}
     per_type_acc = defaultdict(list)
     all_acc = []
@@ -109,10 +117,12 @@ def build_parser() -> argparse.ArgumentParser:
                    default=None, help="keep bf16 decoder weights")
     p.add_argument("--device-preprocess", action="store_true",
                    default=False,
-                   help="on-device patch extraction (not ported yet)")
+                   help="extract search patches on the device (one canvas "
+                        "upload per image)")
     p.add_argument("--image-batch", dest="image_batch", default=None,
                    type=int,
-                   help=">1: lockstep search batches (not ported yet)")
+                   help=">1: image groups of this size, their searches in "
+                        "lockstep device batches (a BatchedVSMEngine)")
     p.add_argument("--compiled", action="store_true", default=False,
                    help="whole search on device (not ported yet)")
     p.add_argument("--kv-int8", dest="kv_int8", action="store_true",

@@ -59,6 +59,8 @@ route_launches = {"tile": 0, "split": 0, "combine": 0}
 # the split route's launches by query rows (1: a decode step, 8: a
 # speculative verify chunk), counted in route_launches["split"] too
 split_launches_by_rows = {}
+# launches by (batch, query rows), both routes; counted in `launches` too
+launches_by_shape = {}
 
 HEAD_DIM = 128   # the head width the kernels are instantiated for
 SPLIT_MAX_SQ = 16    # query rows up to which K1 takes the split route
@@ -316,6 +318,7 @@ def _forward_kernel(q, k, v, kv_lens, q_offsets, kv_valid, with_lse):
         *((0, 0, 0) if lse is None else lse.stride()), D ** -0.5)
     _build.check(lib, code, "flash_attention")
     launches += 1
+    launches_by_shape[(B, Sq)] = launches_by_shape.get((B, Sq), 0) + 1
     if n_splits:
         route_launches["split"] += 1
         route_launches["combine"] += 1

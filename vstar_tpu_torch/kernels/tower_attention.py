@@ -26,6 +26,7 @@ from .flash_attention import _check_operand
 
 launches = 0
 plain_calls_cuda = 0
+launches_by_batch = {}      # launches by batch size, counted above too
 
 HEAD_DIM = 64
 
@@ -81,4 +82,5 @@ def tower_attention(q, k, v):
         *out.stride()[:3], D ** -0.5)
     _build.check(lib, code, "tower_attention")
     launches += 1
+    launches_by_batch[B] = launches_by_batch.get(B, 0) + 1
     return out

@@ -12,7 +12,7 @@ JAX engine does; its tokens are greedy's.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -88,69 +88,100 @@ class VSMEngine:
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.array(arr)).to(self.device)
 
-    def _run(self, image, question: str
-             ) -> Tuple[VSMOutput, Tuple[int, int]]:
-        ids = tokenize_with_image(self._build_prompt(question),
-                                  self.tokenizer)
+    def _layouts(self, questions: Sequence[str]):
+        """The questions' prompt layouts, padded to one prompt bucket:
+        (layouts, bucket)."""
+        ids_list = [tokenize_with_image(self._build_prompt(q),
+                                        self.tokenizer) for q in questions]
         n_img = self.cfg.image_tokens
-        bucket = self._bucket(len(ids) - 1 + n_img)
-        lay = build_layout(ids, bucket, n_long=n_img, n_short=0,
-                           image_long=True)
+        bucket = self._bucket(max(len(ids) - 1 + n_img for ids in ids_list))
+        return [build_layout(ids, bucket, n_long=n_img, n_short=0,
+                             image_long=True) for ids in ids_list], bucket
+
+    def _host_towers(self, image) -> Tuple[np.ndarray, np.ndarray]:
+        """One patch's tower inputs preprocessed on the host, uint8 (CLIP
+        [224, 224, 3] of its expand2square, OWL-ViT [768, 768, 3])."""
         sq, _, _ = expand2square(image)
-        img_clip = clip_resize_u8(sq, self.cfg.vision.image_size)[None]
-        img_owl = owlvit_resize_u8(image,
-                                   self.cfg.owl_vision.image_size)[None]
+        return (clip_resize_u8(sq, self.cfg.vision.image_size),
+                owlvit_resize_u8(image, self.cfg.owl_vision.image_size))
+
+    def _generate(self, images_clip: torch.Tensor, images_owl: torch.Tensor,
+                  lays, bucket: int, rows: Optional[int] = None
+                  ) -> VSMOutput:
+        """vsm_generate over the B rows of `lays` (tower inputs on the
+        device, uint8 or normalized f32), the engine's draft row tiled
+        over them; the outputs on the host. The decode stats count the
+        first `rows` rows (all by default; the rest pad a batch)."""
+        B = len(lays)
+
+        def stack(name):
+            return self._to_device(np.stack([getattr(l, name)
+                                             for l in lays]))
+
+        draft = None if self._draft_row is None else \
+            self._to_device(np.tile(self._draft_row[None], (B, 1)))
         with torch.inference_mode():
             out = vsm_generate(
-                self.params, self.cfg, self._to_device(img_clip),
-                self._to_device(img_owl), self._to_device(lay.text_ids[None]),
-                self._to_device(lay.feat_idx[None]),
-                self._to_device(lay.is_feat[None]),
-                torch.tensor([lay.length], dtype=torch.int32,
+                self.params, self.cfg, images_clip, images_owl,
+                stack("text_ids"), stack("feat_idx"), stack("is_feat"),
+                torch.tensor([l.length for l in lays], dtype=torch.int32,
                              device=self.device),
                 loc_token_id=self.loc_token_id,
                 max_new_tokens=self.max_new_tokens, eos_id=self.eos_id,
                 # verify chunks write spec_chunk entries past the frontier
                 cache_len=bucket + _round128(self.max_new_tokens
                                              + self.spec_chunk),
-                compute_dtype=self.compute_dtype,
-                draft_ids=None if self._draft_row is None
-                else self._to_device(self._draft_row[None]),
+                compute_dtype=self.compute_dtype, draft_ids=draft,
                 spec_chunk=self.spec_chunk, trace=self.decode_trace)
         out = out._replace(**{k: v.cpu() for k, v in out._asdict().items()
                               if isinstance(v, torch.Tensor)})
         self.last_decode_stats = decode_stats(
-            [int(n) for n in out.num_generated], out.n_forwards)
+            [int(n) for n in out.num_generated[:rows]], out.n_forwards)
+        return out
+
+    def _run(self, image, question: str
+             ) -> Tuple[VSMOutput, Tuple[int, int]]:
+        lays, bucket = self._layouts([question])
+        clip, owl = self._host_towers(image)
+        out = self._generate(self._to_device(clip[None]),
+                             self._to_device(owl[None]), lays, bucket)
         return out, (image.height, image.width)
 
-    def _heatmap(self, out: VSMOutput, size: Tuple[int, int]) -> np.ndarray:
-        """Low-res mask logits -> patch size (bilinear, half-pixel) ->
-        clamp at 0."""
-        if not bool(out.loc_valid[0]):
+    def _heatmap(self, out: VSMOutput, size: Tuple[int, int],
+                 b: int = 0) -> np.ndarray:
+        """Row b's low-res mask logits -> patch size (bilinear,
+        half-pixel) -> clamp at 0."""
+        if not bool(out.loc_valid[b]):
             return np.zeros(size, np.float32)
-        low = out.mask_logits[0].numpy().astype(np.float32)
+        low = out.mask_logits[b].numpy().astype(np.float32)
         return np.clip(resize_bilinear_torch(low, size[0], size[1]), 0.0,
                        None)
+
+    def _detection(self, out: VSMOutput, size: Tuple[int, int], b: int = 0):
+        """Row b's (boxes, sigmoid scores, heatmap); empty without [LOC]."""
+        if not bool(out.loc_valid[b]):
+            return (np.zeros((0, 4), np.float32), np.zeros((0,), np.float32),
+                    np.zeros(size, np.float32))
+        boxes = out.det_boxes[b].numpy().astype(np.float32)
+        logits = 1.0 / (1.0 + np.exp(-out.det_logits[b].numpy()
+                                     .astype(np.float32)))
+        return boxes, logits, self._heatmap(out, size, b)
+
+    def _answer(self, out: VSMOutput, b: int = 0) -> str:
+        n = int(out.num_generated[b])
+        toks = [int(t) for t in out.tokens[b, :n]]
+        text = self.tokenizer.decode(toks, skip_special_tokens=True)
+        return text.replace("\n", "").replace("  ", " ").strip()
 
     # -- VSMClient protocol ------------------------------------------------
 
     def detect(self, image, name: str):
         out, size = self._run(image,
                               f"Please locate the {name} in this image.")
-        if not bool(out.loc_valid[0]):
-            return (np.zeros((0, 4), np.float32), np.zeros((0,), np.float32),
-                    np.zeros(size, np.float32))
-        boxes = out.det_boxes[0].numpy().astype(np.float32)
-        logits = 1.0 / (1.0 + np.exp(-out.det_logits[0].numpy()
-                                     .astype(np.float32)))
-        return boxes, logits, self._heatmap(out, size)
+        return self._detection(out, size)
 
     def vqa(self, image, question: str) -> str:
-        out, _ = self._run(image, question)
-        n = int(out.num_generated[0])
-        toks = [int(t) for t in out.tokens[0, :n]]
-        text = self.tokenizer.decode(toks, skip_special_tokens=True)
-        return text.replace("\n", "").replace("  ", " ").strip()
+        return self._answer(self._run(image, question)[0])
 
     def segment(self, image, phrase: str) -> np.ndarray:
         out, size = self._run(image,

@@ -10,6 +10,12 @@ Response with options: the SEAL record ("prediction_freeform",
 
     python -m vstar_tpu_torch.serve.server --random-init 7b --device cuda
     python -m vstar_tpu_torch.serve.server --random-init 7b --int4mix
+    python -m vstar_tpu_torch.serve.server --random-init 7b \
+        --device-preprocess --warmup --max-batch 8
+
+The VSM engine is a BatchedVSMEngine, as in vstar_tpu: the searches of a
+request's missing objects advance in lockstep waves, one device batch
+per wave.
 """
 
 from __future__ import annotations
@@ -152,7 +158,8 @@ def check_random_init(size: str, device) -> None:
 
 def random_init_engines(size: str, device, int8: bool = False,
                         int4: bool = False, mixed: bool = False,
-                        int4mix: bool = False, prompt_lookup: bool = False):
+                        int4mix: bool = False, prompt_lookup: bool = False,
+                        device_preprocess: bool = False):
     """Checkpoint-free engines: the real model graphs with random weights
     drawn on `device` and the stub tokenizer, as vstar_tpu's
     --random-init builds them. 'tiny' is f32 and unquantized (a CPU
@@ -168,14 +175,16 @@ def random_init_engines(size: str, device, int8: bool = False,
     Both engines keep their template drafts (the VQA engine drafts by
     prompt lookup instead with prompt_lookup), so the verify chunks run
     on this path too. vstar_tpu's random-init VSM turns its template off:
-    random weights never answer it, and the tokens are the same."""
+    random weights never answer it, and the tokens are the same. The VSM
+    engine is a BatchedVSMEngine (device_preprocess: patches cut from a
+    canvas of the image on the device)."""
     from ..core.config import vqa_llm_7b, vqa_llm_tiny, vsm_7b, vsm_tiny
     from ..eval.vqa_engine import VQAEngine
     from ..models.vqa_llm import init_vqa_llm_params
     from ..models.vsm import init_vsm_params
     from ..multimodal.stub_tokenizer import StubTokenizer
     from ..nn.quant import quantize_model_towers
-    from ..search.engine import VSMEngine
+    from ..search.batched import BatchedVSMEngine
 
     check_random_init(size, device)
     tiny = size == "tiny"
@@ -201,11 +210,32 @@ def random_init_engines(size: str, device, int8: bool = False,
                     prompt_buckets=(64,) if tiny else (512, 768),
                     option_bucket=16 if tiny else 64, compute_dtype=dtype,
                     prompt_lookup=prompt_lookup)
-    vsm = VSMEngine(vsm_params, vsm_cfg, tok, loc_token_id=3, device=device,
-                    eos_id=2, max_new_tokens=4 if tiny else 16,
-                    prompt_buckets=(64,) if tiny else (384,),
-                    compute_dtype=dtype)
+    vsm = BatchedVSMEngine(vsm_params, vsm_cfg, tok, loc_token_id=3,
+                           device=device, eos_id=2,
+                           max_new_tokens=4 if tiny else 16,
+                           prompt_buckets=(64,) if tiny else (384,),
+                           compute_dtype=dtype,
+                           device_preprocess=device_preprocess)
     return vqa, vsm
+
+
+# the canvas buckets --warmup covers: 512-multiples up to 2K, both
+# orientations of each non-square size (vstar_tpu/serve/server.py)
+WARMUP_CANVAS_SIZES = ((512, 512), (1024, 1024), (1536, 2048),
+                       (2048, 2048), (2048, 1536))
+
+
+def warmup_engines(vqa, vsm, max_batch: int, log=print):
+    """Both warmups over the batch buckets a wave of up to max_batch rows
+    pads to, and the canvas sizes of WARMUP_CANVAS_SIZES."""
+    from ..eval.vqa_engine import warmup_vqa_engine
+    from ..search.batched import (BATCH_BUCKETS, _batch_bucket,
+                                  warmup_vsm_engine)
+    top = _batch_bucket(max(max_batch, 1))
+    buckets = tuple(b for b in BATCH_BUCKETS if b <= top)
+    warmup_vqa_engine(vqa, batch_buckets=buckets, log=log)
+    warmup_vsm_engine(vsm, batch_buckets=buckets,
+                      canvas_sizes=WARMUP_CANVAS_SIZES, log=log)
 
 
 def main():
@@ -231,7 +261,21 @@ def main():
                         "place of the template (the same tokens; the "
                         "speed depends on how much answers echo the "
                         "prompt)")
+    p.add_argument("--device-preprocess", action="store_true",
+                   help="cut search patches out of a device canvas of the "
+                        "image (one upload per image) instead of on the "
+                        "host")
+    p.add_argument("--warmup", action="store_true",
+                   help="run every (mode x batch bucket x prompt bucket) "
+                        "and the canvas sizes up to 2K once before serving")
+    p.add_argument("--max-batch", default=8, type=int,
+                   help="the widest wave --warmup covers (its batch "
+                        "bucket and the buckets below)")
+    p.add_argument("--continuous", action="store_true",
+                   help="continuous request batching (not ported yet)")
     args = p.parse_args()
+    if args.continuous:
+        p.error("--continuous is not ported yet (ROADMAP Queue 1 item 9)")
     try:
         check_random_init(args.random_init, args.device)
     except ValueError as e:
@@ -239,7 +283,10 @@ def main():
     vqa, vsm = random_init_engines(args.random_init, args.device,
                                    int8=args.int8, int4=args.int4,
                                    mixed=args.mixed, int4mix=args.int4mix,
-                                   prompt_lookup=args.prompt_lookup)
+                                   prompt_lookup=args.prompt_lookup,
+                                   device_preprocess=args.device_preprocess)
+    if args.warmup:
+        warmup_engines(vqa, vsm, args.max_batch)
     serve(SealService(vqa, vsm), args.host, args.port)
 
 
