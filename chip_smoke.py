@@ -35,8 +35,12 @@ Runs on one CUDA card, in phases; any failure exits non-zero:
      own: a free-form request over HTTP without options and a
      forced-search free-form flow; greedy, template, oracle (greedy's own
      tokens) and prompt-lookup decodes of one 2048x1536 free-form answer
-     (200 tokens) and detection (100), with decoder forwards, tokens per
-     forward and ms per answer, the oracle within ceil((n - 1) / 7) + 1
+     (200 tokens) and detection (100), each as the eager traced loop and
+     by CUDA graph replay (decode/graphs.py; the replay's logits written
+     on the device), the two held to each other (the same tokens and
+     forwards, or a near-tie by the rule below), with decoder forwards,
+     tokens per forward and ms per answer of both (the replay's after
+     its capturing call), the oracle within ceil((n - 1) / 7) + 1
      forwards, and each drafted decode held to greedy by the card's
      equivalence rule (tokens equal up to a first difference, which must
      be a near-tie: its margin in greedy's logits below the largest
@@ -58,12 +62,22 @@ Runs on one CUDA card, in phases; any failure exits non-zero:
      focused option scoring; (d) the synthetic V*Bench (two images a
      task) through eval_model_batched at image_batch 2, with images/s;
      after each part K1 and K2 launched at the wave's batch bucket
-     (launches logged by shape);
+     (launches logged by shape); then the compiled search
+     (search/compiled.CompiledVSMSearch) on a device-preprocess engine
+     with the tilted VSM: warmup_compiled at the 2048x1536 canvas bucket
+     (timed), four forced 3-step searches through `search` and through
+     `search_many` at B = 4 against the lockstep path on the same engine
+     (the compiled run's queued scores standing in for its heatmaps in
+     the near-tie rule), and one untilted search whose weak heatmaps take
+     the context cue inside its steps (no engine wave), with host reads
+     per search; each decode-graph capture and static cache logged with
+     its memory ("[graphs]");
   5. the quantized path (--int4mix: int8 VQA decoder, int4mix VSM decoder,
      int8 towers), after the bf16 pair is freed: one answer on 2048x1536,
      one forced-search sample, and one more with the act-int8 switch on;
-     then the decode slice of 4 and part (a) of the lockstep search on
-     the --int4mix pair;
+     then the decode slice of 4, part (a) of the lockstep search and the
+     compiled searches (without the context-cue search) on the
+     --int4mix pair;
   6. after each path, every kernel it runs launched, and no plain version
      ran on a CUDA tensor; K1's launches by route (tile above 16 query
      rows, split at decode and verify, with its combine): the bf16 path
@@ -109,6 +123,7 @@ import dataclasses
 import gc
 import io
 import json
+import logging
 import math
 import os
 import sys
@@ -1225,19 +1240,58 @@ def _equivalent(label, ref, run, row=0, ref_row=0):
     return diff
 
 
-def _timed_decode(engine, call):
+def _timed_decode(engine, call, replay=False):
     """Run `call` with the engine's logits trace on: its result, decode
-    stats, trace and wall ms."""
-    engine.decode_trace = []
+    stats, trace and wall ms. The decode runs as the eager traced loop
+    (`decode_trace`), or with replay by graph replay, its logits written
+    on the device (`replay_trace`)."""
+    attr = "replay_trace" if replay else "decode_trace"
+    setattr(engine, attr, [])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
         out = call()
         torch.cuda.synchronize()
     finally:
-        trace, engine.decode_trace = engine.decode_trace, None
+        trace = getattr(engine, attr)
+        setattr(engine, attr, None)
     return out, dict(engine.last_decode_stats), trace, \
         (time.perf_counter() - t0) * 1e3
+
+
+def _graph_runs(label, part, engine, call, name, runs):
+    """The decode of `call` by graph replay beside its eager run
+    runs[name]: twice (the first call captures, the second only
+    replays), stored as runs[name + "_graph"] with the second's ms and
+    the first's as capture_ms."""
+    out = []
+    for _ in range(2):
+        res, st, trace, ms = _timed_decode(engine, call, replay=True)
+        out.append({"texts": [res if isinstance(res, str) else None],
+                    "n": [st["tokens"]], "stats": st, "trace": trace,
+                    "ms": ms})
+    run = out[1]
+    run["capture_ms"] = out[0]["ms"]
+    runs[name + "_graph"] = run
+    _log_run(label, f"{part} {name} graph", run)
+
+
+def _graph_vs_eager(label, runs):
+    """Each decode by graph replay against its eager run: the same tokens
+    and forwards, or a near-tie difference (_equivalent). Returns {name:
+    difference or None}."""
+    out = {}
+    for name in [n for n in runs if not n.endswith("_graph")]:
+        eager, graph = runs[name], runs[name + "_graph"]
+        d = _equivalent(f"{label} {name} graph against eager", eager, graph)
+        if d is None and graph["stats"]["forwards"] != \
+                eager["stats"]["forwards"]:
+            raise AssertionError(
+                f"{label} {name}: graph replay took "
+                f"{graph['stats']['forwards']} forwards, eager "
+                f"{eager['stats']['forwards']}")
+        out[name] = d
+    return out
 
 
 def _row_tokens(run, row=0):
@@ -1267,11 +1321,14 @@ def _free_form_variants(label, vqa, image):
     runs = {}
 
     def run(name):
-        text, st, trace, ms = _timed_decode(vqa, lambda: vqa.free_form(
-            squared, QUESTION, max_new_tokens=FREE_FORM_TOKENS))
+        def call():
+            return vqa.free_form(squared, QUESTION,
+                                 max_new_tokens=FREE_FORM_TOKENS)
+        text, st, trace, ms = _timed_decode(vqa, call)
         runs[name] = {"texts": [text], "n": [st["tokens"]], "stats": st,
                       "trace": trace, "ms": ms}
         _log_run(label, f"free-form {name}", runs[name])
+        _graph_runs(label, "free-form", vqa, call, name, runs)
 
     template = vqa._spec_template
     vqa._spec_template = None
@@ -1314,14 +1371,18 @@ def _detect_variants(label, vsm_engine, image):
 
     def run(name, draft):
         eng._draft_row = draft
-        (boxes, scores, heat), st, trace, ms = _timed_decode(
-            eng, lambda: eng.detect(image, "red mug"))
-        if not (np.isfinite(boxes).all() and np.isfinite(scores).all()
-                and np.isfinite(heat).all()):
-            raise AssertionError(f"{label} detect {name}: non-finite output")
+
+        def call():
+            out = eng.detect(image, "red mug")
+            if not all(np.isfinite(x).all() for x in out):
+                raise AssertionError(f"{label} detect {name}: non-finite "
+                                     "output")
+            return None
+        _, st, trace, ms = _timed_decode(eng, call)
         runs[name] = {"texts": [None], "n": [st["tokens"]], "stats": st,
                       "trace": trace, "ms": ms}
         _log_run(label, f"detect {name}", runs[name])
+        _graph_runs(label, "detect", eng, call, name, runs)
 
     run("greedy", None)
     run("template", template)
@@ -1476,17 +1537,37 @@ def phase_decode_slice(label, vqa, vsm_engine, kernels):
 
     for part, variants in (("free_form", _free_form_variants),
                            ("detect", _detect_variants)):
-        runs = variants(label, vqa if part == "free_form" else vsm_engine,
+        both = variants(label, vqa if part == "free_form" else vsm_engine,
                         img_2k)
         tag = f"{label} {part.replace('_', '-')}"
+        graph_diffs = _graph_vs_eager(tag, both)
+        runs = {n: r for n, r in both.items() if not n.endswith("_graph")}
         diffs = {name: _equivalent(f"{tag} {name}", runs["greedy"], run)
                  for name, run in runs.items() if name != "greedy"}
         report[part] = _summary(runs, diffs)
+        report[part + "_graph"] = {
+            name: {"forwards": both[name + "_graph"]["stats"]["forwards"],
+                   "tokens": both[name + "_graph"]["stats"]["tokens"],
+                   "ms": both[name + "_graph"]["ms"],
+                   "capture_ms": both[name + "_graph"]["capture_ms"],
+                   "eager_ms": runs[name]["ms"],
+                   "ms_per_forward": both[name + "_graph"]["ms"] / max(
+                       both[name + "_graph"]["stats"]["forwards"], 1),
+                   "eager_ms_per_forward": runs[name]["ms"] / max(
+                       runs[name]["stats"]["forwards"], 1),
+                   "difference": graph_diffs[name]}
+            for name in runs}
+        for name, r in report[part + "_graph"].items():
+            log(f"[{tag} {name}] graph {r['ms']:.1f} ms ("
+                f"{r['ms_per_forward']:.2f} ms a forward; the capturing "
+                f"call {r['capture_ms']:.1f} ms) against eager "
+                f"{r['eager_ms']:.1f} ms ({r['eager_ms_per_forward']:.2f} "
+                f"ms a forward), {r['forwards']} forwards")
         for name, source in (("oracle", "greedy"),
                              ("oracle_verify", "template")):
             report[part][name]["acceptance"] = _check_oracle(
                 f"{tag} {name}", runs[source], runs[name], 8)
-    del runs
+    del runs, both
     images = [img_2k] + [_image(1536, 2048, SEED + 10 + i) for i in range(3)]
     report["free_form_many"] = _many_check(label, vqa, images)
     report["synthetic"] = _synthetic_eval(label, vqa, vsm_engine)
@@ -1503,9 +1584,16 @@ def phase_decode_slice(label, vqa, vsm_engine, kernels):
                              f"{counts['flash_attention_routes']}")
     counts["flash_attention_split_by_rows"] = by_rows
     log(f"[{label} slice] K1 split launches by query rows {by_rows}")
+    log(f"[{label} slice] decode graphs: VQA {vqa.graphs.captures} "
+        f"captured, {vqa.graphs.replays} replays, caches "
+        f"{vqa.graphs.cache_bytes() / 2**20:.0f} MiB; VSM "
+        f"{vsm_engine.graphs.captures} captured, caches "
+        f"{vsm_engine.graphs.cache_bytes() / 2**20:.0f} MiB; reserved "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
     log(f"[time] {label} decode slice {time.perf_counter() - t_phase:.1f} s")
     report["differences_near_tie"] = sum(
-        d is not None for part in ("free_form", "detect")
+        d is not None for part in ("free_form", "detect", "free_form_graph",
+                                   "detect_graph")
         for d in (v["difference"] for v in report[part].values())) + sum(
         d is not None for d in report["free_form_many"]["differences"])
     return counts, report
@@ -1553,12 +1641,14 @@ def _candidate_scores(path, k):
     return out
 
 
-def _same_search(label, serial, lockstep):
+def _same_search(label, serial, lockstep, lockstep_scores=None):
     """The lockstep search visits the serial search's patches, or parts
     from it first at a near-tie: at the first differing step k the two
     chosen patches' scores in the serial run are closer (margin) than
     the largest difference between the two runs' values of those two
-    scores. Returns the difference, or None."""
+    scores. lockstep_scores: {bbox: score} of every patch the `lockstep`
+    run queued, where its path holds no heatmaps (the compiled search's
+    queue). Returns the difference, or None."""
     k = next((i for i, (a, b) in enumerate(zip(serial, lockstep))
               if a.bbox != b.bbox), None)
     if k is None:
@@ -1566,9 +1656,12 @@ def _same_search(label, serial, lockstep):
             raise AssertionError(f"{label}: paths of {len(serial)} and "
                                  f"{len(lockstep)} steps")
         return None
-    cs, cl = _candidate_scores(serial, k), _candidate_scores(lockstep, k)
+    cs = _candidate_scores(serial, k)
+    cl = _candidate_scores(lockstep, k) if lockstep_scores is None \
+        else lockstep_scores
     a, b = tuple(serial[k].bbox), tuple(lockstep[k].bbox)
-    if cs[a] != serial[k].score or cl[b] != lockstep[k].score:
+    if cs[a] != serial[k].score or (lockstep_scores is None
+                                    and cl[b] != lockstep[k].score):
         raise AssertionError(f"{label}: candidate scores {cs[a]}, {cl[b]} "
                              f"are not the policy's {serial[k].score}, "
                              f"{lockstep[k].score}")
@@ -1865,6 +1958,156 @@ def phase_lockstep(label, vqa, vsm_engine, kernels, full):
     return by_part, report
 
 
+# ---------------------------------------------------------------------------
+# Phase 5d: the compiled search (search/compiled.CompiledVSMSearch)
+# ---------------------------------------------------------------------------
+
+class QueueLog:
+    """The compiled search's queued scores: every state whose path record
+    is packed (pack_record), read as {bbox: score} per row."""
+
+    def __init__(self):
+        from vstar_tpu_torch.search import compiled
+        self.mod, self.states = compiled, []
+        self._orig = compiled.pack_record
+
+    def __enter__(self):
+        def pack(state):
+            self.states.append(state)
+            return self._orig(state)
+        self.mod.pack_record = pack
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.pack_record = self._orig
+
+    def scores(self, row=0, state=-1):
+        st = self.states[state]
+        if st.n_path.dim() == 0:
+            st = type(st)(*(a[None] for a in st))
+        n = int(st.counter[row])
+        boxes = st.q_bbox[row, :n].tolist()
+        return {tuple(b): float(v)
+                for b, v in zip(boxes, st.q_score[row, :n].tolist())}
+
+
+def phase_compiled(label, vsm_engine, kernels, full):
+    """The compiled search at the full widths, its counts zeroed before
+    it and read after, on a device-preprocess engine with the VSM tilted
+    to answer [LOC] (_tilted_engine): warmup_compiled at the 2048x1536
+    canvas bucket (timed), then four forced 3-step searches on 2K noise
+    through `search` one at a time and through `search_many` at B = 4,
+    each held to the lockstep path on the same engine by _same_search;
+    with full, one search on the untilted VSM whose weak heatmaps take
+    the context cue in its steps (no engine wave). Logs each search's
+    host reads."""
+    from vstar_tpu_torch.search.batched import run_batched_searches
+    from vstar_tpu_torch.search.compiled import (CompiledVSMSearch,
+                                                 warmup_compiled)
+    t_phase = time.perf_counter()
+    tilted = _engine_like(_tilted_engine(vsm_engine),
+                          device_preprocess=True)
+    comp = CompiledVSMSearch(tilted)
+    images = [_noise(1536, 2048, SEED + 20 + i)
+              for i in range(len(LOCKSTEP_NAMES))]
+    kw = dict(max_steps=3, **FORCED_SEARCH)
+    report = {}
+    _zero_counts()
+    t0 = time.perf_counter()
+    warm = []
+    warmup_compiled(comp, canvas_sizes=((1536, 2048),),
+                    batch_buckets=comp.BATCH_BUCKETS, log=warm.append)
+    torch.cuda.synchronize()
+    report["warmup_s"] = time.perf_counter() - t0
+    for line in warm:
+        log(f"[{label} compiled] {line}")
+    log(f"[{label} compiled] warmup_compiled at 2048x1536, batch buckets "
+        f"{comp.BATCH_BUCKETS}: {report['warmup_s']:.3f} s, "
+        f"{tilted.graphs.captures} decode graphs captured, static caches "
+        f"{tilted.graphs.cache_bytes() / 2**20:.0f} MiB, reserved "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+
+    lock_paths = [[] for _ in images]
+    run_batched_searches(tilted, images, LOCKSTEP_NAMES,
+                         path_outs=lock_paths, smallest_size=224, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_batched_searches(tilted, images, LOCKSTEP_NAMES, smallest_size=224,
+                         **kw)
+    torch.cuda.synchronize()
+    report["lockstep_s"] = time.perf_counter() - t0
+
+    serial_paths, serial_reads = [[] for _ in images], []
+    with QueueLog() as queues:
+        t0 = time.perf_counter()
+        for im, name, p in zip(images, LOCKSTEP_NAMES, serial_paths):
+            comp.search(im, name, smallest_size=224, path_out=p, **kw)
+            serial_reads.append(comp.last_host_reads)
+        torch.cuda.synchronize()
+        report["search_s"] = time.perf_counter() - t0
+    serial_scores = [queues.scores(0, i) for i in range(len(images))]
+    many_paths = [[] for _ in images]
+    with QueueLog() as queues:
+        t0 = time.perf_counter()
+        comp.search_many(images, LOCKSTEP_NAMES, [224] * len(images),
+                         path_outs=many_paths, **kw)
+        torch.cuda.synchronize()
+        report["search_many_s"] = time.perf_counter() - t0
+    many_scores = [queues.scores(b) for b in range(len(images))]
+    report["search_host_reads"] = serial_reads
+    report["search_many_host_reads"] = comp.last_host_reads
+    differences = []
+    for i, name in enumerate(LOCKSTEP_NAMES):
+        for how, paths, scores in (("search", serial_paths, serial_scores),
+                                   ("search_many", many_paths, many_scores)):
+            if len(paths[i]) != 3:
+                raise AssertionError(f"{label} compiled {how} {name}: "
+                                     f"{[s.bbox for s in paths[i]]}")
+            differences.append(_same_search(
+                f"{label} compiled {how} {name}", lock_paths[i], paths[i],
+                scores[i]))
+        log(f"[{label} compiled {name}] patches "
+            f"{[s.bbox for s in serial_paths[i]]} (search), "
+            f"{[s.bbox for s in many_paths[i]]} (search_many), lockstep "
+            f"{[s.bbox for s in lock_paths[i]]}")
+    report["differences"] = differences
+    log(f"[{label} compiled] 4 forced 3-step searches: search "
+        f"{report['search_s']:.3f} s ({serial_reads} host reads), "
+        f"search_many B=4 {report['search_many_s']:.3f} s "
+        f"({report['search_many_host_reads']} host reads), lockstep "
+        f"{report['lockstep_s']:.3f} s")
+    if full:
+        plain = _engine_like(vsm_engine, device_preprocess=True)
+        pcomp = CompiledVSMSearch(plain)
+        img = _noise(1536, 2048, SEED + 50)
+        path = []
+        with WaveLog(plain) as waves:
+            t0 = time.perf_counter()
+            res = pcomp.search(img, "red mug", smallest_size=224,
+                               max_steps=2, path_out=path)
+            torch.cuda.synchronize()
+            ctx_s = time.perf_counter() - t0
+        cues = [s.context_cue for s in path]
+        log(f"[{label} compiled context cue] {ctx_s:.3f} s, path "
+            f"{[s.bbox for s in path]}, cues {cues}, engine waves "
+            f"{waves.rows}, {pcomp.last_host_reads} host reads, result "
+            f"{res[1:3]}")
+        if waves.rows or not any(cues):
+            raise AssertionError(f"{label}: the context cue did not run in "
+                                 f"the steps: waves {waves.rows}, cues "
+                                 f"{cues}")
+        report["context_cue"] = {"s": ctx_s, "cues": cues,
+                                 "host_reads": pcomp.last_host_reads}
+        del plain, pcomp
+    counts = _check_lockstep_path(f"{label} compiled", kernels,
+                                  _batch_bucket(len(images)))
+    counts["flash_attention_routes"] = _check_routes(
+        f"{label} compiled", {"split": None, "combine": None})
+    log(f"[time] {label} compiled phase {time.perf_counter() - t_phase:.1f} "
+        "s")
+    return counts, report
+
+
 def phase_bf16_path(dev):
     """The PR 1 path: the bf16 7B pair, two answers, one over HTTP, one
     forced-search sample."""
@@ -1920,6 +2163,9 @@ def phase_bf16_path(dev):
     report["lockstep_by_part"], report["lockstep"] = phase_lockstep(
         "bf16", vqa, vsm_engine, ("flash_attention", "tower_attention"),
         full=True)
+    report["compiled_counts"], report["compiled"] = phase_compiled(
+        "bf16", vsm_engine, ("flash_attention", "tower_attention"),
+        full=True)
     return counts, slice_counts, report
 
 
@@ -1969,6 +2215,8 @@ def phase_quantized_path(dev):
                                               kernels)
     report["lockstep_by_part"], report["lockstep"] = phase_lockstep(
         "int4mix", vqa, vsm_engine, kernels, full=False)
+    report["compiled_counts"], report["compiled"] = phase_compiled(
+        "int4mix", vsm_engine, kernels, full=False)
     return counts, slice_counts, report
 
 
@@ -2338,6 +2586,12 @@ def main() -> int:
         log(f"[time] {phase} done at {time.perf_counter() - t_start:.1f} s")
 
     smi = phase_device()
+    # each decode-graph capture and static cache, with the memory it takes
+    graphs_log = logging.getLogger("vstar_tpu_torch.decode.graphs")
+    graphs_log.setLevel(logging.INFO)
+    handler = logging.StreamHandler(sys.stdout)
+    handler.setFormatter(logging.Formatter("[graphs] %(message)s"))
+    graphs_log.addHandler(handler)
     kernel_info = phase_build()
     phase_quantizers(dev)
     mark("quantizers")
@@ -2366,6 +2620,8 @@ def main() -> int:
         for part, counts in decode_slice[label].pop(
                 "lockstep_by_part").items():
             by_path[f"{label}_lockstep_{part}"] = counts
+        by_path[f"{label}_compiled"] = decode_slice[label].pop(
+            "compiled_counts")
     gc.collect()
     torch.cuda.empty_cache()
     by_path["int4_profile"], profile = phase_int4_profile(dev)

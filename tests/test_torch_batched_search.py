@@ -291,11 +291,28 @@ def test_image_batch_1_keeps_the_device_engine_batched(engines):
     assert tb.run_grouped_searches(Host(), tasks, image_batch=1)[0][2]
 
 
-def test_compiled_engine_is_refused():
-    class Compiled:
-        def search(self, *a, **k):
-            raise AssertionError("not reached")
+def test_compiled_engine_is_dispatched(engines):
+    """run_grouped_searches runs a compiled engine (CompiledVSMSearch on a
+    device-preprocess engine) through search_many, chunked by canvas
+    bucket and capped by image_batch, with the lockstep waves' results on
+    the same engine; visualize is refused."""
+    from vstar_tpu_torch.search.compiled import CompiledVSMSearch
 
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tb.run_grouped_searches(Compiled(), [{"image": FakeImage(),
-                                              "name": "x", "smallest": 224}])
+    eng = _device_engine(engines[1])
+    comp = CompiledVSMSearch(eng)
+    imgs = [_image(300, 520, 3), _image(280, 400, 5), _image(320, 320, 6)]
+    tasks = [{"image": im, "name": nm, "smallest": 100}
+             for im, nm in zip(imgs, NAMES)]
+    sizes = []
+    orig = comp.search_many
+    comp.search_many = lambda *a, **k: sizes.append(len(a[0])) or orig(
+        *a, **k)
+    got = tb.run_grouped_searches(comp, tasks, image_batch=2, max_steps=3,
+                                  **FORCED)
+    assert sizes == [1, 2]        # canvas buckets 512x1024, 512x512
+    want = tb.run_grouped_searches(eng, tasks, max_steps=3, **FORCED)
+    for (fw, pw, okw, _), (fg, pg, okg, _) in zip(want, got):
+        assert (okg, pg) == (okw, pw)
+        assert fg.bbox == fw.bbox
+    with pytest.raises(ValueError, match="visualization"):
+        tb.run_grouped_searches(comp, tasks, visualize=True)

@@ -136,17 +136,34 @@ def test_evaluate_search_matches_jax(case, tmp_path):
         assert any(f.endswith((".png", ".jpg")) for f in written), written
 
 
-def test_batched_engines_are_refused(tmp_path):
-    """Only the compiled whole-search engine (an engine with `search`,
-    ROADMAP Queue 1 item 6) is refused now; a batched engine runs
-    (test_evaluate_search_matches_jax[batched])."""
-    class Compiled(synthetic.ScriptedColorVSM):
-        def search(self, *args, **kwargs):
-            raise AssertionError("a refused engine ran")
+def test_evaluate_search_on_a_compiled_engine(tmp_path):
+    """A compiled whole-search engine (search/compiled.CompiledVSMSearch
+    on a device-preprocess engine with the tilted tiny VSM) runs the
+    search evaluation, with the lockstep waves' result on the same
+    engine (512-pixel images at a smallest size of 300: the root and its
+    children)."""
+    from tests.test_torch_slice import T_VSM_CFG, TOK, _tilted_vsm_host
+    from vstar_tpu_torch.search.batched import BatchedVSMEngine
+    from vstar_tpu_torch.search.compiled import CompiledVSMSearch
 
-    synthetic.make_synthetic_benchmark(str(tmp_path), n_per_task=1, seed=2)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        search_eval.evaluate_search(Compiled(), str(tmp_path))
+    synthetic.make_synthetic_benchmark(str(tmp_path), n_per_task=1, seed=2,
+                                       image_hw=(512, 512))
+    eng = BatchedVSMEngine(from_numpy_tree(_tilted_vsm_host(11), "cpu"),
+                           T_VSM_CFG, TOK, loc_token_id=3, device="cpu",
+                           max_new_tokens=4, prompt_buckets=(64, 128),
+                           compute_dtype=torch.float32,
+                           device_preprocess=True)
+    comp = CompiledVSMSearch(eng)
+    calls = []
+    orig = comp.search_many
+    comp.search_many = lambda *a, **k: calls.append(len(a[0])) or orig(
+        *a, **k)
+    got = search_eval.evaluate_search(comp, str(tmp_path), minimum_size=300,
+                                      image_batch=2)
+    assert calls == [2]          # both tasks share one canvas bucket
+    assert got == search_eval.evaluate_search(eng, str(tmp_path),
+                                              minimum_size=300,
+                                              image_batch=2)
 
 
 class _Budget:
@@ -252,3 +269,47 @@ def test_eval_model_without_engines_names_the_loaders(tmp_path):
         ["--benchmark-folder", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="item 10"):
         vstar_bench.eval_model(args)
+
+
+def test_eval_model_compiled_wraps_the_vsm(tmp_path, monkeypatch):
+    """--compiled: eval_model wraps a device-preprocess VSM engine in
+    CompiledVSMSearch and writes the lockstep run's result JSON (the VQA
+    scripted to ask for the sample's marker); a host-preprocess engine is
+    refused."""
+    from vstar_tpu_torch.search.batched import BatchedVSMEngine
+    from vstar_tpu_torch.search.compiled import CompiledVSMSearch
+
+    synthetic.make_synthetic_benchmark(str(tmp_path / "bench"), n_per_task=1,
+                                       seed=0, image_hw=(256, 256), target=3)
+    _, (vqa, host_vsm) = _tiny_engines()
+    vsm = BatchedVSMEngine(host_vsm.params, host_vsm.cfg, host_vsm.tokenizer,
+                           loc_token_id=3, device="cpu", eos_id=2,
+                           max_new_tokens=SEARCH_BUDGET,
+                           prompt_buckets=(64, 128),
+                           compute_dtype=torch.float32,
+                           device_preprocess=True)
+    orig = VQAEngine.free_form
+
+    def scripted(self, image, question, **kw):
+        if "Additional visual" in question:
+            return orig(self, image, question, **kw)
+        return MISSING_OBJECTS_MSG + " red marker."
+    monkeypatch.setattr(VQAEngine, "free_form", scripted)
+    used = []
+    search_many = CompiledVSMSearch.search_many
+    monkeypatch.setattr(CompiledVSMSearch, "search_many",
+                        lambda self, *a, **k: used.append(len(a[0])) or
+                        search_many(self, *a, **k))
+    out = {}
+    for flag in ("--compiled", "--device-preprocess"):
+        args = vstar_bench.build_parser().parse_args(
+            ["--benchmark-folder", str(tmp_path / "bench"),
+             "--output-path", str(tmp_path / f"{flag}.json"), flag])
+        results, _, _ = vstar_bench.eval_model(
+            args, _Budget(vqa, FREE_FORM_BUDGET), vsm)
+        out[flag] = json.loads(json.dumps(results))
+    assert used == [1, 1]
+    _same_results(out["--compiled"], out["--device-preprocess"])
+    args = vstar_bench.build_parser().parse_args(["--compiled"])
+    with pytest.raises(ValueError, match="device_preprocess"):
+        vstar_bench.eval_model(args, vqa, host_vsm)

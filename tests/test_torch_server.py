@@ -168,3 +168,18 @@ def test_http_request_without_options_answers_200(engines):
             Image.open(io.BytesIO(buf.getvalue())).convert("RGB"),
             "what color is the tiny cup?")
         assert _without_latency(rec) == _without_latency(want)
+
+
+def test_server_main_compiled_serves_a_compiled_vsm(monkeypatch):
+    """--compiled builds a device-preprocess VSM engine and serves it
+    wrapped in CompiledVSMSearch."""
+    from vstar_tpu_torch.search.compiled import CompiledVSMSearch
+    served = []
+    monkeypatch.setattr(sys, "argv", ["server", "--random-init", "tiny",
+                                      "--device", "cpu", "--compiled"])
+    monkeypatch.setattr(server, "serve",
+                        lambda service, *a, **k: served.append(service))
+    server.main()
+    vsm = served[0].vsm
+    assert isinstance(vsm, CompiledVSMSearch)
+    assert vsm.engine.device_preprocess

@@ -131,8 +131,9 @@ def eval_model_batched(args, vqa_engine, vsm_batched, image_batch: int = 4):
 
     While a group's phases run, a background thread opens the next
     group's images and starts their canvas uploads
-    (BatchedVSMEngine.prefetch_canvas), so a device-preprocess engine
-    finds them on the card. Prints the per-task and overall accuracy and
+    (BatchedVSMEngine.prefetch_canvas, which CompiledVSMSearch delegates
+    to its engine), so a device-preprocess engine finds them on the
+    card. Prints the per-task and overall accuracy and
     images/s, writes the result JSON and returns the results by task."""
 
     def load_chunk(folder, chunk):

@@ -3,12 +3,15 @@ vstar_tpu/eval/search_eval.py, the reference's `visual_search.py main`,
 visual_search.py:520-564): top-1 localization accuracy (IoU > 0.5) and
 the average successful path length over V*Bench annotations, with the
 optional visualization; with image_batch > 1 and a BatchedVSMEngine the
-searches run in lockstep device waves. The command line waits for the
+searches run in lockstep device waves, and on a compiled engine
+(search/compiled.CompiledVSMSearch, `--compiled`) as whole searches on
+the device. The command line parses vstar_tpu's flags and waits for the
 checkpoint loaders (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
 
+import argparse
 import functools
 import json
 import os
@@ -99,3 +102,41 @@ def evaluate_search(vsm_engine, benchmark_folder: str,
     print("Avg search path length:", avg_len)
     print("Top 1 Acc:", top1)
     return top1, avg_len
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """vstar_tpu search_eval's flags (those of unported modes kept, and
+    refused by main with the loaders)."""
+    p = argparse.ArgumentParser(description="Visual Search Evaluation")
+    p.add_argument("--version", default="craigwu/seal_vsm_7b")
+    p.add_argument("--benchmark-folder", default="vstar_bench", type=str)
+    p.add_argument("--confidence_low", default=0.3, type=float)
+    p.add_argument("--confidence_high", default=0.5, type=float)
+    p.add_argument("--target_cue_threshold", default=6.0, type=float)
+    p.add_argument("--target_cue_threshold_decay", default=0.7, type=float)
+    p.add_argument("--target_cue_threshold_minimum", default=3.0, type=float)
+    p.add_argument("--minimum_size_scale", default=4.0, type=float)
+    p.add_argument("--minimum_size", default=224, type=int)
+    p.add_argument("--visualization", action="store_true", default=False)
+    p.add_argument("--output_path", default="", type=str)
+    p.add_argument("--image-batch", default=1, type=int,
+                   help=">1: this many searches at a time as lockstep "
+                        "device batches (the same results)")
+    p.add_argument("--device-preprocess", action="store_true",
+                   default=False,
+                   help="cut search patches out of a device canvas of the "
+                        "image (one upload per image)")
+    p.add_argument("--compiled", action="store_true", default=False,
+                   help="whole searches as device steps (search/compiled.py;"
+                        " implies --device-preprocess, no --visualization)")
+    return p
+
+
+def main():
+    build_parser().parse_args()
+    from .vstar_bench import LOADERS_NOT_PORTED
+    raise NotImplementedError(LOADERS_NOT_PORTED)
+
+
+if __name__ == "__main__":
+    main()

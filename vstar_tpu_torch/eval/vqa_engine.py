@@ -25,6 +25,7 @@ from PIL import Image
 
 from ..core.config import VQALLMConfig
 from ..data.preprocess import clip_resize_u8
+from ..decode.graphs import DecodeGraphs
 from ..decode.sampler import decode_stats, greedy_decode
 from ..decode.scorer import score_options
 from ..decode.speculative import lookup_decode, speculative_decode
@@ -34,7 +35,6 @@ from ..multimodal.conversation import CONV_TEMPLATES
 from ..multimodal.splicing import build_layout, spliced_length
 from ..multimodal.tokenizer import (tokenize_with_image,
                                     tokenize_with_image_and_objects)
-from ..nn.llama import init_cache
 
 
 def get_patch(bbox, image_width, image_height, patch_size=224,
@@ -100,6 +100,10 @@ class VQAEngine:
         # trace (greedy_decode's `trace`)
         self.last_decode_stats = None
         self.decode_trace: Optional[List] = None
+        # the static caches and captured decode steps (decode/graphs.py);
+        # a list here receives the logits trace of the replayed decode
+        self.graphs = DecodeGraphs()
+        self.replay_trace: Optional[List] = None
 
     def _record_decode_stats(self, ngen_rows, n_forwards: int):
         self.last_decode_stats = decode_stats(ngen_rows, n_forwards)
@@ -187,8 +191,8 @@ class VQAEngine:
             [self._object_stack(c, slots) for c in crops])).to(dev)
         bank = encode_feature_bank(self.params, self.cfg, img, objs)
         bank = bank.to(self.compute_dtype)
-        cache = init_cache(self.cfg.llama, len(lays), cache_len,
-                           self.compute_dtype, device=dev)
+        cache = self.graphs.cache(self.cfg.llama, len(lays), cache_len,
+                                  self.compute_dtype, dev)
         lens = torch.tensor([lay.length for lay in lays], dtype=torch.int32,
                             device=dev)
 
@@ -243,20 +247,23 @@ class VQAEngine:
                     torch.tensor([lay.length for lay in lays],
                                  dtype=torch.int32, device=dev),
                     max_new_tokens, [self.eos_id], self.spec_chunk,
-                    self.compute_dtype, trace=self.decode_trace)
+                    self.compute_dtype, trace=self.decode_trace,
+                    graphs=self.graphs, replay_trace=self.replay_trace)
             elif use_spec:
                 draft = np.tile(self._template_draft(max_new_tokens)[None],
                                 (len(lays), 1))
                 res = speculative_decode(
                     *args, torch.from_numpy(draft).to(dev), max_new_tokens,
                     [self.eos_id], self.spec_chunk, self.compute_dtype,
-                    trace=self.decode_trace)
+                    trace=self.decode_trace, graphs=self.graphs,
+                    replay_trace=self.replay_trace)
             else:
                 res = greedy_decode(
                     *args, max_new_tokens, [self.eos_id], self.compute_dtype,
                     temperature=temperature if sampling else 0.0,
                     top_p=top_p if sampling else None,
-                    generator=self.generator, trace=self.decode_trace)
+                    generator=self.generator, trace=self.decode_trace,
+                    graphs=self.graphs, replay_trace=self.replay_trace)
             ngen = res.num_generated[:n].tolist()
             tokens = res.tokens[:n].tolist()
         self._record_decode_stats(ngen, res.n_forwards)
@@ -294,7 +301,7 @@ class VQAEngine:
                     hidden, k, [self.eos_id], self.compute_dtype,
                     temperature=temperature if sampling else 0.0,
                     top_p=top_p if sampling else None,
-                    generator=self.generator)
+                    generator=self.generator, graphs=self.graphs)
                 # the continuation: logits and cache after the k-th token
                 logits, hidden, cache = decode_step(
                     self.params, self.cfg, res.cache,

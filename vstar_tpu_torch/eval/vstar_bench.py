@@ -6,10 +6,11 @@ Walks direct_attributes/ and relative_position/, runs the SEAL loop per
 image, prints the per-task and overall accuracy with the p50 latency and
 images/s, and writes the result JSON in the reference schema. Ported:
 `eval_model` (serial, or with --image-batch > 1 the batched loop of
-eval/batched_bench.py) and `build_parser`. Not yet: the checkpoint
-loaders (so the command line; ROADMAP Queue 1 item 10), the phase-swapped
-run (item 8), the compiled search (item 6), the int8 KV cache (item 7)
-and the mesh (item 12).
+eval/batched_bench.py; --compiled wraps the VSM engine in
+search/compiled.CompiledVSMSearch) and `build_parser`. Not yet: the
+checkpoint loaders (so the command line; ROADMAP Queue 1 item 10), the
+phase-swapped run (item 8), the int8 KV cache (item 7) and the mesh
+(item 12).
 """
 
 from __future__ import annotations
@@ -32,8 +33,8 @@ LOADERS_NOT_PORTED = (
 
 
 def _refuse_unported(args) -> None:
-    for flag, item in (("single_chip_phased", 8), ("compiled", 6),
-                       ("kv_int8", 7), ("mesh", 12)):
+    for flag, item in (("single_chip_phased", 8), ("kv_int8", 7),
+                       ("mesh", 12)):
         if getattr(args, flag, None):
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported yet (ROADMAP "
@@ -45,15 +46,22 @@ def eval_model(args, vqa_engine=None, vsm_engine=None):
     per-task correctness lists, per-image latencies in seconds); with
     --image-batch > 1 eval/batched_bench.eval_model_batched runs it, and
     the return is (results by task, None, None), as in vstar_tpu.
-    --device-preprocess asks for a VSM engine built with
-    device_preprocess=True (the loaders would build one)."""
+    --device-preprocess (and --compiled, which implies it) asks for a
+    VSM engine built with device_preprocess=True (the loaders would build
+    one); --compiled wraps it in CompiledVSMSearch, as vstar_tpu wraps
+    its loaded engine."""
     if vqa_engine is None or vsm_engine is None:
         raise NotImplementedError(LOADERS_NOT_PORTED)
     _refuse_unported(args)
-    if getattr(args, "device_preprocess", False) \
-            and not getattr(vsm_engine, "device_preprocess", False):
-        raise ValueError("--device-preprocess: the VSM engine was not "
-                         "built with device_preprocess=True")
+    compiled = getattr(args, "compiled", False)
+    base = getattr(vsm_engine, "engine", vsm_engine)
+    if (getattr(args, "device_preprocess", False) or compiled) \
+            and not getattr(base, "device_preprocess", False):
+        raise ValueError("--device-preprocess / --compiled: the VSM engine "
+                         "was not built with device_preprocess=True")
+    if compiled and not hasattr(vsm_engine, "search"):
+        from ..search.compiled import CompiledVSMSearch
+        vsm_engine = CompiledVSMSearch(vsm_engine)
     if (getattr(args, "image_batch", None) or 1) > 1:
         from .batched_bench import eval_model_batched
         return eval_model_batched(args, vqa_engine, vsm_engine,
@@ -124,7 +132,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help=">1: image groups of this size, their searches in "
                         "lockstep device batches (a BatchedVSMEngine)")
     p.add_argument("--compiled", action="store_true", default=False,
-                   help="whole search on device (not ported yet)")
+                   help="whole searches as device steps "
+                        "(search/compiled.py; implies --device-preprocess, "
+                        "no --visualization)")
     p.add_argument("--kv-int8", dest="kv_int8", action="store_true",
                    default=False, help="int8 KV cache (not ported yet)")
     p.add_argument("--int4", dest="int4", action="store_true",

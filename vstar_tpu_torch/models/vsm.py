@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from ..core.config import VSMConfig
 from ..core.params import Init
+from ..decode.graphs import DecodeGraphs
 from ..decode.sampler import greedy_decode
 from ..decode.speculative import speculative_decode
 from ..kernels.image_ops import normalize_u8_images
@@ -139,7 +140,9 @@ def vsm_generate(params: Dict, cfg: VSMConfig, images_clip: torch.Tensor,
                  compute_dtype=torch.bfloat16,
                  draft_ids: Optional[torch.Tensor] = None,
                  spec_chunk: int = 8,
-                 trace: Optional[List] = None) -> VSMOutput:
+                 trace: Optional[List] = None,
+                 graphs: Optional[DecodeGraphs] = None,
+                 replay_trace: Optional[List] = None) -> VSMOutput:
     """Prefill, decode with hidden capture, [LOC] selection, then the
     detection and segmentation heads (vstar_tpu vsm_generate). Without a
     generated [LOC] the heads still run, on the hidden state of generated
@@ -150,14 +153,19 @@ def vsm_generate(params: Dict, cfg: VSMConfig, images_clip: torch.Tensor,
     (decode/speculative.py); the search answers are templated ("Sure,
     [LOC].</s>"), so a template draft turns ~7 decode steps into ~2
     verify chunks. The cache then needs spec_chunk entries of room.
-    trace: the decoders' logits trace (decode/sampler.greedy_decode)."""
+    trace: the decoders' logits trace (decode/sampler.greedy_decode).
+    graphs: the caller's DecodeGraphs: the prefill fills one of its
+    static caches and the decode replays its captured steps;
+    replay_trace: the decode's logits trace taken during the replay."""
     B, S = text_ids.shape
     dev = text_ids.device
     bank = encode_clip_bank(params, cfg, images_clip).to(compute_dtype)
     h = apply_splice(embed_tokens(params["llama"], text_ids, compute_dtype),
                      bank, feat_idx, is_feat)
     pos = torch.arange(S, device=dev)[None].expand(B, S)
-    cache = init_cache(cfg.llama, B, cache_len, compute_dtype, device=dev)
+    cache = init_cache(cfg.llama, B, cache_len, compute_dtype, device=dev) \
+        if graphs is None else \
+        graphs.cache(cfg.llama, B, cache_len, compute_dtype, dev)
     hidden, cache = llama_forward(
         params["llama"], cfg.llama, h, pos, lens,
         q_offsets=torch.zeros((B,), dtype=torch.int32, device=dev),
@@ -168,11 +176,13 @@ def vsm_generate(params: Dict, cfg: VSMConfig, images_clip: torch.Tensor,
         res = speculative_decode(params["llama"], cfg.llama, cache,
                                  last_logits, last_hidden, draft_ids,
                                  max_new_tokens, [eos_id], spec_chunk,
-                                 compute_dtype, trace=trace)
+                                 compute_dtype, trace=trace, graphs=graphs,
+                                 replay_trace=replay_trace)
     else:
         res = greedy_decode(params["llama"], cfg.llama, cache, last_logits,
                             last_hidden, max_new_tokens, [eos_id],
-                            compute_dtype, trace=trace)
+                            compute_dtype, trace=trace, graphs=graphs,
+                            replay_trace=replay_trace)
 
     pos_ids = torch.arange(max_new_tokens, device=dev)[None]
     is_loc = (res.tokens == loc_token_id) & (pos_ids

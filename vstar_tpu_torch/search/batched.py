@@ -6,8 +6,8 @@ Batch sizes are bucketed to powers of two (padded with a repeated row),
 as the JAX engine pads them, so the decoder sees the same shapes.
 `device_preprocess=True` cuts every patch out of a device-resident canvas
 of its image (kernels/image_ops.py) instead of cropping and resizing on
-the host. The compiled whole-search engine (`search`) is not ported yet
-(ROADMAP Queue 1 item 6) and is refused.
+the host. `run_grouped_searches` sends a compiled whole-search engine
+(search/compiled.CompiledVSMSearch) through its `search_many`.
 """
 
 from __future__ import annotations
@@ -30,11 +30,6 @@ from .policy import PatchRef, unwrap_patch, visual_search, visual_search_gen
 BATCH_BUCKETS = (1, 2, 4, 8, 16)
 # retained device canvases at most (~50 MB each for a 2K image in f32)
 CANVAS_CAPACITY_MAX = 48
-
-COMPILED_NOT_PORTED = (
-    "the compiled whole-search engine (search/compiled.py, an engine with "
-    "`search`) is not ported yet (ROADMAP Queue 1 item 6)")
-
 
 def _batch_bucket(n: int, buckets=None) -> int:
     buckets = BATCH_BUCKETS if buckets is None else buckets
@@ -317,13 +312,15 @@ def run_grouped_searches(engine, tasks: Sequence[Dict], image_batch=None,
     image_batch == 1 on a host-preprocess engine, runs one serial
     visual_search per task; a device-preprocess engine stays on the
     lockstep waves at image_batch == 1 (the serial path would crop on
-    the host)."""
-    if hasattr(engine, "search") and not hasattr(engine, "detect_many"):
-        raise NotImplementedError(COMPILED_NOT_PORTED)
-
+    the host). A compiled whole-search engine (an engine with `search`)
+    runs consecutive tasks of one canvas bucket as one search_many,
+    image_batch capped by its batch buckets."""
     def img(t):
         return t["image"]() if callable(t["image"]) else t["image"]
 
+    if hasattr(engine, "search") and not hasattr(engine, "detect_many"):
+        return _compiled_grouped(engine, tasks, img, image_batch, max_steps,
+                                 visualize, policy_kw)
     outs: List[Optional[Tuple]] = [None] * len(tasks)
     serial = not hasattr(engine, "detect_many") or (
         image_batch == 1 and not getattr(engine, "wants_patch_refs", False))
@@ -352,6 +349,52 @@ def run_grouped_searches(engine, tasks: Sequence[Dict], image_batch=None,
                 smallest_size=s_val, max_steps=max_steps, **policy_kw)
             for i, r in zip(grp, res):
                 outs[i] = r
+    return outs
+
+
+def _compiled_grouped(engine, tasks, img, image_batch, max_steps,
+                      visualize, policy_kw) -> List[Tuple]:
+    """run_grouped_searches on a CompiledVSMSearch: consecutive tasks
+    whose images land in one canvas bucket run as one search_many (the
+    7B weight reads shared by the searches), at most the engine's
+    largest batch bucket (and image_batch) at a time. Tasks that share
+    an image factory share the opened image, so its canvas is cached by
+    id."""
+    if visualize:
+        raise ValueError(
+            "compiled search keeps heatmaps on device; use the host "
+            "or batched engine for --visualization")
+    max_b = engine.BATCH_BUCKETS[-1]
+    if image_batch:
+        max_b = min(max_b, image_batch)
+    outs: List[Optional[Tuple]] = [None] * len(tasks)
+    chunk_idx: List[int] = []
+    chunk_imgs: List = []
+
+    def flush():
+        if not chunk_idx:
+            return
+        res = engine.search_many(
+            chunk_imgs, [tasks[j]["name"] for j in chunk_idx],
+            [tasks[j]["smallest"] for j in chunk_idx],
+            max_steps=max_steps, **policy_kw)
+        for j, r in zip(chunk_idx, res):
+            outs[j] = r
+        chunk_idx.clear()
+        chunk_imgs.clear()
+
+    cur_bucket = None
+    prev_factory, prev_img = None, None
+    for i, t in enumerate(tasks):
+        im = prev_img if t["image"] is prev_factory else img(t)
+        prev_factory, prev_img = t["image"], im
+        bk = image_ops.canvas_bucket_hw(im.height, im.width)
+        if chunk_idx and (bk != cur_bucket or len(chunk_idx) >= max_b):
+            flush()
+        cur_bucket = bk
+        chunk_idx.append(i)
+        chunk_imgs.append(im)
+    flush()
     return outs
 
 

@@ -20,6 +20,7 @@ import torch
 from ..core.config import VSMConfig
 from ..data.preprocess import (clip_resize_u8, expand2square,
                                owlvit_resize_u8, resize_bilinear_torch)
+from ..decode.graphs import DecodeGraphs
 from ..decode.sampler import decode_stats
 from ..models.vsm import VSMOutput, vsm_generate
 from ..multimodal.constants import (DEFAULT_IM_END_TOKEN,
@@ -70,6 +71,10 @@ class VSMEngine:
         # receives the decoder's logits trace (greedy_decode's `trace`)
         self.last_decode_stats = None
         self.decode_trace: Optional[List] = None
+        # the static caches and captured decode steps (decode/graphs.py);
+        # a list here receives the logits trace of the replayed decode
+        self.graphs = DecodeGraphs()
+        self.replay_trace: Optional[List] = None
 
     def _build_prompt(self, question: str) -> str:
         conv = CONV_TEMPLATES[self.CONV_TYPE]()
@@ -132,7 +137,8 @@ class VSMEngine:
                 cache_len=bucket + _round128(self.max_new_tokens
                                              + self.spec_chunk),
                 compute_dtype=self.compute_dtype, draft_ids=draft,
-                spec_chunk=self.spec_chunk, trace=self.decode_trace)
+                spec_chunk=self.spec_chunk, trace=self.decode_trace,
+                graphs=self.graphs, replay_trace=self.replay_trace)
         out = out._replace(**{k: v.cpu() for k, v in out._asdict().items()
                               if isinstance(v, torch.Tensor)})
         self.last_decode_stats = decode_stats(

@@ -227,15 +227,25 @@ WARMUP_CANVAS_SIZES = ((512, 512), (1024, 1024), (1536, 2048),
 
 def warmup_engines(vqa, vsm, max_batch: int, log=print):
     """Both warmups over the batch buckets a wave of up to max_batch rows
-    pads to, and the canvas sizes of WARMUP_CANVAS_SIZES."""
+    pads to, and the canvas sizes of WARMUP_CANVAS_SIZES; a compiled VSM
+    (search/compiled.CompiledVSMSearch) also runs warmup_compiled over
+    those canvas sizes and its batch buckets, capturing the decode graph
+    of every shape a search can take."""
     from ..eval.vqa_engine import warmup_vqa_engine
     from ..search.batched import (BATCH_BUCKETS, _batch_bucket,
                                   warmup_vsm_engine)
+    from ..search.compiled import CompiledVSMSearch, warmup_compiled
     top = _batch_bucket(max(max_batch, 1))
     buckets = tuple(b for b in BATCH_BUCKETS if b <= top)
     warmup_vqa_engine(vqa, batch_buckets=buckets, log=log)
-    warmup_vsm_engine(vsm, batch_buckets=buckets,
+    comp = vsm if isinstance(vsm, CompiledVSMSearch) else None
+    warmup_vsm_engine(vsm if comp is None else comp.engine,
+                      batch_buckets=buckets,
                       canvas_sizes=WARMUP_CANVAS_SIZES, log=log)
+    if comp is not None:
+        warmup_compiled(comp, canvas_sizes=WARMUP_CANVAS_SIZES,
+                        batch_buckets=tuple(b for b in comp.BATCH_BUCKETS
+                                            if b <= top) or (1,), log=log)
 
 
 def main():
@@ -265,6 +275,11 @@ def main():
                    help="cut search patches out of a device canvas of the "
                         "image (one upload per image) instead of on the "
                         "host")
+    p.add_argument("--compiled", action="store_true",
+                   help="whole searches as device steps (the policy, the "
+                        "windows and the VSM on the card, batched across "
+                        "a request's missing objects); implies "
+                        "--device-preprocess")
     p.add_argument("--warmup", action="store_true",
                    help="run every (mode x batch bucket x prompt bucket) "
                         "and the canvas sizes up to 2K once before serving")
@@ -284,7 +299,11 @@ def main():
                                    int8=args.int8, int4=args.int4,
                                    mixed=args.mixed, int4mix=args.int4mix,
                                    prompt_lookup=args.prompt_lookup,
-                                   device_preprocess=args.device_preprocess)
+                                   device_preprocess=args.device_preprocess
+                                   or args.compiled)
+    if args.compiled:
+        from ..search.compiled import CompiledVSMSearch
+        vsm = CompiledVSMSearch(vsm)
     if args.warmup:
         warmup_engines(vqa, vsm, args.max_batch)
     serve(SealService(vqa, vsm), args.host, args.port)
