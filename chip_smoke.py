@@ -1992,15 +1992,16 @@ class QueueLog:
 
 
 def phase_compiled(label, vsm_engine, kernels, full):
-    """The compiled search at the full widths, its counts zeroed before
-    it and read after, on a device-preprocess engine with the VSM tilted
-    to answer [LOC] (_tilted_engine): warmup_compiled at the 2048x1536
-    canvas bucket (timed), then four forced 3-step searches on 2K noise
+    """The compiled search at the full widths on a device-preprocess
+    engine with the VSM tilted to answer [LOC] (_tilted_engine):
+    warmup_compiled at the 2048x1536 canvas bucket (timed) and the
+    lockstep reference runs, then four forced 3-step searches on 2K noise
     through `search` one at a time and through `search_many` at B = 4,
-    each held to the lockstep path on the same engine by _same_search;
-    with full, one search on the untilted VSM whose weak heatmaps take
-    the context cue in its steps (no engine wave). Logs each search's
-    host reads."""
+    each held to the lockstep path by _same_search; with full, one search
+    on the untilted VSM whose weak heatmaps take the context cue in its
+    steps (no engine wave). The counts are zeroed just before each of
+    these three and read just after, so each part's launches are its
+    own. Logs each search's host reads."""
     from vstar_tpu_torch.search.batched import run_batched_searches
     from vstar_tpu_torch.search.compiled import (CompiledVSMSearch,
                                                  warmup_compiled)
@@ -2011,8 +2012,7 @@ def phase_compiled(label, vsm_engine, kernels, full):
     images = [_noise(1536, 2048, SEED + 20 + i)
               for i in range(len(LOCKSTEP_NAMES))]
     kw = dict(max_steps=3, **FORCED_SEARCH)
-    report = {}
-    _zero_counts()
+    report, by_part = {}, {}
     t0 = time.perf_counter()
     warm = []
     warmup_compiled(comp, canvas_sizes=((1536, 2048),),
@@ -2037,22 +2037,40 @@ def phase_compiled(label, vsm_engine, kernels, full):
     torch.cuda.synchronize()
     report["lockstep_s"] = time.perf_counter() - t0
 
+    from vstar_tpu_torch.kernels.int8_matmul import MAX_ROWS
+
+    def window(part, batch):
+        # K3 serves decode rows only (R <= 16): the 8-row verify chunks
+        # of B = 4 searches have 32, whose int8 matrices take the
+        # dequantized product, as JAX's int8 path above its row limit
+        want = kernels if batch * tilted.spec_chunk <= MAX_ROWS else tuple(
+            k for k in kernels if k != "int8_matvec")
+        counts = _check_lockstep_path(f"{label} compiled {part}", want,
+                                      batch)
+        counts["flash_attention_routes"] = _check_routes(
+            f"{label} compiled {part}", {"split": None, "combine": None})
+        by_part[part] = counts
+
     serial_paths, serial_reads = [[] for _ in images], []
     with QueueLog() as queues:
+        _zero_counts()
         t0 = time.perf_counter()
         for im, name, p in zip(images, LOCKSTEP_NAMES, serial_paths):
             comp.search(im, name, smallest_size=224, path_out=p, **kw)
             serial_reads.append(comp.last_host_reads)
         torch.cuda.synchronize()
         report["search_s"] = time.perf_counter() - t0
+        window("search", 1)
     serial_scores = [queues.scores(0, i) for i in range(len(images))]
     many_paths = [[] for _ in images]
     with QueueLog() as queues:
+        _zero_counts()
         t0 = time.perf_counter()
         comp.search_many(images, LOCKSTEP_NAMES, [224] * len(images),
                          path_outs=many_paths, **kw)
         torch.cuda.synchronize()
         report["search_many_s"] = time.perf_counter() - t0
+        window("search_many", _batch_bucket(len(images)))
     many_scores = [queues.scores(b) for b in range(len(images))]
     report["search_host_reads"] = serial_reads
     report["search_many_host_reads"] = comp.last_host_reads
@@ -2082,11 +2100,13 @@ def phase_compiled(label, vsm_engine, kernels, full):
         img = _noise(1536, 2048, SEED + 50)
         path = []
         with WaveLog(plain) as waves:
+            _zero_counts()
             t0 = time.perf_counter()
             res = pcomp.search(img, "red mug", smallest_size=224,
                                max_steps=2, path_out=path)
             torch.cuda.synchronize()
             ctx_s = time.perf_counter() - t0
+            window("context_cue", 1)
         cues = [s.context_cue for s in path]
         log(f"[{label} compiled context cue] {ctx_s:.3f} s, path "
             f"{[s.bbox for s in path]}, cues {cues}, engine waves "
@@ -2099,13 +2119,9 @@ def phase_compiled(label, vsm_engine, kernels, full):
         report["context_cue"] = {"s": ctx_s, "cues": cues,
                                  "host_reads": pcomp.last_host_reads}
         del plain, pcomp
-    counts = _check_lockstep_path(f"{label} compiled", kernels,
-                                  _batch_bucket(len(images)))
-    counts["flash_attention_routes"] = _check_routes(
-        f"{label} compiled", {"split": None, "combine": None})
     log(f"[time] {label} compiled phase {time.perf_counter() - t_phase:.1f} "
         "s")
-    return counts, report
+    return by_part, report
 
 
 def phase_bf16_path(dev):
@@ -2163,7 +2179,7 @@ def phase_bf16_path(dev):
     report["lockstep_by_part"], report["lockstep"] = phase_lockstep(
         "bf16", vqa, vsm_engine, ("flash_attention", "tower_attention"),
         full=True)
-    report["compiled_counts"], report["compiled"] = phase_compiled(
+    report["compiled_by_part"], report["compiled"] = phase_compiled(
         "bf16", vsm_engine, ("flash_attention", "tower_attention"),
         full=True)
     return counts, slice_counts, report
@@ -2215,7 +2231,7 @@ def phase_quantized_path(dev):
                                               kernels)
     report["lockstep_by_part"], report["lockstep"] = phase_lockstep(
         "int4mix", vqa, vsm_engine, kernels, full=False)
-    report["compiled_counts"], report["compiled"] = phase_compiled(
+    report["compiled_by_part"], report["compiled"] = phase_compiled(
         "int4mix", vsm_engine, kernels, full=False)
     return counts, slice_counts, report
 
@@ -2620,8 +2636,9 @@ def main() -> int:
         for part, counts in decode_slice[label].pop(
                 "lockstep_by_part").items():
             by_path[f"{label}_lockstep_{part}"] = counts
-        by_path[f"{label}_compiled"] = decode_slice[label].pop(
-            "compiled_counts")
+        for part, counts in decode_slice[label].pop(
+                "compiled_by_part").items():
+            by_path[f"{label}_compiled_{part}"] = counts
     gc.collect()
     torch.cuda.empty_cache()
     by_path["int4_profile"], profile = phase_int4_profile(dev)

@@ -185,9 +185,10 @@ def test_warmups_run_every_bucket(vqa_pair):
                           max_new_tokens=4, log=lines.append)
     finally:
         del vqa.free_form_many
-    assert calls == [1, 1, 1, 2, 2, 2]      # three prompt buckets each
-    assert lines == [f"[warmup] vqa B<={b} (3 prompt buckets) warmed"
-                     for b in (1, 2)]
+    # three prompt buckets each, the largest bucket first
+    assert calls == [2, 2, 2, 1, 1, 1]
+    assert lines == [f"[warmup] vqa B={b} (3 prompt buckets) warmed"
+                     for b in (2, 1)]
     _, vsm = _vsm_pair(device_preprocess=True)
     waves = []
     orig_run = vsm._run_many
@@ -195,7 +196,7 @@ def test_warmups_run_every_bucket(vqa_pair):
     lines.clear()
     warmup_vsm_engine(vsm, canvas_sizes=((64, 64), (96, 128)),
                       batch_buckets=(1, 2), log=lines.append)
-    assert waves == [1] * 6 + [2] * 6 + [1, 2]
+    assert waves == [2] * 6 + [1] * 6 + [2, 1]
     assert lines[-1] == "[warmup] vsm canvas 96x128 (group buckets 1/2) warmed"
     assert len(lines) == 7
 

@@ -262,21 +262,53 @@ def test_traced_loop_reads_before_each_step():
 
 def test_static_cache_is_reused():
     """DecodeGraphs.cache hands out the same storage for the same key
-    (with lengths zeroed) and evicts the least recently used beyond its
-    byte bound."""
+    (with lengths zeroed). Every cache of one decoder shape is a view of
+    the newest slab (k, then v); only a cache larger than the slab gets a
+    new one, and the caches made on the old slab keep it."""
     g = tg.DecodeGraphs()
     a = g.cache(T_CFG, 2, 8, torch.float32, "cpu")
-    size = g.cache_bytes()
-    g.max_cache_bytes = int(2.5 * size)
     a.length.fill_(3)
     b = g.cache(T_CFG, 2, 8, torch.float32, "cpu")
     assert b.k.data_ptr() == a.k.data_ptr() and int(b.length.sum()) == 0
-    g.cache(T_CFG, 4, 8, torch.float32, "cpu")       # 3 sizes: evicts a
-    assert g.cache_bytes() == 2 * size
-    c = g.cache(T_CFG, 2, 16, torch.float32, "cpu")
-    assert g.cache_bytes() == 2 * size
-    assert g.cache(T_CFG, 2, 16, torch.float32, "cpu").k.data_ptr() == \
-        c.k.data_ptr()
+    n = a.k.numel()
+    assert a.v.data_ptr() == a.k.data_ptr() + 4 * n
+    slab = 4 * (1 << (2 * n - 1).bit_length())
+    assert g.cache_bytes() == slab
+    big = g.cache(T_CFG, 4, 16, torch.float32, "cpu")    # 4x: a new slab
+    assert big.k.data_ptr() != a.k.data_ptr()
+    assert g.cache_bytes() == slab + 4 * slab
+    small = g.cache(T_CFG, 1, 16, torch.float32, "cpu")  # fits the slab
+    assert small.k.data_ptr() == big.k.data_ptr()
+    assert small.k.shape == (T_CFG.num_layers, 1, 16, T_CFG.num_kv_heads,
+                             T_CFG.head_dim)
+    assert g.cache_bytes() == 5 * slab
+    # the largest first: one slab for all
+    g = tg.DecodeGraphs()
+    for rows, length in ((4, 16), (2, 8), (1, 16), (2, 16)):
+        g.cache(T_CFG, rows, length, torch.float32, "cpu")
+    assert g.cache_bytes() == 4 * slab
+
+
+def test_every_counter_is_registered():
+    """Every launch counter of the kernel modules and of nn.quant is in
+    the registry the decode graphs replay (kernels/_build.COUNTERS), and
+    registering a name a module lacks raises."""
+    from vstar_tpu_torch.kernels import (_build, flash_attention,
+                                         int4_matmul, int4_variants,
+                                         int8_matmul, tower_attention)
+    from vstar_tpu_torch.nn import quant
+    registered = {(m.__name__, a) for m, a in _build.COUNTERS}
+    found = set()
+    for mod in (flash_attention, int4_matmul, int4_variants, int8_matmul,
+                tower_attention, quant):
+        for name, value in vars(mod).items():
+            if any(w in name for w in ("launches", "calls", "routes")) \
+                    and isinstance(value, (int, dict)) \
+                    and not isinstance(value, bool):
+                found.add((mod.__name__, name))
+    assert len(found) == 19 and found == registered
+    with pytest.raises(AttributeError):
+        _build.register_counters(quant.__name__, "no_such_counter")
 
 
 def test_counter_delta_is_replayed():
@@ -404,6 +436,25 @@ def test_replay_counts_launches():
     # capture: its launches are real and counted
     assert counts[2] == counts[0], counts
     assert counts[1][0] == counts[0][0] + cfg.num_layers, counts
+
+
+@pytest.mark.gpu
+def test_decode_on_the_card_needs_graphs():
+    """On a CUDA tensor a decode replays captured steps: without the
+    engine's DecodeGraphs it raises (the traced loop runs eagerly)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg, params = _cuda_setup()
+    prompt = _prompt(3, B=2).astype(np.int64)
+    logits, hidden, cache = _cuda_prefill(cfg, params, tg.DecodeGraphs(),
+                                          prompt)
+    with torch.inference_mode(), pytest.raises(ValueError,
+                                               match="engine.graphs"):
+        greedy_decode(params, cfg, cache, logits, hidden, 8, [EOS])
+    with torch.inference_mode():
+        res = greedy_decode(params, cfg, cache, logits, hidden, 8, [EOS],
+                            trace=[])
+    assert res.n_forwards >= 0
 
 
 @pytest.mark.gpu

@@ -15,16 +15,26 @@ and then only replayed; the key holds everything the capture froze
 (rows, the cache's storage, the chunk, max_new_tokens, the dtypes, the
 static sampling values, the weights' storage). A `DecodeGraphs` owns
 the graphs, one memory pool they share, and the static KV caches the
-engines prefill into, so the captured addresses stay valid; both are
-bounded (least recently used first out) and every new capture or cache
-is logged with the memory it takes. A failed capture raises: there is
-no eager fallback on the card. On the CPU the same step runs eagerly,
-`steps_per_read` at a time.
+engines prefill into, so the captured addresses stay valid. A decode
+on the card without the engine's DecodeGraphs raises, as does a failed
+capture: there is no eager fallback on the card. On the CPU the same
+step runs eagerly, `steps_per_read` at a time.
+
+One decode runs at a time, and a cache is read only from its prefill
+to the end of the decode that follows it. So every cache of one
+decoder shape is a view of one slab, the newest, whatever its rows and
+length: the caches cost the largest of them, not their sum. A cache
+larger than the slab gets a new slab (a power of two of elements); the
+caches and graphs made on the older ones keep them alive, which costs
+at most as much again (the warmups go from the largest bucket down, so
+that none does). Each new slab and capture is logged with its memory.
+The graphs are kept least recently used first out, at most MAX_GRAPHS.
 
 Kernel wrappers count their launches when they are called, which under
 a graph is at capture and not at replay. A capture therefore records
-the counters' growth and undoes it, and every replay adds it back, so
-the counts are what eager launches would have counted.
+the growth of every registered counter (kernels/_build.COUNTERS) and
+undoes it, and every replay adds it back, so the counts are what eager
+launches would have counted.
 """
 
 from __future__ import annotations
@@ -35,45 +45,39 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..kernels import _build
 from ..nn.llama import KVCache
 
 _LOG = logging.getLogger(__name__)
 
-# module -> its launch counters (ints, or dicts of ints)
-_COUNTERS = {
-    "flash_attention": ("launches", "plain_calls_cuda", "bwd_launches",
-                        "bwd_plain_calls_cuda", "route_launches",
-                        "split_launches_by_rows", "launches_by_shape"),
-    "tower_attention": ("launches", "plain_calls_cuda", "launches_by_batch"),
-    "int8_matmul": ("launches", "plain_calls_cuda"),
-    "int4_matmul": ("launches", "plain_calls_cuda", "route_launches"),
-    "int4_variants": ("launches", "plain_calls_cuda"),
-}
+# Graphs kept per DecodeGraphs. `serve.server --warmup --compiled` on
+# the 7B pair captures 10 keys for the VQA engine and 5 for the VSM at
+# --max-batch 16, 8 and 4 at 8, about 32 MiB of pool each, and live
+# requests then capture none (scripts/warmup_probe.py, NVIDIA H100 80GB
+# HBM3 at 700 W). The act-int8 switch doubles the keys (it is part of
+# the key); the rest is room for keys only other traffic reaches
+# (sampling, the keyword decode's chunks, other budgets).
+MAX_GRAPHS = 32
 
 
-def _counter_refs():
-    from ..kernels import (flash_attention, int4_matmul, int4_variants,
-                           int8_matmul, tower_attention)
-    from ..nn import quant
-    mods = {"flash_attention": flash_attention,
-            "tower_attention": tower_attention, "int8_matmul": int8_matmul,
-            "int4_matmul": int4_matmul, "int4_variants": int4_variants}
-    refs = [(mods[m], a) for m, attrs in _COUNTERS.items() for a in attrs
-            if hasattr(mods[m], a)]
-    return refs + [(quant, "w8a8_calls"), (quant, "int4_routes")]
+def counters_snapshot() -> Dict:
+    return {(mod, attr): (dict(v) if isinstance(v, dict) else v)
+            for mod, attr in _build.COUNTERS
+            for v in [getattr(mod, attr)]}
 
 
-def counters_snapshot() -> List:
-    return [(mod, attr, dict(v) if isinstance(v, dict) else v)
-            for mod, attr in _counter_refs()
-            for v in [getattr(mod, attr)]]
+def _old(snap: Dict, mod, attr):
+    """A counter's value in `snap`; zero for one registered since."""
+    if (mod, attr) in snap:
+        return snap[(mod, attr)]
+    return {} if isinstance(getattr(mod, attr), dict) else 0
 
 
-def counters_delta(snap: List) -> List:
+def counters_delta(snap: Dict) -> List:
     """What the counters grew by since `snap`."""
     out = []
-    for mod, attr, old in snap:
-        new = getattr(mod, attr)
+    for mod, attr in _build.COUNTERS:
+        new, old = getattr(mod, attr), _old(snap, mod, attr)
         if isinstance(new, dict):
             d = {k: v - old.get(k, 0) for k, v in new.items()
                  if v != old.get(k, 0)}
@@ -84,9 +88,9 @@ def counters_delta(snap: List) -> List:
     return out
 
 
-def counters_restore(snap: List) -> None:
-    for mod, attr, old in snap:
-        cur = getattr(mod, attr)
+def counters_restore(snap: Dict) -> None:
+    for mod, attr in _build.COUNTERS:
+        cur, old = getattr(mod, attr), _old(snap, mod, attr)
         if isinstance(cur, dict):
             cur.clear()
             cur.update(old)
@@ -120,85 +124,81 @@ def weights_key(params) -> Tuple:
 
 
 class _Graph:
-    __slots__ = ("graph", "state", "delta", "holds", "cache_key")
+    __slots__ = ("graph", "state", "delta", "holds")
 
-    def __init__(self, graph, state, delta, holds, cache_key):
+    def __init__(self, graph, state, delta, holds):
         self.graph, self.state, self.delta = graph, state, delta
-        self.holds, self.cache_key = holds, cache_key
+        self.holds = holds
 
 
 class DecodeGraphs:
-    """The captured decode steps and the static KV caches of one engine.
+    """The captured decode steps and the static KV caches of one engine
+    (module docstring). A 7B decoder's cache is 32 layers x 2 x 4096 x
+    2 B = 0.5 MiB per token and row: 8 GiB for 16 rows at 1024 slots."""
 
-    max_graphs bounds the graphs kept and max_cache_bytes the caches
-    (the one in use is kept whatever its size); evicting a cache drops
-    the graphs captured on it. A 7B decoder's cache is 32 layers x 2 x
-    4096 x 2 B = 0.5 MiB per token and row: 6 GiB for 16 rows at 768
-    slots."""
-
-    def __init__(self, max_graphs: int = 32,
-                 max_cache_bytes: int = 24 << 30):
-        self.max_graphs = max_graphs
-        self.max_cache_bytes = max_cache_bytes
-        self._caches: "OrderedDict[Tuple, KVCache]" = OrderedDict()
+    def __init__(self):
+        self._slabs: Dict[Tuple, torch.Tensor] = {}
+        self._caches: Dict[Tuple, KVCache] = {}
         self._graphs: "OrderedDict[Tuple, _Graph]" = OrderedDict()
         self._pool = None
         self.captures = 0
         self.replays = 0
         self.host_reads = 0
 
+    @property
+    def kept(self) -> int:
+        """The graphs kept now (at most MAX_GRAPHS)."""
+        return len(self._graphs)
+
     # -- static caches ------------------------------------------------------
 
     def cache(self, cfg, rows: int, cache_len: int, dtype,
               device) -> KVCache:
         """The static cache of (rows, cache_len, dtype) on `device`: the
-        same storage at every call, its lengths zero. The caller's
-        prefill writes it in place; entries at or above a row's length
-        keep whatever an earlier call wrote there (attention never
-        reads them)."""
+        same storage at every call, its lengths zero, valid until the
+        next call of any key (module docstring). The caller's prefill
+        writes it in place; entries at or above a row's length hold
+        whatever an earlier call wrote there (attention never reads
+        them)."""
         device = torch.device(device)
         key = (cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, rows,
                cache_len, dtype, str(device))
-        c = self._caches.pop(key, None)
+        c = self._caches.get(key)
         if c is None:
             shape = (cfg.num_layers, rows, cache_len, cfg.num_kv_heads,
                      cfg.head_dim)
+            n = rows * cache_len * cfg.num_layers * cfg.num_kv_heads \
+                * cfg.head_dim
+            base = key[:3] + key[5:]
             with torch.inference_mode(False):
-                c = KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                            v=torch.zeros(shape, dtype=dtype, device=device),
+                slab = self._slabs.get(base)
+                if slab is None or slab.numel() < 2 * n:
+                    slab = torch.zeros((1 << (2 * n - 1).bit_length(),),
+                                       dtype=dtype, device=device)
+                    self._slabs[base] = slab
+                    _LOG.info("decode cache slab for rows=%d len=%d %s: "
+                              "%.1f MiB; slabs hold %.1f MiB", rows,
+                              cache_len, dtype, self._bytes(slab) / 2**20,
+                              self.cache_bytes() / 2**20)
+                c = KVCache(k=slab[:n].view(shape), v=slab[n:2 * n]
+                            .view(shape),
                             length=torch.zeros((rows,), dtype=torch.int32,
                                                device=device))
-            self._caches[key] = c
-            self._trim_caches(key)
-            _LOG.info("decode cache rows=%d len=%d %s: %.1f MiB; caches "
-                      "hold %.1f MiB", rows, cache_len, dtype,
-                      self._bytes(c) / 2**20, self.cache_bytes() / 2**20)
-        else:
             self._caches[key] = c
         c.length.zero_()
         return c
 
     @staticmethod
-    def _bytes(c: KVCache) -> int:
-        return 2 * c.k.numel() * c.k.element_size()
+    def _bytes(t: torch.Tensor) -> int:
+        return t.untyped_storage().nbytes()
 
     def cache_bytes(self) -> int:
-        return sum(self._bytes(c) for c in self._caches.values())
-
-    def _trim_caches(self, keep) -> None:
-        while self.cache_bytes() > self.max_cache_bytes \
-                and len(self._caches) > 1:
-            key = next(k for k in self._caches if k != keep)
-            self._caches.pop(key)
-            for gk in [gk for gk, g in self._graphs.items()
-                       if g.cache_key == key]:
-                del self._graphs[gk]
-
-    def _cache_key_of(self, k: torch.Tensor):
-        for key, c in self._caches.items():
-            if c.k.data_ptr() == k.data_ptr():
-                return key
-        return None
+        """The bytes of every slab a cache or the newest slab holds."""
+        slabs = {c.k.untyped_storage().data_ptr(): self._bytes(c.k)
+                 for c in self._caches.values()}
+        slabs.update((s.untyped_storage().data_ptr(), self._bytes(s))
+                     for s in self._slabs.values())
+        return sum(slabs.values())
 
     # -- the loop -----------------------------------------------------------
 
@@ -221,7 +221,7 @@ class DecodeGraphs:
         if g is None:
             g = self._capture(key, state, step, holds, generator)
         self._graphs[key] = g
-        while len(self._graphs) > self.max_graphs:
+        while len(self._graphs) > MAX_GRAPHS:
             self._graphs.popitem(last=False)
         with torch.no_grad():
             for name, t in state.items():
@@ -272,18 +272,13 @@ class DecodeGraphs:
                 counters_restore(snap)
         self.captures += 1
         _LOG.info("decode graph %s captured: %.1f MiB reserved by its "
-                  "warm-up, state and pool; %d graphs, caches %.1f MiB",
+                  "warm-up, state and pool; %d graphs, cache slabs %.1f MiB",
                   key[0],
                   (torch.cuda.memory_reserved(dev) - before) / 2**20,
                   len(self._graphs) + 1, self.cache_bytes() / 2**20)
-        cache_key = None
-        for t in holds:
-            if isinstance(t, torch.Tensor):
-                cache_key = cache_key or self._cache_key_of(t)
         # `step` too: its closure's tensors (stop ids, index ranges) are
         # read by address in every replay
-        return _Graph(graph, static, delta, tuple(holds) + (step,),
-                      cache_key)
+        return _Graph(graph, static, delta, tuple(holds) + (step,))
 
 
 def run_steps(graphs: Optional[DecodeGraphs], key: Tuple,
@@ -291,14 +286,17 @@ def run_steps(graphs: Optional[DecodeGraphs], key: Tuple,
               steps_per_read: int, holds=(),
               generator: Optional[torch.Generator] = None,
               check_first: bool = False) -> Tuple[Dict, int, int]:
-    """The decode loop: by graph replay on a CUDA tensor (a DecodeGraphs
-    of the call's own when `graphs` is None), else `step` eagerly.
-    check_first (eager only): read `ctl` before the first step too, so
-    that no step runs past the end (the traced reference loop).
+    """The decode loop: by graph replay on a CUDA tensor, which needs the
+    engine's `graphs`; else `step` eagerly.
+    check_first (eager on any device): read `ctl` before the first step
+    too, so that no step runs past the end (the traced reference loop).
     Returns (final state, forwards = ctl[1], host reads)."""
     dev = state["ctl"].device
     if dev.type == "cuda" and not check_first:
-        graphs = graphs if graphs is not None else DecodeGraphs()
+        if graphs is None:
+            raise ValueError("a decode on the card replays captured steps: "
+                             "pass the engine's DecodeGraphs "
+                             "(engine.graphs)")
         reads = graphs.host_reads
         out, ctl = graphs.run(key, state, step, steps_per_read, holds,
                               generator)

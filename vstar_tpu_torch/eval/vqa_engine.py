@@ -462,13 +462,15 @@ def warmup_vqa_engine(engine: VQAEngine, image_size: int = 256,
     img = Image.fromarray((rng.rand(image_size, image_size, 3)
                            * 255).astype("uint8"))
     opts = ["a thing", "another"]
-    for bb in batch_buckets:
-        for q in texts:
+    # the largest caches first: the smaller ones are views of their slab
+    # (decode/graphs.py)
+    for bb in sorted(batch_buckets, reverse=True):
+        for q in reversed(texts):
             engine.free_form_many([img] * bb, [q] * bb,
                                   max_new_tokens=max_new_tokens)
             engine.multiple_choice_many([img] * bb, [q] * bb, [opts] * bb)
         if log:
-            log(f"[warmup] vqa B<={bb} ({len(texts)} prompt buckets) "
+            log(f"[warmup] vqa B={bb} ({len(texts)} prompt buckets) "
                 f"warmed")
     if sampling:
         engine.free_form(img, texts[0], max_new_tokens=max_new_tokens,

@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 from pathlib import Path
 
@@ -69,6 +70,24 @@ _SIGNATURES = {
 
 _LOCK = threading.Lock()
 _LIB = None
+
+# Every launch counter of the port: (module, attribute name), an int or a
+# dict of ints on the module. A module registers its counters when it is
+# imported, under their definitions, so none can grow unregistered; the
+# decode graphs (decode/graphs.py) replay their growth through this list.
+COUNTERS: list = []
+
+
+def register_counters(module: str, *names: str) -> None:
+    """Registers the launch counters `names` of the module named
+    `module`; a name the module does not define raises."""
+    mod = sys.modules[module]
+    for name in names:
+        value = getattr(mod, name)
+        if not isinstance(value, (int, dict)):
+            raise TypeError(f"{module}.{name} is not a counter: {value!r}")
+        if (mod, name) not in COUNTERS:
+            COUNTERS.append((mod, name))
 
 
 def _nvcc() -> str:

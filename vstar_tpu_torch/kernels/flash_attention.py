@@ -61,6 +61,10 @@ route_launches = {"tile": 0, "split": 0, "combine": 0}
 split_launches_by_rows = {}
 # launches by (batch, query rows), both routes; counted in `launches` too
 launches_by_shape = {}
+_build.register_counters(__name__, "launches", "plain_calls_cuda",
+                         "bwd_launches", "bwd_plain_calls_cuda",
+                         "route_launches", "split_launches_by_rows",
+                         "launches_by_shape")
 
 HEAD_DIM = 128   # the head width the kernels are instantiated for
 SPLIT_MAX_SQ = 16    # query rows up to which K1 takes the split route

@@ -112,10 +112,13 @@ def _windows(image: torch.Tensor, boxes: torch.Tensor, out_size: int,
         mx, my, mw, mh = masks.unbind(1)
         wy = wy * _axis_keep(H, my, mh, image.device)[:, :, None]
         wx = wx * _axis_keep(W, mx, mw, image.device)[:, :, None]
-    # [n, out, H] @ [H, W*C] -> [n, out, W, C]; then over W
+    # [n, out, H] @ [H, W*C] -> [n, out, W, C]; then over W, as one
+    # product per window, [n, out*C, W] @ [n, W, out] (a broadcast of wx
+    # over the out rows would copy it out times: 36 GiB at 16 windows)
     t = torch.matmul(wy.transpose(1, 2), image.reshape(H, W * C))
     t = t.view(n, out_size, W, C).transpose(2, 3)     # [n, out, C, W]
-    return torch.matmul(t, wx[:, None]).transpose(2, 3).contiguous()
+    t = torch.matmul(t.reshape(n, out_size * C, W), wx)
+    return t.view(n, out_size, C, out_size).transpose(2, 3).contiguous()
 
 
 def device_preprocess(image_u8: torch.Tensor, out_size: int) -> torch.Tensor:

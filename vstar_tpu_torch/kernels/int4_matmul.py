@@ -49,6 +49,8 @@ launches = dict.fromkeys(NAMES, 0)
 # K5's launches by route: decode rows (R <= 16) and tiles (R > 16)
 route_launches = {"decode": 0, "tile": 0}
 plain_calls_cuda = dict.fromkeys(NAMES, 0)
+_build.register_counters(__name__, "launches", "route_launches",
+                         "plain_calls_cuda")
 
 # The JAX dispatch gate of W4A8 (vstar_tpu int4_matmul.py): IN a multiple
 # of 256 (:204, :252), and OUT a multiple of the smallest block_o the

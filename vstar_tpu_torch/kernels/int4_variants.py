@@ -54,6 +54,7 @@ from .int8_matmul import MAX_ROWS, _sm_count, capacity, check_cuda_operand
 NAMES = ("unpack_probe", "w4a8_variant", "w4a8_rows", "w4a8_t")
 launches = dict.fromkeys(NAMES, 0)
 plain_calls_cuda = dict.fromkeys(NAMES, 0)
+_build.register_counters(__name__, "launches", "plain_calls_cuda")
 
 PROBES = ("mul", "add")                   # P1's candidates, in C order
 UNPACKS = ("ship", "mul", "2and", "off")  # P2's lo-nibble unpacks

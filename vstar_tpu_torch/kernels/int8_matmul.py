@@ -31,6 +31,7 @@ from . import _build
 
 launches = 0
 plain_calls_cuda = 0
+_build.register_counters(__name__, "launches", "plain_calls_cuda")
 
 MAX_ROWS = 16          # vstar_tpu DECODE_ROW_LIMIT
 # The tensor-core decode rows (csrc/decode_rows.cuh): a block owns a strip

@@ -27,6 +27,8 @@ from .flash_attention import _check_operand
 launches = 0
 plain_calls_cuda = 0
 launches_by_batch = {}      # launches by batch size, counted above too
+_build.register_counters(__name__, "launches", "plain_calls_cuda",
+                         "launches_by_batch")
 
 HEAD_DIM = 64
 

@@ -25,7 +25,7 @@ from ..decode.speculative import speculative_decode
 from ..kernels.image_ops import normalize_u8_images
 from ..multimodal.splicing import apply_splice
 from ..nn.basic import dense, init_dense, init_layernorm
-from ..nn.llama import (embed_tokens, init_cache, init_llama_params,
+from ..nn.llama import (embed_tokens, init_llama_params,
                         llama_forward, lm_logits)
 from ..nn.owl_heads import init_owl_head_params, owl_detect
 from ..nn.projectors import apply_projector, init_projector_params
@@ -134,14 +134,14 @@ class VSMOutput(NamedTuple):
 def vsm_generate(params: Dict, cfg: VSMConfig, images_clip: torch.Tensor,
                  images_owl: torch.Tensor, text_ids: torch.Tensor,
                  feat_idx: torch.Tensor, is_feat: torch.Tensor,
-                 lens: torch.Tensor, loc_token_id: int,
+                 lens: torch.Tensor, *, graphs: DecodeGraphs,
+                 loc_token_id: int,
                  max_new_tokens: int = 100, eos_id: int = 2,
                  cache_len: int = 768,
                  compute_dtype=torch.bfloat16,
                  draft_ids: Optional[torch.Tensor] = None,
                  spec_chunk: int = 8,
                  trace: Optional[List] = None,
-                 graphs: Optional[DecodeGraphs] = None,
                  replay_trace: Optional[List] = None) -> VSMOutput:
     """Prefill, decode with hidden capture, [LOC] selection, then the
     detection and segmentation heads (vstar_tpu vsm_generate). Without a
@@ -154,8 +154,9 @@ def vsm_generate(params: Dict, cfg: VSMConfig, images_clip: torch.Tensor,
     [LOC].</s>"), so a template draft turns ~7 decode steps into ~2
     verify chunks. The cache then needs spec_chunk entries of room.
     trace: the decoders' logits trace (decode/sampler.greedy_decode).
-    graphs: the caller's DecodeGraphs: the prefill fills one of its
-    static caches and the decode replays its captured steps;
+    graphs: the engine's DecodeGraphs: the prefill fills one of its
+    static caches, and on the card the decode replays its captured
+    steps;
     replay_trace: the decode's logits trace taken during the replay."""
     B, S = text_ids.shape
     dev = text_ids.device
@@ -163,9 +164,7 @@ def vsm_generate(params: Dict, cfg: VSMConfig, images_clip: torch.Tensor,
     h = apply_splice(embed_tokens(params["llama"], text_ids, compute_dtype),
                      bank, feat_idx, is_feat)
     pos = torch.arange(S, device=dev)[None].expand(B, S)
-    cache = init_cache(cfg.llama, B, cache_len, compute_dtype, device=dev) \
-        if graphs is None else \
-        graphs.cache(cfg.llama, B, cache_len, compute_dtype, dev)
+    cache = graphs.cache(cfg.llama, B, cache_len, compute_dtype, dev)
     hidden, cache = llama_forward(
         params["llama"], cfg.llama, h, pos, lens,
         q_offsets=torch.zeros((B,), dtype=torch.int32, device=dev),

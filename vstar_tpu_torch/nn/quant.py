@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..kernels import _build
 from ..kernels.int4_matmul import (dequantize_int4, qdot4, qdot4_w4a8,
                                    w4a8_applies)
 from ..kernels.int8_matmul import MAX_ROWS, int8_matmul
@@ -124,6 +125,7 @@ _ACT_INT8 = False
 w8a8_calls = 0
 # qdot's route for int4 entries (W4A8 or W4A16), counted on every device
 int4_routes = {"w4a8": 0, "w4a16": 0}
+_build.register_counters(__name__, "w8a8_calls", "int4_routes")
 
 
 def set_act_int8(on: bool):

@@ -447,20 +447,22 @@ def warmup_vsm_engine(engine: BatchedVSMEngine,
 
     h0, w0 = canvas_sizes[0]
     patch = make_patch(h0, w0)
-    for bb in batch_buckets:
+    # the largest caches first: the smaller ones are views of their slab
+    # (decode/graphs.py)
+    for bb in sorted(batch_buckets, reverse=True):
         for kind, fn in (("detect", engine.detect_many),
                          ("vqa", engine.vqa_many),
                          ("segment", engine.segment_many)):
-            for text in texts:
+            for text in reversed(texts):
                 fn([patch] * bb, [text] * bb)
             if log:
-                log(f"[warmup] vsm {kind} B<={bb} ({len(texts)} prompt "
+                log(f"[warmup] vsm {kind} B={bb} ({len(texts)} prompt "
                     f"buckets) warmed")
     group_buckets = tuple(b for b in BATCH_BUCKETS
                           if b <= max(batch_buckets))
     for h, w in canvas_sizes[1:]:
         p = make_patch(h, w)
-        for g in group_buckets:
+        for g in reversed(group_buckets):
             engine.detect_many([p] * g, [texts[0]] * g)
         if log:
             log(f"[warmup] vsm canvas {h}x{w} (group buckets "

@@ -46,6 +46,8 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..decode.graphs import DecodeGraphs
+
 _LOG = logging.getLogger(__name__)
 
 
@@ -623,7 +625,8 @@ def fused_search_batched(params, cfg, canvases: torch.Tensor, states,
                          target_cue_threshold_minimum, *, loc_token_id: int,
                          max_new_tokens: int, eos_id: int, cache_len: int,
                          compute_dtype, spec_chunk: int, max_steps,
-                         graphs=None, reads: Optional[list] = None):
+                         graphs: DecodeGraphs,
+                         reads: Optional[list] = None):
     """B concurrent searches advance together, one device step at a time,
     until no row is RUNNING (or waiting for its context answer): each
     step cuts every engaged row's tower windows from its canvas, runs ONE
@@ -743,7 +746,7 @@ def fused_search(params, cfg, canvas: torch.Tensor, state: PolicyState,
                  target_cue_threshold_decay, target_cue_threshold_minimum,
                  *, loc_token_id: int, max_new_tokens: int, eos_id: int,
                  cache_len: int, compute_dtype, spec_chunk: int, max_steps,
-                 graphs=None, reads: Optional[list] = None):
+                 graphs: DecodeGraphs, reads: Optional[list] = None):
     """One search's device steps until an exit (fused_search_batched with
     one row). text_ids / feat_idx / is_feat [3, 1, S], lens [3, 1];
     canvas [Hc, Wc, 3] CLIP-normalized f32. Returns (state', store,
@@ -1455,8 +1458,9 @@ def warmup_compiled(comp: CompiledVSMSearch, canvas_sizes=((512, 512),),
         imgs = [Image.fromarray(rng.randint(0, 255, (h, w, 3),
                                             dtype=np.uint8))
                 for _ in range(max(batch_buckets))]
-        for b in batch_buckets:
-            for name in names:
+        # the largest caches first (decode/graphs.py)
+        for b in sorted(batch_buckets, reverse=True):
+            for name in reversed(names):
                 comp.search_many(imgs[:b], [name] * b, [max(h, w)] * b)
             if log:
                 log(f"[warmup] compiled search canvas {h}x{w} B={b} "

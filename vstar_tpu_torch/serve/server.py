@@ -246,6 +246,13 @@ def warmup_engines(vqa, vsm, max_batch: int, log=print):
         warmup_compiled(comp, canvas_sizes=WARMUP_CANVAS_SIZES,
                         batch_buckets=tuple(b for b in comp.BATCH_BUCKETS
                                             if b <= top) or (1,), log=log)
+    if log:
+        for name, eng in (("vqa", vqa), ("vsm", vsm if comp is None
+                                         else comp.engine)):
+            g = eng.graphs
+            log(f"[warmup] {name} decode graphs: {g.kept} kept of "
+                f"{g.captures} captured, cache slabs "
+                f"{g.cache_bytes() / 2**20:.1f} MiB")
 
 
 def main():
