@@ -71,13 +71,37 @@ Runs on one CUDA card, in phases; any failure exits non-zero:
      the near-tie rule), and one untilted search whose weak heatmaps take
      the context cue inside its steps (no engine wave), with host reads
      per search; each decode-graph capture and static cache logged with
-     its memory ("[graphs]");
+     its memory ("[graphs]"); then continuous serving on the same pair
+     (serve/continuous.ContinuousSealService): eight concurrent HTTP
+     requests on 2048x1536 noise, four with options and four free-form
+     (16-token answers), the search forced through the service's
+     missing_parser (3 steps) on the tilted device-preprocess VSM, by
+     fresh engines without warmup (graphs captured live while the handler
+     threads prefetch canvases), by engines warmed at this traffic's
+     budgets (whose live requests must capture nothing) from the
+     scheduler thread and with pipeline=True; every record held to serial
+     SealService's on the same engines (the search path by the lockstep
+     rule, the focused answer by the equivalence rule, the option by its
+     losses' margin against their largest difference), with waves, mean
+     and max wave, and wall and per-request latency p50 and max; then the
+     int8 KV cache on the same weights: a greedy 200-token free-form
+     answer and a forced 3-step search (tilted VSM), each by graph replay
+     and eagerly, held to each other, each in a count window of its own;
+     the answer against the bf16 cache's, decoded before any count is
+     zeroed (its first differing token and margin logged), the cache
+     slabs (the int8 one at most 0.55x the bf16 one), ms per token, and
+     the plain dequantization's ms a decode step; then eval/phased.py's
+     eval_model_phased on the synthetic V*Bench (one 1024x1024 image a
+     task, force_missing, forced 3-step searches), swapped, co-resident
+     and parked, the same records from all three, memory_allocated around
+     every free_engine falling by at least the freed engine's weights,
+     with the swap and phase timings and images/s;
   5. the quantized path (--int4mix: int8 VQA decoder, int4mix VSM decoder,
      int8 towers), after the bf16 pair is freed: one answer on 2048x1536,
      one forced-search sample, and one more with the act-int8 switch on;
-     then the decode slice of 4, part (a) of the lockstep search and the
-     compiled searches (without the context-cue search) on the
-     --int4mix pair;
+     then the decode slice of 4, part (a) of the lockstep search, the
+     compiled searches (without the context-cue search) and continuous
+     serving (warmed engines only) on the --int4mix pair;
   6. after each path, every kernel it runs launched, and no plain version
      ran on a CUDA tensor; K1's launches by route (tile above 16 query
      rows, split at decode and verify, with its combine): the bf16 path
@@ -1695,7 +1719,7 @@ class WaveLog:
         del self.engine._run_many
 
 
-def _engine_like(e, params=None, device_preprocess=False):
+def _engine_like(e, params=None, device_preprocess=False, kv_int8=False):
     """A BatchedVSMEngine like e, on e's weights or on params."""
     from vstar_tpu_torch.search.batched import BatchedVSMEngine
     return BatchedVSMEngine(e.params if params is None else params, e.cfg,
@@ -1704,7 +1728,8 @@ def _engine_like(e, params=None, device_preprocess=False):
                             max_new_tokens=e.max_new_tokens,
                             prompt_buckets=e.prompt_buckets,
                             compute_dtype=e.compute_dtype,
-                            device_preprocess=device_preprocess)
+                            device_preprocess=device_preprocess,
+                            kv_int8=kv_int8)
 
 
 def _tilted_engine(e):
@@ -2124,6 +2149,707 @@ def phase_compiled(label, vsm_engine, kernels, full):
     return by_part, report
 
 
+# ---------------------------------------------------------------------------
+# Phase 5d: continuous serving (serve/continuous.py)
+# ---------------------------------------------------------------------------
+
+CONTINUOUS_REQUESTS = 8
+# the decode budget of the continuous phase's answers (trigger and
+# focused): on the card batched and single rows of the random 7B part at
+# near-ties from token 2 on, so a short budget keeps the comparison short
+CONTINUOUS_TOKENS = 16
+CONTINUOUS_WINDOW_MS = 500.0
+
+
+def _digest(image):
+    import hashlib
+    return hashlib.sha1(np.asarray(image)[::37, ::41].tobytes()).hexdigest()
+
+
+class TracedTrigger:
+    """A VQA engine for the continuous comparison: free_form and
+    free_form_many decode CONTINUOUS_TOKENS at most; a first answer is
+    replaced by the trigger for 'red mug' (as ForcedTrigger does), so that
+    the serial SealService searches what the continuous service's
+    missing_parser forces; every decode runs with a replay trace
+    (decode/graphs.py: by graph replay, its logits written on the
+    device), kept per question and row for the equivalence rule; option
+    losses are kept per question for the options' near-tie rule."""
+
+    def __init__(self, engine):
+        self.engine, self.runs, self.losses = engine, {}, {}
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+    @staticmethod
+    def trigger():
+        from vstar_tpu_torch.eval.seal import MISSING_OBJECTS_MSG
+        return MISSING_OBJECTS_MSG + " red mug."
+
+    def _decode(self, fn, questions):
+        self.engine.replay_trace = []
+        try:
+            texts = fn()
+        finally:
+            trace, self.engine.replay_trace = self.engine.replay_trace, []
+        many = isinstance(texts, list)
+        texts = texts if many else [texts]
+        for b, q in enumerate(questions):
+            run = {"texts": texts, "trace": trace, "row": b}
+            if not many:
+                run["n"] = [self.engine.last_decode_stats["tokens"]]
+            self.runs.setdefault(q, []).append(run)
+        return [t if "Additional visual information" in q
+                else self.trigger() for t, q in zip(texts, questions)]
+
+    def free_form(self, image, question, **kw):
+        kw.setdefault("max_new_tokens", CONTINUOUS_TOKENS)
+        return self._decode(lambda: self.engine.free_form(
+            image, question, **kw), [question])[0]
+
+    def free_form_many(self, images, questions, **kw):
+        kw.setdefault("max_new_tokens", CONTINUOUS_TOKENS)
+        return self._decode(lambda: self.engine.free_form_many(
+            images, questions, **kw), questions)
+
+    def multiple_choice_many(self, images, questions, options_list, *a,
+                             **kw):
+        from vstar_tpu_torch.eval import vqa_engine as mod
+        got, orig = [], mod.score_options
+
+        def keep(*args, **kwargs):
+            out = orig(*args, **kwargs)
+            got.append(out[0].float().cpu())
+            return out
+        mod.score_options = keep
+        try:
+            chosen = self.engine.multiple_choice_many(
+                images, questions, options_list, *a, **kw)
+        finally:
+            mod.score_options = orig
+        for q, row in zip(questions, got[0]):
+            self.losses[q] = row
+        return chosen
+
+    def multiple_choice(self, image, question, options, object_crops=None,
+                        images_long=None, objects_long=None):
+        return self.multiple_choice_many(
+            [image], [question], [options],
+            None if object_crops is None else [object_crops],
+            None if images_long is None else [images_long],
+            None if objects_long is None else [objects_long])[0]
+
+
+class PathLog:
+    """Forces every search of the SEAL paths (FORCED_SEARCH, 3 steps) and
+    records each task's visited patches by its image's content: the
+    searches of eval/seal.seal_answer and of eval/batched_bench.
+    run_search_phase (the free-form flow and the continuous service)."""
+
+    def __init__(self):
+        self.paths = {}
+
+    def __enter__(self):
+        from vstar_tpu_torch.eval import batched_bench, seal
+        self._mods = [(m, m.run_grouped_searches)
+                      for m in (batched_bench, seal)]
+        orig = self._mods[0][1]
+
+        def run(engine, tasks, **kw):
+            for t in tasks:
+                t["path_out"] = self.paths.setdefault(
+                    (_digest(t["image"]), t["name"]), [])
+                t["path_out"].clear()
+            return orig(engine, tasks, **{**kw, **FORCED_SEARCH,
+                                          "max_steps": 3})
+        for m, _ in self._mods:
+            m.run_grouped_searches = run
+        return self
+
+    def __exit__(self, *exc):
+        for m, f in self._mods:
+            m.run_grouped_searches = f
+
+
+def _continuous_requests():
+    """CONTINUOUS_REQUESTS (JPEG bytes, decoded image, question, options)
+    on 2048x1536 noise: the even ones with options, the odd ones
+    free-form; every question names its request."""
+    from PIL import Image
+    out = []
+    for i in range(CONTINUOUS_REQUESTS):
+        buf = io.BytesIO()
+        _noise(1536, 2048, SEED + 60 + i).save(buf, format="JPEG",
+                                               quality=90)
+        data = buf.getvalue()
+        out.append((data, Image.open(io.BytesIO(data)).convert("RGB"),
+                    f"{QUESTION} (request {i})",
+                    OPTIONS if i % 2 == 0 else None))
+    return out
+
+
+def _post_all(port, requests):
+    """The requests over HTTP at once, one client thread each: (records,
+    client latencies in s)."""
+    recs, lat = [None] * len(requests), [None] * len(requests)
+    errors = []
+
+    def go(i):
+        data, _, question, options = requests[i]
+        body = json.dumps({"image": base64.b64encode(data).decode(),
+                           "question": question,
+                           "options": options}).encode()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/v1/answer", data=body,
+            headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                recs[i] = (resp.status, json.loads(resp.read()))
+        except Exception as e:   # reported below, and the phase fails
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+        lat[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=go, args=(i,))
+               for i in range(len(requests))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"continuous requests failed: {errors}")
+    for i, (status, rec) in enumerate(recs):
+        if status != 200:
+            raise AssertionError(f"request {i}: HTTP {status}: {rec}")
+    return [rec for _, rec in recs], lat
+
+
+def _focus_run(vqa, question):
+    """The traced decode of `question`'s focused re-answer."""
+    keys = [q for q in vqa.runs if question in q
+            and "Additional visual information" in q]
+    if len(keys) != 1 or len(vqa.runs[keys[0]]) != 1:
+        raise AssertionError(f"focused answers of {question!r}: "
+                             f"{[(k, len(vqa.runs[k])) for k in keys]}")
+    return vqa.runs[keys[0]][0]
+
+
+def _option_losses(vqa, question):
+    keys = [q for q in vqa.losses if question in q]
+    if len(keys) != 1:
+        raise AssertionError(f"option losses of {question!r}: {keys}")
+    return vqa.losses[keys[0]]
+
+
+def _same_record_rules(label, i, request, want, got, serial_vqa, vqa,
+                       serial_paths, paths):
+    """Request i's continuous record against the serial one: every field
+    equal, or parting at a near-tie (the lockstep rule for the search
+    path, the equivalence rule for the focused answer, and for the
+    option the serial losses' margin below the largest |loss
+    difference|). Returns the near-ties found."""
+    _, image, question, options = request
+    ties = []
+    if set(got) != set(want):
+        raise AssertionError(f"{label} request {i}: keys {sorted(got)} "
+                             f"against {sorted(want)}")
+    key = (_digest(image), "red mug")
+    d = _same_search(f"{label} request {i}", serial_paths[key], paths[key])
+    if d is not None:
+        ties.append(("search", d))
+    if [r["name"] for r in got["search_result"]] != \
+            [r["name"] for r in want["search_result"]]:
+        raise AssertionError(f"{label} request {i}: search results "
+                             f"{got['search_result']} against "
+                             f"{want['search_result']}")
+    box = max((float(np.abs(np.subtract(g["bbox"], w["bbox"])).max())
+               for g, w in zip(got["search_result"], want["search_result"])),
+              default=0.0)
+    same = {"missing_objects", "search_result", "answer", "option_chosen",
+            "correct", "failed_objects"}
+    for k in set(want) - same:
+        if got[k] != want[k]:
+            raise AssertionError(f"{label} request {i}: {k} {got[k]!r} "
+                                 f"against {want[k]!r}")
+    if got["missing_objects"] != ["red mug"] or \
+            want["missing_objects"] != ["red mug"]:
+        raise AssertionError(f"{label} request {i}: missing objects "
+                             f"{got['missing_objects']}")
+    if options is None:
+        if got["failed_objects"] != want["failed_objects"] and d is None:
+            raise AssertionError(f"{label} request {i}: failed objects "
+                                 f"{got['failed_objects']} against "
+                                 f"{want['failed_objects']}")
+        ref, run = _focus_run(serial_vqa, question), _focus_run(vqa, question)
+        d = _equivalent(f"{label} request {i} focused answer", ref, run,
+                        row=run["row"])
+        if d is None and got["answer"] != want["answer"]:
+            raise AssertionError(f"{label} request {i}: answers differ "
+                                 "without a differing token")
+        if d is not None:
+            ties.append(("answer", d))
+    elif got["option_chosen"] != want["option_chosen"]:
+        ls = _option_losses(serial_vqa, question)
+        lc = _option_losses(vqa, question)
+        a, b = want["option_chosen"], got["option_chosen"]
+        d = {"serial_option": a, "option": b,
+             "margin": float(ls[b] - ls[a]),
+             "max_loss_diff": float((ls - lc).abs().max())}
+        log(f"[{label} request {i}] option {b} against serial {a}: margin "
+            f"{d['margin']:.6g}, largest |loss difference| "
+            f"{d['max_loss_diff']:.6g}")
+        if not d["margin"] < d["max_loss_diff"]:
+            raise AssertionError(f"{label} request {i}: option differs "
+                                 f"beyond rounding: {d}")
+        ties.append(("option", d))
+    log(f"[{label} request {i}] {'options' if options else 'free-form'}: "
+        f"option {got.get('option_chosen')} (serial "
+        f"{want.get('option_chosen')}), answer {got.get('answer')!r} "
+        f"(serial {want.get('answer')!r}), boxes "
+        f"{len(got['search_result'])}, largest |box difference| {box:.4g} "
+        f"px, near-ties {[t for t, _ in ties]}")
+    return ties
+
+
+def _serve_continuous(label, vqa, vsm, requests, pipeline, kernels,
+                      counts_exact):
+    """One burst of the requests over HTTP to a ContinuousSealService on
+    (vqa, vsm): records, client latencies, the service's stats, the
+    kernel counts of the burst and its wall time."""
+    from vstar_tpu_torch.serve.continuous import ContinuousSealService
+    from vstar_tpu_torch.serve.server import make_server
+    svc = ContinuousSealService(vqa, vsm, max_search_steps=3,
+                                max_batch=CONTINUOUS_REQUESTS,
+                                window_ms=CONTINUOUS_WINDOW_MS,
+                                missing_parser=lambda p: ["red mug"],
+                                search_kwargs=FORCED_SEARCH,
+                                pipeline=pipeline)
+    httpd = make_server(svc, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        _zero_counts()
+        t0 = time.perf_counter()
+        recs, lat = _post_all(httpd.server_address[1], requests)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = svc.stats()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+        svc.close()
+    mode = "pipeline" if pipeline else "scheduler"
+    # K3 serves decode rows only (R <= 16): every decode of a wave runs
+    # 8-row verify chunks for 2 rows or more, whose int8 matrices take
+    # the dequantized product, as JAX's int8 path above its row limit
+    counts = _check_path(f"{label} continuous {mode}",
+                         tuple(k for k in kernels if k != "int8_matvec"))
+    if counts_exact:
+        counts["flash_attention_routes"] = _check_routes(
+            f"{label} continuous {mode}", {"tile": None, "split": None,
+                                           "combine": None})
+    server_lat = [r["latency_s"] for r in recs]
+    report = {"wall_s": wall, "waves": stats["waves"],
+              "mean_wave": stats["mean_wave"],
+              "max_wave": stats["max_wave"], "oom_splits":
+              stats["oom_splits"], "latency_p50_s": float(np.median(lat)),
+              "latency_max_s": float(np.max(lat)),
+              "server_latency_p50_s": float(np.median(server_lat)),
+              "server_latency_max_s": float(np.max(server_lat))}
+    log(f"[{label} continuous {mode}] {len(requests)} concurrent HTTP "
+        f"requests in {wall:.3f} s: {stats['waves']} waves, mean wave "
+        f"{stats['mean_wave']:.2f}, max wave {stats['max_wave']}, OOM "
+        f"splits {stats['oom_splits']}; latency p50 "
+        f"{report['latency_p50_s']:.3f} s, max "
+        f"{report['latency_max_s']:.3f} s (server p50 "
+        f"{report['server_latency_p50_s']:.3f}, max "
+        f"{report['server_latency_max_s']:.3f})")
+    if not stats["mean_wave"] > 1:
+        raise AssertionError(f"{label} continuous {mode}: no co-batching: "
+                             f"{stats}")
+    return recs, report, counts
+
+
+def phase_continuous(label, vqa, vsm_engine, kernels, full):
+    """Continuous serving at the full widths: CONTINUOUS_REQUESTS
+    concurrent HTTP requests on 2048x1536 noise (half with options, half
+    free-form) to ContinuousSealService, the search forced through its
+    missing_parser (3 steps, FORCED_SEARCH), on the resident VQA weights
+    and the tilted device-preprocess VSM; the records held to serial
+    SealService's on the same engines (TracedTrigger forces the serial
+    flow's search) by _same_record_rules. Runs, each with its own count
+    window: engines warmed at this traffic's budgets (warmup_vqa_engine,
+    warmup_vsm_engine), whose live requests must capture nothing, by the
+    scheduler thread; with full, also fresh engines without warmup
+    (decode graphs captured live while the handler threads prefetch
+    canvases) and the warmed engines with pipeline=True (two stage
+    workers; counts only checked to be non-zero)."""
+    from vstar_tpu_torch.eval.vqa_engine import VQAEngine, warmup_vqa_engine
+    from vstar_tpu_torch.search.batched import warmup_vsm_engine
+    from vstar_tpu_torch.serve.server import SealService
+    t_phase = time.perf_counter()
+    requests = _continuous_requests()
+
+    def engines():
+        v = VQAEngine(vqa.params, vqa.cfg, vqa.tokenizer, device=vqa.device,
+                      prompt_buckets=vqa.prompt_buckets,
+                      option_bucket=vqa.option_bucket,
+                      compute_dtype=vqa.compute_dtype)
+        v.replay_trace = []
+        return v, _engine_like(_tilted_engine(vsm_engine),
+                               device_preprocess=True)
+
+    report, by_part, ties = {}, {}, []
+    with PathLog() as paths:
+        if full:
+            v, s = engines()
+            cold = TracedTrigger(v)
+            cold_recs, report["cold"], by_part["cold"] = _serve_continuous(
+                label, cold, s, requests, False, kernels, True)
+            report["cold"]["captures"] = {"vqa": v.graphs.captures,
+                                          "vsm": s.graphs.captures}
+            cold_paths = dict(paths.paths)
+            del s
+        v, s = engines()
+        t0 = time.perf_counter()
+        warmup_vqa_engine(v, batch_buckets=(1, 2, 4, 8),
+                          max_new_tokens=CONTINUOUS_TOKENS, log=None)
+        warmup_vsm_engine(s, canvas_sizes=((1536, 2048),),
+                          batch_buckets=(1, 2, 4, 8), log=None)
+        torch.cuda.synchronize()
+        v.replay_trace = []
+        report["warmup_s"] = time.perf_counter() - t0
+        captured = (v.graphs.captures, s.graphs.captures)
+        log(f"[{label} continuous] warmup at {CONTINUOUS_TOKENS} tokens and "
+            f"the 2048x1536 canvas, batch buckets 1-8: "
+            f"{report['warmup_s']:.3f} s, decode graphs VQA {captured[0]}, "
+            f"VSM {captured[1]}")
+        warm = TracedTrigger(v)
+        warm_recs, report["warm"], by_part["warm"] = _serve_continuous(
+            label, warm, s, requests, False, kernels, True)
+        warm_paths = dict(paths.paths)
+        if full:
+            pipe = TracedTrigger(v)
+            pipe_recs, report["pipeline"], by_part["pipeline"] = \
+                _serve_continuous(label, pipe, s, requests, True, kernels,
+                                  False)
+            pipe_paths = dict(paths.paths)
+        live = (v.graphs.captures - captured[0],
+                s.graphs.captures - captured[1])
+        if live != (0, 0):
+            raise AssertionError(f"{label} continuous: live requests on the "
+                                 f"warmed engines captured {live} decode "
+                                 "graphs")
+        serial = TracedTrigger(v)
+        service = SealService(serial, s, max_search_steps=3)
+        t0 = time.perf_counter()
+        serial_recs = [service.answer(image, question, options)
+                       for _, image, question, options in requests]
+        torch.cuda.synchronize()
+        report["serial_s"] = time.perf_counter() - t0
+        serial_paths = dict(paths.paths)
+    log(f"[{label} continuous] serial SealService: {len(requests)} requests "
+        f"in {report['serial_s']:.3f} s; latency p50 "
+        f"{np.median([r['latency_s'] for r in serial_recs]):.3f} s")
+    runs = [("warm", warm, warm_recs, warm_paths)]
+    if full:
+        runs = [("cold", cold, cold_recs, cold_paths)] + runs + [
+            ("pipeline", pipe, pipe_recs, pipe_paths)]
+    for mode, traced, recs, run_paths in runs:
+        for i, (request, got, want) in enumerate(zip(requests, recs,
+                                                     serial_recs)):
+            strip = {k: v for k, v in got.items() if k != "latency_s"}
+            ties += _same_record_rules(
+                f"{label} continuous {mode}", i, request,
+                {k: v for k, v in want.items() if k != "latency_s"}, strip,
+                serial, traced, serial_paths, run_paths)
+    report["near_ties"] = len(ties)
+    log(f"[time] {label} continuous phase {time.perf_counter() - t_phase:.1f}"
+        " s")
+    return by_part, report
+
+
+# ---------------------------------------------------------------------------
+# Phase 5e: the int8 KV cache (--kv-int8)
+# ---------------------------------------------------------------------------
+
+def _dequant_ms(cfg, cache_len, dev):
+    """Events ms of the plain dequantization a decode step runs: every
+    layer's k and v of one row, cache_len slots, int8 with f32 scales to
+    bf16 (nn/llama._dequantize_kv)."""
+    from vstar_tpu_torch.nn.llama import _dequantize_kv
+    shape = (1, cache_len, cfg.num_kv_heads, cfg.head_dim)
+    q = torch.randint(-127, 128, shape, dtype=torch.int8, device=dev)
+    s = torch.rand(shape[:-1], device=dev)
+
+    def step():
+        for _ in range(2 * cfg.num_layers):
+            _dequantize_kv(q, s, torch.bfloat16)
+    return events_ms(step, iters=10)
+
+
+def phase_kv_int8(label, vqa, vsm_engine, kernels):
+    """The int8 KV cache on the resident weights: a FREE_FORM_TOKENS
+    greedy free-form decode of one 2048x1536 image on a kv_int8 VQA
+    engine and a forced 3-step search on a kv_int8 tilted VSM, each by
+    graph replay and as the eager traced loop, held to each other (the
+    same tokens and forwards, or a near-tie; the same patches, or the
+    lockstep rule); the int8 decode against a bf16-cache engine's on the
+    same weights (the first differing token and its margin logged: int8
+    KV is not bitwise); the two engines' cache slabs (the int8 one at
+    most 0.55x), ms per token by graph, and the plain dequantization's
+    ms per decode step. The bf16-cache decode runs before any count is
+    zeroed; the int8 free-form decode and the int8 search each have a
+    count window of their own ("free_form": K1 on its tile and split
+    routes; "search": `kernels` on both routes)."""
+    from vstar_tpu_torch.data.preprocess import expand2square
+    from vstar_tpu_torch.eval.vqa_engine import VQAEngine
+    from vstar_tpu_torch.search.policy import visual_search
+    t_phase = time.perf_counter()
+    squared = expand2square(_image(1536, 2048, SEED + 1))[0]
+
+    def vqa_engine(kv_int8):
+        e = VQAEngine(vqa.params, vqa.cfg, vqa.tokenizer, device=vqa.device,
+                      prompt_buckets=vqa.prompt_buckets,
+                      option_bucket=vqa.option_bucket,
+                      compute_dtype=vqa.compute_dtype, kv_int8=kv_int8)
+        e._spec_template = None           # greedy
+        return e
+
+    def free_form(e):
+        return lambda: e.free_form(squared, QUESTION,
+                                   max_new_tokens=FREE_FORM_TOKENS)
+
+    def window(part, want, want_routes):
+        counts = _check_path(f"{label} kv-int8 {part}", want)
+        counts["flash_attention_routes"] = _check_routes(
+            f"{label} kv-int8 {part}", want_routes)
+        by_part[part] = counts
+
+    report, runs, by_part = {}, {}, {}
+    # the bf16-cache reference, outside every count window
+    e16 = vqa_engine(False)
+    _graph_runs(f"{label} kv-int8", "free-form bf16 cache", e16,
+                free_form(e16), "bf16", runs)
+    e8 = vqa_engine(True)
+    _zero_counts()
+    text, st, trace, ms = _timed_decode(e8, free_form(e8))
+    runs["int8"] = {"texts": [text], "n": [st["tokens"]], "stats": st,
+                    "trace": trace, "ms": ms}
+    _log_run(f"{label} kv-int8", "free-form eager", runs["int8"])
+    _graph_runs(f"{label} kv-int8", "free-form", e8, free_form(e8), "int8",
+                runs)
+    torch.cuda.synchronize()
+    # prefill on the tile route, decode on the split route; the CLIP
+    # tower at 224 (257 tokens) takes the plain attention, as in JAX
+    window("free_form", ("flash_attention",),
+           {"tile": None, "split": None, "combine": None})
+    graph_diff = _graph_vs_eager(f"{label} kv-int8 free-form",
+                                 {"int8": runs["int8"],
+                                  "int8_graph": runs["int8_graph"]})
+    p = _first_difference(runs["bf16_graph"], runs["int8_graph"])
+    vs_bf16 = None
+    if p is not None:
+        rloc, rtok = _trace_reader(runs["bf16_graph"]["trace"], 0)
+        loc, tok = _trace_reader(runs["int8_graph"]["trace"], 0)
+        a, b = rtok(p), tok(p)
+        e, col = rloc(p)
+        lg = runs["bf16_graph"]["trace"][e][1][0, col].float()
+        e, col = loc(p)
+        l8 = runs["int8_graph"]["trace"][e][1][0, col].float()
+        vs_bf16 = {"position": p, "bf16_token": a, "int8_token": b,
+                   "margin": float(lg[a] - lg[b]),
+                   "max_logit_diff": float((lg - l8).abs().max())}
+    log(f"[{label} kv-int8] against the bf16 cache: first differing token "
+        f"{vs_bf16} of {runs['bf16_graph']['n'][0]}")
+    cfg = vqa.cfg.llama
+    per_tok = {n: runs[n + "_graph"]["ms"] / max(
+        runs[n + "_graph"]["stats"]["forwards"], 1) for n in ("int8",
+                                                               "bf16")}
+    slabs = {"int8": e8.graphs.cache_bytes(), "bf16": e16.graphs.cache_bytes()}
+    ratio = slabs["int8"] / slabs["bf16"]
+    cache_len = max(k[4] for k in e8.graphs._caches)   # (..., rows, len, ...)
+    deq = _dequant_ms(cfg, cache_len, vqa.device)
+    log(f"[{label} kv-int8] greedy free-form {FREE_FORM_TOKENS} tokens by "
+        f"graph: int8 {runs['int8_graph']['ms']:.1f} ms "
+        f"({per_tok['int8']:.3f} ms a token; eager "
+        f"{runs['int8']['ms']:.1f} ms), bf16 cache "
+        f"{runs['bf16_graph']['ms']:.1f} ms ({per_tok['bf16']:.3f} ms a "
+        f"token); cache slabs int8 {slabs['int8'] / 2**20:.1f} MiB, bf16 "
+        f"{slabs['bf16'] / 2**20:.1f} MiB ({ratio:.4f}x); the plain "
+        f"dequantization of one decode step (2 x {cfg.num_layers} layers, "
+        f"{cache_len} slots) {deq:.4f} ms by events")
+    if ratio > 0.55:
+        raise AssertionError(f"{label} kv-int8: slabs {slabs}, {ratio:.4f}x")
+
+    # a forced 3-step search on an int8-cache tilted VSM: graph and eager
+    tilted = _tilted_engine(vsm_engine)
+    s8 = _engine_like(tilted, kv_int8=True)
+    img = _noise(1536, 2048, SEED + 20)
+    paths = {}
+    _zero_counts()
+    for how in ("graph", "eager"):
+        path = []
+        s8.decode_trace = [] if how == "eager" else None
+        try:
+            t0 = time.perf_counter()
+            out = visual_search(s8, img, "red mug", smallest_size=224,
+                                max_steps=3, path_out=path, **FORCED_SEARCH)
+            torch.cuda.synchronize()
+            report[f"search_{how}_s"] = time.perf_counter() - t0
+        finally:
+            s8.decode_trace = None
+        if len(path) != 3:
+            raise AssertionError(f"{label} kv-int8 search {how}: "
+                                 f"{[st.bbox for st in path]}")
+        paths[how] = (path, out)
+    window("search", kernels, {"tile": None, "split": None,
+                               "combine": None})
+    search_diff = _same_search(f"{label} kv-int8 search graph against eager",
+                               paths["eager"][0], paths["graph"][0])
+    log(f"[{label} kv-int8 search] patches {[st.bbox for st in paths['graph'][0]]}"
+        f" by graph ({report['search_graph_s']:.3f} s), eager "
+        f"{[st.bbox for st in paths['eager'][0]]} "
+        f"({report['search_eager_s']:.3f} s); (path length, success) "
+        f"{paths['graph'][1][1:3]}, eager {paths['eager'][1][1:3]}; "
+        f"VSM slabs {s8.graphs.cache_bytes() / 2**20:.1f} MiB")
+    report.update({
+        "free_form_ms": {n: runs[n + "_graph"]["ms"] for n in ("int8",
+                                                               "bf16")},
+        "free_form_eager_ms": runs["int8"]["ms"],
+        "ms_per_token": per_tok, "slab_bytes": slabs, "slab_ratio": ratio,
+        "dequant_step_ms": deq, "dequant_cache_len": cache_len,
+        "graph_vs_eager": graph_diff["int8"], "vs_bf16": vs_bf16,
+        "search_difference": search_diff})
+    del e8, e16, s8, tilted
+    log(f"[time] {label} kv-int8 phase {time.perf_counter() - t_phase:.1f} s")
+    return by_part, report
+
+
+# ---------------------------------------------------------------------------
+# Phase 5f: the phase-swapped evaluation (eval/phased.py)
+# ---------------------------------------------------------------------------
+
+def _tree_bytes(tree):
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return 0
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone_tree(v) for v in tree)
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def phase_phased(label, vqa, vsm_engine, kernels):
+    """eval_model_phased on the synthetic V*Bench (one 1024x1024 image a
+    task) with force_missing ('red mug'), 3-step forced searches and the
+    disclosed budgets, swapped, co-resident and parked: the same records
+    from all three. Each factory builds a fresh engine on a device copy
+    of the resident weights (the VSM tilted); memory_allocated is logged
+    around every free_engine, and must fall by at least the freed
+    engine's parameter bytes. Logs the swap and phase timings and
+    images/s."""
+    from vstar_tpu_torch.eval import phased, synthetic
+    from vstar_tpu_torch.eval.vqa_engine import VQAEngine
+    t_phase = time.perf_counter()
+    tilted = _tilted_engine(vsm_engine)
+    frees = []
+    free_engine = phased.free_engine
+
+    def logged_free(engine):
+        if engine is None:
+            return free_engine(engine)
+        inner = getattr(engine, "engine", engine)
+        nbytes = _tree_bytes(inner.params)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        free_engine(engine)
+        after = torch.cuda.memory_allocated()
+        frees.append({"engine": type(inner).__name__, "params": nbytes,
+                      "before": before, "after": after})
+        log(f"[{label} phased] free_engine({type(inner).__name__}): "
+            f"memory_allocated {before / 2**30:.3f} -> {after / 2**30:.3f} "
+            f"GiB (params {nbytes / 2**30:.3f} GiB)")
+        if before - after < nbytes:
+            raise AssertionError(f"{label} phased: free_engine released "
+                                 f"{before - after} bytes of {nbytes}")
+
+    def vqa_factory():
+        return VQAEngine(_clone_tree(vqa.params), vqa.cfg, vqa.tokenizer,
+                         device=vqa.device, prompt_buckets=vqa.prompt_buckets,
+                         option_bucket=vqa.option_bucket,
+                         compute_dtype=vqa.compute_dtype)
+
+    def vsm_factory():
+        return _engine_like(tilted, _clone_tree(tilted.params),
+                            device_preprocess=True)
+
+    report, results, by_part = {}, {}, {}
+    phased.free_engine = logged_free
+    try:
+        with tempfile.TemporaryDirectory() as work:
+            bench = os.path.join(work, "bench")
+            synthetic.make_synthetic_benchmark(bench, n_per_task=1)
+            kw = dict(batch=2, free_form_max_new_tokens=SYNTHETIC_BUDGETS[0],
+                      max_search_steps=3, search_kwargs=FORCED_SEARCH,
+                      force_missing=lambda s: ["red mug"], log=None)
+            for mode in ("swapped", "coresident", "parked"):
+                factories = (vqa_factory, vsm_factory)
+                if mode == "parked":
+                    factories = tuple(phased.parked_factory(f)
+                                      for f in factories)
+                _zero_counts()
+                t0 = time.perf_counter()
+                results[mode], _, t = phased.eval_model_phased(
+                    bench, *factories, coresident=mode == "coresident", **kw)
+                torch.cuda.synchronize()
+                t["wall_s"] = time.perf_counter() - t0
+                by_part[mode] = _check_path(f"{label} phased {mode}",
+                                            kernels)
+                report[mode] = t
+                log(f"[{label} phased {mode}] {t['n_images']} images, "
+                    f"{t['n_searches']} searches: phases "
+                    f"{t['phase1_s']:.3f} / {t['phase2_s']:.3f} / "
+                    f"{t['phase3_s']:.3f} s, loads VQA "
+                    f"{t['load_vqa_s']:.3f} s, VSM {t['load_vsm_s']:.3f} s, "
+                    f"frees {t['free_vqa_s']:.3f} / {t['free_vsm_s']:.3f} s, "
+                    f"reload VQA {t['reload_vqa_s']:.3f} s, swaps "
+                    f"{t['swap_total_s']:.3f} s; "
+                    f"{t['images_per_s_steady']:.4f} images/s steady, "
+                    f"{t['images_per_s_amortized']:.4f} amortized; wall "
+                    f"{t['wall_s']:.3f} s")
+                del factories
+                gc.collect()
+    finally:
+        phased.free_engine = free_engine
+    for mode in ("coresident", "parked"):
+        if results[mode] != results["swapped"]:
+            raise AssertionError(f"{label} phased: {mode} records "
+                                 f"{results[mode]} against swapped "
+                                 f"{results['swapped']}")
+    recs = [r for task in results["swapped"].values() for r in task]
+    if len(recs) != 2 or any(r["missing_objects"] != ["red mug"]
+                             or not r["search_result"] for r in recs):
+        raise AssertionError(f"{label} phased: records {recs}")
+    report["frees"] = frees
+    report["records_equal"] = True
+    log(f"[{label} phased] swapped, co-resident and parked records equal; "
+        f"{len(frees)} frees, each released its parameters")
+    del tilted
+    log(f"[time] {label} phased phase {time.perf_counter() - t_phase:.1f} s")
+    return by_part, report
+
+
 def phase_bf16_path(dev):
     """The PR 1 path: the bf16 7B pair, two answers, one over HTTP, one
     forced-search sample."""
@@ -2182,6 +2908,16 @@ def phase_bf16_path(dev):
     report["compiled_by_part"], report["compiled"] = phase_compiled(
         "bf16", vsm_engine, ("flash_attention", "tower_attention"),
         full=True)
+    kernels = ("flash_attention", "tower_attention")
+    for name, phase in (("continuous", lambda: phase_continuous(
+            "bf16", vqa, vsm_engine, kernels, full=True)),
+                        ("kv_int8", lambda: phase_kv_int8(
+                            "bf16", vqa, vsm_engine, kernels)),
+                        ("phased", lambda: phase_phased(
+                            "bf16", vqa, vsm_engine, kernels))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        report[name + "_by_part"], report[name] = phase()
     return counts, slice_counts, report
 
 
@@ -2233,6 +2969,10 @@ def phase_quantized_path(dev):
         "int4mix", vqa, vsm_engine, kernels, full=False)
     report["compiled_by_part"], report["compiled"] = phase_compiled(
         "int4mix", vsm_engine, kernels, full=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["continuous_by_part"], report["continuous"] = phase_continuous(
+        "int4mix", vqa, vsm_engine, kernels, full=False)
     return counts, slice_counts, report
 
 
@@ -2633,12 +3373,9 @@ def main() -> int:
         decode_slice["int4mix"] = phase_quantized_path(dev)
     mark("quantized_path")
     for label in ("bf16", "int4mix"):
-        for part, counts in decode_slice[label].pop(
-                "lockstep_by_part").items():
-            by_path[f"{label}_lockstep_{part}"] = counts
-        for part, counts in decode_slice[label].pop(
-                "compiled_by_part").items():
-            by_path[f"{label}_compiled_{part}"] = counts
+        for key in [k for k in decode_slice[label] if k.endswith("_by_part")]:
+            for part, counts in decode_slice[label].pop(key).items():
+                by_path[f"{label}_{key[:-len('_by_part')]}_{part}"] = counts
     gc.collect()
     torch.cuda.empty_cache()
     by_path["int4_profile"], profile = phase_int4_profile(dev)

@@ -183,3 +183,110 @@ def test_server_main_compiled_serves_a_compiled_vsm(monkeypatch):
     vsm = served[0].vsm
     assert isinstance(vsm, CompiledVSMSearch)
     assert vsm.engine.device_preprocess
+
+
+@pytest.mark.parametrize("argv,continuous", [
+    (["--continuous", "--kv-int8", "--max-batch", "2", "--window-ms", "3"],
+     True),
+    (["--kv-int8"], False)], ids=["continuous_kv_int8", "kv_int8"])
+def test_server_main_accepts_continuous_and_kv_int8(monkeypatch, argv,
+                                                    continuous):
+    """--continuous serves a ContinuousSealService at --max-batch and
+    --window-ms; --kv-int8 builds both engines with int8 KV caches."""
+    from vstar_tpu_torch.serve.continuous import ContinuousSealService
+    served = []
+    monkeypatch.setattr(sys, "argv", ["server", "--random-init", "tiny",
+                                      "--device", "cpu"] + argv)
+    monkeypatch.setattr(server, "serve",
+                        lambda service, *a, **k: served.append(service))
+    server.main()
+    svc = served[0]
+    try:
+        assert isinstance(svc, ContinuousSealService) == continuous
+        assert svc.vqa.kv_int8 and svc.vsm.kv_int8
+        if continuous:
+            assert svc.max_batch == 2 and svc.window == 0.003
+            img = Image.fromarray(np.zeros((64, 96, 3), np.uint8))
+            rec = svc.answer(img, "what color is the tiny cup?")
+            assert {"freeform", "answer", "missing_objects"} <= set(rec)
+    finally:
+        if continuous:
+            svc.close()
+
+
+def test_demo_outputs_give_jax_four_outputs():
+    """serve/demo.py's four outputs (direct answer or trigger, search
+    outcome, box visualization, focused answer) on the stubs are JAX's,
+    and (answer, None, None, None) without a search."""
+    from vstar_tpu.serve.demo import demo_outputs as jax_demo_outputs
+    from vstar_tpu_torch.serve.demo import demo_outputs
+
+    class DirectVQA(StubVQA):
+        def free_form(self, image, question, **kw):
+            return "a plain answer"
+
+    img = Image.fromarray(np.zeros((80, 120, 3), np.uint8))
+    for vqa, vsm in ((StubVQA, StubVSM), (StubVQA, FailingVSM),
+                     (DirectVQA, StubVSM)):
+        got = demo_outputs(server.SealService(vqa(), vsm()), img,
+                           "what color is the tiny cup?")
+        want = jax_demo_outputs(JaxSealService(vqa(), vsm()), img,
+                                "what color is the tiny cup?")
+        assert (got[0], got[1], got[3]) == (want[0], want[1], want[3])
+        if want[2] is None:
+            assert got[2] is None
+        else:
+            assert got[2] is not img
+            np.testing.assert_array_equal(np.asarray(got[2]),
+                                          np.asarray(want[2]))
+    assert demo_outputs(server.SealService(StubVQA(), StubVSM()), img,
+                        "q?")[0] == ("Need to conduct visual search to "
+                                     "search for: tiny cup.")
+
+
+def test_demo_cli_and_flags(monkeypatch, tmp_path, capsys):
+    """demo.main parses the server's engine flags as server.main does
+    (engine construction stubbed, the same command line to both), and its
+    terminal REPL answers a line and writes the boxes."""
+    from vstar_tpu_torch.serve import demo
+
+    argv = ["--random-init", "7b", "--int4mix", "--kv-int8", "--compiled",
+            "--warmup", "--prompt-lookup", "--device-preprocess"]
+    parsed = {}
+
+    def fake_engines(name):
+        def build(args, max_batch=1):
+            parsed[name] = vars(args)
+            return StubVQA(), StubVSM()
+        return build
+    monkeypatch.setattr(server, "serve", lambda *a, **k: None)
+    monkeypatch.setattr(server, "engines_from_flags", fake_engines("server"))
+    monkeypatch.setattr(sys, "argv", ["server"] + argv)
+    server.main()
+    path = tmp_path / "img.png"
+    Image.fromarray(np.zeros((80, 120, 3), np.uint8)).save(path)
+    lines = iter([f"{path} :: what color is the tiny cup?", "no separator"])
+
+    def fake_input(prompt=""):
+        try:
+            return next(lines)
+        except StopIteration:
+            raise EOFError from None
+    monkeypatch.setattr("builtins.input", fake_input)
+    monkeypatch.setitem(sys.modules, "gradio", None)   # the terminal REPL
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(server, "engines_from_flags", fake_engines("demo"))
+    monkeypatch.setattr(sys, "argv", ["demo"] + argv)
+    demo.main()
+    engine_flags = set(parsed["server"]) & set(parsed["demo"])
+    assert engine_flags >= {"random_init", "device", "int8", "int4",
+                            "mixed", "int4mix", "kv_int8", "prompt_lookup",
+                            "device_preprocess", "compiled", "warmup"}
+    assert {k: parsed["demo"][k] for k in engine_flags} == \
+        {k: parsed["server"][k] for k in engine_flags}
+    assert parsed["demo"]["kv_int8"] and parsed["demo"]["int4mix"]
+    out = capsys.readouterr().out
+    assert "search result: Targets located after search: tiny cup." in out
+    assert "final answer: it is red" in out
+    assert "format: <image_path> :: <question>" in out
+    assert (tmp_path / "demo_out" / "search_0.jpg").exists()

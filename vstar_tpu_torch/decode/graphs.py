@@ -34,12 +34,23 @@ Kernel wrappers count their launches when they are called, which under
 a graph is at capture and not at replay. A capture therefore records
 the growth of every registered counter (kernels/_build.COUNTERS) and
 undoes it, and every replay adds it back, so the counts are what eager
-launches would have counted.
+launches would have counted. The counters are plain integers: with two
+threads decoding (serve/continuous.py's pipeline), a capture in one can
+drop the other's increments made while it ran.
+
+Threads: each engine's DecodeGraphs serves one thread, and other threads
+may launch work meanwhile (the continuous service's stage workers, the
+canvas uploads). A capture runs in "thread_local" mode, so their calls
+do not break it, and one capture runs at a time in the process
+(`_CAPTURE_LOCK`): torch.cuda.graph synchronizes the device, empties the
+allocator's cache and captures on a stream shared by all its instances,
+none of which may overlap another thread's capture.
 """
 
 from __future__ import annotations
 
 import logging
+import threading
 from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -58,6 +69,9 @@ _LOG = logging.getLogger(__name__)
 # the key); the rest is room for keys only other traffic reaches
 # (sampling, the keyword decode's chunks, other budgets).
 MAX_GRAPHS = 32
+
+# one capture at a time in the process (module docstring)
+_CAPTURE_LOCK = threading.Lock()
 
 
 def counters_snapshot() -> Dict:
@@ -153,49 +167,67 @@ class DecodeGraphs:
     # -- static caches ------------------------------------------------------
 
     def cache(self, cfg, rows: int, cache_len: int, dtype,
-              device) -> KVCache:
-        """The static cache of (rows, cache_len, dtype) on `device`: the
-        same storage at every call, its lengths zero, valid until the
-        next call of any key (module docstring). The caller's prefill
-        writes it in place; entries at or above a row's length hold
-        whatever an earlier call wrote there (attention never reads
-        them)."""
+              device, kv_int8: bool = False) -> KVCache:
+        """The static cache of (rows, cache_len, dtype, kv_int8) on
+        `device`: the same storage at every call, its lengths zero, valid
+        until the next call of any key (module docstring). kv_int8: int8
+        k/v with f32 scales (nn/llama.KVCache), views of an int8 slab and
+        a scale slab. The caller's prefill writes it in place; entries at
+        or above a row's length hold whatever an earlier call wrote there
+        (attention never reads them)."""
         device = torch.device(device)
         key = (cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, rows,
-               cache_len, dtype, str(device))
+               cache_len, dtype, str(device), kv_int8)
         c = self._caches.get(key)
         if c is None:
             shape = (cfg.num_layers, rows, cache_len, cfg.num_kv_heads,
                      cfg.head_dim)
             n = rows * cache_len * cfg.num_layers * cfg.num_kv_heads \
                 * cfg.head_dim
-            base = key[:3] + key[5:]
+            base = key[:3] + key[6:7]
             with torch.inference_mode(False):
-                slab = self._slabs.get(base)
-                if slab is None or slab.numel() < 2 * n:
-                    slab = torch.zeros((1 << (2 * n - 1).bit_length(),),
-                                       dtype=dtype, device=device)
-                    self._slabs[base] = slab
-                    _LOG.info("decode cache slab for rows=%d len=%d %s: "
-                              "%.1f MiB; slabs hold %.1f MiB", rows,
-                              cache_len, dtype, self._bytes(slab) / 2**20,
-                              self.cache_bytes() / 2**20)
-                c = KVCache(k=slab[:n].view(shape), v=slab[n:2 * n]
-                            .view(shape),
+                kv = self._slab(base + ("kv", torch.int8 if kv_int8
+                                        else dtype), 2 * n, device,
+                                rows, cache_len)
+                scales = {}
+                if kv_int8:
+                    m = n // cfg.head_dim
+                    sc = self._slab(base + ("scale", torch.float32), 2 * m,
+                                    device, rows, cache_len)
+                    scales = dict(k_scale=sc[:m].view(shape[:-1]),
+                                  v_scale=sc[m:2 * m].view(shape[:-1]))
+                c = KVCache(k=kv[:n].view(shape), v=kv[n:2 * n].view(shape),
                             length=torch.zeros((rows,), dtype=torch.int32,
-                                               device=device))
+                                               device=device), **scales)
             self._caches[key] = c
         c.length.zero_()
         return c
+
+    def _slab(self, key, numel: int, device, rows: int,
+              cache_len: int) -> torch.Tensor:
+        """The newest slab of `key` (..., role, dtype), replaced by a new
+        one of a power of two of elements when it holds fewer than
+        `numel`."""
+        slab = self._slabs.get(key)
+        if slab is None or slab.numel() < numel:
+            slab = torch.zeros((1 << (numel - 1).bit_length(),),
+                               dtype=key[-1], device=device)
+            self._slabs[key] = slab
+            _LOG.info("decode cache %s slab for rows=%d len=%d %s: %.1f MiB;"
+                      " slabs hold %.1f MiB", key[-2], rows, cache_len,
+                      key[-1], self._bytes(slab) / 2**20,
+                      self.cache_bytes() / 2**20)
+        return slab
 
     @staticmethod
     def _bytes(t: torch.Tensor) -> int:
         return t.untyped_storage().nbytes()
 
     def cache_bytes(self) -> int:
-        """The bytes of every slab a cache or the newest slab holds."""
-        slabs = {c.k.untyped_storage().data_ptr(): self._bytes(c.k)
-                 for c in self._caches.values()}
+        """The bytes of every slab a cache or the newest slab holds (the
+        int8 caches' scale slabs included)."""
+        slabs = {t.untyped_storage().data_ptr(): self._bytes(t)
+                 for c in self._caches.values() for t in c.tensors()}
         slabs.update((s.untyped_storage().data_ptr(), self._bytes(s))
                      for s in self._slabs.values())
         return sum(slabs.values())
@@ -219,7 +251,8 @@ class DecodeGraphs:
         key = key + (quant._ACT_INT8,)
         g = self._graphs.pop(key, None)
         if g is None:
-            g = self._capture(key, state, step, holds, generator)
+            with _CAPTURE_LOCK:
+                g = self._capture(key, state, step, holds, generator)
         self._graphs[key] = g
         while len(self._graphs) > MAX_GRAPHS:
             self._graphs.popitem(last=False)

@@ -201,7 +201,7 @@ def greedy_decode(params: Dict, cfg: LlamaConfig, cache: KVCache,
         h = embed_tokens(params, cur, compute_dtype)
         hidden, _ = llama_forward(
             params, cfg, h, length[:, None], length + 1, q_offsets=length,
-            cache=KVCache(k=cache.k, v=cache.v, length=length))
+            cache=cache.with_length(length))
         logits = lm_logits(params, hidden)
         if trace is not None:
             trace.append((t.expand(B).clone(), logits))
@@ -224,12 +224,13 @@ def greedy_decode(params: Dict, cfg: LlamaConfig, cache: KVCache,
         s["ctl"].copy_(_ctl(t < max_new_tokens, done, t - 1))
 
     key = ("greedy", weights_key(params), cache.k.data_ptr(),
-           tuple(cache.k.shape), B, max_new_tokens, compute_dtype,
-           first_hidden.dtype, tuple(stop_ids), tuple(static),
+           tuple(cache.k.shape), cache.kv_int8, B, max_new_tokens,
+           compute_dtype, first_hidden.dtype, tuple(stop_ids), tuple(static),
            id(generator) if sampling else None, replay_trace is not None)
     out, n_forwards, _ = run_steps(
         graphs, key, state, step, 1 if trace is not None else steps_per_read,
-        holds=(cache.k, cache.v, params) + ((generator,) if sampling else ()),
+        holds=cache.tensors() + (params,)
+        + ((generator,) if sampling else ()),
         generator=generator if sampling else None,
         check_first=trace is not None)
     _trace_read(out, n_forwards, replay_trace)
@@ -238,8 +239,7 @@ def greedy_decode(params: Dict, cfg: LlamaConfig, cache: KVCache,
     tokens = torch.where(pos < ngen[:, None], out["tokens"], stop[0])
     return DecodeResult(tokens=tokens, hiddens=out["hiddens"].clone(),
                         num_generated=ngen,
-                        cache=KVCache(k=cache.k, v=cache.v,
-                                      length=out["length"].clone()),
+                        cache=cache.with_length(out["length"].clone()),
                         n_forwards=n_forwards)
 
 

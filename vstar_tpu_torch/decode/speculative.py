@@ -134,7 +134,7 @@ def _spec_loop(params: Dict, cfg: LlamaConfig, cache: KVCache,
         hidden, _ = llama_forward(
             params, cfg, h, length[:, None] + width, length + K,
             q_offsets=length,
-            cache=KVCache(k=cache.k, v=cache.v, length=length))
+            cache=cache.with_length(length))
         logits = lm_logits(params, hidden)                   # [B, K, V]
         if trace is not None:
             trace.append((ngen.clone(), logits))
@@ -179,12 +179,12 @@ def _spec_loop(params: Dict, cfg: LlamaConfig, cache: KVCache,
         s["ctl"].copy_(_ctl(running(s), done, s["nfwd"]))
 
     key = ("verify", weights_key(params), cache.k.data_ptr(),
-           tuple(cache.k.shape), B, K, max_new_tokens, compute_dtype,
-           first_hidden.dtype, tuple(stop_ids),
+           tuple(cache.k.shape), cache.kv_int8, B, K, max_new_tokens,
+           compute_dtype, first_hidden.dtype, tuple(stop_ids),
            replay_trace is not None) + key
     out, nfwd, _ = run_steps(
         graphs, key, state, step, 1 if trace is not None else steps_per_read,
-        holds=(cache.k, cache.v, params), check_first=trace is not None)
+        holds=cache.tensors() + (params,), check_first=trace is not None)
     _trace_read(out, nfwd, replay_trace)
     ngen = out["ngen"].clone()
     pos = torch.arange(max_new_tokens, device=dev)[None]
@@ -193,8 +193,7 @@ def _spec_loop(params: Dict, cfg: LlamaConfig, cache: KVCache,
     return DecodeResult(tokens=tokens,
                         hiddens=out["hiddens"][:, :max_new_tokens].clone(),
                         num_generated=ngen,
-                        cache=KVCache(k=cache.k, v=cache.v,
-                                      length=out["length"].clone()),
+                        cache=cache.with_length(out["length"].clone()),
                         n_forwards=nfwd)
 
 

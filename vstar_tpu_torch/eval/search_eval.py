@@ -129,6 +129,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compiled", action="store_true", default=False,
                    help="whole searches as device steps (search/compiled.py;"
                         " implies --device-preprocess, no --visualization)")
+    p.add_argument("--kv-int8", dest="kv_int8", action="store_true",
+                   default=False,
+                   help="int8 KV caches with per-(token, head) scales (the "
+                        "loader would build the engine with kv_int8=True)")
     return p
 
 

@@ -73,13 +73,15 @@ class VQAEngine:
                  prompt_buckets: Tuple[int, ...] = (512, 768, 1024),
                  option_bucket: int = 64, compute_dtype=torch.bfloat16,
                  speculative_template: Optional[str] = None,
-                 prompt_lookup: bool = False):
+                 prompt_lookup: bool = False, kv_int8: bool = False):
         """speculative_template None takes SPEC_TEMPLATE, as the JAX
         engine does (set `_spec_template = None` for plain greedy).
         prompt_lookup: n-gram drafts from the prompt and the answer so far
         (decode/speculative.lookup_decode) in place of the template, at
         temperature 0. Sampling draws from the engine's own generator,
-        seeded 0 at construction (vstar_tpu's PRNGKey(0))."""
+        seeded 0 at construction (vstar_tpu's PRNGKey(0)).
+        kv_int8: int8 KV caches with per-(token, head) scales
+        (nn/llama.KVCache), for free-form decode and option scoring."""
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -93,6 +95,7 @@ class VQAEngine:
                                else speculative_template)
         self.spec_chunk = 8
         self.prompt_lookup = prompt_lookup
+        self.kv_int8 = kv_int8
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(0)
         # decode stats of the last free-form call (decode_stats), None
@@ -192,7 +195,8 @@ class VQAEngine:
         bank = encode_feature_bank(self.params, self.cfg, img, objs)
         bank = bank.to(self.compute_dtype)
         cache = self.graphs.cache(self.cfg.llama, len(lays), cache_len,
-                                  self.compute_dtype, dev)
+                                  self.compute_dtype, dev,
+                                  kv_int8=self.kv_int8)
         lens = torch.tensor([lay.length for lay in lays], dtype=torch.int32,
                             device=dev)
 

@@ -7,10 +7,11 @@ image, prints the per-task and overall accuracy with the p50 latency and
 images/s, and writes the result JSON in the reference schema. Ported:
 `eval_model` (serial, or with --image-batch > 1 the batched loop of
 eval/batched_bench.py; --compiled wraps the VSM engine in
-search/compiled.CompiledVSMSearch) and `build_parser`. Not yet: the
-checkpoint loaders (so the command line; ROADMAP Queue 1 item 10), the
-phase-swapped run (item 8), the int8 KV cache (item 7) and the mesh
-(item 12).
+search/compiled.CompiledVSMSearch), the phase-swapped run
+(--single-chip-phased, eval/phased.py) on engine factories, and
+`build_parser`. Not yet: the checkpoint loaders (so the command line and
+--single-chip-phased without factories; ROADMAP Queue 1 item 10) and the
+mesh (item 12).
 """
 
 from __future__ import annotations
@@ -32,33 +33,91 @@ LOADERS_NOT_PORTED = (
     "serve.server.random_init_engines or VQAEngine / VSMEngine")
 
 
+PHASED_NEEDS_FACTORIES = (
+    "--single-chip-phased builds its engines per phase with the checkpoint "
+    "loaders, which are not ported yet (ROADMAP Queue 1 item 10); pass "
+    "factories=(vqa_factory, vsm_factory) to eval_model")
+
+
 def _refuse_unported(args) -> None:
-    for flag, item in (("single_chip_phased", 8), ("kv_int8", 7),
-                       ("mesh", 12)):
-        if getattr(args, flag, None):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet (ROADMAP "
-                f"Queue 1 item {item})")
+    if getattr(args, "mesh", None):
+        raise NotImplementedError(
+            "--mesh is not ported yet (ROADMAP Queue 1 item 12)")
 
 
-def eval_model(args, vqa_engine=None, vsm_engine=None):
+def _check_engine_flags(args, vqa_engine=None, vsm_engine=None) -> None:
+    """--device-preprocess / --compiled / --kv-int8 ask for engines built
+    so (the loaders would build them)."""
+    engines = [] if vqa_engine is None else [vqa_engine]
+    if vsm_engine is not None:
+        base = getattr(vsm_engine, "engine", vsm_engine)
+        engines.append(base)
+        if (getattr(args, "device_preprocess", False)
+                or getattr(args, "compiled", False)) \
+                and not getattr(base, "device_preprocess", False):
+            raise ValueError("--device-preprocess / --compiled: the VSM "
+                             "engine was not built with "
+                             "device_preprocess=True")
+    if getattr(args, "kv_int8", False) and not all(
+            getattr(e, "kv_int8", False) for e in engines):
+        raise ValueError("--kv-int8: the engines were not built with "
+                         "kv_int8=True")
+
+
+def _eval_phased(args, factories):
+    """--single-chip-phased on zero-argument engine factories
+    (eval/phased.eval_model_phased), as vstar_tpu runs it on its loaders;
+    --compiled wraps each VSM the factory builds."""
+    from .phased import eval_model_phased
+    vqa_factory, vsm_factory = factories
+
+    def vqa_checked():
+        eng = vqa_factory()
+        _check_engine_flags(args, vqa_engine=eng)
+        return eng
+
+    def vsm_wrapped():
+        eng = vsm_factory()
+        _check_engine_flags(args, vsm_engine=eng)
+        if getattr(args, "compiled", False) and not hasattr(eng, "search"):
+            from ..search.compiled import CompiledVSMSearch
+            return CompiledVSMSearch(eng)
+        return eng
+
+    return eval_model_phased(
+        args.benchmark_folder, vqa_checked, vsm_wrapped,
+        output_path=args.output_path,
+        minimum_size_scale=args.minimum_size_scale,
+        minimum_size=args.minimum_size,
+        # an explicit --image-batch is honored; unset, vstar_tpu's wave
+        batch=getattr(args, "image_batch", None) or 8,
+        coresident=getattr(args, "coresident", False))
+
+
+def eval_model(args, vqa_engine=None, vsm_engine=None, factories=None):
     """The SEAL loop over a V*Bench folder. Returns (results by task,
     per-task correctness lists, per-image latencies in seconds); with
     --image-batch > 1 eval/batched_bench.eval_model_batched runs it, and
     the return is (results by task, None, None), as in vstar_tpu.
     --device-preprocess (and --compiled, which implies it) asks for a
     VSM engine built with device_preprocess=True (the loaders would build
-    one); --compiled wraps it in CompiledVSMSearch, as vstar_tpu wraps
-    its loaded engine."""
+    one), --kv-int8 for engines built with kv_int8=True; --compiled wraps
+    the VSM in CompiledVSMSearch, as vstar_tpu wraps its loaded engine.
+    --single-chip-phased (with --coresident) runs eval/phased.py on
+    `factories` = (vqa_factory, vsm_factory), zero-argument functions
+    that build an engine, and returns its (results, per-task correctness, timings)."""
+    _refuse_unported(args)
+    if getattr(args, "single_chip_phased", False):
+        if vqa_engine is not None or vsm_engine is not None:
+            raise ValueError("--single-chip-phased builds its own engines "
+                             "per phase: pass factories, not engines")
+        if factories is None:
+            raise NotImplementedError(PHASED_NEEDS_FACTORIES)
+        return _eval_phased(args, factories)
     if vqa_engine is None or vsm_engine is None:
         raise NotImplementedError(LOADERS_NOT_PORTED)
-    _refuse_unported(args)
+    _check_engine_flags(args, vqa_engine, vsm_engine)
     compiled = getattr(args, "compiled", False)
-    base = getattr(vsm_engine, "engine", vsm_engine)
-    if (getattr(args, "device_preprocess", False) or compiled) \
-            and not getattr(base, "device_preprocess", False):
-        raise ValueError("--device-preprocess / --compiled: the VSM engine "
-                         "was not built with device_preprocess=True")
     if compiled and not hasattr(vsm_engine, "search"):
         from ..search.compiled import CompiledVSMSearch
         vsm_engine = CompiledVSMSearch(vsm_engine)
@@ -136,7 +195,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "(search/compiled.py; implies --device-preprocess, "
                         "no --visualization)")
     p.add_argument("--kv-int8", dest="kv_int8", action="store_true",
-                   default=False, help="int8 KV cache (not ported yet)")
+                   default=False,
+                   help="int8 KV caches with per-(token, head) scales "
+                        "(engines built with kv_int8=True)")
     p.add_argument("--int4", dest="int4", action="store_true",
                    default=False, help="group-128 int4 decoders")
     p.add_argument("--int4mix", dest="int4mix", action="store_true",
@@ -149,9 +210,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "same tokens)")
     p.add_argument("--single-chip-phased", dest="single_chip_phased",
                    action="store_true", default=False,
-                   help="one model resident at a time (not ported yet)")
+                   help="one model resident at a time: free-form over all "
+                        "images, one swap to the VSM, all searches, swap "
+                        "back, all focus re-asks (eval/phased.py; needs "
+                        "engine factories until the loaders are ported)")
     p.add_argument("--coresident", action="store_true", default=False,
-                   help="with --single-chip-phased (not ported yet)")
+                   help="with --single-chip-phased: build both engines up "
+                        "front and skip the swaps")
     p.add_argument("--mixed", action="store_true", default=False,
                    help="int8 VQA decoder, int4 VSM decoder, int8 towers")
     return p

@@ -142,7 +142,8 @@ def vsm_generate(params: Dict, cfg: VSMConfig, images_clip: torch.Tensor,
                  draft_ids: Optional[torch.Tensor] = None,
                  spec_chunk: int = 8,
                  trace: Optional[List] = None,
-                 replay_trace: Optional[List] = None) -> VSMOutput:
+                 replay_trace: Optional[List] = None,
+                 kv_int8: bool = False) -> VSMOutput:
     """Prefill, decode with hidden capture, [LOC] selection, then the
     detection and segmentation heads (vstar_tpu vsm_generate). Without a
     generated [LOC] the heads still run, on the hidden state of generated
@@ -157,14 +158,17 @@ def vsm_generate(params: Dict, cfg: VSMConfig, images_clip: torch.Tensor,
     graphs: the engine's DecodeGraphs: the prefill fills one of its
     static caches, and on the card the decode replays its captured
     steps;
-    replay_trace: the decode's logits trace taken during the replay."""
+    replay_trace: the decode's logits trace taken during the replay.
+    kv_int8: an int8 KV cache with per-(token, head) scales
+    (nn/llama.KVCache)."""
     B, S = text_ids.shape
     dev = text_ids.device
     bank = encode_clip_bank(params, cfg, images_clip).to(compute_dtype)
     h = apply_splice(embed_tokens(params["llama"], text_ids, compute_dtype),
                      bank, feat_idx, is_feat)
     pos = torch.arange(S, device=dev)[None].expand(B, S)
-    cache = graphs.cache(cfg.llama, B, cache_len, compute_dtype, dev)
+    cache = graphs.cache(cfg.llama, B, cache_len, compute_dtype, dev,
+                         kv_int8=kv_int8)
     hidden, cache = llama_forward(
         params["llama"], cfg.llama, h, pos, lens,
         q_offsets=torch.zeros((B,), dtype=torch.int32, device=dev),

@@ -39,25 +39,67 @@ from ..train.lora import lora_delta
 class KVCache:
     """Ragged per-row KV cache. k/v: [L, B, S_max, H_kv, Dh]; length: [B].
 
-    Forwards write k/v in place; a returned cache shares the storage of
-    the one passed in and carries the new lengths."""
+    int8 mode: k/v int8 with per-(token, head) f32 scales k_scale /
+    v_scale [L, B, S_max, H_kv] (vstar_tpu's int8 KV cache). Forwards
+    quantize what they insert and dequantize the layer's cache in plain
+    torch before attention, as JAX does outside its kernel.
+
+    Forwards write k/v (and the scales) in place; a returned cache shares
+    the storage of the one passed in and carries the new lengths."""
 
     k: torch.Tensor
     v: torch.Tensor
     length: torch.Tensor  # int32 [B], valid prefix per row
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def kv_int8(self) -> bool:
+        return self.k_scale is not None
+
+    def tensors(self) -> Tuple[torch.Tensor, ...]:
+        """The cache's storage: k, v and, in int8 mode, the scales."""
+        return tuple(t for t in (self.k, self.v, self.k_scale, self.v_scale)
+                     if t is not None)
+
+    def with_length(self, length: torch.Tensor) -> "KVCache":
+        """The same storage with other lengths."""
+        return dataclasses.replace(self, length=length)
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, kv_int8: bool = False, *,
                device) -> KVCache:
-    if kv_int8:
-        raise NotImplementedError(
-            "int8 KV cache: deferred with the quantized paths (ROADMAP)")
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    length = torch.zeros((batch,), dtype=torch.int32, device=device)
+    if kv_int8:
+        return KVCache(k=torch.zeros(shape, dtype=torch.int8, device=device),
+                       v=torch.zeros(shape, dtype=torch.int8, device=device),
+                       length=length,
+                       k_scale=torch.zeros(shape[:-1], dtype=torch.float32,
+                                           device=device),
+                       v_scale=torch.zeros(shape[:-1], dtype=torch.float32,
+                                           device=device))
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device),
-                   length=torch.zeros((batch,), dtype=torch.int32,
-                                      device=device))
+                   length=length)
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[B, S, H, D] -> (int8 [B, S, H, D], f32 scale [B, S, H]) per token
+    and head: absmax / 127, rounded half to even (vstar_tpu _quantize_kv).
+    Both divisions are by tensors: on CUDA a Python-scalar divisor is a
+    reciprocal multiply, not the IEEE quotient."""
+    xf = x.float()
+    s = (xf.abs().amax(dim=-1)
+         / torch.full((), 127.0, device=x.device)).clamp_min(1e-10)
+    return torch.round(xf / s[..., None]).to(torch.int8), s
+
+
+def _dequantize_kv(q: torch.Tensor, s: torch.Tensor,
+                   dtype) -> torch.Tensor:
+    """int8 [B, S, H, D] x f32 [B, S, H] -> dtype."""
+    return (q.float() * s[..., None]).to(dtype)
 
 
 def _matrices(init: Init, quantize, name: str, in_dim: int, out_dim: int,
@@ -127,7 +169,9 @@ def _attention_block(lp: Dict, cfg: LlamaConfig, x: torch.Tensor,
                      q_offsets: Optional[torch.Tensor],
                      cache_k: Optional[torch.Tensor],
                      cache_v: Optional[torch.Tensor],
-                     kv_valid: Optional[torch.Tensor] = None):
+                     kv_valid: Optional[torch.Tensor] = None,
+                     cache_ks: Optional[torch.Tensor] = None,
+                     cache_vs: Optional[torch.Tensor] = None):
     B, S, _ = x.shape
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = qdot(x, lp["wq"])
@@ -142,9 +186,19 @@ def _attention_block(lp: Dict, cfg: LlamaConfig, x: torch.Tensor,
     if cache_k is not None:
         offs = q_offsets if q_offsets is not None else \
             torch.zeros((B,), dtype=torch.int32, device=x.device)
-        _ragged_insert(cache_k, k, offs)
-        _ragged_insert(cache_v, v, offs)
-        k_all, v_all = cache_k, cache_v
+        if cache_ks is not None:        # int8 KV cache
+            kq, ks = _quantize_kv(k)
+            vq, vs = _quantize_kv(v)
+            _ragged_insert(cache_k, kq, offs)
+            _ragged_insert(cache_v, vq, offs)
+            _ragged_insert(cache_ks, ks, offs)
+            _ragged_insert(cache_vs, vs, offs)
+            k_all = _dequantize_kv(cache_k, cache_ks, k.dtype)
+            v_all = _dequantize_kv(cache_v, cache_vs, v.dtype)
+        else:
+            _ragged_insert(cache_k, k, offs)
+            _ragged_insert(cache_v, v, offs)
+            k_all, v_all = cache_k, cache_v
     else:
         k_all, v_all = k, v
 
@@ -186,28 +240,27 @@ def llama_forward(params: Dict, cfg: LlamaConfig, hidden: torch.Tensor,
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
 
-    def one_layer(x, lp, ck, cv):
+    def one_layer(x, lp, ck=None, cv=None, cks=None, cvs=None):
         h = rmsnorm(lp["input_norm"], x, cfg.rms_norm_eps)
         x = x + _attention_block(lp["attn"], cfg, h, cos, sin, kv_lens,
-                                 q_offsets, ck, cv, kv_valid)
+                                 q_offsets, ck, cv, kv_valid, cks, cvs)
         h = rmsnorm(lp["post_norm"], x, cfg.rms_norm_eps)
         return x + _mlp_block(lp["mlp"], h)
 
     x = hidden
     for i in range(cfg.num_layers):
         lp = layer(params["layers"], i)
-        ck = cv = None
+        kv = ()
         if cache is not None:
-            ck, cv = cache.k[i], cache.v[i]
+            kv = tuple(t[i] for t in cache.tensors())
         if remat and torch.is_grad_enabled():
-            x = torch.utils.checkpoint.checkpoint(one_layer, x, lp, ck, cv,
+            x = torch.utils.checkpoint.checkpoint(one_layer, x, lp, *kv,
                                                   use_reentrant=False)
         else:
-            x = one_layer(x, lp, ck, cv)
+            x = one_layer(x, lp, *kv)
     new_cache = None
     if cache is not None:
-        new_cache = KVCache(k=cache.k, v=cache.v,
-                            length=kv_lens.to(torch.int32))
+        new_cache = cache.with_length(kv_lens.to(torch.int32))
     return rmsnorm(params["final_norm"], x, cfg.rms_norm_eps), new_cache
 
 

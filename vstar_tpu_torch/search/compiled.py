@@ -626,7 +626,8 @@ def fused_search_batched(params, cfg, canvases: torch.Tensor, states,
                          max_new_tokens: int, eos_id: int, cache_len: int,
                          compute_dtype, spec_chunk: int, max_steps,
                          graphs: DecodeGraphs,
-                         reads: Optional[list] = None):
+                         reads: Optional[list] = None,
+                         kv_int8: bool = False):
     """B concurrent searches advance together, one device step at a time,
     until no row is RUNNING (or waiting for its context answer): each
     step cuts every engaged row's tower windows from its canvas, runs ONE
@@ -695,7 +696,7 @@ def fused_search_batched(params, cfg, canvases: torch.Tensor, states,
                            max_new_tokens=max_new_tokens, eos_id=eos_id,
                            cache_len=cache_len, compute_dtype=compute_dtype,
                            draft_ids=draft_ids, spec_chunk=spec_chunk,
-                           graphs=graphs)
+                           graphs=graphs, kv_int8=kv_int8)
         heat = torch.where(out.loc_valid[:, None, None],
                            _resize_clip(out.mask_logits, bboxes, Hc, Wc),
                            torch.zeros((), dtype=_F32, device=dev))
@@ -746,7 +747,8 @@ def fused_search(params, cfg, canvas: torch.Tensor, state: PolicyState,
                  target_cue_threshold_decay, target_cue_threshold_minimum,
                  *, loc_token_id: int, max_new_tokens: int, eos_id: int,
                  cache_len: int, compute_dtype, spec_chunk: int, max_steps,
-                 graphs: DecodeGraphs, reads: Optional[list] = None):
+                 graphs: DecodeGraphs, reads: Optional[list] = None,
+                 kv_int8: bool = False):
     """One search's device steps until an exit (fused_search_batched with
     one row). text_ids / feat_idx / is_feat [3, 1, S], lens [3, 1];
     canvas [Hc, Wc, 3] CLIP-normalized f32. Returns (state', store,
@@ -760,7 +762,7 @@ def fused_search(params, cfg, canvas: torch.Tensor, state: PolicyState,
         target_cue_threshold_minimum, loc_token_id=loc_token_id,
         max_new_tokens=max_new_tokens, eos_id=eos_id, cache_len=cache_len,
         compute_dtype=compute_dtype, spec_chunk=spec_chunk,
-        max_steps=max_steps, graphs=graphs, reads=reads)
+        max_steps=max_steps, graphs=graphs, reads=reads, kv_int8=kv_int8)
     return _unbatch(st), store[0], recs[0], det_l[0], det_b[0]
 
 
@@ -1088,7 +1090,8 @@ class CompiledVSMSearch:
                     max_new_tokens=eng.max_new_tokens, eos_id=eng.eos_id,
                     cache_len=cache_len, compute_dtype=eng.compute_dtype,
                     spec_chunk=eng.spec_chunk, max_steps=max_steps,
-                    graphs=eng.graphs, reads=reads)
+                    graphs=eng.graphs, reads=reads,
+                    kv_int8=getattr(eng, "kv_int8", False))
 
     def _draft(self, B: int):
         eng = self.engine

@@ -45,7 +45,10 @@ class VSMEngine:
                  max_new_tokens: int = 100,
                  prompt_buckets: Tuple[int, ...] = (384, 512),
                  compute_dtype=torch.bfloat16,
-                 speculative_template: Optional[str] = "Sure, [LOC]."):
+                 speculative_template: Optional[str] = "Sure, [LOC].",
+                 kv_int8: bool = False):
+        """kv_int8: int8 KV caches with per-(token, head) scales
+        (nn/llama.KVCache)."""
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -55,6 +58,7 @@ class VSMEngine:
         self.max_new_tokens = max_new_tokens
         self.prompt_buckets = tuple(sorted(prompt_buckets))
         self.compute_dtype = compute_dtype
+        self.kv_int8 = kv_int8
         self.spec_chunk = 8
         # the template's tokens (no BOS) then eos, in an eos-filled row
         # max_new_tokens + spec_chunk wide; None decodes greedily
@@ -138,7 +142,8 @@ class VSMEngine:
                                              + self.spec_chunk),
                 compute_dtype=self.compute_dtype, draft_ids=draft,
                 spec_chunk=self.spec_chunk, trace=self.decode_trace,
-                graphs=self.graphs, replay_trace=self.replay_trace)
+                graphs=self.graphs, replay_trace=self.replay_trace,
+                kv_int8=self.kv_int8)
         out = out._replace(**{k: v.cpu() for k, v in out._asdict().items()
                               if isinstance(v, torch.Tensor)})
         self.last_decode_stats = decode_stats(

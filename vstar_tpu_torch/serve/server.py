@@ -12,10 +12,15 @@ Response with options: the SEAL record ("prediction_freeform",
     python -m vstar_tpu_torch.serve.server --random-init 7b --int4mix
     python -m vstar_tpu_torch.serve.server --random-init 7b \
         --device-preprocess --warmup --max-batch 8
+    python -m vstar_tpu_torch.serve.server --random-init 7b --continuous \
+        --max-batch 8 --window-ms 8
+    python -m vstar_tpu_torch.serve.server --random-init 7b --kv-int8
 
 The VSM engine is a BatchedVSMEngine, as in vstar_tpu: the searches of a
 request's missing objects advance in lockstep waves, one device batch
-per wave.
+per wave. --continuous serves through serve/continuous.py's
+ContinuousSealService: concurrent requests co-batch in waves of up to
+--max-batch, formed within --window-ms of the first arrival.
 """
 
 from __future__ import annotations
@@ -159,7 +164,8 @@ def check_random_init(size: str, device) -> None:
 def random_init_engines(size: str, device, int8: bool = False,
                         int4: bool = False, mixed: bool = False,
                         int4mix: bool = False, prompt_lookup: bool = False,
-                        device_preprocess: bool = False):
+                        device_preprocess: bool = False,
+                        kv_int8: bool = False):
     """Checkpoint-free engines: the real model graphs with random weights
     drawn on `device` and the stub tokenizer, as vstar_tpu's
     --random-init builds them. 'tiny' is f32 and unquantized (a CPU
@@ -177,7 +183,8 @@ def random_init_engines(size: str, device, int8: bool = False,
     on this path too. vstar_tpu's random-init VSM turns its template off:
     random weights never answer it, and the tokens are the same. The VSM
     engine is a BatchedVSMEngine (device_preprocess: patches cut from a
-    canvas of the image on the device)."""
+    canvas of the image on the device). kv_int8: both engines keep int8
+    KV caches with per-(token, head) scales."""
     from ..core.config import vqa_llm_7b, vqa_llm_tiny, vsm_7b, vsm_tiny
     from ..eval.vqa_engine import VQAEngine
     from ..models.vqa_llm import init_vqa_llm_params
@@ -209,13 +216,14 @@ def random_init_engines(size: str, device, int8: bool = False,
     vqa = VQAEngine(vqa_params, vqa_cfg, tok, device=device,
                     prompt_buckets=(64,) if tiny else (512, 768),
                     option_bucket=16 if tiny else 64, compute_dtype=dtype,
-                    prompt_lookup=prompt_lookup)
+                    prompt_lookup=prompt_lookup, kv_int8=kv_int8)
     vsm = BatchedVSMEngine(vsm_params, vsm_cfg, tok, loc_token_id=3,
                            device=device, eos_id=2,
                            max_new_tokens=4 if tiny else 16,
                            prompt_buckets=(64,) if tiny else (384,),
                            compute_dtype=dtype,
-                           device_preprocess=device_preprocess)
+                           device_preprocess=device_preprocess,
+                           kv_int8=kv_int8)
     return vqa, vsm
 
 
@@ -255,15 +263,13 @@ def warmup_engines(vqa, vsm, max_batch: int, log=print):
                 f"{g.cache_bytes() / 2**20:.1f} MiB")
 
 
-def main():
-    import argparse
-    p = argparse.ArgumentParser("seal serving (PyTorch port)")
+def add_engine_flags(p):
+    """The engine flags every serving command line shares (the server and
+    serve/demo.py), under vstar_tpu's names."""
     p.add_argument("--random-init", choices=["tiny", "7b"], required=True,
                    help="random weights + the stub tokenizer (loading "
                         "checkpoints is not ported yet)")
     p.add_argument("--device", default="cuda")
-    p.add_argument("--host", default="0.0.0.0")
-    p.add_argument("--port", default=8080, type=int)
     p.add_argument("--int8", action="store_true",
                    help="weight-only int8 decoders (default: bf16)")
     p.add_argument("--int4", action="store_true",
@@ -273,6 +279,10 @@ def main():
     p.add_argument("--int4mix", action="store_true",
                    help="int4 gate/up/lm_head and int8 qkvo/down on the "
                         "int4 side; alone it implies --mixed")
+    p.add_argument("--kv-int8", dest="kv_int8", action="store_true",
+                   help="int8 KV caches with per-(token, head) scales "
+                        "(about half the cache bytes; not bitwise the "
+                        "bf16 cache's answers)")
     p.add_argument("--prompt-lookup", action="store_true",
                    help="prompt-lookup drafts for free-form answers in "
                         "place of the template (the same tokens; the "
@@ -290,30 +300,58 @@ def main():
     p.add_argument("--warmup", action="store_true",
                    help="run every (mode x batch bucket x prompt bucket) "
                         "and the canvas sizes up to 2K once before serving")
-    p.add_argument("--max-batch", default=8, type=int,
-                   help="the widest wave --warmup covers (its batch "
-                        "bucket and the buckets below)")
-    p.add_argument("--continuous", action="store_true",
-                   help="continuous request batching (not ported yet)")
-    args = p.parse_args()
-    if args.continuous:
-        p.error("--continuous is not ported yet (ROADMAP Queue 1 item 9)")
-    try:
-        check_random_init(args.random_init, args.device)
-    except ValueError as e:
-        p.error(str(e))
+
+
+def engines_from_flags(args, max_batch: int = 1):
+    """add_engine_flags' arguments -> the (vqa, vsm) pair; vsm is a
+    CompiledVSMSearch under --compiled. max_batch sizes the warmup's
+    batch buckets (waves pad up to the covering bucket). Raises
+    ValueError for a --random-init size the device cannot run
+    (check_random_init)."""
     vqa, vsm = random_init_engines(args.random_init, args.device,
                                    int8=args.int8, int4=args.int4,
                                    mixed=args.mixed, int4mix=args.int4mix,
                                    prompt_lookup=args.prompt_lookup,
                                    device_preprocess=args.device_preprocess
-                                   or args.compiled)
+                                   or args.compiled,
+                                   kv_int8=args.kv_int8)
     if args.compiled:
         from ..search.compiled import CompiledVSMSearch
         vsm = CompiledVSMSearch(vsm)
     if args.warmup:
-        warmup_engines(vqa, vsm, args.max_batch)
-    serve(SealService(vqa, vsm), args.host, args.port)
+        warmup_engines(vqa, vsm, max_batch)
+    return vqa, vsm
+
+
+def main():
+    import argparse
+    p = argparse.ArgumentParser("seal serving (PyTorch port)")
+    add_engine_flags(p)
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", default=8080, type=int)
+    p.add_argument("--continuous", action="store_true",
+                   help="continuous request batching: concurrent requests "
+                        "co-batch on the device instead of serializing")
+    p.add_argument("--max-batch", default=8, type=int,
+                   help="the widest wave: --continuous forms waves of up "
+                        "to this many requests, --warmup covers its batch "
+                        "bucket and the buckets below")
+    p.add_argument("--window-ms", default=8.0, type=float,
+                   help="--continuous: how long a wave waits for more "
+                        "requests after its first")
+    args = p.parse_args()
+    try:
+        check_random_init(args.random_init, args.device)
+    except ValueError as e:
+        p.error(str(e))
+    vqa, vsm = engines_from_flags(args, max_batch=args.max_batch)
+    if args.continuous:
+        from .continuous import ContinuousSealService
+        service = ContinuousSealService(vqa, vsm, max_batch=args.max_batch,
+                                        window_ms=args.window_ms)
+    else:
+        service = SealService(vqa, vsm)
+    serve(service, args.host, args.port)
 
 
 if __name__ == "__main__":
