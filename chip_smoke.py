@@ -133,7 +133,27 @@ Runs on one CUDA card, in phases; any failure exits non-zero:
      bucket, 768 masks), with exact K1 / K7 / K2 launch counts per step,
      frozen leaves bit-identical and trainable ones moved; then
      run_vsm_training at the tiny config (decoder heads widened to the
-     kernels' 128) over synthetic dataset files, with a resume.
+     kernels' 128) over synthetic dataset files, with a resume;
+  11. checkpoints in the HF layout: both random-init models at 7B widths
+     with 2 decoder layers (the VSM tilted to answer [LOC]) exported in
+     bf16 with config.json in shards of at most 1 GiB (seconds, GB/s),
+     loaded by load_engines onto the card in bf16 and with
+     int4='int4mix' (seconds, GB/s): the tensors equal the exported ones
+     bit for bit (quantized: equal to quantizing them in memory), a
+     free-form answer and a detection equal the in-memory pair's on the
+     same weights and [LOC] id, K1 and K2 (and K3/K5/K6 under int4mix,
+     K6 with act-int8) launched in each window; eval_model from the
+     directories on two synthetic images, serial and
+     --single-chip-phased without factories;
+  12. the VQA trainer: three pretrain sft_train_steps of the random-init
+     seal_vqa_7b at full depth (bf16, the f32 linear projector the only
+     trainable leaf) on 8 rows (2 micro-batches of 4) at a 512-token
+     bucket, and three finetune steps at 7B widths with 2 decoder layers
+     (the tower frozen), with exact K1 (with its log-sum-exp) and K7
+     launches per step, frozen leaves bit-identical, trainable ones
+     moved, step times and peak memory; train_vqa_main refusing the full
+     7B finetune by its memory check before allocating; run_training at
+     tiny kernel widths with a resume.
 Prints a JSON line of kernel results, then the card's name and power
 limit, then (last line) the device record.
 
@@ -3309,6 +3329,484 @@ def phase_train_loop(dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: checkpoints in the HF layout
+# ---------------------------------------------------------------------------
+
+HF_SHARD_BYTES = 1 << 30
+
+
+def _hf_cfgs():
+    """seal_vqa_7b and seal_vsm_7b at their widths, the decoder cut to 2
+    layers (towers, OWL head and SAM decoder full)."""
+    from vstar_tpu_torch.core.config import vqa_llm_7b, vsm_7b
+    return tuple(dataclasses.replace(c, llama=dataclasses.replace(
+        c.llama, num_layers=2)) for c in (vqa_llm_7b(), vsm_7b()))
+
+
+def _quantize_like_loader(params, mode):
+    """What the loaders build under `mode` from a bf16 checkpoint of
+    `params`, made in memory on the card: each decoder matrix quantized
+    per layer, the towers int8."""
+    from vstar_tpu_torch.nn.quant import (quantize_model_towers,
+                                          quantize_weight,
+                                          quantize_weight_int4,
+                                          resolve_matrix_quant)
+
+    def quant(name, w):
+        q = resolve_matrix_quant(mode, name)
+        return (quantize_weight_int4 if q == "int4" else quantize_weight)(w)
+
+    llama = dict(params["llama"])
+    layers = {g: dict(v) for g, v in llama["layers"].items()}
+    for grp in ("attn", "mlp"):
+        for name, w in layers[grp].items():
+            parts = [quant(name, w[i].float()) for i in range(w.shape[0])]
+            layers[grp][name] = {k: torch.stack([e[k] for e in parts])
+                                 for k in parts[0]}
+    llama["layers"] = layers
+    llama["lm_head"] = quant("lm_head", llama["lm_head"].float())
+    return quantize_model_towers(dict(params, llama=llama))
+
+
+def _same_tree(label, got, want):
+    from vstar_tpu_torch.core.params import leaves_with_path
+    got, want = dict(leaves_with_path(got)), dict(leaves_with_path(want))
+    if got.keys() != want.keys():
+        raise AssertionError(f"{label}: leaves {sorted(got.keys() ^ want)}")
+    bad = [k for k in want if got[k].dtype != want[k].dtype
+           or not torch.equal(got[k], want[k])]
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} leaves differ: {bad[:5]}")
+    return sum(v.numel() * v.element_size() for v in got.values())
+
+
+def _same_outputs(label, loaded, memory, img):
+    """A free-form answer (the same tokens) and a detection on the tilted
+    VSM (the same boxes, scores and heatmap) from the loaded and the
+    in-memory engine pair. The in-memory pair runs first, outside the
+    count window; the loaded pair's launches are checked by the caller."""
+    outs = []
+    for vqa, vsm in (memory, loaded):
+        if vqa is loaded[0]:
+            _zero_counts()
+        t0 = time.perf_counter()
+        answer = vqa.free_form(img, QUESTION, max_new_tokens=32)
+        det = vsm.detect(img, "red mug")
+        torch.cuda.synchronize()
+        outs.append((answer, det, time.perf_counter() - t0))
+    (a0, d0, t_mem), (a1, d1, t_load) = outs
+    if a0 != a1:
+        raise AssertionError(f"{label}: free-form {a1!r} != in-memory {a0!r}")
+    if len(d1[0]) == 0:
+        raise AssertionError(f"{label}: the tilted VSM gave no [LOC]")
+    for name, x, y in zip(("boxes", "scores", "heatmap"), d0, d1):
+        if not np.array_equal(np.asarray(x), np.asarray(y)):
+            raise AssertionError(f"{label}: {name} differ from the in-memory "
+                                 f"engine's (max |diff| "
+                                 f"{np.abs(np.asarray(x) - np.asarray(y)).max()})")
+    log(f"[{label}] free-form {len(a1.split())} words and a detection "
+        f"({len(d1[0])} boxes, top score {float(np.max(d1[1])):.4f}, heatmap "
+        f"sum {float(np.sum(d1[2])):.2f}) equal the in-memory engines'; "
+        f"{t_load:.2f} s loaded, {t_mem:.2f} s in memory")
+
+
+def _hf_eval(label, dirs, extra, tok, dev):
+    """eval_model from the checkpoint directories (the loaders build the
+    engines), on the synthetic V*Bench at one 1024x1024 image a task."""
+    import contextlib
+    from vstar_tpu_torch.eval import synthetic, vstar_bench
+    with tempfile.TemporaryDirectory() as work:
+        bench = os.path.join(work, "bench")
+        synthetic.make_synthetic_benchmark(bench, n_per_task=1)
+        argv = ["--vqa-model-path", dirs["vqa"], "--vsm-model-path",
+                dirs["vsm"], "--benchmark-folder", bench, "--output-path",
+                os.path.join(work, "out.json")] + extra
+        printed = io.StringIO()
+        _zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            results = vstar_bench.main(argv, device=dev, tokenizer=tok)[0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    recs = [r for task in results.values() for r in task]
+    if len(recs) != 2 or any("option_chosen" not in r for r in recs):
+        raise AssertionError(f"{label}: eval_model gave {results}")
+    log(f"[{label}] {len(recs)} images in {wall:.2f} s (loads included); "
+        + "; ".join(printed.getvalue().strip().splitlines()[-3:]))
+    return _check_path(label, ("flash_attention",)), wall
+
+
+def phase_hf(dev):
+    """Export the two random-init models (7B widths, 2 decoder layers, the
+    VSM's embedding and lm_head tilted to answer [LOC]) in bf16 with their
+    config.json, in shards of at most 1 GiB, then load them with
+    load_engines in bf16 and with int4='int4mix': the tensors equal the
+    exported ones (bit for bit; quantized, equal to quantizing them in
+    memory), and the loaded pair answers and detects as the in-memory
+    pair on the same weights and [LOC] id; then eval_model from the
+    directories, serial and --single-chip-phased without factories."""
+    from vstar_tpu_torch.core.hf_export import (save_hf_dir,
+                                                vqa_llm_state_dict,
+                                                vsm_state_dict)
+    from vstar_tpu_torch.eval.vqa_engine import VQAEngine
+    from vstar_tpu_torch.eval.vstar_bench import load_engines
+    from vstar_tpu_torch.models.vqa_llm import init_vqa_llm_params
+    from vstar_tpu_torch.models.vsm import init_vsm_params
+    from vstar_tpu_torch.multimodal.stub_tokenizer import StubTokenizer
+    from vstar_tpu_torch.nn.quant import set_act_int8
+    from vstar_tpu_torch.search.batched import BatchedVSMEngine
+    vqa_cfg, vsm_cfg = _hf_cfgs()
+    tok = StubTokenizer(vsm_cfg.llama.vocab_size)
+    params = {"vqa": init_vqa_llm_params(SEED, vqa_cfg, device=dev,
+                                         dtype=torch.bfloat16),
+              "vsm": init_vsm_params(SEED + 1, vsm_cfg, device=dev,
+                                     dtype=torch.bfloat16)}
+    llama = params["vsm"]["llama"]
+    llama["embed_tokens"][:, 0] += 100     # _tilted_engine's tilt
+    llama["lm_head"][0, 3] = 10
+    img = _image(768, 1024, SEED + 7)
+    report, counts = {}, {}
+    with tempfile.TemporaryDirectory() as work:
+        dirs = {k: os.path.join(work, k) for k in params}
+        t0 = time.perf_counter()
+        nbytes = 0
+        for key, cfg, export in (("vqa", vqa_cfg, vqa_llm_state_dict),
+                                 ("vsm", vsm_cfg, vsm_state_dict)):
+            sd = export(params[key], dtype=torch.bfloat16)
+            nbytes += sum(v.numel() * v.element_size() for v in sd.values())
+            save_hf_dir(sd, cfg, dirs[key], shard_bytes=HF_SHARD_BYTES)
+            del sd
+        export_s = time.perf_counter() - t0
+        files = {k: sorted(os.listdir(d)) for k, d in dirs.items()}
+        if not all("model.safetensors.index.json" in f
+                   for f in files.values()):
+            raise AssertionError(f"no sharded export: {files}")
+        report["export"] = {"seconds": export_s, "gb": nbytes / 1e9,
+                            "gb_per_s": nbytes / 1e9 / export_s,
+                            "files": files}
+        log(f"[hf export] {nbytes / 1e9:.3f} GB in bf16 in {export_s:.2f} s "
+            f"({nbytes / 1e9 / export_s:.3f} GB/s): {files}")
+
+        for label, quant in (("hf_bf16", False), ("hf_int4mix", "int4mix")):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loaded = load_engines(dirs["vqa"], dirs["vsm"], device=dev,
+                                  int4=quant, tokenizer=tok)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            want = {k: _quantize_like_loader(v, quant) if quant else v
+                    for k, v in params.items()}
+            loaded_bytes = sum(_same_tree(f"{label} {k}", e.params, want[k])
+                               for k, e in zip(("vqa", "vsm"), loaded))
+            if loaded[1].loc_token_id != 3:
+                raise AssertionError(f"{label}: [LOC] id "
+                                     f"{loaded[1].loc_token_id}")
+            report[label] = {"load_seconds": load_s,
+                             "load_gb_per_s": nbytes / 1e9 / load_s,
+                             "resident_gb": loaded_bytes / 1e9}
+            log(f"[{label} load] {nbytes / 1e9:.3f} GB of shards onto "
+                f"{dev} in {load_s:.2f} s ({nbytes / 1e9 / load_s:.3f} "
+                f"GB/s), {loaded_bytes / 1e9:.3f} GB resident; tensors "
+                f"equal the {'quantized ' if quant else ''}exported ones")
+            memory = (VQAEngine(want["vqa"], vqa_cfg, tok, device=dev),
+                      BatchedVSMEngine(want["vsm"], vsm_cfg, tok,
+                                       loc_token_id=3, device=dev))
+            _same_outputs(label, loaded, memory, img)
+            kernels = ("flash_attention", "tower_attention")
+            if quant:
+                set_act_int8(True)
+                try:
+                    loaded[0].free_form(img, QUESTION, max_new_tokens=8)
+                    loaded[1].detect(img, "red mug")
+                    torch.cuda.synchronize()
+                finally:
+                    set_act_int8(False)
+                kernels += ("int8_matvec", "int4_matmul",
+                            "int4_matmul_w4a8", "quantize_rows")
+            counts[label] = _check_path(label, kernels)
+            del loaded, memory, want
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts["hf_eval"], report["eval_s"] = _hf_eval(
+            "hf eval_model", dirs, [], tok, dev)
+        counts["hf_phased"], report["phased_s"] = _hf_eval(
+            "hf --single-chip-phased", dirs,
+            ["--single-chip-phased", "--image-batch", "2"], tok, dev)
+    del params
+    return counts, report
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the VQA trainer
+# ---------------------------------------------------------------------------
+
+def _caption(i):
+    rng = np.random.RandomState(SEED + i)
+    words = ["a", "photo", "of", "the", "red", "mug", "on", "wooden",
+             "table", "near", "window", "with", "green", "bottle"]
+    return " ".join(rng.choice(words, 40 + 10 * (i % 4)))
+
+
+def _pretrain_batch(cfg, tok, rows, seq):
+    from vstar_tpu_torch.data.pretrain_dataset import collate_pretrain
+    rng = np.random.RandomState(SEED)
+    size = cfg.vision.image_size
+    instances = [{"image": rng.randn(size, size, 3).astype(np.float32),
+                  "caption": _caption(i)} for i in range(rows)]
+    return collate_pretrain(instances, tok, n_long=cfg.image_tokens_long,
+                            n_short=cfg.image_tokens_short, image_long=True,
+                            seq_bucket=seq)
+
+
+def _sft_batch(cfg, tok, rows, seq):
+    """Search-instruction rows: one object crop in the long slot (the image
+    short) on even rows, plain image rows on odd ones; the padded object
+    slots masked off (kv_valid)."""
+    from vstar_tpu_torch.data.vqa_sft_dataset import collate_vqa_sft
+    rng = np.random.RandomState(SEED + 1)
+    size, m = cfg.vision.image_size, cfg.max_objects
+    instances = []
+    for i in range(rows):
+        search = i % 2 == 0
+        objects = np.zeros((m, size, size, 3), np.float32)
+        q = "What is the color of the mug?"
+        if search:
+            objects[-1] = rng.randn(size, size, 3)
+            q = ("What is the color of the red mug <object> at location "
+                 "[0.120,0.300,0.250,0.410]?")
+        instances.append({
+            "source": [{"from": "human", "value": "<image>\n" + q},
+                       {"from": "gpt", "value": _caption(i)}],
+            "has_image": True, "is_search": search,
+            "image": rng.randn(size, size, 3).astype(np.float32),
+            "objects": objects, "images_long": not search,
+            "objects_long": [False] * (m - 1) + [search]})
+    return collate_vqa_sft(instances, tok, n_long=cfg.image_tokens_long,
+                           n_short=cfg.image_tokens_short, seq_bucket=seq)
+
+
+def _sft_steps(label, cfg, params, mask, host, lr, dev, steps=3):
+    """`steps` sft_train_steps of 8 rows (2 micro-batches of 4): exact K1 /
+    K7 launches per step (K1 with its log-sum-exp, twice a layer and
+    micro-batch: the forward and the remat recompute), finite losses,
+    frozen leaves bit-identical and trainable ones moved."""
+    from vstar_tpu_torch.core.params import leaves_with_path
+    from vstar_tpu_torch.data.vsm_collate import batch_to_torch
+    from vstar_tpu_torch.kernels import flash_attention as fa
+    from vstar_tpu_torch.train.sft import (init_train_state, make_optimizer,
+                                           sft_train_step)
+    opt = make_optimizer(lr, warmup_steps=1, total_steps=steps,
+                         trainable_mask=mask, master_f32=True)
+    state = init_train_state(params, opt)
+    flat_mask = dict(leaves_with_path(mask))
+    flat = dict(leaves_with_path(params))
+    frozen = {k: flat[k].clone() for k in ("llama.layers.attn.wq",
+                                           "vision.patch_embed.w",
+                                           "proj_object.perceiver.latents")
+              if not flat_mask[k]}
+    moved = {k: flat[k].clone() for k in ("proj_image.proj.w",
+                                          "llama.lm_head") if flat_mask[k]}
+    n_train = sum(x.numel() for p, x in flat.items() if flat_mask[p])
+    del flat
+    batch = batch_to_torch(host, dev)
+    L = cfg.llama.num_layers
+    expect = {"flash_attention": L * 2 * 2, "flash_attention_bwd_dq": L * 2,
+              "flash_attention_bwd_dkv": L * 2, "tower_attention": 0,
+              "int8_matvec": 0, "int4_matmul": 0, "int4_matmul_w4a8": 0,
+              "quantize_rows": 0, **{n: 0 for n in P_KERNELS}}
+    seq = host["text_ids"].shape[1]
+    times, totals = [], {k: 0 for k in expect}
+    for i in range(steps):
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = sft_train_step(state, batch, cfg, opt, mask, grad_accum=2)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        counts = _read_counts()
+        launches = {k: c[0] for k, c in counts.items()}
+        plain = {k: c[1] for k, c in counts.items()}
+        shapes = dict(fa.launches_by_shape)
+        log(f"[{label} step {i}] {dt:.3f} s loss {loss:.4f} grad_norm "
+            f"{gnorm:.4f}; K1 (with lse) {launches['flash_attention']} "
+            f"launches by shape {shapes}, K7 dq "
+            f"{launches['flash_attention_bwd_dq']} dkv "
+            f"{launches['flash_attention_bwd_dkv']}")
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise AssertionError(f"{label} step {i}: loss {loss} grad_norm "
+                                 f"{gnorm}")
+        if launches != expect or any(plain.values()) or \
+                shapes != {(4, seq): L * 2 * 2}:
+            raise AssertionError(f"{label} step {i}: launches {launches} "
+                                 f"(expected {expect}), K1 by shape {shapes},"
+                                 f" plain {plain}")
+        _check_routes(f"{label} step {i}", {
+            "tile": expect["flash_attention"], "split": 0, "combine": 0})
+        times.append(dt)
+        for k in totals:
+            totals[k] += launches[k]
+    flat = dict(leaves_with_path(state.params))
+    for k, v in frozen.items():
+        if not torch.equal(flat[k], v):
+            raise AssertionError(f"{label}: frozen {k} changed")
+    for k, v in moved.items():
+        if torch.equal(flat[k], v):
+            raise AssertionError(f"{label}: trainable {k} did not move")
+    steady = float(np.mean(times[1:]))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"[{label}] {n_train / 1e6:.1f} M trainable; steps 2-{steps} "
+        f"{steady:.3f} s each; peak memory {peak:.2f} GiB; frozen leaves "
+        f"bit-identical, {sorted(moved)} moved")
+    return totals, {"steps_s": times, "steady_step_s": steady,
+                    "peak_gib": peak, "trainable_params": n_train,
+                    "rows": 8, "seq_bucket": seq}
+
+
+def _tiny_vqa_kernel_cfg():
+    """vqa_llm_tiny with the decoder's heads at the kernels' width."""
+    from vstar_tpu_torch.core.config import vqa_llm_tiny
+    cfg = vqa_llm_tiny()
+    llama = dataclasses.replace(cfg.llama, hidden_size=256, num_heads=2,
+                                num_kv_heads=2, head_dim=128)
+    return dataclasses.replace(
+        cfg, llama=llama,
+        projector_image=dataclasses.replace(cfg.projector_image, out_dim=256),
+        projector_object=dataclasses.replace(cfg.projector_object,
+                                             out_dim=256))
+
+
+def _vqa_train_loop(dev):
+    """run_training (pretrain) at the tiny kernel widths over synthetic
+    caption files: a run that stops after epoch 0's rolling save, then one
+    that resumes it and trains epoch 1."""
+    from PIL import Image
+    from vstar_tpu_torch.data.pretrain_dataset import (PretrainCaptionDataset,
+                                                       collate_pretrain)
+    from vstar_tpu_torch.models.vqa_llm import init_vqa_llm_params
+    from vstar_tpu_torch.multimodal.stub_tokenizer import StubTokenizer
+    from vstar_tpu_torch.train.train_vqa_main import (projector_only_mask,
+                                                      run_training)
+    cfg = _tiny_vqa_kernel_cfg()
+    tok = StubTokenizer(cfg.llama.vocab_size)
+    rng = np.random.RandomState(SEED)
+    with tempfile.TemporaryDirectory() as base:
+        items = []
+        for i in range(8):
+            Image.fromarray((rng.rand(40, 52, 3) * 255).astype("uint8")).save(
+                os.path.join(base, f"im{i}.jpg"))
+            items.append({"image": f"im{i}.jpg", "conversations": [
+                {"from": "human", "value": "<image>\ndescribe"},
+                {"from": "gpt", "value": _caption(i)[:60]}]})
+        with open(os.path.join(base, "pretrain.json"), "w") as f:
+            json.dump(items, f)
+        ds = PretrainCaptionDataset(os.path.join(base, "pretrain.json"),
+                                    base, image_size=cfg.vision.image_size)
+
+        def collate(instances, tk):
+            return collate_pretrain(instances, tk,
+                                    n_long=cfg.image_tokens_long,
+                                    n_short=cfg.image_tokens_short,
+                                    image_long=True, seq_bucket=64)
+
+        def run(epochs, seed):
+            args = types.SimpleNamespace(
+                stage="pretrain", mesh=None, param_dtype="bf16",
+                per_device_batch_size=2, num_train_epochs=epochs,
+                log_every=1, output_dir=os.path.join(base, "out"),
+                data_workers=2, prefetch_depth=2, auto_resume=True,
+                save_steps=2)
+            params = init_vqa_llm_params(seed, cfg, device=dev,
+                                         dtype=torch.bfloat16)
+            return run_training(args, cfg, params, ds, collate, tok,
+                                projector_only_mask(params, "linear"), 2e-3)
+
+        _zero_counts()
+        t0 = time.perf_counter()
+        first = run(1, SEED)
+        resumed = run(2, SEED + 1)
+        torch.cuda.synchronize()
+        lines = open(os.path.join(base, "out", "metrics.jsonl")).read()
+        losses = [json.loads(x)["loss"] for x in lines.splitlines()]
+    log(f"[train_vqa loop tiny] steps {first.step} then {resumed.step} after "
+        f"resume in {time.perf_counter() - t0:.1f} s; logged losses {losses}")
+    if (first.step, resumed.step) != (4, 8) or len(losses) != 8 or \
+            not all(math.isfinite(x) for x in losses):
+        raise AssertionError("tiny run_training on CUDA failed")
+    _check_path("train_vqa loop", ("flash_attention",
+                                   "flash_attention_bwd_dq",
+                                   "flash_attention_bwd_dkv"))
+
+
+def phase_train_vqa(dev):
+    """The VQA trainer on the card: three pretrain steps of the random-init
+    seal_vqa_7b at full depth (bf16, the f32 linear projector trainable
+    alone) at a 512-token bucket, three finetune steps at 7B widths with
+    2 decoder layers (everything but the frozen tower trainable), the
+    memory check refusing the full 7B finetune before anything is
+    allocated, and run_training at tiny kernel widths with a resume."""
+    from vstar_tpu_torch.core.config import vqa_llm_7b
+    from vstar_tpu_torch.core.hf_export import config_json
+    from vstar_tpu_torch.core.params import map_with_path
+    from vstar_tpu_torch.models.vqa_llm import init_vqa_llm_params
+    from vstar_tpu_torch.multimodal.stub_tokenizer import StubTokenizer
+    from vstar_tpu_torch.train import train_vqa_main
+    cfg = vqa_llm_7b()
+    tok = StubTokenizer(cfg.llama.vocab_size)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_vqa_llm_params(SEED, cfg, device=dev, dtype=torch.bfloat16)
+    params["proj_image"] = map_with_path(lambda _, x: x.float(),
+                                         params["proj_image"])
+    torch.cuda.synchronize()
+    log(f"[train_vqa init] seal_vqa_7b bf16 (f32 linear projector) in "
+        f"{time.perf_counter() - t0:.1f} s; allocated "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+    counts, report = {}, {}
+    counts["train_vqa"], report["pretrain"] = _sft_steps(
+        "train_vqa pretrain", cfg, params,
+        train_vqa_main.projector_only_mask(params, "linear"),
+        _pretrain_batch(cfg, tok, 8, 512), 2e-3, dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cut = dataclasses.replace(cfg, llama=dataclasses.replace(
+        cfg.llama, num_layers=2))
+    params = init_vqa_llm_params(SEED, cut, device=dev, dtype=torch.bfloat16)
+    counts["train_vqa_finetune"], report["finetune"] = _sft_steps(
+        "train_vqa finetune", cut, params,
+        train_vqa_main.frozen_vision_mask(params),
+        _sft_batch(cut, tok, 8, 512), 2e-5, dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    before = torch.cuda.memory_allocated(dev)
+    with tempfile.TemporaryDirectory() as work:
+        with open(os.path.join(work, "config.json"), "w") as f:
+            json.dump(config_json(cfg), f)
+        try:
+            train_vqa_main.main(
+                ["finetune", "--model_path", work, "--data_path",
+                 os.path.join(work, "none"), "--image_folder", work],
+                tokenizer=tok, device=dev)
+        except MemoryError as e:
+            refusal = str(e)
+        else:
+            raise AssertionError("the full 7B finetune was not refused")
+    if torch.cuda.memory_allocated(dev) != before:
+        raise AssertionError("the refused finetune allocated device memory")
+    log(f"[train_vqa full 7B finetune] refused before allocating: "
+        f"{refusal}")
+    report["full_finetune_refusal"] = refusal
+    _vqa_train_loop(dev)
+    return counts, report
+
+
+# ---------------------------------------------------------------------------
 
 def _kernel_entry(name, source, replaces, launches, cases):
     """The JSON record of one kernel; the top-level numbers are its first
@@ -3390,6 +3888,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_loop(dev)
     mark("train_loop")
+    gc.collect()
+    torch.cuda.empty_cache()
+    hf_counts, hf = phase_hf(dev)
+    by_path.update(hf_counts)
+    mark("hf")
+    gc.collect()
+    torch.cuda.empty_cache()
+    vqa_counts, train_vqa = phase_train_vqa(dev)
+    for counts in vqa_counts.values():
+        counts["flash_attention_bwd"] = counts["flash_attention_bwd_dq"]
+    by_path.update(vqa_counts)
+    mark("train_vqa")
     if "jax" in sys.modules or "vstar_tpu" in sys.modules:
         raise AssertionError("JAX or the JAX package was imported")
     sources = {
@@ -3443,7 +3953,8 @@ def main() -> int:
         if "flash_attention_split_by_rows" in n}
     print(json.dumps({"kernels": kernels, "kernel_info": kernel_info,
                       "train": train, "int4_profile": profile,
-                      "decode_slice": decode_slice}), flush=True)
+                      "decode_slice": decode_slice, "hf": hf,
+                      "train_vqa": train_vqa}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -265,10 +265,15 @@ def test_eval_model_writes_the_jax_result_json(trigger, tmp_path,
 
 
 def test_eval_model_without_engines_names_the_loaders(tmp_path):
+    """Without engines eval_model loads them from the model paths (the
+    loaders, tests/test_torch_loaders.py): a path that is not a local
+    checkpoint directory is named; one engine alone is refused."""
     args = vstar_bench.build_parser().parse_args(
         ["--benchmark-folder", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        vstar_bench.eval_model(args)
+    with pytest.raises(FileNotFoundError, match="craigwu/seal_vqa_7b"):
+        vstar_bench.eval_model(args, device="cpu")
+    with pytest.raises(ValueError, match="both engines or neither"):
+        vstar_bench.eval_model(args, object())
 
 
 def test_eval_model_compiled_wraps_the_vsm(tmp_path, monkeypatch):

@@ -2,8 +2,8 @@
 package: in a fresh interpreter, import every vstar_tpu_torch module (and
 chip_smoke; the train/, data/ and utils/ modules included), answer one
 tiny SEAL request and take one tiny LoRA training step on the CPU, and
-find neither a `jax` nor a `vstar_tpu` module loaded; no source imports
-either."""
+find neither a `jax` nor a `vstar_tpu` module loaded (nor `safetensors`
+or `transformers`); no source imports jax or vstar_tpu."""
 
 import os
 import pathlib
@@ -67,6 +67,11 @@ SCRIPT = textwrap.dedent("""
     ported_from = sorted(m for m in sys.modules
                          if m == "vstar_tpu" or m.startswith("vstar_tpu."))
     assert not ported_from, ported_from
+    # the port reads and writes safetensors itself and imports
+    # transformers only inside load_tokenizer
+    libs = sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("safetensors", "transformers"))
+    assert not libs, libs
     print("modules", len(names))
 """)
 

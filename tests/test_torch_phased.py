@@ -234,8 +234,9 @@ def test_eval_model_single_chip_phased(hosts, bench, swapped, tmp_path,
                                        monkeypatch):
     """--single-chip-phased runs eval_model_phased on the given factories
     (an explicit --image-batch honored, 8 unset; --kv-int8 checked on
-    each engine a factory builds); without factories it cites the
-    loaders (ROADMAP Queue 1 item 10), with engines it is refused."""
+    each engine a factory builds); without factories it builds them with
+    the loaders (the default model paths are no local directories here),
+    with engines it is refused."""
     seen = {}
     real = phased.eval_model_phased
 
@@ -259,7 +260,7 @@ def test_eval_model_single_chip_phased(hosts, bench, swapped, tmp_path,
     with pytest.raises(ValueError, match="kv-int8"):
         vstar_bench.eval_model(args, factories=_factories(hosts))
     assert seen["batch"] == 8
-    with pytest.raises(NotImplementedError, match="item 10"):
-        vstar_bench.eval_model(args)
+    with pytest.raises(FileNotFoundError, match="craigwu/seal_vqa_7b"):
+        vstar_bench.eval_model(args, device="cpu")
     with pytest.raises(ValueError, match="factories"):
         vstar_bench.eval_model(args, *_factories(hosts))

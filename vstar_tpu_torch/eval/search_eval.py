@@ -5,8 +5,9 @@ the average successful path length over V*Bench annotations, with the
 optional visualization; with image_batch > 1 and a BatchedVSMEngine the
 searches run in lockstep device waves, and on a compiled engine
 (search/compiled.CompiledVSMSearch, `--compiled`) as whole searches on
-the device. The command line parses vstar_tpu's flags and waits for the
-checkpoint loaders (ROADMAP Queue 1 item 10).
+the device. `main` loads the VSM from an HF checkpoint directory
+(eval/vstar_bench.load_vsm_engine); --mesh is refused (ROADMAP Queue 1
+item 12).
 """
 
 from __future__ import annotations
@@ -105,8 +106,7 @@ def evaluate_search(vsm_engine, benchmark_folder: str,
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """vstar_tpu search_eval's flags (those of unported modes kept, and
-    refused by main with the loaders)."""
+    """vstar_tpu search_eval's flags (--mesh refused by the loader)."""
     p = argparse.ArgumentParser(description="Visual Search Evaluation")
     p.add_argument("--version", default="craigwu/seal_vsm_7b")
     p.add_argument("--benchmark-folder", default="vstar_bench", type=str)
@@ -131,15 +131,43 @@ def build_parser() -> argparse.ArgumentParser:
                         " implies --device-preprocess, no --visualization)")
     p.add_argument("--kv-int8", dest="kv_int8", action="store_true",
                    default=False,
-                   help="int8 KV caches with per-(token, head) scales (the "
-                        "loader would build the engine with kv_int8=True)")
+                   help="int8 KV caches with per-(token, head) scales")
+    p.add_argument("--int4", dest="int4", action="store_true",
+                   default=False, help="group-128 int4 decoder weights")
+    p.add_argument("--mesh", default=None,
+                   help="DxFxM device mesh (not ported yet)")
+    p.add_argument("--int8", dest="int8", action="store_true",
+                   default=None, help="weight-only int8 decoder")
+    p.add_argument("--no-int8", dest="int8", action="store_false",
+                   default=None, help="keep bf16 decoder weights")
     return p
 
 
-def main():
-    build_parser().parse_args()
-    from .vstar_bench import LOADERS_NOT_PORTED
-    raise NotImplementedError(LOADERS_NOT_PORTED)
+def main(argv=None, device="cuda", tokenizer=None):
+    """The command line: the VSM from --version (eval/vstar_bench.
+    load_vsm_engine, on the card unless `device` says otherwise), then
+    evaluate_search. Returns (top-1 accuracy, average path length)."""
+    args = build_parser().parse_args(argv)
+    from .vstar_bench import load_vsm_engine
+    vsm = load_vsm_engine(
+        args.version,
+        device_preprocess=args.device_preprocess or args.compiled,
+        mesh=args.mesh, int8=args.int8, device=device,
+        kv_int8=args.kv_int8, int4=args.int4, tokenizer=tokenizer)
+    if args.compiled:
+        from ..search.compiled import CompiledVSMSearch
+        vsm = CompiledVSMSearch(vsm)
+    return evaluate_search(
+        vsm, args.benchmark_folder,
+        minimum_size_scale=args.minimum_size_scale,
+        minimum_size=args.minimum_size,
+        confidence_high=args.confidence_high,
+        confidence_low=args.confidence_low,
+        target_cue_threshold=args.target_cue_threshold,
+        target_cue_threshold_decay=args.target_cue_threshold_decay,
+        target_cue_threshold_minimum=args.target_cue_threshold_minimum,
+        visualization=args.visualization, output_path=args.output_path,
+        image_batch=args.image_batch)
 
 
 if __name__ == "__main__":

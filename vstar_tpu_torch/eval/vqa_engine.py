@@ -73,9 +73,12 @@ class VQAEngine:
                  prompt_buckets: Tuple[int, ...] = (512, 768, 1024),
                  option_bucket: int = 64, compute_dtype=torch.bfloat16,
                  speculative_template: Optional[str] = None,
-                 prompt_lookup: bool = False, kv_int8: bool = False):
+                 prompt_lookup: bool = False, kv_int8: bool = False,
+                 conv_type: str = "v1"):
         """speculative_template None takes SPEC_TEMPLATE, as the JAX
         engine does (set `_spec_template = None` for plain greedy).
+        conv_type names the conversation template of the prompts
+        (multimodal/conversation.CONV_TEMPLATES).
         prompt_lookup: n-gram drafts from the prompt and the answer so far
         (decode/speculative.lookup_decode) in place of the template, at
         temperature 0. Sampling draws from the engine's own generator,
@@ -90,6 +93,10 @@ class VQAEngine:
         self.prompt_buckets = tuple(sorted(prompt_buckets))
         self.option_bucket = option_bucket
         self.compute_dtype = compute_dtype
+        if conv_type not in CONV_TEMPLATES:
+            raise ValueError(f"conv_type {conv_type!r}: one of "
+                             f"{sorted(CONV_TEMPLATES)}")
+        self.CONV_TYPE = conv_type
         self._spec_template = (self.SPEC_TEMPLATE
                                if speculative_template is None
                                else speculative_template)

@@ -1,17 +1,26 @@
-"""V*Bench evaluation loop on the port's engines (partial port of
+"""V*Bench evaluation on the port's engines (port of
 vstar_tpu/eval/vstar_bench.py, the equivalent of the reference's
 vstar_bench_eval.py).
 
-Walks direct_attributes/ and relative_position/, runs the SEAL loop per
-image, prints the per-task and overall accuracy with the p50 latency and
-images/s, and writes the result JSON in the reference schema. Ported:
-`eval_model` (serial, or with --image-batch > 1 the batched loop of
-eval/batched_bench.py; --compiled wraps the VSM engine in
-search/compiled.CompiledVSMSearch), the phase-swapped run
-(--single-chip-phased, eval/phased.py) on engine factories, and
-`build_parser`. Not yet: the checkpoint loaders (so the command line and
---single-chip-phased without factories; ROADMAP Queue 1 item 10) and the
-mesh (item 12).
+    python -m vstar_tpu_torch.eval.vstar_bench \\
+        --vqa-model-path <hf dir> --vsm-model-path <hf dir> \\
+        --benchmark-folder vstar_bench --output-path eval_result.json
+
+The loaders build the engines from HF checkpoint directories
+(core/checkpoint.load_torch_dir, the importers, the tokenizer through
+multimodal/tokenizer.load_tokenizer unless one is given) on a device, in
+bf16 unless --int8 / --int4 / --int4mix ask for quantized decoders (int8
+towers then). vstar_tpu defaults to int8 on one TPU chip, because the
+bf16 pair does not fit its 16 GB; the 80 GB card holds it.
+
+`eval_model` walks direct_attributes/ and relative_position/, runs the
+SEAL loop per image, prints the per-task and overall accuracy with the
+p50 latency and images/s, and writes the result JSON in the reference
+schema; with --image-batch > 1 eval/batched_bench.py runs the loop,
+--compiled wraps the VSM in search/compiled.CompiledVSMSearch, and
+--single-chip-phased runs eval/phased.py on engine factories (the
+loaders' unless given). The mesh (--mesh) is not ported yet (ROADMAP
+Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -23,26 +32,141 @@ import time
 from collections import defaultdict
 
 import numpy as np
+import torch
 from PIL import Image
 
 from .seal import seal_answer
 
-LOADERS_NOT_PORTED = (
-    "eval_model needs engines: the checkpoint loaders are not ported yet "
-    "(ROADMAP Queue 1 item 10); build them with "
-    "serve.server.random_init_engines or VQAEngine / VSMEngine")
 
-
-PHASED_NEEDS_FACTORIES = (
-    "--single-chip-phased builds its engines per phase with the checkpoint "
-    "loaders, which are not ported yet (ROADMAP Queue 1 item 10); pass "
-    "factories=(vqa_factory, vsm_factory) to eval_model")
-
-
-def _refuse_unported(args) -> None:
-    if getattr(args, "mesh", None):
+def _refuse_mesh(mesh) -> None:
+    if mesh:
         raise NotImplementedError(
             "--mesh is not ported yet (ROADMAP Queue 1 item 12)")
+
+
+def _quantize_llm(int8, int4):
+    """The importers' quantize_llm for the loaders' flags: int4 (True, or
+    the string 'int4mix') over int8; None and False keep bf16."""
+    if int4:
+        return int4 if isinstance(int4, str) else "int4"
+    return bool(int8)
+
+
+def _checkpoint_dir(path: str) -> str:
+    if not os.path.isdir(path):
+        raise FileNotFoundError(f"{path}: no such checkpoint directory (the "
+                                "port reads local HF directories only)")
+    return path
+
+
+def _load_params(path, importer, cfg, device, int8, int4):
+    from ..core.checkpoint import load_torch_dir
+    from ..nn.quant import quantize_model_towers
+    quant = _quantize_llm(int8, int4)
+    # the state_dict is read onto the device shard by shard and dropped
+    # once imported
+    params = importer(load_torch_dir(path, device), cfg,
+                      dtype=torch.bfloat16, quantize_llm=quant)
+    return quantize_model_towers(params) if quant else params
+
+
+def load_vqa_engine(vqa_model_path: str, conv_type: str = "v1", mesh=None,
+                    int8=None, device="cuda", kv_int8: bool = False,
+                    prompt_lookup: bool = False, int4=False,
+                    tokenizer=None):
+    """The VQA LLM from an HF checkpoint directory; its shape follows the
+    directory's config.json (7B without one), as the reference's
+    from_pretrained path does (builder.py:26-151). int8: per-channel int8
+    decoder; int4: group-128 int4 (kernels K5/K6), or the string
+    'int4mix' for the per-matrix int4/int8 split; either also int8s the
+    tower. tokenizer None loads the directory's."""
+    from ..core.hf_config import vqa_llm_config_for
+    from ..models.vqa_llm import vqa_llm_params_from_torch
+    from ..multimodal.tokenizer import load_tokenizer
+    from .vqa_engine import VQAEngine
+    _refuse_mesh(mesh)
+    cfg = vqa_llm_config_for(_checkpoint_dir(vqa_model_path))
+    tok = tokenizer if tokenizer is not None else \
+        load_tokenizer(vqa_model_path)
+    params = _load_params(vqa_model_path, vqa_llm_params_from_torch, cfg,
+                          device, int8, int4)
+    return VQAEngine(params, cfg, tok, device=device, conv_type=conv_type,
+                     kv_int8=kv_int8, prompt_lookup=prompt_lookup)
+
+
+def load_vsm_engine(vsm_model_path: str, device_preprocess: bool = False,
+                    mesh=None, int8=None, device="cuda",
+                    kv_int8: bool = False, int4=False, tokenizer=None):
+    """The VSM from an HF checkpoint directory, as the lockstep
+    search/batched.BatchedVSMEngine (the search-mechanism evaluation needs
+    only this half, visual_search.py:142); its [LOC] id is the
+    tokenizer's. device_preprocess: search patches cut from a device
+    canvas of the image. Quantization as load_vqa_engine."""
+    from ..core.hf_config import vsm_config_for
+    from ..models.vsm import vsm_params_from_torch
+    from ..multimodal.tokenizer import load_tokenizer
+    from ..search.batched import BatchedVSMEngine
+    _refuse_mesh(mesh)
+    cfg = vsm_config_for(_checkpoint_dir(vsm_model_path))
+    tok = tokenizer if tokenizer is not None else \
+        load_tokenizer(vsm_model_path)
+    loc_id = tok("[LOC]", add_special_tokens=False).input_ids[0]
+    params = _load_params(vsm_model_path, vsm_params_from_torch, cfg,
+                          device, int8, int4)
+    return BatchedVSMEngine(params, cfg, tok, loc_token_id=loc_id,
+                            device=device,
+                            device_preprocess=device_preprocess,
+                            kv_int8=kv_int8)
+
+
+def load_engines(vqa_model_path: str, vsm_model_path: str,
+                 conv_type: str = "v1", mesh=None, int8=None,
+                 device_preprocess: bool = False, kv_int8: bool = False,
+                 prompt_lookup: bool = False, int4=False, device="cuda",
+                 tokenizer=None):
+    """Both models from HF checkpoint directories, on one device (the
+    80 GB card holds the bf16 pair, so vstar_tpu's two-chip split has no
+    counterpart)."""
+    return (load_vqa_engine(vqa_model_path, conv_type, mesh=mesh, int8=int8,
+                            device=device, kv_int8=kv_int8,
+                            prompt_lookup=prompt_lookup, int4=int4,
+                            tokenizer=tokenizer),
+            load_vsm_engine(vsm_model_path, mesh=mesh, int8=int8,
+                            device_preprocess=device_preprocess,
+                            device=device, kv_int8=kv_int8, int4=int4,
+                            tokenizer=tokenizer))
+
+
+def _phased_factories(args, device="cuda", tokenizer=None):
+    """--single-chip-phased's engine factories on the loaders, with
+    vstar_tpu's flag resolution: --int4mix alone implies --mixed (an int8
+    VQA decoder, the int4mix VSM decoder); --int4 quantizes both."""
+    int4 = getattr(args, "int4", False)
+    int4mix = getattr(args, "int4mix", False)
+    mixed = getattr(args, "mixed", False) or (int4mix and not int4)
+    int4mode = "int4mix" if int4mix else True
+    kv_int8 = getattr(args, "kv_int8", False)
+
+    def vqa_factory():
+        return load_vqa_engine(
+            args.vqa_model_path, args.conv_type,
+            int8=True if mixed else getattr(args, "int8", None),
+            device=device, kv_int8=kv_int8,
+            prompt_lookup=getattr(args, "prompt_lookup", False),
+            int4=int4mode if (int4 and not mixed) else False,
+            tokenizer=tokenizer)
+
+    def vsm_factory():
+        return load_vsm_engine(
+            args.vsm_model_path,
+            device_preprocess=getattr(args, "device_preprocess", False)
+            or getattr(args, "compiled", False),
+            int8=getattr(args, "int8", None), device=device,
+            kv_int8=kv_int8,
+            int4=int4mode if (int4 or mixed) else False,
+            tokenizer=tokenizer)
+
+    return vqa_factory, vsm_factory
 
 
 def _check_engine_flags(args, vqa_engine=None, vsm_engine=None) -> None:
@@ -94,28 +218,46 @@ def _eval_phased(args, factories):
         coresident=getattr(args, "coresident", False))
 
 
-def eval_model(args, vqa_engine=None, vsm_engine=None, factories=None):
+def eval_model(args, vqa_engine=None, vsm_engine=None, factories=None,
+               device="cuda", tokenizer=None):
     """The SEAL loop over a V*Bench folder. Returns (results by task,
     per-task correctness lists, per-image latencies in seconds); with
     --image-batch > 1 eval/batched_bench.eval_model_batched runs it, and
     the return is (results by task, None, None), as in vstar_tpu.
-    --device-preprocess (and --compiled, which implies it) asks for a
-    VSM engine built with device_preprocess=True (the loaders would build
-    one), --kv-int8 for engines built with kv_int8=True; --compiled wraps
-    the VSM in CompiledVSMSearch, as vstar_tpu wraps its loaded engine.
-    --single-chip-phased (with --coresident) runs eval/phased.py on
-    `factories` = (vqa_factory, vsm_factory), zero-argument functions
-    that build an engine, and returns its (results, per-task correctness, timings)."""
-    _refuse_unported(args)
+
+    Without engines it loads both from --vqa-model-path / --vsm-model-path
+    on `device` (load_engines with the flags; `tokenizer` None loads each
+    directory's). Given engines must have been built as the flags ask:
+    --device-preprocess (and --compiled, which implies it) a VSM engine
+    with device_preprocess=True, --kv-int8 engines with kv_int8=True;
+    --compiled wraps the VSM in CompiledVSMSearch, as vstar_tpu wraps its
+    loaded engine. --single-chip-phased (with --coresident) runs
+    eval/phased.py on `factories` = (vqa_factory, vsm_factory),
+    zero-argument functions that build an engine (the loaders'
+    loaders unless given), and returns its (results, per-task
+    correctness, timings)."""
+    _refuse_mesh(getattr(args, "mesh", None))
     if getattr(args, "single_chip_phased", False):
         if vqa_engine is not None or vsm_engine is not None:
             raise ValueError("--single-chip-phased builds its own engines "
                              "per phase: pass factories, not engines")
         if factories is None:
-            raise NotImplementedError(PHASED_NEEDS_FACTORIES)
+            factories = _phased_factories(args, device, tokenizer)
         return _eval_phased(args, factories)
-    if vqa_engine is None or vsm_engine is None:
-        raise NotImplementedError(LOADERS_NOT_PORTED)
+    if (vqa_engine is None) != (vsm_engine is None):
+        raise ValueError("eval_model takes both engines or neither")
+    if vqa_engine is None:
+        int4 = getattr(args, "int4", False)
+        int4mix = getattr(args, "int4mix", False)
+        vqa_engine, vsm_engine = load_engines(
+            args.vqa_model_path, args.vsm_model_path, args.conv_type,
+            int8=getattr(args, "int8", None),
+            device_preprocess=getattr(args, "device_preprocess", False)
+            or getattr(args, "compiled", False),
+            kv_int8=getattr(args, "kv_int8", False),
+            prompt_lookup=getattr(args, "prompt_lookup", False),
+            int4=("int4mix" if int4mix else True) if (int4 or int4mix)
+            else False, device=device, tokenizer=tokenizer)
     _check_engine_flags(args, vqa_engine, vsm_engine)
     compiled = getattr(args, "compiled", False)
     if compiled and not hasattr(vsm_engine, "search"):
@@ -164,8 +306,7 @@ def eval_model(args, vqa_engine=None, vsm_engine=None, factories=None):
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """vstar_tpu's evaluation flags; those of unported modes are refused
-    by eval_model."""
+    """vstar_tpu's evaluation flags; --mesh is refused by eval_model."""
     p = argparse.ArgumentParser(description="V*Bench SEAL evaluation")
     p.add_argument("--vqa-model-path", type=str,
                    default="craigwu/seal_vqa_7b")
@@ -212,11 +353,21 @@ def build_parser() -> argparse.ArgumentParser:
                    action="store_true", default=False,
                    help="one model resident at a time: free-form over all "
                         "images, one swap to the VSM, all searches, swap "
-                        "back, all focus re-asks (eval/phased.py; needs "
-                        "engine factories until the loaders are ported)")
+                        "back, all focus re-asks (eval/phased.py)")
     p.add_argument("--coresident", action="store_true", default=False,
                    help="with --single-chip-phased: build both engines up "
                         "front and skip the swaps")
     p.add_argument("--mixed", action="store_true", default=False,
                    help="int8 VQA decoder, int4 VSM decoder, int8 towers")
     return p
+
+
+def main(argv=None, device="cuda", tokenizer=None):
+    """The command line: eval_model on the loaded pair (on the card unless
+    `device` says otherwise)."""
+    return eval_model(build_parser().parse_args(argv), device=device,
+                      tokenizer=tokenizer)
+
+
+if __name__ == "__main__":
+    main()

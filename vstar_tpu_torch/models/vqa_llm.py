@@ -33,14 +33,50 @@ def init_vqa_llm_params(seed: int, cfg: VQALLMConfig, *, device,
     }
 
 
-def encode_feature_bank(params: Dict, cfg: VQALLMConfig,
-                        image_pixels: torch.Tensor,
-                        object_pixels: torch.Tensor) -> torch.Tensor:
-    """The per-row splice bank [B, (1+M)*(256+32), hidden].
+def vqa_llm_params_from_torch(sd, cfg: VQALLMConfig, dtype=torch.float32,
+                              strict: bool = False,
+                              quantize_llm=False) -> Dict:
+    """Import a LlavaSearchLlamaForCausalLM state_dict (vstar_tpu
+    models/vqa_llm.vqa_llm_params_from_torch), on the device its tensors
+    lie on.
 
-    image_pixels [B, 224, 224, 3] and object_pixels [B, M, 224, 224, 3]
-    are CLIP-normalized f32 or uint8 (normalized here). Unused object
-    slots may hold anything: their bank entries are never gathered."""
+    Key roots: 'model.*' (decoder), 'model.vision_tower.vision_tower.
+    vision_model.*' (CLIP), 'model.mm_projector.*' (linear),
+    'model.mm_projector_object.{0,1,2}.*' (perceiver Sequential).
+
+    strict=True audits every checkpoint key: unknown (present but never
+    consumed) or missing keys raise (core/import_audit.py). quantize_llm
+    as llama_params_from_torch's `quantize` (each decoder matrix quantized
+    as it is read)."""
+    from ..core.hf_import import (linear_projector_from_torch,
+                                  llama_params_from_torch,
+                                  perceiver_params_from_torch,
+                                  vit_params_from_torch)
+    if strict:
+        from ..core.import_audit import strict_import
+        return strict_import(
+            sd, lambda s: vqa_llm_params_from_torch(
+                s, cfg, dtype, quantize_llm=quantize_llm))
+    return {
+        "llama": llama_params_from_torch(sd, cfg.llama, dtype,
+                                         quantize=quantize_llm),
+        "vision": vit_params_from_torch(
+            sd, cfg.vision, prefix="model.vision_tower.vision_tower."
+            "vision_model.", dtype=dtype),
+        "proj_image": {"proj": linear_projector_from_torch(
+            sd, "model.mm_projector", dtype)},
+        "proj_object": {"perceiver": perceiver_params_from_torch(
+            sd, cfg.projector_object.perceiver,
+            prefix="model.mm_projector_object.", dtype=dtype)},
+    }
+
+
+def clip_bank_features(params: Dict, cfg: VQALLMConfig,
+                       image_pixels: torch.Tensor,
+                       object_pixels: torch.Tensor) -> torch.Tensor:
+    """CLIP patch features of each row's image and object crops,
+    [B*(1+M), N, C] (the tower half of encode_feature_bank; training runs
+    it without gradients, as JAX stops them at the tower's parameters)."""
     if image_pixels.dtype == torch.uint8:
         image_pixels = normalize_u8_images(image_pixels)
     if object_pixels.dtype == torch.uint8:
@@ -50,14 +86,33 @@ def encode_feature_bank(params: Dict, cfg: VQALLMConfig,
     all_pixels = all_pixels.reshape((B * (1 + M),)
                                     + tuple(image_pixels.shape[1:]))
     vis_dtype = params["vision"]["patch_embed"]["w"].dtype
-    feats = clip_patch_features(params["vision"], cfg.vision,
-                                all_pixels.to(vis_dtype))
+    return clip_patch_features(params["vision"], cfg.vision,
+                               all_pixels.to(vis_dtype))
+
+
+def project_bank(params: Dict, cfg: VQALLMConfig, feats: torch.Tensor,
+                 batch: int) -> torch.Tensor:
+    """Both projectors over clip_bank_features' output -> the splice bank
+    [B, (1+M)*(256+32), hidden]."""
     long = apply_projector(params["proj_image"], cfg.projector_image, feats)
     short = apply_projector(params["proj_object"], cfg.projector_object,
                             feats)
     bank = torch.cat([long, short], dim=1)
     slot = bank_slot_size(long.shape[1], short.shape[1])
-    return bank.reshape(B, (1 + M) * slot, bank.shape[-1])
+    return bank.reshape(batch, feats.shape[0] // batch * slot,
+                        bank.shape[-1])
+
+
+def encode_feature_bank(params: Dict, cfg: VQALLMConfig,
+                        image_pixels: torch.Tensor,
+                        object_pixels: torch.Tensor) -> torch.Tensor:
+    """The per-row splice bank [B, (1+M)*(256+32), hidden].
+
+    image_pixels [B, 224, 224, 3] and object_pixels [B, M, 224, 224, 3]
+    are CLIP-normalized f32 or uint8 (normalized here). Unused object
+    slots may hold anything: their bank entries are never gathered."""
+    feats = clip_bank_features(params, cfg, image_pixels, object_pixels)
+    return project_bank(params, cfg, feats, image_pixels.shape[0])
 
 
 def spliced_embeds(params: Dict, text_ids: torch.Tensor,

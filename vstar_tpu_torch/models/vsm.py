@@ -60,6 +60,60 @@ def init_vsm_params(seed: int, cfg: VSMConfig, *, device,
     }
 
 
+def vsm_params_from_torch(sd, cfg: VSMConfig, dtype=torch.float32,
+                          strict: bool = False, quantize_llm=False) -> Dict:
+    """Import a VSMForCausalLM state_dict (craigwu/seal_vsm_7b; vstar_tpu
+    models/vsm.vsm_params_from_torch), on the device its tensors lie on.
+
+    strict=True audits every checkpoint key: unknown (present but never
+    consumed) or missing keys raise (core/import_audit.py). quantize_llm
+    as llama_params_from_torch's `quantize`."""
+    from ..core.hf_import import (_lin, _np, linear_projector_from_torch,
+                                  llama_params_from_torch,
+                                  vit_params_from_torch)
+    from ..nn.owl_heads import owl_head_params_from_torch
+    from ..nn.sam import sam_params_from_torch
+    if strict:
+        from ..core.import_audit import strict_import
+        return strict_import(
+            sd, lambda s: vsm_params_from_torch(
+                s, cfg, dtype, quantize_llm=quantize_llm))
+    pe, dec = sam_params_from_torch(sd, cfg.sam, "model.prompt_encoder.",
+                                    "model.mask_decoder.", dtype)
+
+    def fc(prefix):
+        # Sequential(Linear, ReLU, Linear, Dropout) -> indices 0 and 2
+        return {"fc0": {"w": _lin(sd, prefix + ".0.weight").to(dtype),
+                        "b": _np(sd[prefix + ".0.bias"]).to(dtype)},
+                "fc1": {"w": _lin(sd, prefix + ".2.weight").to(dtype),
+                        "b": _np(sd[prefix + ".2.bias"]).to(dtype)}}
+
+    return {
+        "llama": llama_params_from_torch(sd, cfg.llama, dtype,
+                                         quantize=quantize_llm),
+        "vision": vit_params_from_torch(
+            sd, cfg.vision,
+            prefix="model.vision_tower.vision_tower.vision_model.",
+            dtype=dtype),
+        "proj": {"proj": linear_projector_from_torch(
+            sd, "model.mm_projector", dtype)},
+        "owl_tower": vit_params_from_torch(
+            sd, cfg.owl_vision, prefix="model.owlvit.vision_model.",
+            dtype=dtype),
+        "owl_merge_ln": {
+            "scale": _np(sd["model.owlvit.layer_norm.weight"]).to(dtype),
+            "bias": _np(sd["model.owlvit.layer_norm.bias"]).to(dtype)},
+        "owl_heads": owl_head_params_from_torch(sd, prefix="model.owlvit.",
+                                                dtype=dtype),
+        "visual_projection": {"w": _lin(
+            sd, "model.visual_projection.weight").to(dtype)},
+        "prompt_encoder": pe,
+        "mask_decoder": dec,
+        "fc_det": fc("model.text_hidden_fcs_det.0"),
+        "fc_seg": fc("model.text_hidden_fcs_seg.0"),
+    }
+
+
 def _tower_input(params: Dict, pixels: torch.Tensor) -> torch.Tensor:
     if pixels.dtype == torch.uint8:
         pixels = normalize_u8_images(pixels)

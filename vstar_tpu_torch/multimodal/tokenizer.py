@@ -5,7 +5,9 @@ Replicates the reference's prompt tokenization, which splits the prompt on
 (LLaVA/llava/mm_utils.py:43-109). The sentinel positions later expand into
 vision features (see splicing.py).
 
-Works with any HF tokenizer (LlamaTokenizer for the real checkpoints).
+Works with any HF tokenizer (LlamaTokenizer for the real checkpoints);
+`load_tokenizer` loads a checkpoint's, the port's one call into
+`transformers`.
 """
 
 from __future__ import annotations
@@ -63,3 +65,20 @@ def find_keyword_stop(output_ids: Sequence[int], generated_text: str,
     """KeywordsStoppingCriteria semantics (mm_utils.py:123-148): stop when
     the decoded tail contains any keyword."""
     return any(kw in generated_text for kw in keywords)
+
+
+def load_tokenizer(model_dir: str, **kwargs):
+    """The checkpoint's SentencePiece tokenizer, as vstar_tpu loads it
+    (transformers.AutoTokenizer.from_pretrained(model_dir, use_fast=False,
+    **kwargs)), from local files only: the port downloads nothing. The
+    one place the port reaches for `transformers`, which is imported
+    here, when a loader or trainer is given no tokenizer."""
+    try:
+        from transformers import AutoTokenizer
+    except ImportError as e:
+        raise ImportError(
+            f"loading the tokenizer of {model_dir} needs the `transformers` "
+            "package (and `sentencepiece`); pass an explicit tokenizer "
+            "instead") from e
+    return AutoTokenizer.from_pretrained(model_dir, use_fast=False,
+                                         local_files_only=True, **kwargs)

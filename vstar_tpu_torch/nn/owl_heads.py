@@ -81,3 +81,28 @@ def owl_detect(params: Dict, cfg: OwlHeadConfig, feature_map: torch.Tensor,
     image_feats = feature_map.reshape(B, G * G, V)
     return (owl_class_logits(params, image_feats, query_embeds),
             owl_box_predictions(params, image_feats, G))
+
+
+def owl_head_params_from_torch(sd, prefix: str = "",
+                               dtype=torch.float32) -> Dict:
+    """Import HF OwlViTForObjectDetection class_head/box_head weights
+    (vstar_tpu nn/owl_heads.owl_head_params_from_torch). `prefix` points
+    above 'class_head.'/'box_head.' (usually '')."""
+    from ..core.hf_import import _lin, _np
+
+    def lin(name):
+        return {"w": _lin(sd, prefix + name + ".weight").to(dtype),
+                "b": _np(sd[prefix + name + ".bias"]).to(dtype)}
+
+    return {
+        "class_head": {
+            "dense0": lin("class_head.dense0"),
+            "logit_shift": lin("class_head.logit_shift"),
+            "logit_scale": lin("class_head.logit_scale"),
+        },
+        "box_head": {
+            "dense0": lin("box_head.dense0"),
+            "dense1": lin("box_head.dense1"),
+            "dense2": lin("box_head.dense2"),
+        },
+    }

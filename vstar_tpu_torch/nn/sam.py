@@ -232,3 +232,80 @@ def mask_decoder(params: Dict, cfg: SamDecoderConfig,
     masks = masks.reshape(B, cfg.num_mask_tokens, 4 * h, 4 * w)
     iou_pred = _mlp3(params["iou_head"], iou_token_out)
     return masks[:, :1], iou_pred[:, :1]
+
+
+def sam_params_from_torch(sd, cfg: SamDecoderConfig, prompt_prefix: str,
+                          decoder_prefix: str, dtype=torch.float32
+                          ) -> Tuple[Dict, Dict]:
+    """Import SAM PromptEncoder/MaskDecoder weights from a torch state_dict
+    (vstar_tpu nn/sam.sam_params_from_torch).
+
+    prompt_prefix e.g. 'prompt_encoder.', decoder_prefix e.g. 'mask_decoder.'.
+    Returns (prompt_encoder_params, mask_decoder_params).
+    """
+    from ..core.hf_import import _lin, _np
+
+    def lin(name):
+        return {"w": _lin(sd, name + ".weight").to(dtype),
+                "b": _np(sd[name + ".bias"]).to(dtype)}
+
+    def ln(name):
+        return {"scale": _np(sd[name + ".weight"]).to(dtype),
+                "bias": _np(sd[name + ".bias"]).to(dtype)}
+
+    def conv(name):
+        w = _np(sd[name + ".weight"]).permute(2, 3, 1, 0)  # OIHW -> HWIO
+        return {"w": w.contiguous().to(dtype),
+                "b": _np(sd[name + ".bias"]).to(dtype)}
+
+    pe = {
+        "pe_gaussian": _np(sd[prompt_prefix + "pe_layer."
+                              "positional_encoding_gaussian_matrix"]
+                           ).to(dtype),
+        "no_mask_embed": _np(sd[prompt_prefix + "no_mask_embed.weight"]
+                             )[0].to(dtype),
+    }
+
+    def attn(name):
+        return {"q": lin(name + ".q_proj"), "k": lin(name + ".k_proj"),
+                "v": lin(name + ".v_proj"), "out": lin(name + ".out_proj")}
+
+    dp = decoder_prefix
+    layers = []
+    for i in range(cfg.transformer_depth):
+        b = f"{dp}transformer.layers.{i}."
+        layers.append({
+            "self_attn": attn(b + "self_attn"),
+            "norm1": ln(b + "norm1"),
+            "cross_t2i": attn(b + "cross_attn_token_to_image"),
+            "norm2": ln(b + "norm2"),
+            "mlp_in": lin(b + "mlp.lin1"),
+            "mlp_out": lin(b + "mlp.lin2"),
+            "norm3": ln(b + "norm3"),
+            "norm4": ln(b + "norm4"),
+            "cross_i2t": attn(b + "cross_attn_image_to_token"),
+        })
+
+    decoder = {
+        "iou_token": _np(sd[dp + "iou_token.weight"]).to(dtype),
+        "mask_tokens": _np(sd[dp + "mask_tokens.weight"]).to(dtype),
+        "transformer": {
+            "layers": layers,
+            "final_attn": attn(dp + "transformer.final_attn_token_to_image"),
+            "norm_final": ln(dp + "transformer.norm_final_attn"),
+        },
+        "upscale_conv1": conv(dp + "output_upscaling.0.conv"),
+        "upscale_ln": ln(dp + "output_upscaling.1"),
+        "upscale_conv2": conv(dp + "output_upscaling.3.conv"),
+        "hyper_mlps": [
+            {"fc0": lin(f"{dp}output_hypernetworks_mlps.{i}.layers.0"),
+             "fc1": lin(f"{dp}output_hypernetworks_mlps.{i}.layers.1"),
+             "fc2": lin(f"{dp}output_hypernetworks_mlps.{i}.layers.2")}
+            for i in range(cfg.num_mask_tokens)],
+        "iou_head": {
+            "fc0": lin(dp + "iou_prediction_head.layers.0"),
+            "fc1": lin(dp + "iou_prediction_head.layers.1"),
+            "fc2": lin(dp + "iou_prediction_head.layers.2"),
+        },
+    }
+    return pe, decoder

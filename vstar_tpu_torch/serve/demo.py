@@ -6,6 +6,8 @@ answer, search trigger, bbox visualization, focused re-answer). Without
 gradio: a terminal REPL over the identical SealService flow, writing bbox
 visualizations to disk.
 
+    python -m vstar_tpu_torch.serve.demo --vqa-model-path <hf dir> \
+        --vsm-model-path <hf dir>
     python -m vstar_tpu_torch.serve.demo --random-init 7b
 """
 
@@ -141,10 +143,11 @@ def main():
                         "examples.json [[question, file], ...]) for the "
                         "gradio gallery")
     args = p.parse_args()
-    try:
-        check_random_init(args.random_init, args.device)
-    except ValueError as e:
-        p.error(str(e))
+    if args.random_init:
+        try:
+            check_random_init(args.random_init, args.device)
+        except ValueError as e:
+            p.error(str(e))
     # the server's engine flags: the weight formats, --kv-int8, and
     # --warmup running every shape once before the first question
     vqa, vsm = engines_from_flags(args)

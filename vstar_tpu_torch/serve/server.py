@@ -8,6 +8,8 @@ Response with options: the SEAL record ("prediction_freeform",
           "missing_objects", "failed_objects", "search_result"); both
           with "latency_s".
 
+    python -m vstar_tpu_torch.serve.server --vqa-model-path <hf dir> \
+        --vsm-model-path <hf dir>
     python -m vstar_tpu_torch.serve.server --random-init 7b --device cuda
     python -m vstar_tpu_torch.serve.server --random-init 7b --int4mix
     python -m vstar_tpu_torch.serve.server --random-init 7b \
@@ -266,9 +268,14 @@ def warmup_engines(vqa, vsm, max_batch: int, log=print):
 def add_engine_flags(p):
     """The engine flags every serving command line shares (the server and
     serve/demo.py), under vstar_tpu's names."""
-    p.add_argument("--random-init", choices=["tiny", "7b"], required=True,
-                   help="random weights + the stub tokenizer (loading "
-                        "checkpoints is not ported yet)")
+    p.add_argument("--vqa-model-path", default="craigwu/seal_vqa_7b",
+                   help="HF checkpoint directory of the VQA LLM")
+    p.add_argument("--vsm-model-path", default="craigwu/seal_vsm_7b",
+                   help="HF checkpoint directory of the VSM")
+    p.add_argument("--random-init", choices=["tiny", "7b"], default=None,
+                   help="random weights + the stub tokenizer in place of "
+                        "the model paths ('tiny' is a CPU smoke, '7b' the "
+                        "full-width pair)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--int8", action="store_true",
                    help="weight-only int8 decoders (default: bf16)")
@@ -302,19 +309,47 @@ def add_engine_flags(p):
                         "and the canvas sizes up to 2K once before serving")
 
 
-def engines_from_flags(args, max_batch: int = 1):
-    """add_engine_flags' arguments -> the (vqa, vsm) pair; vsm is a
+def checkpoint_engines(args, tokenizer=None):
+    """add_engine_flags' arguments without --random-init -> the pair
+    loaded from --vqa-model-path / --vsm-model-path on --device
+    (eval/vstar_bench's loaders), the quantization flags resolved as
+    vstar_tpu's server resolves them; tokenizer None loads each
+    directory's."""
+    from ..eval.vstar_bench import load_vqa_engine, load_vsm_engine
+    mixed = args.mixed or (args.int4mix and not args.int4)
+    int4mode = "int4mix" if args.int4mix else True
+    vqa = load_vqa_engine(args.vqa_model_path,
+                          int8=True if mixed else args.int8,
+                          device=args.device, kv_int8=args.kv_int8,
+                          prompt_lookup=args.prompt_lookup,
+                          int4=int4mode if (args.int4 and not mixed)
+                          else False, tokenizer=tokenizer)
+    vsm = load_vsm_engine(args.vsm_model_path,
+                          device_preprocess=args.device_preprocess
+                          or args.compiled,
+                          int8=args.int8, device=args.device,
+                          kv_int8=args.kv_int8,
+                          int4=int4mode if (args.int4 or mixed) else False,
+                          tokenizer=tokenizer)
+    return vqa, vsm
+
+
+def engines_from_flags(args, max_batch: int = 1, tokenizer=None):
+    """add_engine_flags' arguments -> the (vqa, vsm) pair, random
+    (--random-init) or loaded (checkpoint_engines); vsm is a
     CompiledVSMSearch under --compiled. max_batch sizes the warmup's
     batch buckets (waves pad up to the covering bucket). Raises
     ValueError for a --random-init size the device cannot run
     (check_random_init)."""
-    vqa, vsm = random_init_engines(args.random_init, args.device,
-                                   int8=args.int8, int4=args.int4,
-                                   mixed=args.mixed, int4mix=args.int4mix,
-                                   prompt_lookup=args.prompt_lookup,
-                                   device_preprocess=args.device_preprocess
-                                   or args.compiled,
-                                   kv_int8=args.kv_int8)
+    if args.random_init:
+        vqa, vsm = random_init_engines(
+            args.random_init, args.device, int8=args.int8, int4=args.int4,
+            mixed=args.mixed, int4mix=args.int4mix,
+            prompt_lookup=args.prompt_lookup,
+            device_preprocess=args.device_preprocess or args.compiled,
+            kv_int8=args.kv_int8)
+    else:
+        vqa, vsm = checkpoint_engines(args, tokenizer)
     if args.compiled:
         from ..search.compiled import CompiledVSMSearch
         vsm = CompiledVSMSearch(vsm)
@@ -340,10 +375,11 @@ def main():
                    help="--continuous: how long a wave waits for more "
                         "requests after its first")
     args = p.parse_args()
-    try:
-        check_random_init(args.random_init, args.device)
-    except ValueError as e:
-        p.error(str(e))
+    if args.random_init:
+        try:
+            check_random_init(args.random_init, args.device)
+        except ValueError as e:
+            p.error(str(e))
     vqa, vsm = engines_from_flags(args, max_batch=args.max_batch)
     if args.continuous:
         from .continuous import ContinuousSealService

@@ -1,9 +1,10 @@
-"""The optax pieces the VSM trainer uses, with optax's semantics, over
+"""The optax pieces the trainers use, with optax's semantics, over
 flat parameter dicts ({dotted path: tensor}, core/params.leaves_with_path).
 
-The JAX package builds its optimizer from optax (vstar_tpu/train/
-vsm_train.py:45-67): clip_by_global_norm, then adamw on the trainable
-leaves only (optax.masked), optionally over f32 masters (train/master.py).
+The JAX package builds its optimizers from optax (vstar_tpu/train/
+vsm_train.py:45-67, train/sft.py:35-57): clip_by_global_norm, then adamw
+on the trainable leaves only (optax.masked), optionally over f32 masters
+(train/master.py), on a warmup-decay or a warmup-cosine schedule.
 What optax does, and torch.optim does not, is kept exactly:
   * the clip scales by max_norm / norm only when norm >= max_norm, with no
     epsilon (torch's clip_grad_norm_ adds 1e-6);
@@ -11,8 +12,8 @@ What optax does, and torch.optim does not, is kept exactly:
     warmup starts at learning rate 0;
   * Adam's eps sits outside the square root (eps_root 0), bias corrections
     divide in the moment's dtype, moments start in the parameter's dtype
-    and follow JAX's type promotion; the VSM's weight decay is 0, so
-    adamw's decayed-weights term (u + 0 * p) is left out;
+    and follow JAX's type promotion; both trainers' weight decay is 0,
+    so adamw's decayed-weights term (u + 0 * p) is left out;
   * a leaf outside the mask gets no state and its (zero) gradient passes
     through.
 A transformation is (init(params) -> state, update(grads, state, params)
@@ -82,6 +83,43 @@ def linear_schedule(init_value: float, end_value: float,
         frac = np.float32(1) - c / np.float32(transition_steps)
         return np.float32(init_value - end_value) * frac + np.float32(end_value)
     return schedule
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int,
+                          alpha: float = 0.0, exponent: float = 1.0
+                          ) -> Callable[[int], np.float32]:
+    """optax.cosine_decay_schedule in float32, evaluated as XLA evaluates
+    the jitted optax one: the angle as count * (pi / decay_steps) (XLA
+    folds the constant division), the cosine correctly rounded (XLA's
+    float32 cos agrees with it to within one ulp)."""
+    if not decay_steps > 0:
+        raise ValueError("cosine_decay_schedule needs positive decay_steps,"
+                         f" got {decay_steps}")
+    step = np.float32(np.pi) / np.float32(decay_steps)
+
+    def schedule(count):
+        angle = np.float32(min(max(count, 0), decay_steps)) * step
+        cos = np.float32(np.cos(np.float64(angle)))
+        decay = np.float32(0.5) * (np.float32(1) + cos)
+        decayed = (np.float32(1 - alpha) * decay ** np.float32(exponent)
+                   + np.float32(alpha))
+        return np.float32(init_value) * decayed
+    return schedule
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
+                                 warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0,
+                                 exponent: float = 1.0
+                                 ) -> Callable[[int], np.float32]:
+    """optax.warmup_cosine_decay_schedule: a linear warmup to peak_value,
+    then a cosine decay to end_value over decay_steps - warmup_steps
+    (decay_steps counts the warmup)."""
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    return join_schedules(
+        [linear_schedule(init_value, peak_value, warmup_steps),
+         cosine_decay_schedule(peak_value, decay_steps - warmup_steps,
+                               alpha, exponent)], [warmup_steps])
 
 
 def join_schedules(schedules: Sequence[Callable], boundaries: Sequence[int]

@@ -1,0 +1,122 @@
+"""Supervised fine-tuning step for the VQA LLM (port of
+vstar_tpu/train/sft.py; stage 1 and 2 of the reference's pipeline,
+LLaVA/llava/train/train.py and train_search.py) on one device.
+
+Loss: next-token CE with IGNORE_INDEX masking over the spliced sequence,
+matching LlamaForCausalLM's shift-CE (llava_search_llama.py:94-105). The
+CLIP tower is frozen in every reference stage: it runs without gradients
+(JAX stops them at its parameters), so no gradient is computed through
+it; the projectors and the decoder take theirs through the attention
+kernels' backward (K7). As in the port's VSM trainer, only the trainable
+leaves get gradients (JAX computes all and zeroes the frozen ones); norms,
+clips and updates come out the same. The decoder layers are recomputed in
+the backward (remat), as JAX's `remat=True`.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from ..core.config import VQALLMConfig
+from ..core.params import leaves_with_path, map_with_path, replace_leaves
+from ..models.vqa_llm import clip_bank_features, project_bank, \
+    spliced_embeds
+from ..multimodal.constants import IGNORE_INDEX
+from ..nn.llama import llama_forward, lm_logits
+from . import optim
+from .accumulate import accumulated_grads
+from .master import with_f32_master
+
+
+class TrainState(NamedTuple):
+    params: Dict
+    opt_state: Any
+    step: int
+
+
+def make_optimizer(learning_rate: float = 2e-5, warmup_steps: int = 100,
+                   total_steps: int = 10000, b1: float = 0.9,
+                   b2: float = 0.999, grad_clip: float = 1.0,
+                   trainable_mask=None,
+                   master_f32: bool = False) -> optim.Transformation:
+    """Clip, then AdamW (weight decay 0, as every vstar_tpu caller sets
+    it) on a linear warmup / cosine decay schedule (the reference's HF
+    defaults for the VQA LLM), on flat parameter dicts.
+
+    trainable_mask: bool tree; AdamW state (and f32 masters) exist only
+    for trainable leaves, as optax.masked gives.
+    master_f32: f32 master weights for bf16 parameter storage."""
+    schedule = optim.warmup_cosine_decay_schedule(
+        0.0, learning_rate, warmup_steps,
+        max(total_steps, warmup_steps + 1))
+    adamw = optim.adamw(schedule, b1=b1, b2=b2)
+    if master_f32:
+        adamw = with_f32_master(adamw)
+    if trainable_mask is not None:
+        adamw = optim.masked(adamw, dict(leaves_with_path(trainable_mask)))
+    return optim.chain(optim.clip_by_global_norm(grad_clip), adamw)
+
+
+def sft_loss(params: Dict, cfg: VQALLMConfig, batch: Dict,
+             compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """batch (tensors on the parameters' device): image [B,H,W,3],
+    objects [B,M,H,W,3], text_ids/feat_idx/is_feat [B,S], lens [B],
+    labels [B,S] (IGNORE at prompts/feats/pad), optional kv_valid [B,S]."""
+    with torch.no_grad():
+        feats = clip_bank_features(params, cfg, batch["image"],
+                                   batch["objects"])
+    bank = project_bank(params, cfg, feats, batch["image"].shape[0]).to(
+        compute_dtype)
+    h = spliced_embeds(params, batch["text_ids"], bank, batch["feat_idx"],
+                       batch["is_feat"], compute_dtype)
+    B, S = batch["text_ids"].shape
+    pos = torch.arange(S, device=h.device)[None].expand(B, S)
+    hidden, _ = llama_forward(params["llama"], cfg.llama, h, pos,
+                              batch["lens"], kv_valid=batch.get("kv_valid"),
+                              remat=True)
+    logits = lm_logits(params["llama"], hidden)
+
+    # shift: logits[t] predicts labels[t+1]
+    shift_logits = logits[:, :-1]
+    shift_labels = batch["labels"][:, 1:]
+    valid = shift_labels != IGNORE_INDEX
+    safe = torch.where(valid, shift_labels, torch.zeros_like(shift_labels))
+    logp = torch.log_softmax(shift_logits.float(), dim=-1)
+    tok_lp = logp.gather(-1, safe.long()[..., None])[..., 0]
+    return -(tok_lp * valid).sum() / torch.clamp(valid.sum(), min=1)
+
+
+def sft_train_step(state: TrainState, batch: Dict, cfg: VQALLMConfig,
+                   optimizer: optim.Transformation,
+                   trainable_mask: Optional[Dict] = None,
+                   compute_dtype=torch.bfloat16, grad_accum: int = 1
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """One SFT step over `batch` (grad_accum micro-batches). Freezing is a
+    trainable_mask tree of booleans (None: every float leaf, the tower's
+    gradient then zero); the new state shares every frozen leaf with the
+    old one."""
+    loss, _, grads = accumulated_grads(
+        lambda p, b: sft_loss(p, cfg, b, compute_dtype), state.params,
+        batch, grad_accum, trainable=trainable_mask)
+    flat = dict(leaves_with_path(state.params))
+    updates, new_opt = optimizer.update(grads, state.opt_state, flat)
+    new_params = replace_leaves(state.params,
+                                optim.apply_updates(flat, updates))
+    metrics = {"loss": loss, "grad_norm": optim.global_norm(grads),
+               "step": state.step}
+    return TrainState(new_params, new_opt, state.step + 1), metrics
+
+
+def init_train_state(params: Dict, optimizer: optim.Transformation
+                     ) -> TrainState:
+    return TrainState(params, optimizer.init(dict(leaves_with_path(params))),
+                      0)
+
+
+def make_frozen_vision_mask(params: Dict) -> Dict:
+    """Mask freezing the CLIP tower (the reference freezes it during
+    SFT)."""
+    return map_with_path(lambda path, _: not path.startswith("vision."),
+                         params)

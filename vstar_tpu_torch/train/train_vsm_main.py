@@ -5,11 +5,15 @@ counterpart of VisualSearch/train.py) on one device.
 optimizer with the trainable-set mask, auto-resume (the rolling 'latest'
 checkpoint first, then the best one), prefetched epochs of the hybrid
 dataset, validation-gated checkpoints (train.py:389-411). It runs where
-the parameters live; batches move there. The JAX package's mesh and
-memory plan come with the mesh slice, so `--mesh` is accepted only when
-it names one device. Building the model from an HF checkpoint (`main`
-in the JAX package) comes with the HF import slice. TensorBoard scalars
-are left out; metrics.jsonl keeps them.
+the parameters live; batches move there, after the one-device memory
+plan (core/memory.py) has been checked against the device's memory. The
+JAX package's mesh comes with the mesh slice (ROADMAP Queue 1 item 12),
+so `--mesh` is accepted only when it names one device. `main` builds the
+model from an HF checkpoint directory (--version) on the card, with
+LoRA. TensorBoard scalars are left out; metrics.jsonl keeps them.
+
+    python -m vstar_tpu_torch.train.train_vsm_main --version <seal_vsm dir> \
+        --dataset_dir ./dataset --exp_name vsm
 """
 
 from __future__ import annotations
@@ -18,7 +22,11 @@ import argparse
 import json
 import os
 
+import torch
+
 from ..core.checkpoint import load_params, save_params
+from ..core.memory import (check_memory, device_memory_gb, parse_mesh_arg,
+                           plan_train_memory)
 from ..core.params import leaves_with_path
 from ..data.prefetch import prefetch
 from ..data.vsm_collate import batch_to_torch, collate_vsm_rows
@@ -59,6 +67,9 @@ def parse_args(argv=None):
     p.add_argument("--param_dtype", choices=["bf16", "f32"], default="bf16",
                    help="parameter storage dtype; bf16 + f32 masters in the"
                    " optimizer is the DeepSpeed-bf16-mode equivalent")
+    p.add_argument("--hbm_gb", default=None, type=float,
+                   help="device memory for the startup memory check "
+                        "(default: the card's)")
     p.add_argument("--auto_resume", action="store_true", default=True)
     p.add_argument("--save_steps", default=500, type=int,
                    help="rolling 'latest' TrainState checkpoint every N "
@@ -71,9 +82,12 @@ def parse_args(argv=None):
 
 
 def _check_one_device(mesh) -> None:
-    if mesh is not None and any(int(d) != 1 for d in str(mesh).split("x")):
+    """--mesh must name one device (core/memory.parse_mesh_arg on 1)."""
+    try:
+        parse_mesh_arg(mesh, 1)
+    except ValueError as e:
         raise ValueError(f"--mesh {mesh}: the port trains on one device "
-                         "(the mesh slice is not ported)")
+                         "(the mesh is ROADMAP Queue 1 item 12)") from e
 
 
 def build_datasets(args, tokenizer, clip_size: int = 224,
@@ -126,6 +140,11 @@ def run_vsm_training(args, cfg, params, tokenizer, loc_token_id):
     _check_one_device(args.mesh)
     device = next(x.device for _, x in leaves_with_path(params))
     mask = vsm_trainable_mask(params)
+    hbm_gb = getattr(args, "hbm_gb", None)
+    check_memory(plan_train_memory(params, trainable_mask=mask,
+                                   master_f32=args.param_dtype == "bf16"),
+                 hbm_gb=hbm_gb if hbm_gb is not None
+                 else device_memory_gb(device), what="VSM train (one device)")
     total_steps = args.epochs * args.steps_per_epoch
     opt = make_vsm_optimizer(args.lr, args.warmup_steps, total_steps,
                              trainable_mask=mask,
@@ -255,3 +274,36 @@ def _save_latest(latest_dir: str, state, epoch: int, step: int,
     save_params(tuple(state), os.path.join(latest_dir, "state"))
     _write_json({"epoch": epoch, "step": step, "best_det_acc": best_det_acc},
                 os.path.join(latest_dir, "meta.json"))
+
+
+def main(argv=None, tokenizer=None, device="cuda"):
+    """The VSM trainer from the command line: the model from the HF
+    checkpoint directory --version on `device` (the card by default),
+    LoRA on the decoder, then run_vsm_training. `tokenizer` None loads the
+    checkpoint's (right padding, 512 tokens, unk as pad, as vstar_tpu
+    loads it)."""
+    from ..core.checkpoint import load_torch_dir
+    from ..core.hf_config import vsm_config_for
+    from ..models.vsm import vsm_params_from_torch
+    from ..multimodal.tokenizer import load_tokenizer
+    from .lora import add_lora
+    args = parse_args(argv)
+    _check_one_device(args.mesh)
+    if tokenizer is None:
+        tokenizer = load_tokenizer(args.version, model_max_length=512,
+                                   padding_side="right")
+        tokenizer.pad_token = tokenizer.unk_token
+    loc_token_id = tokenizer("[LOC]", add_special_tokens=False).input_ids[0]
+    cfg = vsm_config_for(args.version)
+    param_dtype = torch.bfloat16 if args.param_dtype == "bf16" \
+        else torch.float32
+    params = vsm_params_from_torch(load_torch_dir(args.version, device), cfg,
+                                   dtype=param_dtype)
+    if args.lora_r > 0:
+        params["llama"] = add_lora(params["llama"], 0, r=args.lora_r,
+                                   alpha=args.lora_alpha)
+    return run_vsm_training(args, cfg, params, tokenizer, loc_token_id)
+
+
+if __name__ == "__main__":
+    main()
