@@ -153,7 +153,17 @@ Runs on one CUDA card, in phases; any failure exits non-zero:
      launches per step, frozen leaves bit-identical, trainable ones
      moved, step times and peak memory; train_vqa_main refusing the full
      7B finetune by its memory check before allocating; run_training at
-     tiny kernel widths with a resume.
+     tiny kernel widths with a resume;
+  13. the mesh (core/mesh.py through scripts/mesh_probe.py): a world of
+     one NCCL rank and the 1x1x1 mesh, every leaf a DTensor, two VQA
+     pretrain steps at full 7B equal to the one-device steps bit for bit
+     with the same K1 / K7 launches, and a sharded VSM engine's detection
+     (7B widths, 2 decoder layers; decode graphs holding the mesh's
+     collectives) equal to the unsharded engine's; the 7B finetune's
+     plan per card at 1x1x1, 1x2x1, 1x4x1; two ranks over gloo on the
+     card (7B widths, 2 decoder layers, 1x2x1): two finetune steps
+     against the one-device steps, the second step's loss read after
+     the first update.
 Prints a JSON line of kernel results, then the card's name and power
 limit, then (last line) the device record.
 
@@ -3808,6 +3818,139 @@ def phase_train_vqa(dev):
 
 # ---------------------------------------------------------------------------
 
+# Part (c)'s bounds: two gloo ranks against one device, 2 steps of 2
+# micro-batches (bf16 compute, f32 gradient buffers and masters), set
+# from my chip runs 8 and 9 of the change that introduced them (H100
+# 80GB HBM3, 700 W). Each rank's bf16 partial gradients round apart from
+# one device's, and Adam's first steps move an element by about
+# lr sign(g), so where a gradient is near zero (attention's wq / wk, the
+# perceiver's queries and norms) an element may move the other way.
+# Readings (run 9, deterministic: run 8 gave the same losses and norms)
+# and bounds: step 1's loss 1.7e-6 relative, 1e-5; its grad norm 1.9e-5,
+# 1e-4; step 2's loss, read after step 1's update, 2.0e-4, 2e-3; its
+# grad norm 8.5e-4, 5e-3; per leaf of masters, the share of elements
+# apart by more than lr / 10: 1.27 % (13 of the 1024 of
+# proj_object.perceiver.pre_ln.scale; 1.56 % after 3 steps, at most
+# 0.98 % in leaves over 10^5 elements), 3 %. A wrong or missing update
+# of a shard moves about half of its elements by lr, and step 2's loss
+# with it (10.65 -> 3.85 for the right one). Frozen leaves keep their
+# values.
+MESH_SPLIT_LR = 1e-3
+MESH_SPLIT_STEPS = 2
+MESH_SPLIT_BOUNDS = {"loss": (1e-5, 2e-3), "grad_norm": (1e-4, 5e-3)}
+MESH_SPLIT_SHARE = 0.03
+
+
+def _mesh_counts():
+    counts = _read_counts()
+    return ({k: c[0] for k, c in counts.items()},
+            {k: c[1] for k, c in counts.items()})
+
+
+def phase_mesh(dev):
+    """The mesh (core/mesh.py, scripts/mesh_probe.py) on the card:
+    (a) a world of one NCCL rank and the 1x1x1 mesh, every leaf a DTensor:
+    two VQA pretrain steps at full 7B equal to the one-device steps bit
+    for bit with the same K1 / K7 launches (32 layers x 2 micro-batches x
+    2: 128 K1, 64 + 64 K7), and a sharded VSM engine's detection (7B
+    widths, 2 decoder layers; its decode graphs hold the mesh's
+    collectives) equal to the unsharded engine's, K1 and K2 launched;
+    (b) the 7B VQA finetune's plan per card at 1x1x1 (over the budget),
+    1x2x1 and 1x4x1 (under);
+    (c) two ranks over gloo on this card, 7B widths with 2 decoder layers
+    on a 1x2x1 mesh, MESH_SPLIT_STEPS finetune steps against the
+    one-device steps within MESH_SPLIT_BOUNDS and MESH_SPLIT_SHARE.
+    Each part logs its seconds."""
+    from vstar_tpu_torch.core.memory import device_memory_gb
+    from vstar_tpu_torch.scripts import mesh_probe
+    t0 = time.perf_counter()
+    count = (_zero_counts, _mesh_counts)
+    report, by_path = {}, {}
+
+    def mark(part):
+        log(f"[time] mesh {part} done at {time.perf_counter() - t0:.1f} s")
+
+    a = mesh_probe.one_rank_mesh(dev, count)
+    log(f"[mesh (a) pretrain 1x1x1] leaves {a['leaf_types']}; one device "
+        f"{a['one_device']}; mesh {a['mesh']}; equal loss and norm "
+        f"{a['equal_loss_and_norm']}, trainable leaves "
+        f"{a['equal_trainable_leaves']}")
+    (one_l, one_p), (mesh_l, mesh_p) = a["counts_one_device"], \
+        a["counts_mesh"]
+    L = 32
+    want = {"flash_attention": L * 2 * 2, "flash_attention_bwd_dq": L * 2,
+            "flash_attention_bwd_dkv": L * 2}
+    log(f"[mesh (a) pretrain 1x1x1] launches one device {one_l}, mesh "
+        f"{mesh_l}; peak {a['peak_bytes_one_device'] / 2**30:.2f} GiB one "
+        f"device, {a['peak_bytes_mesh'] / 2**30:.2f} GiB on the mesh")
+    if a["leaf_types"] != ["DTensor"] or not all(a["equal_loss_and_norm"]) \
+            or not all(a["equal_trainable_leaves"].values()):
+        raise AssertionError(f"mesh (a): the 1x1x1 step differs: {a}")
+    if mesh_l != one_l or any(mesh_p.values()) or any(one_p.values()) or \
+            any(mesh_l[k] != n for k, n in want.items()):
+        raise AssertionError(f"mesh (a): launches {mesh_l} (one device "
+                             f"{one_l}, expected {want}), plain {mesh_p}")
+    by_path["mesh_pretrain"] = dict(mesh_l)
+    report["one_rank_pretrain"] = a
+    mark("(a) pretrain")
+    gc.collect()
+    torch.cuda.empty_cache()
+    e = mesh_probe.one_rank_engine(dev, count)
+    log(f"[mesh (a) VSM engine 1x1x1, 2 layers] decoder stack "
+        f"{e['stack_type']}, "
+        f"{e['graphs_captured']} decode graphs captured; equal {e['equal']}"
+        f"; launches {e['counts'][0]}")
+    if e["stack_type"] != "DTensor" or not all(e["equal"].values()) or \
+            any(e["counts"][1].values()) or \
+            not e["counts"][0]["flash_attention"] or \
+            not e["counts"][0]["tower_attention"]:
+        raise AssertionError(f"mesh (a): the sharded VSM engine differs "
+                             f"or skipped a kernel: {e}")
+    by_path["mesh_vsm_engine"] = dict(e["counts"][0])
+    report["one_rank_vsm_engine"] = e
+    mark("(a) VSM engine")
+    gc.collect()
+    torch.cuda.empty_cache()
+    hbm = device_memory_gb(dev)
+    plans = mesh_probe.finetune_plans(hbm)
+    for name, pl in plans.items():
+        log(f"[mesh (b) 7B VQA finetune plan {name}] "
+            f"{pl['total'] / 2**30:.2f} GiB a card (params "
+            f"{pl['params'] / 2**30:.2f}, masters {pl['masters'] / 2**30:.2f}"
+            f", moments {pl['moments'] / 2**30:.2f}, grads "
+            f"{pl['grads'] / 2**30:.2f}) against {pl['budget'] / 2**30:.2f}"
+            f": {'fits' if pl['fits'] else 'refused'}")
+    if plans["1x1x1"]["fits"] or not plans["1x2x1"]["fits"] or \
+            not plans["1x4x1"]["fits"]:
+        raise AssertionError(f"mesh (b): plans {plans}")
+    report["finetune_plans"] = plans
+    c = mesh_probe.gloo_split(lr=MESH_SPLIT_LR, steps=MESH_SPLIT_STEPS)
+    masters = c["masters"]
+    worst = max(masters, key=lambda p: masters[p]["over_lr_10"])
+    log(f"[mesh (c) gloo 1x2x1 on one card] one device {c['one_device']}; "
+        f"mesh {c['mesh']}; masters: the most apart by over lr/10 {worst} "
+        f"{masters[worst]['over_lr_10']:.4%} (over lr/100 "
+        f"{max(m['over_lr_100'] for m in masters.values()):.4%} at most), "
+        f"max |diff| {max(m['max'] for m in masters.values()):.3g}; "
+        f"frozen equal {c['frozen_equal']}; seconds {c['seconds']}")
+    for i, (one, mesh) in enumerate(zip(c["one_device"], c["mesh"])):
+        for j, key in enumerate(("loss", "grad_norm")):
+            if abs(mesh[j] - one[j]) > MESH_SPLIT_BOUNDS[key][min(i, 1)] \
+                    * abs(one[j]):
+                raise AssertionError(f"mesh (c): step {i + 1}'s {key} "
+                                     f"{mesh[j]} against {one[j]}: {c}")
+    if masters[worst]["over_lr_10"] > MESH_SPLIT_SHARE or \
+            not c["frozen_equal"] or len(c["mesh"]) != MESH_SPLIT_STEPS:
+        raise AssertionError(f"mesh (c): {c}")
+    mark("(c)")
+    report["gloo_split"] = c
+    report["seconds"] = time.perf_counter() - t0
+    log(f"[mesh] phase {report['seconds']:.1f} s")
+    return by_path, report
+
+
+# ---------------------------------------------------------------------------
+
 def _kernel_entry(name, source, replaces, launches, cases):
     """The JSON record of one kernel; the top-level numbers are its first
     (main) case's; `launches` counts the path that brought the kernel in
@@ -3900,6 +4043,13 @@ def main() -> int:
         counts["flash_attention_bwd"] = counts["flash_attention_bwd_dq"]
     by_path.update(vqa_counts)
     mark("train_vqa")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_counts, mesh = phase_mesh(dev)
+    mesh_counts["mesh_pretrain"]["flash_attention_bwd"] = \
+        mesh_counts["mesh_pretrain"]["flash_attention_bwd_dq"]
+    by_path.update(mesh_counts)
+    mark("mesh")
     if "jax" in sys.modules or "vstar_tpu" in sys.modules:
         raise AssertionError("JAX or the JAX package was imported")
     sources = {
@@ -3954,7 +4104,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "kernel_info": kernel_info,
                       "train": train, "int4_profile": profile,
                       "decode_slice": decode_slice, "hf": hf,
-                      "train_vqa": train_vqa}), flush=True)
+                      "train_vqa": train_vqa, "mesh": mesh}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,523 @@
+"""The mesh (vstar_tpu_torch/core/mesh.py) against the JAX package's, on the
+CPU.
+
+Without ranks: the partition rules and their clipping give JAX's axes for
+every path of the 7B VQA and VSM (with LoRA) trees and every key of the
+committed manifests; the per-device memory plan equals JAX's
+plan_train_memory to the byte on 1x1x1, 1x8x1, 2x2x2 and a faked 1x16x1.
+
+Over ranks: one world of 4 gloo ranks (torch.multiprocessing, a file
+store in tmp_path; tests/test_torch_mesh_world.py holds the ranks' code)
+runs every sharded computation on the 2x2x1 and 1x2x2 meshes at the tiny
+configs, and rank 0 hands back the results gathered whole:
+  * the decoder's forward on the sharded tree against JAX's and the
+    unsharded port's;
+  * an f32 SFT finetune step (8 rows) against JAX's jitted step;
+  * the VSM loss's metrics on 8 rows against JAX's jitted loss, its
+    gradients against the unsharded port's, and an f32 VSM step over 2
+    micro-batches against JAX's jitted step and the unsharded port's;
+  * the VQA and VSM trainer loops resumed from a sharded ckpt_latest
+    against the unsharded loops (the VQA loop resumed alike, the VSM
+    loop's two epochs in one go);
+  * sharded VQA and VSM engines' answers, choices, boxes, scores and
+    heatmaps against the unsharded engines'.
+A world of 2 ranks runs train_vqa_main's 7B finetune at --mesh 1x2x1: its
+plan fits an 80 GB card's budget, where the one-device plan is refused.
+
+Tolerances (f32): forward, losses, metrics and parameters within 1e-5
+(relative for scalars, absolute for parameters); gradients within 1e-5
+of each leaf's largest |value| against the unsharded port (the sums over
+ranks add in another order); the engines equal exactly. An updated
+parameter may differ by more than 1e-5, up to 0.1 lr on at most 0.1 % of
+a leaf: where a gradient element is near zero, the ranks' partial
+gradients summed in another order change it relatively much, and Adam
+divides the update by the gradient's own size (one element of 16,384
+moved 2.1e-5 apart at lr 1e-3)."""
+
+import dataclasses
+import json
+import os
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.multiprocessing as mp
+from torch.distributed.tensor import Replicate, Shard
+
+from tests import test_torch_mesh_world as W
+from tests.test_torch_sft import CFG as VQA_CFG
+from tests.test_torch_sft import T_CFG as T_VQA_CFG
+from tests.test_torch_sft import _pretrain_files, _sft_batch
+from tests.test_torch_train import CFG as VSM_CFG
+from tests.test_torch_train import T_CFG as T_VSM_CFG
+from tests.test_torch_train import make_dataset_dir
+from tests.test_train import _make_batch
+from vstar_tpu.core import memory as jmem
+from vstar_tpu.core import mesh as jmesh
+from vstar_tpu.core.config import vqa_llm_7b as j_vqa_7b
+from vstar_tpu.core.config import vsm_7b as j_vsm_7b
+from vstar_tpu.models.vqa_llm import init_vqa_llm_params as j_vqa_init
+from vstar_tpu.models.vsm import init_vsm_params as j_vsm_init
+from vstar_tpu.nn.llama import llama_forward as j_llama_forward
+from vstar_tpu.train import lora as jl
+from vstar_tpu.train import sft as jsft
+from vstar_tpu.train import vsm_train as jvsm
+from vstar_tpu.train.vsm_train import vsm_loss as j_vsm_loss
+from vstar_tpu_torch.core import config as tcfg
+from vstar_tpu_torch.core import memory as tmem
+from vstar_tpu_torch.core import mesh as tmesh
+from vstar_tpu_torch.core.hf_export import (config_json, save_safetensors,
+                                            vqa_llm_state_dict,
+                                            vsm_state_dict)
+from vstar_tpu_torch.core.import_audit import load_manifest
+from vstar_tpu_torch.core.params import leaves_with_path
+from vstar_tpu_torch.data.vsm_collate import batch_to_torch
+from vstar_tpu_torch.eval import synthetic
+from vstar_tpu_torch.models.vqa_llm import init_vqa_llm_params as t_vqa_init
+from vstar_tpu_torch.models.vsm import init_vsm_params as t_vsm_init
+from vstar_tpu_torch.train import lora as tl
+from vstar_tpu_torch.train import train_vqa_main as t_main
+
+torch.set_num_threads(1)
+
+TOL = 1e-5
+LR = W.LR
+SHAPES = ((2, 2, 1), (1, 2, 2))
+MESHES = ["x".join(map(str, s)) for s in SHAPES]
+FAKE_MESHES = ((1, 1, 1), (1, 8, 1), (2, 2, 2), (1, 16, 1))
+
+
+def _tree_7b(which, side):
+    """The 7B tree's shapes: JAX's eval_shape or the port's meta device,
+    the VSM with LoRA r=8."""
+    if side == "jax":
+        if which == "vqa":
+            return jax.eval_shape(lambda: j_vqa_init(
+                jax.random.PRNGKey(0), j_vqa_7b(), dtype=jnp.bfloat16))
+
+        def vsm():
+            p = j_vsm_init(jax.random.PRNGKey(0), j_vsm_7b(),
+                           dtype=jnp.bfloat16)
+            p["llama"] = jl.add_lora(p["llama"], jax.random.PRNGKey(1), r=8)
+            return p
+        return jax.eval_shape(vsm)
+    if which == "vqa":
+        return t_vqa_init(0, tcfg.vqa_llm_7b(), device="meta",
+                          dtype=torch.bfloat16)
+    p = t_vsm_init(0, tcfg.vsm_7b(), device="meta", dtype=torch.bfloat16)
+    p["llama"] = tl.add_lora(p["llama"], 0, r=8)
+    return p
+
+
+@pytest.mark.parametrize("which", ["vqa", "vsm"])
+def test_rules_and_clipping_equal_jax(which):
+    """spec_for on every path of the 7B tree and every key of its manifest,
+    then the clip on each fake mesh, give JAX's axes."""
+    mesh_shapes = [dict(zip(tmesh.AXES, s))
+                   for s in FAKE_MESHES]
+    leaves = list(leaves_with_path(_tree_7b(which, "torch")))
+    j_shapes = dict(leaves_with_path(_tree_7b(which, "jax")))
+    assert set(j_shapes) == {p for p, _ in leaves}
+    for path, leaf in leaves:
+        want = tuple(jmesh.spec_for(path))
+        assert tmesh.spec_for(path) == want, path
+        for sizes in mesh_shapes:
+            fake = types.SimpleNamespace(shape=sizes)
+            assert tmesh._clip_spec_to_leaf(want, leaf.shape, sizes) == \
+                tuple(jmesh._clip_spec_to_leaf(jmesh.P(*want),
+                                               j_shapes[path], fake)), path
+    for key in load_manifest(f"seal_{which}_7b"):
+        assert tmesh.spec_for(key) == tuple(jmesh.spec_for(key)), key
+    want = dict(_dict_leaves(jmesh.partition_specs(_tree_7b(which, "jax"))))
+    got = dict(_dict_leaves(tmesh.partition_specs(_tree_7b(which, "torch"))))
+    assert got == {k: tuple(v) for k, v in want.items()}
+
+
+def _dict_leaves(tree, prefix=""):
+    """(path, leaf) of a tree whose leaves are specs: tuples of axis names
+    and None (a list or tuple of subtrees is a container)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _dict_leaves(v, f"{prefix}{k}.")
+    elif isinstance(tree, (list, tuple)) and not all(
+            x is None or isinstance(x, str) for x in tree):
+        for i, v in enumerate(tree):
+            yield from _dict_leaves(v, f"{prefix}{i}.")
+    else:
+        yield prefix.rstrip("."), tree
+
+
+@pytest.mark.parametrize("which", ["vqa", "vsm"])
+def test_memory_plan_equals_jax_on_meshes(which):
+    """Per-device bytes of the 7B tree (bf16 with f32 masters; the VQA
+    finetune's frozen-tower mask, the VSM's LoRA trainable set) equal
+    JAX's field by field on every mesh, the faked 1x16x1 included."""
+    t_tree, j_tree = _tree_7b(which, "torch"), _tree_7b(which, "jax")
+    if which == "vqa":
+        t_mask = t_main.frozen_vision_mask(t_tree)
+        j_mask = jsft.make_frozen_vision_mask(j_tree)
+    else:
+        t_mask = tl.vsm_trainable_mask(t_tree)
+        j_mask = jl.vsm_trainable_mask(j_tree)
+    for shape in FAKE_MESHES:
+        fake = types.SimpleNamespace(shape=dict(zip(tmesh.AXES, shape)))
+        want = jmem.plan_train_memory(j_tree, fake, trainable_mask=j_mask)
+        for mesh in (shape, fake):
+            got = tmem.plan_train_memory(t_tree, mesh, trainable_mask=t_mask)
+            assert dataclasses.asdict(got) == dataclasses.asdict(want), shape
+            assert got.summary() == want.summary()
+
+
+def _eight_vsm_rows():
+    """tests/test_train.py's batch at 8 rows: rows without valid boxes and
+    without a valid mask, so every normaliser differs between ranks."""
+    b = dict(_make_batch(B=8))
+    b["tgt_valid"] = np.asarray([[1, 1, 0, 0], [1, 0, 0, 0], [1, 1, 1, 0],
+                                 [0, 0, 0, 0], [1, 0, 0, 0], [1, 1, 0, 0],
+                                 [1, 1, 1, 1], [1, 0, 0, 0]], bool)
+    b["bboxes_valid"] = np.asarray([1, 1, 0, 1, 1, 0, 1, 1], bool)
+    b["masks_valid"] = np.asarray([1, 0, 1, 1, 0, 1, 1, 1], bool)
+    return {k: np.asarray(v) for k, v in b.items()}
+
+
+def _tiny_trees():
+    """The tiny VQA tree, and the tiny VSM tree with LoRA (r=2) whose B is
+    non-zero, drawn by the port (seeded; JAX's eager init of the same
+    trees takes seconds) and handed to both sides."""
+    vqa = t_vqa_init(3, T_VQA_CFG, device="cpu")
+    vsm = t_vsm_init(5, T_VSM_CFG, device="cpu")
+    vsm["llama"] = tl.add_lora(vsm["llama"], 6, r=2, alpha=4)
+    gen = torch.Generator().manual_seed(7)
+    for name in ("wq_b", "wv_b"):
+        lora = vsm["llama"]["layers"]["attn"]["lora"]
+        lora[name] = torch.randn(lora[name].shape, generator=gen) * 0.1
+    return vqa, vsm
+
+
+def _jax_tree(tree):
+    return jax.tree_util.tree_map(lambda x: jnp.asarray(x.numpy()), tree)
+
+
+def _tilted(host):
+    """The tiny VSM answering [LOC] (3) at every step, as
+    tests/test_torch_slice.py tilts it."""
+    host = jax.tree_util.tree_map(torch.clone, host)
+    host["llama"]["embed_tokens"][:, 0] += 100.0
+    host["llama"]["lm_head"][0, 3] = 10.0
+    return host
+
+
+def _assert_update_close(got, want, msg):
+    """Within TOL but for near-zero-gradient elements (module docstring):
+    those by at most 0.1 lr, on at most 0.1 % of the leaf."""
+    diff = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    off = diff > TOL
+    assert off.mean() <= 1e-3 and (diff <= 0.1 * LR).all(), \
+        f"{msg}: {int(off.sum())} of {diff.size} over {TOL}, max {diff.max()}"
+
+
+def _spawn(fn, n, *args):
+    mp.start_processes(fn, args=(n, *args), nprocs=n, start_method="spawn")
+
+
+@pytest.fixture(scope="module")
+def started(tmp_path_factory):
+    """The 4-rank world's inputs, and its ranks, started on them (joined
+    by `world`, so that the references are computed while they run)."""
+    work = tmp_path_factory.mktemp("mesh")
+    vqa, vsm = _tiny_trees()
+    rng = np.random.RandomState(0)
+    B, S, D = 4, 24, VQA_CFG.llama.hidden_size
+    hidden = rng.randn(B, S, D).astype(np.float32)
+    positions = np.tile(np.arange(S, dtype=np.int32), (B, 1))
+    kv_lens = np.asarray([24, 17, 9, 24], np.int32)
+    vqa_json, vqa_images = _pretrain_files(work / "vqa_data", 8)
+    hf_dirs = {"vqa": str(work / "hf_vqa"), "vsm": str(work / "hf_vsm")}
+    save_safetensors(vqa_llm_state_dict(vqa), hf_dirs["vqa"])
+    save_safetensors(vsm_state_dict(_tilted(vsm)), hf_dirs["vsm"])
+    synthetic.make_synthetic_benchmark(str(work / "bench"), n_per_task=1,
+                                       seed=0, image_hw=(256, 256), target=3)
+    sft_rows = _sft_batch(work, rows=(0, 1, 2, 0, 1, 2, 0, 1))
+    make_dataset_dir(work / "vsm_data")
+    job = {"shapes": SHAPES, "loop_shape": "2x2x1", "work": str(work),
+           "vqa_cfg": T_VQA_CFG, "vsm_cfg": T_VSM_CFG,
+           "vqa": vqa, "vsm": vsm, "tilted_vsm": _tilted(vsm),
+           "forward_inputs": tuple(torch.from_numpy(x) for x in
+                                   (hidden, positions, kv_lens)),
+           "sft_batch": batch_to_torch(sft_rows, "cpu"),
+           "vsm_batch": batch_to_torch(_eight_vsm_rows(), "cpu"),
+           "vqa_data": {"json": vqa_json, "images": vqa_images},
+           "hf_dirs": hf_dirs, "bench": str(work / "bench"),
+           "vsm_data": work / "vsm_data"}
+    torch.save(job, work / "job.pt")
+    job["sft_rows"] = sft_rows
+    ranks = mp.start_processes(
+        W.world, args=(4, str(work / "store"), str(work / "job.pt"),
+                       str(work / "out.pt")),
+        nprocs=4, start_method="spawn", join=False)
+    return job, work, ranks
+
+
+@pytest.fixture(scope="module")
+def world(started, jax_sft, vsm_refs, jax_vsm_step):
+    """The 4-rank world's results, and the inputs it was given."""
+    job, work, ranks = started
+    while not ranks.join():
+        pass
+    return torch.load(work / "out.pt", weights_only=False), job, work
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_sharded_forward_equals_jax(world, mesh):
+    """The decoder's hidden states, every layer gathered from its owner,
+    against JAX's and the unsharded port's; the mesh's replicated and
+    data-sharded placements are JAX's P() and P('data', None)."""
+    out, job, _ = world
+    assert out[mesh]["placements"] == (
+        (Replicate(),) * 3, (Shard(0), Replicate(), Replicate()))
+    hidden, positions, kv_lens = (x.numpy() for x in job["forward_inputs"])
+    want, _ = jax.jit(lambda p, h, q, k: j_llama_forward(
+        p["llama"], VQA_CFG.llama, h, q, k))(
+        _jax_tree(job["vqa"]), hidden, positions, kv_lens)
+    got = out[mesh]["forward"]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=0)
+    plain = W.decoder_forward(job["vqa"], T_VQA_CFG,
+                              *job["forward_inputs"])
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=TOL, rtol=0)
+
+
+@pytest.fixture(scope="module")
+def jax_sft(started):
+    """JAX's f32 finetune step on the same 8 rows."""
+    job, _, _ = started
+    batch = job["sft_rows"]
+    jp = _jax_tree(job["vqa"])
+    mask = jsft.make_frozen_vision_mask(jp)
+    opt = jsft.make_optimizer(LR, warmup_steps=0, total_steps=4,
+                              trainable_mask=mask)
+    step = jax.jit(lambda st, b: jsft.sft_train_step(
+        st, b, VQA_CFG, opt, mask, compute_dtype=jnp.float32))
+    st = jsft.init_train_state(jp, opt)
+    losses, norms = [], []
+    for _ in range(1):
+        st, m = step(st, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    flat = {k: np.asarray(v, np.float32)
+            for k, v in leaves_with_path(jax.device_get(st.params))}
+    return losses, norms, flat
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_sharded_sft_steps_equal_jax(world, jax_sft, mesh):
+    out, _, _ = world
+    losses, norms, params = out[mesh]["sft"]
+    want_l, want_n, want_p = jax_sft
+    np.testing.assert_allclose(losses, want_l, rtol=TOL)
+    np.testing.assert_allclose(norms, want_n, rtol=TOL)
+    assert set(params) == set(want_p)
+    for k, v in params.items():
+        _assert_update_close(v.numpy(), want_p[k], k)
+
+
+@pytest.fixture(scope="module")
+def vsm_refs(started):
+    """JAX's jitted loss on the 8 rows; the unsharded port's gradients and
+    step."""
+    job, _, _ = started
+    _, want_m = jax.jit(lambda p, b: j_vsm_loss(
+        p, VSM_CFG, b, compute_dtype=jnp.float32))(
+        _jax_tree(job["vsm"]), _eight_vsm_rows())
+    grads = W.vsm_grads(job["vsm"], T_VSM_CFG, job["vsm_batch"])
+    steps = W.vsm_steps(job["vsm"], T_VSM_CFG, job["vsm_batch"])
+    return {k: float(v) for k, v in want_m.items()}, grads, steps
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_sharded_vsm_loss_equals_jax_and_grads_the_port(world, vsm_refs,
+                                                        mesh):
+    """Every metric of the sharded loss (each rank's rows, the whole
+    batch's normalisers) equals JAX's; the gradient of every trainable
+    leaf equals the unsharded port's (held to JAX's in
+    tests/test_torch_train.py)."""
+    out, _, _ = world
+    metrics, grads = out[mesh]["vsm_grads"]
+    want_m, (_, want_g), _ = vsm_refs
+    for k, v in want_m.items():
+        np.testing.assert_allclose(metrics[k], v, rtol=TOL, err_msg=k)
+    assert set(grads) == set(want_g)
+    for k, g in grads.items():
+        w = want_g[k].numpy()
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=TOL * float(np.abs(w).max()) + 1e-9,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_sharded_vsm_steps_equal_unsharded(world, vsm_refs, mesh):
+    out, _, _ = world
+    metrics, params = out[mesh]["vsm_steps"]
+    _, _, (want_m, want_p) = vsm_refs
+    for got, want in zip(metrics, want_m):
+        for k in ("loss", "ce_loss", "mask_bce_loss", "mask_dice_loss",
+                  "detection_loss", "grad_norm"):
+            np.testing.assert_allclose(got[k], want[k], rtol=TOL, err_msg=k)
+    for k, v in params.items():
+        _assert_update_close(v.numpy(), want_p[k].numpy(), k)
+
+
+@pytest.fixture(scope="module")
+def jax_vsm_step(started):
+    """JAX's f32 VSM step over 2 micro-batches on the same 8 rows, as
+    vsm_train_step computes it (its accumulate's mean of the micro-batch
+    gradients and metrics, make_vsm_optimizer's update of the trainable
+    leaves; the mask zeroes the others' gradients, which then neither
+    move nor add to the norm), with one jitted value_and_grad for both
+    micro-batches (a jit of the whole step compiles for 24 s):
+    (metrics, the updated tree)."""
+    import optax
+    job, _, _ = started
+    jp = _jax_tree(job["vsm"])
+    mask = jl.vsm_trainable_mask(jp)
+    rows = _eight_vsm_rows()
+    vg = jax.jit(jax.value_and_grad(lambda p, b: j_vsm_loss(
+        p, VSM_CFG, b, compute_dtype=jnp.float32), has_aux=True))
+    outs = [vg(jp, {k: v[i:i + 4] for k, v in rows.items()})
+            for i in (0, 4)]
+    train = [p for p, m in leaves_with_path(mask) if m]
+    opt = jvsm.make_vsm_optimizer(lr=LR, warmup_steps=0, total_steps=10)
+
+    @jax.jit
+    def finish(params, outs):
+        grads = {p: jnp.zeros(params[p].shape, jnp.float32) for p in train}
+        metrics = None
+        for (_, aux), g in outs:
+            g = dict(leaves_with_path(g))
+            grads = {p: grads[p] + g[p] / 2 for p in train}
+            metrics = {k: (0.0 if metrics is None else metrics[k]) + v / 2
+                       for k, v in aux.items()}
+        sub = {p: params[p] for p in train}
+        updates, _ = opt.update(grads, opt.init(sub), sub)
+        metrics["grad_norm"] = optax.global_norm(grads)
+        return optax.apply_updates(sub, updates), metrics
+
+    flat = {k: np.asarray(v, np.float32) for k, v in leaves_with_path(jp)}
+    new, metrics = finish(flat, outs)
+    flat.update({k: np.asarray(v, np.float32) for k, v in new.items()})
+    return {k: float(v) for k, v in metrics.items()}, flat
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_sharded_vsm_steps_equal_jax(world, jax_vsm_step, mesh):
+    """The sharded f32 VSM step (2 micro-batches) against JAX's
+    single-device step on the same rows: every metric within TOL, every
+    leaf of the updated tree within 0.1 lr, the tolerance
+    tests/test_torch_train_loop.py holds the unsharded VSM loop to JAX's
+    with (LOOP_TOL). The share rule of _assert_update_close admits no
+    element of a 256-element LoRA leaf, and one element of
+    llama.layers.attn.lora.wq_a moves 1.26e-5 apart from JAX's (a
+    near-zero gradient summed in another order)."""
+    out, _, _ = world
+    (got_m,), params = out[mesh]["vsm_steps"]
+    want_m, want_p = jax_vsm_step
+    for k in ("loss", "ce_loss", "mask_bce_loss", "mask_dice_loss",
+              "detection_loss", "grad_norm"):
+        np.testing.assert_allclose(got_m[k], want_m[k], rtol=TOL, err_msg=k)
+    assert set(params) == set(want_p)
+    for k, v in params.items():
+        np.testing.assert_allclose(v.numpy(), want_p[k], rtol=0,
+                                   atol=0.1 * LR, err_msg=k)
+
+
+def test_vqa_loop_resumes_sharded_to_the_unsharded_loop(world, tmp_path):
+    """run_training on 2x2x1: one epoch, then a second invocation resuming
+    from the per-rank ckpt_latest; the unsharded loop resumed alike (held
+    to its run in one go, bit for bit, by tests/test_torch_sft.py) ends
+    in the same parameters, with the same logged losses."""
+    out, job, _ = world
+    step, params, logged = out["2x2x1"]["vqa_loop"]
+    files = [f for f in os.listdir(os.path.join(job["work"],
+                                                "vqa_2x2x1", "ckpt_latest"))]
+    assert sorted(f for f in files if f.startswith("state")) == \
+        [f"state.rank{r}" for r in range(4)]
+    want_step, want_p, want_log = W.vqa_loop(
+        job["vqa"], T_VQA_CFG, job["vqa_data"], tmp_path / "plain", None,
+        resume=True)
+    assert step == want_step == 4
+    assert [(r["epoch"], r["step"]) for r in logged] == \
+        [(r["epoch"], r["step"]) for r in want_log]
+    np.testing.assert_allclose([r["loss"] for r in logged],
+                               [r["loss"] for r in want_log], rtol=TOL)
+    for k, v in params.items():
+        _assert_update_close(v.numpy(), want_p[k].numpy(), k)
+
+
+def test_vsm_loop_resumes_sharded_to_the_unsharded_loop(world):
+    """run_vsm_training on 2x2x1 (4 rows a step), resumed from its per-rank
+    ckpt_latest, against the unsharded loop's two epochs."""
+    out, job, _ = world
+    step, params = out["2x2x1"]["vsm_loop"]
+    meta = json.loads((job["vsm_data"] / "runs" / "vsm_2x2x1"
+                       / "ckpt_latest" / "meta.json").read_text())
+    assert meta["mesh"] == [2, 2, 1] and meta["epoch"] == 1
+    want_step, want_p = W.vsm_loop(job["vsm"], T_VSM_CFG, job["vsm_data"],
+                                   "plain", None, resume=False)
+    assert step == want_step == 4
+    for k, v in params.items():
+        _assert_update_close(v.numpy(), want_p[k].numpy(), k)
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_sharded_engines_equal_unsharded(world, mesh):
+    out, job, _ = world
+    got = out[mesh]["engines"]
+    want = W.engines(job["vqa"], T_VQA_CFG, job["tilted_vsm"], T_VSM_CFG,
+                     None)
+    assert len(want["boxes"]) > 0      # the tilted VSM emitted [LOC]
+    assert got["answer"] == want["answer"]
+    assert got["choice"] == want["choice"]
+    for k in ("boxes", "scores", "heatmap", "segment"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_evaluation_mains_under_mesh_equal_unsharded(world, tmp_path):
+    """vstar_bench main and search_eval main with --mesh 2x2x1 (the loaders
+    shard both models) give the unsharded mains' records, correctness
+    and search scores; only rank 0 wrote the result file."""
+    out, job, work = world
+    results, correct, search = out["2x2x1"]["eval_mains"]
+    want = W.eval_mains(job["hf_dirs"], job["bench"],
+                        str(tmp_path / "plain.json"), None, T_VQA_CFG,
+                        T_VSM_CFG)
+    assert (results, correct, search) == want
+    assert json.loads((work / "eval_2x2x1.json").read_text()) == \
+        json.loads((tmp_path / "plain.json").read_text())
+
+
+def test_7b_finetune_fits_on_two_ranks_refused_on_one(tmp_path):
+    """train_vqa_main finetune at 7B (config.json only) with an 80 GB
+    card's budget: on a world of 2 at --mesh 1x2x1 the plan fits and the
+    run goes on to read the checkpoint (which is not there); in a process
+    without ranks the one-device plan is refused, and --mesh 1x2x1 names
+    the two world sizes."""
+    model = tmp_path / "model"
+    model.mkdir()
+    (model / "config.json").write_text(json.dumps(config_json(
+        tcfg.vqa_llm_7b())))
+    _spawn(W.finetune_7b_plan, 2, str(tmp_path / "store"), str(model),
+           str(tmp_path / "out.pt"))
+    outcome = torch.load(tmp_path / "out.pt")
+    assert outcome.startswith("FileNotFoundError: no checkpoint shards"), \
+        outcome
+    argv = ["finetune", "--model_path", str(model), "--data_path",
+            str(model / "none"), "--image_folder", str(model), "--hbm_gb",
+            "79.1"]
+    with pytest.raises(MemoryError, match="102.41 GB/chip"):
+        t_main.main(argv, tokenizer=object(), device="cpu")
+    with pytest.raises(ValueError, match="needs 2 devices .* the world has 1"):
+        t_main.main(argv + ["--mesh", "1x2x1"], tokenizer=object(),
+                    device="cpu")

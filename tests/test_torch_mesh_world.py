@@ -1,0 +1,314 @@
+"""The ranks of tests/test_torch_mesh.py's spawned gloo worlds.
+
+Kept apart from the test file so that a spawned rank imports torch and
+the port only (the test file imports JAX for its references). It holds
+no tests. `world` runs every sharded computation of the mesh tests in
+one world of ranks on each mesh shape it is given, and rank 0 writes
+the results (plain tensors, gathered whole) with torch.save."""
+
+from __future__ import annotations
+
+import copy
+import types
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from vstar_tpu_torch.core import mesh as M
+from vstar_tpu_torch.core.params import leaves_with_path
+
+LR = 1e-3
+
+
+def _flat_full(tree):
+    return {k: v.detach().clone() for k, v in leaves_with_path(
+        M.full_tree(tree))}
+
+
+def decoder_forward(params, cfg, hidden, positions, kv_lens):
+    """The decoder's hidden states on a (possibly sharded) VQA tree."""
+    from vstar_tpu_torch.nn.llama import llama_forward
+    with torch.no_grad():
+        p = M.unshard(params)
+        out, _ = llama_forward(p["llama"], cfg.llama, hidden, positions,
+                               kv_lens)
+    return out
+
+
+def sft_steps(params, cfg, batch, stage, steps=1):
+    """`steps` f32 sft_train_steps at lr 1e-3 (no warmup): (losses, grad
+    norms, the final tree whole)."""
+    from vstar_tpu_torch.train import sft
+    from vstar_tpu_torch.train import train_vqa_main as tm
+    mask = (tm.projector_only_mask(params, "linear") if stage == "pretrain"
+            else tm.frozen_vision_mask(params))
+    accum = 2 if stage == "pretrain" else 1
+    opt = sft.make_optimizer(LR, warmup_steps=0, total_steps=4,
+                             trainable_mask=mask)
+    st = sft.init_train_state(params, opt)
+    losses, norms = [], []
+    for _ in range(steps):
+        st, m = sft.sft_train_step(st, batch, cfg, opt, mask,
+                                   compute_dtype=torch.float32,
+                                   grad_accum=accum)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return losses, norms, _flat_full(st.params)
+
+
+def vsm_grads(params, cfg, batch):
+    """vsm_loss's metrics and the trainable gradients (whole) of one
+    micro-batch in f32: on a sharded tree each rank differentiates its
+    rows, the normalisers are the whole batch's."""
+    from vstar_tpu_torch.train.accumulate import accumulated_grads
+    from vstar_tpu_torch.train.lora import vsm_trainable_mask
+    from vstar_tpu_torch.train.vsm_train import vsm_loss
+    mesh = M.mesh_of(params)
+    local = batch if mesh is None else mesh.local_rows(batch)
+    loss, metrics, grads = accumulated_grads(
+        lambda p, b: vsm_loss(p, cfg, b, compute_dtype=torch.float32),
+        params, local, 1, has_aux=True, trainable=vsm_trainable_mask(params))
+    if mesh is not None:
+        metrics = {k: mesh.batch_sum(v) for k, v in metrics.items()}
+        flat = dict(leaves_with_path(params))
+        with torch.no_grad():
+            grads = {p: M.full(M.with_local(flat[p], g))
+                     for p, g in grads.items()}
+    return {k: float(v) for k, v in metrics.items()}, grads
+
+
+def vsm_steps(params, cfg, batch, steps=1):
+    """`steps` f32 vsm_train_steps over 2 micro-batches at lr 1e-3 (no
+    warmup): (metrics per step, the final tree whole)."""
+    from vstar_tpu_torch.train.lora import vsm_trainable_mask
+    from vstar_tpu_torch.train.vsm_train import (init_train_state,
+                                                 make_vsm_optimizer,
+                                                 vsm_train_step)
+    mask = vsm_trainable_mask(params)
+    opt = make_vsm_optimizer(lr=LR, warmup_steps=0, total_steps=10,
+                             trainable_mask=mask)
+    st = init_train_state(params, opt)
+    out = []
+    for _ in range(steps):
+        st, m = vsm_train_step(st, batch, cfg, opt, mask,
+                               compute_dtype=torch.float32, grad_accum=2)
+        out.append({k: float(v) for k, v in m.items()})
+    return out, _flat_full(st.params)
+
+
+def vqa_loop_args(out, mesh, epochs):
+    return types.SimpleNamespace(
+        stage="pretrain", mesh=mesh, param_dtype="f32", hbm_gb=16.0,
+        per_device_batch_size=4, num_train_epochs=epochs, log_every=1,
+        output_dir=str(out), data_workers=1, prefetch_depth=2,
+        auto_resume=True, save_steps=1)
+
+
+def vqa_loop(params, cfg, data, out, mesh, resume):
+    """run_training (pretrain, f32 compute, 2 steps an epoch): with
+    `resume` one epoch, then a second invocation resuming from its
+    ckpt_latest (per rank on a mesh) into epoch 1; without, two epochs in
+    one go. -> (steps, final tree whole, logged losses)."""
+    import functools
+    import json
+    from vstar_tpu_torch.data.pretrain_dataset import (
+        PretrainCaptionDataset, collate_pretrain)
+    from vstar_tpu_torch.multimodal.stub_tokenizer import StubTokenizer
+    from vstar_tpu_torch.train import sft
+    from vstar_tpu_torch.train import train_vqa_main as tm
+    tok = StubTokenizer(cfg.llama.vocab_size)
+    ds = PretrainCaptionDataset(data["json"], data["images"],
+                                image_size=cfg.vision.image_size)
+
+    def collate(instances, t):
+        return collate_pretrain(instances, t, n_long=cfg.image_tokens_long,
+                                n_short=cfg.image_tokens_short,
+                                image_long=True, seq_bucket=64)
+
+    mask = tm.projector_only_mask(params, "linear")
+    step = tm.sft_train_step
+    tm.sft_train_step = functools.partial(sft.sft_train_step,
+                                          compute_dtype=torch.float32)
+    try:
+        if resume:
+            tm.run_training(vqa_loop_args(out, mesh, 1), cfg,
+                            copy.copy(params), ds, collate, tok, mask, LR)
+        state = tm.run_training(vqa_loop_args(out, mesh, 2), cfg,
+                                copy.copy(params), ds, collate, tok, mask,
+                                LR)
+    finally:
+        tm.sft_train_step = step
+    logged = []
+    if M.is_main_process():
+        with open(f"{out}/metrics.jsonl") as f:
+            logged = [json.loads(x) for x in f.read().splitlines()]
+    return state.step, _flat_full(state.params), logged
+
+
+def vsm_loop_args(base, name, epochs, mesh):
+    return types.SimpleNamespace(
+        dataset_dir=str(base), log_base_dir=str(base / "runs"),
+        exp_name=name, epochs=epochs, steps_per_epoch=2, batch_size=4,
+        grad_accumulation_steps=1, lr=LR, ce_loss_weight=1.0,
+        dice_loss_weight=0.5, bce_loss_weight=2.0, det_loss_weight=0.1,
+        warmup_steps=1, seq_bucket=64, prefetch_depth=2, mask_res=12,
+        mesh=mesh, param_dtype="f32", hbm_gb=16.0, auto_resume=True,
+        no_eval=True, dataset="general_segdet||vqa", sample_rates="1,1",
+        save_steps=1)
+
+
+def vsm_loop(params, cfg, base, name, mesh, resume):
+    """run_vsm_training in f32 compute, as vqa_loop: -> (steps, final tree
+    whole)."""
+    import functools
+    from vstar_tpu_torch.multimodal.stub_tokenizer import StubTokenizer
+    from vstar_tpu_torch.train import train_vsm_main as tm
+    tok = StubTokenizer(cfg.llama.vocab_size)
+    step = tm.vsm_train_step
+    tm.vsm_train_step = functools.partial(step, compute_dtype=torch.float32)
+    try:
+        if resume:
+            tm.run_vsm_training(vsm_loop_args(base, name, 1, mesh), cfg,
+                                copy.copy(params), tok, 3)
+        state = tm.run_vsm_training(vsm_loop_args(base, name, 2, mesh), cfg,
+                                    copy.copy(params), tok, 3)
+    finally:
+        tm.vsm_train_step = step
+    return state.step, _flat_full(state.params)
+
+
+def engines(vqa_params, vqa_cfg, vsm_params, vsm_cfg, mesh):
+    """A VQA free-form answer and a VSM detection and heatmap of the tiny
+    engines (f32), sharded over `mesh` (None: unsharded)."""
+    from PIL import Image
+    from vstar_tpu_torch.eval.vqa_engine import VQAEngine
+    from vstar_tpu_torch.multimodal.stub_tokenizer import StubTokenizer
+    from vstar_tpu_torch.search.batched import BatchedVSMEngine
+    tok = StubTokenizer(vqa_cfg.llama.vocab_size)
+    vqa = VQAEngine(vqa_params, vqa_cfg, tok, device="cpu",
+                    prompt_buckets=(64,), option_bucket=16,
+                    compute_dtype=torch.float32, mesh=mesh)
+    vsm = BatchedVSMEngine(vsm_params, vsm_cfg, tok, loc_token_id=3,
+                           device="cpu", max_new_tokens=4,
+                           prompt_buckets=(64,), compute_dtype=torch.float32,
+                           mesh=mesh)
+    img = Image.fromarray((np.random.RandomState(2).rand(96, 128, 3) * 255)
+                          .astype("uint8"))
+    boxes, scores, heatmap = vsm.detect(img, "cat")
+    return {"answer": vqa.free_form(img, "what is on the table ?",
+                                    max_new_tokens=12),
+            "choice": vqa.multiple_choice(img, "what color is the cup ?",
+                                          ["red", "blue"]),
+            "boxes": boxes, "scores": scores, "heatmap": heatmap,
+            "segment": np.asarray(vsm.segment(img, "cat"))}
+
+
+def eval_mains(dirs, bench, out_json, mesh, vqa_cfg, vsm_cfg):
+    """eval/vstar_bench main (the SEAL loop, 12-token free-form answers)
+    and eval/search_eval main from HF directories of the tiny models, with
+    --mesh when `mesh` is given. config.json cannot name the tiny towers
+    and the directories hold no tokenizer: the tiny configs and the stub
+    are patched in, as tests/test_torch_loaders.py does. -> (results by
+    task, correctness by task, (top-1, path length))."""
+    from vstar_tpu_torch.core import hf_config
+    from vstar_tpu_torch.eval import search_eval, vstar_bench
+    from vstar_tpu_torch.eval.vqa_engine import VQAEngine
+    from vstar_tpu_torch.multimodal import tokenizer as tok_mod
+    from vstar_tpu_torch.multimodal.stub_tokenizer import StubTokenizer
+    saved = (hf_config.vqa_llm_config_for, hf_config.vsm_config_for,
+             tok_mod.load_tokenizer, VQAEngine.free_form)
+    free_form = VQAEngine.free_form
+
+    def budget(self, *a, **kw):
+        kw.setdefault("max_new_tokens", 12)
+        return free_form(self, *a, **kw)
+
+    hf_config.vqa_llm_config_for = lambda p: vqa_cfg
+    hf_config.vsm_config_for = lambda p: vsm_cfg
+    tok_mod.load_tokenizer = lambda path, **kw: StubTokenizer(
+        vqa_cfg.llama.vocab_size)
+    VQAEngine.free_form = budget
+    flag = [] if mesh is None else ["--mesh", mesh]
+    try:
+        results, correct, _ = vstar_bench.main(
+            ["--vqa-model-path", dirs["vqa"], "--vsm-model-path",
+             dirs["vsm"], "--benchmark-folder", bench, "--output-path",
+             out_json] + flag, device="cpu")
+        search = search_eval.main(["--version", dirs["vsm"],
+                                   "--benchmark-folder", bench,
+                                   "--minimum_size", "300"] + flag,
+                                  device="cpu")
+    finally:
+        (hf_config.vqa_llm_config_for, hf_config.vsm_config_for,
+         tok_mod.load_tokenizer, VQAEngine.free_form) = saved
+    return results, correct, search
+
+
+def world(rank, n, store, job_path, out_path):
+    """One rank: every sharded computation of the job on each of its mesh
+    shapes; rank 0 saves {shape: {check: result}}."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, n),
+                            rank=rank, world_size=n)
+    try:
+        job = torch.load(job_path, weights_only=False)
+        out = {}
+        for shape in job["shapes"]:
+            mesh = M.make_mesh(shape, "cpu")
+            key = "x".join(map(str, shape))
+            res = out[key] = {"placements": (mesh.replicated(),
+                                             mesh.data_sharding(2))}
+            vqa = M.shard_params(job["vqa"], mesh)
+            res["forward"] = decoder_forward(vqa, job["vqa_cfg"],
+                                             *job["forward_inputs"])
+            res["sft"] = sft_steps(vqa, job["vqa_cfg"], job["sft_batch"],
+                                   "finetune")
+            vsm = M.shard_params(job["vsm"], mesh)
+            res["vsm_grads"] = vsm_grads(vsm, job["vsm_cfg"],
+                                         job["vsm_batch"])
+            res["vsm_steps"] = vsm_steps(vsm, job["vsm_cfg"],
+                                         job["vsm_batch"])
+            res["engines"] = engines(job["vqa"], job["vqa_cfg"],
+                                     job["tilted_vsm"], job["vsm_cfg"], mesh)
+            if key == job["loop_shape"]:
+                res["vqa_loop"] = vqa_loop(job["vqa"], job["vqa_cfg"],
+                                           job["vqa_data"],
+                                           f"{job['work']}/vqa_{key}", key,
+                                           resume=True)
+                res["vsm_loop"] = vsm_loop(job["vsm"], job["vsm_cfg"],
+                                           job["vsm_data"], f"vsm_{key}",
+                                           key, resume=True)
+                res["eval_mains"] = eval_mains(
+                    job["hf_dirs"], job["bench"],
+                    f"{job['work']}/eval_{key}.json", key, job["vqa_cfg"],
+                    job["vsm_cfg"])
+        if rank == 0:
+            torch.save(out, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def finetune_7b_plan(rank, n, store, model_dir, out_path):
+    """train_vqa_main finetune of the 7B config (config.json only) at
+    --mesh 1xNx1 on N ranks with an 80 GB card's budget: the plan passes,
+    and the run stops at the missing checkpoint shards."""
+    from vstar_tpu_torch.multimodal.stub_tokenizer import StubTokenizer
+    from vstar_tpu_torch.train import train_vqa_main as tm
+    dist.init_process_group("gloo", store=dist.FileStore(store, n),
+                            rank=rank, world_size=n)
+    try:
+        try:
+            tm.main(["finetune", "--model_path", model_dir, "--data_path",
+                     model_dir + "/none", "--image_folder", model_dir,
+                     "--mesh", f"1x{n}x1", "--hbm_gb", "79.1"],
+                    tokenizer=StubTokenizer(32000), device="cpu")
+            outcome = "ran"
+        except FileNotFoundError as e:
+            outcome = f"FileNotFoundError: {e}"
+        except MemoryError as e:
+            outcome = f"MemoryError: {e}"
+        if rank == 0:
+            torch.save(outcome, out_path)
+    finally:
+        dist.destroy_process_group()

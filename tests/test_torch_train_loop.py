@@ -3,7 +3,9 @@ trainer's at tiny widths on the CPU: the same synthetic vqa + cocostuff
 dataset files, the same initial weights (through core.convert), f32
 compute on both sides. Step counts, the logged metrics and the trained
 parameters within 1e-4 of JAX's run; then the port's auto-resume from its
-checkpoint, and its refusal of a mesh of more than one device."""
+checkpoint, and its refusal of a mesh larger than the world of ranks (a
+process without torchrun is a world of one; the sharded loop is in
+tests/test_torch_mesh.py)."""
 
 import functools
 import json
@@ -91,7 +93,7 @@ def test_run_vsm_training_matches_jax_and_resumes(tmp_path, monkeypatch):
     meta = json.loads((tmp_path / "runs" / "port" / "ckpt_model"
                        / "meta.json").read_text())
     assert meta["epoch"] == 1
-    with pytest.raises(ValueError, match="one device"):
+    with pytest.raises(ValueError, match="needs 2 devices .* the world has 1"):
         t_main.run_vsm_training(_loop_args(tmp_path, "x", 1, "1x2x1"),
                                 T_CFG, from_numpy_tree(host, "cpu"), tok,
                                 loc)

@@ -14,6 +14,9 @@
     dicts, lists and tuples of tensors and ints) with torch.save and
     reads it back with weights_only=True, so a checkpoint never runs
     code. The two formats do not read each other (ROADMAP Queue 3).
+  * save_sharded / load_sharded: a tree with DTensor leaves (a state
+    sharded over a mesh, core/mesh.py), one file per rank holding that
+    rank's shards (`<path>.rank<r>`), read back on the same mesh.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import struct
 from typing import Any, Dict, Mapping, Union
 
 import torch
+from torch.distributed.tensor import DTensor
 
 Device = Union[str, torch.device]
 
@@ -148,3 +152,38 @@ def load_params(path: str, device: Device = "cpu") -> Any:
     """Read a tree written by save_params, its tensors on `device`."""
     return torch.load(os.path.abspath(path), map_location=device,
                       weights_only=True)
+
+
+def _map_tree(fn, tree, like=None):
+    """fn(leaf, like_leaf) over a tree of dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v, None if like is None else like[k])
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tree(fn, v, None if like is None else like[i])
+                          for i, v in enumerate(tree))
+    return fn(tree, like)
+
+
+def _rank_path(path: str) -> str:
+    from .mesh import rank
+    return f"{path}.rank{rank()}"
+
+
+def save_sharded(tree: Any, path: str) -> None:
+    """This rank's part of a sharded tree (each DTensor leaf's local shard,
+    every other leaf as it is) to `<path>.rank<r>`, atomically."""
+    save_params(_map_tree(
+        lambda x, _: x.to_local() if isinstance(x, DTensor) else x, tree),
+        _rank_path(path))
+
+
+def load_sharded(path: str, like: Any, device: Device = "cpu") -> Any:
+    """The tree save_sharded wrote for this rank, on `device`, with every
+    leaf that is a DTensor in `like` (a tree of the same structure,
+    sharded on the same mesh) placed as that DTensor."""
+    from .mesh import with_local
+    local = load_params(_rank_path(path), device)
+    return _map_tree(
+        lambda x, ref: with_local(ref, x) if isinstance(ref, DTensor) else x,
+        local, like)

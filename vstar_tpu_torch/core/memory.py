@@ -1,15 +1,15 @@
-"""Device-memory accounting for training (port of vstar_tpu/core/memory.py,
-the "7B memory plan") on one device.
+"""Per-device memory accounting for sharded training (port of
+vstar_tpu/core/memory.py, the "7B memory plan").
 
-The JAX package shards parameters and optimizer state over its mesh's
-fsdp axis and divides each leaf's bytes by its shard factor. The port
-trains on one device, so every factor is 1: the plan is what the whole
-model, its f32 masters, its AdamW moments and one gradient tree take on
-the card. The sharded factors come with the mesh (ROADMAP Queue 1
-item 12). The trainers print the plan and refuse one that cannot fit
-before they allocate a byte of it: the plan reads only shapes and dtypes,
-so a tree on the meta device (core/params.Init on "meta") plans a model
-that is never built.
+Parameters, f32 masters, AdamW moments and one gradient tree are placed
+by the partition rules of core/mesh.py, and each leaf's bytes are
+divided by its shard factor (the product of the mesh axes that shard
+it after clipping), with JAX's integer arithmetic, so the port's plan is
+JAX's to the byte on every mesh. Without a mesh every factor is 1: the
+whole model on one device. The trainers print the plan and refuse one
+that cannot fit before they allocate a byte of it: the plan reads only
+shapes and dtypes, so a tree on the meta device (core/params.Init on
+"meta") plans a model that is never built.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from .mesh import AXES, DEFAULT_RULES, _clip_spec_to_leaf, spec_for
 from .params import leaves_with_path
 
 
@@ -46,24 +47,48 @@ class MemoryPlan:
                 f"({self.n_params / 1e9:.2f}B params)")
 
 
-def plan_train_memory(params: Dict, trainable_mask: Optional[Dict] = None,
-                      master_f32: bool = True) -> MemoryPlan:
-    """Parameter + optimizer + gradient bytes on the one device, as the
-    JAX plan counts them with every shard factor 1. `params` may live on
+def mesh_shape(mesh) -> Dict[str, int]:
+    """None (one device), a (D, F, M) tuple, or anything with a `.shape`
+    dict of axis sizes (core/mesh.Mesh) -> axis name -> size."""
+    if mesh is None:
+        return dict.fromkeys(AXES, 1)
+    if isinstance(mesh, (tuple, list)):
+        return dict(zip(AXES, mesh))
+    return dict(mesh.shape)
+
+
+def _shard_factor(spec, mesh_sizes: Dict[str, int]) -> int:
+    f = 1
+    for ax in spec:
+        if ax is not None:
+            f *= mesh_sizes[ax]
+    return f
+
+
+def plan_train_memory(params: Dict, mesh=None,
+                      trainable_mask: Optional[Dict] = None,
+                      master_f32: bool = True,
+                      rules=DEFAULT_RULES) -> MemoryPlan:
+    """Parameter + optimizer + gradient bytes per device under the rules
+    core/mesh.shard_params applies, as JAX's plan counts them. `mesh`:
+    None (one device), a (D, F, M) shape or a Mesh. `params` may live on
     the meta device."""
+    sizes = mesh_shape(mesh)
     mask = (None if trainable_mask is None
             else dict(leaves_with_path(trainable_mask)))
     p_bytes = m_bytes = mom_bytes = g_bytes = n_params = 0
     for path, leaf in leaves_with_path(params):
+        spec = _clip_spec_to_leaf(spec_for(path, rules), leaf.shape, sizes)
+        factor = _shard_factor(spec, sizes)
         size = leaf.numel()
         itemsize = leaf.element_size()
         n_params += size
-        p_bytes += size * itemsize
+        p_bytes += size * itemsize // factor
         if mask is None or mask[path]:
             if master_f32 and itemsize < 4:
-                m_bytes += size * 4
-            mom_bytes += 2 * size * 4
-            g_bytes += size * itemsize      # grads in the param dtype
+                m_bytes += size * 4 // factor
+            mom_bytes += 2 * size * 4 // factor
+            g_bytes += size * itemsize // factor  # grads in the param dtype
     return MemoryPlan(p_bytes, m_bytes, mom_bytes, g_bytes, n_params)
 
 
@@ -92,24 +117,25 @@ def check_memory(plan: MemoryPlan, hbm_gb: Optional[float],
         raise MemoryError(
             f"{what} needs {plan.total_bytes / 1024**3:.2f} GB/chip of "
             f"static state but the budget is {budget / 1024**3:.1f} GB "
-            f"({headroom:.0%} of {hbm_gb:.1f} GB device memory). Use "
-            f"--param_dtype bf16 or train fewer parameters (LoRA); "
-            f"sharding over more devices (--mesh) comes with ROADMAP "
-            f"Queue 1 item 12.")
+            f"({headroom:.0%} of {hbm_gb:.1f} GB device memory). Increase "
+            f"the fsdp mesh axis (--mesh DxFxM under torchrun), use "
+            f"--param_dtype bf16, or train fewer parameters (LoRA).")
 
 
 def parse_mesh_arg(mesh_arg: Optional[str], n_devices: int,
                    default_fsdp: bool = True) -> Tuple[int, int, int]:
-    """'DxFxM' -> mesh shape tuple; None -> vstar_tpu's default (every
-    device on the fsdp axis when there is more than one). The port's
-    trainers take one device, (1, 1, 1)."""
+    """'DxFxM' -> mesh shape tuple, checked against the world size (one
+    rank per device); None -> vstar_tpu's default (every device on the
+    fsdp axis when there is more than one)."""
     if mesh_arg:
         parts = tuple(int(x) for x in mesh_arg.lower().split("x"))
         if len(parts) != 3:
             raise ValueError("--mesh must be DxFxM, e.g. 2x4x1")
         if int(np.prod(parts)) != n_devices:
-            raise ValueError(f"--mesh {mesh_arg} needs {np.prod(parts)} "
-                             f"devices, have {n_devices}")
+            raise ValueError(
+                f"--mesh {mesh_arg} needs {np.prod(parts)} devices (one "
+                f"rank each), the world has {n_devices}; start "
+                f"{np.prod(parts)} ranks with torchrun --nproc-per-node")
         return parts
     if n_devices > 1 and default_fsdp:
         return (1, n_devices, 1)

@@ -1,0 +1,524 @@
+"""Device mesh and sharding over torch.distributed (port of
+vstar_tpu/core/mesh.py).
+
+The JAX package runs one controller over a (data, fsdp, model) mesh and
+lets XLA insert the collectives. The port runs one process per device
+(`torchrun --nproc-per-node N`), builds the same named mesh with
+torch.distributed.device_mesh.init_device_mesh, and places each leaf by
+the JAX package's rules: a parameter tree becomes a dict of DTensors,
+each holding on its rank the shard the PartitionSpec names (clipped,
+as in JAX, where an axis does not divide the leaf's dimension).
+
+Compute follows the ZeRO-3 / FSDP pattern the rules were written for
+("gather one layer per scan step"): every rank is a data-parallel rank
+that takes its own rows of the step's batch, and the fsdp and model axes
+shard storage (parameters, f32 masters, AdamW moments). A forward
+gathers what it is about to use into plain tensors:
+  * `unshard(tree)` gathers every leaf outside the decoder's layer stack
+    (embeddings, lm_head, norms, towers, projectors, heads);
+  * `layer_source(stack)` gathers decoder layer i alone, from the rank
+    of the fsdp axis that holds it, and the layer is dropped after use
+    (and gathered again for the recompute under remat).
+Both are autograd functions whose backward sums the ranks' partial
+gradients back onto the shards (reduce-scatter along a sharded axis, a
+sum over a replicated one, the owner's sum for a layer), so a step on
+the sharded tree is the one-device step on the whole batch. The kernels
+(K1, K2, K3, K5, K6, K7) only ever see the gathered plain tensors.
+
+Collectives are plain torch.distributed calls on the axes' process
+groups: NCCL on cards, gloo on the CPU.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import re
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from .params import Params, layer, leaves_with_path, map_with_path
+
+DATA_AXIS = "data"
+FSDP_AXIS = "fsdp"
+MODEL_AXIS = "model"
+AXES = (DATA_AXIS, FSDP_AXIS, MODEL_AXIS)
+
+# The decoder's layer stack: gathered one layer at a time, never whole.
+LAYER_STACK = "llama.layers"
+
+# ---------------------------------------------------------------------------
+# Partition rules: dotted-param-path regex -> spec (vstar_tpu's, as tuples;
+# entry d names the mesh axis that shards tensor dim d, None replicates)
+# ---------------------------------------------------------------------------
+
+LLAMA_RULES: Tuple[Tuple[str, tuple], ...] = (
+    # vocab (32003) divides nothing; shard the hidden dim over fsdp.
+    (r".*embed_tokens$", (MODEL_AXIS, FSDP_AXIS)),
+    (r".*lm_head$", (FSDP_AXIS, MODEL_AXIS)),
+    # attention: q/k/v project hidden->heads*dim; shard heads (out) on model
+    (r".*\b(wq|wk|wv)$", (FSDP_AXIS, None, MODEL_AXIS)),
+    (r".*\bwo$", (FSDP_AXIS, MODEL_AXIS, None)),
+    # MLP: gate/up shard hidden_out over model, down shards hidden_in
+    (r".*\b(w_gate|w_up)$", (FSDP_AXIS, None, MODEL_AXIS)),
+    (r".*\bw_down$", (FSDP_AXIS, MODEL_AXIS, None)),
+    # stacked per-layer norm scales [L, D]: shard the layer stack
+    (r".*layers\..*(norm|ln)[^.]*\.(scale|bias)$", (FSDP_AXIS,)),
+    (r".*(norm|ln)([^.]*|[^.]*\.(scale|bias))$", ()),
+)
+
+# Vision towers: stacked [L, in, out] weights, fsdp on the layer stack,
+# model inside the MLP; everything else falls through to the default.
+VISION_RULES: Tuple[Tuple[str, tuple], ...] = (
+    (r".*\bfc1\.w$", (FSDP_AXIS, None, MODEL_AXIS)),
+    (r".*\bfc2\.w$", (FSDP_AXIS, MODEL_AXIS, None)),
+    (r".*\b(wq|wk|wv|wo)\.w$", (FSDP_AXIS, None, MODEL_AXIS)),
+)
+
+DEFAULT_RULES = LLAMA_RULES + VISION_RULES
+
+# ZeRO-3-style default: shard the leading dim over fsdp whenever it
+# divides (clipping drops it otherwise).
+_FALLBACK = (FSDP_AXIS,)
+
+
+def spec_for(path: str, rules=DEFAULT_RULES) -> tuple:
+    for pattern, spec in rules:
+        if re.match(pattern, path):
+            return spec
+    return _FALLBACK
+
+
+def partition_specs(params: Params, rules=DEFAULT_RULES) -> Params:
+    """Spec tree mirroring `params`, clipped to each leaf's rank."""
+    return map_with_path(
+        lambda path, leaf: tuple(spec_for(path, rules))[:leaf.dim()], params)
+
+
+def _clip_spec_to_leaf(spec: tuple, shape: Sequence[int],
+                       mesh_shape: Dict[str, int]) -> tuple:
+    """Drop sharding on axes that do not divide the leaf's dimension
+    (keeps tiny configs valid on wide meshes) and clip to the leaf's
+    rank. `mesh_shape`: axis name -> size (a Mesh's `.shape`)."""
+    return tuple(None if ax is None or shape[i] % mesh_shape[ax] else ax
+                 for i, ax in enumerate(tuple(spec)[:len(shape)]))
+
+
+# ---------------------------------------------------------------------------
+# Ranks, devices, the mesh
+# ---------------------------------------------------------------------------
+
+def rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def world_size() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def is_main_process() -> bool:
+    """Rank 0 (or a process without a process group): the one that writes
+    logs, metrics and outputs."""
+    return rank() == 0
+
+
+def init_distributed(device) -> int:
+    """The world size, joining the process group that torchrun describes
+    (WORLD_SIZE, MASTER_ADDR, ...) when the process has none yet: NCCL
+    for a card, gloo for the CPU. A process started without torchrun and
+    without a group is a world of one."""
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ \
+            and "MASTER_ADDR" in os.environ:
+        backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+        if backend == "nccl":
+            torch.cuda.set_device(rank_device(device))
+        dist.init_process_group(backend)
+    return world_size()
+
+
+def rank_device(device) -> torch.device:
+    """A bare "cuda" is this rank's card, cuda:{LOCAL_RANK}; any other
+    device is kept."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    return device
+
+
+class Mesh:
+    """A (data, fsdp, model) DeviceMesh over the world of ranks.
+
+    `shape` maps axis name -> size (as a jax Mesh's), `groups` each axis
+    to its process group, `coord` each axis to this rank's index on it."""
+
+    def __init__(self, device_mesh):
+        self.device_mesh = device_mesh
+        self.shape = {a: device_mesh.size(i) for i, a in enumerate(AXES)}
+        self.groups = {a: device_mesh.get_group(a) for a in AXES}
+        self.coord = {a: device_mesh.get_local_rank(a) for a in AXES}
+        self.size = device_mesh.size()
+        device_mesh._vstar_mesh = self
+
+    @staticmethod
+    def of(device_mesh) -> "Mesh":
+        return getattr(device_mesh, "_vstar_mesh", None) or Mesh(device_mesh)
+
+    @property
+    def dims(self) -> Tuple[int, int, int]:
+        return tuple(self.shape[a] for a in AXES)
+
+    def placements(self, spec: tuple) -> tuple:
+        """A clipped spec -> one DTensor placement per mesh axis."""
+        return tuple(Shard(spec.index(a)) if a in spec else Replicate()
+                     for a in AXES)
+
+    def replicated(self) -> tuple:
+        """JAX's `replicated(mesh)`: the placements of a leaf every rank
+        holds whole."""
+        return self.placements(())
+
+    def data_sharding(self, ndim: int = 1) -> tuple:
+        """JAX's `data_sharding(mesh, ndim)`: the leading (batch) dim over
+        the data axis. The port's steps split rows over every rank
+        instead (`local_rows`); this is the layout of a data-only
+        split."""
+        return self.placements((DATA_AXIS,) + (None,) * (ndim - 1))
+
+    def __repr__(self) -> str:
+        return f"Mesh({'x'.join(str(n) for n in self.dims)})"
+
+    # --- the batch: every rank takes its own rows ---------------------------
+
+    def local_rows(self, batch: Dict[str, torch.Tensor], num_micro: int = 1
+                   ) -> Dict[str, torch.Tensor]:
+        """This rank's rows of a step's batch: micro-batch i of the global
+        batch (rows [i m, (i + 1) m)) is split in rank order, so that the
+        local micro-batch i is this rank's share of the global one and
+        every normaliser can be summed across ranks."""
+        n = max(num_micro, 1)
+        r, w = rank(), self.size
+        out = {}
+        for k, v in batch.items():
+            rows = v.shape[0]
+            if rows % (n * w):
+                raise ValueError(
+                    f"{k}: {rows} rows in {n} micro-batches do not split "
+                    f"over the mesh's {w} ranks")
+            m = rows // n
+            out[k] = v.reshape(n, m, *v.shape[1:])[
+                :, r * m // w:(r + 1) * m // w].reshape(-1, *v.shape[1:])
+        return out
+
+    def batch_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks' rows (a count, a partial loss); no
+        gradient flows through it."""
+        x = x.detach().clone()
+        _all_reduce(x, None)
+        return x
+
+    def sum_squares(self, tree: Dict[str, torch.Tensor],
+                    replicas: Dict[str, int]) -> torch.Tensor:
+        """sum over leaves of sum(x * x) of the whole (unsharded) tree, from
+        the local shards of `tree` (path -> tensor): each leaf's local sum
+        divided by `replicas[path]`, the number of ranks holding the same
+        shard (1 where absent), all leaves reduced at once (in f32), then
+        added in the tree's order in the leaves' dtypes, as
+        optim.global_norm adds them on one device."""
+        dtypes = [x.dtype for x in tree.values()]
+        parts = torch.stack([(x * x).sum().float() for x in tree.values()])
+        reps = [replicas.get(p, 1) for p in tree]
+        if any(r != 1 for r in reps):
+            parts = parts / torch.tensor(reps, dtype=parts.dtype,
+                                         device=parts.device)
+        _all_reduce(parts, None)
+        total = parts[0].to(dtypes[0])
+        for x, dtype in zip(parts[1:], dtypes[1:]):
+            total = total + x.to(dtype)
+        return total
+
+
+def make_mesh(shape: Optional[Tuple[int, int, int]] = None,
+              device_type: str = "cuda") -> Mesh:
+    """The (data, fsdp, model) mesh over the world of ranks; the default
+    is (world, 1, 1). The product must be the world size."""
+    from torch.distributed.device_mesh import init_device_mesh
+    n = world_size()
+    shape = tuple(shape) if shape is not None else (n, 1, 1)
+    if len(shape) != 3 or math.prod(shape) != n:
+        raise ValueError(f"mesh {shape} needs {math.prod(shape)} ranks, the "
+                         f"world has {n}")
+    return Mesh(init_device_mesh(device_type, shape, mesh_dim_names=AXES))
+
+
+def resolve_mesh(mesh_arg, device) -> Optional[Mesh]:
+    """--mesh ('DxFxM', None, or a Mesh) -> the Mesh of this world, or
+    None for a process without a process group (a world of one, where
+    only None and 1x1x1 are valid: the one-device path). A shape whose
+    product is not the world size raises, naming both numbers."""
+    if isinstance(mesh_arg, Mesh):
+        return mesh_arg
+    from .memory import parse_mesh_arg
+    n = init_distributed(device)
+    shape = parse_mesh_arg(mesh_arg, n)
+    if not dist.is_initialized():
+        return None
+    return make_mesh(shape, torch.device(device).type)
+
+
+# ---------------------------------------------------------------------------
+# Sharding a tree
+# ---------------------------------------------------------------------------
+
+def _local_chunk(x: torch.Tensor, spec: tuple, mesh: Mesh) -> torch.Tensor:
+    for d, ax in enumerate(spec):
+        if ax is not None:
+            x = x.chunk(mesh.shape[ax], d)[mesh.coord[ax]]
+    return x
+
+
+def shard_params(params: Params, mesh: Mesh, rules=DEFAULT_RULES) -> Params:
+    """The tree as DTensors placed by the rules: each rank keeps (a copy
+    of) its own shard of the full tensor it was given, with no
+    communication (every rank builds or loads the same full tree)."""
+    def _put(path, leaf):
+        spec = _clip_spec_to_leaf(spec_for(path, rules), leaf.shape,
+                                  mesh.shape)
+        placements = mesh.placements(spec)
+        local = _local_chunk(leaf.detach(), spec, mesh).clone(
+            memory_format=torch.contiguous_format)
+        return DTensor.from_local(local, mesh.device_mesh, placements,
+                                  run_check=False)
+    return map_with_path(_put, params)
+
+
+def mesh_of(tree: Params) -> Optional[Mesh]:
+    """The Mesh of the first DTensor leaf of `tree`, None if it has none."""
+    for _, x in leaves_with_path(tree):
+        if isinstance(x, DTensor):
+            return Mesh.of(x.device_mesh)
+    return None
+
+
+def with_local(like: DTensor, local: torch.Tensor) -> DTensor:
+    """`local` as the shard of a DTensor placed as `like`."""
+    return DTensor.from_local(local, like.device_mesh, like.placements,
+                              run_check=False, shape=like.shape,
+                              stride=like.stride())
+
+
+def replica_count(x: DTensor) -> int:
+    """How many ranks hold the same shard of `x` as this one: the product
+    of the sizes of the mesh axes that do not shard it."""
+    return math.prod(x.device_mesh.size(i)
+                     for i, pl in enumerate(x.placements)
+                     if not isinstance(pl, Shard))
+
+
+class Shards(dict):
+    """path -> this rank's shard (a plain tensor) of each leaf of a flat
+    tree, with what a sum over the whole tree needs: `mesh` (the tree's
+    Mesh, None for a tree without DTensors) and `replicas` (path -> the
+    replica_count of each DTensor leaf, read from its placements)."""
+
+    def __init__(self, flat: Dict[str, torch.Tensor]):
+        super().__init__((p, x.to_local() if isinstance(x, DTensor) else x)
+                         for p, x in flat.items())
+        self.mesh = mesh_of(flat)
+        self.replicas = {p: replica_count(x) for p, x in flat.items()
+                         if isinstance(x, DTensor)}
+
+
+def local_leaves(flat: Dict[str, torch.Tensor]) -> Shards:
+    """path -> this rank's shard (a plain tensor) of each DTensor leaf."""
+    return Shards(flat)
+
+
+# ---------------------------------------------------------------------------
+# Collectives and the differentiable gathers
+# ---------------------------------------------------------------------------
+
+# the names of newer torch releases (the older ones warn there)
+_ALL_GATHER = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+
+
+def _all_reduce(x: torch.Tensor, group) -> None:
+    dist.all_reduce(x, group=group)
+
+
+def _all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Concatenate the group's shards along `dim`, in group rank order."""
+    n = dist.get_world_size(group)
+    x = x.movedim(dim, 0).contiguous()
+    out = torch.empty((n * x.shape[0], *x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    _ALL_GATHER(out, x, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def _reduce_scatter(g: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The group's sum of `g`, this rank's chunk along `dim`."""
+    n = dist.get_world_size(group)
+    g = g.movedim(dim, 0).contiguous()
+    out = torch.empty((g.shape[0] // n, *g.shape[1:]), dtype=g.dtype,
+                      device=g.device)
+    _REDUCE_SCATTER(out, g, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def _reduce_replicated(g: torch.Tensor, mesh: Mesh, placements,
+                       skip: Tuple[str, ...] = ()) -> torch.Tensor:
+    """Sum a gradient over every axis on which its leaf is replicated (the
+    ranks there computed partial gradients of the same shard)."""
+    for ax, pl in zip(AXES, placements):
+        if ax not in skip and isinstance(pl, Replicate) \
+                and mesh.shape[ax] > 1:
+            g = g.contiguous()
+            _all_reduce(g, mesh.groups[ax])
+    return g
+
+
+class _Gather(torch.autograd.Function):
+    """local shard -> the whole leaf; backward: the ranks' summed
+    gradient, this rank's shard of it."""
+
+    @staticmethod
+    def forward(ctx, local, mesh, placements):
+        ctx.mesh, ctx.placements = mesh, placements
+        out = local
+        for ax, pl in zip(AXES, placements):
+            if isinstance(pl, Shard):
+                out = _all_gather(out, pl.dim, mesh.groups[ax])
+        return out.clone() if out is local else out
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, placements = ctx.mesh, ctx.placements
+        for ax, pl in zip(AXES, placements):
+            if isinstance(pl, Shard):
+                g = _reduce_scatter(g, pl.dim, mesh.groups[ax])
+        return _reduce_replicated(g, mesh, placements), None, None
+
+
+class _GatherLayer(torch.autograd.Function):
+    """Layer i of a stack (dim 0 the layer axis), the other axes gathered
+    inside the layer. `owner` is the fsdp rank holding layer i when fsdp
+    shards the layer axis: its slice is broadcast over the fsdp group
+    (`part` is this rank's slice j of its local stack; the others' only
+    give shape and dtype). `owner` None: this rank holds the layer.
+    Backward: the ranks' summed gradient, which on a sharded layer axis
+    only the owner keeps (the other ranks' slices get none from it)."""
+
+    @staticmethod
+    def forward(ctx, part, mesh, placements, owner):
+        ctx.mesh, ctx.placements, ctx.owner = mesh, placements, owner
+        ctx.keep = owner is None or mesh.coord[FSDP_AXIS] == owner
+        out = part
+        if owner is not None:
+            group = mesh.groups[FSDP_AXIS]
+            out = part.clone() if ctx.keep else torch.empty_like(part)
+            if mesh.shape[FSDP_AXIS] > 1:
+                dist.broadcast(out, src=dist.get_global_rank(group, owner),
+                               group=group)
+        for ax, pl in zip(AXES, placements):
+            if isinstance(pl, Shard) and not (ax == FSDP_AXIS and
+                                               owner is not None):
+                out = _all_gather(out, pl.dim - 1, mesh.groups[ax])
+        return out.clone() if out is part else out
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, placements, owner = ctx.mesh, ctx.placements, ctx.owner
+        stacked = (FSDP_AXIS,) if owner is not None else ()
+        for ax, pl in zip(AXES, placements):
+            if isinstance(pl, Shard) and ax not in stacked:
+                g = _reduce_scatter(g, pl.dim - 1, mesh.groups[ax])
+        g = g.contiguous()
+        if owner is not None and mesh.shape[FSDP_AXIS] > 1:
+            _all_reduce(g, mesh.groups[FSDP_AXIS])
+        g = _reduce_replicated(g, mesh, placements, skip=stacked)
+        return (g if ctx.keep else None), None, None, None
+
+
+def full(x):
+    """A DTensor leaf as the whole plain tensor (differentiable: the
+    backward sums the ranks' gradients onto the shards); other leaves
+    unchanged."""
+    if not isinstance(x, DTensor):
+        return x
+    return _Gather.apply(x.to_local(), Mesh.of(x.device_mesh),
+                         tuple(x.placements))
+
+
+def unshard(tree: Params, keep: Optional[str] = LAYER_STACK) -> Params:
+    """Every DTensor leaf gathered whole, except those under the path
+    prefix `keep` (the decoder's layer stack, which `layer_source`
+    gathers one layer at a time). A tree without DTensors comes back as
+    it is."""
+    if mesh_of(tree) is None:
+        return tree
+    prefix = None if keep is None else keep + "."
+    return map_with_path(
+        lambda path, x: x if prefix and path.startswith(prefix) else full(x),
+        tree)
+
+
+def layer_source(stack: Params):
+    """i -> layer i of a stacked layer tree as plain tensors. For a stack
+    of DTensors the layer is gathered from its owner on the fsdp axis and
+    the other axes (the whole stack is never gathered); otherwise it is
+    core/params.layer's view."""
+    flat = dict(leaves_with_path(stack))
+    if not any(isinstance(x, DTensor) for x in flat.values()):
+        return lambda i: layer(stack, i)
+    parts = {}
+    for path, x in flat.items():
+        mesh = Mesh.of(x.device_mesh)
+        local = x.to_local()
+        pl = tuple(x.placements)
+        parts[path] = (mesh, pl, local.unbind(0), x.shape[0])
+
+    def fetch(i: int):
+        got = {}
+        for path, (mesh, pl, slices, n_layers) in parts.items():
+            fs = pl[AXES.index(FSDP_AXIS)]
+            if isinstance(fs, Shard) and fs.dim == 0:
+                per = n_layers // mesh.shape[FSDP_AXIS]
+                got[path] = _GatherLayer.apply(slices[i % per], mesh, pl,
+                                               i // per)
+            else:
+                got[path] = _GatherLayer.apply(slices[i], mesh, pl, None)
+        return _unflatten(got)
+    return fetch
+
+
+def _unflatten(flat: Dict[str, torch.Tensor]) -> Params:
+    out: Dict = {}
+    for path, x in flat.items():
+        node = out
+        *head, last = path.split(".")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = x
+    return out
+
+
+@torch.no_grad()
+def full_tree(tree: Params) -> Params:
+    """Every leaf whole as a plain tensor, leaf by leaf: the export and
+    comparison path. Every rank of the mesh must call it."""
+    return map_with_path(lambda _, x: full(x), tree)
+
+
+def serving_params(params: Params, mesh: Mesh) -> Params:
+    """An engine's tree under a mesh: the decoder's layer stack sharded by
+    the rules (gathered one layer at a time in every forward), every
+    other leaf gathered once into a plain tensor (embeddings, lm_head,
+    towers, heads: a few percent of a 7B model)."""
+    with torch.no_grad():
+        return unshard(shard_params(params, mesh))

@@ -67,9 +67,10 @@ class ValDataset:
                 **collate_kw) -> Iterator[Dict[str, np.ndarray]]:
         """Iterate collated batches over shard `rank` of `world` of the
         val set (the DistributedSampler equivalent, reference
-        train.py:355-371; the port trains on one device, so the default
-        is the whole set). Interleaved sharding, drop-last within the
-        shard."""
+        train.py:355-371; the port's trainers run the whole set on every
+        rank of a mesh, so that every rank takes the same checkpoint
+        decision, hence the default). Interleaved sharding, drop-last
+        within the shard."""
         if not 0 <= rank < world:
             raise ValueError(f"rank {rank} not in [0, {world})")
         idx = list(range(rank, len(self), world))

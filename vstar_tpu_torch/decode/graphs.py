@@ -55,6 +55,7 @@ from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..kernels import _build
 from ..nn.llama import KVCache
@@ -123,14 +124,16 @@ def counters_add(delta: List, times: int = 1) -> None:
 
 
 def weights_key(params) -> Tuple:
-    """The storage of every tensor of a weight tree: a graph captured on
-    them replays only on the same storage."""
+    """The storage of every tensor of a weight tree (a DTensor's local
+    shard): a graph captured on them replays only on the same storage."""
     out = []
 
     def walk(t):
         if isinstance(t, dict):
             for k in sorted(t):
                 walk(t[k])
+        elif isinstance(t, DTensor):
+            out.append(t.to_local().data_ptr())
         elif isinstance(t, torch.Tensor):
             out.append(t.data_ptr())
     walk(params)

@@ -6,8 +6,9 @@ optional visualization; with image_batch > 1 and a BatchedVSMEngine the
 searches run in lockstep device waves, and on a compiled engine
 (search/compiled.CompiledVSMSearch, `--compiled`) as whole searches on
 the device. `main` loads the VSM from an HF checkpoint directory
-(eval/vstar_bench.load_vsm_engine); --mesh is refused (ROADMAP Queue 1
-item 12).
+(eval/vstar_bench.load_vsm_engine); --mesh shards the VSM over the
+torchrun ranks, every rank runs the same searches and rank 0 writes the
+outputs.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import os
 import numpy as np
 from PIL import Image
 
+from ..core.mesh import is_main_process
 from ..search.batched import run_grouped_searches
 from ..search.policy import iou_xywh
 from .seal import smallest_size
@@ -100,13 +102,14 @@ def evaluate_search(vsm_engine, benchmark_folder: str,
     ok_lengths = [n for n, a in zip(path_lengths, acc_list) if a]
     avg_len = float(np.mean(ok_lengths)) if ok_lengths else 0.0
     top1 = float(np.mean(acc_list)) if acc_list else 0.0
-    print("Avg search path length:", avg_len)
-    print("Top 1 Acc:", top1)
+    if is_main_process():
+        print("Avg search path length:", avg_len)
+        print("Top 1 Acc:", top1)
     return top1, avg_len
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """vstar_tpu search_eval's flags (--mesh refused by the loader)."""
+    """vstar_tpu search_eval's flags."""
     p = argparse.ArgumentParser(description="Visual Search Evaluation")
     p.add_argument("--version", default="craigwu/seal_vsm_7b")
     p.add_argument("--benchmark-folder", default="vstar_bench", type=str)
@@ -135,7 +138,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--int4", dest="int4", action="store_true",
                    default=False, help="group-128 int4 decoder weights")
     p.add_argument("--mesh", default=None,
-                   help="DxFxM device mesh (not ported yet)")
+                   help="DxFxM device mesh over the torchrun ranks to shard"
+                        " the VSM over, e.g. 1x4x1")
     p.add_argument("--int8", dest="int8", action="store_true",
                    default=None, help="weight-only int8 decoder")
     p.add_argument("--no-int8", dest="int8", action="store_false",
@@ -166,7 +170,9 @@ def main(argv=None, device="cuda", tokenizer=None):
         target_cue_threshold=args.target_cue_threshold,
         target_cue_threshold_decay=args.target_cue_threshold_decay,
         target_cue_threshold_minimum=args.target_cue_threshold_minimum,
-        visualization=args.visualization, output_path=args.output_path,
+        # under a mesh every rank searches alike; rank 0 draws the paths
+        visualization=args.visualization and is_main_process(),
+        output_path=args.output_path,
         image_batch=args.image_batch)
 
 

@@ -74,7 +74,7 @@ class VQAEngine:
                  option_bucket: int = 64, compute_dtype=torch.bfloat16,
                  speculative_template: Optional[str] = None,
                  prompt_lookup: bool = False, kv_int8: bool = False,
-                 conv_type: str = "v1"):
+                 conv_type: str = "v1", mesh=None):
         """speculative_template None takes SPEC_TEMPLATE, as the JAX
         engine does (set `_spec_template = None` for plain greedy).
         conv_type names the conversation template of the prompts
@@ -84,7 +84,16 @@ class VQAEngine:
         temperature 0. Sampling draws from the engine's own generator,
         seeded 0 at construction (vstar_tpu's PRNGKey(0)).
         kv_int8: int8 KV caches with per-(token, head) scales
-        (nn/llama.KVCache), for free-form decode and option scoring."""
+        (nn/llama.KVCache), for free-form decode and option scoring.
+        mesh: shard the model over a core/mesh.Mesh (JAX's mesh=): the
+        decoder's layer stack by the partition rules, gathered one layer
+        at a time in every forward, the rest gathered once
+        (core/mesh.serving_params). Every rank runs the same requests and
+        computes the same tokens."""
+        if mesh is not None:
+            from ..core.mesh import serving_params
+            params = serving_params(params, mesh)
+        self.mesh = mesh
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer

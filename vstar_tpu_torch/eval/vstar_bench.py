@@ -19,8 +19,16 @@ p50 latency and images/s, and writes the result JSON in the reference
 schema; with --image-batch > 1 eval/batched_bench.py runs the loop,
 --compiled wraps the VSM in search/compiled.CompiledVSMSearch, and
 --single-chip-phased runs eval/phased.py on engine factories (the
-loaders' unless given). The mesh (--mesh) is not ported yet (ROADMAP
-Queue 1 item 12).
+loaders' unless given).
+
+--mesh DxFxM (under torchrun, one rank per card) shards both models over
+a core/mesh.Mesh: each engine keeps its decoder's layer stack sharded by
+the partition rules and gathers one layer at a time. Every rank runs
+the same loop over the same images and computes the same answers; rank
+0 alone prints and writes the result file.
+
+    torchrun --nproc-per-node 2 -m vstar_tpu_torch.eval.vstar_bench \
+        --vqa-model-path <dir> --vsm-model-path <dir> --mesh 1x2x1
 """
 
 from __future__ import annotations
@@ -35,13 +43,18 @@ import numpy as np
 import torch
 from PIL import Image
 
+from ..core.mesh import is_main_process, rank_device
 from .seal import seal_answer
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh:
-        raise NotImplementedError(
-            "--mesh is not ported yet (ROADMAP Queue 1 item 12)")
+def resolve_mesh(mesh, device="cuda"):
+    """None | 'DxFxM' | Mesh -> None | Mesh of this world
+    (core/mesh.resolve_mesh: the shape's product must be the world size;
+    a process without torchrun has a world of one)."""
+    if mesh is None:
+        return None
+    from ..core.mesh import resolve_mesh as _resolve
+    return _resolve(mesh, rank_device(device))
 
 
 def _quantize_llm(int8, int4):
@@ -79,19 +92,22 @@ def load_vqa_engine(vqa_model_path: str, conv_type: str = "v1", mesh=None,
     from_pretrained path does (builder.py:26-151). int8: per-channel int8
     decoder; int4: group-128 int4 (kernels K5/K6), or the string
     'int4mix' for the per-matrix int4/int8 split; either also int8s the
-    tower. tokenizer None loads the directory's."""
+    tower. tokenizer None loads the directory's. mesh: None, 'DxFxM' or
+    a Mesh to shard the model over (the engine's mesh=); the device is
+    then this rank's card."""
     from ..core.hf_config import vqa_llm_config_for
     from ..models.vqa_llm import vqa_llm_params_from_torch
     from ..multimodal.tokenizer import load_tokenizer
     from .vqa_engine import VQAEngine
-    _refuse_mesh(mesh)
+    device = rank_device(device)
+    mesh = resolve_mesh(mesh, device)
     cfg = vqa_llm_config_for(_checkpoint_dir(vqa_model_path))
     tok = tokenizer if tokenizer is not None else \
         load_tokenizer(vqa_model_path)
     params = _load_params(vqa_model_path, vqa_llm_params_from_torch, cfg,
                           device, int8, int4)
     return VQAEngine(params, cfg, tok, device=device, conv_type=conv_type,
-                     kv_int8=kv_int8, prompt_lookup=prompt_lookup)
+                     kv_int8=kv_int8, prompt_lookup=prompt_lookup, mesh=mesh)
 
 
 def load_vsm_engine(vsm_model_path: str, device_preprocess: bool = False,
@@ -101,12 +117,13 @@ def load_vsm_engine(vsm_model_path: str, device_preprocess: bool = False,
     search/batched.BatchedVSMEngine (the search-mechanism evaluation needs
     only this half, visual_search.py:142); its [LOC] id is the
     tokenizer's. device_preprocess: search patches cut from a device
-    canvas of the image. Quantization as load_vqa_engine."""
+    canvas of the image. Quantization and mesh as load_vqa_engine."""
     from ..core.hf_config import vsm_config_for
     from ..models.vsm import vsm_params_from_torch
     from ..multimodal.tokenizer import load_tokenizer
     from ..search.batched import BatchedVSMEngine
-    _refuse_mesh(mesh)
+    device = rank_device(device)
+    mesh = resolve_mesh(mesh, device)
     cfg = vsm_config_for(_checkpoint_dir(vsm_model_path))
     tok = tokenizer if tokenizer is not None else \
         load_tokenizer(vsm_model_path)
@@ -116,7 +133,7 @@ def load_vsm_engine(vsm_model_path: str, device_preprocess: bool = False,
     return BatchedVSMEngine(params, cfg, tok, loc_token_id=loc_id,
                             device=device,
                             device_preprocess=device_preprocess,
-                            kv_int8=kv_int8)
+                            kv_int8=kv_int8, mesh=mesh)
 
 
 def load_engines(vqa_model_path: str, vsm_model_path: str,
@@ -126,7 +143,8 @@ def load_engines(vqa_model_path: str, vsm_model_path: str,
                  tokenizer=None):
     """Both models from HF checkpoint directories, on one device (the
     80 GB card holds the bf16 pair, so vstar_tpu's two-chip split has no
-    counterpart)."""
+    counterpart), or sharded over `mesh` (both on one Mesh)."""
+    mesh = resolve_mesh(mesh, device)
     return (load_vqa_engine(vqa_model_path, conv_type, mesh=mesh, int8=int8,
                             device=device, kv_int8=kv_int8,
                             prompt_lookup=prompt_lookup, int4=int4,
@@ -236,8 +254,11 @@ def eval_model(args, vqa_engine=None, vsm_engine=None, factories=None,
     zero-argument functions that build an engine (the loaders'
     loaders unless given), and returns its (results, per-task
     correctness, timings)."""
-    _refuse_mesh(getattr(args, "mesh", None))
+    mesh = getattr(args, "mesh", None)
     if getattr(args, "single_chip_phased", False):
+        if mesh:
+            raise ValueError("--single-chip-phased keeps one model on one "
+                             "card at a time; it takes no --mesh")
         if vqa_engine is not None or vsm_engine is not None:
             raise ValueError("--single-chip-phased builds its own engines "
                              "per phase: pass factories, not engines")
@@ -251,14 +272,18 @@ def eval_model(args, vqa_engine=None, vsm_engine=None, factories=None,
         int4mix = getattr(args, "int4mix", False)
         vqa_engine, vsm_engine = load_engines(
             args.vqa_model_path, args.vsm_model_path, args.conv_type,
-            int8=getattr(args, "int8", None),
+            mesh=mesh, int8=getattr(args, "int8", None),
             device_preprocess=getattr(args, "device_preprocess", False)
             or getattr(args, "compiled", False),
             kv_int8=getattr(args, "kv_int8", False),
             prompt_lookup=getattr(args, "prompt_lookup", False),
             int4=("int4mix" if int4mix else True) if (int4 or int4mix)
             else False, device=device, tokenizer=tokenizer)
+    elif mesh:
+        raise ValueError("--mesh: given engines are built with their own "
+                         "mesh= (or none)")
     _check_engine_flags(args, vqa_engine, vsm_engine)
+    main_rank = is_main_process()
     compiled = getattr(args, "compiled", False)
     if compiled and not hasattr(vsm_engine, "search"):
         from ..search.compiled import CompiledVSMSearch
@@ -292,21 +317,22 @@ def eval_model(args, vqa_engine=None, vsm_engine=None, factories=None,
             per_type_acc[test_type].append(record["correct"])
             all_acc.append(record["correct"])
             results[test_type].append(record)
-        if per_type_acc[test_type]:
+        if per_type_acc[test_type] and main_rank:
             print(test_type, np.mean(per_type_acc[test_type]))
 
-    if all_acc:
+    if all_acc and main_rank:
         print(np.mean(all_acc))
         print(f"p50 latency: {np.percentile(latencies, 50):.3f}s  "
               f"throughput: {1.0 / np.mean(latencies):.3f} images/s")
 
-    with open(args.output_path, "w") as f:
-        json.dump(results, f, indent=4)
+    if main_rank:
+        with open(args.output_path, "w") as f:
+            json.dump(results, f, indent=4)
     return results, dict(per_type_acc), latencies
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """vstar_tpu's evaluation flags; --mesh is refused by eval_model."""
+    """vstar_tpu's evaluation flags."""
     p = argparse.ArgumentParser(description="V*Bench SEAL evaluation")
     p.add_argument("--vqa-model-path", type=str,
                    default="craigwu/seal_vqa_7b")
@@ -318,7 +344,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--minimum_size_scale", default=4.0, type=float)
     p.add_argument("--minimum_size", default=224, type=int)
     p.add_argument("--mesh", default=None,
-                   help="DxFxM device mesh (not ported yet)")
+                   help="DxFxM device mesh over the torchrun ranks to shard"
+                        " both models over, e.g. 1x2x1")
     p.add_argument("--int8", dest="int8", action="store_true",
                    default=None, help="weight-only int8 decoders")
     p.add_argument("--no-int8", dest="int8", action="store_false",

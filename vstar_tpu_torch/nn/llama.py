@@ -8,6 +8,12 @@ attention reads the layer's cache slice where it lies. Every attention
 call goes through the port's flash_attention (kernel K1 on the card; in
 training also its backward K7).
 
+Under a mesh (core/mesh.py) the layer stack is a tree of DTensors
+sharded by the partition rules: the loop gathers layer i alone, from its
+owner on the fsdp axis (core/mesh.layer_source), inside the recomputed
+region under remat, so the gathered layer is dropped after the layer and
+gathered again for its backward.
+
 Training: LoRA adapters (`layers.attn.lora`, train/lora.py) add their
 delta to q and v before the reshape and rope, as in JAX; `remat`
 recomputes each layer in the backward (torch.utils.checkpoint, the
@@ -26,7 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.config import LlamaConfig
-from ..core.params import Init, dense_init, embed_init, layer
+from ..core.mesh import layer_source
+from ..core.params import Init, dense_init, embed_init
 from ..kernels.flash_attention import flash_attention
 from .basic import init_rmsnorm, rmsnorm
 from .quant import (qdot, quantize_weight, quantize_weight_int4,
@@ -247,17 +254,18 @@ def llama_forward(params: Dict, cfg: LlamaConfig, hidden: torch.Tensor,
         h = rmsnorm(lp["post_norm"], x, cfg.rms_norm_eps)
         return x + _mlp_block(lp["mlp"], h)
 
+    fetch = layer_source(params["layers"])
     x = hidden
     for i in range(cfg.num_layers):
-        lp = layer(params["layers"], i)
         kv = ()
         if cache is not None:
             kv = tuple(t[i] for t in cache.tensors())
         if remat and torch.is_grad_enabled():
-            x = torch.utils.checkpoint.checkpoint(one_layer, x, lp, *kv,
-                                                  use_reentrant=False)
+            x = torch.utils.checkpoint.checkpoint(
+                lambda x, *kv, i=i: one_layer(x, fetch(i), *kv), x, *kv,
+                use_reentrant=False)
         else:
-            x = one_layer(x, lp, *kv)
+            x = one_layer(x, fetch(i), *kv)
     new_cache = None
     if cache is not None:
         new_cache = cache.with_length(kv_lens.to(torch.int32))

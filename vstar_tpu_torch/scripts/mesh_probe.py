@@ -1,0 +1,495 @@
+"""The mesh (core/mesh.py) on cards: sharded VQA training steps against the
+one-device step, the 7B finetune's per-card plans, and the full 7B
+finetune across cards.
+
+One card (`chip_smoke.py`'s mesh phase calls these):
+  * `one_rank_mesh`: a world of one NCCL rank and the 1x1x1 mesh, every
+    leaf a DTensor; steps of the VQA pretrain at full 7B against the
+    one-device steps on the same weights and rows (bit for bit), with
+    the K1 / K7 launches of each;
+  * `finetune_plans`: the 7B VQA finetune's plan per card at 1x1x1,
+    1x2x1, 1x4x1 against the card's budget;
+  * `gloo_split`: two ranks over gloo on one card (NCCL takes one rank a
+    device), 7B widths with 2 decoder layers on a 1x2x1 mesh, finetune
+    steps against the one-device steps.
+
+Several cards, one process each:
+    torchrun --nproc-per-node 4 -m vstar_tpu_torch.scripts.mesh_probe \\
+        --mesh 1x4x1 --steps 3
+runs the full 7B VQA finetune (random weights, 32 layers, bf16 with f32
+masters, the tower frozen) on synthetic rows: the plan, the step times,
+each card's allocated and peak memory; with --engine also a sharded
+VQA engine's greedy answer against the unsharded engine's on every rank.
+Rank 0 prints one JSON line and writes chiprun_out/mesh_probe_<mesh>.json.
+`torchrun --nproc-per-node 1 ... --mesh 1x1x1 --layers 16` holds on one
+card the state a card of the full model's 1x2x1 mesh holds.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import socket
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+SEED = 0
+ROWS, SEQ, MICRO = 8, 512, 2
+
+
+def _caption(rng) -> str:
+    words = ["a", "photo", "of", "the", "red", "mug", "on", "wooden",
+             "table", "near", "window", "with", "green", "bottle"]
+    return " ".join(rng.choice(words, 40))
+
+
+def pretrain_rows(cfg, tok, rows: int = ROWS, seq: int = SEQ):
+    """Caption rows on noise images (the pretrain collate)."""
+    from ..data.pretrain_dataset import collate_pretrain
+    rng = np.random.RandomState(SEED)
+    size = cfg.vision.image_size
+    instances = [{"image": rng.randn(size, size, 3).astype(np.float32),
+                  "caption": _caption(rng)} for _ in range(rows)]
+    return collate_pretrain(instances, tok, n_long=cfg.image_tokens_long,
+                            n_short=cfg.image_tokens_short, image_long=True,
+                            seq_bucket=seq)
+
+
+def finetune_rows(cfg, tok, rows: int = ROWS, seq: int = SEQ):
+    """Search-instruction rows: an object crop on even rows, plain image
+    rows on odd ones (the SFT collate, padded object slots masked)."""
+    from ..data.vqa_sft_dataset import collate_vqa_sft
+    rng = np.random.RandomState(SEED + 1)
+    size, m = cfg.vision.image_size, cfg.max_objects
+    instances = []
+    for i in range(rows):
+        search = i % 2 == 0
+        objects = np.zeros((m, size, size, 3), np.float32)
+        q = "What is the color of the mug?"
+        if search:
+            objects[-1] = rng.randn(size, size, 3)
+            q = ("What is the color of the red mug <object> at location "
+                 "[0.120,0.300,0.250,0.410]?")
+        instances.append({
+            "source": [{"from": "human", "value": "<image>\n" + q},
+                       {"from": "gpt", "value": _caption(rng)}],
+            "has_image": True, "is_search": search,
+            "image": rng.randn(size, size, 3).astype(np.float32),
+            "objects": objects, "images_long": not search,
+            "objects_long": [False] * (m - 1) + [search]})
+    return collate_vqa_sft(instances, tok, n_long=cfg.image_tokens_long,
+                           n_short=cfg.image_tokens_short, seq_bucket=seq)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _steps(state, batch, cfg, opt, mask, n, dev, count=None,
+           micro: int = MICRO):
+    """n sft_train_steps; (state, [(loss, grad_norm, seconds)], counts of
+    the last step from `count` (zeroed before it, read after))."""
+    from ..train.sft import sft_train_step
+    out, counts = [], None
+    for i in range(n):
+        if count is not None and i == n - 1:
+            count[0]()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, m = sft_train_step(state, batch, cfg, opt, mask,
+                                  grad_accum=micro)
+        torch.cuda.synchronize(dev)
+        out.append((float(m["loss"]), float(m["grad_norm"]),
+                    time.perf_counter() - t0))
+        if count is not None and i == n - 1:
+            counts = count[1]()
+    return state, out, counts
+
+
+def one_rank_mesh(dev, count=None, steps: int = 2) -> dict:
+    """Part (a): the VQA pretrain at full 7B on a world of one NCCL rank,
+    the 1x1x1 mesh, every leaf a DTensor, against the one-device steps on
+    the same weights and rows. Loss, grad norm and every updated leaf
+    must be equal bit for bit; `count` = (zero, read) of the launch
+    counters, read around the last step of each run. The peaks are each
+    run's, with the other copy of the weights resident."""
+    from ..core import mesh as M
+    from ..core.config import vqa_llm_7b
+    from ..core.params import leaves_with_path, map_with_path
+    from ..data.vsm_collate import batch_to_torch
+    from ..models.vqa_llm import init_vqa_llm_params
+    from ..multimodal.stub_tokenizer import StubTokenizer
+    from ..train.sft import init_train_state, make_optimizer
+    from ..train.train_vqa_main import projector_only_mask
+    cfg = vqa_llm_7b()
+    tok = StubTokenizer(cfg.llama.vocab_size)
+    batch = batch_to_torch(pretrain_rows(cfg, tok), dev)
+    params = init_vqa_llm_params(SEED, cfg, device=dev, dtype=torch.bfloat16)
+    params["proj_image"] = map_with_path(lambda _, x: x.float(),
+                                         params["proj_image"])
+    mask = projector_only_mask(params, "linear")
+    opt = make_optimizer(2e-3, warmup_steps=1, total_steps=4,
+                         trainable_mask=mask, master_f32=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    one, one_m, one_counts = _steps(init_train_state(params, opt), batch,
+                                    cfg, opt, mask, steps, dev, count)
+    one_peak = torch.cuda.max_memory_allocated(dev)
+    one_flat = {p: x for p, x in leaves_with_path(one.params)
+                if p.startswith("proj_image.")}
+    del one
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = M.make_mesh((1, 1, 1), "cuda")
+        sharded = M.shard_params(params, mesh)
+        del params
+        kinds = {type(x).__name__ for _, x in leaves_with_path(sharded)}
+        torch.cuda.reset_peak_memory_stats(dev)
+        st, mesh_m, mesh_counts = _steps(init_train_state(sharded, opt),
+                                         batch, cfg, opt, mask, steps, dev,
+                                         count)
+        mesh_peak = torch.cuda.max_memory_allocated(dev)
+        flat = dict(leaves_with_path(st.params))
+        same = {p: bool(torch.equal(flat[p].to_local(), x))
+                for p, x in one_flat.items()}
+    finally:
+        dist.destroy_process_group()
+    return {"leaf_types": sorted(kinds),
+            "one_device": one_m, "mesh": mesh_m,
+            "equal_loss_and_norm": [a[:2] == b[:2]
+                                    for a, b in zip(one_m, mesh_m)],
+            "equal_trainable_leaves": same,
+            "counts_one_device": one_counts, "counts_mesh": mesh_counts,
+            "peak_bytes_one_device": one_peak, "peak_bytes_mesh": mesh_peak}
+
+
+def one_rank_engine(dev, count=None) -> dict:
+    """Part (a), serving: the random-init VSM at 7B widths with 2 decoder
+    layers as a BatchedVSMEngine on the one-rank NCCL 1x1x1 mesh (its
+    decoder stack DTensors, its decode captured into CUDA graphs with the
+    mesh's collectives in them) against the unsharded engine on the same
+    weights: one detection's tokens, boxes, logits and heatmap logits
+    bit for bit, with the sharded run's launches (`count` around it)."""
+    from PIL import Image
+    from ..core import mesh as M
+    from ..core.config import vsm_7b
+    from ..models.vsm import init_vsm_params
+    from ..multimodal.stub_tokenizer import StubTokenizer
+    from ..search.batched import BatchedVSMEngine
+    full = vsm_7b()
+    cfg = dataclasses.replace(full, llama=dataclasses.replace(
+        full.llama, num_layers=2))
+    tok = StubTokenizer(cfg.llama.vocab_size)
+    params = init_vsm_params(SEED + 1, cfg, device=dev, dtype=torch.bfloat16)
+    img = Image.fromarray((np.random.RandomState(1).rand(480, 640, 3)
+                           * 255).astype("uint8"))
+    prompt = "Please locate the cup in this image."
+
+    def engine(mesh=None):
+        return BatchedVSMEngine(params, cfg, tok, loc_token_id=3, device=dev,
+                                max_new_tokens=16, prompt_buckets=(384,),
+                                mesh=mesh)
+
+    plain = engine()
+    want = plain._run(img, prompt)[0]
+    del plain
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        sharded = engine(M.make_mesh((1, 1, 1), "cuda"))
+        stack = type(sharded.params["llama"]["layers"]["attn"]["wq"])
+        if count is not None:
+            count[0]()
+        got = sharded._run(img, prompt)[0]
+        torch.cuda.synchronize(dev)
+        counts = None if count is None else count[1]()
+        same = {f: bool(torch.equal(getattr(got, f), getattr(want, f)))
+                for f in ("tokens", "num_generated", "det_logits",
+                          "det_boxes", "mask_logits", "loc_valid")}
+        captured = sharded.graphs.captures
+    finally:
+        dist.destroy_process_group()
+    return {"stack_type": stack.__name__, "equal": same,
+            "graphs_captured": captured, "counts": counts}
+
+
+def finetune_plans(hbm_gb, meshes=((1, 1, 1), (1, 2, 1), (1, 4, 1)),
+                   headroom: float = 0.75) -> dict:
+    """Part (b): the 7B VQA finetune's plan per card (bf16 with f32
+    masters, the tower frozen) on each mesh, against `headroom` of
+    `hbm_gb`."""
+    from ..core.config import vqa_llm_7b
+    from ..core.memory import plan_train_memory
+    from ..models.vqa_llm import init_vqa_llm_params
+    from ..train.train_vqa_main import frozen_vision_mask
+    meta = init_vqa_llm_params(0, vqa_llm_7b(), device="meta",
+                               dtype=torch.bfloat16)
+    mask = frozen_vision_mask(meta)
+    budget = hbm_gb * headroom * 1024 ** 3
+    out = {}
+    for shape in meshes:
+        plan = plan_train_memory(meta, shape, trainable_mask=mask)
+        out["x".join(map(str, shape))] = {
+            "params": plan.params_bytes, "masters": plan.master_bytes,
+            "moments": plan.moments_bytes, "grads": plan.grads_bytes,
+            "total": plan.total_bytes, "budget": int(budget),
+            "fits": plan.total_bytes <= budget}
+    return out
+
+
+def _gloo_cuda_collectives():
+    """gloo takes only broadcast and all_reduce on CUDA tensors, so in part
+    (c)'s ranks the mesh's gathers become broadcasts and its
+    reduce-scatters all_reduces (core/mesh runs NCCL's, and CPU gloo's,
+    all_gather / reduce_scatter)."""
+    from ..core import mesh as M
+
+    def all_gather(x, dim, group):
+        n, me = dist.get_world_size(group), dist.get_rank(group)
+        x = x.movedim(dim, 0).contiguous()
+        out = torch.empty((n * x.shape[0], *x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        for i, part in enumerate(out.chunk(n)):
+            if i == me:
+                part.copy_(x)
+            dist.broadcast(part, src=dist.get_global_rank(group, i),
+                           group=group)
+        return out.movedim(0, dim).contiguous()
+
+    def reduce_scatter(g, dim, group):
+        n, me = dist.get_world_size(group), dist.get_rank(group)
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=group)
+        return g.chunk(n, dim)[me].contiguous()
+
+    M._all_gather, M._reduce_scatter = all_gather, reduce_scatter
+
+
+def _update_stats(got, want, lr):
+    """One leaf of f32 masters: the largest |difference| and the share of
+    elements apart by more than lr / 100 and by more than lr / 10."""
+    d = (got - want).abs()
+    return {"max": float(d.max()),
+            "over_lr_100": float((d > lr / 100).float().mean()),
+            "over_lr_10": float((d > lr / 10).float().mean()),
+            "numel": want.numel()}
+
+
+def _gloo_rank(rank, world, store, out_path, lr, steps, micro, device):
+    """One rank of part (c)."""
+    from ..core import mesh as M
+    from ..core.config import vqa_llm_7b
+    from ..core.params import leaves_with_path
+    from ..data.vsm_collate import batch_to_torch
+    from ..models.vqa_llm import init_vqa_llm_params
+    from ..multimodal.stub_tokenizer import StubTokenizer
+    from ..train.sft import init_train_state, make_optimizer
+    from ..train.train_vqa_main import frozen_vision_mask
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    _gloo_cuda_collectives()
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    result = {}
+    try:
+        full = vqa_llm_7b()
+        cfg = dataclasses.replace(full, llama=dataclasses.replace(
+            full.llama, num_layers=2))
+        tok = StubTokenizer(cfg.llama.vocab_size)
+        batch = batch_to_torch(finetune_rows(cfg, tok), dev)
+        params = init_vqa_llm_params(SEED, cfg, device=dev,
+                                     dtype=torch.bfloat16)
+        mask = frozen_vision_mask(params)
+        frozen = [p for p, m in leaves_with_path(mask) if not m]
+        opt = make_optimizer(lr, warmup_steps=0, total_steps=4,
+                             trainable_mask=mask, master_f32=True)
+        t0 = time.perf_counter()
+        if rank == 0:
+            one, one_m, _ = _steps(init_train_state(params, opt), batch,
+                                   cfg, opt, mask, steps, dev, micro=micro)
+            master = one.opt_state[1]["master"]
+            del one
+            result["one_device"] = one_m
+        dist.barrier()
+        t1 = time.perf_counter()
+        mesh = M.make_mesh((1, world, 1), dev.type)
+        sharded = M.shard_params(params, mesh)
+        del params
+        before = dict(leaves_with_path(sharded))
+        before = {p: before[p].to_local().clone() for p in frozen}
+        st, mesh_m, _ = _steps(init_train_state(sharded, opt), batch, cfg,
+                               opt, mask, steps, dev, micro=micro)
+        t2 = time.perf_counter()
+        like = dict(leaves_with_path(st.params))
+        same = torch.tensor([all(torch.equal(like[p].to_local(), x)
+                                 for p, x in before.items())], device=dev,
+                            dtype=torch.int32)
+        dist.all_reduce(same, op=dist.ReduceOp.MIN)
+        stats = {}
+        with torch.no_grad():
+            for p, x in st.opt_state[1]["master"].items():
+                whole = M.full(M.with_local(like[p], x))
+                if rank == 0:
+                    stats[p] = _update_stats(whole, master[p], lr)
+                del whole
+        if rank == 0:
+            result["mesh"] = mesh_m
+            result["seconds"] = {"one_device": t1 - t0, "mesh": t2 - t1,
+                                 "compare": time.perf_counter() - t2}
+            result["masters"] = stats
+            result["frozen_equal"] = bool(same.item())
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(result, f)
+
+
+def gloo_split(lr: float = 1e-3, steps: int = 2, micro: int = MICRO,
+               device: str = "cuda:0") -> dict:
+    """Part (c): two ranks over gloo on one card (spawned processes), 7B
+    widths with 2 decoder layers, a 1x2x1 mesh: `steps` finetune steps
+    (bf16 with f32 masters, no warmup, the 8 rows in `micro`
+    micro-batches, so f32 gradient buffers for micro > 1) against the
+    one-device steps on rank 0: each step's (loss, grad norm, seconds),
+    each master's differences (_update_stats), and whether every frozen
+    leaf kept its values on every rank. Any failure of a rank fails the
+    call."""
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as work:
+        out = os.path.join(work, "result.json")
+        mp.start_processes(_gloo_rank, args=(2, os.path.join(work, "store"),
+                                             out, lr, steps, micro, device),
+                           nprocs=2, start_method="spawn")
+        with open(out) as f:
+            return json.load(f)
+
+
+def _engine_check(mesh, dev, tokens: int) -> dict:
+    """A sharded random-init 7B VQA engine's greedy free-form answer (graph
+    decode) against the unsharded engine's, on every rank."""
+    from PIL import Image
+    from ..core.config import vqa_llm_7b
+    from ..eval.vqa_engine import VQAEngine
+    from ..models.vqa_llm import init_vqa_llm_params
+    from ..multimodal.stub_tokenizer import StubTokenizer
+    cfg = vqa_llm_7b()
+    tok = StubTokenizer(cfg.llama.vocab_size)
+    params = init_vqa_llm_params(SEED, cfg, device=dev, dtype=torch.bfloat16)
+    img = Image.fromarray((np.random.RandomState(0).rand(336, 336, 3)
+                           * 255).astype("uint8"))
+    q = "What is on the table?"
+    engines = [VQAEngine(params, cfg, tok, device=dev,
+                         prompt_buckets=(512, 768)),
+               VQAEngine(params, cfg, tok, device=dev,
+                         prompt_buckets=(512, 768), mesh=mesh)]
+    del params
+    answers, secs = [], []
+    for e in engines:
+        e._spec_template = None     # plain greedy
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        answers.append(e.free_form(img, q, max_new_tokens=tokens))
+        torch.cuda.synchronize(dev)
+        secs.append(time.perf_counter() - t0)
+    sharded = engines[1]
+    return {"equal": answers[0] == answers[1], "tokens": tokens,
+            "one_device_s": secs[0], "sharded_s": secs[1],
+            "graphs_captured": sharded.graphs.captures}
+
+
+def main() -> int:
+    p = argparse.ArgumentParser(__doc__.split("\n")[0])
+    p.add_argument("--mesh", default=None)
+    p.add_argument("--steps", type=int, default=3)
+    p.add_argument("--layers", type=int, default=None,
+                   help="decoder layers (default: the 7B config's 32); "
+                        "16 on one card holds a 1x2x1 card's state")
+    p.add_argument("--engine", action="store_true")
+    p.add_argument("--engine-tokens", type=int, default=32)
+    args = p.parse_args()
+    if not torch.cuda.is_available():
+        print("mesh_probe: no CUDA device", file=sys.stderr)
+        return 1
+    from ..core import mesh as M
+    from ..core.config import vqa_llm_7b
+    from ..core.memory import check_memory, device_memory_gb, \
+        plan_train_memory
+    from ..data.vsm_collate import batch_to_torch
+    from ..models.vqa_llm import init_vqa_llm_params
+    from ..multimodal.stub_tokenizer import StubTokenizer
+    from ..train.sft import init_train_state, make_optimizer
+    from ..train.train_vqa_main import frozen_vision_mask
+    dev = M.rank_device("cuda")
+    mesh = M.resolve_mesh(args.mesh, dev)
+    if mesh is None:
+        print("mesh_probe: start it with torchrun", file=sys.stderr)
+        return 1
+    main_rank = M.is_main_process()
+    cfg = vqa_llm_7b()
+    if args.layers:
+        cfg = dataclasses.replace(cfg, llama=dataclasses.replace(
+            cfg.llama, num_layers=args.layers))
+    tok = StubTokenizer(cfg.llama.vocab_size)
+    meta = init_vqa_llm_params(0, cfg, device="meta", dtype=torch.bfloat16)
+    mask = frozen_vision_mask(meta)
+    plan = plan_train_memory(meta, mesh, trainable_mask=mask)
+    check_memory(plan, device_memory_gb(dev),
+                 what=f"7B VQA finetune (mesh {mesh})")
+    t0 = time.perf_counter()
+    params = M.shard_params(init_vqa_llm_params(SEED, cfg, device=dev,
+                                                dtype=torch.bfloat16), mesh)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    opt = make_optimizer(2e-5, warmup_steps=1, total_steps=args.steps + 1,
+                         trainable_mask=mask, master_f32=True)
+    state = init_train_state(params, opt)
+    del params
+    torch.cuda.synchronize(dev)
+    state_bytes = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    batch = batch_to_torch(finetune_rows(cfg, tok), dev)
+    state, steps, _ = _steps(state, batch, cfg, opt, mask, args.steps, dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    report = {"mesh": list(mesh.dims), "rank": M.rank(),
+              "layers": cfg.llama.num_layers,
+              "device": torch.cuda.get_device_name(dev),
+              "plan_bytes": plan.total_bytes,
+              "plan_state_bytes": plan.params_bytes + plan.master_bytes
+              + plan.moments_bytes, "state_bytes": state_bytes,
+              "peak_bytes": peak, "init_s": init_s, "steps": steps,
+              "rows": ROWS, "seq": SEQ, "micro": MICRO}
+    if args.engine:
+        del state, opt
+        torch.cuda.empty_cache()
+        try:
+            report["engine"] = _engine_check(mesh, dev, args.engine_tokens)
+        except Exception as e:  # recorded, and the run fails below
+            report["engine"] = {"error": f"{type(e).__name__}: {e}"}
+    reports = [None] * M.world_size()
+    dist.all_gather_object(reports, report)
+    dist.destroy_process_group()
+    if main_rank:
+        line = json.dumps({"mesh_probe": reports})
+        print(line, flush=True)
+        os.makedirs("chiprun_out", exist_ok=True)
+        name = "x".join(map(str, reports[0]["mesh"]))
+        with open(f"chiprun_out/mesh_probe_{name}.json", "w") as f:
+            f.write(line + "\n")
+    ok = all(r.get("engine", {"equal": True}).get("equal", False)
+             for r in reports)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

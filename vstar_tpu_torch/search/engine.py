@@ -46,9 +46,17 @@ class VSMEngine:
                  prompt_buckets: Tuple[int, ...] = (384, 512),
                  compute_dtype=torch.bfloat16,
                  speculative_template: Optional[str] = "Sure, [LOC].",
-                 kv_int8: bool = False):
+                 kv_int8: bool = False, mesh=None):
         """kv_int8: int8 KV caches with per-(token, head) scales
-        (nn/llama.KVCache)."""
+        (nn/llama.KVCache). mesh: shard the model over a core/mesh.Mesh
+        (JAX's mesh=): the decoder's layer stack by the partition rules,
+        gathered one layer at a time in every forward, the rest gathered
+        once (core/mesh.serving_params); every rank runs the same searches
+        and computes the same tokens, boxes and heatmaps."""
+        if mesh is not None:
+            from ..core.mesh import serving_params
+            params = serving_params(params, mesh)
+        self.mesh = mesh
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer

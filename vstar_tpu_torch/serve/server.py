@@ -23,6 +23,11 @@ request's missing objects advance in lockstep waves, one device batch
 per wave. --continuous serves through serve/continuous.py's
 ContinuousSealService: concurrent requests co-batch in waves of up to
 --max-batch, formed within --window-ms of the first arrival.
+
+The server runs on one device. Serving over a mesh (vstar_tpu's
+--mesh) needs rank 0's front end to broadcast each request to the
+follower ranks: ROADMAP Queue 1 item 13. eval/vstar_bench and
+eval/search_eval take --mesh under torchrun.
 """
 
 from __future__ import annotations

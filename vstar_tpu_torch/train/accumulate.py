@@ -8,6 +8,11 @@ for the VSM, VisualSearch/train.py:67-70). A batch whose leading dim is
 into float32 buffers, as the JAX scan does: the memory of a small batch,
 the update of a big one. Gradients are taken only for the chosen leaves;
 the others need none (they are frozen).
+
+A DTensor leaf (a tree sharded by core/mesh.shard_params) is
+differentiated through its local shard: the loss sees the DTensor, the
+gradient is this rank's shard of the whole batch's gradient (the
+gathers' backward sums the ranks), and the buffers are local.
 """
 
 from __future__ import annotations
@@ -15,8 +20,20 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from ..core.mesh import with_local
 from ..core.params import leaves_with_path, replace_leaves
+
+
+def _live(x: torch.Tensor) -> torch.Tensor:
+    """A plain tensor to differentiate: the leaf, or a DTensor's shard."""
+    x = x.to_local() if isinstance(x, DTensor) else x
+    return x.detach().requires_grad_()
+
+
+def _as_leaf(like: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+    return with_local(like, live) if isinstance(like, DTensor) else live
 
 
 def _detach(tree):
@@ -49,8 +66,9 @@ def accumulated_grads(loss_fn: Callable, params, batch: Dict,
     for i in range(n):
         micro = batch if n == 1 else {k: v[i * m:(i + 1) * m]
                                       for k, v in batch.items()}
-        live = {p: leaves[p].detach().requires_grad_() for p in paths}
-        out = loss_fn(replace_leaves(params, live), micro)
+        live = {p: _live(leaves[p]) for p in paths}
+        out = loss_fn(replace_leaves(params, {
+            p: _as_leaf(leaves[p], x) for p, x in live.items()}), micro)
         loss, aux = out if has_aux else (out, None)
         gs = torch.autograd.grad(loss, [live[p] for p in paths],
                                  allow_unused=True)
@@ -59,8 +77,8 @@ def accumulated_grads(loss_fn: Callable, params, batch: Dict,
         if n == 1:
             return loss.detach(), _detach(aux), dict(zip(paths, gs))
         if grads is None:
-            grads = {p: torch.zeros(leaves[p].shape, dtype=torch.float32,
-                                    device=leaves[p].device) for p in paths}
+            grads = {p: torch.zeros(live[p].shape, dtype=torch.float32,
+                                    device=live[p].device) for p in paths}
             loss_acc = torch.zeros((), dtype=torch.float32,
                                    device=loss.device)
             if has_aux:
@@ -68,6 +86,7 @@ def accumulated_grads(loss_fn: Callable, params, batch: Dict,
                                           device=loss.device) for k in aux}
         for p, g in zip(paths, gs):
             grads[p] += g / n
+        gs = g = None     # this micro-batch's gradients, before the next
         loss_acc = loss_acc + loss.detach() / n
         if has_aux:
             aux_acc = {k: aux_acc[k] + aux[k].detach() / n for k in aux}

@@ -118,18 +118,24 @@ def detection_criterion(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
                         tgt_boxes: torch.Tensor, tgt_valid: torch.Tensor,
                         sample_valid: torch.Tensor,
                         focal_alpha: float = 0.25,
-                        match_method: str = "auction"
+                        match_method: str = "auction", total=None
                         ) -> Dict[str, torch.Tensor]:
     """Full detection loss (owlvit.py:195-254 + VSM.py:366-395 masking).
 
     pred_logits: [B, Q, 1]; pred_boxes: [B, Q, 4] cxcywh
     tgt_boxes:   [B, T, 4] cxcywh (padded); tgt_valid: [B, T] bool
     sample_valid:[B] bool — rows whose bbox labels are real
+    total:       None, or the sum over ranks of a count when the rows are
+                 one rank's share of a sharded batch (core/mesh.Mesh.
+                 batch_sum): the box count and the batch mean are then
+                 the whole batch's, the matching stays per row
     Returns {'loss_ce','loss_bbox','loss_giou'} scalars (already masked and
     normalized; the caller combines them with weights 2/5/2)."""
     B, Q, _ = pred_logits.shape
     tgt_valid = tgt_valid.bool() & sample_valid.bool()[:, None]
-    num_boxes = torch.clamp(tgt_valid.sum().float(), min=1.0)
+    n_valid = tgt_valid.sum().float()
+    num_boxes = torch.clamp(n_valid if total is None else total(n_valid),
+                            min=1.0)
 
     with torch.no_grad():
         cost = match_cost(pred_logits, pred_boxes, tgt_boxes, tgt_valid)
@@ -150,7 +156,12 @@ def detection_criterion(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
     # reference: mean over queries, *Q, /num_boxes; per-sample then masked
     # by bboxes_valid and batch-meaned (VSM.py:389)
     loss_ce_per = focal.mean(dim=1) * Q / num_boxes
-    loss_ce = (loss_ce_per * sample_valid.float()).mean()
+    if total is None:
+        loss_ce = (loss_ce_per * sample_valid.float()).mean()
+    else:
+        rows = total(torch.tensor(B, dtype=torch.float32,
+                                  device=pred_logits.device))
+        loss_ce = (loss_ce_per * sample_valid.float()).sum() / rows
 
     # --- box losses over matched pairs ---
     matched = torch.gather(pred_boxes, 1,
@@ -168,10 +179,11 @@ def detection_criterion(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
 
 def detection_loss(pred_logits, pred_boxes, tgt_boxes, tgt_valid,
                    sample_valid, weights=(2.0, 5.0, 2.0),
-                   match_method: str = "auction") -> Tuple[
+                   match_method: str = "auction", total=None) -> Tuple[
                        torch.Tensor, Dict[str, torch.Tensor]]:
     d = detection_criterion(pred_logits, pred_boxes, tgt_boxes, tgt_valid,
-                            sample_valid, match_method=match_method)
+                            sample_valid, match_method=match_method,
+                            total=total)
     total = (weights[0] * d["loss_ce"] + weights[1] * d["loss_bbox"]
              + weights[2] * d["loss_giou"])
     return total, d

@@ -32,7 +32,9 @@ def add_lora(llama_params: Dict, seed: int, r: int = 8, alpha: int = 16,
     first = attn[targets[0]]
     dev = (first["q"] if isinstance(first, dict) and "q" in first
            else first).device
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    # a meta-device tree (a memory plan of shapes only) draws nothing
+    gen = None if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(seed)
     lora = {}
     for t in targets:
         w = attn[t]

@@ -6,7 +6,11 @@ Wraps a transformation of train/optim.py: the inner optimizer sees f32
 master copies of every sub-f32 leaf (kept in the optimizer state),
 gradients are cast to f32 before the update, and the emitted update
 moves the stored parameter to cast(new master), so the authoritative
-accumulation happens in f32 and bf16 storage is a rounded view.
+accumulation happens in f32 and bf16 storage is a rounded view. On a
+sharded tree (core/mesh.py) it sees each rank's local shards, so the
+masters are sharded as their leaves. A master the state owns (the f32
+copy of a sub-f32 leaf) is updated in place, as train/optim.py updates
+its moments.
 """
 
 from __future__ import annotations
@@ -32,7 +36,13 @@ def with_f32_master(inner: Transformation) -> Transformation:
         updates, new_inner = inner.update(g32, state["inner"],
                                           state["master"])
         new_master = dict(state["master"])
-        new_master.update(apply_updates(state["master"], updates))
+        for p, u in updates.items():
+            m = state["master"][p]
+            if _needs_master(params[p]) and \
+                    torch.promote_types(m.dtype, u.dtype) == m.dtype:
+                new_master[p] = m.add_(u)     # the state's own f32 copy
+            else:
+                new_master.update(apply_updates({p: m}, {p: u}))
         # emitted update = cast(new master) - stored param, in its dtype
         out = {p: (new_master[p].to(params[p].dtype) - params[p])
                if _needs_master(params[p])

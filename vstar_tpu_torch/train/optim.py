@@ -19,6 +19,22 @@ What optax does, and torch.optim does not, is kept exactly:
 A transformation is (init(params) -> state, update(grads, state, params)
 -> (updates, state)), as in optax; states are dicts, lists and ints, so a
 checkpoint stores them with torch.save.
+
+Like JAX's trainers, which jit their step with the state donated, an
+update consumes what it is given: the clip scales the gradients in
+place, Adam's moments (and train/master.py's f32 masters) are updated in
+place and Adam writes its update into the gradient's buffer, with the
+arithmetic of the functional form (the same bits). Only a leaf whose
+result JAX would promote to another dtype gets a new tensor. A 7B
+finetune's state then needs no second copy of its moments and masters
+during the update.
+
+Under a mesh (core/mesh.py) the optimizer runs on each rank's local
+shards, where every update but the clip is elementwise; the clip's
+global norm is the root of the sum of squares over all shards
+(`global_norm(tree, like)`, `like` the parameters' core/mesh.Shards:
+each leaf's local sum divided by the number of ranks holding the same
+shard, which its DTensor placements give, summed over the ranks).
 """
 
 from __future__ import annotations
@@ -41,9 +57,15 @@ def apply_updates(params: Flat, updates: Flat) -> Flat:
     return {p: (params[p] + u).to(params[p].dtype) for p, u in updates.items()}
 
 
-def global_norm(tree: Flat) -> torch.Tensor:
+def global_norm(tree: Flat, like=None) -> torch.Tensor:
     """sqrt(sum of squares), leaves added in the dict's order (JAX's leaf
-    order when the dict comes from leaves_with_path)."""
+    order when the dict comes from leaves_with_path). `like`: the
+    parameters' local leaves (core/mesh.local_leaves); where they are the
+    shards of a sharded tree, `tree` holds this rank's shards of it and
+    the sum is the whole tree's (core/mesh.Mesh.sum_squares)."""
+    mesh = getattr(like, "mesh", None)
+    if mesh is not None:
+        return torch.sqrt(mesh.sum_squares(tree, like.replicas))
     return torch.sqrt(sum((x * x).sum() for x in tree.values()))
 
 
@@ -62,11 +84,15 @@ def chain(*transforms: Transformation) -> Transformation:
 
 
 def clip_by_global_norm(max_norm: float) -> Transformation:
+    """optax.clip_by_global_norm, scaling the updates in place (one host
+    read of the norm); on the shards of a sharded tree (`params` its
+    core/mesh.Shards), over the shards of all ranks."""
     def update(updates, state, params=None):
-        g_norm = global_norm(updates)
-        trigger = g_norm < max_norm
-        return {p: torch.where(trigger, t, (t / g_norm.to(t.dtype)) * max_norm)
-                for p, t in updates.items()}, state
+        g_norm = global_norm(updates, params)
+        if not bool(g_norm < max_norm):
+            for t in updates.values():
+                t.div_(g_norm.to(t.dtype)).mul_(max_norm)
+        return updates, state
 
     return Transformation(lambda params: {}, update)
 
@@ -139,28 +165,40 @@ def scale_by_adam(b1: float, b2: float, eps: float = 1e-8) -> Transformation:
                 "nu": {p: torch.zeros_like(x) for p, x in params.items()}}
 
     def update(updates, state, params=None):
-        mu = {p: (1 - b1) * g + b1 * state["mu"][p] for p, g in updates.items()}
-        nu = {p: (1 - b2) * (g * g) + b2 * state["nu"][p]
-              for p, g in updates.items()}
         count = state["count"] + 1
         bc1 = 1 - torch.tensor(b1, dtype=torch.float32) ** count
         bc2 = 1 - torch.tensor(b2, dtype=torch.float32) ** count
-        out = {}
-        for p, m in mu.items():
+        mu, nu, out = {}, {}, {}
+        for p, g in updates.items():
+            m = mu[p] = _ema(state["mu"][p], g, b1)
+            v = nu[p] = _ema(state["nu"][p], g * g, b2)
             m_hat = m / bc1.to(m.dtype).to(m.device)
-            v = nu[p]
-            v_hat = v / bc2.to(v.dtype).to(v.device)
-            out[p] = m_hat / (torch.sqrt(v_hat) + eps)
+            # sqrt(v_hat) + eps, in v_hat's buffer
+            denom = (v / bc2.to(v.dtype).to(v.device)).sqrt_().add_(eps)
+            if torch.promote_types(m_hat.dtype, denom.dtype) == g.dtype:
+                out[p] = torch.div(m_hat, denom, out=g)
+            else:
+                out[p] = m_hat / denom
         return out, {"count": count, "mu": mu, "nu": nu}
 
     return Transformation(init, update)
+
+
+def _ema(m: torch.Tensor, x: torch.Tensor, decay: float) -> torch.Tensor:
+    """(1 - decay) x + decay m, into m where the sum keeps m's dtype; where
+    JAX's promotion changes it (a bf16 moment of an f32 gradient), a new
+    tensor of the promoted dtype."""
+    a = (1 - decay) * x
+    if torch.promote_types(a.dtype, m.dtype) != m.dtype:
+        return a + decay * m
+    return m.mul_(decay).add_(a)
 
 
 def scale_by_schedule(step_size_fn: Callable[[int], np.float32]
                       ) -> Transformation:
     def update(updates, state, params=None):
         step = float(step_size_fn(state["count"]))
-        return {p: step * g for p, g in updates.items()}, \
+        return {p: g.mul_(step) for p, g in updates.items()}, \
             {"count": state["count"] + 1}
 
     return Transformation(lambda params: {"count": 0}, update)

@@ -1,6 +1,6 @@
 """Supervised fine-tuning step for the VQA LLM (port of
 vstar_tpu/train/sft.py; stage 1 and 2 of the reference's pipeline,
-LLaVA/llava/train/train.py and train_search.py) on one device.
+LLaVA/llava/train/train.py and train_search.py).
 
 Loss: next-token CE with IGNORE_INDEX masking over the spliced sequence,
 matching LlamaForCausalLM's shift-CE (llava_search_llama.py:94-105). The
@@ -11,6 +11,12 @@ kernels' backward (K7). As in the port's VSM trainer, only the trainable
 leaves get gradients (JAX computes all and zeroes the frozen ones); norms,
 clips and updates come out the same. The decoder layers are recomputed in
 the backward (remat), as JAX's `remat=True`.
+
+On a tree sharded over a mesh (core/mesh.py; JAX's shard_train_step) each
+rank takes its rows of the step's batch and the loss's normaliser, the
+count of valid tokens, is the whole batch's (summed over the ranks): a
+rank's loss is its share of the one-device loss, never a mean of
+per-rank means. The optimizer updates each rank's shards.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..core.config import VQALLMConfig
+from ..core.mesh import local_leaves, mesh_of, unshard, with_local
 from ..core.params import leaves_with_path, map_with_path, replace_leaves
 from ..models.vqa_llm import clip_bank_features, project_bank, \
     spliced_embeds
@@ -63,7 +70,11 @@ def sft_loss(params: Dict, cfg: VQALLMConfig, batch: Dict,
              compute_dtype=torch.bfloat16) -> torch.Tensor:
     """batch (tensors on the parameters' device): image [B,H,W,3],
     objects [B,M,H,W,3], text_ids/feat_idx/is_feat [B,S], lens [B],
-    labels [B,S] (IGNORE at prompts/feats/pad), optional kv_valid [B,S]."""
+    labels [B,S] (IGNORE at prompts/feats/pad), optional kv_valid [B,S].
+    On a sharded tree the batch is this rank's rows and the loss its
+    share of the whole batch's."""
+    mesh = mesh_of(params)
+    params = unshard(params)
     with torch.no_grad():
         feats = clip_bank_features(params, cfg, batch["image"],
                                    batch["objects"])
@@ -85,7 +96,8 @@ def sft_loss(params: Dict, cfg: VQALLMConfig, batch: Dict,
     safe = torch.where(valid, shift_labels, torch.zeros_like(shift_labels))
     logp = torch.log_softmax(shift_logits.float(), dim=-1)
     tok_lp = logp.gather(-1, safe.long()[..., None])[..., 0]
-    return -(tok_lp * valid).sum() / torch.clamp(valid.sum(), min=1)
+    count = valid.sum() if mesh is None else mesh.batch_sum(valid.sum())
+    return -(tok_lp * valid).sum() / torch.clamp(count, min=1)
 
 
 def sft_train_step(state: TrainState, batch: Dict, cfg: VQALLMConfig,
@@ -96,23 +108,48 @@ def sft_train_step(state: TrainState, batch: Dict, cfg: VQALLMConfig,
     """One SFT step over `batch` (grad_accum micro-batches). Freezing is a
     trainable_mask tree of booleans (None: every float leaf, the tower's
     gradient then zero); the new state shares every frozen leaf with the
-    old one."""
+    old one. On a sharded tree every rank passes the same whole batch and
+    takes its rows of it (core/mesh.Mesh.local_rows); the metrics are
+    the whole batch's on every rank."""
+    mesh = mesh_of(state.params)
+    if mesh is not None:
+        batch = mesh.local_rows(batch, grad_accum)
     loss, _, grads = accumulated_grads(
         lambda p, b: sft_loss(p, cfg, b, compute_dtype), state.params,
         batch, grad_accum, trainable=trainable_mask)
-    flat = dict(leaves_with_path(state.params))
-    updates, new_opt = optimizer.update(grads, state.opt_state, flat)
-    new_params = replace_leaves(state.params,
-                                optim.apply_updates(flat, updates))
-    metrics = {"loss": loss, "grad_norm": optim.global_norm(grads),
+    metrics = {"loss": loss if mesh is None else mesh.batch_sum(loss),
+               "grad_norm": optim.global_norm(grads, local_leaves(dict(
+                   leaves_with_path(state.params)))),
                "step": state.step}
+    new_params, new_opt = apply_step(state.params, grads, state.opt_state,
+                                     optimizer)
     return TrainState(new_params, new_opt, state.step + 1), metrics
+
+
+def apply_step(params: Dict, grads: Dict, opt_state, optimizer
+               ) -> Tuple[Dict, Any]:
+    """The optimizer's update of `params` (a tree, DTensor leaves updated
+    through their local shards) by `grads` (path -> tensor, local shards
+    on a sharded tree, consumed: the optimizer updates in their buffers):
+    (new params, new optimizer state, which reuses the old one's
+    tensors)."""
+    flat = dict(leaves_with_path(params))
+    local = local_leaves(flat)
+    updates, new_opt = optimizer.update(grads, opt_state, local)
+    new = {}
+    while updates:      # each update is dropped as soon as it is applied
+        new.update(optim.apply_updates(local, dict([updates.popitem()])))
+    if mesh_of(params) is not None:
+        new = {p: with_local(flat[p], x) for p, x in new.items()}
+    return replace_leaves(params, new), new_opt
 
 
 def init_train_state(params: Dict, optimizer: optim.Transformation
                      ) -> TrainState:
-    return TrainState(params, optimizer.init(dict(leaves_with_path(params))),
-                      0)
+    """Optimizer state on the leaves (on a sharded tree: on this rank's
+    shards, so masters and moments are sharded as their leaves)."""
+    return TrainState(params, optimizer.init(local_leaves(dict(
+        leaves_with_path(params)))), 0)
 
 
 def make_frozen_vision_mask(params: Dict) -> Dict:

@@ -1,5 +1,5 @@
-"""VQA-LLM training command lines (port of vstar_tpu/train/train_vqa_main.py)
-on one device.
+"""VQA-LLM training command lines (port of vstar_tpu/train/train_vqa_main.py),
+on one device or a mesh of them.
 
 Stage 1, projector alignment (LLaVA/scripts/pretrain.sh + train.py):
   python -m vstar_tpu_torch.train.train_vqa_main pretrain \\
@@ -14,13 +14,21 @@ Stage 2, search-instruction finetune (finetune.sh + train_search.py):
       --model_path <seal_vqa HF dir> --data_path <6-json dir> \\
       --image_folder <images>
   Full-model SFT with the vision tower frozen, bf16 with f32 masters,
-  lr 2e-5. At 7B that is ~108 GB of static state, more than one 80 GB
-  card: the memory check refuses it before the checkpoint is read. The
-  sharded run comes with the mesh (ROADMAP Queue 1 item 12).
+  lr 2e-5. At 7B that is ~102 GB of static state, more than one 80 GB
+  card: on one device the memory check refuses it before the checkpoint
+  is read. Its plan fits two cards; its step, which also holds f32
+  accumulation buffers and a micro-batch's gradients, needs four:
+    torchrun --nproc-per-node 4 -m vstar_tpu_torch.train.train_vqa_main \
+        finetune --model_path <dir> ... --mesh 1x4x1
 
-Both stages build on the card unless main is given another device; the
-tokenizer is the checkpoint's (multimodal/tokenizer.load_tokenizer)
-unless one is given.
+Under torchrun every rank builds or loads the whole model on its card
+(cuda:LOCAL_RANK), shards it over the mesh (core/mesh.py; default 1xNx1)
+and drops the rest; every rank reads the same batches (the same
+(data_seed, epoch) permutation) and trains on its rows of each, the
+checkpoints are one file per rank, and rank 0 alone writes the logs and
+the exported parameters. Both stages build on the card unless main is
+given another device; the tokenizer is the checkpoint's
+(multimodal/tokenizer.load_tokenizer) unless one is given.
 """
 
 from __future__ import annotations
@@ -32,15 +40,18 @@ import random
 
 import torch
 
-from ..core.checkpoint import load_params, save_params
+from ..core.checkpoint import save_params
 from ..core.memory import check_memory, device_memory_gb, plan_train_memory
+from ..core.mesh import (full_tree, is_main_process, rank_device,
+                         resolve_mesh, shard_params)
 from ..core.params import leaves_with_path, map_with_path
 from ..data.prefetch import prefetch_map
 from ..data.vsm_collate import batch_to_torch
 from ..utils.metrics import AverageMeter, StepTimer
 from .sft import (TrainState, init_train_state, make_optimizer,
                   sft_train_step)
-from .train_vsm_main import _check_one_device
+from .train_vsm_main import (barrier, check_rows, load_state, log_memory,
+                             mesh_dims, save_state, train_mesh)
 
 
 def _common(p):
@@ -52,7 +63,8 @@ def _common(p):
     p.add_argument("--seq_bucket", default=2048, type=int)
     p.add_argument("--log_every", default=50, type=int)
     p.add_argument("--mesh", default=None,
-                   help="DxFxM mesh shape; one device only: None or 1x1x1")
+                   help="DxFxM mesh over the torchrun ranks (default 1xNx1;"
+                        " 1x1x1 without torchrun)")
     p.add_argument("--param_dtype", choices=["bf16", "f32"], default="bf16",
                    help="parameter storage dtype; bf16 + f32 masters in the"
                    " optimizer is the DeepSpeed-bf16-mode equivalent")
@@ -99,35 +111,43 @@ def frozen_vision_mask(params):
                          params)
 
 
-def check_train_memory(args, params, trainable_mask, device) -> None:
-    """Print the one-device plan; MemoryError if it cannot fit (--hbm_gb,
-    else the card's memory; the CPU has no budget). `params` may be on
-    the meta device."""
+def check_train_memory(args, params, trainable_mask, device, mesh=None):
+    """Print the per-device plan on `mesh` (None: one device) and return
+    it; MemoryError if it cannot fit (--hbm_gb, else the card's memory;
+    the CPU has no budget). `params` may be on the meta device."""
     hbm_gb = getattr(args, "hbm_gb", None)
-    check_memory(plan_train_memory(params, trainable_mask=trainable_mask,
-                                   master_f32=args.param_dtype == "bf16"),
-                 hbm_gb=hbm_gb if hbm_gb is not None
+    plan = plan_train_memory(params, mesh, trainable_mask=trainable_mask,
+                             master_f32=args.param_dtype == "bf16")
+    check_memory(plan, hbm_gb=hbm_gb if hbm_gb is not None
                  else device_memory_gb(device),
-                 what=f"{args.stage} (one device)")
+                 what=f"{args.stage} (one device)" if mesh is None
+                 else f"{args.stage} (mesh {mesh})")
+    return plan
 
 
 def run_training(args, cfg, params, dataset, collate_fn, tokenizer,
                  trainable_mask, lr):
     """The whole training procedure after model construction, where the
-    parameters live: the memory check, the optimizer, auto-resume from the
-    rolling 'latest' checkpoint, prefetched epochs of the shuffled rows
-    (the same (data_seed, epoch) streams as vstar_tpu), metrics.jsonl.
-    Returns the final TrainState."""
-    _check_one_device(args.mesh)
+    parameters live: the mesh (--mesh; a sharded tree keeps its own) and
+    the memory check, the optimizer, auto-resume from the rolling 'latest'
+    checkpoint, prefetched epochs of the shuffled rows (the same
+    (data_seed, epoch) streams as vstar_tpu's one-host run, whole on
+    every rank, each rank training on its rows of a step), metrics.jsonl
+    from rank 0. Returns the final TrainState."""
     device = next(x.device for _, x in leaves_with_path(params))
-    check_train_memory(args, params, trainable_mask, device)
+    mesh, params = train_mesh(args, params)
+    plan = check_train_memory(args, params, trainable_mask, device, mesh)
     bs = args.per_device_batch_size
+    check_rows(mesh, bs)
     n_steps_epoch = len(dataset) // bs
     total = max(n_steps_epoch, 1) * args.num_train_epochs
     opt = make_optimizer(lr, warmup_steps=min(100, total // 10),
                          total_steps=total, trainable_mask=trainable_mask,
                          master_f32=args.param_dtype == "bf16")
     state = init_train_state(params, opt)
+    del params
+    log_memory(f"{args.stage} state", plan, device)
+    main_rank = is_main_process()
     loss_m = AverageMeter("loss", ":.4f")
     timer = StepTimer()
     os.makedirs(args.output_dir, exist_ok=True)
@@ -139,7 +159,8 @@ def run_training(args, cfg, params, dataset, collate_fn, tokenizer,
 
     def epoch_batches(epoch):
         # the row permutation is a function of (data_seed, epoch) only, so
-        # a resumed run rebuilds epoch E's stream and skips by index
+        # a resumed run rebuilds epoch E's stream and skips by index; every
+        # rank builds the same one (an unequal tail is dropped)
         idx = list(range(len(dataset)))
         if shuffle:
             random.Random(hash((data_seed, epoch))).shuffle(idx)
@@ -153,20 +174,25 @@ def run_training(args, cfg, params, dataset, collate_fn, tokenizer,
     if getattr(args, "auto_resume", False) and os.path.exists(meta_path):
         with open(meta_path) as f:
             meta = json.load(f)
-        state = TrainState(*load_params(os.path.join(latest_dir, "state"),
-                                        device))
+        state = load_state(TrainState, os.path.join(latest_dir, "state"),
+                           state, device, meta, mesh)
         start_epoch, start_step = meta["epoch"], meta["step"] + 1
         if start_step >= n_steps_epoch:
             start_epoch, start_step = start_epoch + 1, 0
-        print(f"[resume] from epoch {meta['epoch']} step {meta['step']}")
+        if main_rank:
+            print(f"[resume] from epoch {meta['epoch']} step {meta['step']}")
 
     def _save_latest(epoch, step_i):
         os.makedirs(latest_dir, exist_ok=True)
-        save_params(tuple(state), os.path.join(latest_dir, "state"))
-        with open(meta_path, "w") as f:
-            json.dump({"epoch": epoch, "step": step_i}, f)
+        save_state(state, os.path.join(latest_dir, "state"), mesh)
+        barrier(mesh)
+        if main_rank:
+            with open(meta_path, "w") as f:
+                json.dump({"epoch": epoch, "step": step_i,
+                           "mesh": mesh_dims(mesh)}, f)
 
-    with open(os.path.join(args.output_dir, "metrics.jsonl"), "a") as log:
+    metrics_path = os.path.join(args.output_dir, "metrics.jsonl")
+    with open(metrics_path if main_rank else os.devnull, "a") as log:
         for epoch in range(start_epoch, args.num_train_epochs):
             epoch_start = start_step if epoch == start_epoch else 0
             # ordered parallel fetch + collate: image decode releases the
@@ -182,11 +208,13 @@ def run_training(args, cfg, params, dataset, collate_fn, tokenizer,
                                           trainable_mask)
                 timer.step_done()
                 loss_m.update(float(m["loss"]))
+                if epoch == start_epoch and step_i == epoch_start:
+                    log_memory(f"{args.stage} first step", plan, device)
                 i = epoch * n_steps_epoch + step_i
                 if save_steps and (step_i + 1) % save_steps == 0 \
                         and step_i + 1 < n_steps_epoch:
                     _save_latest(epoch, step_i)
-                if i % args.log_every == 0:
+                if i % args.log_every == 0 and main_rank:
                     print(f"epoch {epoch} step {i} {loss_m} "
                           f"({timer.batch_time.avg:.2f}s/it)", flush=True)
                     log.write(json.dumps({"epoch": epoch, "step": i,
@@ -196,7 +224,16 @@ def run_training(args, cfg, params, dataset, collate_fn, tokenizer,
                 # epoch-end save so a crash early next epoch never replays
                 # this epoch's tail
                 _save_latest(epoch, n_steps_epoch - 1)
+    barrier(mesh)
     return state
+
+
+def save_trained(tree, path: str) -> None:
+    """The trained parameters (whole, gathered leaf by leaf on a sharded
+    tree), written by rank 0."""
+    tree = full_tree(tree)
+    if is_main_process():
+        save_params(tree, path)
 
 
 def main(argv=None, tokenizer=None, device="cuda"):
@@ -206,7 +243,8 @@ def main(argv=None, tokenizer=None, device="cuda"):
     from ..core.config import vqa_llm_7b
     from ..multimodal.tokenizer import load_tokenizer
     args = parse_args(argv)
-    _check_one_device(args.mesh)
+    device = rank_device(device)
+    mesh = resolve_mesh(args.mesh, device)
     param_dtype = torch.bfloat16 if args.param_dtype == "bf16" \
         else torch.float32
 
@@ -228,10 +266,12 @@ def main(argv=None, tokenizer=None, device="cuda"):
 
         shapes = build("meta")
         mask = projector_only_mask(shapes, args.projector)
-        check_train_memory(args, shapes, mask, device)
+        check_train_memory(args, shapes, mask, device, mesh)
         if tokenizer is None:
             tokenizer = load_tokenizer("lmsys/vicuna-7b-v1.5")
         params = build(device)
+        if mesh is not None:
+            params = shard_params(params, mesh)
         lr = args.learning_rate or (2e-3 if args.projector == "linear"
                                     else 2e-4)
         ds = PretrainCaptionDataset(args.data_path, args.image_folder,
@@ -247,8 +287,8 @@ def main(argv=None, tokenizer=None, device="cuda"):
         state = run_training(args, cfg, params, ds, collate, tokenizer,
                              mask, lr)
         # adapter-only export (mm_projector.bin equivalent)
-        save_params(state.params[key],
-                    os.path.join(args.output_dir, f"{key}_adapter"))
+        save_trained(state.params[key],
+                     os.path.join(args.output_dir, f"{key}_adapter"))
     else:
         from ..core.checkpoint import load_torch_dir
         from ..core.hf_config import vqa_llm_config_for
@@ -261,11 +301,14 @@ def main(argv=None, tokenizer=None, device="cuda"):
         # the checkpoint is read
         shapes = init_vqa_llm_params(0, cfg, device="meta",
                                      dtype=param_dtype)
-        check_train_memory(args, shapes, frozen_vision_mask(shapes), device)
+        check_train_memory(args, shapes, frozen_vision_mask(shapes), device,
+                           mesh)
         if tokenizer is None:
             tokenizer = load_tokenizer(args.model_path)
         params = vqa_llm_params_from_torch(
             load_torch_dir(args.model_path, device), cfg, dtype=param_dtype)
+        if mesh is not None:
+            params = shard_params(params, mesh)
         ds = SearchInstructionDataset(args.data_path, args.image_folder,
                                       image_size=cfg.vision.image_size)
 
@@ -277,7 +320,7 @@ def main(argv=None, tokenizer=None, device="cuda"):
 
         state = run_training(args, cfg, params, ds, collate, tokenizer,
                              frozen_vision_mask(params), args.learning_rate)
-        save_params(state.params, os.path.join(args.output_dir, "params"))
+        save_trained(state.params, os.path.join(args.output_dir, "params"))
     return state
 
 

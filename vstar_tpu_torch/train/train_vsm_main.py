@@ -1,19 +1,25 @@
 """VSM training procedure (port of vstar_tpu/train/train_vsm_main.py, the
-counterpart of VisualSearch/train.py) on one device.
+counterpart of VisualSearch/train.py), on one device or a mesh of them.
 
 `run_vsm_training` is the whole procedure after model construction:
-optimizer with the trainable-set mask, auto-resume (the rolling 'latest'
-checkpoint first, then the best one), prefetched epochs of the hybrid
-dataset, validation-gated checkpoints (train.py:389-411). It runs where
-the parameters live; batches move there, after the one-device memory
-plan (core/memory.py) has been checked against the device's memory. The
-JAX package's mesh comes with the mesh slice (ROADMAP Queue 1 item 12),
-so `--mesh` is accepted only when it names one device. `main` builds the
-model from an HF checkpoint directory (--version) on the card, with
-LoRA. TensorBoard scalars are left out; metrics.jsonl keeps them.
+the mesh and the memory plan, optimizer with the trainable-set mask,
+auto-resume (the rolling 'latest' checkpoint first, then the best one),
+prefetched epochs of the hybrid dataset, validation-gated checkpoints
+(train.py:389-411). It runs where the parameters live; batches move
+there. Under torchrun, `--mesh DxFxM` (default 1xNx1 over N ranks, as in
+JAX) shards the parameters and the optimizer state over a mesh
+(core/mesh.py) after the per-device plan (core/memory.py) has been
+checked against the card's memory; every rank reads the same batches
+and trains on its rows of each, checkpoints are one file per rank, and
+rank 0 alone writes the logs. `main` builds the model from an HF
+checkpoint directory (--version) on the card (each rank's,
+cuda:LOCAL_RANK), with LoRA. TensorBoard scalars are left out;
+metrics.jsonl keeps them.
 
     python -m vstar_tpu_torch.train.train_vsm_main --version <seal_vsm dir> \
         --dataset_dir ./dataset --exp_name vsm
+    torchrun --nproc-per-node 4 -m vstar_tpu_torch.train.train_vsm_main \
+        --version <seal_vsm dir> --dataset_dir ./dataset --mesh 1x4x1
 """
 
 from __future__ import annotations
@@ -24,9 +30,11 @@ import os
 
 import torch
 
-from ..core.checkpoint import load_params, save_params
-from ..core.memory import (check_memory, device_memory_gb, parse_mesh_arg,
-                           plan_train_memory)
+from ..core.checkpoint import (load_params, load_sharded, save_params,
+                               save_sharded)
+from ..core.memory import check_memory, device_memory_gb, plan_train_memory
+from ..core.mesh import (is_main_process, mesh_of, rank_device,
+                         resolve_mesh, shard_params)
 from ..core.params import leaves_with_path
 from ..data.prefetch import prefetch
 from ..data.vsm_collate import batch_to_torch, collate_vsm_rows
@@ -63,7 +71,8 @@ def parse_args(argv=None):
                    help="fixed mask-loss resolution (gt resized on host, "
                         "pred upsampled)")
     p.add_argument("--mesh", default=None,
-                   help="DxFxM mesh shape; one device only: None or 1x1x1")
+                   help="DxFxM mesh over the torchrun ranks (default 1xNx1;"
+                        " 1x1x1 without torchrun)")
     p.add_argument("--param_dtype", choices=["bf16", "f32"], default="bf16",
                    help="parameter storage dtype; bf16 + f32 masters in the"
                    " optimizer is the DeepSpeed-bf16-mode equivalent")
@@ -81,13 +90,62 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _check_one_device(mesh) -> None:
-    """--mesh must name one device (core/memory.parse_mesh_arg on 1)."""
-    try:
-        parse_mesh_arg(mesh, 1)
-    except ValueError as e:
-        raise ValueError(f"--mesh {mesh}: the port trains on one device "
-                         "(the mesh is ROADMAP Queue 1 item 12)") from e
+def train_mesh(args, params):
+    """--mesh for a trainer whose parameters were built on this rank's
+    device: (mesh or None, the parameters sharded over it). A tree that
+    is already sharded keeps its mesh; --mesh must then name it."""
+    mesh = mesh_of(params)
+    if mesh is not None:
+        if args.mesh and tuple(int(x) for x in args.mesh.lower().split(
+                "x")) != mesh.dims:
+            raise ValueError(f"--mesh {args.mesh}: the parameters are "
+                             f"sharded over {mesh}")
+        return mesh, params
+    device = next(x.device for _, x in leaves_with_path(params))
+    mesh = resolve_mesh(args.mesh, device)
+    return mesh, params if mesh is None else shard_params(params, mesh)
+
+
+def check_rows(mesh, rows: int, micro: int = 1) -> None:
+    """A step's rows must split into micro-batches over every rank."""
+    if mesh is not None and rows % (micro * mesh.size):
+        raise ValueError(f"{rows} rows a step in {micro} micro-batches do "
+                         f"not split over the {mesh.size} ranks of {mesh}")
+
+
+def mesh_dims(mesh):
+    return None if mesh is None else list(mesh.dims)
+
+
+def save_state(state, path: str, mesh) -> None:
+    """A TrainState: one file, or one file per rank of a mesh."""
+    if mesh is None:
+        save_params(tuple(state), path)
+    else:
+        save_sharded(tuple(state), path)
+
+
+def load_state(cls, path: str, state, device, meta: dict, mesh):
+    """The TrainState `save_state` wrote, on the mesh it was written on
+    (meta["mesh"]; a checkpoint without one is a one-device state)."""
+    if meta.get("mesh") != mesh_dims(mesh):
+        raise ValueError(f"{path} was written on mesh {meta.get('mesh')}, "
+                         f"this run is on {mesh_dims(mesh)}")
+    if mesh is None:
+        return cls(*load_params(path, device))
+    return cls(*load_sharded(path, tuple(state), device))
+
+
+def log_memory(what: str, plan, device) -> None:
+    """The plan's bytes beside what this rank has allocated on its card."""
+    if torch.device(device).type != "cuda":
+        return
+    gb = 1024 ** 3
+    print(f"[memory] {what}: planned {plan.total_bytes / gb:.2f} GB static "
+          f"state per device; allocated "
+          f"{torch.cuda.memory_allocated(device) / gb:.2f} GB, peak "
+          f"{torch.cuda.max_memory_allocated(device) / gb:.2f} GB on "
+          f"{device}", flush=True)
 
 
 def build_datasets(args, tokenizer, clip_size: int = 224,
@@ -118,10 +176,6 @@ def build_datasets(args, tokenizer, clip_size: int = 224,
                          seed=len(names))
 
 
-def _load_state(path: str, device) -> VSMTrainState:
-    return VSMTrainState(*load_params(path, device))
-
-
 def _read_json(path: str):
     with open(path) as f:
         return json.load(f)
@@ -137,19 +191,25 @@ def run_vsm_training(args, cfg, params, tokenizer, loc_token_id):
     the final VSMTrainState."""
     log_dir = os.path.join(args.log_base_dir, args.exp_name)
     os.makedirs(log_dir, exist_ok=True)
-    _check_one_device(args.mesh)
     device = next(x.device for _, x in leaves_with_path(params))
     mask = vsm_trainable_mask(params)
     hbm_gb = getattr(args, "hbm_gb", None)
-    check_memory(plan_train_memory(params, trainable_mask=mask,
-                                   master_f32=args.param_dtype == "bf16"),
-                 hbm_gb=hbm_gb if hbm_gb is not None
-                 else device_memory_gb(device), what="VSM train (one device)")
+    mesh, params = train_mesh(args, params)
+    check_rows(mesh, args.batch_size * args.grad_accumulation_steps,
+               args.grad_accumulation_steps)
+    plan = plan_train_memory(params, mesh, trainable_mask=mask,
+                             master_f32=args.param_dtype == "bf16")
+    check_memory(plan, hbm_gb=hbm_gb if hbm_gb is not None
+                 else device_memory_gb(device),
+                 what="VSM train (one device)" if mesh is None
+                 else f"VSM train (mesh {mesh})")
     total_steps = args.epochs * args.steps_per_epoch
     opt = make_vsm_optimizer(args.lr, args.warmup_steps, total_steps,
                              trainable_mask=mask,
                              master_f32=args.param_dtype == "bf16")
     state = init_train_state(params, opt)
+    log_memory("VSM train state", plan, device)
+    main_rank = is_main_process()
 
     ckpt_dir = os.path.join(log_dir, "ckpt_model")
     latest_dir = os.path.join(log_dir, "ckpt_latest")
@@ -161,20 +221,26 @@ def run_vsm_training(args, cfg, params, tokenizer, loc_token_id):
         # best checkpoint: a crash mid-epoch loses <= save_steps steps
         if os.path.exists(os.path.join(latest_dir, "meta.json")):
             meta = _read_json(os.path.join(latest_dir, "meta.json"))
-            state = _load_state(os.path.join(latest_dir, "state"), device)
+            state = load_state(VSMTrainState,
+                               os.path.join(latest_dir, "state"), state,
+                               device, meta, mesh)
             start_epoch = meta["epoch"]
             start_step = meta["step"] + 1
             if start_step >= args.steps_per_epoch:
                 start_epoch, start_step = start_epoch + 1, 0
             resumed_best = meta.get("best_det_acc")
-            print(f"[resume] from epoch {meta['epoch']} "
-                  f"step {meta['step']} (latest)")
+            if main_rank:
+                print(f"[resume] from epoch {meta['epoch']} "
+                      f"step {meta['step']} (latest)")
         elif os.path.exists(os.path.join(ckpt_dir, "meta.json")):
             meta = _read_json(os.path.join(ckpt_dir, "meta.json"))
-            state = _load_state(os.path.join(ckpt_dir, "state"), device)
+            state = load_state(VSMTrainState,
+                               os.path.join(ckpt_dir, "state"), state,
+                               device, meta, mesh)
             start_epoch = meta["epoch"] + 1
             resumed_best = meta.get("best_det_acc", meta.get("det_acc"))
-            print(f"[resume] from epoch {meta['epoch']}")
+            if main_rank:
+                print(f"[resume] from epoch {meta['epoch']}")
 
     weights = VSMLossWeights(ce=args.ce_loss_weight,
                              dice=args.dice_loss_weight,
@@ -220,8 +286,10 @@ def run_vsm_training(args, cfg, params, tokenizer, loc_token_id):
                 if args.save_steps and (step_i + 1) % args.save_steps == 0 \
                         and step_i + 1 < args.steps_per_epoch:
                     _save_latest(latest_dir, state, epoch, step_i,
-                                 best_det_acc)
-                if step_i % 50 == 0:
+                                 best_det_acc, mesh)
+                if step_i == epoch_start_step and epoch == start_epoch:
+                    log_memory("VSM train, first step", plan, device)
+                if step_i % 50 == 0 and main_rank:
                     progress.display(step_i)
                     _write_json({"epoch": epoch, "step": step_i,
                                  **{k: v.avg for k, v in meters.items()},
@@ -248,7 +316,8 @@ def run_vsm_training(args, cfg, params, tokenizer, loc_token_id):
                     lambda p, b: vsm_val_forward(
                         p, cfg, batch_to_torch(b, device)))
                 det_acc = metrics_val["det_acc"]
-                print(f"[val] epoch {epoch}: {metrics_val}", flush=True)
+                if main_rank:
+                    print(f"[val] epoch {epoch}: {metrics_val}", flush=True)
             except FileNotFoundError:
                 det_acc = None
         save = True if det_acc is None else det_acc > best_det_acc
@@ -256,39 +325,54 @@ def run_vsm_training(args, cfg, params, tokenizer, loc_token_id):
             if det_acc is not None:
                 best_det_acc = det_acc
             os.makedirs(ckpt_dir, exist_ok=True)
-            save_params(tuple(state), os.path.join(ckpt_dir, "state"))
-            _write_json({"epoch": epoch, "det_acc": det_acc,
-                         "best_det_acc": best_det_acc},
-                        os.path.join(ckpt_dir, "meta.json"))
+            save_state(state, os.path.join(ckpt_dir, "state"), mesh)
+            barrier(mesh)
+            if main_rank:
+                _write_json({"epoch": epoch, "det_acc": det_acc,
+                             "best_det_acc": best_det_acc,
+                             "mesh": mesh_dims(mesh)},
+                            os.path.join(ckpt_dir, "meta.json"))
         if args.save_steps:
             # epoch-end rolling save regardless of best-gating, so a crash
             # early next epoch never replays this epoch's tail
             _save_latest(latest_dir, state, epoch, args.steps_per_epoch - 1,
-                         best_det_acc)
+                         best_det_acc, mesh)
+    barrier(mesh)
     return state
 
 
+def barrier(mesh) -> None:
+    """Every rank's files are written before rank 0 writes the meta that
+    points at them."""
+    if mesh is not None:
+        torch.distributed.barrier()
+
+
 def _save_latest(latest_dir: str, state, epoch: int, step: int,
-                 best_det_acc: float):
+                 best_det_acc: float, mesh=None):
     os.makedirs(latest_dir, exist_ok=True)
-    save_params(tuple(state), os.path.join(latest_dir, "state"))
-    _write_json({"epoch": epoch, "step": step, "best_det_acc": best_det_acc},
-                os.path.join(latest_dir, "meta.json"))
+    save_state(state, os.path.join(latest_dir, "state"), mesh)
+    barrier(mesh)
+    if is_main_process():
+        _write_json({"epoch": epoch, "step": step,
+                     "best_det_acc": best_det_acc, "mesh": mesh_dims(mesh)},
+                    os.path.join(latest_dir, "meta.json"))
 
 
 def main(argv=None, tokenizer=None, device="cuda"):
     """The VSM trainer from the command line: the model from the HF
-    checkpoint directory --version on `device` (the card by default),
-    LoRA on the decoder, then run_vsm_training. `tokenizer` None loads the
-    checkpoint's (right padding, 512 tokens, unk as pad, as vstar_tpu
-    loads it)."""
+    checkpoint directory --version on `device` (the card by default; under
+    torchrun each rank's card), LoRA on the decoder, sharded over --mesh,
+    then run_vsm_training. `tokenizer` None loads the checkpoint's (right
+    padding, 512 tokens, unk as pad, as vstar_tpu loads it)."""
     from ..core.checkpoint import load_torch_dir
     from ..core.hf_config import vsm_config_for
     from ..models.vsm import vsm_params_from_torch
     from ..multimodal.tokenizer import load_tokenizer
     from .lora import add_lora
     args = parse_args(argv)
-    _check_one_device(args.mesh)
+    device = rank_device(device)
+    mesh = resolve_mesh(args.mesh, device)
     if tokenizer is None:
         tokenizer = load_tokenizer(args.version, model_max_length=512,
                                    padding_side="right")
@@ -302,6 +386,9 @@ def main(argv=None, tokenizer=None, device="cuda"):
     if args.lora_r > 0:
         params["llama"] = add_lora(params["llama"], 0, r=args.lora_r,
                                    alpha=args.lora_alpha)
+    if mesh is not None:
+        # the whole tree is dropped once each rank holds its shards
+        params = shard_params(params, mesh)
     return run_vsm_training(args, cfg, params, tokenizer, loc_token_id)
 
 

@@ -1,8 +1,8 @@
 """Validation metrics for VSM training (port of
 vstar_tpu/train/validate.py): gIoU / cIoU on masks and det-acc@IoU0.5,
 mirroring VisualSearch/train.py:570-644 (which gates best-checkpoint
-selection on det-acc). Metrics are reduced on the host; the port
-validates on one device.
+selection on det-acc). Metrics are reduced on the host; under a mesh
+every rank validates the whole set and reaches the same numbers.
 """
 
 from __future__ import annotations

@@ -12,6 +12,12 @@ are recomputed in the backward (remat).
 
 Loss weights (train.py:74-77 defaults): ce 1.0, dice 0.5, bce 2.0,
 det 0.1; inner DETR weights 2/5/2.
+
+On a tree sharded over a mesh (core/mesh.py) each rank takes its rows
+of the step's batch, and every normaliser is the whole batch's, summed
+over the ranks: the CE's valid tokens, the valid masks, the valid boxes
+and the rows of the detection CE's batch mean (the matching is per
+row). A rank's loss and metrics are its shares of the one-device ones.
 """
 
 from __future__ import annotations
@@ -23,7 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.config import VSMConfig
-from ..core.params import leaves_with_path, replace_leaves
+from ..core.mesh import local_leaves, mesh_of, unshard
+from ..core.params import leaves_with_path
 from ..models.vsm import (encode_clip_bank, owl_tower_states, vsm_detection,
                           vsm_segmentation)
 from ..multimodal.constants import IGNORE_INDEX
@@ -34,6 +41,7 @@ from . import optim
 from .accumulate import accumulated_grads
 from .detr_loss import detection_loss
 from .master import with_f32_master
+from .sft import apply_step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,8 +82,10 @@ def make_vsm_optimizer(lr: float = 1e-4, warmup_steps: int = 100,
 
 def init_train_state(params: Dict, optimizer: optim.Transformation
                      ) -> VSMTrainState:
-    return VSMTrainState(params, optimizer.init(dict(leaves_with_path(
-        params))), 0)
+    """Optimizer state on the leaves (this rank's shards on a sharded
+    tree)."""
+    return VSMTrainState(params, optimizer.init(local_leaves(dict(
+        leaves_with_path(params)))), 0)
 
 
 def _owl_feature_map_trainable_ln(params: Dict, cfg: VSMConfig,
@@ -130,7 +140,12 @@ def vsm_loss(params: Dict, cfg: VSMConfig, batch: Dict,
       loc_hidden_pos [B]    position of the hidden state driving the heads
       gt_masks [B,Hm,Wm] float {0,1}, masks_valid [B] bool
       tgt_boxes [B,T,4] cxcywh, tgt_valid [B,T], bboxes_valid [B]
+    On a sharded tree the batch is this rank's rows, and the loss and
+    metrics its shares of the whole batch's.
     """
+    mesh = mesh_of(params)
+    total = (lambda x: x) if mesh is None else mesh.batch_sum
+    params = unshard(params)
     hidden = _decoder_hidden(params, cfg, batch, compute_dtype, remat=True)
     logits = lm_logits(params["llama"], hidden)
 
@@ -141,7 +156,8 @@ def vsm_loss(params: Dict, cfg: VSMConfig, batch: Dict,
     safe = torch.where(valid, shift_labels, torch.zeros_like(shift_labels))
     logp = torch.log_softmax(shift_logits.float(), dim=-1)
     tok_lp = logp.gather(-1, safe.long()[..., None])[..., 0]
-    ce_loss = -(tok_lp * valid).sum() / torch.clamp(valid.sum(), min=1)
+    ce_loss = -(tok_lp * valid).sum() / torch.clamp(total(valid.sum()),
+                                                    min=1)
 
     # --- [LOC] hidden -> heads ---
     loc_hidden = _loc_hidden(hidden, batch, compute_dtype)
@@ -154,7 +170,7 @@ def vsm_loss(params: Dict, cfg: VSMConfig, batch: Dict,
     B = gt.shape[0]
     pred = _upscale_masks(mask_logits, gt.shape[1:3])
     mv = batch["masks_valid"].float()
-    n_masks = torch.clamp(mv.sum(), min=1e-8)
+    n_masks = torch.clamp(total(mv.sum()), min=1e-8)
 
     bce_el = (torch.clamp(pred, min=0) - pred * gt
               + torch.log1p(torch.exp(-pred.abs())))
@@ -173,7 +189,8 @@ def vsm_loss(params: Dict, cfg: VSMConfig, batch: Dict,
     det_logits, det_boxes = vsm_detection(params, cfg, fmap, loc_hidden)
     det_total, det_parts = detection_loss(
         det_logits[..., None].float(), det_boxes.float(),
-        batch["tgt_boxes"], batch["tgt_valid"], batch["bboxes_valid"])
+        batch["tgt_boxes"], batch["tgt_valid"], batch["bboxes_valid"],
+        total=None if mesh is None else total)
 
     total = (weights.ce * ce_loss
              + weights.bce * mask_bce + weights.dice * mask_dice
@@ -193,7 +210,9 @@ def vsm_val_forward(params: Dict, cfg: VSMConfig, batch: Dict,
                     compute_dtype=torch.bfloat16):
     """Validation forward: [LOC]-driven head outputs for metric computation
     (train.py:570-644). Returns (mask_logits [B,h,w], det_logits [B,Q],
-    det_boxes [B,Q,4]) in f32."""
+    det_boxes [B,Q,4]) in f32. A sharded tree is gathered as it is
+    used; every rank computes the whole batch."""
+    params = unshard(params)
     hidden = _decoder_hidden(params, cfg, batch, compute_dtype, remat=False)
     loc_hidden = _loc_hidden(hidden, batch, compute_dtype)
     fmap = _owl_feature_map_trainable_ln(params, cfg, batch["images_owl"])
@@ -211,14 +230,20 @@ def vsm_train_step(state: VSMTrainState, batch: Dict, cfg: VSMConfig,
                    ) -> Tuple[VSMTrainState, Dict[str, torch.Tensor]]:
     """One optimizer step over `batch` (grad_accum micro-batches). Only
     the trainable leaves get gradients (JAX zeroes the others); the new
-    state shares every frozen leaf with the old one."""
+    state shares every frozen leaf with the old one. On a sharded tree
+    every rank passes the same whole batch and takes its rows; the
+    metrics are the whole batch's on every rank."""
+    mesh = mesh_of(state.params)
+    if mesh is not None:
+        batch = mesh.local_rows(batch, grad_accum)
     loss, metrics, grads = accumulated_grads(
         lambda p, b: vsm_loss(p, cfg, b, weights, compute_dtype),
         state.params, batch, grad_accum, has_aux=True,
         trainable=trainable_mask)
-    flat = dict(leaves_with_path(state.params))
-    updates, new_opt = optimizer.update(grads, state.opt_state, flat)
-    new_params = replace_leaves(state.params,
-                                optim.apply_updates(flat, updates))
-    metrics["grad_norm"] = optim.global_norm(grads)
+    if mesh is not None:
+        metrics = {k: mesh.batch_sum(v) for k, v in metrics.items()}
+    metrics["grad_norm"] = optim.global_norm(grads, local_leaves(dict(
+        leaves_with_path(state.params))))
+    new_params, new_opt = apply_step(state.params, grads, state.opt_state,
+                                     optimizer)
     return VSMTrainState(new_params, new_opt, state.step + 1), metrics

@@ -2,7 +2,8 @@
 
 Counterpart of VisualSearch/utils/utils.py:47-146: AverageMeter and
 ProgressMeter. The JAX package's cross-host `all_reduce` is left out:
-the port trains on one device (the mesh slice brings it back).
+under a mesh the port's steps return metrics that are already the whole
+batch's on every rank (core/mesh.Mesh.batch_sum).
 """
 
 from __future__ import annotations
