@@ -163,7 +163,12 @@ Runs on one CUDA card, in phases; any failure exits non-zero:
      plan per card at 1x1x1, 1x2x1, 1x4x1; two ranks over gloo on the
      card (7B widths, 2 decoder layers, 1x2x1): two finetune steps
      against the one-device steps, the second step's loss read after
-     the first update.
+     the first update; serving over the mesh (serve/ranks.py): the pair
+     at 7B widths with 2 decoder layers exported to HF directories and
+     loaded by the server's checkpoint_engines, served by one NCCL rank
+     at 1x1x1 over HTTP and in a continuous wave of 3, then by two gloo
+     ranks at 1x2x1 (rank 0 over HTTP, rank 1 following), every record
+     equal to the unsharded server's, K1 and K2 counted per path.
 Prints a JSON line of kernel results, then the card's name and power
 limit, then (last line) the device record.
 
@@ -3859,7 +3864,8 @@ def phase_mesh(dev):
     1x2x1 and 1x4x1 (under);
     (c) two ranks over gloo on this card, 7B widths with 2 decoder layers
     on a 1x2x1 mesh, MESH_SPLIT_STEPS finetune steps against the
-    one-device steps within MESH_SPLIT_BOUNDS and MESH_SPLIT_SHARE.
+    one-device steps within MESH_SPLIT_BOUNDS and MESH_SPLIT_SHARE;
+    (d) serving over the mesh (_mesh_serve).
     Each part logs its seconds."""
     from vstar_tpu_torch.core.memory import device_memory_gb
     from vstar_tpu_torch.scripts import mesh_probe
@@ -3944,9 +3950,165 @@ def phase_mesh(dev):
         raise AssertionError(f"mesh (c): {c}")
     mark("(c)")
     report["gloo_split"] = c
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_counts, report["serve"] = _mesh_serve(dev, mark)
+    by_path.update(serve_counts)
     report["seconds"] = time.perf_counter() - t0
     log(f"[mesh] phase {report['seconds']:.1f} s")
     return by_path, report
+
+
+def _same_served(label, got, want, got_s, want_s):
+    """Served records against the unsharded server's on the same weights:
+    every field equal (the sharded engines compute the same tokens, boxes
+    and choices bit for bit); logs each request's seconds beside the
+    unsharded one's."""
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} records, {len(want)} "
+                             "unsharded")
+    for i, (g, w) in enumerate(zip(got, want)):
+        diff = {k: (g.get(k), w.get(k)) for k in set(g) | set(w)
+                if g.get(k) != w.get(k)}
+        if diff:
+            raise AssertionError(f"{label} request {i}: fields differ "
+                                 f"(sharded, unsharded): {diff}")
+    log(f"[{label}] {len(got)} records equal the unsharded server's; "
+        f"seconds sharded {[round(x, 3) for x in got_s]} against unsharded "
+        f"{[round(x, 3) for x in want_s]}; searched "
+        f"{[len(r['search_result']) for r in got]} boxes")
+
+
+def _mesh_serve(dev, mark):
+    """Part (d), serving over the mesh (serve/ranks.py): the random-init
+    pair at 7B widths with 2 decoder layers (the VSM tilted to answer
+    [LOC]) exported to HF directories and loaded by the server's
+    checkpoint_engines, every search forced (3 steps,
+    mesh_probe.forced_searches and the continuous service's
+    search_kwargs); the unsharded server's records first, outside every
+    count window (mesh_probe.SERVE_REQUESTS over HTTP: free-form, with
+    options, a forced search; mesh_probe.WAVE_REQUESTS as one wave of 3
+    through ContinuousSealService), then
+    (d1) a world of one NCCL rank, --mesh 1x1x1: SealService with its
+    Ranks over HTTP (path mesh_serve);
+    (d2) the same engines, ContinuousSealService with its Ranks, the
+    wave of 3 (path mesh_serve_continuous);
+    (d3) two gloo ranks on this card, --mesh 1x2x1: rank 0 serves the
+    forced search over HTTP and rank 1 follows (mesh_probe.gloo_serve;
+    path mesh_serve_gloo).
+    Every record equals the unsharded one; K1 and K2 launch on each path
+    and no plain version runs on CUDA."""
+    import torch.distributed as dist
+    from vstar_tpu_torch.core.hf_export import (save_hf_dir,
+                                                vqa_llm_state_dict,
+                                                vsm_state_dict)
+    from vstar_tpu_torch.models.vqa_llm import init_vqa_llm_params
+    from vstar_tpu_torch.models.vsm import init_vsm_params
+    from vstar_tpu_torch.scripts import mesh_probe as mp
+    from vstar_tpu_torch.serve import ranks as R
+    from vstar_tpu_torch.serve.server import SealService
+    t0 = time.perf_counter()
+    kernels = ("flash_attention", "tower_attention")
+    vqa_cfg, vsm_cfg = _hf_cfgs()
+    vocab = vsm_cfg.llama.vocab_size
+    report, counts = {}, {}
+    with tempfile.TemporaryDirectory() as work:
+        dirs = {k: os.path.join(work, k) for k in ("vqa", "vsm")}
+        params = init_vqa_llm_params(SEED, vqa_cfg, device=dev,
+                                     dtype=torch.bfloat16)
+        save_hf_dir(vqa_llm_state_dict(params, dtype=torch.bfloat16),
+                    vqa_cfg, dirs["vqa"], shard_bytes=HF_SHARD_BYTES)
+        params = init_vsm_params(SEED + 1, vsm_cfg, device=dev,
+                                 dtype=torch.bfloat16)
+        params["llama"]["embed_tokens"][:, 0] += 100   # answers [LOC]
+        params["llama"]["lm_head"][0, 3] = 10
+        save_hf_dir(vsm_state_dict(params, dtype=torch.bfloat16), vsm_cfg,
+                    dirs["vsm"], shard_bytes=HF_SHARD_BYTES)
+        del params
+        report["export_s"] = time.perf_counter() - t0
+        mark("(d) export")
+
+        vqa, vsm = mp.serving_pair(dirs, None, dev, vocab)
+        with mp.forced_searches():
+            ref, ref_s = mp.http_records(
+                SealService(mp.MarkedTrigger(vqa), vsm), dev)
+        wave_ref, wave_ref_s, _ = mp.continuous_records(vqa, vsm, None, dev)
+        del vqa, vsm
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not ref[2]["search_result"]:
+            raise AssertionError(f"mesh (d): the forced search found "
+                                 f"nothing: {ref[2]}")
+        mark("(d) unsharded")
+
+        t1 = time.perf_counter()
+        dist.init_process_group(
+            "nccl", init_method=f"tcp://127.0.0.1:{mp._free_port()}",
+            rank=0, world_size=1)
+        try:
+            vqa, vsm = mp.serving_pair(dirs, "1x1x1", dev, vocab)
+            if vqa.mesh is None or vqa.mesh is not vsm.mesh:
+                raise AssertionError("mesh (d1): the engines are not on one "
+                                     "Mesh")
+            ranks = R.for_engines(vqa, vsm)
+            svc = SealService(mp.MarkedTrigger(vqa), vsm, ranks=ranks)
+            _zero_counts()
+            try:
+                with mp.forced_searches():
+                    got, got_s = mp.http_records(svc, dev)
+            finally:
+                ranks.stop()
+            counts["mesh_serve"] = _check_path("mesh serve (d1)", kernels)
+            _same_served("mesh (d1) SealService 1x1x1 NCCL", got, ref,
+                         got_s, ref_s)
+            report["d1"] = {"seconds": got_s, "unsharded_seconds": ref_s,
+                            "part_s": time.perf_counter() - t1}
+            mark("(d1)")
+            t1 = time.perf_counter()
+            ranks = R.for_engines(vqa, vsm)
+            _zero_counts()
+            try:
+                wave, wave_s, stats = mp.continuous_records(vqa, vsm, ranks,
+                                                            dev)
+            finally:
+                ranks.stop()
+            counts["mesh_serve_continuous"] = _check_path(
+                "mesh serve (d2)", kernels)
+            if stats["waves"] != 1 or stats["max_wave"] != 3:
+                raise AssertionError(f"mesh (d2): not one wave of 3: "
+                                     f"{stats}")
+            _same_served("mesh (d2) ContinuousSealService wave of 3",
+                         wave, wave_ref, wave_s, wave_ref_s)
+            report["d2"] = {"seconds": wave_s, "unsharded_seconds":
+                            wave_ref_s, "part_s": time.perf_counter() - t1}
+            mark("(d2)")
+        finally:
+            vqa = vsm = svc = None
+            dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t1 = time.perf_counter()
+        g = mp.gloo_serve(dirs, vocab, str(dev))
+        plain = {k: c[1] for k, c in g["counts"].items()}
+        launched = {k: c[0] for k, c in g["counts"].items()}
+        log(f"[mesh serve (d3) gloo 1x2x1] decoder stack "
+            f"{g['stack_sharded']}, loaded in {g['load_s']:.2f} s; kernel "
+            f"launches {launched}, plain-version calls on CUDA {plain}")
+        _same_served("mesh (d3) SealService 1x2x1 gloo, rank 1 following",
+                     g["records"], ref[2:], g["seconds"], ref_s[2:])
+        if any(plain.values()) or not all(launched.values()) or \
+                g["stack_sharded"] != "DTensor":
+            raise AssertionError(f"mesh (d3): {g}")
+        counts["mesh_serve_gloo"] = launched
+        report["d3"] = {"seconds": g["seconds"],
+                        "unsharded_seconds": ref_s[2:],
+                        "load_s": g["load_s"],
+                        "part_s": time.perf_counter() - t1}
+        mark("(d3)")
+    report["seconds"] = time.perf_counter() - t0
+    log(f"[mesh serve] part (d) {report['seconds']:.1f} s")
+    return counts, report
 
 
 # ---------------------------------------------------------------------------

@@ -20,19 +20,30 @@ configs, and rank 0 hands back the results gathered whole:
     against the unsharded loops (the VQA loop resumed alike, the VSM
     loop's two epochs in one go);
   * sharded VQA and VSM engines' answers, choices, boxes, scores and
-    heatmaps against the unsharded engines'.
+    heatmaps against the unsharded engines';
+  * serving over the mesh (serve/ranks.py): rank 0's SealService (a
+    free-form request, one with options, two with a forced search) and
+    ContinuousSealService (a wave of 3 with forced searches, a wave
+    whose question no prompt bucket holds, one more request) with the
+    other ranks following, and the server's checkpoint_engines under
+    --mesh answering over HTTP, against the unsharded port's and
+    vstar_tpu's services on the same trees.
 A world of 2 ranks runs train_vqa_main's 7B finetune at --mesh 1x2x1: its
 plan fits an 80 GB card's budget, where the one-device plan is refused.
 
 Tolerances (f32): forward, losses, metrics and parameters within 1e-5
 (relative for scalars, absolute for parameters); gradients within 1e-5
 of each leaf's largest |value| against the unsharded port (the sums over
-ranks add in another order); the engines equal exactly. An updated
-parameter may differ by more than 1e-5, up to 0.1 lr on at most 0.1 % of
-a leaf: where a gradient element is near zero, the ranks' partial
-gradients summed in another order change it relatively much, and Adam
-divides the update by the gradient's own size (one element of 16,384
-moved 2.1e-5 apart at lr 1e-3)."""
+ranks add in another order); the engines and the served records equal
+exactly (tokens, choices, boxes: every field but the latency); the
+served records equal vstar_tpu's in every field but the boxes, which
+agree within BOX_ATOL = 1e-2 pixels, the rule of
+tests/test_torch_batched_bench.py (they moved by 1.5e-5 at most). An
+updated parameter may differ by more than 1e-5, up to 0.1 lr on at most
+0.1 % of a leaf: where a gradient element is near zero, the ranks'
+partial gradients summed in another order change it relatively much,
+and Adam divides the update by the gradient's own size (one element of
+16,384 moved 2.1e-5 apart at lr 1e-3)."""
 
 import dataclasses
 import json
@@ -84,6 +95,7 @@ from vstar_tpu_torch.train import train_vqa_main as t_main
 torch.set_num_threads(1)
 
 TOL = 1e-5
+BOX_ATOL = 1e-2
 LR = W.LR
 SHAPES = ((2, 2, 1), (1, 2, 2))
 MESHES = ["x".join(map(str, s)) for s in SHAPES]
@@ -262,7 +274,7 @@ def started(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def world(started, jax_sft, vsm_refs, jax_vsm_step):
+def world(started, jax_sft, vsm_refs, jax_vsm_step, jax_serving):
     """The 4-rank world's results, and the inputs it was given."""
     job, work, ranks = started
     while not ranks.join():
@@ -521,3 +533,107 @@ def test_7b_finetune_fits_on_two_ranks_refused_on_one(tmp_path):
     with pytest.raises(ValueError, match="needs 2 devices .* the world has 1"):
         t_main.main(argv + ["--mesh", "1x2x1"], tokenizer=object(),
                     device="cpu")
+
+
+@pytest.fixture(scope="module")
+def jax_serving(started):
+    """vstar_tpu's SealService and ContinuousSealService on the world's
+    serving engines' trees and settings (f32, W.Forced over the VQA):
+    (the single records, (the wave's records, the last record))."""
+    import threading
+    from vstar_tpu.eval.vqa_engine import VQAEngine as JaxVQAEngine
+    from vstar_tpu.multimodal.stub_tokenizer import \
+        StubTokenizer as JaxStubTokenizer
+    from vstar_tpu.search.batched import BatchedVSMEngine as JaxBatchedVSM
+    from vstar_tpu.serve.continuous import \
+        ContinuousSealService as JaxContinuousSealService
+    from vstar_tpu.serve.server import SealService as JaxSealService
+    job, _, _ = started
+    cfg = dataclasses.replace(VQA_CFG, max_objects=12)
+    tok = JaxStubTokenizer(cfg.llama.vocab_size)
+    vqa = W.Forced(JaxVQAEngine(_jax_tree(job["vqa"]), cfg, tok,
+                                prompt_buckets=(64, 128, 256),
+                                option_bucket=16,
+                                compute_dtype=jnp.float32))
+    vsm = JaxBatchedVSM(_jax_tree(job["tilted_vsm"]), VSM_CFG, tok,
+                        loc_token_id=3, eos_id=2, max_new_tokens=4,
+                        prompt_buckets=(64, 128), compute_dtype=jnp.float32)
+    svc = JaxSealService(vqa, vsm, max_search_steps=2)
+    single = [W._no_latency(svc.answer(W.serve_image(i), q, o))
+              for i, (q, o) in enumerate(W.SERVE_REQUESTS)]
+    svc = JaxContinuousSealService(vqa, vsm, missing_parser=W.forced_missing,
+                                   **W.CONTINUOUS_KW)
+    recs = [None] * len(W.WAVE_REQUESTS)
+
+    def go(i):
+        recs[i] = W._no_latency(svc.answer(W.serve_image(10 + i),
+                                           *W.WAVE_REQUESTS[i]))
+    threads = [threading.Thread(target=go, args=(i,))
+               for i in range(len(recs))]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+            assert not t.is_alive()
+        after = W._no_latency(svc.answer(W.serve_image(21),
+                                         *W.AFTER_REQUEST))
+    finally:
+        svc.close()
+    return single, (recs, after)
+
+
+def _same_records(got, want):
+    """Every field equal, box coordinates within BOX_ATOL."""
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        strip = ("search_result",)
+        assert {k: v for k, v in g.items() if k not in strip} == \
+            {k: v for k, v in w.items() if k not in strip}
+        assert [r["name"] for r in g["search_result"]] == \
+            [r["name"] for r in w["search_result"]]
+        for a, b in zip(g["search_result"], w["search_result"]):
+            np.testing.assert_allclose(a["bbox"], b["bbox"], rtol=0,
+                                       atol=BOX_ATOL)
+
+
+def test_served_records_equal_unsharded_and_jax(world, jax_serving):
+    """SealService on 2x2x1, rank 0 answering and three ranks following:
+    the free-form, options and forced-search records equal the unsharded
+    port's and vstar_tpu's SealService's."""
+    out, job, _ = world
+    got = out["2x2x1"]["serve_single"]
+    want = W.serve_single(job, None)
+    assert got == want
+    assert [r["missing_objects"] for r in got] == [[], [], ["red cup"],
+                                                   ["red cup"]]
+    assert got[2]["search_result"] and got[3]["search_result"]
+    _same_records(got, jax_serving[0])
+
+
+def test_continuous_under_mesh_equals_unsharded_and_jax(world,
+                                                        jax_serving):
+    """ContinuousSealService on 2x2x1: the three concurrent requests form
+    one wave whose records (forced searches) equal the unsharded port's
+    and vstar_tpu's; a wave whose prompt no bucket holds fails with its
+    error on every rank alike, and the next wave answers."""
+    out, job, _ = world
+    recs, error, after, stats = out["2x2x1"]["serve_continuous"]
+    w_recs, w_error, w_after, _ = W.serve_continuous(job, None)
+    assert (recs, error, after) == (w_recs, w_error, w_after)
+    assert error.startswith("ValueError: prompt too long")
+    assert stats["waves"] == 3 and stats["max_wave"] == 3
+    assert all(r["missing_objects"] == ["red cup"] and r["search_result"]
+               for r in recs + [after])
+    _same_records(recs + [after], jax_serving[1][0] + [jax_serving[1][1]])
+
+
+def test_server_checkpoint_engines_under_mesh_answer_http(world):
+    """checkpoint_engines with --mesh 2x2x1 loads both HF directories onto
+    one Mesh (decoder stacks sharded); rank 0's make_server answers a
+    request over HTTP as the unsharded server does."""
+    out, job, _ = world
+    status, rec, one_mesh = out["2x2x1"]["serve_http"]
+    assert status == 200 and one_mesh
+    want_status, want, unsharded = W.serve_http(job, None)
+    assert (status, rec) == (want_status, want) and not unsharded

@@ -245,6 +245,219 @@ def eval_mains(dirs, bench, out_json, mesh, vqa_cfg, vsm_cfg):
     return results, correct, search
 
 
+# --- serving over the mesh (serve/ranks.py) ------------------------------
+
+SERVE_REQUESTS = (("what is on the table ?", None),
+                  ("what color is the cup ?", ["red", "blue"]),
+                  ("what color is the cup ? (search)", None),
+                  ("what color is the cup ? (search)", ["red", "blue"]))
+WAVE_REQUESTS = (("what color is object 0 ?", ["red", "blue"]),
+                 ("what color is object 1 ?", None),
+                 ("what color is object 2 ?", ["red", "blue"]))
+# a question longer than the VQA's largest prompt bucket: the trigger
+# stage raises on every rank alike
+LONG_QUESTION = "what is " + "the colour of " * 100 + "the cup ?"
+AFTER_REQUEST = ("what color is object 3 ?", None)
+FORCED = dict(confidence_high=2.0, target_cue_threshold=-1.0,
+              target_cue_threshold_minimum=-1.0)
+CONTINUOUS_KW = dict(max_batch=3, window_ms=3000.0, max_search_steps=2,
+                     search_kwargs=FORCED)
+SERVE_TOKENS = 12
+
+
+def serve_image(seed):
+    from PIL import Image
+    return Image.fromarray((np.random.RandomState(100 + seed).rand(
+        230, 250, 3) * 255).astype("uint8"))
+
+
+def forced_missing(prediction):
+    """The continuous services' missing_parser: every request searches."""
+    return ["red cup"]
+
+
+class Forced:
+    """A VQA engine (the port's or vstar_tpu's) whose first answer to a
+    question marked '(search)' is the search trigger for 'red cup' (random
+    weights never emit it); every free-form decode stops at SERVE_TOKENS
+    new tokens. The focused re-answer is the engine's own."""
+
+    def __init__(self, engine):
+        self.engine = engine
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+    @staticmethod
+    def _trigger(question, answer):
+        from vstar_tpu_torch.eval.seal import MISSING_OBJECTS_MSG
+        if "(search)" in question and "Additional visual" not in question:
+            return MISSING_OBJECTS_MSG + " red cup."
+        return answer
+
+    def free_form(self, image, question, **kw):
+        kw.setdefault("max_new_tokens", SERVE_TOKENS)
+        return self._trigger(question, self.engine.free_form(
+            image, question, **kw))
+
+    def free_form_many(self, images, questions, **kw):
+        kw.setdefault("max_new_tokens", SERVE_TOKENS)
+        return [self._trigger(q, a) for q, a in zip(
+            questions, self.engine.free_form_many(images, questions, **kw))]
+
+
+def serving_engines(job, mesh):
+    """The f32 tiny engines the services run, sharded over `mesh` (None:
+    unsharded): the VQA with 12 object slots (vstar_tpu's bank reads past
+    its slots when a search keeps more boxes; ROADMAP Queue 3), the tilted
+    VSM (answers [LOC] at every step)."""
+    import dataclasses
+    from vstar_tpu_torch.eval.vqa_engine import VQAEngine
+    from vstar_tpu_torch.multimodal.stub_tokenizer import StubTokenizer
+    from vstar_tpu_torch.search.batched import BatchedVSMEngine
+    vqa_cfg = dataclasses.replace(job["vqa_cfg"], max_objects=12)
+    tok = StubTokenizer(vqa_cfg.llama.vocab_size)
+    vqa = VQAEngine(job["vqa"], vqa_cfg, tok, device="cpu",
+                    prompt_buckets=(64, 128, 256), option_bucket=16,
+                    compute_dtype=torch.float32, mesh=mesh)
+    vsm = BatchedVSMEngine(job["tilted_vsm"], job["vsm_cfg"], tok,
+                           loc_token_id=3, eos_id=2, device="cpu",
+                           max_new_tokens=4, prompt_buckets=(64, 128),
+                           compute_dtype=torch.float32, mesh=mesh)
+    return vqa, vsm
+
+
+def _no_latency(rec):
+    return {k: v for k, v in rec.items() if k != "latency_s"}
+
+
+def serve_single(job, mesh):
+    """SERVE_REQUESTS through SealService (2 search steps) on the serving
+    engines: on a mesh rank 0 answers them and the other ranks follow.
+    -> the records (rank 0 or unsharded), None on a follower."""
+    from vstar_tpu_torch.serve import ranks as R
+    from vstar_tpu_torch.serve.server import SealService
+    vqa, vsm = serving_engines(job, mesh)
+    ranks = R.for_engines(vqa, vsm)
+    svc = SealService(Forced(vqa), vsm, max_search_steps=2, ranks=ranks)
+    if ranks is not None and not ranks.leader:
+        R.follow(svc, ranks)
+        return None
+    try:
+        return [_no_latency(svc.answer(serve_image(i), q, o))
+                for i, (q, o) in enumerate(SERVE_REQUESTS)]
+    finally:
+        if ranks is not None:
+            ranks.stop()
+
+
+def serve_continuous(job, mesh):
+    """ContinuousSealService (searches forced by its missing_parser) on the
+    serving engines: WAVE_REQUESTS at once (one wave of 3), then a wave
+    whose question is too long (it fails on every rank alike), then
+    AFTER_REQUEST. -> (the wave's records, the failing wave's error, the
+    last record, stats) on rank 0 or unsharded, None on a follower."""
+    import threading
+    from vstar_tpu_torch.serve import ranks as R
+    from vstar_tpu_torch.serve.continuous import ContinuousSealService
+    vqa, vsm = serving_engines(job, mesh)
+    ranks = R.for_engines(vqa, vsm)
+    svc = ContinuousSealService(Forced(vqa), vsm, ranks=ranks,
+                                missing_parser=forced_missing,
+                                **CONTINUOUS_KW)
+    if ranks is not None and not ranks.leader:
+        R.follow(svc, ranks)
+        return None
+    try:
+        recs = [None] * len(WAVE_REQUESTS)
+
+        def go(i):
+            recs[i] = _no_latency(svc.answer(serve_image(10 + i),
+                                             *WAVE_REQUESTS[i]))
+        threads = [threading.Thread(target=go, args=(i,))
+                   for i in range(len(WAVE_REQUESTS))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+            assert not t.is_alive()
+        try:
+            svc.answer(serve_image(20), LONG_QUESTION)
+            error = None
+        except Exception as e:
+            error = f"{type(e).__name__}: {e}"
+        after = _no_latency(svc.answer(serve_image(21), *AFTER_REQUEST))
+        return recs, error, after, svc.stats()
+    finally:
+        svc.close()
+        if ranks is not None:
+            ranks.stop()
+
+
+def serve_http(job, mesh_arg):
+    """The server's own path: add_engine_flags' arguments with --mesh
+    (None: unsharded) -> checkpoint_engines on the world's HF directories
+    (the tiny configs and the stub tokenizer patched in, as eval_mains
+    does), one free-form request over HTTP on port 0 to rank 0's
+    make_server, the other ranks following. -> (status, record, whether
+    both engines share one Mesh with a sharded decoder stack), None on a
+    follower."""
+    import argparse
+    import base64
+    import io
+    import json
+    import threading
+    import urllib.request
+    from torch.distributed.tensor import DTensor
+    from vstar_tpu_torch.core import hf_config
+    from vstar_tpu_torch.multimodal.stub_tokenizer import StubTokenizer
+    from vstar_tpu_torch.serve import ranks as R
+    from vstar_tpu_torch.serve import server
+    p = argparse.ArgumentParser()
+    server.add_engine_flags(p)
+    args = p.parse_args(["--vqa-model-path", job["hf_dirs"]["vqa"],
+                         "--vsm-model-path", job["hf_dirs"]["vsm"],
+                         "--device", "cpu"]
+                        + ([] if mesh_arg is None else ["--mesh", mesh_arg]))
+    saved = (hf_config.vqa_llm_config_for, hf_config.vsm_config_for)
+    hf_config.vqa_llm_config_for = lambda path: job["vqa_cfg"]
+    hf_config.vsm_config_for = lambda path: job["vsm_cfg"]
+    try:
+        vqa, vsm = server.checkpoint_engines(
+            args, tokenizer=StubTokenizer(job["vqa_cfg"].llama.vocab_size))
+    finally:
+        hf_config.vqa_llm_config_for, hf_config.vsm_config_for = saved
+    one_mesh = vqa.mesh is not None and vqa.mesh is vsm.mesh and all(
+        isinstance(e.params["llama"]["layers"]["attn"]["wq"], DTensor)
+        for e in (vqa, vsm))
+    ranks = R.for_engines(vqa, vsm)
+    svc = server.SealService(Forced(vqa), vsm, ranks=ranks)
+    if ranks is not None and not ranks.leader:
+        R.follow(svc, ranks)
+        return None
+    httpd = server.make_server(svc, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        buf = io.BytesIO()
+        serve_image(30).save(buf, format="PNG")
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{httpd.server_address[1]}/v1/answer",
+            data=json.dumps({"image": base64.b64encode(
+                buf.getvalue()).decode(),
+                "question": SERVE_REQUESTS[0][0]}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            status, rec = r.status, json.loads(r.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+        if ranks is not None:
+            ranks.stop()
+    return status, _no_latency(rec), one_mesh
+
+
 def world(rank, n, store, job_path, out_path):
     """One rank: every sharded computation of the job on each of its mesh
     shapes; rank 0 saves {shape: {check: result}}."""
@@ -283,6 +496,9 @@ def world(rank, n, store, job_path, out_path):
                     job["hf_dirs"], job["bench"],
                     f"{job['work']}/eval_{key}.json", key, job["vqa_cfg"],
                     job["vsm_cfg"])
+                res["serve_single"] = serve_single(job, mesh)
+                res["serve_continuous"] = serve_continuous(job, mesh)
+                res["serve_http"] = serve_http(job, key)
         if rank == 0:
             torch.save(out, out_path)
     finally:

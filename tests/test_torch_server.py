@@ -290,3 +290,81 @@ def test_demo_cli_and_flags(monkeypatch, tmp_path, capsys):
     assert "final answer: it is red" in out
     assert "format: <image_path> :: <question>" in out
     assert (tmp_path / "demo_out" / "search_0.jpg").exists()
+
+
+@pytest.mark.parametrize("module", ["server", "demo"])
+def test_help_lists_mesh(module, monkeypatch, capsys):
+    from vstar_tpu_torch.serve import demo
+    main = server.main if module == "server" else demo.main
+    monkeypatch.setattr(sys, "argv", [module, "--help"])
+    with pytest.raises(SystemExit) as exc:
+        main()
+    assert exc.value.code == 0
+    assert "--mesh" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("module", ["server", "demo"])
+def test_mesh_with_random_init_is_refused(module, monkeypatch, capsys):
+    """vstar_tpu's random-init engines take no mesh; the port refuses the
+    pair when it parses its arguments, naming the checkpoint flags."""
+    from vstar_tpu_torch.serve import demo
+    main = server.main if module == "server" else demo.main
+    monkeypatch.setattr(sys, "argv", [module, "--random-init", "tiny",
+                                      "--device", "cpu", "--mesh", "1x1x1"])
+    monkeypatch.setattr(server, "engines_from_flags", lambda *a, **k:
+                        pytest.fail("built engines for a refused pair"))
+    with pytest.raises(SystemExit) as exc:
+        main()
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert "--mesh" in err and "--vqa-model-path" in err \
+        and "--vsm-model-path" in err
+
+
+def test_mesh_wider_than_a_world_of_one_raises(monkeypatch, tmp_path):
+    """Without torchrun the world is one process: --mesh 1x4x1 raises,
+    naming both numbers, before a checkpoint is read."""
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+    for var in ("WORLD_SIZE", "MASTER_ADDR"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setattr(sys, "argv", [
+        "server", "--vqa-model-path", str(tmp_path / "vqa"),
+        "--vsm-model-path", str(tmp_path / "vsm"), "--device", "cpu",
+        "--mesh", "1x4x1"])
+    monkeypatch.setattr(server, "serve", lambda *a, **k: pytest.fail(
+        "served on a mesh the world cannot hold"))
+    with pytest.raises(ValueError, match="needs 4 devices .* the world "
+                                         "has 1"):
+        server.main()
+
+
+class _Ranks:
+    """A stand-in for serve/ranks.Ranks: no process group is touched."""
+
+    def __init__(self, rank):
+        self.rank, self.leader = rank, rank == 0
+
+
+def test_pipeline_under_a_mesh_raises():
+    from vstar_tpu_torch.serve.continuous import ContinuousSealService
+    with pytest.raises(ValueError, match="pipeline=True"):
+        ContinuousSealService(StubVQA(), StubVSM(), pipeline=True,
+                              ranks=_Ranks(0))
+
+
+def test_followers_take_no_requests():
+    """A follower's services refuse requests (rank 0 takes them) and run no
+    scheduler; without a process group no engine gets serving ranks."""
+    from vstar_tpu_torch.serve import ranks
+    from vstar_tpu_torch.serve.continuous import ContinuousSealService
+    img = Image.fromarray(np.zeros((80, 120, 3), np.uint8))
+    with pytest.raises(RuntimeError, match="rank 1 follows rank 0"):
+        server.SealService(StubVQA(), StubVSM(), ranks=_Ranks(1)).answer(
+            img, "q?")
+    svc = ContinuousSealService(StubVQA(), StubVSM(), ranks=_Ranks(2))
+    assert svc._thread is None
+    with pytest.raises(RuntimeError, match="rank 2 follows rank 0"):
+        svc.answer(img, "q?")
+    svc.close()
+    assert ranks.for_engines(StubVQA(), StubVSM()) is None

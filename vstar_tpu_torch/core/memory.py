@@ -92,6 +92,59 @@ def plan_train_memory(params: Dict, mesh=None,
     return MemoryPlan(p_bytes, m_bytes, mom_bytes, g_bytes, n_params)
 
 
+@dataclass
+class StepMemory:
+    """What the port's training step holds per device on top of JAX's
+    plan (MemoryPlan, which counts one gradient tree in the parameters'
+    dtype): with more than one micro-batch, the f32 accumulation buffers
+    of train/accumulate.py and the largest gradient alive at once while
+    they fill (a leaf's, or one layer's for a stacked leaf read layer by
+    layer); with one, nothing (its gradient tree is the plan's)."""
+    accum_bytes: int
+    largest_grad_bytes: int
+
+    def summary(self) -> str:
+        gb = 1024 ** 3
+        return (f"the step adds f32 accumulation buffers "
+                f"{self.accum_bytes / gb:.2f} GB/chip, largest gradient "
+                f"{self.largest_grad_bytes / gb:.2f} GB")
+
+
+def _is_layer_stack(path: str) -> bool:
+    """A leaf of a stacked layer tree (`...layers.<name>`, leading layer
+    axis), as opposed to a list of layers (`...layers.<i>....`)."""
+    parts = path.split(".")
+    if "layers" not in parts[:-1]:
+        return False
+    return not any(p.isdigit() for p in parts[parts.index("layers") + 1:])
+
+
+def step_memory(params: Dict, mesh=None,
+                trainable_mask: Optional[Dict] = None, num_micro: int = 1,
+                rules=DEFAULT_RULES) -> StepMemory:
+    """StepMemory of a step over `num_micro` micro-batches on `mesh` (as
+    plan_train_memory takes it); `params` may live on the meta device."""
+    if num_micro <= 1:
+        return StepMemory(0, 0)
+    sizes = mesh_shape(mesh)
+    mask = (None if trainable_mask is None
+            else dict(leaves_with_path(trainable_mask)))
+    accum = largest = 0
+    for path, leaf in leaves_with_path(params):
+        if not (leaf.is_floating_point() if mask is None else mask[path]):
+            continue
+        spec = _clip_spec_to_leaf(spec_for(path, rules), leaf.shape, sizes)
+        local = [d // sizes[ax] if ax is not None else d
+                 for d, ax in zip(leaf.shape, tuple(spec)
+                                  + (None,) * leaf.dim())]
+        numel = int(np.prod(local, dtype=np.int64))
+        accum += 4 * numel
+        if _is_layer_stack(path) and local:
+            numel //= local[0]
+        largest = max(largest, numel * leaf.element_size())
+    return StepMemory(accum, largest)
+
+
 def device_memory_gb(device: Union[str, torch.device]) -> Optional[float]:
     """The card's memory in GiB (torch.cuda.get_device_properties), None
     for a device without a fixed memory (the CPU)."""
@@ -102,16 +155,20 @@ def device_memory_gb(device: Union[str, torch.device]) -> Optional[float]:
 
 
 def check_memory(plan: MemoryPlan, hbm_gb: Optional[float],
-                 headroom: float = 0.75, what: str = "training") -> None:
-    """Print the plan; raise MemoryError if the static footprint exceeds
+                 headroom: float = 0.75, what: str = "training",
+                 step: Optional[StepMemory] = None) -> None:
+    """Print the plan, and beside it `step` (what the port's step holds on
+    top of it); raise MemoryError if the plan's static footprint exceeds
     `headroom` of the device's `hbm_gb` (the rest is activations and
-    workspace). hbm_gb None (the CPU) prints the plan only."""
+    workspace): the refusal is JAX's, `step` only prints. hbm_gb None
+    (the CPU) prints only."""
+    extra = "" if step is None else f"; {step.summary()}"
     if hbm_gb is None:
-        print(f"[memory] {what}: {plan.summary()} (no device budget)",
-              flush=True)
+        print(f"[memory] {what}: {plan.summary()}{extra} (no device "
+              f"budget)", flush=True)
         return
     budget = hbm_gb * headroom * 1024 ** 3
-    print(f"[memory] {what}: {plan.summary()} "
+    print(f"[memory] {what}: {plan.summary()}{extra} "
           f"(budget {budget / 1024**3:.1f} GB/chip)", flush=True)
     if plan.total_bytes > budget:
         raise MemoryError(

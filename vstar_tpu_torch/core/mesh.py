@@ -40,7 +40,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from .params import Params, layer, leaves_with_path, map_with_path
+from .params import (Params, layer, leaves_with_path, map_with_path,
+                     read_layer)
 
 DATA_AXIS = "data"
 FSDP_AXIS = "fsdp"
@@ -479,20 +480,25 @@ def layer_source(stack: Params):
     parts = {}
     for path, x in flat.items():
         mesh = Mesh.of(x.device_mesh)
-        local = x.to_local()
         pl = tuple(x.placements)
-        parts[path] = (mesh, pl, local.unbind(0), x.shape[0])
+        # a leaf with a layer-gradient sink (train/accumulate.py) hands
+        # each local slice's gradient to it, read from the sink's plain
+        # local tensor; the others unbind their local shard once
+        sink = getattr(x, "layer_grad_sink", None)
+        local = x.to_local() if sink is None else sink.tensor
+        slices = local.unbind(0) if sink is None else None
+        parts[path] = (mesh, pl, local, slices, sink, x.shape[0])
 
     def fetch(i: int):
         got = {}
-        for path, (mesh, pl, slices, n_layers) in parts.items():
+        for path, (mesh, pl, local, slices, sink, n_layers) in parts.items():
             fs = pl[AXES.index(FSDP_AXIS)]
+            owner, j = None, i
             if isinstance(fs, Shard) and fs.dim == 0:
                 per = n_layers // mesh.shape[FSDP_AXIS]
-                got[path] = _GatherLayer.apply(slices[i % per], mesh, pl,
-                                               i // per)
-            else:
-                got[path] = _GatherLayer.apply(slices[i], mesh, pl, None)
+                owner, j = i // per, i % per
+            part = slices[j] if sink is None else read_layer(local, j, sink)
+            got[path] = _GatherLayer.apply(part, mesh, pl, owner)
         return _unflatten(got)
     return fetch
 

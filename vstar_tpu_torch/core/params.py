@@ -57,11 +57,40 @@ def embed_init(init: Init, vocab: int, dim: int) -> torch.Tensor:
     return init.normal((vocab, dim), 0.02)
 
 
+class _SinkRead(torch.autograd.Function):
+    """x[i], whose gradient goes to `sink.add(i, g)` as the backward
+    produces it, and not back into x."""
+
+    @staticmethod
+    def forward(ctx, x, i, sink):
+        ctx.set_materialize_grads(False)
+        ctx.i, ctx.sink = i, sink
+        return x[i]
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.sink.add(ctx.i, g)
+        return None, None, None
+
+
+def read_layer(x: torch.Tensor, i: int, sink=None) -> torch.Tensor:
+    """x[i] of a stacked leaf (a view). With a `sink` (a layer-gradient
+    sink of train/accumulate.py, whose `tensor` x is) and grad enabled,
+    the read is recorded (`sink.read(i)`) and its gradient is handed to
+    `sink.add(i, g)` when the backward reaches it, so that a stack's
+    layer gradients need not all be alive until the backward ends."""
+    if sink is None or not torch.is_grad_enabled():
+        return x[i]
+    sink.read(i)
+    return _SinkRead.apply(x, i, sink)
+
+
 def layer(tree: Params, i: int) -> Params:
-    """Layer i of a stacked layer tree (views, no copies)."""
+    """Layer i of a stacked layer tree (views, no copies); a leaf carrying
+    a `layer_grad_sink` attribute is read through read_layer."""
     if isinstance(tree, dict):
         return {k: layer(v, i) for k, v in tree.items()}
-    return tree[i]
+    return read_layer(tree, i, getattr(tree, "layer_grad_sink", None))
 
 
 def map_with_path(fn: Callable[[str, Any], Any], tree: Params,

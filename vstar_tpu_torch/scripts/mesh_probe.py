@@ -13,6 +13,12 @@ One card (`chip_smoke.py`'s mesh phase calls these):
     device), 7B widths with 2 decoder layers on a 1x2x1 mesh, finetune
     steps against the one-device steps.
 
+Serving over the mesh (`chip_smoke.py`'s mesh phase, part (d)): the
+helpers that load a checkpoint pair through the server's
+checkpoint_engines with --mesh, answer requests over HTTP and through
+the continuous service, and `gloo_serve`, two ranks over gloo on one
+card where rank 0 serves over HTTP and rank 1 follows (serve/ranks.py).
+
 Several cards, one process each:
     torchrun --nproc-per-node 4 -m vstar_tpu_torch.scripts.mesh_probe \\
         --mesh 1x4x1 --steps 3
@@ -113,6 +119,39 @@ def _steps(state, batch, cfg, opt, mask, n, dev, count=None,
         if count is not None and i == n - 1:
             counts = count[1]()
     return state, out, counts
+
+
+class phase_peaks:
+    """A context recording, for each training step, the peak allocated
+    bytes of its gradient phase (train/sft's accumulated_grads) in
+    `grads` and of the rest of the step, the update, in `update`
+    (read_update() after each step)."""
+
+    def __init__(self, dev):
+        self.dev, self.grads, self.update = dev, [], []
+
+    def __enter__(self):
+        from ..train import sft
+        self._orig = sft.accumulated_grads
+
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize(self.dev)
+            torch.cuda.reset_peak_memory_stats(self.dev)
+            out = self._orig(*args, **kwargs)
+            torch.cuda.synchronize(self.dev)
+            self.grads.append(torch.cuda.max_memory_allocated(self.dev))
+            torch.cuda.reset_peak_memory_stats(self.dev)
+            return out
+        sft.accumulated_grads = wrapped
+        return self
+
+    def read_update(self):
+        torch.cuda.synchronize(self.dev)
+        self.update.append(torch.cuda.max_memory_allocated(self.dev))
+
+    def __exit__(self, *exc):
+        from ..train import sft
+        sft.accumulated_grads = self._orig
 
 
 def one_rank_mesh(dev, count=None, steps: int = 2) -> dict:
@@ -375,6 +414,283 @@ def gloo_split(lr: float = 1e-3, steps: int = 2, micro: int = MICRO,
             return json.load(f)
 
 
+# ---------------------------------------------------------------------------
+# Serving over the mesh
+# ---------------------------------------------------------------------------
+
+SERVE_TOKENS = 4
+SERVE_QUESTION = "What is the color of the mug?"
+SERVE_OPTIONS = ["The mug is red.", "The mug is blue.", "The mug is green.",
+                 "There is no mug."]
+# (image, question, options): free-form, with options, and a forced
+# search (the one gloo_serve's ranks answer); the continuous wave's
+# searches are all forced, by its missing_parser
+SERVE_REQUESTS = ((0, SERVE_QUESTION, None),
+                  (1, SERVE_QUESTION, SERVE_OPTIONS),
+                  (2, SERVE_QUESTION + " (search)", None))
+WAVE_REQUESTS = ((SERVE_QUESTION + " (wave 0)", SERVE_OPTIONS),
+                 (SERVE_QUESTION + " (wave 1)", None),
+                 (SERVE_QUESTION + " (wave 2)", SERVE_OPTIONS))
+FORCED_SEARCH = dict(confidence_high=2.0, target_cue_threshold=-1.0,
+                     target_cue_threshold_minimum=-1.0)
+
+
+def serve_image(i: int, size=(768, 1024)):
+    """Request i's image: seeded noise over colour ramps."""
+    from PIL import Image
+    h, w = size
+    rng = np.random.RandomState(SEED + 200 + i)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    base = np.stack([xx / w, yy / h, 0.5 + 0.5 * np.sin(xx / 97.0)], -1)
+    img = 200 * base + 55 * rng.rand(h, w, 3)
+    return Image.fromarray(img.clip(0, 255).astype(np.uint8))
+
+
+class MarkedTrigger:
+    """A VQA engine whose first answer to a question marked '(search)' is
+    the search trigger for 'red mug' (random weights never emit it), and
+    whose free-form decodes stop at SERVE_TOKENS new tokens. The focused
+    re-answer is the engine's own."""
+
+    def __init__(self, engine):
+        self.engine = engine
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+    @staticmethod
+    def _trigger(question, answer):
+        from ..eval.seal import FOCUS_MSG, MISSING_OBJECTS_MSG
+        if "(search)" in question and FOCUS_MSG not in question:
+            return MISSING_OBJECTS_MSG + " red mug."
+        return answer
+
+    def free_form(self, image, question, **kw):
+        kw.setdefault("max_new_tokens", SERVE_TOKENS)
+        return self._trigger(question, self.engine.free_form(
+            image, question, **kw))
+
+    def free_form_many(self, images, questions, **kw):
+        kw.setdefault("max_new_tokens", SERVE_TOKENS)
+        return [self._trigger(q, a) for q, a in zip(
+            questions, self.engine.free_form_many(images, questions, **kw))]
+
+
+class forced_searches:
+    """A context in which every search of the SEAL paths (eval/seal's
+    seal_answer, eval/batched_bench's run_search_phase) runs FORCED_SEARCH
+    for 3 steps: on random weights a root patch can hold hundreds of
+    boxes, whose crops no prompt bucket holds."""
+
+    def __enter__(self):
+        from ..eval import batched_bench, seal
+        self._mods = [(m, m.run_grouped_searches)
+                      for m in (batched_bench, seal)]
+        orig = self._mods[0][1]
+
+        def run(engine, tasks, **kw):
+            return orig(engine, tasks, **{**kw, **FORCED_SEARCH,
+                                          "max_steps": 3})
+        for m, _ in self._mods:
+            m.run_grouped_searches = run
+        return self
+
+    def __exit__(self, *exc):
+        for m, f in self._mods:
+            m.run_grouped_searches = f
+
+
+def serving_pair(dirs, mesh, device, vocab_size, configs=None):
+    """The server's checkpoint_engines on HF directories dirs["vqa"],
+    dirs["vsm"] with --mesh `mesh` (None: unsharded) on `device`, the
+    stub tokenizer, the VSM's searches decoding SERVE_TOKENS; `configs`
+    (vqa, vsm) in place of the configs config.json names (the tiny
+    models' CPU rehearsal)."""
+    import argparse
+    from ..core import hf_config
+    from ..multimodal.stub_tokenizer import StubTokenizer
+    from ..serve import server
+    p = argparse.ArgumentParser()
+    server.add_engine_flags(p)
+    args = p.parse_args(["--vqa-model-path", dirs["vqa"],
+                         "--vsm-model-path", dirs["vsm"],
+                         "--device", str(device)]
+                        + ([] if mesh is None else ["--mesh", mesh]))
+    saved = (hf_config.vqa_llm_config_for, hf_config.vsm_config_for)
+    if configs is not None:
+        hf_config.vqa_llm_config_for = lambda path: configs[0]
+        hf_config.vsm_config_for = lambda path: configs[1]
+    try:
+        vqa, vsm = server.checkpoint_engines(
+            args, tokenizer=StubTokenizer(vocab_size))
+    finally:
+        hf_config.vqa_llm_config_for, hf_config.vsm_config_for = saved
+    vsm.max_new_tokens = SERVE_TOKENS
+    return vqa, vsm
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def http_records(service, device, requests=SERVE_REQUESTS):
+    """The (image index, question, options) requests one after another
+    over HTTP to make_server(service) on port 0: (records without
+    latency_s, client seconds each)."""
+    import base64
+    import io
+    import threading
+    import urllib.error
+    import urllib.request
+    from ..serve.server import make_server
+    httpd = make_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    recs, secs = [], []
+    try:
+        for i, question, options in requests:
+            buf = io.BytesIO()
+            serve_image(i).save(buf, format="PNG")
+            body = json.dumps({"image": base64.b64encode(
+                buf.getvalue()).decode(), "question": question,
+                "options": options}).encode()
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{httpd.server_address[1]}/v1/answer",
+                data=body, headers={"Content-Type": "application/json"})
+            t0 = time.perf_counter()
+            try:
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    status, rec = r.status, json.loads(r.read())
+            except urllib.error.HTTPError as e:
+                status, rec = e.code, e.read().decode(errors="replace")
+            _sync(device)
+            secs.append(time.perf_counter() - t0)
+            if status != 200:
+                raise RuntimeError(f"request {i}: HTTP {status}: {rec}")
+            rec.pop("latency_s", None)
+            recs.append(rec)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    return recs, secs
+
+
+def continuous_records(vqa, vsm, ranks, device, requests=WAVE_REQUESTS,
+                       stagger_s: float = 0.05):
+    """The requests to a ContinuousSealService (searches forced by its
+    missing_parser, 3 steps) at once, one thread each started stagger_s
+    apart inside one window, so that they form one wave in this order:
+    (records without latency_s, seconds each, the service's stats)."""
+    import threading
+    from ..serve.continuous import ContinuousSealService
+    svc = ContinuousSealService(MarkedTrigger(vqa), vsm, ranks=ranks,
+                                max_search_steps=3,
+                                max_batch=len(requests), window_ms=3000.0,
+                                missing_parser=lambda p: ["red mug"],
+                                search_kwargs=FORCED_SEARCH)
+    recs, secs, errors = [None] * len(requests), [None] * len(requests), []
+
+    def go(i):
+        t0 = time.perf_counter()
+        try:
+            rec = svc.answer(serve_image(10 + i), *requests[i])
+            rec.pop("latency_s", None)
+            recs[i] = rec
+        except Exception as e:   # reported below
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+        secs[i] = time.perf_counter() - t0
+
+    threads = []
+    try:
+        for i in range(len(requests)):
+            threads.append(threading.Thread(target=go, args=(i,)))
+            threads[-1].start()
+            time.sleep(stagger_s)
+        for t in threads:
+            t.join(timeout=600)
+        _sync(device)
+        stats = svc.stats()
+    finally:
+        svc.close()
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"continuous requests failed or hang: {errors}")
+    return recs, secs, stats
+
+
+def _kernel_counts():
+    from ..kernels import flash_attention as fa
+    from ..kernels import tower_attention as ta
+    return {"flash_attention": (fa.launches, fa.plain_calls_cuda),
+            "tower_attention": (ta.launches, ta.plain_calls_cuda)}
+
+
+def _serve_rank(rank, world, store, out_path, dirs, device, vocab_size,
+                configs, requests):
+    """One rank of gloo_serve."""
+    from ..serve import ranks as R
+    from ..serve.server import SealService
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        _gloo_cuda_collectives()
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        t0 = time.perf_counter()
+        vqa, vsm = serving_pair(dirs, f"1x{world}x1", dev, vocab_size,
+                                configs)
+        load_s = time.perf_counter() - t0
+        # gloo's collectives on CUDA tensors go through the host, which a
+        # CUDA graph cannot capture: decode by the engines' traced loop
+        for e in (vqa, vsm):
+            e.decode_trace = []
+        ranks = R.for_engines(vqa, vsm)
+        svc = SealService(MarkedTrigger(vqa), vsm, ranks=ranks)
+        if not ranks.leader:
+            with forced_searches():
+                R.follow(svc, ranks)
+            return
+        before = _kernel_counts()
+        try:
+            with forced_searches():
+                recs, secs = http_records(svc, dev, requests)
+        finally:
+            ranks.stop()
+        after = _kernel_counts()
+        counts = {k: [after[k][0] - before[k][0],
+                      after[k][1] - before[k][1]] for k in after}
+        with open(out_path, "w") as f:
+            json.dump({"records": recs, "seconds": secs, "load_s": load_s,
+                       "counts": counts,
+                       "stack_sharded": type(vqa.params["llama"]["layers"][
+                           "attn"]["wq"]).__name__}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_serve(dirs, vocab_size: int, device: str = "cuda:0",
+               configs=None, world: int = 2,
+               requests=SERVE_REQUESTS[2:]) -> dict:
+    """Part (d3): `world` ranks over gloo on one device (spawned
+    processes) load the pair from `dirs` with --mesh 1x{world}x1; rank 0
+    answers `requests` (by default the forced search: gloo carries each
+    layer through the host) over HTTP and the others follow. -> rank 0's
+    records, client seconds, load seconds and K1 / K2 launches (and
+    plain-version calls on CUDA) over the requests. Any failure of a
+    rank fails the call."""
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as work:
+        out = os.path.join(work, "result.json")
+        mp.start_processes(_serve_rank, args=(world, os.path.join(
+            work, "store"), out, dirs, device, vocab_size, configs,
+            requests),
+            nprocs=world, start_method="spawn")
+        with open(out) as f:
+            return json.load(f)
+
+
 def _engine_check(mesh, dev, tokens: int) -> dict:
     """A sharded random-init 7B VQA engine's greedy free-form answer (graph
     decode) against the unsharded engine's, on every rank."""
@@ -424,7 +740,7 @@ def main() -> int:
     from ..core import mesh as M
     from ..core.config import vqa_llm_7b
     from ..core.memory import check_memory, device_memory_gb, \
-        plan_train_memory
+        plan_train_memory, step_memory
     from ..data.vsm_collate import batch_to_torch
     from ..models.vqa_llm import init_vqa_llm_params
     from ..multimodal.stub_tokenizer import StubTokenizer
@@ -444,7 +760,8 @@ def main() -> int:
     meta = init_vqa_llm_params(0, cfg, device="meta", dtype=torch.bfloat16)
     mask = frozen_vision_mask(meta)
     plan = plan_train_memory(meta, mesh, trainable_mask=mask)
-    check_memory(plan, device_memory_gb(dev),
+    step = step_memory(meta, mesh, trainable_mask=mask, num_micro=MICRO)
+    check_memory(plan, device_memory_gb(dev), step=step,
                  what=f"7B VQA finetune (mesh {mesh})")
     t0 = time.perf_counter()
     params = M.shard_params(init_vqa_llm_params(SEED, cfg, device=dev,
@@ -457,17 +774,26 @@ def main() -> int:
     del params
     torch.cuda.synchronize(dev)
     state_bytes = torch.cuda.memory_allocated(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
     batch = batch_to_torch(finetune_rows(cfg, tok), dev)
-    state, steps, _ = _steps(state, batch, cfg, opt, mask, args.steps, dev)
-    peak = torch.cuda.max_memory_allocated(dev)
+    with phase_peaks(dev) as peaks:
+        steps = []
+        for _ in range(args.steps):
+            state, one, _ = _steps(state, batch, cfg, opt, mask, 1, dev)
+            peaks.read_update()
+            steps += one
+    peak = max(peaks.grads + peaks.update)
     report = {"mesh": list(mesh.dims), "rank": M.rank(),
               "layers": cfg.llama.num_layers,
               "device": torch.cuda.get_device_name(dev),
               "plan_bytes": plan.total_bytes,
               "plan_state_bytes": plan.params_bytes + plan.master_bytes
-              + plan.moments_bytes, "state_bytes": state_bytes,
-              "peak_bytes": peak, "init_s": init_s, "steps": steps,
+              + plan.moments_bytes, "step_accum_bytes": step.accum_bytes,
+              "step_largest_grad_bytes": step.largest_grad_bytes,
+              "state_bytes": state_bytes,
+              "peak_bytes": peak, "grads_peak_bytes": peaks.grads,
+              "update_peak_bytes": peaks.update,
+              "alloc_conf": os.environ.get("PYTORCH_CUDA_ALLOC_CONF"),
+              "init_s": init_s, "steps": steps,
               "rows": ROWS, "seq": SEQ, "micro": MICRO}
     if args.engine:
         del state, opt

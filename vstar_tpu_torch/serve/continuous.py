@@ -23,6 +23,25 @@ two stage workers (one per engine, so each engine's static caches and
 decode graphs, decode/graphs.py, serve one decode at a time). The HTTP
 handler threads only prefetch canvases, which upload on the engine's
 own stream from its pool thread (search/batched.py).
+
+Under a mesh (`ranks`, serve/ranks.py: engines sharded over torchrun's
+ranks) rank 0's scheduler broadcasts each wave after its decode filter
+and before the wave runs; the other ranks run no scheduler and run the
+same wave through `run_message`. Errors then follow the ranks'
+agreement:
+  * an error every rank reaches alike, because it comes from the wave's
+    inputs (a prompt too long for the buckets, an option count the
+    scorer refuses), fails that wave's requests, and the service goes
+    on, as on one card;
+  * an error only some ranks reach fails the world: every rank raises
+    serve/ranks.WorldFailure and exits non-zero within the serving
+    group's timeout (a rank left in a collective of the engines, within
+    the mesh's). Running out of memory is such an error: one rank's
+    allocator fails mid-forward while the others wait in a layer
+    gather, so a wave is never split on it (`_split_on_oom` splits on
+    one card only).
+pipeline=True (two stage workers on one process) has no form under a
+mesh and raises ValueError.
 """
 
 from __future__ import annotations
@@ -40,6 +59,7 @@ from PIL import Image
 from ..data.preprocess import expand2square
 from ..eval.batched_bench import build_focus_inputs, run_search_phase
 from ..eval.seal import parse_missing_objects
+from .ranks import Ranks, WorldFailure, image_array
 from .sanitize import sanitize_text
 
 
@@ -64,7 +84,13 @@ class ContinuousSealService:
                  max_search_steps: Optional[int] = None,
                  max_batch: int = 8, window_ms: float = 8.0,
                  missing_parser=None, search_kwargs: Optional[Dict] = None,
-                 pipeline: bool = False):
+                 pipeline: bool = False, ranks: Optional[Ranks] = None):
+        if pipeline and ranks is not None:
+            raise ValueError("pipeline=True runs two stage workers in one "
+                             "process; under a mesh every rank must make "
+                             "the same engine calls in the same order, so "
+                             "it has no form there")
+        self.ranks = ranks
         self.vqa = vqa_engine
         self.vsm = vsm_engine
         self.minimum_size_scale = minimum_size_scale
@@ -118,14 +144,19 @@ class ContinuousSealService:
                 t = threading.Thread(target=fn, daemon=True)
                 t.start()
                 self._workers.append(t)
-        self._thread = threading.Thread(target=self._loop, daemon=True)
-        self._thread.start()
+        self._thread = None
+        if ranks is None or ranks.leader:   # followers run serve/ranks.follow
+            self._thread = threading.Thread(target=self._loop, daemon=True)
+            self._thread.start()
 
     # -- public API --------------------------------------------------------
 
     def answer(self, image: Image.Image, question: str,
                options: Optional[Sequence[str]] = None,
                timeout: Optional[float] = None) -> Dict:
+        if self._thread is None:
+            raise RuntimeError(f"rank {self.ranks.rank} follows rank 0, "
+                               "which takes the requests")
         if self._stop.is_set():
             raise RuntimeError("ContinuousSealService is closed")
         question = sanitize_text(question)
@@ -163,7 +194,8 @@ class ContinuousSealService:
         strand its callers (workers exit on the stop flag without
         processing further stages)."""
         self._stop.set()
-        self._thread.join(timeout=10)
+        if self._thread is not None:
+            self._thread.join(timeout=10)
         for t in self._workers:
             t.join(timeout=10)
         exc = RuntimeError("ContinuousSealService closed")
@@ -240,9 +272,12 @@ class ContinuousSealService:
                     self._trigger_q.put(wave)
                     continue
                 try:
-                    recs = self._process_wave(wave)
+                    recs = self._run_wave(wave)
                     for r, rec in zip(wave, recs):
                         r.future.set_result(rec)
+                except WorldFailure as e:
+                    self._fail_wave(wave, e)
+                    return   # the ranks parted: stop serving
                 except BaseException as e:
                     self._fail_wave(wave, e)
                     if not isinstance(e, Exception):
@@ -256,6 +291,26 @@ class ContinuousSealService:
             exc = RuntimeError("seal scheduler stopped")
             self._fail_queued(exc)
             self._drain_stages(exc)
+
+    def _run_wave(self, wave: List[_Request]) -> List[Dict]:
+        """The wave on the engines; under a mesh announced to the
+        followers first (images as the uint8 arrays they rebuild), and its
+        outcome the ranks' agreement."""
+        if self.ranks is None:
+            return self._process_wave(wave)
+        payload = [(image_array(r.image), r.question, r.options)
+                   for r in wave]
+        return self.ranks.lead("wave", payload,
+                               lambda: self._process_wave(wave))
+
+    def run_message(self, kind: str, payload) -> List[Dict]:
+        """A follower's side of rank 0's ("wave", [(image array, question,
+        options), ...]) message: the same wave on this rank's engines."""
+        if kind != "wave":
+            raise ValueError(f"ContinuousSealService follows 'wave' "
+                             f"messages, not {kind!r}")
+        return self._process_wave([_Request(Image.fromarray(a), q, o)
+                                   for a, q, o in payload])
 
     @staticmethod
     def _fail_wave(wave, exc: BaseException):
@@ -365,7 +420,9 @@ class ContinuousSealService:
         dispatches instead of failing all co-batched callers; the halves
         run on the same engines. Recursion bottoms out at single
         requests, whose OOM is a real error. Any other error fails the
-        wave."""
+        wave. Under a mesh nothing is split (see the module docstring)."""
+        if self.ranks is not None:
+            return stage(reqs, *cols)
         try:
             return stage(reqs, *cols)
         except Exception as e:

@@ -9,6 +9,11 @@ visualizations to disk.
     python -m vstar_tpu_torch.serve.demo --vqa-model-path <hf dir> \
         --vsm-model-path <hf dir>
     python -m vstar_tpu_torch.serve.demo --random-init 7b
+    torchrun --nproc-per-node N -m vstar_tpu_torch.serve.demo \
+        --vqa-model-path <hf dir> --vsm-model-path <hf dir> --mesh 1xNx1
+
+Under --mesh the front end runs on rank 0 and the other ranks follow it
+(serve/ranks.py).
 """
 
 from __future__ import annotations
@@ -134,7 +139,8 @@ def launch_gradio(service: SealService,
 
 
 def main():
-    from .server import add_engine_flags, check_random_init, \
+    from .ranks import follow, for_engines
+    from .server import add_engine_flags, check_engine_flags, \
         engines_from_flags
     p = argparse.ArgumentParser("seal demo (PyTorch port)")
     add_engine_flags(p)
@@ -143,20 +149,30 @@ def main():
                         "examples.json [[question, file], ...]) for the "
                         "gradio gallery")
     args = p.parse_args()
-    if args.random_init:
-        try:
-            check_random_init(args.random_init, args.device)
-        except ValueError as e:
-            p.error(str(e))
-    # the server's engine flags: the weight formats, --kv-int8, and
-    # --warmup running every shape once before the first question
-    vqa, vsm = engines_from_flags(args)
-    service = SealService(vqa, vsm)
     try:
-        import gradio  # noqa: F401
-        launch_gradio(service, examples_dir=args.examples_dir)
-    except ImportError:
-        run_cli(service)
+        check_engine_flags(args)
+    except ValueError as e:
+        p.error(str(e))
+    # the server's engine flags: the weight formats, --kv-int8, --mesh,
+    # and --warmup running every shape once before the first question
+    vqa, vsm = engines_from_flags(args)
+    ranks = for_engines(vqa, vsm)
+    service = SealService(vqa, vsm, ranks=ranks)
+    if ranks is not None:
+        if not ranks.leader:
+            follow(service, ranks)
+            return
+        ranks.start_heartbeat()
+    try:
+        try:
+            import gradio  # noqa: F401
+        except ImportError:
+            run_cli(service)
+        else:
+            launch_gradio(service, examples_dir=args.examples_dir)
+    finally:
+        if ranks is not None:
+            ranks.stop()
 
 
 if __name__ == "__main__":

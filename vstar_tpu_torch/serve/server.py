@@ -24,10 +24,16 @@ per wave. --continuous serves through serve/continuous.py's
 ContinuousSealService: concurrent requests co-batch in waves of up to
 --max-batch, formed within --window-ms of the first arrival.
 
-The server runs on one device. Serving over a mesh (vstar_tpu's
---mesh) needs rank 0's front end to broadcast each request to the
-follower ranks: ROADMAP Queue 1 item 13. eval/vstar_bench and
-eval/search_eval take --mesh under torchrun.
+--mesh DxFxM shards both checkpoint engines over a core/mesh.Mesh of
+torchrun's ranks, one rank a card, as vstar_tpu's --mesh does:
+
+    torchrun --nproc-per-node N -m vstar_tpu_torch.serve.server \
+        --vqa-model-path DIR --vsm-model-path DIR --mesh 1xNx1
+
+Rank 0 binds the HTTP server and broadcasts each request (each wave
+with --continuous) to the other ranks before it runs it; they follow
+(serve/ranks.py). --mesh takes checkpoint engines only: vstar_tpu's
+random-init engines take no mesh, and the port refuses the pair.
 """
 
 from __future__ import annotations
@@ -46,34 +52,66 @@ from PIL import Image
 from ..data.preprocess import expand2square
 from ..eval.batched_bench import build_focus_inputs, run_search_phase
 from ..eval.seal import parse_missing_objects, seal_answer
+from .ranks import Ranks, WorldFailure, image_array
 from .sanitize import sanitize_text
 
 
 class SealService:
+    """One request at a time on the engines. With `ranks` (engines sharded
+    over a mesh, serve/ranks.py) rank 0 broadcasts each request to the
+    other ranks before running it, and they run it through
+    `run_message`; an error every rank reaches fails the request, one
+    that only some reach raises WorldFailure."""
+
     def __init__(self, vqa_engine, vsm_engine, minimum_size_scale=4.0,
-                 minimum_size=224, max_search_steps: Optional[int] = None):
+                 minimum_size=224, max_search_steps: Optional[int] = None,
+                 ranks: Optional[Ranks] = None):
         self.vqa = vqa_engine
         self.vsm = vsm_engine
         self.minimum_size_scale = minimum_size_scale
         self.minimum_size = minimum_size
         self.max_search_steps = max_search_steps
+        self.ranks = ranks
         # one request at a time on the device
         self._lock = threading.Lock()
 
     def answer(self, image: Image.Image, question: str,
                options: Optional[Sequence[str]] = None) -> Dict:
         question = sanitize_text(question)
+        options = [sanitize_text(o) for o in options] if options else None
         t0 = time.perf_counter()
         with self._lock:
-            if options:
-                rec = seal_answer(self.vqa, self.vsm, image, question,
-                                  [sanitize_text(o) for o in options],
-                                  self.minimum_size_scale,
-                                  self.minimum_size, self.max_search_steps)
+            if self.ranks is None:
+                rec = self._run(image, question, options)
             else:
-                rec = self._freeform_flow(image, question)
+                if not self.ranks.leader:
+                    raise RuntimeError(f"rank {self.ranks.rank} follows "
+                                       "rank 0, which takes the requests")
+                arr = image_array(image)
+                if image.mode != "RGB":
+                    image = Image.fromarray(arr)
+                rec = self.ranks.lead(
+                    "answer", (arr, question, options),
+                    lambda: self._run(image, question, options))
         rec["latency_s"] = round(time.perf_counter() - t0, 4)
         return rec
+
+    def run_message(self, kind: str, payload) -> Dict:
+        """A follower's side of rank 0's ("answer", (image array,
+        question, options)) message."""
+        if kind != "answer":
+            raise ValueError(f"SealService follows 'answer' messages, not "
+                             f"{kind!r}")
+        arr, question, options = payload
+        return self._run(Image.fromarray(arr), question, options)
+
+    def _run(self, image: Image.Image, question: str,
+             options: Optional[Sequence[str]]) -> Dict:
+        if options:
+            return seal_answer(self.vqa, self.vsm, image, question, options,
+                               self.minimum_size_scale, self.minimum_size,
+                               self.max_search_steps)
+        return self._freeform_flow(image, question)
 
     def _freeform_flow(self, image: Image.Image, question: str) -> Dict:
         """app.py:130-233 without the option scorer: answer, search when
@@ -131,7 +169,14 @@ def _make_handler(service: SealService):
                     base64.b64decode(req["image"]))).convert("RGB")
                 rec = service.answer(img, req["question"],
                                      req.get("options"))
+            except WorldFailure as e:   # serve() stops and raises it
+                self._reply(500, {"error": str(e)})
+                return
             except Exception as e:  # the request's fault: report, keep serving
+                ranks = getattr(service, "ranks", None)
+                if ranks is not None and ranks.failure is not None:
+                    self._reply(500, {"error": str(ranks.failure)})
+                    return
                 self._reply(400, {"error": str(e)})
                 return
             self._reply(200, rec)
@@ -146,12 +191,24 @@ def make_server(service: SealService, host: str = "0.0.0.0",
 
 
 def serve(service: SealService, host: str = "0.0.0.0", port: int = 8080):
+    """Serve until interrupted. With the service's `ranks` (rank 0 of a
+    mesh) the followers get ticks while it idles and a stop at the end;
+    a WorldFailure stops the server and raises here."""
     httpd = make_server(service, host, port)
+    ranks = getattr(service, "ranks", None)
+    if ranks is not None:
+        ranks.on_failure(lambda: threading.Thread(
+            target=httpd.shutdown, daemon=True).start())
+        ranks.start_heartbeat()
     print(f"seal server on {host}:{httpd.server_address[1]}", flush=True)
     try:
         httpd.serve_forever()
     finally:
         httpd.server_close()
+        if ranks is not None:
+            ranks.stop()
+    if ranks is not None and ranks.failure is not None:
+        raise ranks.failure
 
 
 def check_random_init(size: str, device) -> None:
@@ -312,6 +369,23 @@ def add_engine_flags(p):
     p.add_argument("--warmup", action="store_true",
                    help="run every (mode x batch bucket x prompt bucket) "
                         "and the canvas sizes up to 2K once before serving")
+    p.add_argument("--mesh", default=None,
+                   help="DxFxM device mesh to shard both models over "
+                        "(multi-card serving under torchrun, one rank a "
+                        "card), e.g. 1x4x1; checkpoint engines only")
+
+
+def check_engine_flags(args) -> None:
+    """Raise ValueError for flags that cannot go together: a --random-init
+    size the device cannot run (check_random_init), and --mesh with
+    --random-init (vstar_tpu's random-init engines take no mesh)."""
+    if args.random_init:
+        check_random_init(args.random_init, args.device)
+        if args.mesh:
+            raise ValueError(
+                "--mesh shards checkpoint engines: give --vqa-model-path "
+                "and --vsm-model-path in place of --random-init (the "
+                "random-init engines take no mesh, as in vstar_tpu)")
 
 
 def checkpoint_engines(args, tokenizer=None):
@@ -319,11 +393,15 @@ def checkpoint_engines(args, tokenizer=None):
     loaded from --vqa-model-path / --vsm-model-path on --device
     (eval/vstar_bench's loaders), the quantization flags resolved as
     vstar_tpu's server resolves them; tokenizer None loads each
-    directory's."""
-    from ..eval.vstar_bench import load_vqa_engine, load_vsm_engine
+    directory's. --mesh resolves once (eval/vstar_bench.resolve_mesh:
+    in a world of one only 1x1x1 or none) and both engines shard over
+    that Mesh, as load_engines does."""
+    from ..eval.vstar_bench import (load_vqa_engine, load_vsm_engine,
+                                    resolve_mesh)
+    mesh = resolve_mesh(args.mesh, args.device)
     mixed = args.mixed or (args.int4mix and not args.int4)
     int4mode = "int4mix" if args.int4mix else True
-    vqa = load_vqa_engine(args.vqa_model_path,
+    vqa = load_vqa_engine(args.vqa_model_path, mesh=mesh,
                           int8=True if mixed else args.int8,
                           device=args.device, kv_int8=args.kv_int8,
                           prompt_lookup=args.prompt_lookup,
@@ -332,7 +410,7 @@ def checkpoint_engines(args, tokenizer=None):
     vsm = load_vsm_engine(args.vsm_model_path,
                           device_preprocess=args.device_preprocess
                           or args.compiled,
-                          int8=args.int8, device=args.device,
+                          mesh=mesh, int8=args.int8, device=args.device,
                           kv_int8=args.kv_int8,
                           int4=int4mode if (args.int4 or mixed) else False,
                           tokenizer=tokenizer)
@@ -344,8 +422,8 @@ def engines_from_flags(args, max_batch: int = 1, tokenizer=None):
     (--random-init) or loaded (checkpoint_engines); vsm is a
     CompiledVSMSearch under --compiled. max_batch sizes the warmup's
     batch buckets (waves pad up to the covering bucket). Raises
-    ValueError for a --random-init size the device cannot run
-    (check_random_init)."""
+    ValueError for flags that cannot go together (check_engine_flags)."""
+    check_engine_flags(args)
     if args.random_init:
         vqa, vsm = random_init_engines(
             args.random_init, args.device, int8=args.int8, int4=args.int4,
@@ -380,18 +458,23 @@ def main():
                    help="--continuous: how long a wave waits for more "
                         "requests after its first")
     args = p.parse_args()
-    if args.random_init:
-        try:
-            check_random_init(args.random_init, args.device)
-        except ValueError as e:
-            p.error(str(e))
+    try:
+        check_engine_flags(args)
+    except ValueError as e:
+        p.error(str(e))
     vqa, vsm = engines_from_flags(args, max_batch=args.max_batch)
+    from .ranks import follow, for_engines
+    ranks = for_engines(vqa, vsm)
     if args.continuous:
         from .continuous import ContinuousSealService
         service = ContinuousSealService(vqa, vsm, max_batch=args.max_batch,
-                                        window_ms=args.window_ms)
+                                        window_ms=args.window_ms,
+                                        ranks=ranks)
     else:
-        service = SealService(vqa, vsm)
+        service = SealService(vqa, vsm, ranks=ranks)
+    if ranks is not None and not ranks.leader:
+        follow(service, ranks)
+        return
     serve(service, args.host, args.port)
 
 

@@ -179,6 +179,9 @@ def scale_by_adam(b1: float, b2: float, eps: float = 1e-8) -> Transformation:
                 out[p] = torch.div(m_hat, denom, out=g)
             else:
                 out[p] = m_hat / denom
+            # before the next leaf's moments: held over, this leaf's two
+            # temporaries doubled the update's peak on the largest leaves
+            del m_hat, denom
         return out, {"count": count, "mu": mu, "nu": nu}
 
     return Transformation(init, update)

@@ -41,7 +41,8 @@ import random
 import torch
 
 from ..core.checkpoint import save_params
-from ..core.memory import check_memory, device_memory_gb, plan_train_memory
+from ..core.memory import (check_memory, device_memory_gb,
+                           plan_train_memory, step_memory)
 from ..core.mesh import (full_tree, is_main_process, rank_device,
                          resolve_mesh, shard_params)
 from ..core.params import leaves_with_path, map_with_path
@@ -120,6 +121,7 @@ def check_train_memory(args, params, trainable_mask, device, mesh=None):
                              master_f32=args.param_dtype == "bf16")
     check_memory(plan, hbm_gb=hbm_gb if hbm_gb is not None
                  else device_memory_gb(device),
+                 step=step_memory(params, mesh, trainable_mask),
                  what=f"{args.stage} (one device)" if mesh is None
                  else f"{args.stage} (mesh {mesh})")
     return plan

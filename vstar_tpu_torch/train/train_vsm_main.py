@@ -32,7 +32,8 @@ import torch
 
 from ..core.checkpoint import (load_params, load_sharded, save_params,
                                save_sharded)
-from ..core.memory import check_memory, device_memory_gb, plan_train_memory
+from ..core.memory import (check_memory, device_memory_gb,
+                           plan_train_memory, step_memory)
 from ..core.mesh import (is_main_process, mesh_of, rank_device,
                          resolve_mesh, shard_params)
 from ..core.params import leaves_with_path
@@ -201,6 +202,8 @@ def run_vsm_training(args, cfg, params, tokenizer, loc_token_id):
                              master_f32=args.param_dtype == "bf16")
     check_memory(plan, hbm_gb=hbm_gb if hbm_gb is not None
                  else device_memory_gb(device),
+                 step=step_memory(params, mesh, mask,
+                                  args.grad_accumulation_steps),
                  what="VSM train (one device)" if mesh is None
                  else f"VSM train (mesh {mesh})")
     total_steps = args.epochs * args.steps_per_epoch
