@@ -168,7 +168,11 @@ Runs on one CUDA card, in phases; any failure exits non-zero:
      loaded by the server's checkpoint_engines, served by one NCCL rank
      at 1x1x1 over HTTP and in a continuous wave of 3, then by two gloo
      ranks at 1x2x1 (rank 0 over HTTP, rank 1 following), every record
-     equal to the unsharded server's, K1 and K2 counted per path.
+     equal to the unsharded server's, K1 and K2 counted per path; then
+     two gloo ranks at 1x1x2, the decoder tensor-parallel (each rank's
+     K1 on 16 of the 32 heads, half the KV slab, two all-reduces a
+     layer over the model group), the forced search's record against
+     the unsharded server's by the near-tie rules.
 Prints a JSON line of kernel results, then the card's name and power
 limit, then (last line) the device record.
 
@@ -1113,6 +1117,7 @@ def _zero_counts():
     fa.route_launches.update(tile=0, split=0, combine=0)
     fa.split_launches_by_rows.clear()
     fa.launches_by_shape.clear()
+    fa.launches_by_heads.clear()
     ta.launches_by_batch.clear()
     k4.route_launches.update(decode=0, tile=0)
     for mod, la, pa, key in _counter_modules().values():
@@ -3995,9 +4000,12 @@ def _mesh_serve(dev, mark):
     wave of 3 (path mesh_serve_continuous);
     (d3) two gloo ranks on this card, --mesh 1x2x1: rank 0 serves the
     forced search over HTTP and rank 1 follows (mesh_probe.gloo_serve;
-    path mesh_serve_gloo).
-    Every record equals the unsharded one; K1 and K2 launch on each path
-    and no plain version runs on CUDA."""
+    path mesh_serve_gloo);
+    (d4) the same at --mesh 1x1x2: the decoder tensor-parallel over the
+    model axis (path mesh_serve_tp, _tp_serve).
+    Every record of (d1)-(d3) equals the unsharded one; (d4)'s holds to
+    it by the near-tie rules; K1 and K2 launch on each path and no plain
+    version runs on CUDA."""
     import torch.distributed as dist
     from vstar_tpu_torch.core.hf_export import (save_hf_dir,
                                                 vqa_llm_state_dict,
@@ -4033,6 +4041,13 @@ def _mesh_serve(dev, mark):
             ref, ref_s = mp.http_records(
                 SealService(mp.MarkedTrigger(vqa), vsm), dev)
         wave_ref, wave_ref_s, _ = mp.continuous_records(vqa, vsm, None, dev)
+        # (d4)'s reference: the forced search, its decodes traced and its
+        # search path kept
+        tp_ref = {"events": []}
+        with mp.forced_searches(tp_ref["events"]):
+            tp_ref["records"], tp_ref["seconds"] = mp.http_records(
+                SealService(mp.MarkedTrigger(vqa, tp_ref["events"]), vsm),
+                dev, mp.SERVE_REQUESTS[2:])
         del vqa, vsm
         gc.collect()
         torch.cuda.empty_cache()
@@ -4106,9 +4121,158 @@ def _mesh_serve(dev, mark):
                         "load_s": g["load_s"],
                         "part_s": time.perf_counter() - t1}
         mark("(d3)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts["mesh_serve_tp"], report["d4"] = _tp_serve(
+            dirs, vocab, dev, tp_ref, vsm_cfg.llama)
+        mark("(d4)")
     report["seconds"] = time.perf_counter() - t0
     log(f"[mesh serve] part (d) {report['seconds']:.1f} s")
     return counts, report
+
+
+# Part (d4): the model axis of two gloo ranks on this card
+TP_MESH = "1x1x2"
+TP_RECORD_FIELDS = {"missing_objects", "search_result", "answer",
+                    "option_chosen", "correct", "failed_objects"}
+
+
+def _tp_record_rules(label, want, got, ref_events, events):
+    """The tensor-parallel server's record of the forced search against
+    the unsharded server's: the same fields, equal but for those a
+    near-tie moves. Its bf16 split products round otherwise than the
+    whole ones, so the search path equals or parts at a near-tie
+    (_same_search), the focused answer equals greedy's tokens or parts
+    at a near-tie (_equivalent on the traced decodes), the boxes' names
+    equal (their coordinates logged), the other fields equal. Returns
+    the near-ties found."""
+    ties = []
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: keys {sorted(got)} against "
+                             f"{sorted(want)}")
+    kinds = [k for k, _ in ref_events]
+    if [k for k, _ in events] != kinds or kinds.count("search") != 1 or \
+            kinds[-1] != "decode":
+        raise AssertionError(f"{label}: events {[k for k, _ in events]} "
+                             f"against {kinds}")
+    searched = kinds.index("search")
+    d = _same_search(f"{label} search", ref_events[searched][1],
+                     events[searched][1])
+    if d is not None:
+        ties.append(("search", d))
+    for i in range(len(kinds)):
+        if kinds[i] == "decode" and i != len(kinds) - 1:
+            # an answer the trigger replaces: logged, not held
+            _equivalent(f"{label} decode {i}", ref_events[i][1],
+                        events[i][1])
+    if got["missing_objects"] != ["red mug"] or \
+            want["missing_objects"] != ["red mug"]:
+        raise AssertionError(f"{label}: missing objects "
+                             f"{got['missing_objects']}")
+    if [r["name"] for r in got["search_result"]] != \
+            [r["name"] for r in want["search_result"]] and d is None:
+        raise AssertionError(f"{label}: search results "
+                             f"{got['search_result']} against "
+                             f"{want['search_result']}")
+    box = max((float(np.abs(np.subtract(g["bbox"], w["bbox"])).max())
+               for g, w in zip(got["search_result"], want["search_result"])),
+              default=0.0)
+    for k in set(want) - TP_RECORD_FIELDS:
+        if got[k] != want[k]:
+            raise AssertionError(f"{label}: {k} {got[k]!r} against "
+                                 f"{want[k]!r}")
+    if d is None:
+        if got["failed_objects"] != want["failed_objects"]:
+            raise AssertionError(f"{label}: failed objects "
+                                 f"{got['failed_objects']} against "
+                                 f"{want['failed_objects']}")
+        a = _equivalent(f"{label} focused answer", ref_events[-1][1],
+                        events[-1][1])
+        if a is None and got["answer"] != want["answer"]:
+            raise AssertionError(f"{label}: answers differ without a "
+                                 "differing token")
+        if a is not None:
+            ties.append(("answer", a))
+    log(f"[{label}] answer {got['answer']!r} (unsharded "
+        f"{want['answer']!r}), boxes {len(got['search_result'])} "
+        f"(unsharded {len(want['search_result'])}), largest |box "
+        f"difference| {box:.4g} px; near-ties {ties}")
+    return ties
+
+
+def _tp_serve(dirs, vocab, dev, ref, lcfg):
+    """Part (d4): two gloo ranks on this card at --mesh 1x1x2 load the
+    pair through checkpoint_engines, every decoder tensor-parallel on the
+    model axis; rank 0 serves the forced search over HTTP and rank 1
+    follows (mesh_probe.gloo_serve). The record holds to the unsharded
+    server's (`ref`: records and events of the same request) by
+    _tp_record_rules. Each rank logs K1's launches by query heads (all
+    at H/2), its collectives (two all-reduces a layer and forward over
+    the model group, no gather on the model axis after loading) and its
+    KV slabs (H_kv/2 heads, half the bytes an unsharded slab of the same
+    caches takes). -> (rank 0's K1 / K2 launches, the report)."""
+    from vstar_tpu_torch.scripts import mesh_probe as mp
+    t0 = time.perf_counter()
+    g = mp.gloo_serve(dirs, vocab, str(dev), mesh=TP_MESH)
+    plain = {k: c[1] for k, c in g["counts"].items()}
+    launched = {k: c[0] for k, c in g["counts"].items()}
+    label = f"mesh serve (d4) gloo {TP_MESH}, tensor-parallel"
+    log(f"[{label}] decoder stack {g['stack_sharded']}, loaded in "
+        f"{g['load_s']:.2f} s; kernel launches {launched}, plain-version "
+        f"calls on CUDA {plain}; seconds {g['seconds']} (unsharded "
+        f"{ref['seconds']})")
+    if any(plain.values()) or not all(launched.values()) or \
+            g["stack_sharded"] != "DTensor":
+        raise AssertionError(f"mesh (d4): {g['counts']}")
+    M = int(TP_MESH.split("x")[2])
+    heads, kv_heads = lcfg.num_heads // M, lcfg.num_kv_heads // M
+    per_rank = []
+    for r in g["ranks"]:
+        c, caches = r["counts"], r["caches"]
+        model = {k: n for k, n in c["collectives"].items()
+                 if k.endswith(" model")}
+        for v in caches.values():
+            # the newest slab holds the largest cache's k and v (bf16),
+            # a power of two of elements: half the unsharded one
+            n = 2 * int(np.prod(v["largest_cache"]))
+            v["expected_slab_bytes"] = (1 << (n - 1).bit_length()) * 2
+            v["unsharded_slab_bytes"] = M * v["expected_slab_bytes"]
+        log(f"[{label} rank {r['rank']}] K1 launches by heads "
+            f"{c['k1_heads']}, K1 / K2 launches {c['kernels']}; "
+            f"collectives {c['collectives']}; KV caches "
+            + "; ".join(f"{n} {v['kv_heads']} heads, largest "
+                        f"{v['largest_cache']}, slabs {v['slabs']} B "
+                        f"(unsharded {v['unsharded_slab_bytes']} B)"
+                        for n, v in caches.items()))
+        if set(c["k1_heads"]) != {heads} or \
+                c["k1_heads"][heads] != c["kernels"]["flash_attention"][0]:
+            raise AssertionError(f"mesh (d4) rank {r['rank']}: K1 heads "
+                                 f"{c['k1_heads']}, expected {heads}")
+        # one attention call (a K1 launch) a layer and forward, and two
+        # all-reduces beside it
+        ar = model.get("all_reduce model", 0)
+        if set(model) != {"all_reduce model"} or \
+                ar != 2 * c["kernels"]["flash_attention"][0]:
+            raise AssertionError(f"mesh (d4) rank {r['rank']}: model-axis "
+                                 f"collectives {model}")
+        for name, v in caches.items():
+            if v["kv_heads"] != [kv_heads] or \
+                    max(v["slabs"]) != v["expected_slab_bytes"]:
+                raise AssertionError(
+                    f"mesh (d4) rank {r['rank']} {name}: KV heads "
+                    f"{v['kv_heads']}, slabs {v['slabs']} B, expected "
+                    f"{kv_heads} heads in {v['expected_slab_bytes']} B")
+        per_rank.append({"k1_heads": c["k1_heads"],
+                         "k1_launches": c["kernels"]["flash_attention"][0],
+                         "model_all_reduces": ar,
+                         "kv": caches})
+    ties = _tp_record_rules(f"{label}, rank 1 following", ref["records"][0],
+                            g["records"][0], ref["events"], g["events"])
+    return launched, {"seconds": g["seconds"],
+                      "unsharded_seconds": ref["seconds"],
+                      "load_s": g["load_s"], "near_ties": ties,
+                      "ranks": per_rank,
+                      "part_s": time.perf_counter() - t0}
 
 
 # ---------------------------------------------------------------------------

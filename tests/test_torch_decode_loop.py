@@ -290,9 +290,11 @@ def test_static_cache_is_reused():
 
 
 def test_every_counter_is_registered():
-    """Every launch counter of the kernel modules and of nn.quant is in
-    the registry the decode graphs replay (kernels/_build.COUNTERS), and
-    registering a name a module lacks raises."""
+    """Every launch counter of the kernel modules and of nn.quant, and the
+    mesh's collective counts, are in the registry the decode graphs
+    replay (kernels/_build.COUNTERS), and registering a name a module
+    lacks raises."""
+    from vstar_tpu_torch.core import mesh
     from vstar_tpu_torch.kernels import (_build, flash_attention,
                                          int4_matmul, int4_variants,
                                          int8_matmul, tower_attention)
@@ -300,13 +302,14 @@ def test_every_counter_is_registered():
     registered = {(m.__name__, a) for m, a in _build.COUNTERS}
     found = set()
     for mod in (flash_attention, int4_matmul, int4_variants, int8_matmul,
-                tower_attention, quant):
+                tower_attention, quant, mesh):
         for name, value in vars(mod).items():
-            if any(w in name for w in ("launches", "calls", "routes")) \
+            if any(w in name for w in ("launches", "calls", "routes",
+                                       "collectives")) \
                     and isinstance(value, (int, dict)) \
                     and not isinstance(value, bool):
                 found.add((mod.__name__, name))
-    assert len(found) == 19 and found == registered
+    assert len(found) == 21 and found == registered
     with pytest.raises(AttributeError):
         _build.register_counters(quant.__name__, "no_such_counter")
 

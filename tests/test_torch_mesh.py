@@ -20,7 +20,13 @@ configs, and rank 0 hands back the results gathered whole:
     against the unsharded loops (the VQA loop resumed alike, the VSM
     loop's two epochs in one go);
   * sharded VQA and VSM engines' answers, choices, boxes, scores and
-    heatmaps against the unsharded engines';
+    heatmaps against the unsharded engines' (also on 1x1x4, the engines
+    alone); on 1x2x2, where the decoder is tensor-parallel, also against
+    vstar_tpu's engines sharded on the same mesh shape, with the
+    decoder's collectives in a prefill and a decode step counted against
+    those of vstar_tpu's compiled step (its HLO), each rank's KV cache
+    heads and K1's query heads, and a model axis that would cut a head
+    refused;
   * serving over the mesh (serve/ranks.py): rank 0's SealService (a
     free-form request, one with options, two with a forced search) and
     ContinuousSealService (a wave of 3 with forced searches, a wave
@@ -34,8 +40,11 @@ plan fits an 80 GB card's budget, where the one-device plan is refused.
 Tolerances (f32): forward, losses, metrics and parameters within 1e-5
 (relative for scalars, absolute for parameters); gradients within 1e-5
 of each leaf's largest |value| against the unsharded port (the sums over
-ranks add in another order); the engines and the served records equal
-exactly (tokens, choices, boxes: every field but the latency); the
+ranks add in another order); the engines where the model axis is 1
+and the served records equal exactly (tokens, choices, boxes: every
+field but the latency); the tensor-parallel engines' answers and
+choices equal, their arrays within JAX's sharded-inference tolerance
+(DET_TOL, MASK_TOL: tests/test_sharded_inference.py); the
 served records equal vstar_tpu's in every field but the boxes, which
 agree within BOX_ATOL = 1e-2 pixels, the rule of
 tests/test_torch_batched_bench.py (they moved by 1.5e-5 at most). An
@@ -48,6 +57,7 @@ and Adam divides the update by the gradient's own size (one element of
 import dataclasses
 import json
 import os
+import re
 import types
 
 import jax
@@ -99,6 +109,19 @@ BOX_ATOL = 1e-2
 LR = W.LR
 SHAPES = ((2, 2, 1), (1, 2, 2))
 MESHES = ["x".join(map(str, s)) for s in SHAPES]
+# the shape whose model axis splits the decoder (tensor parallelism)
+TP_SHAPE = SHAPES[1]
+TP_MESH = MESHES[1]
+# the engines alone: the model axis over the whole world (fsdp 1)
+ENGINE_SHAPES = ((1, 1, 4),)
+ENGINE_MESHES = MESHES + ["x".join(map(str, s)) for s in ENGINE_SHAPES]
+# JAX's sharded-inference tolerance (tests/test_sharded_inference.py)
+DET_TOL = dict(rtol=1e-4, atol=1e-4)
+MASK_TOL = dict(rtol=1e-4, atol=1e-3)
+_HLO_COLLECTIVE = re.compile(
+    r"\b(all-reduce|all-gather|reduce-scatter|all-to-all|"
+    r"collective-permute)(?:-start)?\(.*?replica_groups="
+    r"(\{[\d,{}]*\}|\[[\d,]+\]<=\[[\d,]+\](?:T\([\d,]+\))?)")
 FAKE_MESHES = ((1, 1, 1), (1, 8, 1), (2, 2, 2), (1, 16, 1))
 
 
@@ -254,7 +277,8 @@ def started(tmp_path_factory):
                                        seed=0, image_hw=(256, 256), target=3)
     sft_rows = _sft_batch(work, rows=(0, 1, 2, 0, 1, 2, 0, 1))
     make_dataset_dir(work / "vsm_data")
-    job = {"shapes": SHAPES, "loop_shape": "2x2x1", "work": str(work),
+    job = {"shapes": SHAPES, "engine_shapes": ENGINE_SHAPES,
+           "loop_shape": "2x2x1", "work": str(work),
            "vqa_cfg": T_VQA_CFG, "vsm_cfg": T_VSM_CFG,
            "vqa": vqa, "vsm": vsm, "tilted_vsm": _tilted(vsm),
            "forward_inputs": tuple(torch.from_numpy(x) for x in
@@ -274,7 +298,8 @@ def started(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def world(started, jax_sft, vsm_refs, jax_vsm_step, jax_serving):
+def world(started, jax_sft, vsm_refs, jax_vsm_step, jax_serving,
+          jax_engines, jax_tp_structure):
     """The 4-rank world's results, and the inputs it was given."""
     job, work, ranks = started
     while not ranks.join():
@@ -483,17 +508,173 @@ def test_vsm_loop_resumes_sharded_to_the_unsharded_loop(world):
         _assert_update_close(v.numpy(), want_p[k].numpy(), k)
 
 
-@pytest.mark.parametrize("mesh", MESHES)
+def _same_engines(got, want, exact):
+    """Answers and choices equal; the arrays equal (`exact`) or within
+    JAX's sharded-inference tolerance (DET_TOL, MASK_TOL)."""
+    assert got["answer"] == want["answer"]
+    assert got["choice"] == want["choice"]
+    for k in ("boxes", "scores", "heatmap", "segment"):
+        if exact:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        else:
+            np.testing.assert_allclose(
+                np.asarray(got[k], np.float64),
+                np.asarray(want[k], np.float64), err_msg=k,
+                **(MASK_TOL if k in ("heatmap", "segment") else DET_TOL))
+
+
+@pytest.mark.parametrize("mesh", ENGINE_MESHES)
 def test_sharded_engines_equal_unsharded(world, mesh):
+    """Bit for bit where the model axis is 1 (every rank computes whole
+    layers); on 1x2x2 and 1x1x4 the decoder is tensor-parallel, its wo
+    and w_down products summed over the model group in another order, so
+    the arrays agree within JAX's sharded-inference tolerance."""
     out, job, _ = world
     got = out[mesh]["engines"]
     want = W.engines(job["vqa"], T_VQA_CFG, job["tilted_vsm"], T_VSM_CFG,
                      None)
     assert len(want["boxes"]) > 0      # the tilted VSM emitted [LOC]
-    assert got["answer"] == want["answer"]
-    assert got["choice"] == want["choice"]
-    for k in ("boxes", "scores", "heatmap", "segment"):
-        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    _same_engines(got, want, exact=mesh == "2x2x1")
+
+
+@pytest.fixture(scope="module")
+def jax_engines(started):
+    """vstar_tpu's VQA and batched VSM engines sharded on the 1x2x2 mesh of
+    four of the eight CPU devices, on the world's trees and settings
+    (W.engines'): the same answers, choice, boxes, scores, heatmap and
+    segment."""
+    from PIL import Image
+    from vstar_tpu.eval.vqa_engine import VQAEngine as JaxVQAEngine
+    from vstar_tpu.multimodal.stub_tokenizer import \
+        StubTokenizer as JaxStubTokenizer
+    from vstar_tpu.search.batched import BatchedVSMEngine as JaxBatchedVSM
+    job, _, _ = started
+    jm = jmesh.make_mesh(TP_SHAPE, devices=jax.devices()[:4])
+    tok = JaxStubTokenizer(VQA_CFG.llama.vocab_size)
+    vqa = JaxVQAEngine(_jax_tree(job["vqa"]), VQA_CFG, tok,
+                       prompt_buckets=(64,), option_bucket=16,
+                       compute_dtype=jnp.float32, mesh=jm)
+    vsm = JaxBatchedVSM(_jax_tree(job["tilted_vsm"]), VSM_CFG, tok,
+                        loc_token_id=3, eos_id=2, max_new_tokens=4,
+                        prompt_buckets=(64,), compute_dtype=jnp.float32,
+                        mesh=jm)
+    img = Image.fromarray((np.random.RandomState(2).rand(96, 128, 3) * 255)
+                          .astype("uint8"))
+    boxes, scores, heatmap = vsm.detect(img, "cat")
+    return {"answer": vqa.free_form(img, "what is on the table ?",
+                                    max_new_tokens=12),
+            "choice": vqa.multiple_choice(img, "what color is the cup ?",
+                                          ["red", "blue"]),
+            "boxes": np.asarray(boxes), "scores": np.asarray(scores),
+            "heatmap": np.asarray(heatmap),
+            "segment": np.asarray(vsm.segment(img, "cat"))}
+
+
+def test_tensor_parallel_engines_equal_jax_sharded(world, jax_engines):
+    """The port's engines on 1x2x2 (tensor-parallel decoder) against
+    vstar_tpu's engines sharded on the same mesh shape."""
+    out, _, _ = world
+    got = out[TP_MESH]["engines"]
+    assert len(got["boxes"]) > 0
+    _same_engines(got, jax_engines, exact=False)
+
+
+def _hlo_groups(spec):
+    """An HLO replica_groups attribute -> its groups of partition ids (the
+    explicit {{..},..} form and the iota [G,S]<=[dims]T(perm) form)."""
+    if spec.startswith("{"):
+        return [[int(d) for d in g.split(",") if d]
+                for g in re.findall(r"\{([\d,]*)\}", spec[1:-1])]
+    shape, dims, perm = re.fullmatch(
+        r"\[([\d,]+)\]<=\[([\d,]+)\](?:T\(([\d,]+)\))?", spec).groups()
+    ids = np.arange(int(np.prod([int(d) for d in dims.split(",")])))
+    ids = ids.reshape([int(d) for d in dims.split(",")])
+    if perm:
+        ids = ids.transpose([int(d) for d in perm.split(",")])
+    return ids.reshape([int(d) for d in shape.split(",")]).tolist()
+
+
+def _hlo_collectives(text, shape):
+    """(operation, the mesh axes its groups span) -> the number of such
+    collectives in compiled HLO text (a collective inside the layer
+    scan's body appears once and runs once a layer). Partition p is mesh
+    coordinate unravel_index(p, shape)."""
+    out = {}
+    for op, spec in _HLO_COLLECTIVE.findall(text):
+        coords = np.array([np.unravel_index(d, shape)
+                           for d in _hlo_groups(spec)[0]])
+        axes = tuple(a for i, a in enumerate(tmesh.AXES)
+                     if len(set(coords[:, i])) > 1)
+        key = (op.replace("-", "_"), axes)
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_tp_structure(started):
+    """vstar_tpu's llama_forward compiled on the 1x2x2 mesh (plain
+    attention) for W.tp_structure's prefill and decode step on the VQA
+    tree: (the collectives of each compiled step by operation and axes,
+    the hidden states of each, the returned cache's spec and per-device
+    shard shape)."""
+    from vstar_tpu.nn.llama import init_cache as j_init_cache
+    job, _, _ = started
+    cfg = VQA_CFG.llama
+    jm = jmesh.make_mesh(TP_SHAPE, devices=jax.devices()[:4])
+    params = jmesh.shard_params(_jax_tree(job["vqa"]), jm)["llama"]
+    h = torch.randn((1, W.TP_PREFILL + 1, cfg.hidden_size),
+                    generator=torch.Generator().manual_seed(11)).numpy()
+    cache = j_init_cache(cfg, 1, W.TP_CACHE, jnp.float32)
+    step = jax.jit(lambda p, h, q, k, o, c: j_llama_forward(
+        p, cfg, h, q, k, q_offsets=o, cache=c, use_pallas=False))
+    out = {}
+    for name, lo, hi in (("prefill", 0, W.TP_PREFILL),
+                         ("decode", W.TP_PREFILL, W.TP_PREFILL + 1)):
+        args = (params, h[:, lo:hi], np.arange(lo, hi, dtype=np.int32)[None],
+                np.asarray([hi], np.int32), np.asarray([lo], np.int32),
+                cache)
+        text = step.lower(*args).compile().as_text()
+        hidden, cache = step(*args)
+        out[name] = (_hlo_collectives(text, TP_SHAPE), np.asarray(hidden))
+    shard = cache.k.sharding
+    return out, tuple(shard.spec), shard.shard_shape(cache.k.shape)
+
+
+def test_tensor_parallel_structure_equals_jax_hlo(world, jax_tp_structure):
+    """On 1x2x2, in a prefill and a decode step: the port's model group
+    runs 2 all-reduces a layer and no gather, as vstar_tpu's compiled
+    step does (2 all-reduces over 'model' in the layer body, no gather
+    on 'model'); each rank's cache holds Hkv/2 heads, as JAX's returned
+    cache is sharded on its heads; K1 (the attention call) runs on H/2
+    heads; the hidden states equal JAX's."""
+    out, _, _ = world
+    got = out[TP_MESH]["tp_structure"]
+    want, spec, shard_shape = jax_tp_structure
+    cfg = T_VQA_CFG.llama
+    L, M = cfg.num_layers, TP_SHAPE[2]
+    assert got["model_split"] == ("attn", "mlp")
+    for name in ("prefill", "decode"):
+        counts, heads, hidden = got[name]
+        hlo, j_hidden = want[name]
+        model = {op: n for (op, ax), n in counts.items() if ax == "model"}
+        assert model == {"all_reduce": 2 * L}, (name, counts)
+        assert hlo[("all_reduce", ("model",))] == model["all_reduce"] // L
+        assert not any("model" in ax for (op, ax) in hlo
+                       if op != "all_reduce"), (name, hlo)
+        assert heads == [cfg.num_heads // M] * L
+        np.testing.assert_allclose(hidden.numpy(), j_hidden, atol=TOL,
+                                   rtol=0, err_msg=name)
+    assert spec == (None, None, None, "model")
+    assert got["cache_heads"] == [(shard_shape[3], cfg.head_dim)] * 4
+    assert shard_shape[3] == cfg.num_kv_heads // M
+
+
+def test_model_split_refuses_to_cut_a_head(world):
+    """serving_params on 1x2x2 refuses a decoder of 3 heads (3 x 16
+    columns divide by 2, 3 heads do not), naming H and M."""
+    out, _, _ = world
+    msg = out[TP_MESH]["tp_structure"]["refusal"]
+    assert msg is not None and "M=2" in msg and "H=3" in msg, msg
 
 
 def test_evaluation_mains_under_mesh_equal_unsharded(world, tmp_path):

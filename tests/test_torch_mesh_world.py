@@ -16,7 +16,7 @@ import torch
 import torch.distributed as dist
 
 from vstar_tpu_torch.core import mesh as M
-from vstar_tpu_torch.core.params import leaves_with_path
+from vstar_tpu_torch.core.params import Init, leaves_with_path
 
 LR = 1e-3
 
@@ -202,6 +202,68 @@ def engines(vqa_params, vqa_cfg, vsm_params, vsm_cfg, mesh):
                                           ["red", "blue"]),
             "boxes": boxes, "scores": scores, "heatmap": heatmap,
             "segment": np.asarray(vsm.segment(img, "cat"))}
+
+
+# the model split's structure: a prefill of TP_PREFILL tokens, then one
+# decode step, into a cache of TP_CACHE slots
+TP_PREFILL, TP_CACHE = 8, 128
+
+
+def tp_structure(params, cfg, mesh):
+    """The decoder of `params` (a VQA tree) as an engine holds it on
+    `mesh` (core/mesh.serving_params): a prefill of TP_PREFILL tokens and
+    one decode step through llama_forward into the rank's cache (its
+    heads from nn/llama.kv_heads). -> {"prefill" / "decode": (the
+    collectives each ran, by (operation, axis); the query heads of each
+    attention call; the hidden states), "cache_heads": every rank's
+    (cache KV heads, the cache's head dim), "model_split": the blocks
+    split}, whole on rank 0. A decoder whose 3 heads the model axis would
+    cut: "refusal", the error serving_params raises."""
+    import dataclasses
+    from vstar_tpu_torch.nn import llama as L
+    lcfg = cfg.llama
+    tree = M.serving_params(params, mesh, lcfg)
+    llama = tree["llama"]
+    heads = L.kv_heads(llama, lcfg)
+    cache = L.init_cache(lcfg, 1, TP_CACHE, torch.float32, device="cpu",
+                         heads=heads)
+    gen = torch.Generator().manual_seed(11)
+    h = torch.randn((1, TP_PREFILL + 1, lcfg.hidden_size), generator=gen)
+    attention, calls = L.flash_attention, []
+
+    def recorded(q, *a, **kw):
+        calls.append(q.shape[2])
+        return attention(q, *a, **kw)
+
+    out = {"model_split": M.model_split(llama["layers"]).blocks}
+    L.flash_attention = recorded
+    try:
+        with torch.no_grad():
+            for name, lo, hi in (("prefill", 0, TP_PREFILL),
+                                 ("decode", TP_PREFILL, TP_PREFILL + 1)):
+                M.collectives.clear()
+                del calls[:]
+                pos = torch.arange(lo, hi)[None]
+                hidden, cache = L.llama_forward(
+                    llama, lcfg, h[:, lo:hi], pos,
+                    torch.tensor([hi], dtype=torch.int32),
+                    q_offsets=torch.tensor([lo], dtype=torch.int32),
+                    cache=cache)
+                out[name] = (dict(M.collectives), list(calls), hidden)
+    finally:
+        L.flash_attention = attention
+    every = [None] * M.world_size()
+    dist.all_gather_object(every, (cache.k.shape[3], cache.k.shape[4]))
+    out["cache_heads"] = every
+    cut = dataclasses.replace(lcfg, hidden_size=48, num_heads=3,
+                              num_kv_heads=3, head_dim=16)
+    try:
+        M.serving_params({"llama": L.init_llama_params(Init(0, "cpu"),
+                                                       cut)}, mesh, cut)
+        out["refusal"] = None
+    except ValueError as e:
+        out["refusal"] = str(e)
+    return out
 
 
 def eval_mains(dirs, bench, out_json, mesh, vqa_cfg, vsm_cfg):
@@ -460,7 +522,8 @@ def serve_http(job, mesh_arg):
 
 def world(rank, n, store, job_path, out_path):
     """One rank: every sharded computation of the job on each of its mesh
-    shapes; rank 0 saves {shape: {check: result}}."""
+    shapes, and the engines alone on each of its engine shapes; rank 0
+    saves {shape: {check: result}}."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store, n),
                             rank=rank, world_size=n)
@@ -484,6 +547,9 @@ def world(rank, n, store, job_path, out_path):
                                          job["vsm_batch"])
             res["engines"] = engines(job["vqa"], job["vqa_cfg"],
                                      job["tilted_vsm"], job["vsm_cfg"], mesh)
+            if mesh.shape[M.MODEL_AXIS] > 1:
+                res["tp_structure"] = tp_structure(job["vqa"],
+                                                   job["vqa_cfg"], mesh)
             if key == job["loop_shape"]:
                 res["vqa_loop"] = vqa_loop(job["vqa"], job["vqa_cfg"],
                                            job["vqa_data"],
@@ -499,6 +565,11 @@ def world(rank, n, store, job_path, out_path):
                 res["serve_single"] = serve_single(job, mesh)
                 res["serve_continuous"] = serve_continuous(job, mesh)
                 res["serve_http"] = serve_http(job, key)
+        for shape in job["engine_shapes"]:
+            mesh = M.make_mesh(shape, "cpu")
+            out["x".join(map(str, shape))] = {"engines": engines(
+                job["vqa"], job["vqa_cfg"], job["tilted_vsm"],
+                job["vsm_cfg"], mesh)}
         if rank == 0:
             torch.save(out, out_path)
     finally:

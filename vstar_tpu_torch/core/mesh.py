@@ -9,7 +9,7 @@ the JAX package's rules: a parameter tree becomes a dict of DTensors,
 each holding on its rank the shard the PartitionSpec names (clipped,
 as in JAX, where an axis does not divide the leaf's dimension).
 
-Compute follows the ZeRO-3 / FSDP pattern the rules were written for
+Training follows the ZeRO-3 / FSDP pattern the rules were written for
 ("gather one layer per scan step"): every rank is a data-parallel rank
 that takes its own rows of the step's batch, and the fsdp and model axes
 shard storage (parameters, f32 masters, AdamW moments). A forward
@@ -25,8 +25,20 @@ sum over a replicated one, the owner's sum for a layer), so a step on
 the sharded tree is the one-device step on the whole batch. The kernels
 (K1, K2, K3, K5, K6, K7) only ever see the gathered plain tensors.
 
+An engine's tree (`serving_params`) computes the model axis as
+vstar_tpu's compiled step does, tensor-parallel (Megatron-style): each
+rank keeps its own columns of wq / wk / wv / w_gate / w_up and rows of
+wo / w_down, computes its own heads and MLP columns, and the products
+of wo and w_down are partial sums that `ModelSplit.reduce` adds over
+the model group (two all-reduces a layer, no gather on the model axis;
+its KV cache holds its own heads). A block whose matrices the rules do
+not all split on model (a quantized block: its leaves' spec is
+P('fsdp')) is gathered and computed whole, as XLA computes it. The fsdp
+axis still fetches each layer from its owner.
+
 Collectives are plain torch.distributed calls on the axes' process
-groups: NCCL on cards, gloo on the CPU.
+groups: NCCL on cards, gloo on the CPU. `collectives` counts them by
+operation and axis.
 """
 
 from __future__ import annotations
@@ -40,6 +52,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from ..kernels import _build
 from .params import (Params, layer, leaves_with_path, map_with_path,
                      read_layer)
 
@@ -217,6 +230,7 @@ class Mesh:
         """The sum over the ranks' rows (a count, a partial loss); no
         gradient flows through it."""
         x = x.detach().clone()
+        _count("all_reduce", "world")
         _all_reduce(x, None)
         return x
 
@@ -234,6 +248,7 @@ class Mesh:
         if any(r != 1 for r in reps):
             parts = parts / torch.tensor(reps, dtype=parts.dtype,
                                          device=parts.device)
+        _count("all_reduce", "world")
         _all_reduce(parts, None)
         total = parts[0].to(dtypes[0])
         for x, dtype in zip(parts[1:], dtypes[1:]):
@@ -348,6 +363,18 @@ _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) \
     or dist.reduce_scatter_tensor
 
 
+# Collective calls by (operation, axis): operation "all_reduce",
+# "all_gather", "reduce_scatter" or "broadcast", axis a mesh axis or
+# "world". A launch counter (kernels/_build.COUNTERS), so that the decode
+# graphs replay what a capture counted.
+collectives: Dict[Tuple[str, str], int] = {}
+_build.register_counters(__name__, "collectives")
+
+
+def _count(op: str, axis: str) -> None:
+    collectives[(op, axis)] = collectives.get((op, axis), 0) + 1
+
+
 def _all_reduce(x: torch.Tensor, group) -> None:
     dist.all_reduce(x, group=group)
 
@@ -380,6 +407,7 @@ def _reduce_replicated(g: torch.Tensor, mesh: Mesh, placements,
         if ax not in skip and isinstance(pl, Replicate) \
                 and mesh.shape[ax] > 1:
             g = g.contiguous()
+            _count("all_reduce", ax)
             _all_reduce(g, mesh.groups[ax])
     return g
 
@@ -394,6 +422,7 @@ class _Gather(torch.autograd.Function):
         out = local
         for ax, pl in zip(AXES, placements):
             if isinstance(pl, Shard):
+                _count("all_gather", ax)
                 out = _all_gather(out, pl.dim, mesh.groups[ax])
         return out.clone() if out is local else out
 
@@ -402,8 +431,22 @@ class _Gather(torch.autograd.Function):
         mesh, placements = ctx.mesh, ctx.placements
         for ax, pl in zip(AXES, placements):
             if isinstance(pl, Shard):
+                _count("reduce_scatter", ax)
                 g = _reduce_scatter(g, pl.dim, mesh.groups[ax])
         return _reduce_replicated(g, mesh, placements), None, None
+
+
+def _from_owner(part: torch.Tensor, mesh: Mesh, owner: int) -> torch.Tensor:
+    """Layer slice `part` of fsdp rank `owner`, broadcast over the fsdp
+    group (the other ranks' `part` only gives shape and dtype)."""
+    group = mesh.groups[FSDP_AXIS]
+    keep = mesh.coord[FSDP_AXIS] == owner
+    out = part.clone() if keep else torch.empty_like(part)
+    if mesh.shape[FSDP_AXIS] > 1:
+        _count("broadcast", FSDP_AXIS)
+        dist.broadcast(out, src=dist.get_global_rank(group, owner),
+                       group=group)
+    return out
 
 
 class _GatherLayer(torch.autograd.Function):
@@ -419,16 +462,11 @@ class _GatherLayer(torch.autograd.Function):
     def forward(ctx, part, mesh, placements, owner):
         ctx.mesh, ctx.placements, ctx.owner = mesh, placements, owner
         ctx.keep = owner is None or mesh.coord[FSDP_AXIS] == owner
-        out = part
-        if owner is not None:
-            group = mesh.groups[FSDP_AXIS]
-            out = part.clone() if ctx.keep else torch.empty_like(part)
-            if mesh.shape[FSDP_AXIS] > 1:
-                dist.broadcast(out, src=dist.get_global_rank(group, owner),
-                               group=group)
+        out = part if owner is None else _from_owner(part, mesh, owner)
         for ax, pl in zip(AXES, placements):
             if isinstance(pl, Shard) and not (ax == FSDP_AXIS and
                                                owner is not None):
+                _count("all_gather", ax)
                 out = _all_gather(out, pl.dim - 1, mesh.groups[ax])
         return out.clone() if out is part else out
 
@@ -438,9 +476,11 @@ class _GatherLayer(torch.autograd.Function):
         stacked = (FSDP_AXIS,) if owner is not None else ()
         for ax, pl in zip(AXES, placements):
             if isinstance(pl, Shard) and ax not in stacked:
+                _count("reduce_scatter", ax)
                 g = _reduce_scatter(g, pl.dim - 1, mesh.groups[ax])
         g = g.contiguous()
         if owner is not None and mesh.shape[FSDP_AXIS] > 1:
+            _count("all_reduce", FSDP_AXIS)
             _all_reduce(g, mesh.groups[FSDP_AXIS])
         g = _reduce_replicated(g, mesh, placements, skip=stacked)
         return (g if ctx.keep else None), None, None, None
@@ -469,10 +509,24 @@ def unshard(tree: Params, keep: Optional[str] = LAYER_STACK) -> Params:
         tree)
 
 
+def _model_local_layer(part: torch.Tensor, mesh: Mesh,
+                       owner: Optional[int]) -> torch.Tensor:
+    """Layer i of a serving tree's model-local leaf (placed (fsdp, None,
+    model) by the rules): this rank's shard on the model axis, fetched
+    from its owner on the fsdp axis, or the rank's own slice itself where
+    no other rank holds it (no autograd: serving trees only run
+    forwards)."""
+    if owner is None or mesh.shape[FSDP_AXIS] == 1:
+        return part
+    return _from_owner(part, mesh, owner)
+
+
 def layer_source(stack: Params):
     """i -> layer i of a stacked layer tree as plain tensors. For a stack
     of DTensors the layer is gathered from its owner on the fsdp axis and
-    the other axes (the whole stack is never gathered); otherwise it is
+    the other axes (the whole stack is never gathered), except on the
+    model axis for the model-local leaves of a serving tree
+    (`serving_params`), which keep this rank's shard; otherwise it is
     core/params.layer's view."""
     flat = dict(leaves_with_path(stack))
     if not any(isinstance(x, DTensor) for x in flat.values()):
@@ -487,18 +541,22 @@ def layer_source(stack: Params):
         sink = getattr(x, "layer_grad_sink", None)
         local = x.to_local() if sink is None else sink.tensor
         slices = local.unbind(0) if sink is None else None
-        parts[path] = (mesh, pl, local, slices, sink, x.shape[0])
+        parts[path] = (mesh, pl, local, slices, sink, x.shape[0],
+                       getattr(x, MODEL_LOCAL, False))
 
     def fetch(i: int):
         got = {}
-        for path, (mesh, pl, local, slices, sink, n_layers) in parts.items():
+        for path, (mesh, pl, local, slices, sink, n_layers,
+                   model_local) in parts.items():
             fs = pl[AXES.index(FSDP_AXIS)]
             owner, j = None, i
             if isinstance(fs, Shard) and fs.dim == 0:
                 per = n_layers // mesh.shape[FSDP_AXIS]
                 owner, j = i // per, i % per
             part = slices[j] if sink is None else read_layer(local, j, sink)
-            got[path] = _GatherLayer.apply(part, mesh, pl, owner)
+            got[path] = (_model_local_layer(part, mesh, owner)
+                         if model_local else
+                         _GatherLayer.apply(part, mesh, pl, owner))
         return _unflatten(got)
     return fetch
 
@@ -521,10 +579,106 @@ def full_tree(tree: Params) -> Params:
     return map_with_path(lambda _, x: full(x), tree)
 
 
-def serving_params(params: Params, mesh: Mesh) -> Params:
+# The attribute that marks a serving tree's model-local layer-stack leaf
+# (a DTensor): layer_source hands out this rank's model shard of it.
+MODEL_LOCAL = "model_local"
+
+# The decoder's tensor-parallel blocks: (block, the matrices split on
+# their output columns, the matrix split on its input rows).
+TP_BLOCKS = (("attn", ("wq", "wk", "wv"), "wo"),
+             ("mlp", ("w_gate", "w_up"), "w_down"))
+
+
+class ModelSplit:
+    """The model axis of a serving tree's decoder (module docstring):
+    `blocks` names the blocks each rank computes on its own shard
+    ("attn", "mlp"); `size`, `index`: the model axis's size and this
+    rank's coordinate on it."""
+
+    def __init__(self, mesh: Mesh, blocks: Tuple[str, ...]):
+        self.blocks = blocks
+        self.group = mesh.groups[MODEL_AXIS]
+        self.size = mesh.shape[MODEL_AXIS]
+        self.index = mesh.coord[MODEL_AXIS]
+
+    def reduce(self, partial: torch.Tensor) -> torch.Tensor:
+        """A block's partial product (f32, this rank's heads or MLP
+        columns) -> the sum over the model group, in f32."""
+        partial = partial.contiguous()
+        _count("all_reduce", MODEL_AXIS)
+        _all_reduce(partial, self.group)
+        return partial
+
+    def columns(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's share of the last dim of a whole product (the
+        columns its split matrices hold)."""
+        return x.chunk(self.size, -1)[self.index]
+
+
+def model_split(stack: Params) -> Optional[ModelSplit]:
+    """The ModelSplit of a serving tree's decoder layer stack, None for a
+    stack that computes whole on the model axis (a training tree, a
+    quantized engine, a mesh whose model axis is 1, no mesh)."""
+    blocks, mesh = [], None
+    for name, _, rows in TP_BLOCKS:
+        x = stack.get(name, {}).get(rows)
+        if getattr(x, MODEL_LOCAL, False):
+            blocks.append(name)
+            mesh = Mesh.of(x.device_mesh)
+    return None if mesh is None else ModelSplit(mesh, tuple(blocks))
+
+
+def _mark_model_local(stack: Params, mesh: Mesh, cfg) -> Tuple[str, ...]:
+    """Marks the leaves of every block of `stack` whose matrices are all
+    DTensors sharded on the model axis (the attention's only where each
+    rank gets whole heads: a split that would cut a head raises); ->
+    the marked blocks."""
+    model = AXES.index(MODEL_AXIS)
+    M = mesh.shape[MODEL_AXIS]
+    marked = []
+    for name, cols, rows in TP_BLOCKS:
+        leaves = [stack.get(name, {}).get(k) for k in cols + (rows,)]
+        if not all(isinstance(x, DTensor) and
+                   isinstance(x.placements[model], Shard) for x in leaves):
+            continue
+        if name == "attn":
+            for what, heads in (("heads", cfg.num_heads),
+                                ("KV heads", cfg.num_kv_heads)):
+                if heads % M:
+                    raise ValueError(
+                        f"mesh {mesh}: the model axis M={M} would cut the "
+                        f"decoder's {what} H={heads} (H*head_dim divides "
+                        f"by M, H does not); pick an M that divides "
+                        f"{heads}")
+        for x in leaves:
+            setattr(x, MODEL_LOCAL, True)
+        marked.append(name)
+    return tuple(marked)
+
+
+def warm_group(mesh: Mesh, axis: str, device) -> None:
+    """One all_reduce over the axis's group on `device`: NCCL builds a
+    communicator at its first collective, which a CUDA graph capture
+    must not be."""
+    x = torch.zeros(1, device=device)
+    _count("all_reduce", axis)
+    _all_reduce(x, mesh.groups[axis])
+
+
+def serving_params(params: Params, mesh: Mesh, llama_cfg) -> Params:
     """An engine's tree under a mesh: the decoder's layer stack sharded by
-    the rules (gathered one layer at a time in every forward), every
-    other leaf gathered once into a plain tensor (embeddings, lm_head,
-    towers, heads: a few percent of a 7B model)."""
+    the rules, every other leaf gathered once into a plain tensor
+    (embeddings, lm_head, towers, heads: a few percent of a 7B model).
+    On a model axis above 1 the decoder's blocks that the rules split
+    compute on each rank's own shard (module docstring, ModelSplit); a
+    model axis that would cut a head (`llama_cfg`'s heads) raises. Every
+    rank of the mesh must call it."""
     with torch.no_grad():
-        return unshard(shard_params(params, mesh))
+        tree = unshard(shard_params(params, mesh))
+    if mesh.shape[MODEL_AXIS] > 1:
+        stack = tree["llama"]["layers"]
+        if _mark_model_local(stack, mesh, llama_cfg):
+            leaf = next(x for _, x in leaves_with_path(stack)
+                        if getattr(x, MODEL_LOCAL, False))
+            warm_group(mesh, MODEL_AXIS, leaf.to_local().device)
+    return tree

@@ -170,23 +170,25 @@ class DecodeGraphs:
     # -- static caches ------------------------------------------------------
 
     def cache(self, cfg, rows: int, cache_len: int, dtype,
-              device, kv_int8: bool = False) -> KVCache:
+              device, kv_int8: bool = False,
+              heads: Optional[int] = None) -> KVCache:
         """The static cache of (rows, cache_len, dtype, kv_int8) on
         `device`: the same storage at every call, its lengths zero, valid
         until the next call of any key (module docstring). kv_int8: int8
         k/v with f32 scales (nn/llama.KVCache), views of an int8 slab and
-        a scale slab. The caller's prefill writes it in place; entries at
-        or above a row's length hold whatever an earlier call wrote there
-        (attention never reads them)."""
+        a scale slab. heads: the KV heads it holds (nn/llama.kv_heads: a
+        rank's share under a model split; default all of cfg's). The
+        caller's prefill writes it in place; entries at or above a row's
+        length hold whatever an earlier call wrote there (attention never
+        reads them)."""
         device = torch.device(device)
-        key = (cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, rows,
+        heads = cfg.num_kv_heads if heads is None else heads
+        key = (cfg.num_layers, heads, cfg.head_dim, rows,
                cache_len, dtype, str(device), kv_int8)
         c = self._caches.get(key)
         if c is None:
-            shape = (cfg.num_layers, rows, cache_len, cfg.num_kv_heads,
-                     cfg.head_dim)
-            n = rows * cache_len * cfg.num_layers * cfg.num_kv_heads \
-                * cfg.head_dim
+            shape = (cfg.num_layers, rows, cache_len, heads, cfg.head_dim)
+            n = rows * cache_len * cfg.num_layers * heads * cfg.head_dim
             base = key[:3] + key[6:7]
             with torch.inference_mode(False):
                 kv = self._slab(base + ("kv", torch.int8 if kv_int8

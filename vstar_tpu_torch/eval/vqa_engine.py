@@ -30,6 +30,7 @@ from ..decode.sampler import decode_stats, greedy_decode
 from ..decode.scorer import score_options
 from ..decode.speculative import lookup_decode, speculative_decode
 from ..models.vqa_llm import decode_step, encode_feature_bank, prefill
+from ..nn.llama import kv_heads
 from ..multimodal.constants import DEFAULT_IMAGE_TOKEN
 from ..multimodal.conversation import CONV_TEMPLATES
 from ..multimodal.splicing import build_layout, spliced_length
@@ -86,13 +87,13 @@ class VQAEngine:
         kv_int8: int8 KV caches with per-(token, head) scales
         (nn/llama.KVCache), for free-form decode and option scoring.
         mesh: shard the model over a core/mesh.Mesh (JAX's mesh=): the
-        decoder's layer stack by the partition rules, gathered one layer
-        at a time in every forward, the rest gathered once
-        (core/mesh.serving_params). Every rank runs the same requests and
-        computes the same tokens."""
+        decoder's layer stack by the partition rules, each layer fetched
+        from its fsdp owner in every forward and tensor-parallel on the
+        model axis, the rest gathered once (core/mesh.serving_params).
+        Every rank runs the same requests and computes the same tokens."""
         if mesh is not None:
             from ..core.mesh import serving_params
-            params = serving_params(params, mesh)
+            params = serving_params(params, mesh, cfg.llama)
         self.mesh = mesh
         self.params = params
         self.cfg = cfg
@@ -212,7 +213,9 @@ class VQAEngine:
         bank = bank.to(self.compute_dtype)
         cache = self.graphs.cache(self.cfg.llama, len(lays), cache_len,
                                   self.compute_dtype, dev,
-                                  kv_int8=self.kv_int8)
+                                  kv_int8=self.kv_int8,
+                                  heads=kv_heads(self.params["llama"],
+                                                 self.cfg.llama))
         lens = torch.tensor([lay.length for lay in lays], dtype=torch.int32,
                             device=dev)
 

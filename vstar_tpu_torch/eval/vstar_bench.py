@@ -23,9 +23,10 @@ loaders' unless given).
 
 --mesh DxFxM (under torchrun, one rank per card) shards both models over
 a core/mesh.Mesh: each engine keeps its decoder's layer stack sharded by
-the partition rules and gathers one layer at a time. Every rank runs
-the same loop over the same images and computes the same answers; rank
-0 alone prints and writes the result file.
+the partition rules, fetches each layer from its fsdp owner and computes
+it tensor-parallel on the model axis (core/mesh.serving_params). Every
+rank runs the same loop over the same images and computes the same
+answers; rank 0 alone prints and writes the result file.
 
     torchrun --nproc-per-node 2 -m vstar_tpu_torch.eval.vstar_bench \
         --vqa-model-path <dir> --vsm-model-path <dir> --mesh 1x2x1

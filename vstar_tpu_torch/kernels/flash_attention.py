@@ -61,10 +61,13 @@ route_launches = {"tile": 0, "split": 0, "combine": 0}
 split_launches_by_rows = {}
 # launches by (batch, query rows), both routes; counted in `launches` too
 launches_by_shape = {}
+# launches by query heads (a rank's share under a model split of the
+# decoder, core/mesh.ModelSplit); counted in `launches` too
+launches_by_heads = {}
 _build.register_counters(__name__, "launches", "plain_calls_cuda",
                          "bwd_launches", "bwd_plain_calls_cuda",
                          "route_launches", "split_launches_by_rows",
-                         "launches_by_shape")
+                         "launches_by_shape", "launches_by_heads")
 
 HEAD_DIM = 128   # the head width the kernels are instantiated for
 SPLIT_MAX_SQ = 16    # query rows up to which K1 takes the split route
@@ -323,6 +326,7 @@ def _forward_kernel(q, k, v, kv_lens, q_offsets, kv_valid, with_lse):
     _build.check(lib, code, "flash_attention")
     launches += 1
     launches_by_shape[(B, Sq)] = launches_by_shape.get((B, Sq), 0) + 1
+    launches_by_heads[H] = launches_by_heads.get(H, 0) + 1
     if n_splits:
         route_launches["split"] += 1
         route_launches["combine"] += 1

@@ -25,7 +25,7 @@ from ..decode.speculative import speculative_decode
 from ..kernels.image_ops import normalize_u8_images
 from ..multimodal.splicing import apply_splice
 from ..nn.basic import dense, init_dense, init_layernorm
-from ..nn.llama import (embed_tokens, init_llama_params,
+from ..nn.llama import (embed_tokens, init_llama_params, kv_heads,
                         llama_forward, lm_logits)
 from ..nn.owl_heads import init_owl_head_params, owl_detect
 from ..nn.projectors import apply_projector, init_projector_params
@@ -222,7 +222,8 @@ def vsm_generate(params: Dict, cfg: VSMConfig, images_clip: torch.Tensor,
                      bank, feat_idx, is_feat)
     pos = torch.arange(S, device=dev)[None].expand(B, S)
     cache = graphs.cache(cfg.llama, B, cache_len, compute_dtype, dev,
-                         kv_int8=kv_int8)
+                         kv_int8=kv_int8,
+                         heads=kv_heads(params["llama"], cfg.llama))
     hidden, cache = llama_forward(
         params["llama"], cfg.llama, h, pos, lens,
         q_offsets=torch.zeros((B,), dtype=torch.int32, device=dev),

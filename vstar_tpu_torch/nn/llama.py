@@ -12,7 +12,13 @@ Under a mesh (core/mesh.py) the layer stack is a tree of DTensors
 sharded by the partition rules: the loop gathers layer i alone, from its
 owner on the fsdp axis (core/mesh.layer_source), inside the recomputed
 region under remat, so the gathered layer is dropped after the layer and
-gathered again for its backward.
+gathered again for its backward. An engine's tree on a model axis above
+1 (core/mesh.serving_params, ModelSplit) is tensor-parallel as
+vstar_tpu's compiled step is: each rank's layer holds its own heads and
+MLP columns, whose counts the blocks read from the local weights'
+shapes; the products of wo and w_down are partial sums, reduced over
+the model group in f32 before the residual add; the KV cache holds the
+rank's own KV heads (`kv_heads`).
 
 Training: LoRA adapters (`layers.attn.lora`, train/lora.py) add their
 delta to q and v before the reshape and rope, as in JAX; `remat`
@@ -32,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.config import LlamaConfig
-from ..core.mesh import layer_source
+from ..core.mesh import ModelSplit, layer_source, model_split
 from ..core.params import Init, dense_init, embed_init
 from ..kernels.flash_attention import flash_attention
 from .basic import init_rmsnorm, rmsnorm
@@ -74,10 +80,22 @@ class KVCache:
         return dataclasses.replace(self, length=length)
 
 
+def kv_heads(params: Dict, cfg: LlamaConfig) -> int:
+    """The KV heads a cache of this decoder holds on this rank: all of
+    cfg's, or this rank's share where the tree's attention is split on
+    the model axis (core/mesh.model_split)."""
+    split = model_split(params["layers"])
+    if split is None or "attn" not in split.blocks:
+        return cfg.num_kv_heads
+    return cfg.num_kv_heads // split.size
+
+
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, kv_int8: bool = False, *,
-               device) -> KVCache:
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+               device, heads: Optional[int] = None) -> KVCache:
+    """heads: the KV heads it holds (`kv_heads`; default all of cfg's)."""
+    heads = cfg.num_kv_heads if heads is None else heads
+    shape = (cfg.num_layers, batch, max_len, heads, cfg.head_dim)
     length = torch.zeros((batch,), dtype=torch.int32, device=device)
     if kv_int8:
         return KVCache(k=torch.zeros(shape, dtype=torch.int8, device=device),
@@ -170,6 +188,35 @@ def _ragged_insert(cache_kv: torch.Tensor, new_kv: torch.Tensor,
     cache_kv[rows, pos] = new_kv.to(cache_kv.dtype)
 
 
+def _out_heads(w, whole: int, head_dim: int) -> int:
+    """The heads a q / k / v matrix of this rank computes: its local
+    columns over head_dim (a quantized entry is whole on the model
+    axis)."""
+    return w.shape[-1] // head_dim if isinstance(w, torch.Tensor) else whole
+
+
+def _partial_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w of a rank's rows of w as an f32 partial sum (accumulated in
+    f32 and not rounded to x's dtype before the model group adds it)."""
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return x @ w
+    w = w.to(x.dtype)
+    if x.is_cuda:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+    return x.float() @ w.float()
+
+
+def _row_split_dot(x: torch.Tensor, w, split: Optional[ModelSplit]
+                   ) -> torch.Tensor:
+    """x @ w for wo / w_down: whole (qdot), or with `split` this rank's
+    rows of w times its columns of x, summed over the model group in
+    f32 and cast back to x's dtype."""
+    if split is None:
+        return qdot(x, w)
+    return split.reduce(_partial_dot(x, w)).to(x.dtype)
+
+
 def _attention_block(lp: Dict, cfg: LlamaConfig, x: torch.Tensor,
                      cos: torch.Tensor, sin: torch.Tensor,
                      kv_lens: torch.Tensor,
@@ -178,14 +225,22 @@ def _attention_block(lp: Dict, cfg: LlamaConfig, x: torch.Tensor,
                      cache_v: Optional[torch.Tensor],
                      kv_valid: Optional[torch.Tensor] = None,
                      cache_ks: Optional[torch.Tensor] = None,
-                     cache_vs: Optional[torch.Tensor] = None):
+                     cache_vs: Optional[torch.Tensor] = None,
+                     split: Optional[ModelSplit] = None):
+    """split: this block's model split (its wq / wk / wv / wo are the
+    rank's shards), None when it computes whole."""
     B, S, _ = x.shape
-    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    Dh = cfg.head_dim
+    H = _out_heads(lp["wq"], cfg.num_heads, Dh)
+    Hkv = _out_heads(lp["wk"], cfg.num_kv_heads, Dh)
     q = qdot(x, lp["wq"])
     v = qdot(x, lp["wv"])
     if "lora" in lp:
-        q = q + lora_delta(lp["lora"], lp["lora_scale"], "wq", x)
-        v = v + lora_delta(lp["lora"], lp["lora_scale"], "wv", x)
+        dq = lora_delta(lp["lora"], lp["lora_scale"], "wq", x)
+        dv = lora_delta(lp["lora"], lp["lora_scale"], "wv", x)
+        if split is not None:
+            dq, dv = split.columns(dq), split.columns(dv)
+        q, v = q + dq, v + dv
     q = apply_rope(q.reshape(B, S, H, Dh), cos, sin)
     k = apply_rope(qdot(x, lp["wk"]).reshape(B, S, Hkv, Dh), cos, sin)
     v = v.reshape(B, S, Hkv, Dh)
@@ -216,12 +271,14 @@ def _attention_block(lp: Dict, cfg: LlamaConfig, x: torch.Tensor,
 
     out = flash_attention(q, k_all, v_all, kv_lens=kv_lens,
                           q_offsets=q_offsets, kv_valid=kv_valid)
-    return qdot(out.reshape(B, S, H * Dh), lp["wo"])
+    return _row_split_dot(out.reshape(B, S, H * Dh), lp["wo"], split)
 
 
-def _mlp_block(lp: Dict, x: torch.Tensor) -> torch.Tensor:
+def _mlp_block(lp: Dict, x: torch.Tensor,
+               split: Optional[ModelSplit] = None) -> torch.Tensor:
+    """split: as _attention_block's (the rank's MLP columns)."""
     gate = F.silu(qdot(x, lp["w_gate"]))
-    return qdot(gate * qdot(x, lp["w_up"]), lp["w_down"])
+    return _row_split_dot(gate * qdot(x, lp["w_up"]), lp["w_down"], split)
 
 
 def llama_forward(params: Dict, cfg: LlamaConfig, hidden: torch.Tensor,
@@ -246,13 +303,18 @@ def llama_forward(params: Dict, cfg: LlamaConfig, hidden: torch.Tensor,
     kv_lens sharing the input cache's storage, or None)."""
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    split = model_split(params["layers"])
+    attn_split, mlp_split = (
+        None if split is None or name not in split.blocks else split
+        for name in ("attn", "mlp"))
 
     def one_layer(x, lp, ck=None, cv=None, cks=None, cvs=None):
         h = rmsnorm(lp["input_norm"], x, cfg.rms_norm_eps)
         x = x + _attention_block(lp["attn"], cfg, h, cos, sin, kv_lens,
-                                 q_offsets, ck, cv, kv_valid, cks, cvs)
+                                 q_offsets, ck, cv, kv_valid, cks, cvs,
+                                 attn_split)
         h = rmsnorm(lp["post_norm"], x, cfg.rms_norm_eps)
-        return x + _mlp_block(lp["mlp"], h)
+        return x + _mlp_block(lp["mlp"], h, mlp_split)
 
     fetch = layer_source(params["layers"])
     x = hidden

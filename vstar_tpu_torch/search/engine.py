@@ -50,12 +50,13 @@ class VSMEngine:
         """kv_int8: int8 KV caches with per-(token, head) scales
         (nn/llama.KVCache). mesh: shard the model over a core/mesh.Mesh
         (JAX's mesh=): the decoder's layer stack by the partition rules,
-        gathered one layer at a time in every forward, the rest gathered
-        once (core/mesh.serving_params); every rank runs the same searches
-        and computes the same tokens, boxes and heatmaps."""
+        each layer fetched from its fsdp owner in every forward and
+        tensor-parallel on the model axis, the rest gathered once
+        (core/mesh.serving_params); every rank runs the same searches and
+        computes the same tokens, boxes and heatmaps."""
         if mesh is not None:
             from ..core.mesh import serving_params
-            params = serving_params(params, mesh)
+            params = serving_params(params, mesh, cfg.llama)
         self.mesh = mesh
         self.params = params
         self.cfg = cfg

@@ -30,7 +30,9 @@ torchrun's ranks, one rank a card, as vstar_tpu's --mesh does:
     torchrun --nproc-per-node N -m vstar_tpu_torch.serve.server \
         --vqa-model-path DIR --vsm-model-path DIR --mesh 1xNx1
 
-Rank 0 binds the HTTP server and broadcasts each request (each wave
+On a model axis (--mesh 1x1xN, 1xFxM) each rank computes its own heads
+and MLP columns of every decoder layer (tensor parallelism,
+core/mesh.serving_params). Rank 0 binds the HTTP server and broadcasts each request (each wave
 with --continuous) to the other ranks before it runs it; they follow
 (serve/ranks.py). --mesh takes checkpoint engines only: vstar_tpu's
 random-init engines take no mesh, and the port refuses the pair.
