@@ -8,25 +8,34 @@ plan_train_memory to the byte on 1x1x1, 1x8x1, 2x2x2 and a faked 1x16x1.
 
 Over ranks: one world of 4 gloo ranks (torch.multiprocessing, a file
 store in tmp_path; tests/test_torch_mesh_world.py holds the ranks' code)
-runs every sharded computation on the 2x2x1 and 1x2x2 meshes at the tiny
-configs, and rank 0 hands back the results gathered whole:
+runs every sharded computation on the 2x2x1, 1x2x2 and 1x1x4 meshes at
+the tiny configs, and rank 0 hands back the results gathered whole:
   * the decoder's forward on the sharded tree against JAX's and the
     unsharded port's;
   * an f32 SFT finetune step (8 rows) against JAX's jitted step;
   * the VSM loss's metrics on 8 rows against JAX's jitted loss, its
-    gradients against the unsharded port's, and an f32 VSM step over 2
-    micro-batches against JAX's jitted step and the unsharded port's;
+    gradients against the unsharded port's (an M-fold gradient fails
+    them), its validation forward against the unsharded port's, and an
+    f32 VSM step over 2 micro-batches against JAX's jitted step and the
+    unsharded port's;
+  * on 1x2x2 and 1x1x4, where the decoder trains tensor-parallel, the
+    steps' model-group collectives per layer in the forward, the remat
+    recompute and the backward against the layer body of vstar_tpu's
+    SFT step and VSM value_and_grad compiled at 1x1x4, K1 and K7 at H/M
+    heads, no layer gather on the model axis, each rank's 1/M of the
+    layer matrices;
   * the VQA and VSM trainer loops resumed from a sharded ckpt_latest
-    against the unsharded loops (the VQA loop resumed alike, the VSM
-    loop's two epochs in one go);
+    (2x2x1, 1x2x2) against the unsharded loops (the VQA loop resumed
+    alike, the VSM loop's two epochs in one go);
   * sharded VQA and VSM engines' answers, choices, boxes, scores and
-    heatmaps against the unsharded engines' (also on 1x1x4, the engines
-    alone); on 1x2x2, where the decoder is tensor-parallel, also against
-    vstar_tpu's engines sharded on the same mesh shape, with the
-    decoder's collectives in a prefill and a decode step counted against
-    those of vstar_tpu's compiled step (its HLO), each rank's KV cache
-    heads and K1's query heads, and a model axis that would cut a head
-    refused;
+    heatmaps against the unsharded engines'; on 1x2x2, where the decoder
+    and the towers are tensor-parallel, also against vstar_tpu's engines
+    sharded on the same mesh shape, with the decoder's collectives in a
+    prefill and a decode step counted against those of vstar_tpu's
+    compiled step (its HLO), each rank's KV cache heads and K1's query
+    heads, and a model axis that would cut a head refused;
+  * on 1x1x4, CLIP-L/14 and OWL-B/16 at their widths split on the model
+    axis against the unsharded port and vstar_tpu's compile-only HLO;
   * serving over the mesh (serve/ranks.py): rank 0's SealService (a
     free-form request, one with options, two with a forced search) and
     ContinuousSealService (a wave of 3 with forced searches, a wave
@@ -99,6 +108,7 @@ from vstar_tpu_torch.data.vsm_collate import batch_to_torch
 from vstar_tpu_torch.eval import synthetic
 from vstar_tpu_torch.models.vqa_llm import init_vqa_llm_params as t_vqa_init
 from vstar_tpu_torch.models.vsm import init_vsm_params as t_vsm_init
+from vstar_tpu_torch.nn.vit import clip_patch_features
 from vstar_tpu_torch.train import lora as tl
 from vstar_tpu_torch.train import train_vqa_main as t_main
 
@@ -107,14 +117,19 @@ torch.set_num_threads(1)
 TOL = 1e-5
 BOX_ATOL = 1e-2
 LR = W.LR
-SHAPES = ((2, 2, 1), (1, 2, 2))
+SHAPES = ((2, 2, 1), (1, 2, 2), (1, 1, 4))
 MESHES = ["x".join(map(str, s)) for s in SHAPES]
-# the shape whose model axis splits the decoder (tensor parallelism)
+# the shape whose model axis splits the decoder beside fsdp, against
+# vstar_tpu's engines sharded alike
 TP_SHAPE = SHAPES[1]
 TP_MESH = MESHES[1]
-# the engines alone: the model axis over the whole world (fsdp 1)
-ENGINE_SHAPES = ((1, 1, 4),)
-ENGINE_MESHES = MESHES + ["x".join(map(str, s)) for s in ENGINE_SHAPES]
+# the model axis over the whole world (fsdp 1): training against the
+# layer body of vstar_tpu's compiled steps
+MODEL_SHAPE = SHAPES[2]
+MODEL_MESH = MESHES[2]
+TRAIN_TP_MESHES = MESHES[1:]
+# the trainer loops with a resume: data x fsdp rows, and a model split
+LOOP_MESHES = MESHES[:2]
 # JAX's sharded-inference tolerance (tests/test_sharded_inference.py)
 DET_TOL = dict(rtol=1e-4, atol=1e-4)
 MASK_TOL = dict(rtol=1e-4, atol=1e-3)
@@ -206,6 +221,22 @@ def test_memory_plan_equals_jax_on_meshes(which):
             assert got.summary() == want.summary()
 
 
+@pytest.mark.parametrize("shape", [(1, 4, 1), (1, 2, 2), (1, 1, 4)])
+def test_step_memory_gathers_a_model_split_layer_at_1_over_m(shape):
+    """step_memory's gathered decoder layer of the 7B VQA (bf16): the
+    attention's and the MLP's matrices at 1/M (H/M heads), the norms
+    whole; fsdp does not shrink it (a layer is gathered whole on it)."""
+    tree = _tree_7b("vqa", "torch")
+    cfg = tcfg.vqa_llm_7b().llama
+    D, F = cfg.hidden_size, cfg.intermediate_size
+    want = 2 * ((2 * cfg.q_dim * D + 2 * cfg.kv_dim * D + 3 * D * F)
+                // shape[2] + 2 * D)
+    got = tmem.step_memory(tree, shape)
+    assert (got.accum_bytes, got.largest_grad_bytes, got.layer_bytes) == \
+        (0, 0, want)
+    assert "one gathered decoder layer" in got.summary()
+
+
 def _eight_vsm_rows():
     """tests/test_train.py's batch at 8 rows: rows without valid boxes and
     without a valid mask, so every normaliser differs between ranks."""
@@ -277,8 +308,10 @@ def started(tmp_path_factory):
                                        seed=0, image_hw=(256, 256), target=3)
     sft_rows = _sft_batch(work, rows=(0, 1, 2, 0, 1, 2, 0, 1))
     make_dataset_dir(work / "vsm_data")
-    job = {"shapes": SHAPES, "engine_shapes": ENGINE_SHAPES,
-           "loop_shape": "2x2x1", "work": str(work),
+    job = {"shapes": SHAPES,
+           "loop_shapes": LOOP_MESHES, "serve_shape": "2x2x1",
+           "tower_shape": MODEL_MESH,
+           "work": str(work),
            "vqa_cfg": T_VQA_CFG, "vsm_cfg": T_VSM_CFG,
            "vqa": vqa, "vsm": vsm, "tilted_vsm": _tilted(vsm),
            "forward_inputs": tuple(torch.from_numpy(x) for x in
@@ -299,7 +332,8 @@ def started(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def world(started, jax_sft, vsm_refs, jax_vsm_step, jax_serving,
-          jax_engines, jax_tp_structure):
+          jax_engines, jax_tp_structure, jax_train_layers, jax_towers,
+          plain_towers):
     """The 4-rank world's results, and the inputs it was given."""
     job, work, ranks = started
     while not ranks.join():
@@ -395,7 +429,30 @@ def test_sharded_vsm_loss_equals_jax_and_grads_the_port(world, vsm_refs,
 
 
 @pytest.mark.parametrize("mesh", MESHES)
+def test_sharded_vsm_val_forward_equals_unsharded(world, mesh):
+    """The trainer's validation forward on the sharded tree (the decoder
+    and, on a model axis, the towers split) against the unsharded
+    port's: mask logits, detection logits and boxes within TOL."""
+    out, job, _ = world
+    want = W.vsm_val(job["vsm"], T_VSM_CFG, job["vsm_batch"])
+    for got, w in zip(out[mesh]["vsm_val"], want):
+        np.testing.assert_allclose(got.numpy(), w.numpy(), rtol=0,
+                                   atol=TOL)
+
+
+@pytest.mark.parametrize("mesh", MESHES[:2])
 def test_sharded_vsm_steps_equal_unsharded(world, vsm_refs, mesh):
+    """The sharded f32 VSM step (2 micro-batches) against the unsharded
+    port's: metrics within TOL, parameters by _assert_update_close. The
+    1x1x4 step is held to JAX's step (test_sharded_vsm_steps_equal_jax,
+    0.1 lr) and its gradients to the port's
+    (test_sharded_vsm_loss_equals_jax_and_grads_the_port), not here: its
+    wq_a holds the near-zero gradient element the JAX comparison
+    describes (-3.04e-7 against the leaf's 0.089; the model group's
+    partial sums give -3.26e-7), which Adam's first update, scaled by the
+    clip near its eps, moves 1.3e-5 to 1.6e-5 apart, one element of 256,
+    above the share rule's 0.1 % (the same element is 1.26e-5 apart
+    between the unsharded port and JAX)."""
     out, _, _ = world
     metrics, params = out[mesh]["vsm_steps"]
     _, _, (want_m, want_p) = vsm_refs
@@ -470,20 +527,147 @@ def test_sharded_vsm_steps_equal_jax(world, jax_vsm_step, mesh):
                                    atol=0.1 * LR, err_msg=k)
 
 
-def test_vqa_loop_resumes_sharded_to_the_unsharded_loop(world, tmp_path):
-    """run_training on 2x2x1: one epoch, then a second invocation resuming
-    from the per-rank ckpt_latest; the unsharded loop resumed alike (held
-    to its run in one go, bit for bit, by tests/test_torch_sft.py) ends
-    in the same parameters, with the same logged losses."""
+def _layer_body_collectives(text, shape, act):
+    """The collectives over 'model' of the decoder layer body in compiled
+    HLO text, by phase: those inside a scan body (op_name .../while/body
+    /...) with an operand of the decoder's activation shape `act`
+    ([B, S, D] in f32); phase "backward" for the transposed body, and
+    "recompute" for its rematted computation, else "forward". A
+    combined (tuple) collective counts once."""
+    shape_re = re.compile(r"f32\[%s\]" % ",".join(map(str, act)))
+    out = {}
+    for line in text.splitlines():
+        found = _HLO_COLLECTIVE.search(line)
+        name = re.search(r'op_name="([^"]*)"', line)
+        if not found or found.group(1) not in ("all-reduce", "all-gather") \
+                or not name or "while/body" not in name.group(1) or \
+                not shape_re.search(line.split(" = ", 1)[1].split(
+                    " " + found.group(1))[0]):
+            continue
+        coords = np.array([np.unravel_index(d, shape) for d in
+                           _hlo_groups(found.group(2))[0]])
+        if len(set(coords[:, 2])) < 2:
+            continue
+        op = name.group(1)
+        phase = ("forward" if "transpose(" not in op else
+                 "recompute" if "rematted_computation" in op
+                 else "backward")
+        key = (found.group(1).replace("-", "_"), phase)
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_train_layers(started):
+    """vstar_tpu's compiled training on the 1x1x4 mesh of four of the eight
+    CPU devices, on the world's f32 trees: the finetune step
+    (sft_train_step, the frozen-tower mask, the 8 rows) and the VSM
+    loss's value_and_grad on one micro-batch of 4 rows (as
+    jax_vsm_step); for each, the model-group collectives of the decoder
+    layer body by phase (_layer_body_collectives)."""
+    job, _, _ = started
+    jm = jmesh.make_mesh(MODEL_SHAPE, devices=jax.devices()[:4])
+    D = VQA_CFG.llama.hidden_size
+    jp = jmesh.shard_params(_jax_tree(job["vqa"]), jm)
+    mask = jsft.make_frozen_vision_mask(jp)
+    opt = jsft.make_optimizer(LR, warmup_steps=0, total_steps=4,
+                              trainable_mask=mask)
+    batch = job["sft_rows"]
+    text = jax.jit(lambda st, b: jsft.sft_train_step(
+        st, b, VQA_CFG, opt, mask, compute_dtype=jnp.float32)).lower(
+        jsft.init_train_state(jp, opt), batch).compile().as_text()
+    out = {"sft": _layer_body_collectives(
+        text, MODEL_SHAPE, (*batch["text_ids"].shape, D))}
+    vp = jmesh.shard_params(_jax_tree(job["vsm"]), jm)
+    rows = {k: v[:4] for k, v in _eight_vsm_rows().items()}
+    text = jax.jit(jax.value_and_grad(lambda p, b: j_vsm_loss(
+        p, VSM_CFG, b, compute_dtype=jnp.float32), has_aux=True)).lower(
+        vp, rows).compile().as_text()
+    out["vsm"] = _layer_body_collectives(
+        text, MODEL_SHAPE, (*rows["text_ids"].shape, D))
+    return out
+
+
+@pytest.mark.parametrize("mesh", TRAIN_TP_MESHES)
+@pytest.mark.parametrize("trainer", ["sft", "vsm"])
+def test_tensor_parallel_training_equals_jax_layer_body(world,
+                                                        jax_train_layers,
+                                                        trainer, mesh):
+    """A tensor-parallel training step (the finetune step of 8 rows; the
+    VSM step of 2 micro-batches, LoRA on q and v): per layer and
+    micro-batch, the decoder layer's model-group collectives in the
+    forward, the recompute (remat) and the backward equal those of
+    vstar_tpu's compiled layer body at 1x1x4: 2 all-reduces forward
+    (the f32 partial sums after wo and w_down), 1 recompute (wo's; the
+    MLP's output is not needed again), 2 backward (one for each block's
+    input, LoRA's gradients in the attention's, as XLA combines them),
+    no all-gather; on 1x2x2 the model group runs the same. K1 runs on
+    H/M query heads in the forward and the recompute, K7 on H/M; no
+    layer gather all-gathers over the model group; each rank holds
+    1/M of wq / wk / wv / w_gate / w_up's columns and of wo / w_down's
+    rows. Outside the layer body (not compared): the loss's vocabulary
+    split (3 all-reduces forward, 1 backward, as XLA's log_softmax and
+    target gather), and the tiny embed_tokens, split on its vocabulary,
+    which the port all-gathers where XLA reduces a masked lookup."""
+    out, _, _ = world
+    got = out[mesh][f"{trainer}_structure"]
+    cfg = T_VQA_CFG.llama
+    L, M = cfg.num_layers, dict(zip(MESHES, SHAPES))[mesh][2]
+    micro = 2 if trainer == "vsm" else 1
+    per_layer = {(op, phase): n / (L * micro)
+                 for (site, op, phase), n in got["collectives"].items()
+                 if site == "layer"}
+    want = {k: float(n) for k, n in jax_train_layers[trainer].items()}
+    assert want == {("all_reduce", "forward"): 2.0,
+                    ("all_reduce", "recompute"): 1.0,
+                    ("all_reduce", "backward"): 2.0}, want
+    assert per_layer == want, got["collectives"]
+    vocab = {(op, phase): n for (site, op, phase), n in
+             got["collectives"].items() if site == "vocab"}
+    assert vocab == {("all_reduce", "forward"): 3 * micro,
+                     ("all_reduce", "backward"): micro}, vocab
+    assert sorted(set(got["k1"])) == [("forward", cfg.num_heads // M),
+                                      ("recompute", cfg.num_heads // M)]
+    assert len(got["k1"]) == 2 * L * micro
+    assert got["k7"] == [cfg.num_heads // M] * L * micro
+    assert got["layer_gathers"] == 0
+    D, F, Hq = cfg.hidden_size, cfg.intermediate_size, cfg.q_dim
+    want_shapes = {"wq": (L, D, Hq // M), "wk": (L, D, cfg.kv_dim // M),
+                   "wv": (L, D, cfg.kv_dim // M), "wo": (L, Hq // M, D),
+                   "w_gate": (L, D, F // M), "w_up": (L, D, F // M),
+                   "w_down": (L, F // M, D)}
+    if mesh == TP_MESH:     # fsdp 2 also shards the 2 layers
+        want_shapes = {k: (1, *v[1:]) for k, v in want_shapes.items()}
+    assert got["shapes"] == [want_shapes] * 4
+
+
+@pytest.fixture(scope="module")
+def plain_loops(world, tmp_path_factory):
+    """The unsharded VQA loop (resumed alike) and VSM loop (two epochs in
+    one go) on the world's trees and data."""
+    _, job, _ = world
+    vqa = W.vqa_loop(job["vqa"], T_VQA_CFG, job["vqa_data"],
+                     tmp_path_factory.mktemp("plain_vqa"), None, resume=True)
+    vsm = W.vsm_loop(job["vsm"], T_VSM_CFG, job["vsm_data"], "plain", None,
+                     resume=False)
+    return vqa, vsm
+
+
+@pytest.mark.parametrize("mesh", LOOP_MESHES)
+def test_vqa_loop_resumes_sharded_to_the_unsharded_loop(world, plain_loops,
+                                                        mesh):
+    """run_training on 2x2x1 and on 1x2x2 (the decoder tensor-parallel):
+    one epoch, then a second invocation resuming from the per-rank
+    ckpt_latest; the unsharded loop resumed alike (held to its run in one
+    go, bit for bit, by tests/test_torch_sft.py) ends in the same
+    parameters, with the same logged losses."""
     out, job, _ = world
-    step, params, logged = out["2x2x1"]["vqa_loop"]
+    step, params, logged = out[mesh]["vqa_loop"]
     files = [f for f in os.listdir(os.path.join(job["work"],
-                                                "vqa_2x2x1", "ckpt_latest"))]
+                                                f"vqa_{mesh}", "ckpt_latest"))]
     assert sorted(f for f in files if f.startswith("state")) == \
         [f"state.rank{r}" for r in range(4)]
-    want_step, want_p, want_log = W.vqa_loop(
-        job["vqa"], T_VQA_CFG, job["vqa_data"], tmp_path / "plain", None,
-        resume=True)
+    want_step, want_p, want_log = plain_loops[0]
     assert step == want_step == 4
     assert [(r["epoch"], r["step"]) for r in logged] == \
         [(r["epoch"], r["step"]) for r in want_log]
@@ -493,16 +677,19 @@ def test_vqa_loop_resumes_sharded_to_the_unsharded_loop(world, tmp_path):
         _assert_update_close(v.numpy(), want_p[k].numpy(), k)
 
 
-def test_vsm_loop_resumes_sharded_to_the_unsharded_loop(world):
-    """run_vsm_training on 2x2x1 (4 rows a step), resumed from its per-rank
-    ckpt_latest, against the unsharded loop's two epochs."""
+@pytest.mark.parametrize("mesh", LOOP_MESHES)
+def test_vsm_loop_resumes_sharded_to_the_unsharded_loop(world, plain_loops,
+                                                        mesh):
+    """run_vsm_training on 2x2x1 and on 1x2x2 (4 rows a step), resumed
+    from its per-rank ckpt_latest, against the unsharded loop's two
+    epochs."""
     out, job, _ = world
-    step, params = out["2x2x1"]["vsm_loop"]
-    meta = json.loads((job["vsm_data"] / "runs" / "vsm_2x2x1"
+    step, params = out[mesh]["vsm_loop"]
+    meta = json.loads((job["vsm_data"] / "runs" / f"vsm_{mesh}"
                        / "ckpt_latest" / "meta.json").read_text())
-    assert meta["mesh"] == [2, 2, 1] and meta["epoch"] == 1
-    want_step, want_p = W.vsm_loop(job["vsm"], T_VSM_CFG, job["vsm_data"],
-                                   "plain", None, resume=False)
+    assert meta["mesh"] == list(dict(zip(MESHES, SHAPES))[mesh]) and \
+        meta["epoch"] == 1
+    want_step, want_p = plain_loops[1]
     assert step == want_step == 4
     for k, v in params.items():
         _assert_update_close(v.numpy(), want_p[k].numpy(), k)
@@ -523,7 +710,7 @@ def _same_engines(got, want, exact):
                 **(MASK_TOL if k in ("heatmap", "segment") else DET_TOL))
 
 
-@pytest.mark.parametrize("mesh", ENGINE_MESHES)
+@pytest.mark.parametrize("mesh", MESHES)
 def test_sharded_engines_equal_unsharded(world, mesh):
     """Bit for bit where the model axis is 1 (every rank computes whole
     layers); on 1x2x2 and 1x1x4 the decoder is tensor-parallel, its wo
@@ -667,6 +854,106 @@ def test_tensor_parallel_structure_equals_jax_hlo(world, jax_tp_structure):
     assert spec == (None, None, None, "model")
     assert got["cache_heads"] == [(shard_shape[3], cfg.head_dim)] * 4
     assert shard_shape[3] == cfg.num_kv_heads // M
+
+
+@pytest.fixture(scope="module")
+def plain_towers(started):
+    """The unsharded port's towers on W.tower_tree (W.tower_outputs)."""
+    return W.tower_outputs(W.tower_tree())
+
+
+@pytest.fixture(scope="module")
+def jax_towers(started):
+    """vstar_tpu's vit_forward at W.tower_cfgs' widths, its parameters
+    placed by the rules on the 1x1x4 mesh of four CPU devices, compiled
+    only (abstract f32 inputs, one image): per tower, the all-reduces
+    and all-gathers over 'model' in the layer scan's body and outside
+    it ({("all_reduce" / "all_gather", "layer" / "outside"): n})."""
+    from jax.sharding import NamedSharding
+    from vstar_tpu.core.params import map_with_path as j_map
+    from vstar_tpu.nn.vit import init_vit_params as j_vit_init
+    from vstar_tpu.nn.vit import vit_forward as j_vit_forward
+    jm = jmesh.make_mesh(MODEL_SHAPE, devices=jax.devices()[:4])
+    out = {}
+    for name, tcfg_ in W.tower_cfgs().items():
+        cfg = j_vsm_7b().vision if name == "vision" else \
+            j_vsm_7b().owl_vision
+        cfg = dataclasses.replace(cfg, num_layers=tcfg_.num_layers)
+        shapes = jax.eval_shape(lambda: j_vit_init(jax.random.PRNGKey(0),
+                                                   cfg))
+
+        def abstract(path, leaf, name=name):
+            spec = jmesh._clip_spec_to_leaf(
+                jmesh.spec_for(f"{name}.{path}"), leaf, jm)
+            return jax.ShapeDtypeStruct(leaf.shape, leaf.dtype,
+                                        sharding=NamedSharding(jm, spec))
+        img = jax.ShapeDtypeStruct(
+            (1, cfg.image_size, cfg.image_size, 3), jnp.float32,
+            sharding=NamedSharding(jm, jmesh.P()))
+        owl = name == "owl_tower"
+        text = jax.jit(lambda p, x, cfg=cfg, owl=owl: j_vit_forward(
+            p, cfg, x, feature_layer=-1 if owl else None,
+            apply_post_ln=owl)).lower(
+            j_map(abstract, shapes), img).compile().as_text()
+        counts = {}
+        for line in text.splitlines():
+            found = _HLO_COLLECTIVE.search(line)
+            if not found or found.group(1) not in ("all-reduce",
+                                                   "all-gather"):
+                continue
+            coords = np.array([np.unravel_index(d, MODEL_SHAPE) for d in
+                               _hlo_groups(found.group(2))[0]])
+            if len(set(coords[:, 2])) < 2:
+                continue
+            key = (found.group(1).replace("-", "_"),
+                   "layer" if "while/body" in line else "outside")
+            counts[key] = counts.get(key, 0) + 1
+        out[name] = counts
+    return out
+
+
+def test_towers_split_as_jax_hlo_at_real_widths(world, jax_towers,
+                                                plain_towers):
+    """CLIP-L/14 (257 tokens, 16 heads, one layer used) and OWL-B/16 (2305
+    tokens, 12 heads, one layer) at their widths on 1x1x4, held as an
+    engine or a trainer holds them: the features equal the unsharded
+    port's (DET_TOL); each tower's model-group collectives equal those of
+    vstar_tpu's compiled tower: in a layer 5 all-reduces (each
+    layernorm's two moments, fc2's partial products) and 3 all-gathers
+    (the normed states before q / k / v and before fc1, the attention's
+    output before wo); outside the layers the pre-LN's (and OWL's
+    post-LN's) two all-reduces, and the port's one more all-gather, of
+    the output at the tower's end (XLA leaves it split on its features
+    into the projectors and heads). Attention runs on H/M heads: CLIP's
+    plain attention on 4, OWL's K2 on 3. A tiny tower of 2 heads, which
+    M = 4 would cut, gathers its matrices and computes whole: its
+    features equal the unsharded port's too."""
+    out, _, _ = world
+    got, trace, cut = out[MODEL_MESH]["towers"]
+    M = MODEL_SHAPE[2]
+    cfg, tree, img = W.cut_tower()
+    with torch.no_grad():
+        want = clip_patch_features(tree["vision"], cfg, img)
+    np.testing.assert_allclose(cut.numpy(), want.numpy(), **DET_TOL)
+    for name, cfg in W.tower_cfgs().items():
+        np.testing.assert_allclose(got[name].numpy(),
+                                   plain_towers[name].numpy(),
+                                   err_msg=name, **DET_TOL)
+        counts, calls = trace[name]
+        used = 1
+        hlo = jax_towers[name]
+        assert hlo[("all_reduce", "layer")] == 5 * used, (name, hlo)
+        assert hlo[("all_gather", "layer")] == 3 * used, (name, hlo)
+        assert hlo.get(("all_gather", "outside"), 0) == 0, (name, hlo)
+        port = {op: n for (site, op, phase), n in counts.items()
+                if site == "tower" and phase == "forward"}
+        assert set(counts) <= {("tower", op, "forward") for op in port}
+        assert port == {
+            "all_reduce": hlo[("all_reduce", "layer")]
+            + hlo[("all_reduce", "outside")],
+            "all_gather": hlo[("all_gather", "layer")] + 1}, (name, port)
+        k2 = name == "owl_tower"
+        assert calls == [(k2, cfg.num_heads // M)] * used, (name, calls)
 
 
 def test_model_split_refuses_to_cut_a_head(world):

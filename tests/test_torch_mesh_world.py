@@ -9,6 +9,7 @@ the results (plain tensors, gathered whole) with torch.save."""
 from __future__ import annotations
 
 import copy
+import sys
 import types
 
 import numpy as np
@@ -78,6 +79,13 @@ def vsm_grads(params, cfg, batch):
     return {k: float(v) for k, v in metrics.items()}, grads
 
 
+def vsm_val(params, cfg, batch):
+    """vsm_val_forward in f32 on the whole batch (every rank computes it):
+    (mask logits, detection logits, boxes)."""
+    from vstar_tpu_torch.train.vsm_train import vsm_val_forward
+    return vsm_val_forward(params, cfg, batch, compute_dtype=torch.float32)
+
+
 def vsm_steps(params, cfg, batch, steps=1):
     """`steps` f32 vsm_train_steps over 2 micro-batches at lr 1e-3 (no
     warmup): (metrics per step, the final tree whole)."""
@@ -95,6 +103,73 @@ def vsm_steps(params, cfg, batch, steps=1):
                                compute_dtype=torch.float32, grad_accum=2)
         out.append({k: float(v) for k, v in m.items()})
     return out, _flat_full(st.params)
+
+
+class Recorder:
+    """While active on a rank of `mesh`: the model splits' collectives
+    (core/mesh.model_collectives, by (site, operation, phase)), the query
+    heads of each K1 call by phase ("forward", or "recompute" under
+    remat), the heads of each K7 call, the all-gathers a layer gather
+    runs on the model group, and the local shapes of the layer stack's
+    matrices on every rank (`shapes`, on leaving)."""
+
+    def __init__(self, mesh, stack):
+        self.mesh, self.stack = mesh, stack
+
+    def __enter__(self):
+        from vstar_tpu_torch.kernels import flash_attention as FA
+        from vstar_tpu_torch.nn import llama as L
+        self.k1, self.k7, self.layer_gathers = [], [], 0
+        M.model_collectives.clear()
+        self.saved = (L.flash_attention, FA.flash_attention_bwd,
+                      M._all_gather)
+        fa, bwd, gather = self.saved
+        group = self.mesh.groups[M.MODEL_AXIS]
+
+        def k1(q, *a, **kw):
+            self.k1.append((M._phase(), q.shape[2]))
+            return fa(q, *a, **kw)
+
+        def k7(q, *a, **kw):
+            self.k7.append(q.shape[2])
+            return bwd(q, *a, **kw)
+
+        def all_gather(x, dim, g):
+            if g is group and sys._getframe(1).f_code.co_qualname == \
+                    "_GatherLayer.forward":
+                self.layer_gathers += 1
+            return gather(x, dim, g)
+
+        L.flash_attention, FA.flash_attention_bwd, M._all_gather = \
+            k1, k7, all_gather
+        return self
+
+    def __exit__(self, *exc):
+        from vstar_tpu_torch.kernels import flash_attention as FA
+        from vstar_tpu_torch.nn import llama as L
+        L.flash_attention, FA.flash_attention_bwd, M._all_gather = \
+            self.saved
+        self.collectives = dict(M.model_collectives)
+        local = {k: tuple(self.stack[b][k].to_local().shape)
+                 for b, cols, rows in M.TP_BLOCKS for k in cols + (rows,)}
+        every = [None] * M.world_size()
+        dist.all_gather_object(every, local)
+        self.shapes = every
+
+    def result(self):
+        return {"collectives": self.collectives, "k1": self.k1,
+                "k7": self.k7, "layer_gathers": self.layer_gathers,
+                "shapes": self.shapes}
+
+
+def recorded(mesh, stack, fn, *args):
+    """fn(*args) under a Recorder where the mesh's model axis is above 1:
+    (its result, the Recorder's result or None)."""
+    if mesh.shape[M.MODEL_AXIS] == 1:
+        return fn(*args), None
+    with Recorder(mesh, stack) as rec:
+        out = fn(*args)
+    return out, rec.result()
 
 
 def vqa_loop_args(out, mesh, epochs):
@@ -264,6 +339,96 @@ def tp_structure(params, cfg, mesh):
     except ValueError as e:
         out["refusal"] = str(e)
     return out
+
+
+# the towers at their widths: vsm_7b's CLIP-L/14 with 2 layers (the
+# penultimate, 1, used) and OWL-B/16 with 1, one image each
+TOWER_LAYERS = {"vision": 2, "owl_tower": 1}
+
+
+def tower_cfgs():
+    """{tower: its ViTConfig at 7B widths, cut to TOWER_LAYERS}."""
+    import dataclasses
+    from vstar_tpu_torch.core.config import vsm_7b
+    cfg = vsm_7b()
+    return {"vision": dataclasses.replace(cfg.vision, num_layers=2),
+            "owl_tower": dataclasses.replace(cfg.owl_vision, num_layers=1)}
+
+
+def tower_outputs(tree, trace=None):
+    """Each tower of `tree` (plain tensors, or an engine's tree with the
+    model split kept) on its seeded image: CLIP's patch features, OWL's
+    post-LN states. trace: a dict that receives, per tower, the model
+    group's collectives (core/mesh.model_collectives, site "tower") and
+    the heads of each attention call, (whether K2 took it, heads)."""
+    from vstar_tpu_torch.nn import vit as V
+    out = {}
+    attention = V.tower_attention, V._plain_attention
+    calls = []
+
+    def k2(q, *a, **kw):
+        calls.append((True, q.shape[2]))
+        return attention[0](q, *a, **kw)
+
+    def plain(q, *a, **kw):
+        calls.append((False, q.shape[2]))
+        return attention[1](q, *a, **kw)
+
+    V.tower_attention, V._plain_attention = k2, plain
+    try:
+        for name, cfg in tower_cfgs().items():
+            img = torch.randn((1, cfg.image_size, cfg.image_size, 3),
+                              generator=torch.Generator().manual_seed(21))
+            M.model_collectives.clear()
+            del calls[:]
+            with torch.no_grad():
+                if name == "vision":
+                    out[name] = V.clip_patch_features(tree[name], cfg, img)
+                else:
+                    out[name] = V.vit_forward(tree[name], cfg, img,
+                                              feature_layer=-1,
+                                              apply_post_ln=True)
+            if trace is not None:
+                trace[name] = (dict(M.model_collectives), list(calls))
+    finally:
+        V.tower_attention, V._plain_attention = attention
+    return out
+
+
+def tower_tree():
+    """The towers' f32 random weights (seeded) at tower_cfgs' widths."""
+    from vstar_tpu_torch.nn.vit import init_vit_params
+    return {name: init_vit_params(Init(31 + i, "cpu"), cfg)
+            for i, (name, cfg) in enumerate(tower_cfgs().items())}
+
+
+def cut_tower():
+    """A tiny CLIP tower (hidden 32) of 2 heads, which a model axis of 4
+    would cut: (its config, its f32 random weights, an image)."""
+    import dataclasses
+    from vstar_tpu_torch.core.config import vqa_llm_tiny
+    from vstar_tpu_torch.nn.vit import init_vit_params
+    cfg = dataclasses.replace(vqa_llm_tiny().vision, num_heads=2)
+    img = torch.randn((2, cfg.image_size, cfg.image_size, 3),
+                      generator=torch.Generator().manual_seed(22))
+    return cfg, {"vision": init_vit_params(Init(41, "cpu"), cfg)}, img
+
+
+def tower_structure(mesh):
+    """tower_tree held as an engine holds it on `mesh` (core/mesh
+    .serving_params' way: sharded, then gathered but for the model
+    split of model_local_leaves): (tower_outputs, its trace, cut_tower's
+    patch features held alike)."""
+    from vstar_tpu_torch.nn.vit import clip_patch_features
+    tree = M.shard_params(tower_tree(), mesh)
+    tree = M.unshard(tree, model_local=M.model_local_leaves(tree))
+    trace = {}
+    out = tower_outputs(tree, trace)
+    cfg, cut, img = cut_tower()
+    cut = M.shard_params(cut, mesh)
+    cut = M.unshard(cut, model_local=M.model_local_leaves(cut))
+    with torch.no_grad():
+        return out, trace, clip_patch_features(cut["vision"], cfg, img)
 
 
 def eval_mains(dirs, bench, out_json, mesh, vqa_cfg, vsm_cfg):
@@ -522,8 +687,7 @@ def serve_http(job, mesh_arg):
 
 def world(rank, n, store, job_path, out_path):
     """One rank: every sharded computation of the job on each of its mesh
-    shapes, and the engines alone on each of its engine shapes; rank 0
-    saves {shape: {check: result}}."""
+    shapes; rank 0 saves {shape: {check: result}}."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store, n),
                             rank=rank, world_size=n)
@@ -538,19 +702,24 @@ def world(rank, n, store, job_path, out_path):
             vqa = M.shard_params(job["vqa"], mesh)
             res["forward"] = decoder_forward(vqa, job["vqa_cfg"],
                                              *job["forward_inputs"])
-            res["sft"] = sft_steps(vqa, job["vqa_cfg"], job["sft_batch"],
-                                   "finetune")
+            res["sft"], res["sft_structure"] = recorded(
+                mesh, vqa["llama"]["layers"], sft_steps, vqa,
+                job["vqa_cfg"], job["sft_batch"], "finetune")
             vsm = M.shard_params(job["vsm"], mesh)
             res["vsm_grads"] = vsm_grads(vsm, job["vsm_cfg"],
                                          job["vsm_batch"])
-            res["vsm_steps"] = vsm_steps(vsm, job["vsm_cfg"],
-                                         job["vsm_batch"])
+            res["vsm_val"] = vsm_val(vsm, job["vsm_cfg"], job["vsm_batch"])
+            res["vsm_steps"], res["vsm_structure"] = recorded(
+                mesh, vsm["llama"]["layers"], vsm_steps, vsm,
+                job["vsm_cfg"], job["vsm_batch"])
             res["engines"] = engines(job["vqa"], job["vqa_cfg"],
                                      job["tilted_vsm"], job["vsm_cfg"], mesh)
             if mesh.shape[M.MODEL_AXIS] > 1:
                 res["tp_structure"] = tp_structure(job["vqa"],
                                                    job["vqa_cfg"], mesh)
-            if key == job["loop_shape"]:
+            if key == job["tower_shape"]:
+                res["towers"] = tower_structure(mesh)
+            if key in job["loop_shapes"]:
                 res["vqa_loop"] = vqa_loop(job["vqa"], job["vqa_cfg"],
                                            job["vqa_data"],
                                            f"{job['work']}/vqa_{key}", key,
@@ -558,6 +727,7 @@ def world(rank, n, store, job_path, out_path):
                 res["vsm_loop"] = vsm_loop(job["vsm"], job["vsm_cfg"],
                                            job["vsm_data"], f"vsm_{key}",
                                            key, resume=True)
+            if key == job["serve_shape"]:
                 res["eval_mains"] = eval_mains(
                     job["hf_dirs"], job["bench"],
                     f"{job['work']}/eval_{key}.json", key, job["vqa_cfg"],
@@ -565,11 +735,6 @@ def world(rank, n, store, job_path, out_path):
                 res["serve_single"] = serve_single(job, mesh)
                 res["serve_continuous"] = serve_continuous(job, mesh)
                 res["serve_http"] = serve_http(job, key)
-        for shape in job["engine_shapes"]:
-            mesh = M.make_mesh(shape, "cpu")
-            out["x".join(map(str, shape))] = {"engines": engines(
-                job["vqa"], job["vqa_cfg"], job["tilted_vsm"],
-                job["vsm_cfg"], mesh)}
         if rank == 0:
             torch.save(out, out_path)
     finally:

@@ -20,7 +20,8 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .mesh import AXES, DEFAULT_RULES, _clip_spec_to_leaf, spec_for
+from .mesh import (AXES, DEFAULT_RULES, LAYER_STACK, MODEL_AXIS, TP_BLOCKS,
+                   _clip_spec_to_leaf, spec_for)
 from .params import leaves_with_path
 
 
@@ -99,15 +100,20 @@ class StepMemory:
     dtype): with more than one micro-batch, the f32 accumulation buffers
     of train/accumulate.py and the largest gradient alive at once while
     they fill (a leaf's, or one layer's for a stacked leaf read layer by
-    layer); with one, nothing (its gradient tree is the plan's)."""
+    layer), else nothing of these (its gradient tree is the plan's); and
+    the decoder layer the step gathers at a time (`layer_bytes`: every
+    leaf of one layer whole but on the model axis, where a block the
+    rules split keeps 1/M of its matrices, H/M heads)."""
     accum_bytes: int
     largest_grad_bytes: int
+    layer_bytes: int = 0
 
     def summary(self) -> str:
         gb = 1024 ** 3
         return (f"the step adds f32 accumulation buffers "
                 f"{self.accum_bytes / gb:.2f} GB/chip, largest gradient "
-                f"{self.largest_grad_bytes / gb:.2f} GB")
+                f"{self.largest_grad_bytes / gb:.2f} GB, one gathered "
+                f"decoder layer {self.layer_bytes / gb:.2f} GB")
 
 
 def _is_layer_stack(path: str) -> bool:
@@ -119,14 +125,35 @@ def _is_layer_stack(path: str) -> bool:
     return not any(p.isdigit() for p in parts[parts.index("layers") + 1:])
 
 
+def _gathered_layer_bytes(params: Dict, sizes: Dict[str, int],
+                          rules) -> int:
+    """One layer of the decoder's stack as core/mesh.layer_source hands it
+    out: whole, but for the blocks whose matrices the (clipped) rules all
+    split on a model axis above 1 (core/mesh.model_split), 1/M of those."""
+    prefix = LAYER_STACK + "."
+    stack = {p[len(prefix):]: x for p, x in leaves_with_path(params)
+             if p.startswith(prefix)}
+    M = sizes[MODEL_AXIS]
+    local = set()
+    for name, cols, rows in TP_BLOCKS:
+        paths = [f"{name}.{k}" for k in cols + (rows,)]
+        if M > 1 and all(p in stack and MODEL_AXIS in _clip_spec_to_leaf(
+                spec_for(prefix + p, rules), stack[p].shape, sizes)
+                for p in paths):
+            local.update(paths)
+    return sum(x[0].numel() * x.element_size() // (M if p in local else 1)
+               for p, x in stack.items())
+
+
 def step_memory(params: Dict, mesh=None,
                 trainable_mask: Optional[Dict] = None, num_micro: int = 1,
                 rules=DEFAULT_RULES) -> StepMemory:
     """StepMemory of a step over `num_micro` micro-batches on `mesh` (as
     plan_train_memory takes it); `params` may live on the meta device."""
-    if num_micro <= 1:
-        return StepMemory(0, 0)
     sizes = mesh_shape(mesh)
+    layer_bytes = _gathered_layer_bytes(params, sizes, rules)
+    if num_micro <= 1:
+        return StepMemory(0, 0, layer_bytes)
     mask = (None if trainable_mask is None
             else dict(leaves_with_path(trainable_mask)))
     accum = largest = 0
@@ -142,7 +169,7 @@ def step_memory(params: Dict, mesh=None,
         if _is_layer_stack(path) and local:
             numel //= local[0]
         largest = max(largest, numel * leaf.element_size())
-    return StepMemory(accum, largest)
+    return StepMemory(accum, largest, layer_bytes)
 
 
 def device_memory_gb(device: Union[str, torch.device]) -> Optional[float]:

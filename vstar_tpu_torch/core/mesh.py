@@ -10,10 +10,11 @@ each holding on its rank the shard the PartitionSpec names (clipped,
 as in JAX, where an axis does not divide the leaf's dimension).
 
 Training follows the ZeRO-3 / FSDP pattern the rules were written for
-("gather one layer per scan step"): every rank is a data-parallel rank
-that takes its own rows of the step's batch, and the fsdp and model axes
-shard storage (parameters, f32 masters, AdamW moments). A forward
-gathers what it is about to use into plain tensors:
+("gather one layer per scan step"): each rank of the data x fsdp product
+takes its own rows of the step's batch, the ranks of one model group
+take the same rows, and the fsdp and model axes shard storage
+(parameters, f32 masters, AdamW moments). A forward gathers what it is
+about to use into plain tensors:
   * `unshard(tree)` gathers every leaf outside the decoder's layer stack
     (embeddings, lm_head, norms, towers, projectors, heads);
   * `layer_source(stack)` gathers decoder layer i alone, from the rank
@@ -22,19 +23,36 @@ gathers what it is about to use into plain tensors:
 Both are autograd functions whose backward sums the ranks' partial
 gradients back onto the shards (reduce-scatter along a sharded axis, a
 sum over a replicated one, the owner's sum for a layer), so a step on
-the sharded tree is the one-device step on the whole batch. The kernels
-(K1, K2, K3, K5, K6, K7) only ever see the gathered plain tensors.
+the sharded tree is the one-device step on the whole batch. The sums
+run over the data and fsdp axes only: the ranks of a model group
+compute the same rows, and every leaf they hold whole (or gather whole)
+gets the whole gradient on each of them, which the model split's
+backward makes so (below); on the model axis a gather's backward keeps
+its own chunk of that gradient.
 
-An engine's tree (`serving_params`) computes the model axis as
-vstar_tpu's compiled step does, tensor-parallel (Megatron-style): each
-rank keeps its own columns of wq / wk / wv / w_gate / w_up and rows of
-wo / w_down, computes its own heads and MLP columns, and the products
-of wo and w_down are partial sums that `ModelSplit.reduce` adds over
-the model group (two all-reduces a layer, no gather on the model axis;
-its KV cache holds its own heads). A block whose matrices the rules do
-not all split on model (a quantized block: its leaves' spec is
-P('fsdp')) is gathered and computed whole, as XLA computes it. The fsdp
-axis still fetches each layer from its owner.
+The decoder computes the model axis as vstar_tpu's compiled step does,
+tensor-parallel (Megatron-style), in training and in serving: where the
+rules split a block's matrices on the model axis, each rank keeps its
+own columns of wq / wk / wv / w_gate / w_up and rows of wo / w_down
+(`model_split`; the layer gather hands them out model-local), computes
+its own heads and MLP columns, and the products of wo and w_down are
+partial sums that `ModelSplit.reduce` adds over the model group (an
+all-reduce in f32, Megatron's g: its backward is the identity). The
+block's input enters through `ModelSplit.enter` (Megatron's f: the
+identity forward, one all-reduce of the gradients over the model group
+backward), and so does what the block uses whole of LoRA (x @ A, B,
+the scale): their gradients, partial on each rank, come out whole. The
+vision towers' matrices, which VISION_RULES split on the model axis,
+stay each rank's shard (`model_local_leaves`; nn/vit.py computes on
+them as XLA partitions the tower), and so does a training tree's
+lm_head where the rules split its vocabulary (not at 7B, whose 32003
+rows divide by nothing): the loss then computes the log-softmax over
+the model group (train/sft.next_token_logprobs). An engine's tree
+(`serving_params`) gathers every other leaf once; its KV cache holds the
+rank's own heads. A block whose matrices the rules do not all split on
+model (a quantized block: its leaves' spec is P('fsdp')) is gathered
+and computed whole, as XLA computes it. The fsdp axis still fetches
+each layer from its owner.
 
 Collectives are plain torch.distributed calls on the axes' process
 groups: NCCL on cards, gloo on the CPU. `collectives` counts them by
@@ -196,42 +214,54 @@ class Mesh:
 
     def data_sharding(self, ndim: int = 1) -> tuple:
         """JAX's `data_sharding(mesh, ndim)`: the leading (batch) dim over
-        the data axis. The port's steps split rows over every rank
-        instead (`local_rows`); this is the layout of a data-only
+        the data axis. The port's steps split rows over the data x fsdp
+        ranks instead (`local_rows`); this is the layout of a data-only
         split."""
         return self.placements((DATA_AXIS,) + (None,) * (ndim - 1))
 
     def __repr__(self) -> str:
         return f"Mesh({'x'.join(str(n) for n in self.dims)})"
 
-    # --- the batch: every rank takes its own rows ---------------------------
+    # --- the batch: each data x fsdp rank takes its own rows ----------------
+
+    @property
+    def row_ranks(self) -> int:
+        """The ranks that take rows of their own: data x fsdp (the ranks of
+        one model group take the same rows)."""
+        return self.shape[DATA_AXIS] * self.shape[FSDP_AXIS]
 
     def local_rows(self, batch: Dict[str, torch.Tensor], num_micro: int = 1
                    ) -> Dict[str, torch.Tensor]:
         """This rank's rows of a step's batch: micro-batch i of the global
-        batch (rows [i m, (i + 1) m)) is split in rank order, so that the
-        local micro-batch i is this rank's share of the global one and
-        every normaliser can be summed across ranks."""
+        batch (rows [i m, (i + 1) m)) is split over the data x fsdp ranks
+        in their order, so that the local micro-batch i is this rank's
+        share of the global one and every normaliser can be summed over
+        those ranks (`batch_sum`); the ranks of a model group take the
+        same share."""
         n = max(num_micro, 1)
-        r, w = rank(), self.size
+        w = self.row_ranks
+        r = self.coord[DATA_AXIS] * self.shape[FSDP_AXIS] \
+            + self.coord[FSDP_AXIS]
         out = {}
         for k, v in batch.items():
             rows = v.shape[0]
             if rows % (n * w):
                 raise ValueError(
                     f"{k}: {rows} rows in {n} micro-batches do not split "
-                    f"over the mesh's {w} ranks")
+                    f"over the mesh's {w} data x fsdp ranks")
             m = rows // n
             out[k] = v.reshape(n, m, *v.shape[1:])[
                 :, r * m // w:(r + 1) * m // w].reshape(-1, *v.shape[1:])
         return out
 
     def batch_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum over the ranks' rows (a count, a partial loss); no
-        gradient flows through it."""
+        """The sum over the data x fsdp ranks' rows (a count, a partial
+        loss), each row once; no gradient flows through it."""
         x = x.detach().clone()
-        _count("all_reduce", "world")
-        _all_reduce(x, None)
+        for ax in (DATA_AXIS, FSDP_AXIS):
+            if self.shape[ax] > 1:
+                _count("all_reduce", ax)
+                _all_reduce(x, self.groups[ax])
         return x
 
     def sum_squares(self, tree: Dict[str, torch.Tensor],
@@ -401,27 +431,45 @@ def _reduce_scatter(g: torch.Tensor, dim: int, group) -> torch.Tensor:
 
 def _reduce_replicated(g: torch.Tensor, mesh: Mesh, placements,
                        skip: Tuple[str, ...] = ()) -> torch.Tensor:
-    """Sum a gradient over every axis on which its leaf is replicated (the
-    ranks there computed partial gradients of the same shard)."""
+    """Sum a gradient over the data and fsdp axes on which its leaf is
+    replicated (the ranks there computed partial gradients of the same
+    shard, from their own rows); never over the model axis, whose ranks
+    computed the same rows and hold the same gradient."""
     for ax, pl in zip(AXES, placements):
-        if ax not in skip and isinstance(pl, Replicate) \
-                and mesh.shape[ax] > 1:
+        if ax != MODEL_AXIS and ax not in skip \
+                and isinstance(pl, Replicate) and mesh.shape[ax] > 1:
             g = g.contiguous()
             _count("all_reduce", ax)
             _all_reduce(g, mesh.groups[ax])
     return g
 
 
+def _own_chunk(g: torch.Tensor, mesh: Mesh, placements,
+               offset: int = 0) -> torch.Tensor:
+    """A gradient that every rank of the model group computed whole (the
+    same rows, the same leaf) -> this rank's chunk of it on the model
+    axis where the leaf is sharded there (dim - `offset` of `g`), with no
+    communication."""
+    pl = placements[AXES.index(MODEL_AXIS)]
+    if isinstance(pl, Shard) and mesh.shape[MODEL_AXIS] > 1:
+        g = g.chunk(mesh.shape[MODEL_AXIS], pl.dim - offset)[
+            mesh.coord[MODEL_AXIS]]
+    return g
+
+
 class _Gather(torch.autograd.Function):
-    """local shard -> the whole leaf; backward: the ranks' summed
+    """local shard -> the whole leaf (with `model_local`, still this rank's
+    shard on the model axis); backward: the data x fsdp ranks' summed
     gradient, this rank's shard of it."""
 
     @staticmethod
-    def forward(ctx, local, mesh, placements):
+    def forward(ctx, local, mesh, placements, model_local):
         ctx.mesh, ctx.placements = mesh, placements
+        ctx.model_local = model_local
         out = local
         for ax, pl in zip(AXES, placements):
-            if isinstance(pl, Shard):
+            if isinstance(pl, Shard) and mesh.shape[ax] > 1 and \
+                    not (model_local and ax == MODEL_AXIS):
                 _count("all_gather", ax)
                 out = _all_gather(out, pl.dim, mesh.groups[ax])
         return out.clone() if out is local else out
@@ -429,11 +477,14 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         mesh, placements = ctx.mesh, ctx.placements
+        if not ctx.model_local:
+            g = _own_chunk(g, mesh, placements)
         for ax, pl in zip(AXES, placements):
-            if isinstance(pl, Shard):
+            if isinstance(pl, Shard) and ax != MODEL_AXIS and \
+                    mesh.shape[ax] > 1:
                 _count("reduce_scatter", ax)
                 g = _reduce_scatter(g, pl.dim, mesh.groups[ax])
-        return _reduce_replicated(g, mesh, placements), None, None
+        return _reduce_replicated(g, mesh, placements), None, None, None
 
 
 def _from_owner(part: torch.Tensor, mesh: Mesh, owner: int) -> torch.Tensor:
@@ -451,21 +502,24 @@ def _from_owner(part: torch.Tensor, mesh: Mesh, owner: int) -> torch.Tensor:
 
 class _GatherLayer(torch.autograd.Function):
     """Layer i of a stack (dim 0 the layer axis), the other axes gathered
-    inside the layer. `owner` is the fsdp rank holding layer i when fsdp
-    shards the layer axis: its slice is broadcast over the fsdp group
-    (`part` is this rank's slice j of its local stack; the others' only
-    give shape and dtype). `owner` None: this rank holds the layer.
-    Backward: the ranks' summed gradient, which on a sharded layer axis
-    only the owner keeps (the other ranks' slices get none from it)."""
+    inside the layer (with `model_local`, all but the model axis).
+    `owner` is the fsdp rank holding layer i when fsdp shards the layer
+    axis: its slice is broadcast over the fsdp group (`part` is this
+    rank's slice j of its local stack; the others' only give shape and
+    dtype). `owner` None: this rank holds the layer. Backward: the data
+    x fsdp ranks' summed gradient, which on a sharded layer axis only
+    the owner keeps (the other ranks' slices get none from it)."""
 
     @staticmethod
-    def forward(ctx, part, mesh, placements, owner):
+    def forward(ctx, part, mesh, placements, owner, model_local):
         ctx.mesh, ctx.placements, ctx.owner = mesh, placements, owner
+        ctx.model_local = model_local
         ctx.keep = owner is None or mesh.coord[FSDP_AXIS] == owner
         out = part if owner is None else _from_owner(part, mesh, owner)
         for ax, pl in zip(AXES, placements):
-            if isinstance(pl, Shard) and not (ax == FSDP_AXIS and
-                                               owner is not None):
+            if isinstance(pl, Shard) and mesh.shape[ax] > 1 and \
+                    not (ax == FSDP_AXIS and owner is not None) \
+                    and not (ax == MODEL_AXIS and model_local):
                 _count("all_gather", ax)
                 out = _all_gather(out, pl.dim - 1, mesh.groups[ax])
         return out.clone() if out is part else out
@@ -474,8 +528,11 @@ class _GatherLayer(torch.autograd.Function):
     def backward(ctx, g):
         mesh, placements, owner = ctx.mesh, ctx.placements, ctx.owner
         stacked = (FSDP_AXIS,) if owner is not None else ()
+        if not ctx.model_local:
+            g = _own_chunk(g, mesh, placements, offset=1)
         for ax, pl in zip(AXES, placements):
-            if isinstance(pl, Shard) and ax not in stacked:
+            if isinstance(pl, Shard) and mesh.shape[ax] > 1 and \
+                    ax not in stacked + (MODEL_AXIS,):
                 _count("reduce_scatter", ax)
                 g = _reduce_scatter(g, pl.dim - 1, mesh.groups[ax])
         g = g.contiguous()
@@ -483,39 +540,48 @@ class _GatherLayer(torch.autograd.Function):
             _count("all_reduce", FSDP_AXIS)
             _all_reduce(g, mesh.groups[FSDP_AXIS])
         g = _reduce_replicated(g, mesh, placements, skip=stacked)
-        return (g if ctx.keep else None), None, None, None
+        return (g if ctx.keep else None), None, None, None, None
 
 
-def full(x):
-    """A DTensor leaf as the whole plain tensor (differentiable: the
-    backward sums the ranks' gradients onto the shards); other leaves
-    unchanged."""
+def full(x, split: Optional["ModelSplit"] = None):
+    """A DTensor leaf as the whole plain tensor, or with a model `split`
+    its shard on the model axis (whole on the others), which then
+    carries the split as its `model_split` attribute; differentiable:
+    the backward sums the ranks' gradients onto the shards. Other
+    leaves unchanged."""
     if not isinstance(x, DTensor):
         return x
-    return _Gather.apply(x.to_local(), Mesh.of(x.device_mesh),
-                         tuple(x.placements))
+    out = _Gather.apply(x.to_local(), Mesh.of(x.device_mesh),
+                        tuple(x.placements), split is not None)
+    if split is not None:
+        out.model_split = split
+    return out
 
 
-def unshard(tree: Params, keep: Optional[str] = LAYER_STACK) -> Params:
+def unshard(tree: Params, keep: Optional[str] = LAYER_STACK,
+            model_local: Optional[Dict[str, "ModelSplit"]] = None
+            ) -> Params:
     """Every DTensor leaf gathered whole, except those under the path
     prefix `keep` (the decoder's layer stack, which `layer_source`
-    gathers one layer at a time). A tree without DTensors comes back as
-    it is."""
+    gathers one layer at a time); the leaves at the paths of
+    `model_local` (`model_local_leaves`) keep this rank's shard on the
+    model axis and carry their split. A tree without DTensors comes back
+    as it is."""
     if mesh_of(tree) is None:
         return tree
     prefix = None if keep is None else keep + "."
+    local = model_local or {}
     return map_with_path(
-        lambda path, x: x if prefix and path.startswith(prefix) else full(x),
-        tree)
+        lambda path, x: x if prefix and path.startswith(prefix)
+        else full(x, local.get(path)), tree)
 
 
 def _model_local_layer(part: torch.Tensor, mesh: Mesh,
                        owner: Optional[int]) -> torch.Tensor:
-    """Layer i of a serving tree's model-local leaf (placed (fsdp, None,
-    model) by the rules): this rank's shard on the model axis, fetched
-    from its owner on the fsdp axis, or the rank's own slice itself where
-    no other rank holds it (no autograd: serving trees only run
-    forwards)."""
+    """Layer i of a model-local leaf outside autograd (an engine's
+    forward): this rank's shard on the model axis, fetched from its owner
+    on the fsdp axis, or the rank's own slice itself where no other rank
+    holds it (no copy)."""
     if owner is None or mesh.shape[FSDP_AXIS] == 1:
         return part
     return _from_owner(part, mesh, owner)
@@ -525,12 +591,15 @@ def layer_source(stack: Params):
     """i -> layer i of a stacked layer tree as plain tensors. For a stack
     of DTensors the layer is gathered from its owner on the fsdp axis and
     the other axes (the whole stack is never gathered), except on the
-    model axis for the model-local leaves of a serving tree
-    (`serving_params`), which keep this rank's shard; otherwise it is
+    model axis for the matrices of the blocks the model axis splits
+    (`model_split`), which keep this rank's shard; otherwise it is
     core/params.layer's view."""
     flat = dict(leaves_with_path(stack))
     if not any(isinstance(x, DTensor) for x in flat.values()):
         return lambda i: layer(stack, i)
+    local_paths = {f"{name}.{k}" for name, cols, rows in TP_BLOCKS
+                   if name in _split_blocks(stack)[1]
+                   for k in cols + (rows,)}
     parts = {}
     for path, x in flat.items():
         mesh = Mesh.of(x.device_mesh)
@@ -542,7 +611,7 @@ def layer_source(stack: Params):
         local = x.to_local() if sink is None else sink.tensor
         slices = local.unbind(0) if sink is None else None
         parts[path] = (mesh, pl, local, slices, sink, x.shape[0],
-                       getattr(x, MODEL_LOCAL, False))
+                       path in local_paths)
 
     def fetch(i: int):
         got = {}
@@ -554,9 +623,11 @@ def layer_source(stack: Params):
                 per = n_layers // mesh.shape[FSDP_AXIS]
                 owner, j = i // per, i % per
             part = slices[j] if sink is None else read_layer(local, j, sink)
-            got[path] = (_model_local_layer(part, mesh, owner)
-                         if model_local else
-                         _GatherLayer.apply(part, mesh, pl, owner))
+            if model_local and not torch.is_grad_enabled():
+                got[path] = _model_local_layer(part, mesh, owner)
+            else:
+                got[path] = _GatherLayer.apply(part, mesh, pl, owner,
+                                               model_local)
         return _unflatten(got)
     return fetch
 
@@ -579,81 +650,195 @@ def full_tree(tree: Params) -> Params:
     return map_with_path(lambda _, x: full(x), tree)
 
 
-# The attribute that marks a serving tree's model-local layer-stack leaf
-# (a DTensor): layer_source hands out this rank's model shard of it.
-MODEL_LOCAL = "model_local"
-
 # The decoder's tensor-parallel blocks: (block, the matrices split on
 # their output columns, the matrix split on its input rows).
 TP_BLOCKS = (("attn", ("wq", "wk", "wv"), "wo"),
              ("mlp", ("w_gate", "w_up"), "w_down"))
 
+# The model group's collectives of the model splits, by (site, operation,
+# phase): site "layer" (a decoder block's reduce and enter), "vocab" (the
+# loss's vocabulary split, train/sft.next_token_logprobs) or "tower" (a
+# vision tower's layers, nn/vit.py); operation "all_reduce" or
+# "all_gather"; phase "forward", "recompute" (a forward that the
+# backward runs again, under remat) or "backward". Each is counted in
+# `collectives` too.
+model_collectives: Dict[Tuple[str, str, str], int] = {}
+_build.register_counters(__name__, "model_collectives")
+
+
+def _phase() -> str:
+    return "forward" if torch._C._current_graph_task_id() == -1 \
+        else "recompute"
+
+
+class _Reduce(torch.autograd.Function):
+    """Megatron's g: the sum over the model group forward, the identity
+    backward (every rank of the group gets the same gradient)."""
+
+    @staticmethod
+    def forward(ctx, partial, split):
+        out = partial.contiguous().clone()
+        split._all_reduce(out, _phase())
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Enter(torch.autograd.Function):
+    """Megatron's f over several tensors: the identity forward; backward,
+    the rank's partial gradients of all of them summed over the model
+    group in one all-reduce (in f32), each cast back to its dtype."""
+
+    @staticmethod
+    def forward(ctx, split, *xs):
+        ctx.split = split
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        flat = torch.cat([g.reshape(-1).float() for g in gs])
+        ctx.split._all_reduce(flat, "backward")
+        out, at = [], 0
+        for g in gs:
+            out.append(flat[at:at + g.numel()].view(g.shape).to(g.dtype))
+            at += g.numel()
+        return (None, *out)
+
 
 class ModelSplit:
-    """The model axis of a serving tree's decoder (module docstring):
-    `blocks` names the blocks each rank computes on its own shard
-    ("attn", "mlp"); `size`, `index`: the model axis's size and this
-    rank's coordinate on it."""
+    """A model split (module docstring) on this rank: `site` is where its
+    collectives are counted ("layer": the decoder's layers, whose blocks
+    `blocks` ("attn", "mlp") each rank computes on its own shard; "vocab":
+    the loss; "tower": a vision tower); `size`, `index`: the model axis's
+    size and this rank's coordinate on it."""
 
-    def __init__(self, mesh: Mesh, blocks: Tuple[str, ...]):
-        self.blocks = blocks
+    def __init__(self, mesh: Mesh, site: str,
+                 blocks: Tuple[str, ...] = ()):
+        self.blocks, self.site = blocks, site
         self.group = mesh.groups[MODEL_AXIS]
         self.size = mesh.shape[MODEL_AXIS]
         self.index = mesh.coord[MODEL_AXIS]
 
+    def _note(self, op: str, phase: str) -> None:
+        _count(op, MODEL_AXIS)
+        key = (self.site, op, phase)
+        model_collectives[key] = model_collectives.get(key, 0) + 1
+
+    def _all_reduce(self, x: torch.Tensor, phase: str, op=None) -> None:
+        self._note("all_reduce", phase)
+        if op is None:
+            _all_reduce(x, self.group)
+        else:
+            dist.all_reduce(x, op=op, group=self.group)
+
     def reduce(self, partial: torch.Tensor) -> torch.Tensor:
-        """A block's partial product (f32, this rank's heads or MLP
-        columns) -> the sum over the model group, in f32."""
+        """A partial product or sum (f32: this rank's heads, MLP columns
+        or vocabulary) -> the sum over the model group (Megatron's g)."""
+        if torch.is_grad_enabled() and partial.requires_grad:
+            return _Reduce.apply(partial, self)
         partial = partial.contiguous()
-        _count("all_reduce", MODEL_AXIS)
-        _all_reduce(partial, self.group)
+        self._all_reduce(partial, _phase())
         return partial
 
+    def enter(self, *xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """The tensors a split computation uses whole (its input, and
+        leaves such as LoRA's): themselves, whose gradients the backward
+        sums over the model group (Megatron's f); as they are outside
+        autograd."""
+        if not torch.is_grad_enabled() or \
+                not any(x.requires_grad for x in xs):
+            return xs
+        return _Enter.apply(self, *xs)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over the model group (no gradient)."""
+        x = x.detach().contiguous().clone()
+        self._all_reduce(x, _phase(), dist.ReduceOp.MAX)
+        return x
+
+    def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The model group's shards of dim `dim` concatenated, in rank
+        order (outside autograd: the frozen towers)."""
+        self._note("all_gather", _phase())
+        return _all_gather(x, dim % x.dim(), self.group)
+
     def columns(self, x: torch.Tensor) -> torch.Tensor:
-        """This rank's share of the last dim of a whole product (the
+        """This rank's share of the last dim of a whole tensor (the
         columns its split matrices hold)."""
         return x.chunk(self.size, -1)[self.index]
 
 
-def model_split(stack: Params) -> Optional[ModelSplit]:
-    """The ModelSplit of a serving tree's decoder layer stack, None for a
-    stack that computes whole on the model axis (a training tree, a
-    quantized engine, a mesh whose model axis is 1, no mesh)."""
-    blocks, mesh = [], None
-    for name, _, rows in TP_BLOCKS:
-        x = stack.get(name, {}).get(rows)
-        if getattr(x, MODEL_LOCAL, False):
-            blocks.append(name)
-            mesh = Mesh.of(x.device_mesh)
-    return None if mesh is None else ModelSplit(mesh, tuple(blocks))
-
-
-def _mark_model_local(stack: Params, mesh: Mesh, cfg) -> Tuple[str, ...]:
-    """Marks the leaves of every block of `stack` whose matrices are all
-    DTensors sharded on the model axis (the attention's only where each
-    rank gets whole heads: a split that would cut a head raises); ->
-    the marked blocks."""
+def _split_blocks(stack: Params) -> Tuple[Optional[Mesh], Tuple[str, ...]]:
+    """(the mesh, the blocks of `stack` whose matrices are all DTensors
+    sharded on a model axis above 1)."""
     model = AXES.index(MODEL_AXIS)
-    M = mesh.shape[MODEL_AXIS]
-    marked = []
+    blocks, mesh = [], None
     for name, cols, rows in TP_BLOCKS:
         leaves = [stack.get(name, {}).get(k) for k in cols + (rows,)]
-        if not all(isinstance(x, DTensor) and
-                   isinstance(x.placements[model], Shard) for x in leaves):
+        if all(isinstance(x, DTensor) and x.device_mesh.size(model) > 1
+               and isinstance(x.placements[model], Shard) for x in leaves):
+            blocks.append(name)
+            mesh = Mesh.of(leaves[0].device_mesh)
+    return mesh, tuple(blocks)
+
+
+def model_split(stack: Params, cfg=None) -> Optional[ModelSplit]:
+    """The ModelSplit of a decoder layer stack, None for a stack that
+    computes whole on the model axis (a quantized engine, a mesh whose
+    model axis is 1, no mesh). With the decoder's config `cfg`, a split
+    that would cut the attention's heads raises."""
+    mesh, blocks = _split_blocks(stack)
+    if mesh is None:
+        return None
+    M = mesh.shape[MODEL_AXIS]
+    if cfg is not None and "attn" in blocks:
+        for what, heads in (("heads", cfg.num_heads),
+                            ("KV heads", cfg.num_kv_heads)):
+            if heads % M:
+                raise ValueError(
+                    f"mesh {mesh}: the model axis M={M} would cut the "
+                    f"decoder's {what} H={heads} (H*head_dim divides by "
+                    f"M, H does not); pick an M that divides {heads}")
+    return ModelSplit(mesh, "layer", blocks)
+
+
+# The vision towers' matrices, which VISION_RULES split on the model axis
+# (fc2 on its rows, the others on their columns): each rank computes its
+# shard (nn/vit.py), as XLA partitions the towers.
+TOWER_MATRICES = re.compile(
+    r"(vision|owl_tower)\.layers\.(attn\.(wq|wk|wv|wo)|mlp\.(fc1|fc2))\.w")
+
+
+def _model_sharded(x) -> bool:
+    model = AXES.index(MODEL_AXIS)
+    return isinstance(x, DTensor) and x.device_mesh.size(model) > 1 and \
+        isinstance(x.placements[model], Shard)
+
+
+def model_local_leaves(tree: Params, vocab: bool = False
+                       ) -> Dict[str, ModelSplit]:
+    """path -> ModelSplit of the leaves outside the decoder's layer stack
+    that a rank keeps and computes on its shard of the model axis: the
+    towers' matrices the rules split there (one split a tower, site
+    "tower"), and with `vocab` a training tree's lm_head where the rules
+    split its vocabulary (site "vocab"; the tiny configs: 7B's 32003
+    rows divide by nothing, and an engine computes it whole)."""
+    out, towers = {}, {}
+    for path, x in leaves_with_path(tree):
+        if not _model_sharded(x):
             continue
-        if name == "attn":
-            for what, heads in (("heads", cfg.num_heads),
-                                ("KV heads", cfg.num_kv_heads)):
-                if heads % M:
-                    raise ValueError(
-                        f"mesh {mesh}: the model axis M={M} would cut the "
-                        f"decoder's {what} H={heads} (H*head_dim divides "
-                        f"by M, H does not); pick an M that divides "
-                        f"{heads}")
-        for x in leaves:
-            setattr(x, MODEL_LOCAL, True)
-        marked.append(name)
-    return tuple(marked)
+        m = TOWER_MATRICES.fullmatch(path)
+        if m:
+            if m.group(1) not in towers:
+                towers[m.group(1)] = ModelSplit(Mesh.of(x.device_mesh),
+                                                "tower")
+            out[path] = towers[m.group(1)]
+        elif vocab and path == "llama.lm_head" and \
+                x.placements[AXES.index(MODEL_AXIS)] == Shard(1):
+            out[path] = ModelSplit(Mesh.of(x.device_mesh), "vocab")
+    return out
 
 
 def warm_group(mesh: Mesh, axis: str, device) -> None:
@@ -670,15 +855,16 @@ def serving_params(params: Params, mesh: Mesh, llama_cfg) -> Params:
     the rules, every other leaf gathered once into a plain tensor
     (embeddings, lm_head, towers, heads: a few percent of a 7B model).
     On a model axis above 1 the decoder's blocks that the rules split
-    compute on each rank's own shard (module docstring, ModelSplit); a
-    model axis that would cut a head (`llama_cfg`'s heads) raises. Every
-    rank of the mesh must call it."""
+    compute on each rank's own shard (module docstring, ModelSplit), and
+    so do the towers' matrices (model_local_leaves; their other axes
+    gathered once); a model axis that would cut a decoder head
+    (`llama_cfg`'s heads) raises. Every rank of the mesh must call it."""
     with torch.no_grad():
-        tree = unshard(shard_params(params, mesh))
-    if mesh.shape[MODEL_AXIS] > 1:
-        stack = tree["llama"]["layers"]
-        if _mark_model_local(stack, mesh, llama_cfg):
-            leaf = next(x for _, x in leaves_with_path(stack)
-                        if getattr(x, MODEL_LOCAL, False))
-            warm_group(mesh, MODEL_AXIS, leaf.to_local().device)
+        tree = shard_params(params, mesh)
+        tree = unshard(tree, model_local=model_local_leaves(tree))
+    stack = tree["llama"]["layers"]
+    split = model_split(stack, llama_cfg)
+    if split is not None:
+        name, _, rows = next(b for b in TP_BLOCKS if b[0] in split.blocks)
+        warm_group(mesh, MODEL_AXIS, stack[name][rows].to_local().device)
     return tree

@@ -64,10 +64,14 @@ launches_by_shape = {}
 # launches by query heads (a rank's share under a model split of the
 # decoder, core/mesh.ModelSplit); counted in `launches` too
 launches_by_heads = {}
+# K7's calls by heads (each one launch of each of its two kernels,
+# counted in `bwd_launches` too)
+bwd_launches_by_heads = {}
 _build.register_counters(__name__, "launches", "plain_calls_cuda",
                          "bwd_launches", "bwd_plain_calls_cuda",
                          "route_launches", "split_launches_by_rows",
-                         "launches_by_shape", "launches_by_heads")
+                         "launches_by_shape", "launches_by_heads",
+                         "bwd_launches_by_heads")
 
 HEAD_DIM = 128   # the head width the kernels are instantiated for
 SPLIT_MAX_SQ = 16    # query rows up to which K1 takes the split route
@@ -398,6 +402,7 @@ def flash_attention_bwd(q, k, v, do, lse, delta, kv_lens=None,
     code = _build.launch(lib.vstar_flash_attention_bwd_dkv, q.device, *args)
     _build.check(lib, code, "flash_attention_bwd (dkv)")
     bwd_launches["dkv"] += 1
+    bwd_launches_by_heads[H] = bwd_launches_by_heads.get(H, 0) + 1
     return dq, dk, dv
 
 

@@ -27,8 +27,11 @@ from .flash_attention import _check_operand
 launches = 0
 plain_calls_cuda = 0
 launches_by_batch = {}      # launches by batch size, counted above too
+# launches by heads (a rank's share under a model split of the tower,
+# nn/vit.py), counted above too
+launches_by_heads = {}
 _build.register_counters(__name__, "launches", "plain_calls_cuda",
-                         "launches_by_batch")
+                         "launches_by_batch", "launches_by_heads")
 
 HEAD_DIM = 64
 
@@ -85,4 +88,5 @@ def tower_attention(q, k, v):
     _build.check(lib, code, "tower_attention")
     launches += 1
     launches_by_batch[B] = launches_by_batch.get(B, 0) + 1
+    launches_by_heads[H] = launches_by_heads.get(H, 0) + 1
     return out

@@ -4,6 +4,8 @@
     {q, s, b} goes through nn/quant.qdot.
   * Norms compute in float32 and cast back to the input dtype.
   * `init_*` draw from an `Init` (core/params.py); the others apply.
+  * `partial_dot` is a product of one rank's shard of a model split
+    (core/mesh.ModelSplit), kept in f32 for the sum over the group.
 """
 
 from __future__ import annotations
@@ -32,6 +34,35 @@ ACTIVATIONS = {
     "relu": F.relu,
     "silu": F.silu,
 }
+
+
+class _PartialDot(torch.autograd.Function):
+    """x @ w on the card, accumulated and returned in f32 (torch.mm's
+    out_dtype); backward: the two products in x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype).reshape(-1, g.shape[-1])
+        x2 = x.reshape(-1, x.shape[-1])
+        return (g @ w.t()).reshape(x.shape), x2.t() @ g
+
+
+def partial_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w of a rank's rows of w as an f32 partial sum (accumulated in
+    f32 and not rounded to x's dtype before the model group adds it)."""
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return x @ w
+    w = w.to(x.dtype)
+    if x.is_cuda:
+        return _PartialDot.apply(x, w)
+    return x.float() @ w.float()
 
 
 def init_dense(init: Init, in_dim: int, out_dim: int, use_bias: bool = True,

@@ -12,13 +12,18 @@ Under a mesh (core/mesh.py) the layer stack is a tree of DTensors
 sharded by the partition rules: the loop gathers layer i alone, from its
 owner on the fsdp axis (core/mesh.layer_source), inside the recomputed
 region under remat, so the gathered layer is dropped after the layer and
-gathered again for its backward. An engine's tree on a model axis above
-1 (core/mesh.serving_params, ModelSplit) is tensor-parallel as
-vstar_tpu's compiled step is: each rank's layer holds its own heads and
-MLP columns, whose counts the blocks read from the local weights'
-shapes; the products of wo and w_down are partial sums, reduced over
-the model group in f32 before the residual add; the KV cache holds the
-rank's own KV heads (`kv_heads`).
+gathered again for its backward. On a model axis above 1 (core/mesh
+.model_split, ModelSplit) the decoder is tensor-parallel as vstar_tpu's
+compiled step is, in training and in an engine's forward: each rank's
+layer holds its own heads and MLP columns, whose counts the blocks read
+from the local weights' shapes; a block's normed input (and LoRA's
+leaves) enter the split through `ModelSplit.enter`, whose backward sums
+their partial gradients over the model group; the products of wo and
+w_down are partial sums, reduced over the model group in f32 before the
+residual add; an engine's KV cache holds the rank's own KV heads
+(`kv_heads`). Under remat the recompute runs the attention's reduce
+again and stops before the MLP's (torch.utils.checkpoint stops once
+the saved tensors are back), as XLA's rematted computation does.
 
 Training: LoRA adapters (`layers.attn.lora`, train/lora.py) add their
 delta to q and v before the reshape and rope, as in JAX; `remat`
@@ -41,11 +46,11 @@ from ..core.config import LlamaConfig
 from ..core.mesh import ModelSplit, layer_source, model_split
 from ..core.params import Init, dense_init, embed_init
 from ..kernels.flash_attention import flash_attention
-from .basic import init_rmsnorm, rmsnorm
+from .basic import init_rmsnorm, partial_dot, rmsnorm
 from .quant import (qdot, quantize_weight, quantize_weight_int4,
                     resolve_matrix_quant)
 from .rope import apply_rope, rope_angles
-from ..train.lora import lora_delta
+from ..train.lora import lora_delta, split_delta, split_inputs
 
 
 @dataclasses.dataclass
@@ -195,18 +200,6 @@ def _out_heads(w, whole: int, head_dim: int) -> int:
     return w.shape[-1] // head_dim if isinstance(w, torch.Tensor) else whole
 
 
-def _partial_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w of a rank's rows of w as an f32 partial sum (accumulated in
-    f32 and not rounded to x's dtype before the model group adds it)."""
-    if x.dtype == torch.float32 and w.dtype == torch.float32:
-        return x @ w
-    w = w.to(x.dtype)
-    if x.is_cuda:
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
-        return y.reshape(*x.shape[:-1], w.shape[-1])
-    return x.float() @ w.float()
-
-
 def _row_split_dot(x: torch.Tensor, w, split: Optional[ModelSplit]
                    ) -> torch.Tensor:
     """x @ w for wo / w_down: whole (qdot), or with `split` this rank's
@@ -214,7 +207,7 @@ def _row_split_dot(x: torch.Tensor, w, split: Optional[ModelSplit]
     f32 and cast back to x's dtype."""
     if split is None:
         return qdot(x, w)
-    return split.reduce(_partial_dot(x, w)).to(x.dtype)
+    return split.reduce(partial_dot(x, w)).to(x.dtype)
 
 
 def _attention_block(lp: Dict, cfg: LlamaConfig, x: torch.Tensor,
@@ -233,14 +226,21 @@ def _attention_block(lp: Dict, cfg: LlamaConfig, x: torch.Tensor,
     Dh = cfg.head_dim
     H = _out_heads(lp["wq"], cfg.num_heads, Dh)
     Hkv = _out_heads(lp["wk"], cfg.num_kv_heads, Dh)
+    lora, scale = lp.get("lora"), lp.get("lora_scale")
+    if split is not None:
+        # LoRA's x @ A, B and scale are whole on every rank and get
+        # partial gradients (its columns of B): they enter with x
+        extra = () if lora is None else split_inputs(lora, scale, x)
+        x, *extra = split.enter(x, *extra)
     q = qdot(x, lp["wq"])
     v = qdot(x, lp["wv"])
-    if "lora" in lp:
-        dq = lora_delta(lp["lora"], lp["lora_scale"], "wq", x)
-        dv = lora_delta(lp["lora"], lp["lora_scale"], "wv", x)
-        if split is not None:
-            dq, dv = split.columns(dq), split.columns(dv)
-        q, v = q + dq, v + dv
+    if lora is not None and split is None:
+        q = q + lora_delta(lora, scale, "wq", x)
+        v = v + lora_delta(lora, scale, "wv", x)
+    elif lora is not None:
+        xq, xv, bq, bv, s = extra
+        q = q + split_delta(xq, bq, s, split)
+        v = v + split_delta(xv, bv, s, split)
     q = apply_rope(q.reshape(B, S, H, Dh), cos, sin)
     k = apply_rope(qdot(x, lp["wk"]).reshape(B, S, Hkv, Dh), cos, sin)
     v = v.reshape(B, S, Hkv, Dh)
@@ -277,6 +277,8 @@ def _attention_block(lp: Dict, cfg: LlamaConfig, x: torch.Tensor,
 def _mlp_block(lp: Dict, x: torch.Tensor,
                split: Optional[ModelSplit] = None) -> torch.Tensor:
     """split: as _attention_block's (the rank's MLP columns)."""
+    if split is not None:
+        x, = split.enter(x)
     gate = F.silu(qdot(x, lp["w_gate"]))
     return _row_split_dot(gate * qdot(x, lp["w_up"]), lp["w_down"], split)
 
@@ -303,7 +305,7 @@ def llama_forward(params: Dict, cfg: LlamaConfig, hidden: torch.Tensor,
     kv_lens sharing the input cache's storage, or None)."""
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
-    split = model_split(params["layers"])
+    split = model_split(params["layers"], cfg)
     attn_split, mlp_split = (
         None if split is None or name not in split.blocks else split
         for name in ("attn", "mlp"))

@@ -11,7 +11,8 @@ One card (`chip_smoke.py`'s mesh phase calls these):
     1x2x1, 1x4x1 against the card's budget;
   * `gloo_split`: two ranks over gloo on one card (NCCL takes one rank a
     device), 7B widths with 2 decoder layers on a 1x2x1 mesh, finetune
-    steps against the one-device steps.
+    steps against the one-device steps; at 1x1x2 (the decoder and the
+    towers tensor-parallel) also a VSM step, with each rank's counts.
 
 Serving over the mesh (`chip_smoke.py`'s mesh phase, part (d)): the
 helpers that load a checkpoint pair through the server's
@@ -31,7 +32,12 @@ each card's allocated and peak memory; with --engine also a sharded
 VQA engine's greedy answer against the unsharded engine's on every rank.
 Rank 0 prints one JSON line and writes chiprun_out/mesh_probe_<mesh>.json.
 `torchrun --nproc-per-node 1 ... --mesh 1x1x1 --layers 16` holds on one
-card the state a card of the full model's 1x2x1 mesh holds. With
+card the state a card of the full model's 1x2x1 mesh holds. At --mesh
+1x1x4 or 1x2x2 the decoder and the towers are tensor-parallel; each
+rank reports its last step's counts (collectives by axis and by model
+split, K1 / K7 / K2 launches by heads), and with --trace one more step
+runs under torch.profiler (device time by kernel; rank 0 writes the
+chrome trace to chiprun_out/mesh_probe_<mesh>_step.json.gz). With
 --serve-only there is no finetune, only the engine check: the 7B VQA
 engine's --engine-tokens greedy tokens by graph on the mesh (on a model
 axis above 1 tensor-parallel) against one device, with ms a token,
@@ -44,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import socket
@@ -333,16 +340,158 @@ def _update_stats(got, want, lr):
             "numel": want.numel()}
 
 
-def _gloo_rank(rank, world, store, out_path, lr, steps, micro, device):
-    """One rank of part (c)."""
-    from ..core import mesh as M
+VSM_NAMES = ("red mug", "bicycle", "street sign", "dog", "window",
+             "green bottle", "person", "clock")
+
+
+def vsm_rows(cfg, tok, rows: int = 4, seq: int = SEQ, seed: int = SEED + 2):
+    """VSM training rows (the VSM collate) of `cfg`'s widths, drawn from
+    `seed`: noise images at the towers' sizes, a rectangle mask and 1-4
+    target boxes, row i asking for VSM_NAMES[i]; row 1 has no valid mask
+    and row 2 no valid boxes, so every loss term is live."""
+    from ..data.vsm_collate import VSMRow, collate_vsm_rows
+    rng = np.random.RandomState(seed)
+    size, owl = cfg.vision.image_size, cfg.owl_vision.image_size
+    out = []
+    for i in range(rows):
+        mask = np.zeros((480, 640), np.float32)
+        y0, x0 = rng.randint(0, 300), rng.randint(0, 400)
+        mask[y0:y0 + 150, x0:x0 + 200] = 1.0
+        nb = 1 + i % 4
+        boxes = np.concatenate([rng.uniform(0.2, 0.8, (nb, 2)),
+                                rng.uniform(0.05, 0.3, (nb, 2))], 1)
+        out.append(VSMRow(
+            image_clip=rng.randn(size, size, 3).astype(np.float32),
+            image_owl=rng.randn(owl, owl, 3).astype(np.float32),
+            source=[{"from": "human", "value": "<image>\nPlease locate the "
+                     f"{VSM_NAMES[i % len(VSM_NAMES)]} in this image."},
+                    {"from": "gpt", "value": "Sure, [LOC]."}],
+            gt_mask=mask, mask_valid=i != 1,
+            tgt_boxes=boxes.astype(np.float32), bboxes_valid=i != 2))
+    return collate_vsm_rows(out, tok, 3, n_image_tokens=cfg.image_tokens,
+                            seq_bucket=seq, mask_res=owl)
+
+
+def _two_layers(cfg):
+    return dataclasses.replace(cfg, llama=dataclasses.replace(
+        cfg.llama, num_layers=2))
+
+
+def _finetune_case(dev, lr):
+    """The VQA finetune at 7B widths with 2 decoder layers: (cfg, params,
+    mask, optimizer, rows, step function, init_train_state)."""
     from ..core.config import vqa_llm_7b
-    from ..core.params import leaves_with_path
-    from ..data.vsm_collate import batch_to_torch
     from ..models.vqa_llm import init_vqa_llm_params
     from ..multimodal.stub_tokenizer import StubTokenizer
-    from ..train.sft import init_train_state, make_optimizer
+    from ..train import sft
     from ..train.train_vqa_main import frozen_vision_mask
+    cfg = _two_layers(vqa_llm_7b())
+    params = init_vqa_llm_params(SEED, cfg, device=dev, dtype=torch.bfloat16)
+    mask = frozen_vision_mask(params)
+    opt = sft.make_optimizer(lr, warmup_steps=0, total_steps=4,
+                             trainable_mask=mask, master_f32=True)
+    rows = finetune_rows(cfg, StubTokenizer(cfg.llama.vocab_size))
+    return (cfg, params, mask, opt, rows, sft.sft_train_step,
+            sft.init_train_state)
+
+
+def _vsm_case(dev, lr):
+    """The VSM step at 7B widths with 2 decoder layers, LoRA r=8 on q and
+    v, the reference's trainable set, as _finetune_case."""
+    from ..core.config import vsm_7b
+    from ..models.vsm import init_vsm_params
+    from ..multimodal.stub_tokenizer import StubTokenizer
+    from ..train import vsm_train
+    from ..train.lora import add_lora, vsm_trainable_mask
+    cfg = _two_layers(vsm_7b())
+    params = init_vsm_params(SEED, cfg, device=dev, dtype=torch.bfloat16)
+    params["llama"] = add_lora(params["llama"], SEED + 1, r=8, alpha=16)
+    mask = vsm_trainable_mask(params)
+    opt = vsm_train.make_vsm_optimizer(lr=lr, warmup_steps=0,
+                                       total_steps=4, trainable_mask=mask,
+                                       master_f32=True)
+    rows = vsm_rows(cfg, StubTokenizer(cfg.llama.vocab_size))
+    return (cfg, params, mask, opt, rows, vsm_train.vsm_train_step,
+            vsm_train.init_train_state)
+
+
+def _split_against_one(rank, dev, mesh, case, lr, steps, micro):
+    """`steps` steps of one case (_finetune_case, _vsm_case) on one device
+    (rank 0) and on `mesh`: rank 0's report of each run's (loss, grad
+    norm, seconds) a step, each master's differences (_update_stats) and
+    its first moment's (the largest |value| on one device, the largest
+    |difference|),
+    whether every frozen leaf kept its values on every rank; every rank's
+    counts of the sharded run's last step (_rank_counts: K1 / K7 / K2 by
+    heads, collectives by axis and by model split)."""
+    from ..core import mesh as M
+    from ..core.params import leaves_with_path
+    from ..data.vsm_collate import batch_to_torch
+    cfg, params, mask, opt, rows, step_fn, init = case
+    batch = batch_to_torch(rows, dev)
+    frozen = [p for p, m in leaves_with_path(mask) if not m]
+
+    def run(state):
+        out, counts = [], None
+        for i in range(steps):
+            if i == steps - 1:
+                before = _rank_counts()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch, cfg, opt, mask,
+                               grad_accum=micro)
+            torch.cuda.synchronize(dev)
+            out.append((float(m["loss"]), float(m["grad_norm"]),
+                        time.perf_counter() - t0))
+        counts = _counts_delta(before, _rank_counts())
+        return state, out, counts
+
+    result = {}
+    t0 = time.perf_counter()
+    if rank == 0:
+        one, result["one_device"], _ = run(init(params, opt))
+        master = one.opt_state[1]["master"]
+        mu = one.opt_state[1]["inner"][0]["mu"]
+        del one
+    dist.barrier()
+    t1 = time.perf_counter()
+    sharded = M.shard_params(params, mesh)
+    del params
+    before = dict(leaves_with_path(sharded))
+    before = {p: before[p].to_local().clone() for p in frozen}
+    st, mesh_m, counts = run(init(sharded, opt))
+    t2 = time.perf_counter()
+    like = dict(leaves_with_path(st.params))
+    same = torch.tensor([all(torch.equal(like[p].to_local(), x)
+                             for p, x in before.items())], device=dev,
+                        dtype=torch.int32)
+    dist.all_reduce(same, op=dist.ReduceOp.MIN)
+    stats = {}
+    mesh_mu = st.opt_state[1]["inner"][0]["mu"]
+    with torch.no_grad():
+        for p, x in st.opt_state[1]["master"].items():
+            whole = M.full(M.with_local(like[p], x))
+            m = M.full(M.with_local(like[p], mesh_mu[p]))
+            if rank == 0:
+                stats[p] = _update_stats(whole, master[p], lr)
+                # Adam's first moment: after one step (1 - b1) times the
+                # clipped gradient
+                stats[p].update(moment_max=float(mu[p].abs().max()),
+                                moment_diff=float((m - mu[p]).abs().max()))
+            del whole, m
+    every = [None] * M.world_size()
+    dist.all_gather_object(every, counts)
+    result.update(mesh=mesh_m, masters=stats, frozen_equal=bool(same.item()),
+                  counts=every,
+                  seconds={"one_device": t1 - t0, "mesh": t2 - t1,
+                           "compare": time.perf_counter() - t2})
+    return result
+
+
+def _gloo_rank(rank, world, store, out_path, lr, steps, micro, device,
+               shape, vsm):
+    """One rank of part (c)."""
+    from ..core import mesh as M
     dev = torch.device(device)
     torch.cuda.set_device(dev)
     _gloo_cuda_collectives()
@@ -350,52 +499,14 @@ def _gloo_rank(rank, world, store, out_path, lr, steps, micro, device):
                             rank=rank, world_size=world)
     result = {}
     try:
-        full = vqa_llm_7b()
-        cfg = dataclasses.replace(full, llama=dataclasses.replace(
-            full.llama, num_layers=2))
-        tok = StubTokenizer(cfg.llama.vocab_size)
-        batch = batch_to_torch(finetune_rows(cfg, tok), dev)
-        params = init_vqa_llm_params(SEED, cfg, device=dev,
-                                     dtype=torch.bfloat16)
-        mask = frozen_vision_mask(params)
-        frozen = [p for p, m in leaves_with_path(mask) if not m]
-        opt = make_optimizer(lr, warmup_steps=0, total_steps=4,
-                             trainable_mask=mask, master_f32=True)
-        t0 = time.perf_counter()
-        if rank == 0:
-            one, one_m, _ = _steps(init_train_state(params, opt), batch,
-                                   cfg, opt, mask, steps, dev, micro=micro)
-            master = one.opt_state[1]["master"]
-            del one
-            result["one_device"] = one_m
-        dist.barrier()
-        t1 = time.perf_counter()
-        mesh = M.make_mesh((1, world, 1), dev.type)
-        sharded = M.shard_params(params, mesh)
-        del params
-        before = dict(leaves_with_path(sharded))
-        before = {p: before[p].to_local().clone() for p in frozen}
-        st, mesh_m, _ = _steps(init_train_state(sharded, opt), batch, cfg,
-                               opt, mask, steps, dev, micro=micro)
-        t2 = time.perf_counter()
-        like = dict(leaves_with_path(st.params))
-        same = torch.tensor([all(torch.equal(like[p].to_local(), x)
-                                 for p, x in before.items())], device=dev,
-                            dtype=torch.int32)
-        dist.all_reduce(same, op=dist.ReduceOp.MIN)
-        stats = {}
-        with torch.no_grad():
-            for p, x in st.opt_state[1]["master"].items():
-                whole = M.full(M.with_local(like[p], x))
-                if rank == 0:
-                    stats[p] = _update_stats(whole, master[p], lr)
-                del whole
-        if rank == 0:
-            result["mesh"] = mesh_m
-            result["seconds"] = {"one_device": t1 - t0, "mesh": t2 - t1,
-                                 "compare": time.perf_counter() - t2}
-            result["masters"] = stats
-            result["frozen_equal"] = bool(same.item())
+        mesh = M.make_mesh(shape, dev.type)
+        result["finetune"] = _split_against_one(
+            rank, dev, mesh, _finetune_case(dev, lr), lr, steps, micro)
+        if vsm:
+            gc.collect()
+            torch.cuda.empty_cache()
+            result["vsm"] = _split_against_one(
+                rank, dev, mesh, _vsm_case(dev, lr), lr, 1, micro)
     finally:
         dist.destroy_process_group()
     if rank == 0:
@@ -404,20 +515,23 @@ def _gloo_rank(rank, world, store, out_path, lr, steps, micro, device):
 
 
 def gloo_split(lr: float = 1e-3, steps: int = 2, micro: int = MICRO,
-               device: str = "cuda:0") -> dict:
+               device: str = "cuda:0", shape=(1, 2, 1),
+               vsm: bool = False) -> dict:
     """Part (c): two ranks over gloo on one card (spawned processes), 7B
-    widths with 2 decoder layers, a 1x2x1 mesh: `steps` finetune steps
-    (bf16 with f32 masters, no warmup, the 8 rows in `micro`
-    micro-batches, so f32 gradient buffers for micro > 1) against the
-    one-device steps on rank 0: each step's (loss, grad norm, seconds),
-    each master's differences (_update_stats), and whether every frozen
-    leaf kept its values on every rank. Any failure of a rank fails the
+    widths with 2 decoder layers, on the mesh `shape` (1x2x1: the layers
+    fsdp-sharded; 1x1x2: the decoder and the towers tensor-parallel):
+    `steps` finetune steps (bf16 with f32 masters, no warmup, the 8 rows
+    in `micro` micro-batches, so f32 gradient buffers for micro > 1) and,
+    with `vsm`, one VSM step (LoRA, 4 rows in `micro` micro-batches),
+    against the one-device steps on rank 0 (_split_against_one:
+    {"finetune": ..., "vsm": ...}). Any failure of a rank fails the
     call."""
     import torch.multiprocessing as mp
     with tempfile.TemporaryDirectory() as work:
         out = os.path.join(work, "result.json")
         mp.start_processes(_gloo_rank, args=(2, os.path.join(work, "store"),
-                                             out, lr, steps, micro, device),
+                                             out, lr, steps, micro, device,
+                                             tuple(shape), vsm),
                            nprocs=2, start_method="spawn")
         with open(out) as f:
             return json.load(f)
@@ -660,14 +774,21 @@ def _kernel_counts():
 
 def _rank_counts():
     """This process's counts a rank reports: K1 / K2 (launches,
-    plain-version calls on CUDA), K1's launches by query heads, the
-    mesh's collectives by (operation, axis)."""
+    plain-version calls on CUDA), K1's launches by query heads, K7's
+    calls and K2's launches by heads, the mesh's collectives by
+    (operation, axis) and the model splits' by (site, operation,
+    phase)."""
     from ..core import mesh as M
     from ..kernels import flash_attention as fa
+    from ..kernels import tower_attention as ta
     return {"kernels": _kernel_counts(),
             "k1_heads": dict(fa.launches_by_heads),
+            "k7_heads": dict(fa.bwd_launches_by_heads),
+            "k2_heads": dict(ta.launches_by_heads),
             "collectives": {f"{op} {ax}": n for (op, ax), n in
-                            M.collectives.items()}}
+                            M.collectives.items()},
+            "model_collectives": {" ".join(k): n for k, n in
+                                  M.model_collectives.items()}}
 
 
 def _counts_delta(before, after):
@@ -678,7 +799,8 @@ def _counts_delta(before, after):
     d = {key: {name: n - before[key].get(name, 0)
                for name, n in after[key].items()
                if n != before[key].get(name, 0)}
-         for key in ("k1_heads", "collectives")}
+         for key in ("k1_heads", "k7_heads", "k2_heads", "collectives",
+                     "model_collectives")}
     return {"kernels": k, **d}
 
 
@@ -894,8 +1016,9 @@ def main() -> int:
     p.add_argument("--serve-only", action="store_true",
                    help="no finetune: the engine check alone")
     p.add_argument("--trace", action="store_true",
-                   help="the engine check's calls once more under "
-                        "torch.profiler: device time by kernel")
+                   help="the engine check's calls once more, or one more "
+                        "training step, under torch.profiler: device time "
+                        "by kernel (rank 0 writes the step's trace)")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("mesh_probe: no CUDA device", file=sys.stderr)
@@ -950,10 +1073,24 @@ def main() -> int:
     with phase_peaks(dev) as peaks:
         steps = []
         for _ in range(args.steps):
+            before = _rank_counts()
             state, one, _ = _steps(state, batch, cfg, opt, mask, 1, dev)
+            step_counts = _counts_delta(before, _rank_counts())
             peaks.read_update()
             steps += one
     peak = max(peaks.grads + peaks.update)
+    trace = None
+    if args.trace:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, one, _ = _steps(state, batch, cfg, opt, mask, 1, dev)
+        trace = _device_breakdown(prof, one[0][2])
+        if main_rank:
+            os.makedirs("chiprun_out", exist_ok=True)
+            name = "x".join(map(str, mesh.dims))
+            trace["file"] = f"chiprun_out/mesh_probe_{name}_step.json.gz"
+            prof.export_chrome_trace(trace["file"])
     report = {"mesh": list(mesh.dims), "rank": M.rank(),
               "layers": cfg.llama.num_layers,
               "device": torch.cuda.get_device_name(dev),
@@ -966,6 +1103,7 @@ def main() -> int:
               "update_peak_bytes": peaks.update,
               "alloc_conf": os.environ.get("PYTORCH_CUDA_ALLOC_CONF"),
               "init_s": init_s, "steps": steps,
+              "step_counts": step_counts, "trace": trace,
               "rows": ROWS, "seq": SEQ, "micro": MICRO}
     if args.engine:
         del state, opt

@@ -61,6 +61,25 @@ def lora_delta(lora: Dict, scale: torch.Tensor, name: str,
     return ((x @ a) @ b) * scale.to(x.dtype)
 
 
+def split_inputs(lora: Dict, scale: torch.Tensor, x: torch.Tensor,
+                 targets: Sequence[str] = LORA_TARGETS) -> tuple:
+    """What a rank of a model split of the decoder (core/mesh.ModelSplit)
+    uses whole of one layer's adapters: x @ A of each target, B of each,
+    the scale. They enter the split together with the block's input, so
+    that their partial gradients are summed in its one all-reduce, as
+    XLA combines them (A's gradient then follows from the whole one of
+    x @ A)."""
+    return (tuple(x @ lora[f"{t}_a"].to(x.dtype) for t in targets)
+            + tuple(lora[f"{t}_b"] for t in targets) + (scale,))
+
+
+def split_delta(xa: torch.Tensor, b: torch.Tensor, scale: torch.Tensor,
+                split) -> torch.Tensor:
+    """lora_delta's columns that this rank's q / v shard holds, from
+    x @ A (split_inputs): (x A) times the rank's columns of B, scaled."""
+    return (xa @ split.columns(b.to(xa.dtype))) * scale.to(xa.dtype)
+
+
 def merge_lora(llama_params: Dict,
                targets: Sequence[str] = LORA_TARGETS) -> Dict:
     """Fold adapters into the base weights and drop them (export path,

@@ -13,10 +13,14 @@ clips and updates come out the same. The decoder layers are recomputed in
 the backward (remat), as JAX's `remat=True`.
 
 On a tree sharded over a mesh (core/mesh.py; JAX's shard_train_step) each
-rank takes its rows of the step's batch and the loss's normaliser, the
-count of valid tokens, is the whole batch's (summed over the ranks): a
-rank's loss is its share of the one-device loss, never a mean of
-per-rank means. The optimizer updates each rank's shards.
+data x fsdp rank takes its rows of the step's batch (the ranks of a
+model group the same rows) and the loss's normaliser, the count of
+valid tokens, is the whole batch's (summed over those ranks): a rank's
+loss is its share of the one-device loss, never a mean of per-rank
+means. On a model axis above 1 the decoder is tensor-parallel, and
+where the rules split lm_head's vocabulary the log-softmax runs over
+the model group (`next_token_logprobs`). The optimizer updates each
+rank's shards.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..core.config import VQALLMConfig
-from ..core.mesh import local_leaves, mesh_of, unshard, with_local
+from ..core.mesh import (ModelSplit, local_leaves, mesh_of,
+                         model_local_leaves, unshard, with_local)
 from ..core.params import leaves_with_path, map_with_path, replace_leaves
 from ..models.vqa_llm import clip_bank_features, project_bank, \
     spliced_embeds
@@ -66,6 +71,49 @@ def make_optimizer(learning_rate: float = 2e-5, warmup_steps: int = 100,
     return optim.chain(optim.clip_by_global_norm(grad_clip), adamw)
 
 
+def sharded_for_loss(params: Dict) -> Tuple[Dict, Optional[ModelSplit]]:
+    """A training tree as a loss uses it (core/mesh.unshard: the leaves
+    outside the layer stack gathered, except on the model axis the
+    towers' matrices the rules split there and lm_head's vocabulary
+    where they split it; core/mesh.model_local_leaves), with that
+    vocabulary split (None: lm_head whole)."""
+    local = model_local_leaves(params, vocab=True)
+    return (unshard(params, model_local=local),
+            local.get("llama.lm_head"))
+
+
+def next_token_logprobs(llama: Dict, hidden: torch.Tensor,
+                        labels: torch.Tensor,
+                        vocab: Optional[ModelSplit] = None):
+    """LlamaForCausalLM's shift: the log-probability (f32 [B, S-1]) of
+    labels[t + 1] under the logits at t, and where it counts (bool
+    [B, S-1], False at IGNORE_INDEX). With a vocabulary split `vocab`
+    (sharded_for_loss) `llama`'s lm_head holds this rank's vocabulary
+    columns and the log-softmax runs over the model group as XLA
+    partitions JAX's: the max, the sum of exponentials and the target's
+    shifted logit each summed (the max: maxed) over the group, the
+    hidden states' gradient summed by vocab.enter."""
+    shift_labels = labels[:, 1:]
+    valid = shift_labels != IGNORE_INDEX
+    safe = torch.where(valid, shift_labels,
+                       torch.zeros_like(shift_labels)).long()[..., None]
+    if vocab is None:
+        logits = lm_logits(llama, hidden)
+        logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+        return logp.gather(-1, safe)[..., 0], valid
+    h, = vocab.enter(hidden[:, :-1])
+    logits = lm_logits(llama, h)
+    shifted = logits - vocab.max(logits.amax(-1, keepdim=True))
+    lse = torch.log(vocab.reduce(shifted.exp().sum(-1, keepdim=True)))
+    V = logits.shape[-1]
+    local = safe - vocab.index * V
+    mine = (local >= 0) & (local < V)
+    picked = torch.where(mine, shifted.gather(-1, local.clamp(0, V - 1)),
+                         torch.zeros((), dtype=shifted.dtype,
+                                     device=shifted.device))
+    return (vocab.reduce(picked) - lse)[..., 0], valid
+
+
 def sft_loss(params: Dict, cfg: VQALLMConfig, batch: Dict,
              compute_dtype=torch.bfloat16) -> torch.Tensor:
     """batch (tensors on the parameters' device): image [B,H,W,3],
@@ -74,7 +122,7 @@ def sft_loss(params: Dict, cfg: VQALLMConfig, batch: Dict,
     On a sharded tree the batch is this rank's rows and the loss its
     share of the whole batch's."""
     mesh = mesh_of(params)
-    params = unshard(params)
+    params, vocab = sharded_for_loss(params)
     with torch.no_grad():
         feats = clip_bank_features(params, cfg, batch["image"],
                                    batch["objects"])
@@ -87,15 +135,8 @@ def sft_loss(params: Dict, cfg: VQALLMConfig, batch: Dict,
     hidden, _ = llama_forward(params["llama"], cfg.llama, h, pos,
                               batch["lens"], kv_valid=batch.get("kv_valid"),
                               remat=True)
-    logits = lm_logits(params["llama"], hidden)
-
-    # shift: logits[t] predicts labels[t+1]
-    shift_logits = logits[:, :-1]
-    shift_labels = batch["labels"][:, 1:]
-    valid = shift_labels != IGNORE_INDEX
-    safe = torch.where(valid, shift_labels, torch.zeros_like(shift_labels))
-    logp = torch.log_softmax(shift_logits.float(), dim=-1)
-    tok_lp = logp.gather(-1, safe.long()[..., None])[..., 0]
+    tok_lp, valid = next_token_logprobs(params["llama"], hidden,
+                                        batch["labels"], vocab)
     count = valid.sum() if mesh is None else mesh.batch_sum(valid.sum())
     return -(tok_lp * valid).sum() / torch.clamp(count, min=1)
 

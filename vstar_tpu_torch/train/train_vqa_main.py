@@ -20,11 +20,14 @@ Stage 2, search-instruction finetune (finetune.sh + train_search.py):
   accumulation buffers and a micro-batch's gradients, needs four:
     torchrun --nproc-per-node 4 -m vstar_tpu_torch.train.train_vqa_main \
         finetune --model_path <dir> ... --mesh 1x4x1
+  or with the decoder tensor-parallel over the model axis (--mesh 1x1x4,
+  1x2x2).
 
 Under torchrun every rank builds or loads the whole model on its card
 (cuda:LOCAL_RANK), shards it over the mesh (core/mesh.py; default 1xNx1)
 and drops the rest; every rank reads the same batches (the same
-(data_seed, epoch) permutation) and trains on its rows of each, the
+(data_seed, epoch) permutation) and each data x fsdp rank trains on its
+rows of each (the ranks of a model group on the same rows), the
 checkpoints are one file per rank, and rank 0 alone writes the logs and
 the exported parameters. Both stages build on the card unless main is
 given another device; the tokenizer is the checkpoint's
@@ -134,8 +137,8 @@ def run_training(args, cfg, params, dataset, collate_fn, tokenizer,
     the memory check, the optimizer, auto-resume from the rolling 'latest'
     checkpoint, prefetched epochs of the shuffled rows (the same
     (data_seed, epoch) streams as vstar_tpu's one-host run, whole on
-    every rank, each rank training on its rows of a step), metrics.jsonl
-    from rank 0. Returns the final TrainState."""
+    every rank, each data x fsdp rank training on its rows of a step),
+    metrics.jsonl from rank 0. Returns the final TrainState."""
     device = next(x.device for _, x in leaves_with_path(params))
     mesh, params = train_mesh(args, params)
     plan = check_train_memory(args, params, trainable_mask, device, mesh)

@@ -10,8 +10,10 @@ there. Under torchrun, `--mesh DxFxM` (default 1xNx1 over N ranks, as in
 JAX) shards the parameters and the optimizer state over a mesh
 (core/mesh.py) after the per-device plan (core/memory.py) has been
 checked against the card's memory; every rank reads the same batches
-and trains on its rows of each, checkpoints are one file per rank, and
-rank 0 alone writes the logs. `main` builds the model from an HF
+and each data x fsdp rank trains on its rows of each (the ranks of a
+model group on the same rows, the decoder tensor-parallel over them for
+M > 1), checkpoints are one file per rank, and rank 0 alone writes the
+logs. `main` builds the model from an HF
 checkpoint directory (--version) on the card (each rank's,
 cuda:LOCAL_RANK), with LoRA. TensorBoard scalars are left out;
 metrics.jsonl keeps them.
@@ -20,6 +22,8 @@ metrics.jsonl keeps them.
         --dataset_dir ./dataset --exp_name vsm
     torchrun --nproc-per-node 4 -m vstar_tpu_torch.train.train_vsm_main \
         --version <seal_vsm dir> --dataset_dir ./dataset --mesh 1x4x1
+    torchrun --nproc-per-node 4 -m vstar_tpu_torch.train.train_vsm_main \
+        --version <seal_vsm dir> --dataset_dir ./dataset --mesh 1x2x2
 """
 
 from __future__ import annotations
@@ -108,10 +112,12 @@ def train_mesh(args, params):
 
 
 def check_rows(mesh, rows: int, micro: int = 1) -> None:
-    """A step's rows must split into micro-batches over every rank."""
-    if mesh is not None and rows % (micro * mesh.size):
+    """A step's rows must split into micro-batches over the data x fsdp
+    ranks (the ranks of a model group take the same rows)."""
+    if mesh is not None and rows % (micro * mesh.row_ranks):
         raise ValueError(f"{rows} rows a step in {micro} micro-batches do "
-                         f"not split over the {mesh.size} ranks of {mesh}")
+                         f"not split over the {mesh.row_ranks} data x fsdp "
+                         f"ranks of {mesh}")
 
 
 def mesh_dims(mesh):

@@ -13,11 +13,14 @@ are recomputed in the backward (remat).
 Loss weights (train.py:74-77 defaults): ce 1.0, dice 0.5, bce 2.0,
 det 0.1; inner DETR weights 2/5/2.
 
-On a tree sharded over a mesh (core/mesh.py) each rank takes its rows
-of the step's batch, and every normaliser is the whole batch's, summed
-over the ranks: the CE's valid tokens, the valid masks, the valid boxes
-and the rows of the detection CE's batch mean (the matching is per
-row). A rank's loss and metrics are its shares of the one-device ones.
+On a tree sharded over a mesh (core/mesh.py) each data x fsdp rank
+takes its rows of the step's batch (the ranks of a model group the same
+rows), and every normaliser is the whole batch's, summed over those
+ranks: the CE's valid tokens, the valid masks, the valid boxes and the
+rows of the detection CE's batch mean (the matching is per row). A
+rank's loss and metrics are its shares of the one-device ones. On a
+model axis above 1 the decoder is tensor-parallel and the frozen towers
+run on their model split (train/sft.sharded_for_loss).
 """
 
 from __future__ import annotations
@@ -29,19 +32,19 @@ import torch
 import torch.nn.functional as F
 
 from ..core.config import VSMConfig
-from ..core.mesh import local_leaves, mesh_of, unshard
+from ..core.mesh import (local_leaves, mesh_of, model_local_leaves,
+                         unshard)
 from ..core.params import leaves_with_path
 from ..models.vsm import (encode_clip_bank, owl_tower_states, vsm_detection,
                           vsm_segmentation)
-from ..multimodal.constants import IGNORE_INDEX
 from ..multimodal.splicing import apply_splice
-from ..nn.llama import embed_tokens, llama_forward, lm_logits
+from ..nn.llama import embed_tokens, llama_forward
 from ..nn.vit import owl_merge
 from . import optim
 from .accumulate import accumulated_grads
 from .detr_loss import detection_loss
 from .master import with_f32_master
-from .sft import apply_step
+from .sft import apply_step, next_token_logprobs, sharded_for_loss
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,17 +148,12 @@ def vsm_loss(params: Dict, cfg: VSMConfig, batch: Dict,
     """
     mesh = mesh_of(params)
     total = (lambda x: x) if mesh is None else mesh.batch_sum
-    params = unshard(params)
+    params, vocab = sharded_for_loss(params)
     hidden = _decoder_hidden(params, cfg, batch, compute_dtype, remat=True)
-    logits = lm_logits(params["llama"], hidden)
 
     # --- CE (shifted, IGNORE-masked) ---
-    shift_logits = logits[:, :-1]
-    shift_labels = batch["labels"][:, 1:]
-    valid = shift_labels != IGNORE_INDEX
-    safe = torch.where(valid, shift_labels, torch.zeros_like(shift_labels))
-    logp = torch.log_softmax(shift_logits.float(), dim=-1)
-    tok_lp = logp.gather(-1, safe.long()[..., None])[..., 0]
+    tok_lp, valid = next_token_logprobs(params["llama"], hidden,
+                                        batch["labels"], vocab)
     ce_loss = -(tok_lp * valid).sum() / torch.clamp(total(valid.sum()),
                                                     min=1)
 
@@ -211,8 +209,9 @@ def vsm_val_forward(params: Dict, cfg: VSMConfig, batch: Dict,
     """Validation forward: [LOC]-driven head outputs for metric computation
     (train.py:570-644). Returns (mask_logits [B,h,w], det_logits [B,Q],
     det_boxes [B,Q,4]) in f32. A sharded tree is gathered as it is
-    used; every rank computes the whole batch."""
-    params = unshard(params)
+    used (the towers' model split kept); every rank computes the whole
+    batch."""
+    params = unshard(params, model_local=model_local_leaves(params))
     hidden = _decoder_hidden(params, cfg, batch, compute_dtype, remat=False)
     loc_hidden = _loc_hidden(hidden, batch, compute_dtype)
     fmap = _owl_feature_map_trainable_ln(params, cfg, batch["images_owl"])
