@@ -4119,14 +4119,17 @@ def _mesh_serve(dev, mark):
     Ranks over HTTP (path mesh_serve);
     (d2) the same engines, ContinuousSealService with its Ranks, the
     wave of 3 (path mesh_serve_continuous);
-    (d3) two gloo ranks on this card, --mesh 1x2x1: rank 0 serves the
-    forced search over HTTP and rank 1 follows (mesh_probe.gloo_serve;
-    path mesh_serve_gloo);
-    (d4) the same at --mesh 1x1x2: the decoder tensor-parallel over the
-    model axis (path mesh_serve_tp, _tp_serve).
-    Every record of (d1)-(d3) equals the unsharded one; (d4)'s holds to
-    it by the near-tie rules; K1 and K2 launch on each path and no plain
-    version runs on CUDA."""
+    (d3) two gloo ranks on this card, --mesh 1x2x1: each decoder's layer
+    stack on the hidden axis (core/mesh.hidden_split); rank 0 serves a
+    free-form request and the forced search over HTTP and rank 1
+    follows (mesh_probe.gloo_serve; path mesh_serve_gloo, _fsdp_serve);
+    then the --int4mix pair's forced search so (path
+    mesh_serve_gloo_int4mix);
+    (d4) the forced search at --mesh 1x1x2: the decoder tensor-parallel
+    over the model axis (path mesh_serve_tp, _tp_serve).
+    Every record of (d1) and (d2) equals the unsharded one; (d3)'s and
+    (d4)'s hold to it by the near-tie rules; K1 and K2 launch on each
+    path and no plain version runs on CUDA."""
     import torch.distributed as dist
     from vstar_tpu_torch.core.hf_export import (save_hf_dir,
                                                 vqa_llm_state_dict,
@@ -4162,13 +4165,27 @@ def _mesh_serve(dev, mark):
             ref, ref_s = mp.http_records(
                 SealService(mp.MarkedTrigger(vqa), vsm), dev)
         wave_ref, wave_ref_s, _ = mp.continuous_records(vqa, vsm, None, dev)
-        # (d4)'s reference: the forced search, its decodes traced and its
-        # search path kept
-        tp_ref = {"events": []}
-        with mp.forced_searches(tp_ref["events"]):
-            tp_ref["records"], tp_ref["seconds"] = mp.http_records(
-                SealService(mp.MarkedTrigger(vqa, tp_ref["events"]), vsm),
-                dev, mp.SERVE_REQUESTS[2:])
+        # (d3)'s and (d4)'s reference: the free-form request and the
+        # forced search, their decodes traced and the search path kept
+        split_ref = {"events": []}
+        with mp.forced_searches(split_ref["events"]):
+            split_ref["records"], split_ref["seconds"] = mp.http_records(
+                SealService(mp.MarkedTrigger(vqa, split_ref["events"]),
+                            vsm), dev,
+                [mp.SERVE_REQUESTS[i] for i in FSDP_REQUESTS])
+        # the free-form request traces one decode; the search's follow
+        tp_ref = {k: v[1:] for k, v in split_ref.items()}
+        del vqa, vsm
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (d3)'s quantized reference: the --int4mix pair's forced search
+        vqa, vsm = mp.serving_pair(dirs, None, dev, vocab,
+                                   flags=FSDP_QUANT_FLAGS)
+        quant_ref = {"events": []}
+        with mp.forced_searches(quant_ref["events"]):
+            quant_ref["records"], quant_ref["seconds"] = mp.http_records(
+                SealService(mp.MarkedTrigger(vqa, quant_ref["events"]),
+                            vsm), dev, mp.SERVE_REQUESTS[2:])
         del vqa, vsm
         gc.collect()
         torch.cuda.empty_cache()
@@ -4224,24 +4241,15 @@ def _mesh_serve(dev, mark):
         gc.collect()
         torch.cuda.empty_cache()
 
-        t1 = time.perf_counter()
-        g = mp.gloo_serve(dirs, vocab, str(dev))
-        plain = {k: c[1] for k, c in g["counts"].items()}
-        launched = {k: c[0] for k, c in g["counts"].items()}
-        log(f"[mesh serve (d3) gloo 1x2x1] decoder stack "
-            f"{g['stack_sharded']}, loaded in {g['load_s']:.2f} s; kernel "
-            f"launches {launched}, plain-version calls on CUDA {plain}")
-        _same_served("mesh (d3) SealService 1x2x1 gloo, rank 1 following",
-                     g["records"], ref[2:], g["seconds"], ref_s[2:])
-        if any(plain.values()) or not all(launched.values()) or \
-                g["stack_sharded"] != "DTensor":
-            raise AssertionError(f"mesh (d3): {g}")
-        counts["mesh_serve_gloo"] = launched
-        report["d3"] = {"seconds": g["seconds"],
-                        "unsharded_seconds": ref_s[2:],
-                        "load_s": g["load_s"],
-                        "part_s": time.perf_counter() - t1}
+        counts["mesh_serve_gloo"], report["d3"] = _fsdp_serve(
+            dirs, vocab, dev, split_ref, vsm_cfg)
         mark("(d3)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts["mesh_serve_gloo_int4mix"], report["d3_int4mix"] = \
+            _fsdp_serve(dirs, vocab, dev, quant_ref, vsm_cfg, requests=(2,),
+                        flags=FSDP_QUANT_FLAGS)
+        mark("(d3) --int4mix")
         gc.collect()
         torch.cuda.empty_cache()
         counts["mesh_serve_tp"], report["d4"] = _tp_serve(
@@ -4252,6 +4260,137 @@ def _mesh_serve(dev, mark):
     return counts, report
 
 
+# Part (d3): the fsdp axis of two gloo ranks on this card: a free-form
+# request and the forced search (mesh_probe.SERVE_REQUESTS 0 and 2)
+FSDP_MESH = "1x2x1"
+FSDP_REQUESTS = (0, 2)
+# and the forced search of the quantized pair: K3 and K5 on each rank's
+# share of the layers
+FSDP_QUANT_FLAGS = ("--int4mix",)
+
+
+def _free_form_rules(label, want, got, ref_event, event):
+    """A split server's record of a free-form request (no search) against
+    the unsharded server's: the answer equals greedy's tokens or parts
+    at a near-tie (_equivalent on the traced decodes), every other field
+    equal. Returns the near-tie, or None."""
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: keys {sorted(got)} against "
+                             f"{sorted(want)}")
+    for k in set(want) - {"answer"}:
+        if got[k] != want[k]:
+            raise AssertionError(f"{label}: {k} {got[k]!r} against "
+                                 f"{want[k]!r}")
+    if ref_event[0] != "decode" or event[0] != "decode":
+        raise AssertionError(f"{label}: events {event[0]}, {ref_event[0]}")
+    tie = _equivalent(f"{label} answer", ref_event[1], event[1])
+    if tie is None and got["answer"] != want["answer"]:
+        raise AssertionError(f"{label}: answers differ without a differing "
+                             "token")
+    log(f"[{label}] answer {got['answer']!r} (unsharded "
+        f"{want['answer']!r}); near-tie {tie}")
+    return tie
+
+
+def _fsdp_serve(dirs, vocab, dev, ref, cfg, requests=FSDP_REQUESTS,
+                flags=()):
+    """Part (d3): two gloo ranks on this card at --mesh 1x2x1 load the pair
+    through checkpoint_engines with the server's `flags`, each decoder's
+    layer stack on the hidden axis (core/mesh.hidden_split); rank 0
+    answers `requests` (indices into mesh_probe.SERVE_REQUESTS: 0 the
+    free-form request, 2 the forced search) over HTTP and rank 1 follows
+    (mesh_probe.gloo_serve). The records hold to the unsharded server's
+    (`ref`: records and events of the same requests, same flags) by
+    _free_form_rules and _tp_record_rules. Each rank logs and checks: no
+    decoder layer fetched (0 broadcasts and all-gathers of a layer a
+    token), 4 all-reduces over the fsdp group a layer and forward (two
+    rmsnorm moments, q / k / v, gate / up: K1 launches once a layer and
+    forward) and one gather of the residual a forward, no other fsdp
+    collective, K1 on all of `cfg`'s heads, KV caches of all its KV
+    heads; with --int4mix also K3 and K5 on the rank's share of each
+    layer. -> (rank 0's kernel launches, the report)."""
+    from vstar_tpu_torch.scripts import mesh_probe as mp
+    t0 = time.perf_counter()
+    g = mp.gloo_serve(dirs, vocab, str(dev), mesh=FSDP_MESH, requests=[
+        mp.SERVE_REQUESTS[i] for i in requests], flags=flags)
+    counts = dict(g["counts"])
+    if flags:
+        counts.update(g["ranks"][0]["counts"]["quant_kernels"])
+    plain = {k: c[1] for k, c in counts.items()}
+    launched = {k: c[0] for k, c in counts.items()}
+    label = (f"mesh serve (d3) gloo {' '.join((FSDP_MESH, *flags))}, "
+             f"hidden axis split")
+    log(f"[{label}] decoder stack {g['stack_sharded']}, loaded in "
+        f"{g['load_s']:.2f} s; kernel launches {launched}, plain-version "
+        f"calls on CUDA {plain}; seconds {g['seconds']} (unsharded "
+        f"{ref['seconds']})")
+    if any(plain.values()) or not all(launched.values()) or \
+            g["stack_sharded"] != "DTensor":
+        raise AssertionError(f"mesh (d3): {counts}")
+    lcfg = cfg.llama
+    per_rank = []
+    for r in g["ranks"]:
+        c, caches = r["counts"], r["caches"]
+        k1 = c["kernels"]["flash_attention"][0]
+        forwards = k1 // lcfg.num_layers
+        tokens = sum(e[1]["n"][0] for e in g["events"] if e[0] == "decode")
+        fsdp = {k: n for k, n in c["collectives"].items()
+                if k.endswith(" fsdp")}
+        split = c["hidden_collectives"]
+        ar = split.get("layer all_reduce forward", 0)
+        gathers = split.get("residual all_gather forward", 0)
+        log(f"[{label} rank {r['rank']}] layer broadcasts and all-gathers "
+            f"{c['fetch_collectives'] or 0} over {tokens} decoded tokens "
+            f"and {forwards} decoder forwards (0 a token); fsdp all-reduces a "
+            f"layer and forward {ar / max(k1, 1):g}, residual gathers a "
+            f"forward {gathers / max(forwards, 1):g}; fsdp collectives "
+            f"{fsdp}; K1 launches by heads {c['k1_heads']}; K3 / K5 "
+            f"{c['quant_kernels']}; KV caches "
+            + "; ".join(f"{n} {v['kv_heads']} heads, largest "
+                        f"{v['largest_cache']}" for n, v in caches.items()))
+        if c["fetch_collectives"] or not k1 or ar != 4 * k1 or \
+                gathers != forwards or k1 % lcfg.num_layers or \
+                fsdp != {"all_reduce fsdp": ar, "all_gather fsdp": gathers}:
+            raise AssertionError(f"mesh (d3) rank {r['rank']}: layer "
+                                 f"fetches {c['fetch_collectives']}, fsdp "
+                                 f"collectives {fsdp}, hidden split {split}"
+                                 f", K1 launches {k1}")
+        if c["k1_heads"] != {lcfg.num_heads: k1}:
+            raise AssertionError(f"mesh (d3) rank {r['rank']}: K1 heads "
+                                 f"{c['k1_heads']}, expected "
+                                 f"{lcfg.num_heads}")
+        for name, v in caches.items():
+            if v["kv_heads"] != [lcfg.num_kv_heads]:
+                raise AssertionError(f"mesh (d3) rank {r['rank']} {name}: "
+                                     f"KV heads {v['kv_heads']}")
+        per_rank.append({"k1_heads": c["k1_heads"], "k1_launches": k1,
+                         "quant_kernels": c["quant_kernels"],
+                         "fetch_collectives": c["fetch_collectives"],
+                         "fsdp_collectives": fsdp, "hidden_split": split,
+                         "decoded_tokens": tokens, "forwards": forwards,
+                         "kv": caches})
+    # a free-form request traces one decode; a forced search three (the
+    # trigger, the search, the focused answer)
+    ties, at = [], 0
+    for i, want, got in zip(requests, ref["records"], g["records"]):
+        if i == 0:
+            ties.append(_free_form_rules(
+                f"{label} free-form, rank 1 following", want, got,
+                ref["events"][at], g["events"][at]))
+            at += 1
+        else:
+            ties += _tp_record_rules(
+                f"{label} forced search, rank 1 following", want, got,
+                ref["events"][at:at + 3], g["events"][at:at + 3])
+            at += 3
+    seconds = time.perf_counter() - t0
+    log(f"[{label}] part {seconds:.1f} s")
+    return launched, {"seconds": g["seconds"],
+                      "unsharded_seconds": ref["seconds"],
+                      "load_s": g["load_s"], "near_ties": ties,
+                      "ranks": per_rank, "part_s": seconds}
+
+
 # Part (d4): the model axis of two gloo ranks on this card
 TP_MESH = "1x1x2"
 TP_RECORD_FIELDS = {"missing_objects", "search_result", "answer",
@@ -4259,14 +4398,14 @@ TP_RECORD_FIELDS = {"missing_objects", "search_result", "answer",
 
 
 def _tp_record_rules(label, want, got, ref_events, events):
-    """The tensor-parallel server's record of the forced search against
-    the unsharded server's: the same fields, equal but for those a
-    near-tie moves. Its bf16 split products round otherwise than the
-    whole ones, so the search path equals or parts at a near-tie
-    (_same_search), the focused answer equals greedy's tokens or parts
-    at a near-tie (_equivalent on the traced decodes), the boxes' names
-    equal (their coordinates logged), the other fields equal. Returns
-    the near-ties found."""
+    """A split server's record of the forced search (the model axis of
+    (d4), the hidden axis of (d3)) against the unsharded server's: the
+    same fields, equal but for those a near-tie moves. Its bf16 split
+    products round otherwise than the whole ones, so the search path
+    equals or parts at a near-tie (_same_search), the focused answer
+    equals greedy's tokens or parts at a near-tie (_equivalent on the
+    traced decodes), the boxes' names equal (their coordinates logged),
+    the other fields equal. Returns the near-ties found."""
     ties = []
     if set(got) != set(want):
         raise AssertionError(f"{label}: keys {sorted(got)} against "

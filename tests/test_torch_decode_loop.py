@@ -309,7 +309,7 @@ def test_every_counter_is_registered():
                     and isinstance(value, (int, dict)) \
                     and not isinstance(value, bool):
                 found.add((mod.__name__, name))
-    assert len(found) == 24 and found == registered
+    assert len(found) == 26 and found == registered
     with pytest.raises(AttributeError):
         _build.register_counters(quant.__name__, "no_such_counter")
 

@@ -34,6 +34,13 @@ the tiny configs, and rank 0 hands back the results gathered whole:
     prefill and a decode step counted against those of vstar_tpu's
     compiled step (its HLO), each rank's KV cache heads and K1's query
     heads, and a model axis that would cut a head refused;
+  * where fsdp is above 1 (2x2x1, 1x2x2, and 1x4x1 on a VQA tree of 4
+    layers, which the world runs for that engine alone), each engine's
+    decoder stack on the hidden axis: the engines against vstar_tpu's
+    sharded on the same mesh, the fsdp group's collectives a layer in a
+    prefill and a decode step against the layer bodies of vstar_tpu's
+    compiled engine programs (their HLO), no layer broadcast or
+    gathered, each rank's bytes of the stack against the engine plan;
   * on 1x1x4, CLIP-L/14 and OWL-B/16 at their widths split on the model
     axis against the unsharded port and vstar_tpu's compile-only HLO;
   * serving over the mesh (serve/ranks.py): rank 0's SealService (a
@@ -49,11 +56,12 @@ plan fits an 80 GB card's budget, where the one-device plan is refused.
 Tolerances (f32): forward, losses, metrics and parameters within 1e-5
 (relative for scalars, absolute for parameters); gradients within 1e-5
 of each leaf's largest |value| against the unsharded port (the sums over
-ranks add in another order); the engines where the model axis is 1
-and the served records equal exactly (tokens, choices, boxes: every
-field but the latency); the tensor-parallel engines' answers and
-choices equal, their arrays within JAX's sharded-inference tolerance
-(DET_TOL, MASK_TOL: tests/test_sharded_inference.py); the
+ranks add in another order); the served records equal the unsharded
+port's exactly (tokens, choices, boxes: every field but the latency);
+the sharded engines' answers and choices equal, their arrays within
+JAX's sharded-inference tolerance (DET_TOL, MASK_TOL:
+tests/test_sharded_inference.py; the decoder on the hidden or the model
+axis sums in another order than one device); the
 served records equal vstar_tpu's in every field but the boxes, which
 agree within BOX_ATOL = 1e-2 pixels, the rule of
 tests/test_torch_batched_bench.py (they moved by 1.5e-5 at most). An
@@ -130,6 +138,15 @@ MODEL_MESH = MESHES[2]
 TRAIN_TP_MESHES = MESHES[1:]
 # the trainer loops with a resume: data x fsdp rows, and a model split
 LOOP_MESHES = MESHES[:2]
+# the engines whose decoder stack lies on the hidden axis (fsdp above 1):
+# the tiny trees on 2x2x1 and 1x2x2 (their 2 layers divide fsdp 2), and
+# on DEEP_SHAPE trees of DEEP_LAYERS layers, which fsdp 4 divides
+DEEP_SHAPE, DEEP_LAYERS = (1, 4, 1), 4
+DEEP_MESH = "x".join(map(str, DEEP_SHAPE))
+HIDDEN_SHAPES = (SHAPES[0], TP_SHAPE, DEEP_SHAPE)
+HIDDEN_MESHES = ["x".join(map(str, s)) for s in HIDDEN_SHAPES]
+# the quantized VQA trees the world serves on 2x2x1 (W.vqa_answers)
+QUANT_MODES = ("int4mix",)
 # JAX's sharded-inference tolerance (tests/test_sharded_inference.py)
 DET_TOL = dict(rtol=1e-4, atol=1e-4)
 MASK_TOL = dict(rtol=1e-4, atol=1e-3)
@@ -249,6 +266,12 @@ def _eight_vsm_rows():
     return {k: np.asarray(v) for k, v in b.items()}
 
 
+def _deep(cfg):
+    """A tiny config with DEEP_LAYERS decoder layers."""
+    return dataclasses.replace(cfg, llama=dataclasses.replace(
+        cfg.llama, num_layers=DEEP_LAYERS))
+
+
 def _tiny_trees():
     """The tiny VQA tree, and the tiny VSM tree with LoRA (r=2) whose B is
     non-zero, drawn by the port (seeded; JAX's eager init of the same
@@ -308,7 +331,12 @@ def started(tmp_path_factory):
                                        seed=0, image_hw=(256, 256), target=3)
     sft_rows = _sft_batch(work, rows=(0, 1, 2, 0, 1, 2, 0, 1))
     make_dataset_dir(work / "vsm_data")
-    job = {"shapes": SHAPES,
+    deep = {"shapes": [DEEP_SHAPE], "vqa_cfg": _deep(T_VQA_CFG),
+            "vqa": t_vqa_init(3, _deep(T_VQA_CFG), device="cpu")}
+    quantized = {mode: t_vqa_init(3, T_VQA_CFG, device="cpu",
+                                  quantize_llm=mode)
+                 for mode in QUANT_MODES}
+    job = {"shapes": SHAPES, "deep": deep, "quantized": quantized,
            "loop_shapes": LOOP_MESHES, "serve_shape": "2x2x1",
            "tower_shape": MODEL_MESH,
            "work": str(work),
@@ -332,8 +360,8 @@ def started(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def world(started, jax_sft, vsm_refs, jax_vsm_step, jax_serving,
-          jax_engines, jax_tp_structure, jax_train_layers, jax_towers,
-          plain_towers):
+          jax_engines, jax_hidden_engines, jax_quantized, jax_tp_structure,
+          jax_train_layers, jax_towers, plain_towers):
     """The 4-rank world's results, and the inputs it was given."""
     job, work, ranks = started
     while not ranks.join():
@@ -695,66 +723,117 @@ def test_vsm_loop_resumes_sharded_to_the_unsharded_loop(world, plain_loops,
         _assert_update_close(v.numpy(), want_p[k].numpy(), k)
 
 
-def _same_engines(got, want, exact):
-    """Answers and choices equal; the arrays equal (`exact`) or within
-    JAX's sharded-inference tolerance (DET_TOL, MASK_TOL)."""
+def _same_engines(got, want):
+    """Answers and choices equal; the arrays within JAX's
+    sharded-inference tolerance (DET_TOL, MASK_TOL)."""
     assert got["answer"] == want["answer"]
     assert got["choice"] == want["choice"]
     for k in ("boxes", "scores", "heatmap", "segment"):
-        if exact:
-            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-        else:
-            np.testing.assert_allclose(
-                np.asarray(got[k], np.float64),
-                np.asarray(want[k], np.float64), err_msg=k,
-                **(MASK_TOL if k in ("heatmap", "segment") else DET_TOL))
+        np.testing.assert_allclose(
+            np.asarray(got[k], np.float64),
+            np.asarray(want[k], np.float64), err_msg=k,
+            **(MASK_TOL if k in ("heatmap", "segment") else DET_TOL))
 
 
 @pytest.mark.parametrize("mesh", MESHES)
 def test_sharded_engines_equal_unsharded(world, mesh):
-    """Bit for bit where the model axis is 1 (every rank computes whole
-    layers); on 1x2x2 and 1x1x4 the decoder is tensor-parallel, its wo
-    and w_down products summed over the model group in another order, so
-    the arrays agree within JAX's sharded-inference tolerance."""
+    """On every mesh the decoder's sums run in another order than on one
+    device: on 2x2x1 and 1x2x2 its stack lies on the hidden axis (the
+    rmsnorm moments and the q / k / v and gate / up products summed over
+    the fsdp group), on 1x2x2 and 1x1x4 it is tensor-parallel (wo and
+    w_down summed over the model group); so the answers and choices are
+    equal and the arrays agree within JAX's sharded-inference
+    tolerance."""
     out, job, _ = world
     got = out[mesh]["engines"]
     want = W.engines(job["vqa"], T_VQA_CFG, job["tilted_vsm"], T_VSM_CFG,
                      None)
     assert len(want["boxes"]) > 0      # the tilted VSM emitted [LOC]
-    _same_engines(got, want, exact=mesh == "2x2x1")
+    _same_engines(got, want)
+
+
+class _Recorded:
+    """A jitted function that keeps the arguments of its calls, to lower
+    the program it ran again (`hlo`)."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, *args, **kw):
+        self.calls.append((args, kw))
+        return self.fn(*args, **kw)
+
+    def hlo(self, i=0):
+        args, kw = self.calls[i]
+        return self.fn.lower(*args, **kw).compile().as_text()
+
+
+def _image():
+    from PIL import Image
+    return Image.fromarray((np.random.RandomState(2).rand(96, 128, 3) * 255)
+                           .astype("uint8"))
+
+
+def _jax_vqa_on(shape, tree, cfg):
+    """vstar_tpu's VQA engine sharded on the `shape` mesh of the first CPU
+    devices, on the world's settings (W.engines'): the free-form answer,
+    the choice, and "bodies": the decoder layer bodies of its compiled
+    prefill and decode-chunk programs (_layer_bodies), by program."""
+    from vstar_tpu.eval.vqa_engine import VQAEngine as JaxVQAEngine
+    from vstar_tpu.multimodal.stub_tokenizer import \
+        StubTokenizer as JaxStubTokenizer
+    jm = jmesh.make_mesh(shape, devices=jax.devices()[:int(np.prod(shape))])
+    vqa = JaxVQAEngine(_jax_tree(tree), cfg,
+                       JaxStubTokenizer(cfg.llama.vocab_size),
+                       prompt_buckets=(64,), option_bucket=16,
+                       compute_dtype=jnp.float32, mesh=jm)
+    img = _image()
+    out = {"answer": vqa.free_form(img, "what is on the table ?",
+                                   max_new_tokens=12),
+           "choice": vqa.multiple_choice(img, "what color is the cup ?",
+                                         ["red", "blue"])}
+    # the keyword-stopped answer runs the prefill and the decode-chunk
+    # programs
+    vqa._jit_prefill = prefill = _Recorded(vqa._jit_prefill)
+    vqa._jit_chunk = chunk = _Recorded(vqa._jit_chunk)
+    vqa.free_form(img, "what is on the table ?", max_new_tokens=4,
+                  stop_keywords=["zzz"])
+    out["bodies"] = {"prefill": _layer_bodies(prefill.hlo(), shape),
+                     "decode": _layer_bodies(chunk.hlo(), shape)}
+    return out
+
+
+def _jax_engines_on(shape, vqa_tree, vsm_tree, vqa_cfg, vsm_cfg):
+    """_jax_vqa_on, and vstar_tpu's batched VSM engine sharded alike: the
+    boxes, scores, heatmap and segment, and the decoder layer bodies of
+    its compiled vsm_generate."""
+    from vstar_tpu.multimodal.stub_tokenizer import \
+        StubTokenizer as JaxStubTokenizer
+    from vstar_tpu.search.batched import BatchedVSMEngine as JaxBatchedVSM
+    out = _jax_vqa_on(shape, vqa_tree, vqa_cfg)
+    jm = jmesh.make_mesh(shape, devices=jax.devices()[:int(np.prod(shape))])
+    vsm = JaxBatchedVSM(_jax_tree(vsm_tree), vsm_cfg,
+                        JaxStubTokenizer(vsm_cfg.llama.vocab_size),
+                        loc_token_id=3, eos_id=2, max_new_tokens=4,
+                        prompt_buckets=(64,), compute_dtype=jnp.float32,
+                        mesh=jm)
+    img = _image()
+    vsm._jit_generate = generate = _Recorded(vsm._jit_generate)
+    boxes, scores, heatmap = vsm.detect(img, "cat")
+    out.update(boxes=np.asarray(boxes), scores=np.asarray(scores),
+               heatmap=np.asarray(heatmap),
+               segment=np.asarray(vsm.segment(img, "cat")))
+    out["bodies"]["vsm_generate"] = _layer_bodies(generate.hlo(), shape)
+    return out
 
 
 @pytest.fixture(scope="module")
 def jax_engines(started):
-    """vstar_tpu's VQA and batched VSM engines sharded on the 1x2x2 mesh of
-    four of the eight CPU devices, on the world's trees and settings
-    (W.engines'): the same answers, choice, boxes, scores, heatmap and
-    segment."""
-    from PIL import Image
-    from vstar_tpu.eval.vqa_engine import VQAEngine as JaxVQAEngine
-    from vstar_tpu.multimodal.stub_tokenizer import \
-        StubTokenizer as JaxStubTokenizer
-    from vstar_tpu.search.batched import BatchedVSMEngine as JaxBatchedVSM
+    """vstar_tpu's engines sharded on the 1x2x2 mesh of four of the eight
+    CPU devices, on the world's trees (_jax_engines_on)."""
     job, _, _ = started
-    jm = jmesh.make_mesh(TP_SHAPE, devices=jax.devices()[:4])
-    tok = JaxStubTokenizer(VQA_CFG.llama.vocab_size)
-    vqa = JaxVQAEngine(_jax_tree(job["vqa"]), VQA_CFG, tok,
-                       prompt_buckets=(64,), option_bucket=16,
-                       compute_dtype=jnp.float32, mesh=jm)
-    vsm = JaxBatchedVSM(_jax_tree(job["tilted_vsm"]), VSM_CFG, tok,
-                        loc_token_id=3, eos_id=2, max_new_tokens=4,
-                        prompt_buckets=(64,), compute_dtype=jnp.float32,
-                        mesh=jm)
-    img = Image.fromarray((np.random.RandomState(2).rand(96, 128, 3) * 255)
-                          .astype("uint8"))
-    boxes, scores, heatmap = vsm.detect(img, "cat")
-    return {"answer": vqa.free_form(img, "what is on the table ?",
-                                    max_new_tokens=12),
-            "choice": vqa.multiple_choice(img, "what color is the cup ?",
-                                          ["red", "blue"]),
-            "boxes": np.asarray(boxes), "scores": np.asarray(scores),
-            "heatmap": np.asarray(heatmap),
-            "segment": np.asarray(vsm.segment(img, "cat"))}
+    return _jax_engines_on(TP_SHAPE, job["vqa"], job["tilted_vsm"], VQA_CFG,
+                           VSM_CFG)
 
 
 def test_tensor_parallel_engines_equal_jax_sharded(world, jax_engines):
@@ -763,7 +842,178 @@ def test_tensor_parallel_engines_equal_jax_sharded(world, jax_engines):
     out, _, _ = world
     got = out[TP_MESH]["engines"]
     assert len(got["boxes"]) > 0
-    _same_engines(got, jax_engines, exact=False)
+    _same_engines(got, jax_engines)
+
+
+@pytest.fixture(scope="module")
+def jax_hidden_engines(started, jax_engines):
+    """vstar_tpu's engines on every mesh of HIDDEN_MESHES: both on the
+    world's trees on 2x2x1 and 1x2x2 (_jax_engines_on), the VQA engine on
+    its DEEP_LAYERS tree on DEEP_SHAPE (_jax_vqa_on)."""
+    job, _, _ = started
+    return {HIDDEN_MESHES[0]: _jax_engines_on(
+                HIDDEN_SHAPES[0], job["vqa"], job["tilted_vsm"], VQA_CFG,
+                VSM_CFG),
+            TP_MESH: jax_engines,
+            DEEP_MESH: _jax_vqa_on(DEEP_SHAPE, job["deep"]["vqa"],
+                                   _deep(VQA_CFG))}
+
+
+@pytest.fixture(scope="module")
+def jax_quantized(started):
+    """_jax_vqa_on 2x2x1 for each quantized tree of the world (vstar_tpu's
+    qdot off the TPU: XLA's dequantized products)."""
+    job, _, _ = started
+    return {mode: _jax_vqa_on(HIDDEN_SHAPES[0], tree, VQA_CFG)
+            for mode, tree in job["quantized"].items()}
+
+
+@pytest.mark.parametrize("mode", QUANT_MODES)
+def test_quantized_engines_on_hidden_axis_equal_jax_sharded(world,
+                                                            jax_quantized,
+                                                            mode):
+    """A quantized VQA engine (`int4mix`: int4 w_gate / w_up, int8 the
+    other matrices) on 2x2x1: its stack on the hidden axis too (the int8 / int4 weights and
+    the int4 group scales on D, the column-split matrices' int8 scales
+    whole, as XLA's dequantized products place them), 4 all-reduces over
+    fsdp a layer in a prefill and a decode step, as each layer body of
+    vstar_tpu's compiled programs on the same tree, none of them a layer
+    fetch; the answer and the choice equal vstar_tpu's engine sharded
+    alike and the unsharded port's."""
+    out, job, _ = world
+    got, structure = out[HIDDEN_MESHES[0]]["quantized"][mode]
+    want = jax_quantized[mode]
+    assert got == {k: want[k] for k in ("answer", "choice")}
+    assert got == W.vqa_answers(job["quantized"][mode], T_VQA_CFG, None)
+    for program, bodies in want["bodies"].items():
+        assert bodies and all(b == {("all_reduce", ("fsdp",)): 4}
+                              for b in bodies), (program, bodies)
+    L = T_VQA_CFG.llama.num_layers
+    assert structure["hidden_split"] and structure["model_split"] is None
+    for name in ("prefill", "decode"):
+        counts = structure[name][0]
+        assert structure["fetches"][name] == {}
+        assert counts == {("all_reduce", "fsdp"): 4 * L,
+                          ("all_gather", "fsdp"): 1}, (name, counts)
+
+
+def test_hidden_split_refuses_act_int8_on_quantized_entries():
+    """The act-int8 routes scale each row by its largest |value| over the
+    whole row, which a rank of the hidden split does not hold: a
+    quantized product on the split raises while the switch is on."""
+    from vstar_tpu_torch.nn import llama as tllama
+    from vstar_tpu_torch.nn import quant as tquant
+    w = tquant.quantize_weight(torch.randn(8, 4))
+    tquant.set_act_int8(True)
+    try:
+        with pytest.raises(ValueError, match="act-int8"):
+            tllama._hidden_dots(torch.randn(1, 1, 8), [w], None)
+    finally:
+        tquant.set_act_int8(False)
+
+
+@pytest.mark.parametrize("mesh", [HIDDEN_MESHES[0], DEEP_MESH])
+def test_hidden_split_engines_equal_jax_sharded(world, jax_hidden_engines,
+                                                mesh):
+    """The port's engines with each decoder's stack on the hidden axis
+    against vstar_tpu's engines sharded on the same mesh: on 2x2x1 (the
+    world's trees) both engines, within DET_TOL / MASK_TOL; on 1x4x1 (a
+    VQA tree of 4 layers, which fsdp 4 divides) the VQA engine's answer
+    and choice, also against the unsharded port's. 1x2x2, where the
+    model axis splits the stack too, is
+    test_tensor_parallel_engines_equal_jax_sharded."""
+    out, job, _ = world
+    want = jax_hidden_engines[mesh]
+    if mesh == DEEP_MESH:
+        d = job["deep"]
+        got = out[mesh]["vqa_answers"]
+        assert got == {k: want[k] for k in ("answer", "choice")}
+        assert got == W.vqa_answers(d["vqa"], d["vqa_cfg"], None)
+    else:
+        got = out[mesh]["engines"]
+        assert len(got["boxes"]) > 0
+        _same_engines(got, want)
+
+
+@pytest.mark.parametrize("mesh", HIDDEN_MESHES)
+def test_hidden_split_structure_equals_jax_engine_hlo(world,
+                                                      jax_hidden_engines,
+                                                      mesh):
+    """Where fsdp is above 1 an engine's decoder computes as the layer body
+    of vstar_tpu's compiled engine programs (the VQA engine's prefill and
+    decode chunk, and on 2x2x1 and 1x2x2 the VSM's vsm_generate, each
+    layer body of each read apart): 4 all-reduces
+    over the fsdp group a layer, in a prefill and in a decode step (the
+    two rmsnorm moments, the q / k / v partial sums and the gate / up
+    ones), and on 1x2x2 beside them the model split's 2; no layer is
+    broadcast or gathered (core/mesh.fetch_collectives). The one difference,
+    outside the layer body: the port gathers the residual stream once a
+    forward after the last layer (one all-gather over fsdp), where XLA
+    all-reduces the final norm's moment and the lm_head's partial
+    product, because the port's engines hold lm_head and the heads whole
+    (ROADMAP Queue 3). K1 runs on H/M heads; each rank's KV cache holds
+    H_kv/M heads (all of them on fsdp); each rank holds the layer stack's
+    bytes that core/memory.plan_engine_memory plans, 1/F of the stack
+    where the model axis is 1."""
+    out, job, _ = world
+    got = out[mesh]["tp_structure"]
+    shape = dict(zip(HIDDEN_MESHES, HIDDEN_SHAPES))[mesh]
+    F, M = shape[1], shape[2]
+    tree = job["deep"]["vqa"] if mesh == DEEP_MESH else job["vqa"]
+    cfg = (job["deep"]["vqa_cfg"] if mesh == DEEP_MESH else T_VQA_CFG).llama
+    L = cfg.num_layers
+    want = {("all_reduce", ("fsdp",)): 4}
+    if M > 1:
+        want[("all_reduce", ("model",))] = 2
+    for program, bodies in jax_hidden_engines[mesh]["bodies"].items():
+        assert bodies and all(b == want for b in bodies), (program, bodies)
+    assert got["hidden_split"]
+    for name in ("prefill", "decode"):
+        counts, heads, _ = got[name]
+        assert got["fetches"][name] == {}, name
+        assert got["hidden"][name] == {
+            ("layer", "all_reduce", "forward"): 4 * L,
+            ("residual", "all_gather", "forward"): 1}, name
+        assert {(op, (ax,)): n / L for (op, ax), n in counts.items()
+                if op == "all_reduce"} == want, (name, counts)
+        assert {k: n for k, n in counts.items() if k[0] != "all_reduce"} \
+            == {("all_gather", "fsdp"): 1}, (name, counts)
+        assert heads == [cfg.num_heads // M] * L
+    assert got["cache_heads"] == [(cfg.num_kv_heads // M, cfg.head_dim)] * 4
+    stack = sum(x.nbytes for _, x in
+                leaves_with_path(tree["llama"]["layers"]))
+    plan = tmem.plan_engine_memory(tree, shape)
+    assert got["stack_bytes"] == [plan.stack_bytes] * 4
+    if M == 1:
+        assert plan.stack_bytes * F == stack
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 1), (1, 2, 2), (2, 2, 1)])
+@pytest.mark.parametrize("which", ["vqa", "vsm"])
+def test_engine_memory_stack_equals_jax_plan(which, shape):
+    """core/memory.plan_engine_memory of the 7B tree (the VSM with LoRA
+    r=8): its decoder stack on the hidden axis takes a rank the bytes
+    JAX's plan gives the stack on its layer axis, but for LoRA's B and
+    scale, which every rank holds whole (JAX shards them on the layer
+    axis); every other leaf is whole, but for the towers' matrices the
+    model axis splits."""
+    t_tree, j_tree = _tree_7b(which, "torch"), _tree_7b(which, "jax")
+    fake = types.SimpleNamespace(shape=dict(zip(tmesh.AXES, shape)))
+    j_stack = {"llama": {"layers": j_tree["llama"]["layers"]}}
+    want = jmem.plan_train_memory(j_stack, fake, trainable_mask=jax.tree.map(
+        lambda _: False, j_stack)).params_bytes
+    got = tmem.plan_engine_memory(t_tree, shape)
+    lora = t_tree["llama"]["layers"]["attn"].get("lora", {})
+    whole = sum(x.numel() * x.element_size() for k, x in lora.items()
+                if k.endswith("_b"))
+    if lora:
+        whole += t_tree["llama"]["layers"]["attn"]["lora_scale"].numel() * 4
+    F = shape[1]
+    assert got.stack_bytes == want + whole - whole // F
+    one = tmem.plan_engine_memory(t_tree, None)
+    assert one.total_bytes == sum(x.numel() * x.element_size()
+                                  for _, x in leaves_with_path(t_tree))
+    assert got.other_bytes <= one.other_bytes and "GB/chip" in got.summary()
 
 
 def _hlo_groups(spec):
@@ -779,6 +1029,36 @@ def _hlo_groups(spec):
     if perm:
         ids = ids.transpose([int(d) for d in perm.split(",")])
     return ids.reshape([int(d) for d in shape.split(",")]).tolist()
+
+
+def _layer_bodies(text, shape):
+    """The decoder layer bodies of compiled HLO text: each computation that
+    holds the decoder's rmsnorm moment all-reduce (a 2-D f32 [B, S] of
+    op_name .../closed_call/reduce_sum; the towers' LayerNorm reduces
+    under jit(_var), their softmax sums are 3-D), as its collectives by
+    (operation, the mesh axes its groups span), a combined (tuple)
+    collective once. Partition p is mesh coordinate
+    unravel_index(p, shape)."""
+    bodies, cur, marked = [], {}, False
+    for line in text.splitlines() + ["}"]:
+        if not line.startswith(" "):
+            if marked:
+                bodies.append(cur)
+            cur, marked = {}, False
+            continue
+        found = _HLO_COLLECTIVE.search(line)
+        if not found:
+            continue
+        coords = np.array([np.unravel_index(d, shape)
+                           for d in _hlo_groups(found.group(2))[0]])
+        axes = tuple(a for i, a in enumerate(tmesh.AXES)
+                     if len(set(coords[:, i])) > 1)
+        key = (found.group(1).replace("-", "_"), axes)
+        cur[key] = cur.get(key, 0) + 1
+        marked |= bool(re.search(r'op_name="[^"]*closed_call/reduce_sum"',
+                                 line)) and \
+            bool(re.search(r"= f32\[\d+,\d+\]\{", line))
+    return bodies
 
 
 def _hlo_collectives(text, shape):

@@ -279,6 +279,24 @@ def engines(vqa_params, vqa_cfg, vsm_params, vsm_cfg, mesh):
             "segment": np.asarray(vsm.segment(img, "cat"))}
 
 
+def vqa_answers(params, cfg, mesh):
+    """The tiny VQA engine's free-form answer and choice (f32), sharded
+    over `mesh` (None: unsharded): the check of a quantized tree and of
+    a deeper one."""
+    from PIL import Image
+    from vstar_tpu_torch.eval.vqa_engine import VQAEngine
+    from vstar_tpu_torch.multimodal.stub_tokenizer import StubTokenizer
+    vqa = VQAEngine(params, cfg, StubTokenizer(cfg.llama.vocab_size),
+                    device="cpu", prompt_buckets=(64,), option_bucket=16,
+                    compute_dtype=torch.float32, mesh=mesh)
+    img = Image.fromarray((np.random.RandomState(2).rand(96, 128, 3) * 255)
+                          .astype("uint8"))
+    return {"answer": vqa.free_form(img, "what is on the table ?",
+                                    max_new_tokens=12),
+            "choice": vqa.multiple_choice(img, "what color is the cup ?",
+                                          ["red", "blue"])}
+
+
 # the model split's structure: a prefill of TP_PREFILL tokens, then one
 # decode step, into a cache of TP_CACHE slots
 TP_PREFILL, TP_CACHE = 8, 128
@@ -290,10 +308,14 @@ def tp_structure(params, cfg, mesh):
     one decode step through llama_forward into the rank's cache (its
     heads from nn/llama.kv_heads). -> {"prefill" / "decode": (the
     collectives each ran, by (operation, axis); the query heads of each
-    attention call; the hidden states), "cache_heads": every rank's
-    (cache KV heads, the cache's head dim), "model_split": the blocks
-    split}, whole on rank 0. A decoder whose 3 heads the model axis would
-    cut: "refusal", the error serving_params raises."""
+    attention call; the hidden states), "fetches" / "hidden": per step
+    the collectives that fetched layers (core/mesh.fetch_collectives) and
+    the hidden split's (core/mesh.hidden_collectives), "cache_heads":
+    every rank's (cache KV heads, the cache's head dim), "model_split":
+    the blocks split (None: no model split), "hidden_split": whether the
+    stack lies on the hidden axis, "stack_bytes": every rank's bytes of
+    the layer stack}, whole on rank 0. A decoder whose 3 heads the model
+    axis would cut: "refusal", the error serving_params raises."""
     import dataclasses
     from vstar_tpu_torch.nn import llama as L
     lcfg = cfg.llama
@@ -310,13 +332,18 @@ def tp_structure(params, cfg, mesh):
         calls.append(q.shape[2])
         return attention(q, *a, **kw)
 
-    out = {"model_split": M.model_split(llama["layers"]).blocks}
+    split = M.model_split(llama["layers"])
+    out = {"model_split": None if split is None else split.blocks,
+           "hidden_split": M.hidden_split(llama["layers"]) is not None,
+           "fetches": {}, "hidden": {}}
     L.flash_attention = recorded
     try:
         with torch.no_grad():
             for name, lo, hi in (("prefill", 0, TP_PREFILL),
                                  ("decode", TP_PREFILL, TP_PREFILL + 1)):
-                M.collectives.clear()
+                for counts in (M.collectives, M.fetch_collectives,
+                               M.hidden_collectives):
+                    counts.clear()
                 del calls[:]
                 pos = torch.arange(lo, hi)[None]
                 hidden, cache = L.llama_forward(
@@ -325,11 +352,18 @@ def tp_structure(params, cfg, mesh):
                     q_offsets=torch.tensor([lo], dtype=torch.int32),
                     cache=cache)
                 out[name] = (dict(M.collectives), list(calls), hidden)
+                out["fetches"][name] = dict(M.fetch_collectives)
+                out["hidden"][name] = dict(M.hidden_collectives)
     finally:
         L.flash_attention = attention
     every = [None] * M.world_size()
     dist.all_gather_object(every, (cache.k.shape[3], cache.k.shape[4]))
     out["cache_heads"] = every
+    stack = sum(x.to_local().nbytes for _, x in leaves_with_path(
+        llama["layers"]))
+    every = [None] * M.world_size()
+    dist.all_gather_object(every, stack)
+    out["stack_bytes"] = every
     cut = dataclasses.replace(lcfg, hidden_size=48, num_heads=3,
                               num_kv_heads=3, head_dim=16)
     try:
@@ -714,7 +748,7 @@ def world(rank, n, store, job_path, out_path):
                 job["vsm_cfg"], job["vsm_batch"])
             res["engines"] = engines(job["vqa"], job["vqa_cfg"],
                                      job["tilted_vsm"], job["vsm_cfg"], mesh)
-            if mesh.shape[M.MODEL_AXIS] > 1:
+            if mesh.shape[M.MODEL_AXIS] > 1 or mesh.shape[M.FSDP_AXIS] > 1:
                 res["tp_structure"] = tp_structure(job["vqa"],
                                                    job["vqa_cfg"], mesh)
             if key == job["tower_shape"]:
@@ -728,6 +762,10 @@ def world(rank, n, store, job_path, out_path):
                                            job["vsm_data"], f"vsm_{key}",
                                            key, resume=True)
             if key == job["serve_shape"]:
+                res["quantized"] = {
+                    mode: (vqa_answers(tree, job["vqa_cfg"], mesh),
+                           tp_structure(tree, job["vqa_cfg"], mesh))
+                    for mode, tree in job["quantized"].items()}
                 res["eval_mains"] = eval_mains(
                     job["hf_dirs"], job["bench"],
                     f"{job['work']}/eval_{key}.json", key, job["vqa_cfg"],
@@ -735,6 +773,16 @@ def world(rank, n, store, job_path, out_path):
                 res["serve_single"] = serve_single(job, mesh)
                 res["serve_continuous"] = serve_continuous(job, mesh)
                 res["serve_http"] = serve_http(job, key)
+        deep = job["deep"]
+        for shape in deep["shapes"]:
+            # the VQA engine alone, on a stack of 4 layers (which fsdp 4
+            # divides)
+            mesh = M.make_mesh(shape, "cpu")
+            out["x".join(map(str, shape))] = {
+                "vqa_answers": vqa_answers(deep["vqa"], deep["vqa_cfg"],
+                                           mesh),
+                "tp_structure": tp_structure(deep["vqa"], deep["vqa_cfg"],
+                                             mesh)}
         if rank == 0:
             torch.save(out, out_path)
     finally:

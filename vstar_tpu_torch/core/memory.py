@@ -20,8 +20,9 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .mesh import (AXES, DEFAULT_RULES, LAYER_STACK, MODEL_AXIS, TP_BLOCKS,
-                   _clip_spec_to_leaf, spec_for)
+from .mesh import (AXES, DEFAULT_RULES, HIDDEN_RULES, LAYER_STACK,
+                   MODEL_AXIS, TOWER_MATRICES, TP_BLOCKS, _clip_spec_to_leaf,
+                   spec_for, takes_hidden_split)
 from .params import leaves_with_path
 
 
@@ -91,6 +92,52 @@ def plan_train_memory(params: Dict, mesh=None,
             mom_bytes += 2 * size * 4 // factor
             g_bytes += size * itemsize // factor  # grads in the param dtype
     return MemoryPlan(p_bytes, m_bytes, mom_bytes, g_bytes, n_params)
+
+
+@dataclass
+class EngineMemory:
+    """What a rank holds of an engine's tree as core/mesh.serving_params
+    places it: the decoder's layer stack (`stack_bytes`: on an fsdp axis
+    above 1 on the hidden axis, 1/F, and 1/M of the blocks the model
+    axis splits: the 1/(F M) of JAX's plan of the same tree) and every
+    other leaf (`other_bytes`: gathered once, but for the towers'
+    matrices the model axis splits)."""
+    stack_bytes: int
+    other_bytes: int
+
+    @property
+    def total_bytes(self) -> int:
+        return self.stack_bytes + self.other_bytes
+
+    def summary(self) -> str:
+        gb = 1024 ** 3
+        return (f"decoder stack {self.stack_bytes / gb:.2f} GB/chip, the "
+                f"rest {self.other_bytes / gb:.2f} => "
+                f"{self.total_bytes / gb:.2f} GB/chip")
+
+
+def plan_engine_memory(params: Dict, mesh=None,
+                       hidden_size: Optional[int] = None) -> EngineMemory:
+    """EngineMemory of an engine's tree on `mesh` (as plan_train_memory
+    takes it; `hidden_size`: the decoder's, default the embedding's
+    width); `params` may live on the meta device."""
+    sizes = mesh_shape(mesh)
+    if hidden_size is None:
+        hidden_size = params["llama"]["embed_tokens"].shape[-1]
+    rules = DEFAULT_RULES
+    if takes_hidden_split(params, sizes, hidden_size):
+        rules = HIDDEN_RULES + DEFAULT_RULES
+    stack = other = 0
+    for path, leaf in leaves_with_path(params):
+        spec = _clip_spec_to_leaf(spec_for(path, rules), leaf.shape, sizes)
+        nbytes = leaf.numel() * leaf.element_size()
+        if path.startswith(LAYER_STACK + "."):
+            stack += nbytes // _shard_factor(spec, sizes)
+        elif TOWER_MATRICES.fullmatch(path) and MODEL_AXIS in spec:
+            other += nbytes // sizes[MODEL_AXIS]
+        else:
+            other += nbytes
+    return EngineMemory(stack, other)
 
 
 @dataclass

@@ -51,8 +51,22 @@ the model group (train/sft.next_token_logprobs). An engine's tree
 (`serving_params`) gathers every other leaf once; its KV cache holds the
 rank's own heads. A block whose matrices the rules do not all split on
 model (a quantized block: its leaves' spec is P('fsdp')) is gathered
-and computed whole, as XLA computes it. The fsdp axis still fetches
-each layer from its owner.
+and computed whole, as XLA computes it.
+
+An engine's decoder computes the fsdp axis as vstar_tpu's compiled
+engine programs do: their HLO reshards the layer stack from the layer
+axis onto the hidden axis D (all-to-alls in ENTRY, outside every loop)
+and carries the residual stream split on D. `serving_params` places the
+stack so once, at build (HIDDEN_RULES: each rank keeps its 1/F of D of
+every layer matrix and norm scale, beside the model split), and
+`hidden_split` gives llama_forward a ModelSplit over the fsdp group: a
+layer's rmsnorm moments and its q / k / v and gate / up products are
+f32 partial sums all-reduced over that group, wo and w_down give the
+rank's own columns of D, and `layer_source` hands out the rank's share
+with no collective; quantized entries split so too (their products are
+summed as their kernels return them). Training keeps the owner's
+broadcast, and so does a stack this split does not take (a hidden size,
+or int4 groups, that F does not divide).
 
 Collectives are plain torch.distributed calls on the axes' process
 groups: NCCL on cards, gloo on the CPU. `collectives` counts them by
@@ -115,6 +129,31 @@ DEFAULT_RULES = LLAMA_RULES + VISION_RULES
 # ZeRO-3-style default: shard the leading dim over fsdp whenever it
 # divides (clipping drops it otherwise).
 _FALLBACK = (FSDP_AXIS,)
+
+# An engine's decoder stack on the hidden axis D (module docstring): the
+# split the HLO of vstar_tpu's engine programs reshards the stack onto
+# (tests/test_torch_mesh.py reads it), with the model axis where
+# LLAMA_RULES put it. Ahead of DEFAULT_RULES in serving_params only.
+HIDDEN_RULES: Tuple[Tuple[str, tuple], ...] = (
+    (r"llama\.layers\.(attn\.(wq|wk|wv)|mlp\.(w_gate|w_up))$",
+     (None, FSDP_AXIS, MODEL_AXIS)),
+    (r"llama\.layers\.(attn\.wo|mlp\.w_down)$",
+     (None, MODEL_AXIS, FSDP_AXIS)),
+    (r"llama\.layers\.(input_norm|post_norm)\.scale$", (None, FSDP_AXIS)),
+    # LoRA: A on the hidden axis (x @ A is a partial sum), B and the scale
+    # whole on every rank
+    (r"llama\.layers\.attn\.lora\.\w+_a$", (None, FSDP_AXIS)),
+    (r"llama\.layers\.attn\.lora(\.\w+_b|_scale)$", ()),
+    # quantized entries (nn/quant.py; whole on the model axis, as their
+    # P('fsdp') leaves are in JAX): the int8 / int4 weights and the int4
+    # group scales on the rows or columns of D; the int8 per-column scales
+    # of the column-split matrices whole
+    (r"llama\.layers\.(attn\.(wq|wk|wv)|mlp\.(w_gate|w_up))\.(q|q4|s4)$",
+     (None, FSDP_AXIS)),
+    (r"llama\.layers\.(attn\.(wq|wk|wv)|mlp\.(w_gate|w_up))\.s$", ()),
+    (r"llama\.layers\.(attn\.wo|mlp\.w_down)\.(q|s|q4|s4)$",
+     (None, None, FSDP_AXIS)),
+)
 
 
 def spec_for(path: str, rules=DEFAULT_RULES) -> tuple:
@@ -401,8 +440,19 @@ collectives: Dict[Tuple[str, str], int] = {}
 _build.register_counters(__name__, "collectives")
 
 
-def _count(op: str, axis: str) -> None:
-    collectives[(op, axis)] = collectives.get((op, axis), 0) + 1
+# The collectives that fetch decoder layers (layer_source: a broadcast
+# from the fsdp owner, a gather inside the layer) by (operation, axis),
+# counted in `collectives` too; an engine's stack on the hidden axis
+# runs none.
+fetch_collectives: Dict[Tuple[str, str], int] = {}
+_build.register_counters(__name__, "fetch_collectives")
+
+
+def _count(op: str, axis: str, fetch: bool = False) -> None:
+    key = (op, axis)
+    collectives[key] = collectives.get(key, 0) + 1
+    if fetch:
+        fetch_collectives[key] = fetch_collectives.get(key, 0) + 1
 
 
 def _all_reduce(x: torch.Tensor, group) -> None:
@@ -494,7 +544,7 @@ def _from_owner(part: torch.Tensor, mesh: Mesh, owner: int) -> torch.Tensor:
     keep = mesh.coord[FSDP_AXIS] == owner
     out = part.clone() if keep else torch.empty_like(part)
     if mesh.shape[FSDP_AXIS] > 1:
-        _count("broadcast", FSDP_AXIS)
+        _count("broadcast", FSDP_AXIS, fetch=True)
         dist.broadcast(out, src=dist.get_global_rank(group, owner),
                        group=group)
     return out
@@ -520,7 +570,7 @@ class _GatherLayer(torch.autograd.Function):
             if isinstance(pl, Shard) and mesh.shape[ax] > 1 and \
                     not (ax == FSDP_AXIS and owner is not None) \
                     and not (ax == MODEL_AXIS and model_local):
-                _count("all_gather", ax)
+                _count("all_gather", ax, fetch=True)
                 out = _all_gather(out, pl.dim - 1, mesh.groups[ax])
         return out.clone() if out is part else out
 
@@ -592,8 +642,9 @@ def layer_source(stack: Params):
     of DTensors the layer is gathered from its owner on the fsdp axis and
     the other axes (the whole stack is never gathered), except on the
     model axis for the matrices of the blocks the model axis splits
-    (`model_split`), which keep this rank's shard; otherwise it is
-    core/params.layer's view."""
+    (`model_split`), which keep this rank's shard; an engine's stack on
+    the hidden axis (HIDDEN_RULES) is this rank's share as it lies, with
+    no collective; otherwise it is core/params.layer's view."""
     flat = dict(leaves_with_path(stack))
     if not any(isinstance(x, DTensor) for x in flat.values()):
         return lambda i: layer(stack, i)
@@ -623,7 +674,9 @@ def layer_source(stack: Params):
                 per = n_layers // mesh.shape[FSDP_AXIS]
                 owner, j = i // per, i % per
             part = slices[j] if sink is None else read_layer(local, j, sink)
-            if model_local and not torch.is_grad_enabled():
+            if isinstance(fs, Shard) and fs.dim > 0:
+                got[path] = part                # on the hidden axis
+            elif model_local and not torch.is_grad_enabled():
                 got[path] = _model_local_layer(part, mesh, owner)
             else:
                 got[path] = _GatherLayer.apply(part, mesh, pl, owner,
@@ -663,7 +716,12 @@ TP_BLOCKS = (("attn", ("wq", "wk", "wv"), "wo"),
 # backward runs again, under remat) or "backward". Each is counted in
 # `collectives` too.
 model_collectives: Dict[Tuple[str, str, str], int] = {}
-_build.register_counters(__name__, "model_collectives")
+# The same for an engine's split on the hidden axis (`hidden_split`), over
+# the fsdp group: site "layer" (a decoder layer's moments and partial
+# products) or "residual" (the residual stream gathered whole after the
+# last layer).
+hidden_collectives: Dict[Tuple[str, str, str], int] = {}
+_build.register_counters(__name__, "model_collectives", "hidden_collectives")
 
 
 def _phase() -> str:
@@ -711,20 +769,25 @@ class ModelSplit:
     """A model split (module docstring) on this rank: `site` is where its
     collectives are counted ("layer": the decoder's layers, whose blocks
     `blocks` ("attn", "mlp") each rank computes on its own shard; "vocab":
-    the loss; "tower": a vision tower); `size`, `index`: the model axis's
-    size and this rank's coordinate on it."""
+    the loss; "tower": a vision tower); `size`, `index`: the size of the
+    split's mesh axis `axis` and this rank's coordinate on it. On the
+    fsdp axis it is an engine's split of the hidden axis (`hidden_split`),
+    counted in `hidden_collectives`."""
 
     def __init__(self, mesh: Mesh, site: str,
-                 blocks: Tuple[str, ...] = ()):
-        self.blocks, self.site = blocks, site
-        self.group = mesh.groups[MODEL_AXIS]
-        self.size = mesh.shape[MODEL_AXIS]
-        self.index = mesh.coord[MODEL_AXIS]
+                 blocks: Tuple[str, ...] = (), axis: str = MODEL_AXIS):
+        self.blocks, self.site, self.axis = blocks, site, axis
+        self.group = mesh.groups[axis]
+        self.size = mesh.shape[axis]
+        self.index = mesh.coord[axis]
 
-    def _note(self, op: str, phase: str) -> None:
-        _count(op, MODEL_AXIS)
-        key = (self.site, op, phase)
-        model_collectives[key] = model_collectives.get(key, 0) + 1
+    def _note(self, op: str, phase: str, site: Optional[str] = None
+              ) -> None:
+        _count(op, self.axis)
+        counts = model_collectives if self.axis == MODEL_AXIS \
+            else hidden_collectives
+        key = (site or self.site, op, phase)
+        counts[key] = counts.get(key, 0) + 1
 
     def _all_reduce(self, x: torch.Tensor, phase: str, op=None) -> None:
         self._note("all_reduce", phase)
@@ -742,6 +805,15 @@ class ModelSplit:
         self._all_reduce(partial, _phase())
         return partial
 
+    def reduce_many(self, *partials: torch.Tensor
+                    ) -> Tuple[torch.Tensor, ...]:
+        """Several f32 partial sums summed over the group in one all-reduce
+        (XLA's combined all-reduce of a tuple), outside autograd."""
+        flat = torch.cat([p.reshape(-1) for p in partials])
+        self._all_reduce(flat, _phase())
+        parts = flat.split([p.numel() for p in partials])
+        return tuple(y.view(p.shape) for y, p in zip(parts, partials))
+
     def enter(self, *xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """The tensors a split computation uses whole (its input, and
         leaves such as LoRA's): themselves, whose gradients the backward
@@ -758,10 +830,12 @@ class ModelSplit:
         self._all_reduce(x, _phase(), dist.ReduceOp.MAX)
         return x
 
-    def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-        """The model group's shards of dim `dim` concatenated, in rank
-        order (outside autograd: the frozen towers)."""
-        self._note("all_gather", _phase())
+    def gather(self, x: torch.Tensor, dim: int = -1,
+               site: Optional[str] = None) -> torch.Tensor:
+        """The group's shards of dim `dim` concatenated, in rank order
+        (outside autograd: the frozen towers, an engine's residual),
+        counted at `site` (default the split's)."""
+        self._note("all_gather", _phase(), site)
         return _all_gather(x, dim % x.dim(), self.group)
 
     def columns(self, x: torch.Tensor) -> torch.Tensor:
@@ -802,6 +876,39 @@ def model_split(stack: Params, cfg=None) -> Optional[ModelSplit]:
                     f"decoder's {what} H={heads} (H*head_dim divides by "
                     f"M, H does not); pick an M that divides {heads}")
     return ModelSplit(mesh, "layer", blocks)
+
+
+def hidden_split(stack: Params) -> Optional[ModelSplit]:
+    """The split of an engine's decoder stack on the hidden axis (module
+    docstring; serving_params places it by HIDDEN_RULES): a ModelSplit
+    over the fsdp group, None for a stack that keeps its layers whole on
+    the hidden axis."""
+    x = stack.get("input_norm", {}).get("scale")
+    if not isinstance(x, DTensor):
+        return None
+    fs = x.placements[AXES.index(FSDP_AXIS)]
+    if not (isinstance(fs, Shard) and fs.dim == 1):
+        return None
+    return ModelSplit(Mesh.of(x.device_mesh), "layer", axis=FSDP_AXIS)
+
+
+def takes_hidden_split(params: Params, mesh_sizes: Dict[str, int],
+                       hidden_size: int) -> bool:
+    """Whether an engine's decoder stack goes on the hidden axis on a mesh
+    of `mesh_sizes` (axis -> size): an fsdp axis above 1 that divides the
+    hidden size and every leaf HIDDEN_RULES split on it (an int4 entry's
+    groups; a single group is a per-column scale, kept whole)."""
+    if mesh_sizes[FSDP_AXIS] == 1 or hidden_size % mesh_sizes[FSDP_AXIS]:
+        return False
+    for path, x in leaves_with_path(params):
+        if not path.startswith(LAYER_STACK + "."):
+            continue
+        spec = spec_for(path, HIDDEN_RULES)
+        clipped = _clip_spec_to_leaf(spec, x.shape, mesh_sizes)
+        if FSDP_AXIS in spec and FSDP_AXIS not in clipped and \
+                not (path.endswith(".s4") and x.shape[1] == 1):
+            return False
+    return True
 
 
 # The vision towers' matrices, which VISION_RULES split on the model axis
@@ -854,17 +961,27 @@ def serving_params(params: Params, mesh: Mesh, llama_cfg) -> Params:
     """An engine's tree under a mesh: the decoder's layer stack sharded by
     the rules, every other leaf gathered once into a plain tensor
     (embeddings, lm_head, towers, heads: a few percent of a 7B model).
-    On a model axis above 1 the decoder's blocks that the rules split
-    compute on each rank's own shard (module docstring, ModelSplit), and
-    so do the towers' matrices (model_local_leaves; their other axes
-    gathered once); a model axis that would cut a decoder head
-    (`llama_cfg`'s heads) raises. Every rank of the mesh must call it."""
+    On an fsdp axis above 1 the stack lies on the hidden axis
+    (HIDDEN_RULES, `hidden_split`: each rank keeps 1/F of every layer,
+    taken from the whole tree every rank was given, so with no
+    communication). On a model axis above 1 the decoder's blocks that
+    the rules split compute on each rank's own shard (module docstring,
+    ModelSplit), and so do the towers' matrices (model_local_leaves;
+    their other axes gathered once); a model axis that would cut a
+    decoder head (`llama_cfg`'s heads) raises. The groups of the splits
+    run a first collective here, before any graph capture. Every rank of
+    the mesh must call it."""
+    rules = DEFAULT_RULES
+    if takes_hidden_split(params, mesh.shape, llama_cfg.hidden_size):
+        rules = HIDDEN_RULES + DEFAULT_RULES
     with torch.no_grad():
-        tree = shard_params(params, mesh)
+        tree = shard_params(params, mesh, rules)
         tree = unshard(tree, model_local=model_local_leaves(tree))
     stack = tree["llama"]["layers"]
+    device = stack["input_norm"]["scale"].to_local().device
     split = model_split(stack, llama_cfg)
     if split is not None:
-        name, _, rows = next(b for b in TP_BLOCKS if b[0] in split.blocks)
-        warm_group(mesh, MODEL_AXIS, stack[name][rows].to_local().device)
+        warm_group(mesh, MODEL_AXIS, device)
+    if hidden_split(stack) is not None:
+        warm_group(mesh, FSDP_AXIS, device)
     return tree

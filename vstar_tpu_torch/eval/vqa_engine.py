@@ -87,9 +87,10 @@ class VQAEngine:
         kv_int8: int8 KV caches with per-(token, head) scales
         (nn/llama.KVCache), for free-form decode and option scoring.
         mesh: shard the model over a core/mesh.Mesh (JAX's mesh=): the
-        decoder's layer stack by the partition rules, each layer fetched
-        from its fsdp owner in every forward and tensor-parallel on the
-        model axis, the rest gathered once (core/mesh.serving_params).
+        decoder's layer stack on the hidden axis over fsdp (activations
+        all-reduced, as XLA's engine programs compute it) and
+        tensor-parallel on the model axis, the rest gathered once
+        (core/mesh.serving_params).
         Every rank runs the same requests and computes the same tokens."""
         if mesh is not None:
             from ..core.mesh import serving_params

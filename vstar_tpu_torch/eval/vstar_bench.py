@@ -22,9 +22,9 @@ schema; with --image-batch > 1 eval/batched_bench.py runs the loop,
 loaders' unless given).
 
 --mesh DxFxM (under torchrun, one rank per card) shards both models over
-a core/mesh.Mesh: each engine keeps its decoder's layer stack sharded by
-the partition rules, fetches each layer from its fsdp owner and computes
-it tensor-parallel on the model axis (core/mesh.serving_params). Every
+a core/mesh.Mesh: each engine keeps its decoder's layer stack split on
+the hidden axis over fsdp (activations all-reduced) and tensor-parallel
+on the model axis (core/mesh.serving_params). Every
 rank runs the same loop over the same images and computes the same
 answers; rank 0 alone prints and writes the result file.
 

@@ -5,7 +5,8 @@
   * Norms compute in float32 and cast back to the input dtype.
   * `init_*` draw from an `Init` (core/params.py); the others apply.
   * `partial_dot` is a product of one rank's shard of a model split
-    (core/mesh.ModelSplit), kept in f32 for the sum over the group.
+    (core/mesh.ModelSplit), kept in f32 for the sum over the group; so
+    is `rmsnorm`'s sum of squares on an engine's split hidden axis.
 """
 
 from __future__ import annotations
@@ -100,9 +101,17 @@ def init_rmsnorm(init: Init, dim: int, lead=()):
     return {"scale": init.ones((*lead, dim))}
 
 
-def rmsnorm(p, x, eps: float = 1e-6):
+def rmsnorm(p, x, eps: float = 1e-6, split=None):
+    """split: an engine's split of the hidden axis (core/mesh.hidden_split):
+    x and the scale hold this rank's columns, and the sum of squares is
+    all-reduced over the split's group in f32 before the mean."""
     xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
+    if split is None:
+        var = xf.square().mean(dim=-1, keepdim=True)
+    else:
+        var = split.reduce(xf.square().sum(dim=-1, keepdim=True)) \
+            / torch.full((), x.shape[-1] * split.size, dtype=torch.float32,
+                         device=x.device)
     y = xf * torch.rsqrt(var + eps)
     # HF LlamaRMSNorm: normalize in f32, scale, cast to the input dtype
     return (y * p["scale"].float()).to(x.dtype)

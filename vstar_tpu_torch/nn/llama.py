@@ -25,6 +25,16 @@ residual add; an engine's KV cache holds the rank's own KV heads
 again and stops before the MLP's (torch.utils.checkpoint stops once
 the saved tensors are back), as XLA's rematted computation does.
 
+An engine's stack on an fsdp axis above 1 lies on the hidden axis
+(core/mesh.hidden_split), as vstar_tpu's compiled engine programs
+reshard it: the residual stream is the rank's columns of D (sliced from
+the embeddings, gathered whole after the last layer), each rmsnorm
+all-reduces its sum of squares over the fsdp group, the q / k / v (and
+LoRA's x @ A) and gate / up products are f32 partial sums all-reduced
+over it in one call each, and wo and w_down give the rank's own columns
+(summed over the model group where the model axis splits them too). The
+KV cache is whole on fsdp.
+
 Training: LoRA adapters (`layers.attn.lora`, train/lora.py) add their
 delta to q and v before the reshape and rope, as in JAX; `remat`
 recomputes each layer in the backward (torch.utils.checkpoint, the
@@ -43,14 +53,15 @@ import torch
 import torch.nn.functional as F
 
 from ..core.config import LlamaConfig
-from ..core.mesh import ModelSplit, layer_source, model_split
+from ..core.mesh import ModelSplit, hidden_split, layer_source, model_split
 from ..core.params import Init, dense_init, embed_init
 from ..kernels.flash_attention import flash_attention
 from .basic import init_rmsnorm, partial_dot, rmsnorm
-from .quant import (qdot, quantize_weight, quantize_weight_int4,
+from .quant import (act_int8, qdot, quantize_weight, quantize_weight_int4,
                     resolve_matrix_quant)
 from .rope import apply_rope, rope_angles
-from ..train.lora import lora_delta, split_delta, split_inputs
+from ..train.lora import (LORA_TARGETS, lora_delta, split_delta,
+                          split_inputs)
 
 
 @dataclasses.dataclass
@@ -210,6 +221,26 @@ def _row_split_dot(x: torch.Tensor, w, split: Optional[ModelSplit]
     return split.reduce(partial_dot(x, w)).to(x.dtype)
 
 
+def _hidden_dots(x: torch.Tensor, ws, hidden: ModelSplit
+                 ) -> Tuple[torch.Tensor, ...]:
+    """x @ w for each w of q / k / v or gate / up on an engine's split
+    hidden axis: this rank's rows of each w times its columns of x, f32
+    partial sums added over the fsdp group in one all-reduce (XLA's
+    combined all-reduce of the tuple) and cast back to x's dtype. A
+    quantized entry's product is summed as its kernel returns it (in x's
+    dtype); the act-int8 routes, which scale each row by its largest
+    |value|, would see only the rank's columns and are refused."""
+    if act_int8() and any(isinstance(w, dict) for w in ws):
+        raise ValueError("act-int8 quantizes whole rows; an engine's "
+                         "quantized decoder split on the hidden axis "
+                         "(--mesh with fsdp above 1) takes weight-only "
+                         "products")
+    sums = hidden.reduce_many(*(
+        qdot(x, w).float() if isinstance(w, dict) else partial_dot(x, w)
+        for w in ws))
+    return tuple(y.to(x.dtype) for y in sums)
+
+
 def _attention_block(lp: Dict, cfg: LlamaConfig, x: torch.Tensor,
                      cos: torch.Tensor, sin: torch.Tensor,
                      kv_lens: torch.Tensor,
@@ -219,22 +250,37 @@ def _attention_block(lp: Dict, cfg: LlamaConfig, x: torch.Tensor,
                      kv_valid: Optional[torch.Tensor] = None,
                      cache_ks: Optional[torch.Tensor] = None,
                      cache_vs: Optional[torch.Tensor] = None,
-                     split: Optional[ModelSplit] = None):
+                     split: Optional[ModelSplit] = None,
+                     hidden: Optional[ModelSplit] = None):
     """split: this block's model split (its wq / wk / wv / wo are the
-    rank's shards), None when it computes whole."""
+    rank's shards), None when it computes whole. hidden: an engine's
+    split of the hidden axis (x, and the rows of wq / wk / wv / LoRA's
+    A and the columns of wo, are the rank's share of D), None when the
+    layer is whole on it."""
     B, S, _ = x.shape
     Dh = cfg.head_dim
     H = _out_heads(lp["wq"], cfg.num_heads, Dh)
     Hkv = _out_heads(lp["wk"], cfg.num_kv_heads, Dh)
     lora, scale = lp.get("lora"), lp.get("lora_scale")
-    if split is not None:
-        # LoRA's x @ A, B and scale are whole on every rank and get
-        # partial gradients (its columns of B): they enter with x
-        extra = () if lora is None else split_inputs(lora, scale, x)
-        x, *extra = split.enter(x, *extra)
-    q = qdot(x, lp["wq"])
-    v = qdot(x, lp["wv"])
-    if lora is not None and split is None:
+    targets = () if lora is None else LORA_TARGETS
+    if hidden is not None:
+        # x @ A of LoRA's targets is a partial sum too, reduced with q / k
+        # / v in one all-reduce (as XLA combines them); B whole
+        q, k, v, *xa = _hidden_dots(
+            x, [lp["wq"], lp["wk"], lp["wv"]]
+            + [lora[f"{t}_a"] for t in targets], hidden)
+        extra = () if lora is None else \
+            (*xa, *(lora[f"{t}_b"] for t in targets), scale)
+    else:
+        if split is not None:
+            # LoRA's x @ A, B and scale are whole on every rank and get
+            # partial gradients (its columns of B): they enter with x
+            extra = () if lora is None else split_inputs(lora, scale, x)
+            x, *extra = split.enter(x, *extra)
+        q = qdot(x, lp["wq"])
+        v = qdot(x, lp["wv"])
+        k = qdot(x, lp["wk"])
+    if lora is not None and split is None and hidden is None:
         q = q + lora_delta(lora, scale, "wq", x)
         v = v + lora_delta(lora, scale, "wv", x)
     elif lora is not None:
@@ -242,7 +288,7 @@ def _attention_block(lp: Dict, cfg: LlamaConfig, x: torch.Tensor,
         q = q + split_delta(xq, bq, s, split)
         v = v + split_delta(xv, bv, s, split)
     q = apply_rope(q.reshape(B, S, H, Dh), cos, sin)
-    k = apply_rope(qdot(x, lp["wk"]).reshape(B, S, Hkv, Dh), cos, sin)
+    k = apply_rope(k.reshape(B, S, Hkv, Dh), cos, sin)
     v = v.reshape(B, S, Hkv, Dh)
 
     if cache_k is not None:
@@ -275,12 +321,17 @@ def _attention_block(lp: Dict, cfg: LlamaConfig, x: torch.Tensor,
 
 
 def _mlp_block(lp: Dict, x: torch.Tensor,
-               split: Optional[ModelSplit] = None) -> torch.Tensor:
-    """split: as _attention_block's (the rank's MLP columns)."""
+               split: Optional[ModelSplit] = None,
+               hidden: Optional[ModelSplit] = None) -> torch.Tensor:
+    """split, hidden: as _attention_block's (the rank's MLP columns; its
+    share of D)."""
     if split is not None:
         x, = split.enter(x)
-    gate = F.silu(qdot(x, lp["w_gate"]))
-    return _row_split_dot(gate * qdot(x, lp["w_up"]), lp["w_down"], split)
+    if hidden is not None:
+        gate, up = _hidden_dots(x, (lp["w_gate"], lp["w_up"]), hidden)
+    else:
+        gate, up = qdot(x, lp["w_gate"]), qdot(x, lp["w_up"])
+    return _row_split_dot(F.silu(gate) * up, lp["w_down"], split)
 
 
 def llama_forward(params: Dict, cfg: LlamaConfig, hidden: torch.Tensor,
@@ -310,16 +361,18 @@ def llama_forward(params: Dict, cfg: LlamaConfig, hidden: torch.Tensor,
         None if split is None or name not in split.blocks else split
         for name in ("attn", "mlp"))
 
+    d_split = hidden_split(params["layers"])
+
     def one_layer(x, lp, ck=None, cv=None, cks=None, cvs=None):
-        h = rmsnorm(lp["input_norm"], x, cfg.rms_norm_eps)
+        h = rmsnorm(lp["input_norm"], x, cfg.rms_norm_eps, d_split)
         x = x + _attention_block(lp["attn"], cfg, h, cos, sin, kv_lens,
                                  q_offsets, ck, cv, kv_valid, cks, cvs,
-                                 attn_split)
-        h = rmsnorm(lp["post_norm"], x, cfg.rms_norm_eps)
-        return x + _mlp_block(lp["mlp"], h, mlp_split)
+                                 attn_split, d_split)
+        h = rmsnorm(lp["post_norm"], x, cfg.rms_norm_eps, d_split)
+        return x + _mlp_block(lp["mlp"], h, mlp_split, d_split)
 
     fetch = layer_source(params["layers"])
-    x = hidden
+    x = hidden if d_split is None else d_split.columns(hidden)
     for i in range(cfg.num_layers):
         kv = ()
         if cache is not None:
@@ -330,6 +383,8 @@ def llama_forward(params: Dict, cfg: LlamaConfig, hidden: torch.Tensor,
                 use_reentrant=False)
         else:
             x = one_layer(x, fetch(i), *kv)
+    if d_split is not None:
+        x = d_split.gather(x, site="residual")
     new_cache = None
     if cache is not None:
         new_cache = cache.with_length(kv_lens.to(torch.int32))

@@ -133,6 +133,11 @@ def set_act_int8(on: bool):
     _ACT_INT8 = bool(on)
 
 
+def act_int8() -> bool:
+    """The act-int8 switch's state."""
+    return _ACT_INT8
+
+
 def _int32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Exact int8 [M, K] @ int8 [K, N] -> int32. On the card
     torch._int_mm, on operands padded with zeros to shapes its cuBLASLt

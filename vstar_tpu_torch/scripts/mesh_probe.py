@@ -41,9 +41,13 @@ chrome trace to chiprun_out/mesh_probe_<mesh>_step.json.gz). With
 --serve-only there is no finetune, only the engine check: the 7B VQA
 engine's --engine-tokens greedy tokens by graph on the mesh (on a model
 axis above 1 tensor-parallel) against one device, with ms a token,
-memory and KV slab bytes a card, K1's heads and the collectives:
+memory and KV slab bytes a card, K1's heads and the collectives; on an
+fsdp axis above 1 the decoder's stack lies on the hidden axis
+(core/mesh.hidden_split: the layer fetches stay at 0), and with --trace
+rank 0 writes the sharded engine's traced decode to
+chiprun_out/mesh_probe_<mesh>_decode.json.gz:
     torchrun --nproc-per-node 4 -m vstar_tpu_torch.scripts.mesh_probe \
-        --mesh 1x1x4 --serve-only
+        --mesh 1x2x2 --serve-only --trace
 """
 
 from __future__ import annotations
@@ -646,12 +650,12 @@ class forced_searches:
             m.run_grouped_searches = f
 
 
-def serving_pair(dirs, mesh, device, vocab_size, configs=None):
+def serving_pair(dirs, mesh, device, vocab_size, configs=None, flags=()):
     """The server's checkpoint_engines on HF directories dirs["vqa"],
-    dirs["vsm"] with --mesh `mesh` (None: unsharded) on `device`, the
-    stub tokenizer, the VSM's searches decoding SERVE_TOKENS; `configs`
-    (vqa, vsm) in place of the configs config.json names (the tiny
-    models' CPU rehearsal)."""
+    dirs["vsm"] with --mesh `mesh` (None: unsharded) on `device` and the
+    server's engine `flags` (e.g. --int4mix), the stub tokenizer, the
+    VSM's searches decoding SERVE_TOKENS; `configs` (vqa, vsm) in place
+    of the configs config.json names (the tiny models' CPU rehearsal)."""
     import argparse
     from ..core import hf_config
     from ..multimodal.stub_tokenizer import StubTokenizer
@@ -660,7 +664,7 @@ def serving_pair(dirs, mesh, device, vocab_size, configs=None):
     server.add_engine_flags(p)
     args = p.parse_args(["--vqa-model-path", dirs["vqa"],
                          "--vsm-model-path", dirs["vsm"],
-                         "--device", str(device)]
+                         "--device", str(device), *flags]
                         + ([] if mesh is None else ["--mesh", mesh]))
     saved = (hf_config.vqa_llm_config_for, hf_config.vsm_config_for)
     if configs is not None:
@@ -772,36 +776,53 @@ def _kernel_counts():
             "tower_attention": (ta.launches, ta.plain_calls_cuda)}
 
 
+def _quant_kernel_counts():
+    """K3's and K5's (launches, plain-version calls on CUDA)."""
+    from ..kernels import int4_matmul as i4
+    from ..kernels import int8_matmul as i8
+    return {"int8_matvec": (i8.launches, i8.plain_calls_cuda),
+            "int4_matmul": (i4.launches["int4_matmul"],
+                            i4.plain_calls_cuda["int4_matmul"])}
+
+
 def _rank_counts():
     """This process's counts a rank reports: K1 / K2 (launches,
     plain-version calls on CUDA), K1's launches by query heads, K7's
     calls and K2's launches by heads, the mesh's collectives by
-    (operation, axis) and the model splits' by (site, operation,
-    phase)."""
+    (operation, axis), those of them that fetched decoder layers
+    (core/mesh.fetch_collectives), and the model splits' and the hidden
+    split's by (site, operation, phase)."""
     from ..core import mesh as M
     from ..kernels import flash_attention as fa
     from ..kernels import tower_attention as ta
     return {"kernels": _kernel_counts(),
+            "quant_kernels": _quant_kernel_counts(),
             "k1_heads": dict(fa.launches_by_heads),
             "k7_heads": dict(fa.bwd_launches_by_heads),
             "k2_heads": dict(ta.launches_by_heads),
             "collectives": {f"{op} {ax}": n for (op, ax), n in
                             M.collectives.items()},
+            "fetch_collectives": {f"{op} {ax}": n for (op, ax), n in
+                              M.fetch_collectives.items()},
             "model_collectives": {" ".join(k): n for k, n in
-                                  M.model_collectives.items()}}
+                                  M.model_collectives.items()},
+            "hidden_collectives": {" ".join(k): n for k, n in
+                                   M.hidden_collectives.items()}}
 
 
 def _counts_delta(before, after):
     """What the _rank_counts grew by (the dicts' unchanged keys left
     out)."""
-    k = {name: [after["kernels"][name][i] - before["kernels"][name][i]
-                for i in range(2)] for name in after["kernels"]}
+    k = {kind: {name: [after[kind][name][i] - before[kind][name][i]
+                       for i in range(2)] for name in after[kind]}
+         for kind in ("kernels", "quant_kernels")}
     d = {key: {name: n - before[key].get(name, 0)
                for name, n in after[key].items()
                if n != before[key].get(name, 0)}
          for key in ("k1_heads", "k7_heads", "k2_heads", "collectives",
-                     "model_collectives")}
-    return {"kernels": k, **d}
+                     "fetch_collectives", "model_collectives",
+                     "hidden_collectives")}
+    return {**k, **d}
 
 
 def _cache_report(engine) -> dict:
@@ -818,7 +839,7 @@ def _cache_report(engine) -> dict:
 
 
 def _serve_rank(rank, world, store, out_path, dirs, device, vocab_size,
-                configs, requests, mesh):
+                configs, requests, mesh, flags):
     """One rank of gloo_serve."""
     from ..serve import ranks as R
     from ..serve.server import SealService
@@ -830,7 +851,8 @@ def _serve_rank(rank, world, store, out_path, dirs, device, vocab_size,
                             rank=rank, world_size=world)
     try:
         t0 = time.perf_counter()
-        vqa, vsm = serving_pair(dirs, mesh, dev, vocab_size, configs)
+        vqa, vsm = serving_pair(dirs, mesh, dev, vocab_size, configs,
+                                flags)
         load_s = time.perf_counter() - t0
         # gloo's collectives on CUDA tensors go through the host, which a
         # CUDA graph cannot capture: decode by the engines' traced loop
@@ -856,8 +878,8 @@ def _serve_rank(rank, world, store, out_path, dirs, device, vocab_size,
         if ranks.leader:
             report.update(
                 records=recs, seconds=secs, events=events,
-                stack_sharded=type(vqa.params["llama"]["layers"]["attn"][
-                    "wq"]).__name__)
+                stack_sharded=type(vqa.params["llama"]["layers"][
+                    "input_norm"]["scale"]).__name__)
         torch.save(report, f"{out_path}.rank{rank}")
     finally:
         dist.destroy_process_group()
@@ -865,25 +887,26 @@ def _serve_rank(rank, world, store, out_path, dirs, device, vocab_size,
 
 def gloo_serve(dirs, vocab_size: int, device: str = "cuda:0",
                configs=None, world: int = 2,
-               requests=SERVE_REQUESTS[2:], mesh=None) -> dict:
+               requests=SERVE_REQUESTS[2:], mesh=None, flags=()) -> dict:
     """Parts (d3) and (d4): `world` ranks over gloo on one device (spawned
     processes) load the pair from `dirs` with --mesh `mesh` (default
-    1x{world}x1); rank 0 answers `requests` (by default the forced
+    1x{world}x1) and the server's engine `flags` (serving_pair); rank 0
+    answers `requests` (by default the forced
     search: gloo carries each collective through the host) over HTTP and
     the others follow. -> rank 0's records, client seconds, load seconds,
     K1 / K2 launches and plain-version calls on CUDA over the requests
     ("counts"), its decodes and searches in order ("events":
     MarkedTrigger's and forced_searches'), and "ranks": every rank's
-    counts (K1's launches by heads, the collectives by operation and
-    axis) and KV caches (_cache_report). Any failure of a rank fails the
-    call."""
+    counts (K1's launches by heads, K3's and K5's launches, the
+    collectives by operation and axis) and KV caches (_cache_report). Any
+    failure of a rank fails the call."""
     import torch.multiprocessing as mp
     mesh = mesh or f"1x{world}x1"
     with tempfile.TemporaryDirectory() as work:
         out = os.path.join(work, "result")
         mp.start_processes(_serve_rank, args=(world, os.path.join(
             work, "store"), out, dirs, device, vocab_size, configs,
-            requests, mesh),
+            requests, mesh, tuple(flags)),
             nprocs=world, start_method="spawn")
         ranks = [torch.load(f"{out}.rank{r}", weights_only=False)
                  for r in range(world)]
@@ -941,16 +964,22 @@ def _engine_check(mesh, dev, tokens: int, trace: bool = False) -> dict:
     1-token call, over tokens - 1), its forwards; for the sharded engine
     the bytes of its weights on this rank and of its KV slabs, K1's
     launches by query heads and the mesh's collectives in the replayed
-    call, and the card's allocated and peak bytes. trace: each engine's
-    replayed call once more under torch.profiler (`_device_breakdown`)."""
+    call (those that fetched layers, and the hidden split's by site), the
+    plan of its bytes (core/memory.plan_engine_memory) and the card's
+    allocated and peak bytes. trace: each engine's replayed call once
+    more under torch.profiler (`_device_breakdown`; rank 0 writes the
+    sharded engine's chrome trace)."""
     from PIL import Image
+    from ..core import mesh as M
     from ..core.config import vqa_llm_7b
+    from ..core.memory import plan_engine_memory
     from ..eval.vqa_engine import VQAEngine
     from ..models.vqa_llm import init_vqa_llm_params
     from ..multimodal.stub_tokenizer import StubTokenizer
     cfg = vqa_llm_7b()
     tok = StubTokenizer(cfg.llama.vocab_size)
     params = init_vqa_llm_params(SEED, cfg, device=dev, dtype=torch.bfloat16)
+    plan = plan_engine_memory(params, mesh, cfg.llama.hidden_size)
     img = Image.fromarray((np.random.RandomState(0).rand(336, 336, 3)
                            * 255).astype("uint8"))
     q = "What is on the table?"
@@ -984,6 +1013,11 @@ def _engine_check(mesh, dev, tokens: int, trace: bool = False) -> dict:
                                      ProfilerActivity.CUDA]) as prof:
                 _, traced_s = timed(e, tokens)
             breakdown = _device_breakdown(prof, traced_s)
+            if e is sharded and M.is_main_process():
+                os.makedirs("chiprun_out", exist_ok=True)
+                breakdown["file"] = ("chiprun_out/mesh_probe_" + "x".join(
+                    map(str, mesh.dims)) + "_decode.json.gz")
+                prof.export_chrome_trace(breakdown["file"])
         out[name] = {"first_s": first_s, "seconds": s,
                      "decode_ms_per_token": (s - one_s) / (tokens - 1) * 1e3,
                      "one_token_s": one_s, "forwards": stats["forwards"],
@@ -995,8 +1029,12 @@ def _engine_check(mesh, dev, tokens: int, trace: bool = False) -> dict:
             out[name].update(
                 weight_bytes=_tree_bytes(e.params),
                 kv=_cache_report(e),
+                plan_bytes={"stack": plan.stack_bytes,
+                            "other": plan.other_bytes},
                 k1_heads=delta["k1_heads"],
                 collectives=delta["collectives"],
+                fetch_collectives=delta["fetch_collectives"],
+                hidden_collectives=delta["hidden_collectives"],
                 allocated_bytes=torch.cuda.memory_allocated(dev),
                 peak_bytes=torch.cuda.max_memory_allocated(dev))
     out["equal"] = answers[0] == answers[1]
@@ -1127,9 +1165,9 @@ def _gather_reports(report) -> list:
 def _report(reports, main_rank) -> int:
     """Rank 0 prints the reports as one JSON line and writes them to a
     file per mesh (module docstring); 1 if an engine check failed, or
-    on a mesh whose model axis is 1 answered otherwise than the
-    one-device engine (a tensor-parallel bf16 engine sums its products in
-    another order: its answer is recorded)."""
+    on a mesh whose fsdp and model axes are 1 answered otherwise than
+    the one-device engine (a bf16 engine split on the hidden or the model
+    axis sums its products in another order: its answer is recorded)."""
     if main_rank:
         line = json.dumps({"mesh_probe": reports})
         print(line, flush=True)
@@ -1139,7 +1177,7 @@ def _report(reports, main_rank) -> int:
             f.write(line + "\n")
     ok = all("error" not in r.get("engine", {}) and (
         r.get("engine", {"equal": True}).get("equal", False)
-        or r["mesh"][2] > 1) for r in reports)
+        or r["mesh"][1] > 1 or r["mesh"][2] > 1) for r in reports)
     return 0 if ok else 1
 
 

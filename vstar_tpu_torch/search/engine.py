@@ -49,9 +49,9 @@ class VSMEngine:
                  kv_int8: bool = False, mesh=None):
         """kv_int8: int8 KV caches with per-(token, head) scales
         (nn/llama.KVCache). mesh: shard the model over a core/mesh.Mesh
-        (JAX's mesh=): the decoder's layer stack by the partition rules,
-        each layer fetched from its fsdp owner in every forward and
-        tensor-parallel on the model axis, the rest gathered once
+        (JAX's mesh=): the decoder's layer stack on the hidden axis over
+        fsdp (activations all-reduced, as XLA's engine programs compute
+        it) and tensor-parallel on the model axis, the rest gathered once
         (core/mesh.serving_params); every rank runs the same searches and
         computes the same tokens, boxes and heatmaps."""
         if mesh is not None:

@@ -74,10 +74,14 @@ def split_inputs(lora: Dict, scale: torch.Tensor, x: torch.Tensor,
 
 
 def split_delta(xa: torch.Tensor, b: torch.Tensor, scale: torch.Tensor,
-                split) -> torch.Tensor:
+                split=None) -> torch.Tensor:
     """lora_delta's columns that this rank's q / v shard holds, from
-    x @ A (split_inputs): (x A) times the rank's columns of B, scaled."""
-    return (xa @ split.columns(b.to(xa.dtype))) * scale.to(xa.dtype)
+    x @ A (split_inputs): (x A) times the rank's columns of B (all of
+    them without a model `split`), scaled."""
+    b = b.to(xa.dtype)
+    if split is not None:
+        b = split.columns(b)
+    return (xa @ b) * scale.to(xa.dtype)
 
 
 def merge_lora(llama_params: Dict,
