@@ -739,6 +739,23 @@ def phase_int4(dev):
                           0, "int8", 0.0, _abs_err)
         rec["bit_equal"] = True
         quant.append({"case": f"R{rows}_{IN}", **rec})
+        # a rank of a 1x2x1 hidden split: half of each row, its max given
+        # (the row's, larger than the half's), x read once
+        half = x[:, :IN // 2].contiguous()
+        amax = x.float().abs().amax(dim=-1, keepdim=True) * 1.5
+        xq, sx = k4.quantize_rows(half, amax)
+        want_xq, want_sx = k4.quantize_activations(half.float(), amax)
+        if not (torch.equal(xq, want_xq) and torch.equal(sx, want_sx)):
+            raise AssertionError(f"quantize_rows R={rows} given the max: "
+                                 "xq / sx differ from quantize_activations")
+        _, rec = _measure(
+            f"quantize_rows R={rows} {IN // 2} given the max",
+            lambda x, amax: k4.quantize_rows(x, amax)[0],
+            lambda x, amax: k4.quantize_activations(x.float(), amax)[0],
+            dict(x=half, amax=amax), ("x",),
+            rows * IN // 2 * 3 + rows * 8, 0, "int8", 0.0, _abs_err)
+        rec["bit_equal"] = True
+        quant.append({"case": f"R{rows}_{IN // 2}_given_max", **rec})
         NG = e["s4"].shape[0]
         _, rec = _measure(
             f"K6 qdot R={rows} {IN}x{OUT}",
@@ -3905,7 +3922,10 @@ def phase_mesh(dev):
     1x2x1 and 1x4x1 (under);
     (c) two ranks over gloo on this card, 7B widths with 2 decoder layers
     on a 1x2x1 mesh, MESH_SPLIT_STEPS finetune steps against the
-    one-device steps within MESH_SPLIT_BOUNDS and MESH_SPLIT_SHARE;
+    one-device steps within MESH_SPLIT_BOUNDS and MESH_SPLIT_SHARE; then
+    the VSM trainer's checkpoint written by both ranks at 1x2x1 after a
+    step, read back bit for bit at 1x1x2 and on one device, a second
+    step from each, and exported (_resume_rules; path mesh_resume);
     (c2) the same ranks at 1x1x2, the decoder and the towers
     tensor-parallel: the finetune steps and one VSM step (_tp_train);
     (d) serving over the mesh (_mesh_serve).
@@ -3973,9 +3993,11 @@ def phase_mesh(dev):
             not plans["1x4x1"]["fits"]:
         raise AssertionError(f"mesh (b): plans {plans}")
     report["finetune_plans"] = plans
-    c = mesh_probe.gloo_split(lr=MESH_SPLIT_LR, steps=MESH_SPLIT_STEPS)
+    c = mesh_probe.gloo_split(lr=MESH_SPLIT_LR, steps=MESH_SPLIT_STEPS,
+                              resume=True)
     _split_rules("mesh (c) gloo 1x2x1 on one card", c["finetune"],
                  MESH_SPLIT_STEPS)
+    by_path["mesh_resume"] = _resume_rules(c["resume"])
     mark("(c)")
     report["gloo_split"] = c
     gc.collect()
@@ -4028,6 +4050,56 @@ def _split_rules(label, c, steps, gradients=False):
         raise AssertionError(f"{label}: {c}")
     if not c["frozen_equal"] or len(c["mesh"]) != steps:
         raise AssertionError(f"{label}: {c}")
+
+
+def _resume_rules(r):
+    """Part (c)'s checkpoint (mesh_probe._resume_against_one): the VSM
+    step at 1x2x1, its TrainState written by both ranks and read back at
+    1x1x2 and on one device, each read equal to the written state bit for
+    bit (parameters, f32 masters, moments, counts); a second step from
+    each, every step's loss and grad norm against the one-device steps'
+    within step 2's MESH_SPLIT_BOUNDS (as (c2)'s VSM step: the VSM's loss
+    matches boxes). The masters are not held: the bf16 step before the
+    checkpoint already moves SAM's near-zero-gradient leaves by lr
+    sign(noise) under Adam (87 % of one attention bias over lr / 10 on
+    the card), and the reads' bit-equality holds the checkpoint itself.
+    export_main of the checkpoint (its directory) equals the export of
+    the same state written on one device bit for bit; the resumed 1x1x2
+    step launched K1, K7 and K2 on each rank and no plain version on
+    CUDA. -> rank 0's launches of that step."""
+    label = "mesh (c) VSM checkpoint of 1x2x1"
+    log(f"[{label}] one device {r['one_device']}; resumed at 1x1x2 "
+        f"{r['mesh']}; resumed on one device {r['resumed_one_device']}; "
+        f"reads equal to the written state {r['read_equal']}; files "
+        f"{r['export']['checkpoint_files']}, written in {r['save_s']:.2f} "
+        f"s, read at 1x1x2 in {r['load_s']:.2f} s; export of "
+        f"{r['export']['tensors']} tensors equal to the one-device export "
+        f"{r['export']['equal']}; part {r['seconds']:.1f} s")
+    for name in ("mesh", "resumed_one_device"):
+        for i, (got, want) in enumerate(zip(r[name], r["one_device"])):
+            for j, key in enumerate(("loss", "grad_norm")):
+                if abs(got[j] - want[j]) > \
+                        MESH_SPLIT_BOUNDS[key][1] * abs(want[j]):
+                    raise AssertionError(f"{label} {name}: step {i + 1}'s "
+                                         f"{key} {got[j]} against "
+                                         f"{want[j]}: {r}")
+    if not all(r["read_equal"].values()) or not r["export"]["equal"] or \
+            len(r["mesh"]) != 2 or len(r["resumed_one_device"]) != 2:
+        raise AssertionError(f"{label}: {r}")
+    launched = None
+    for rank, c in enumerate(r["counts"]):
+        kernels = c["kernels"]
+        k7 = sum(c["k7_heads"].values())
+        log(f"[{label}, the step resumed at 1x1x2, rank {rank}] K1 / K2 "
+            f"(launches, plain calls on CUDA) {kernels}; K7 {k7}")
+        if not all(n[0] for n in kernels.values()) or \
+                any(n[1] for n in kernels.values()) or not k7:
+            raise AssertionError(f"{label} rank {rank}: the resumed step "
+                                 f"skipped a kernel: {c}")
+        if rank == 0:
+            launched = {k: n[0] for k, n in kernels.items()}
+            launched["flash_attention_bwd"] = k7
+    return launched
 
 
 def _tp_train(dev):
@@ -4124,7 +4196,10 @@ def _mesh_serve(dev, mark):
     free-form request and the forced search over HTTP and rank 1
     follows (mesh_probe.gloo_serve; path mesh_serve_gloo, _fsdp_serve);
     then the --int4mix pair's forced search so (path
-    mesh_serve_gloo_int4mix);
+    mesh_serve_gloo_int4mix), and once more under act-int8 (path
+    mesh_serve_gloo_act_int8: the int8 entries' W8A8 products and gate /
+    up's K6 at decode rows on each rank's share, the rows' max and the
+    int8 products all-reduced over fsdp);
     (d4) the forced search at --mesh 1x1x2: the decoder tensor-parallel
     over the model axis (path mesh_serve_tp, _tp_serve).
     Every record of (d1) and (d2) equals the unsharded one; (d3)'s and
@@ -4136,6 +4211,7 @@ def _mesh_serve(dev, mark):
                                                 vsm_state_dict)
     from vstar_tpu_torch.models.vqa_llm import init_vqa_llm_params
     from vstar_tpu_torch.models.vsm import init_vsm_params
+    from vstar_tpu_torch.nn.quant import set_act_int8
     from vstar_tpu_torch.scripts import mesh_probe as mp
     from vstar_tpu_torch.serve import ranks as R
     from vstar_tpu_torch.serve.server import SealService
@@ -4178,7 +4254,8 @@ def _mesh_serve(dev, mark):
         del vqa, vsm
         gc.collect()
         torch.cuda.empty_cache()
-        # (d3)'s quantized reference: the --int4mix pair's forced search
+        # (d3)'s quantized reference: the --int4mix pair's forced search,
+        # and the same under act-int8
         vqa, vsm = mp.serving_pair(dirs, None, dev, vocab,
                                    flags=FSDP_QUANT_FLAGS)
         quant_ref = {"events": []}
@@ -4186,6 +4263,15 @@ def _mesh_serve(dev, mark):
             quant_ref["records"], quant_ref["seconds"] = mp.http_records(
                 SealService(mp.MarkedTrigger(vqa, quant_ref["events"]),
                             vsm), dev, mp.SERVE_REQUESTS[2:])
+        act_ref = {"events": []}
+        set_act_int8(True)
+        try:
+            with mp.forced_searches(act_ref["events"]):
+                act_ref["records"], act_ref["seconds"] = mp.http_records(
+                    SealService(mp.MarkedTrigger(vqa, act_ref["events"]),
+                                vsm), dev, mp.SERVE_REQUESTS[2:])
+        finally:
+            set_act_int8(False)
         del vqa, vsm
         gc.collect()
         torch.cuda.empty_cache()
@@ -4252,6 +4338,12 @@ def _mesh_serve(dev, mark):
         mark("(d3) --int4mix")
         gc.collect()
         torch.cuda.empty_cache()
+        counts["mesh_serve_gloo_act_int8"], report["d3_act_int8"] = \
+            _fsdp_serve(dirs, vocab, dev, act_ref, vsm_cfg, requests=(2,),
+                        flags=FSDP_QUANT_FLAGS, act_int8=True)
+        mark("(d3) --int4mix act-int8")
+        gc.collect()
+        torch.cuda.empty_cache()
         counts["mesh_serve_tp"], report["d4"] = _tp_serve(
             dirs, vocab, dev, tp_ref, vsm_cfg)
         mark("(d4)")
@@ -4293,7 +4385,7 @@ def _free_form_rules(label, want, got, ref_event, event):
 
 
 def _fsdp_serve(dirs, vocab, dev, ref, cfg, requests=FSDP_REQUESTS,
-                flags=()):
+                flags=(), act_int8=False):
     """Part (d3): two gloo ranks on this card at --mesh 1x2x1 load the pair
     through checkpoint_engines with the server's `flags`, each decoder's
     layer stack on the hidden axis (core/mesh.hidden_split); rank 0
@@ -4308,18 +4400,31 @@ def _fsdp_serve(dirs, vocab, dev, ref, cfg, requests=FSDP_REQUESTS,
     forward) and one gather of the residual a forward, no other fsdp
     collective, K1 on all of `cfg`'s heads, KV caches of all its KV
     heads; with --int4mix also K3 and K5 on the rank's share of each
-    layer. -> (rank 0's kernel launches, the report)."""
+    layer. With `act_int8` (the switch on in every rank; `ref` the
+    unsharded server's under it; --int4mix: an int8 VQA decoder, an
+    int4mix VSM decoder): the int8 entries take W8A8, not K3; each layer
+    and forward runs the two moments' f32 all-reduces, one int32
+    all-reduce of q / k / v's partial products, gate / up's sum in int32
+    (int8) or f32 (int4), one MAX of the rows' max for each int32 sum and
+    for each group that takes K6 (the VSM's gate / up at decode rows); K6
+    and its row quantization (quantize_rows, given the max) launch once
+    a product and once a group on each rank, no plain version on CUDA. ->
+    (rank 0's kernel launches, the report)."""
     from vstar_tpu_torch.scripts import mesh_probe as mp
     t0 = time.perf_counter()
     g = mp.gloo_serve(dirs, vocab, str(dev), mesh=FSDP_MESH, requests=[
-        mp.SERVE_REQUESTS[i] for i in requests], flags=flags)
+        mp.SERVE_REQUESTS[i] for i in requests], flags=flags,
+        act_int8=act_int8)
     counts = dict(g["counts"])
     if flags:
         counts.update(g["ranks"][0]["counts"]["quant_kernels"])
+    if act_int8:
+        del counts["int8_matvec"]
+        counts.update(g["ranks"][0]["counts"]["w4a8_kernels"])
     plain = {k: c[1] for k, c in counts.items()}
     launched = {k: c[0] for k, c in counts.items()}
-    label = (f"mesh serve (d3) gloo {' '.join((FSDP_MESH, *flags))}, "
-             f"hidden axis split")
+    label = (f"mesh serve (d3) gloo {' '.join((FSDP_MESH, *flags))}"
+             f"{' act-int8' if act_int8 else ''}, hidden axis split")
     log(f"[{label}] decoder stack {g['stack_sharded']}, loaded in "
         f"{g['load_s']:.2f} s; kernel launches {launched}, plain-version "
         f"calls on CUDA {plain}; seconds {g['seconds']} (unsharded "
@@ -4339,18 +4444,43 @@ def _fsdp_serve(dirs, vocab, dev, ref, cfg, requests=FSDP_REQUESTS,
         split = c["hidden_collectives"]
         ar = split.get("layer all_reduce forward", 0)
         gathers = split.get("residual all_gather forward", 0)
+        act_max = split.get("act_max all_reduce forward", 0)
+        act_int32 = split.get("act_int32 all_reduce forward", 0)
+        k6, q = (c["w4a8_kernels"][k] for k in ("int4_matmul_w4a8",
+                                                "quantize_rows"))
         log(f"[{label} rank {r['rank']}] layer broadcasts and all-gathers "
             f"{c['fetch_collectives'] or 0} over {tokens} decoded tokens "
             f"and {forwards} decoder forwards (0 a token); fsdp all-reduces a "
-            f"layer and forward {ar / max(k1, 1):g}, residual gathers a "
+            f"layer and forward {ar / max(k1, 1):g} of f32 sums, "
+            f"{act_int32 / max(k1, 1):g} int32, {act_max / max(k1, 1):g} "
+            f"MAX; residual gathers a "
             f"forward {gathers / max(forwards, 1):g}; fsdp collectives "
             f"{fsdp}; K1 launches by heads {c['k1_heads']}; K3 / K5 "
-            f"{c['quant_kernels']}; KV caches "
+            f"{c['quant_kernels']}; K6 / quantize_rows (launches, plain "
+            f"calls on CUDA) {k6} / {q}; KV caches "
             + "; ".join(f"{n} {v['kv_heads']} heads, largest "
                         f"{v['largest_cache']}" for n, v in caches.items()))
-        if c["fetch_collectives"] or not k1 or ar != 4 * k1 or \
+        if act_int8:
+            # each layer and forward: two moments and q / k / v's int32
+            # sum; gate / up's sum in int32 (the VQA's int8 decoder) or in
+            # f32 (the VSM's int4 gate / up); a MAX for each int32 sum and
+            # each K6 group
+            if ar + act_int32 != 4 * k1 or ar < 2 * k1 or \
+                    act_int32 < k1 or act_max != act_int32 + k6[0] // 2 \
+                    or not k6[0] or k6[0] != 2 * q[0] or k6[1] or q[1]:
+                raise AssertionError(
+                    f"mesh (d3) act-int8 rank {r['rank']}: f32 / int32 / "
+                    f"MAX all-reduces {(ar, act_int32, act_max)} over "
+                    f"{k1} layer forwards; K6 {k6}, quantize_rows {q}")
+        elif act_max or act_int32 or k6[0] or q[0]:
+            raise AssertionError(f"mesh (d3) rank {r['rank']}: act-int8 "
+                                 f"collectives or kernels with the switch "
+                                 f"off: {split}, K6 {k6}, quantize_rows {q}")
+        if c["fetch_collectives"] or not k1 or \
+                ar + act_int32 != 4 * k1 or \
                 gathers != forwards or k1 % lcfg.num_layers or \
-                fsdp != {"all_reduce fsdp": ar, "all_gather fsdp": gathers}:
+                fsdp != {"all_reduce fsdp": ar + act_max + act_int32,
+                         "all_gather fsdp": gathers}:
             raise AssertionError(f"mesh (d3) rank {r['rank']}: layer "
                                  f"fetches {c['fetch_collectives']}, fsdp "
                                  f"collectives {fsdp}, hidden split {split}"
@@ -4365,6 +4495,7 @@ def _fsdp_serve(dirs, vocab, dev, ref, cfg, requests=FSDP_REQUESTS,
                                      f"KV heads {v['kv_heads']}")
         per_rank.append({"k1_heads": c["k1_heads"], "k1_launches": k1,
                          "quant_kernels": c["quant_kernels"],
+                         "w4a8_kernels": c["w4a8_kernels"],
                          "fetch_collectives": c["fetch_collectives"],
                          "fsdp_collectives": fsdp, "hidden_split": split,
                          "decoded_tokens": tokens, "forwards": forwards,

@@ -593,6 +593,28 @@ def test_w4a8_qdot_on_card(cuda, rows, IN, OUT, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("rows,IN", [(1, 2048), (16, 2048), (3, 512)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_w4a8_quantize_given_max_on_card(cuda, rows, IN, dtype):
+    """The row quantization given each row's max from outside (a rank of
+    an engine's hidden split holds part of each row, nn/llama.py): xq and
+    sx bit for bit those of quantize_activations with the same max, one
+    launch; a max of another shape is refused."""
+    from vstar_tpu_torch.kernels import int4_matmul as k4
+    g = torch.Generator(device=cuda).manual_seed(rows + IN)
+    x = torch.randn(rows, IN, generator=g, device=cuda).to(dtype)
+    amax = x.float().abs().amax(dim=-1, keepdim=True) * torch.rand(
+        rows, 1, generator=g, device=cuda).add_(1.0)
+    before = k4.launches["quantize_rows"]
+    xq, sx = k4.quantize_rows(x, amax)
+    assert k4.launches["quantize_rows"] == before + 1
+    want_xq, want_sx = k4.quantize_activations(x.float(), amax)
+    assert torch.equal(xq, want_xq) and torch.equal(sx, want_sx)
+    with pytest.raises(ValueError):
+        k4.quantize_rows(x, amax[:, 0])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("rows,IN,OUT", [(1, 4096, 4096), (16, 11008, 4096),
                                          (300, 1024, 3072), (2, 4096, 32003),
                                          (3, 1000, 3000), (5, 100, 30)])

@@ -24,9 +24,21 @@ the tiny configs, and rank 0 hands back the results gathered whole:
     SFT step and VSM value_and_grad compiled at 1x1x4, K1 and K7 at H/M
     heads, no layer gather on the model axis, each rank's 1/M of the
     layer matrices;
-  * the VQA and VSM trainer loops resumed from a sharded ckpt_latest
-    (2x2x1, 1x2x2) against the unsharded loops (the VQA loop resumed
-    alike, the VSM loop's two epochs in one go);
+  * the VQA and VSM trainer loops written on one layout and resumed on
+    another (W.CROSS_LOOPS: 2x2x1 -> 1x2x2, 1x2x2 -> one device, one
+    device -> 1x4x1; the one-device runs by rank 0 before the world
+    starts or after it ends) against the unsharded loops (the VQA loop
+    resumed alike, the VSM loop's two epochs in one go), each last
+    checkpoint holding each piece once; export_main of the VSM's
+    ckpt_model/state written at 2x2x1 against the same state written
+    on one device and vstar_tpu's vsm_state_dict; the checkpoint format
+    over the 4 ranks (uneven pieces, read onto other placements);
+  * act-int8 on the engines' hidden split (2x2x1, 1x4x1): the int8
+    products bit for bit the unsharded _w8a8_dot's, one MAX and one
+    int32 all-reduce a product group, the answers against the unsharded
+    port's and vstar_tpu's sharded engine under set_act_int8(True);
+    int4 gate / up under the W4A8 gate (a decoder of width 256) through
+    K6 on each rank's rows;
   * sharded VQA and VSM engines' answers, choices, boxes, scores and
     heatmaps against the unsharded engines'; on 1x2x2, where the decoder
     and the towers are tensor-parallel, also against vstar_tpu's engines
@@ -111,11 +123,12 @@ from vstar_tpu_torch.core.hf_export import (config_json, save_safetensors,
                                             vqa_llm_state_dict,
                                             vsm_state_dict)
 from vstar_tpu_torch.core.import_audit import load_manifest
-from vstar_tpu_torch.core.params import leaves_with_path
+from vstar_tpu_torch.core.params import Init, leaves_with_path
 from vstar_tpu_torch.data.vsm_collate import batch_to_torch
 from vstar_tpu_torch.eval import synthetic
 from vstar_tpu_torch.models.vqa_llm import init_vqa_llm_params as t_vqa_init
 from vstar_tpu_torch.models.vsm import init_vsm_params as t_vsm_init
+from vstar_tpu_torch.nn.llama import init_llama_params
 from vstar_tpu_torch.nn.vit import clip_patch_features
 from vstar_tpu_torch.train import lora as tl
 from vstar_tpu_torch.train import train_vqa_main as t_main
@@ -136,8 +149,13 @@ TP_MESH = MESHES[1]
 MODEL_SHAPE = SHAPES[2]
 MODEL_MESH = MESHES[2]
 TRAIN_TP_MESHES = MESHES[1:]
-# the trainer loops with a resume: data x fsdp rows, and a model split
+# the trainer loops written on one mesh and resumed on another
+# (W.CROSS_LOOPS): written on 2x2x1, resumed on 1x2x2; written on 1x2x2,
+# resumed on one device; and written on one device, resumed on 1x4x1
 LOOP_MESHES = MESHES[:2]
+# the checkpoint format's world check: written on the first, read on the
+# second
+FORMAT_SHAPES = (MESHES[0], SHAPES[1])
 # the engines whose decoder stack lies on the hidden axis (fsdp above 1):
 # the tiny trees on 2x2x1 and 1x2x2 (their 2 layers divide fsdp 2), and
 # on DEEP_SHAPE trees of DEEP_LAYERS layers, which fsdp 4 divides
@@ -147,6 +165,15 @@ HIDDEN_SHAPES = (SHAPES[0], TP_SHAPE, DEEP_SHAPE)
 HIDDEN_MESHES = ["x".join(map(str, s)) for s in HIDDEN_SHAPES]
 # the quantized VQA trees the world serves on 2x2x1 (W.vqa_answers)
 QUANT_MODES = ("int4mix",)
+# act-int8 on the hidden split (W.act_int8_checks): the quantized trees
+# served under act-int8, and the meshes each is checked on ("w4a8": a
+# decoder of width 256 whose int4 gate / up take W4A8, K6, on the split)
+ACT_MODES = ("int8", "int4mix")
+ACT_SHAPES = {MESHES[0]: ("int8", "int4mix", "w4a8"), DEEP_MESH: ("int8",)}
+ACT_W4A8_TOL = dict(rtol=1e-4, atol=1e-4)
+W4A8_CFG = dataclasses.replace(T_VQA_CFG, llama=dataclasses.replace(
+    T_VQA_CFG.llama, hidden_size=256, intermediate_size=256, num_heads=4,
+    num_kv_heads=4, head_dim=64))
 # JAX's sharded-inference tolerance (tests/test_sharded_inference.py)
 DET_TOL = dict(rtol=1e-4, atol=1e-4)
 MASK_TOL = dict(rtol=1e-4, atol=1e-3)
@@ -336,8 +363,14 @@ def started(tmp_path_factory):
     quantized = {mode: t_vqa_init(3, T_VQA_CFG, device="cpu",
                                   quantize_llm=mode)
                  for mode in QUANT_MODES}
+    act_int8 = {mode: (quantized.get(mode) or t_vqa_init(
+        3, T_VQA_CFG, device="cpu", quantize_llm=mode), T_VQA_CFG)
+        for mode in ACT_MODES}
+    act_int8["w4a8"] = ({"llama": init_llama_params(
+        Init(9, "cpu"), W4A8_CFG.llama, "int4mix")}, W4A8_CFG)
     job = {"shapes": SHAPES, "deep": deep, "quantized": quantized,
-           "loop_shapes": LOOP_MESHES, "serve_shape": "2x2x1",
+           "act_int8": act_int8, "act_int8_shapes": ACT_SHAPES,
+           "format_shapes": FORMAT_SHAPES, "serve_shape": "2x2x1",
            "tower_shape": MODEL_MESH,
            "work": str(work),
            "vqa_cfg": T_VQA_CFG, "vsm_cfg": T_VSM_CFG,
@@ -360,7 +393,8 @@ def started(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def world(started, jax_sft, vsm_refs, jax_vsm_step, jax_serving,
-          jax_engines, jax_hidden_engines, jax_quantized, jax_tp_structure,
+          jax_engines, jax_hidden_engines, jax_quantized, jax_act_int8,
+          jax_tp_structure,
           jax_train_layers, jax_towers, plain_towers):
     """The 4-rank world's results, and the inputs it was given."""
     job, work, ranks = started
@@ -675,26 +709,53 @@ def plain_loops(world, tmp_path_factory):
     one go) on the world's trees and data."""
     _, job, _ = world
     vqa = W.vqa_loop(job["vqa"], T_VQA_CFG, job["vqa_data"],
-                     tmp_path_factory.mktemp("plain_vqa"), None, resume=True)
+                     tmp_path_factory.mktemp("plain_vqa"), None)
     vsm = W.vsm_loop(job["vsm"], T_VSM_CFG, job["vsm_data"], "plain", None,
-                     resume=False)
+                     first=False)
     return vqa, vsm
+
+
+def _state_files(state):
+    """A trainer's state checkpoint: "file" (one device's) or the sharded
+    directory's files, checked to hold each piece once (the rank files'
+    bytes are the global tree's)."""
+    if os.path.isfile(state):
+        return "file"
+    files = sorted(os.listdir(state))
+    index = json.loads(open(os.path.join(state, "index.json")).read())
+    itemsize = {"F32": 4, "BF16": 2, "I64": 8, "I32": 4, "U8": 1, "I8": 1}
+    tree = sum(int(np.prod(e["shape"])) * itemsize[e["dtype"]]
+               for e in index["leaves"])
+    assert sum(os.path.getsize(os.path.join(state, f)) for f in files
+               if f != "index.json") == tree
+    return files
+
+
+# the layout each loop's last checkpoint ends in: the resumes on a mesh
+# of 4 write a directory that every rank writes a part of
+_DIR_OF_4 = ["index.json"] + [f"rank{r}.bin" for r in range(4)]
+_LAST_LAYOUT = {"2x2x1": _DIR_OF_4, "1x2x2": "file", "one": _DIR_OF_4}
 
 
 @pytest.mark.parametrize("mesh", LOOP_MESHES)
 def test_vqa_loop_resumes_sharded_to_the_unsharded_loop(world, plain_loops,
                                                         mesh):
-    """run_training on 2x2x1 and on 1x2x2 (the decoder tensor-parallel):
-    one epoch, then a second invocation resuming from the per-rank
-    ckpt_latest; the unsharded loop resumed alike (held to its run in one
-    go, bit for bit, by tests/test_torch_sft.py) ends in the same
-    parameters, with the same logged losses."""
+    """run_training's first epoch on `mesh` (2x2x1; 1x2x2, the decoder
+    tensor-parallel), then a second invocation resuming from its
+    ckpt_latest on another layout (W.CROSS_LOOPS: 1x2x2; one device, rank
+    0 alone after the world): the unsharded loop resumed alike (held to
+    its run in one go, bit for bit, by tests/test_torch_sft.py) ends in
+    the same parameters, with the same logged losses. The last
+    checkpoint is one of global tensors, each piece once."""
+    _vqa_loop_case(world, plain_loops, mesh)
+
+
+def _vqa_loop_case(world, plain_loops, name):
     out, job, _ = world
-    step, params, logged = out[mesh]["vqa_loop"]
-    files = [f for f in os.listdir(os.path.join(job["work"],
-                                                f"vqa_{mesh}", "ckpt_latest"))]
-    assert sorted(f for f in files if f.startswith("state")) == \
-        [f"state.rank{r}" for r in range(4)]
+    step, params, logged = out["loops"]["vqa_loop"][name]
+    state = os.path.join(job["work"], f"vqa_cross_{name}", "ckpt_latest",
+                         "state")
+    assert _state_files(state) == _LAST_LAYOUT[name]
     want_step, want_p, want_log = plain_loops[0]
     assert step == want_step == 4
     assert [(r["epoch"], r["step"]) for r in logged] == \
@@ -705,22 +766,101 @@ def test_vqa_loop_resumes_sharded_to_the_unsharded_loop(world, plain_loops,
         _assert_update_close(v.numpy(), want_p[k].numpy(), k)
 
 
-@pytest.mark.parametrize("mesh", LOOP_MESHES)
-def test_vsm_loop_resumes_sharded_to_the_unsharded_loop(world, plain_loops,
-                                                        mesh):
-    """run_vsm_training on 2x2x1 and on 1x2x2 (4 rows a step), resumed
-    from its per-rank ckpt_latest, against the unsharded loop's two
-    epochs."""
+def test_vqa_loop_written_on_one_device_resumes_on_1x4x1(world,
+                                                         plain_loops):
+    """run_training's first epoch on one device (rank 0 before the world
+    starts, one file), resumed on 1x4x1 (each rank reads its slices of
+    the file): the unsharded loop's parameters and logged losses."""
+    _vqa_loop_case(world, plain_loops, "one")
+
+
+def _vsm_loop_case(world, plain_loops, name):
     out, job, _ = world
-    step, params = out[mesh]["vsm_loop"]
-    meta = json.loads((job["vsm_data"] / "runs" / f"vsm_{mesh}"
-                       / "ckpt_latest" / "meta.json").read_text())
-    assert meta["mesh"] == list(dict(zip(MESHES, SHAPES))[mesh]) and \
+    step, params = out["loops"]["vsm_loop"][name]
+    run = job["vsm_data"] / "runs" / f"vsm_cross_{name}"
+    meta = json.loads((run / "ckpt_latest" / "meta.json").read_text())
+    resumed_on = W.CROSS_LOOPS[name][1]
+    assert meta["mesh"] == (None if resumed_on is None else
+                            [int(x) for x in resumed_on.split("x")]) and \
         meta["epoch"] == 1
+    assert _state_files(str(run / "ckpt_latest" / "state")) == \
+        _LAST_LAYOUT[name]
     want_step, want_p = plain_loops[1]
     assert step == want_step == 4
     for k, v in params.items():
         _assert_update_close(v.numpy(), want_p[k].numpy(), k)
+
+
+@pytest.mark.parametrize("mesh", LOOP_MESHES)
+def test_vsm_loop_resumes_sharded_to_the_unsharded_loop(world, plain_loops,
+                                                        mesh):
+    """run_vsm_training (4 rows a step) written on `mesh` and resumed on
+    the other layout of W.CROSS_LOOPS, against the unsharded loop's two
+    epochs; the meta names the mesh the last checkpoint was written on
+    (information only)."""
+    _vsm_loop_case(world, plain_loops, mesh)
+
+
+def test_vsm_loop_written_on_one_device_resumes_on_1x4x1(world,
+                                                         plain_loops):
+    """run_vsm_training's first epoch on one device, resumed on 1x4x1,
+    against the unsharded loop's two epochs."""
+    _vsm_loop_case(world, plain_loops, "one")
+
+
+def test_export_of_a_mesh_checkpoint_equals_one_device_and_jax(world,
+                                                               tmp_path):
+    """export_main, one process without torchrun, on the VSM's
+    ckpt_model/state written at 2x2x1 (a directory of global pieces)
+    gives the same HF dict, bit for bit, as on the same state written on
+    one device (one file); its dict equals vstar_tpu's vsm_state_dict of
+    the same parameters carried to JAX bit for bit (f32 on both sides,
+    LoRA merged)."""
+    from vstar_tpu.core import hf_export as jex
+    from vstar_tpu_torch.core.checkpoint import load_params, save_params
+    from vstar_tpu_torch.train import export_main
+    _, job, _ = world
+    mesh_ckpt = os.path.join(job["work"], "export_2x2x1")
+    assert os.path.isdir(mesh_ckpt)
+    state = load_params(mesh_ckpt)
+    one = str(tmp_path / "state")
+    save_params(state, one)
+    sds = [export_main.main(["--ckpt", ckpt, "--version", str(tmp_path),
+                             "--save_path", str(tmp_path / name),
+                             "--lora_r", "2", "--lora_alpha", "4"])
+           for name, ckpt in (("mesh", mesh_ckpt), ("one", one))]
+    assert sds[0].keys() == sds[1].keys()
+    for k in sds[0]:
+        assert sds[0][k].dtype == sds[1][k].dtype and \
+            torch.equal(sds[0][k], sds[1][k]), k
+    host = jax.tree_util.tree_map(lambda x: x.numpy(), state[0])
+    want = jex.vsm_state_dict(host)
+    assert sds[0].keys() == want.keys()
+    for k in want:
+        assert np.array_equal(sds[0][k].float().numpy(), want[k]), k
+
+
+def test_checkpoint_format_over_ranks(world):
+    """save_params of a tree of DTensors on 2x2x1 (uneven torch.chunk
+    pieces, two axes on one dim, ranks holding nothing, a leaf the rules
+    leave whole, bf16 / int / 0-d and non-tensor leaves), written twice
+    (the second replaces the first): the rank files hold the tree's
+    bytes and nothing more (each replicated piece once), besides the
+    index; read back onto the same leaves placed otherwise on 1x2x2, each
+    rank reads as many elements as its own slices hold (no other bytes),
+    and every read equals the tree (onto 1x2x2, whole with no template,
+    whole onto whole tensors)."""
+    out, _, _ = world
+    got = out[MESHES[0]]["checkpoint_format"]
+    files = got["files"]
+    assert set(files) == {"index.json"} | {f"rank{r}.bin" for r in range(4)}
+    assert sum(n for f, n in files.items() if f != "index.json") == \
+        got["tree_bytes"]
+    for r, (reads, own, equal) in enumerate(got["reads"]):
+        assert equal == {"mesh": True, "none": True, "whole": True}, r
+        want = sum(int(np.prod(e)) for blocks in own.values()
+                   for _, e in blocks)
+        assert sum(int(np.prod(size)) for _, _, size in reads) == want, r
 
 
 def _same_engines(got, want):
@@ -897,19 +1037,145 @@ def test_quantized_engines_on_hidden_axis_equal_jax_sharded(world,
                           ("all_gather", "fsdp"): 1}, (name, counts)
 
 
+class _OneRankSplit:
+    """A hidden split of one rank (no group): its collectives are the
+    identity, counted by site."""
+
+    size = 1
+
+    def __init__(self):
+        self.calls = []
+
+    def max(self, x, site=None):
+        self.calls.append((site, "max", x.dtype))
+        return x
+
+    def reduce_many(self, *parts, site=None):
+        self.calls.append((site, "sum", parts[0].dtype))
+        return parts
+
+
 def test_hidden_split_refuses_act_int8_on_quantized_entries():
     """The act-int8 routes scale each row by its largest |value| over the
-    whole row, which a rank of the hidden split does not hold: a
-    quantized product on the split raises while the switch is on."""
+    whole row; the hidden split no longer refuses them but computes them
+    as XLA does (nn/llama._act_int8_dots): on a split of one rank, an
+    int8 entry's product (q / k / v), an int4 entry under the W4A8 gate
+    (K6's plain version) beside a raw matrix (gate / up), and an int4
+    entry outside the gate equal qdot's unsharded products bit for bit,
+    with one max and one int32 sum for the int8 group, one max and one
+    f32 sum for the W4A8 group, and the f32 sum alone where no product
+    quantizes its rows."""
     from vstar_tpu_torch.nn import llama as tllama
     from vstar_tpu_torch.nn import quant as tquant
-    w = tquant.quantize_weight(torch.randn(8, 4))
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((1, 3, 256), generator=gen)
+    int8 = [tquant.quantize_weight(torch.randn((256, n), generator=gen))
+            for n in (64, 32, 32)]
+    int4 = tquant.quantize_weight_int4(torch.randn((256, 128),
+                                                   generator=gen))
+    raw = torch.randn((256, 128), generator=gen)
+    narrow = tquant.quantize_weight_int4(torch.randn((256, 96),
+                                                     generator=gen))
     tquant.set_act_int8(True)
     try:
-        with pytest.raises(ValueError, match="act-int8"):
-            tllama._hidden_dots(torch.randn(1, 1, 8), [w], None)
+        for ws, want_calls in (
+                (int8, [("act_max", "max", torch.float32),
+                        ("act_int32", "sum", torch.int32)]),
+                ([int4, raw], [("act_max", "max", torch.float32),
+                               (None, "sum", torch.float32)]),
+                ([narrow, raw], [(None, "sum", torch.float32)])):
+            split = _OneRankSplit()
+            got = tllama._hidden_dots(x, ws, split)
+            want = [tquant.qdot(x, w) for w in ws]
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+            assert split.calls == want_calls
     finally:
         tquant.set_act_int8(False)
+
+
+@pytest.fixture(scope="module")
+def jax_act_int8(started):
+    """vstar_tpu's int8 VQA engine sharded on 2x2x1 and on 1x4x1 under
+    set_act_int8(True) (_jax_vqa_on, a fresh engine so its programs are
+    traced with the switch on)."""
+    from vstar_tpu.nn import quant as jquant
+    job, _, _ = started
+    jquant.set_act_int8(True)
+    try:
+        return {mesh: _jax_vqa_on(shape, job["act_int8"]["int8"][0],
+                                  VQA_CFG)
+                for mesh, shape in ((MESHES[0], SHAPES[0]),
+                                    (DEEP_MESH, DEEP_SHAPE))}
+    finally:
+        jquant.set_act_int8(False)
+
+
+def _act_counts(structure, L, per_layer):
+    """Each forward's hidden-split collectives: `per_layer` (site ->
+    all-reduces a layer) times L, and the residual's one gather; no layer
+    fetched."""
+    want = {(site, "all_reduce", "forward"): n * L
+            for site, n in per_layer.items()}
+    want[("residual", "all_gather", "forward")] = 1
+    for name in ("prefill", "decode"):
+        assert structure["fetches"][name] == {}, name
+        assert structure["hidden"][name] == want, name
+
+
+@pytest.mark.parametrize("mesh,mode", [(MESHES[0], "int8"),
+                                       (MESHES[0], "int4mix"),
+                                       (DEEP_MESH, "int8")])
+def test_act_int8_on_hidden_split_equals_unsharded_and_jax(world,
+                                                           jax_act_int8,
+                                                           mesh, mode):
+    """Under act-int8 the quantized engines on the hidden axis (fsdp 2 at
+    2x2x1, each data group a 1x2x1; fsdp 4 at 1x4x1) compute as XLA does:
+    every int8 product equals the unsharded _w8a8_dot of the whole rows
+    bit for bit; each product group runs one MAX all-reduce (the rows'
+    max) and, for int8 entries, one int32 all-reduce of the partial
+    products (int4mix's gate / up, W4A16 at the tiny width: their f32
+    partial sums), beside the rmsnorm moments; the VQA engine's answer
+    and choice equal the unsharded port's under act-int8 and, for the
+    int8 tree, vstar_tpu's engine sharded on the same mesh under
+    set_act_int8(True), whose compiled layer bodies all-reduce over fsdp
+    as often as the port."""
+    out, job, _ = world
+    answers, (structure, held, equal) = out[mesh]["act_int8"][mode]
+    L = T_VQA_CFG.llama.num_layers
+    assert equal and held == 2 * L * (5 if mode == "int8" else 3)
+    per_layer = ({"layer": 2, "act_max": 2, "act_int32": 2}
+                 if mode == "int8" else
+                 {"layer": 3, "act_max": 1, "act_int32": 1})
+    _act_counts(structure, L, per_layer)
+    assert answers == W.act_int8_answers(*job["act_int8"][mode], None)
+    if mode == "int8":
+        want = jax_act_int8[mesh]
+        assert answers == {k: want[k] for k in ("answer", "choice")}
+        for program, bodies in want["bodies"].items():
+            assert bodies and all(
+                b == {("all_reduce", ("fsdp",)): sum(per_layer.values())}
+                for b in bodies), (program, bodies)
+
+
+def test_act_int8_w4a8_on_hidden_split(world):
+    """A decoder of width 256 (int4mix: int4 gate / up under the W4A8
+    gate, int8 q / k / v / wo / w_down) on 2x2x1 under act-int8: gate /
+    up run K6 (its plain version here) on each rank's rows with the
+    whole rows' quantization (quantize_rows given the group's max), one
+    MAX and one f32 all-reduce for that group; the int8 products equal
+    the unsharded _w8a8_dot bit for bit; the hidden states agree with
+    the unsharded act-int8 decoder's within ACT_W4A8_TOL (K6's f32 group
+    sums and the rmsnorm moments add over ranks in another order)."""
+    out, job, _ = world
+    structure, held, equal = out[MESHES[0]]["act_int8"]["w4a8"][1]
+    L = W4A8_CFG.llama.num_layers
+    assert equal and held == 2 * L * 3
+    _act_counts(structure, L, {"layer": 3, "act_max": 2, "act_int32": 1})
+    assert structure["w4a8_routes"] == 2 * 2 * L
+    want = W.act_int8_reference(*job["act_int8"]["w4a8"])
+    for name in ("prefill", "decode"):
+        np.testing.assert_allclose(structure[name][2].numpy(),
+                                   want[name].numpy(), **ACT_W4A8_TOL)
 
 
 @pytest.mark.parametrize("mesh", [HIDDEN_MESHES[0], DEEP_MESH])

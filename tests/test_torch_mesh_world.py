@@ -180,11 +180,13 @@ def vqa_loop_args(out, mesh, epochs):
         auto_resume=True, save_steps=1)
 
 
-def vqa_loop(params, cfg, data, out, mesh, resume):
-    """run_training (pretrain, f32 compute, 2 steps an epoch): with
-    `resume` one epoch, then a second invocation resuming from its
-    ckpt_latest (per rank on a mesh) into epoch 1; without, two epochs in
-    one go. -> (steps, final tree whole, logged losses)."""
+def vqa_loop(params, cfg, data, out, mesh, first=True, second=True):
+    """run_training (pretrain, f32 compute, 2 steps an epoch) into `out`
+    on `mesh` (None: one device): with `first` one epoch (its
+    ckpt_latest written), with `second` a second invocation of two
+    epochs resuming from the ckpt_latest it finds there (written on any
+    mesh) into epoch 1; `first` without `second` returns None. ->
+    (steps, final tree whole, logged losses)."""
     import functools
     import json
     from vstar_tpu_torch.data.pretrain_dataset import (
@@ -206,14 +208,14 @@ def vqa_loop(params, cfg, data, out, mesh, resume):
     tm.sft_train_step = functools.partial(sft.sft_train_step,
                                           compute_dtype=torch.float32)
     try:
-        if resume:
-            tm.run_training(vqa_loop_args(out, mesh, 1), cfg,
-                            copy.copy(params), ds, collate, tok, mask, LR)
-        state = tm.run_training(vqa_loop_args(out, mesh, 2), cfg,
-                                copy.copy(params), ds, collate, tok, mask,
-                                LR)
+        for epochs in (1,) * first + (2,) * second:
+            state = tm.run_training(vqa_loop_args(out, mesh, epochs), cfg,
+                                    copy.copy(params), ds, collate, tok,
+                                    mask, LR)
     finally:
         tm.sft_train_step = step
+    if not second:
+        return None
     logged = []
     if M.is_main_process():
         with open(f"{out}/metrics.jsonl") as f:
@@ -233,9 +235,11 @@ def vsm_loop_args(base, name, epochs, mesh):
         save_steps=1)
 
 
-def vsm_loop(params, cfg, base, name, mesh, resume):
-    """run_vsm_training in f32 compute, as vqa_loop: -> (steps, final tree
-    whole)."""
+def vsm_loop(params, cfg, base, name, mesh, first=True, second=True):
+    """run_vsm_training in f32 compute, as vqa_loop (`first`: one epoch;
+    `second`: two epochs, resuming from what it finds; the two in one go
+    where no checkpoint is there): -> (steps, final tree whole), None
+    without `second`."""
     import functools
     from vstar_tpu_torch.multimodal.stub_tokenizer import StubTokenizer
     from vstar_tpu_torch.train import train_vsm_main as tm
@@ -243,14 +247,49 @@ def vsm_loop(params, cfg, base, name, mesh, resume):
     step = tm.vsm_train_step
     tm.vsm_train_step = functools.partial(step, compute_dtype=torch.float32)
     try:
-        if resume:
-            tm.run_vsm_training(vsm_loop_args(base, name, 1, mesh), cfg,
-                                copy.copy(params), tok, 3)
-        state = tm.run_vsm_training(vsm_loop_args(base, name, 2, mesh), cfg,
-                                    copy.copy(params), tok, 3)
+        for epochs in (1,) * first + (2,) * second:
+            state = tm.run_vsm_training(vsm_loop_args(base, name, epochs,
+                                                      mesh), cfg,
+                                        copy.copy(params), tok, 3)
     finally:
         tm.vsm_train_step = step
+    if not second:
+        return None
     return state.step, _flat_full(state.params)
+
+
+# The trainer loops resumed across meshes (tests/test_torch_mesh.py): each
+# run's name -> (the mesh its first epoch is written on, the mesh its
+# second invocation resumes on); None is one device (a process without a
+# process group: rank 0 before the world starts, or after it ends).
+CROSS_LOOPS = {"2x2x1": ("2x2x1", "1x2x2"), "1x2x2": ("1x2x2", None),
+               "one": (None, "1x4x1")}
+
+
+def _loops_on(job, mesh_arg, out, phase):
+    """The cross-mesh loops' epochs that run on `mesh_arg`: the first
+    epochs written there (phase "first") or the resumes (phase
+    "second"); into out["vqa_loop"] / out["vsm_loop"][name] (the second
+    invocations' results). After a 2x2x1 first epoch rank 0 keeps a copy
+    of the VSM's ckpt_model/state (the export test's)."""
+    import os
+    import shutil
+    for name, meshes in CROSS_LOOPS.items():
+        i = 0 if phase == "first" else 1
+        if meshes[i] != mesh_arg:
+            continue
+        kw = {"first": i == 0, "second": i == 1}
+        vqa = vqa_loop(job["vqa"], job["vqa_cfg"], job["vqa_data"],
+                       f"{job['work']}/vqa_cross_{name}", mesh_arg, **kw)
+        vsm = vsm_loop(job["vsm"], job["vsm_cfg"], job["vsm_data"],
+                       f"vsm_cross_{name}", mesh_arg, **kw)
+        if i == 1:
+            out.setdefault("vqa_loop", {})[name] = vqa
+            out.setdefault("vsm_loop", {})[name] = vsm
+        elif name == "2x2x1" and M.is_main_process():
+            shutil.copytree(os.path.join(
+                job["vsm_data"], "runs", "vsm_cross_2x2x1", "ckpt_model",
+                "state"), os.path.join(job["work"], "export_2x2x1"))
 
 
 def engines(vqa_params, vqa_cfg, vsm_params, vsm_cfg, mesh):
@@ -372,6 +411,93 @@ def tp_structure(params, cfg, mesh):
         out["refusal"] = None
     except ValueError as e:
         out["refusal"] = str(e)
+    return out
+
+
+def act_int8_split(params, cfg, mesh):
+    """tp_structure of `params` on `mesh` under act-int8 (the decoder's
+    stack on the hidden axis), with every product of an int8 entry that
+    _act_int8_dots computes held to the unsharded _w8a8_dot of the whole
+    rows (the ranks' columns gathered) on the whole weights. -> (the
+    structure, the products held, whether each equals bit for bit)."""
+    from vstar_tpu_torch.nn import llama as L
+    from vstar_tpu_torch.nn import quant as Q
+    calls, dots = [], L._act_int8_dots
+
+    def recorded(x, ws, hidden):
+        out = dots(x, ws, hidden)
+        calls.append((x, out))
+        return out
+
+    L._act_int8_dots = recorded
+    Q.set_act_int8(True)
+    routes = Q.int4_routes["w4a8"]
+    try:
+        structure = tp_structure(params, cfg, mesh)
+    finally:
+        L._act_int8_dots = dots
+        Q.set_act_int8(False)
+    structure["w4a8_routes"] = Q.int4_routes["w4a8"] - routes
+    layers, n = params["llama"]["layers"], cfg.llama.num_layers
+    held, equal = 0, True
+    for j, (x, out) in enumerate(calls):
+        whole = M._all_gather(x, x.dim() - 1, mesh.groups[M.FSDP_AXIS])
+        block, names = (("attn", ("wq", "wk", "wv")) if j % 2 == 0
+                        else ("mlp", ("w_gate", "w_up")))
+        for name, y in zip(names, out):
+            w = layers[block][name]
+            if isinstance(w, dict) and "q" in w:
+                entry = {k: v[(j // 2) % n] for k, v in w.items()}
+                equal = equal and torch.equal(y, Q._w8a8_dot(whole, entry))
+                held += 1
+    return structure, held, equal
+
+
+def act_int8_reference(params, cfg):
+    """tp_structure's prefill and decode step through the unsharded
+    decoder under act-int8: {"prefill" / "decode": the hidden states}."""
+    from vstar_tpu_torch.nn import llama as L
+    from vstar_tpu_torch.nn import quant as Q
+    lcfg = cfg.llama
+    cache = L.init_cache(lcfg, 1, TP_CACHE, torch.float32, device="cpu")
+    gen = torch.Generator().manual_seed(11)
+    h = torch.randn((1, TP_PREFILL + 1, lcfg.hidden_size), generator=gen)
+    out = {}
+    Q.set_act_int8(True)
+    try:
+        with torch.no_grad():
+            for name, lo, hi in (("prefill", 0, TP_PREFILL),
+                                 ("decode", TP_PREFILL, TP_PREFILL + 1)):
+                out[name], cache = L.llama_forward(
+                    params["llama"], lcfg, h[:, lo:hi],
+                    torch.arange(lo, hi)[None],
+                    torch.tensor([hi], dtype=torch.int32),
+                    q_offsets=torch.tensor([lo], dtype=torch.int32),
+                    cache=cache)
+    finally:
+        Q.set_act_int8(False)
+    return out
+
+
+def act_int8_answers(params, cfg, mesh):
+    """vqa_answers under act-int8."""
+    from vstar_tpu_torch.nn import quant as Q
+    Q.set_act_int8(True)
+    try:
+        return vqa_answers(params, cfg, mesh)
+    finally:
+        Q.set_act_int8(False)
+
+
+def act_int8_checks(job, key, mesh):
+    """The act-int8 checks of mesh `key`: for each of its trees of
+    job["act_int8"] (mode -> (tree, config)), (act_int8_answers, None for
+    a decoder without the rest of the model; act_int8_split)."""
+    out = {}
+    for mode in job["act_int8_shapes"][key]:
+        tree, cfg = job["act_int8"][mode]
+        out[mode] = (act_int8_answers(tree, cfg, mesh) if "vision" in tree
+                     else None, act_int8_split(tree, cfg, mesh))
     return out
 
 
@@ -719,15 +845,132 @@ def serve_http(job, mesh_arg):
     return status, _no_latency(rec), one_mesh
 
 
+# --- checkpoints of a sharded state (core/checkpoint.py) ------------------
+
+def _format_tree(mesh):
+    """A tree of DTensors on `mesh` whose pieces are uneven (torch.chunk's
+    short last chunks, two axes on one dim, ranks holding nothing), a
+    leaf the rules leave whole on an axis that does not divide it, bf16,
+    int and 0-d leaves, and non-tensor leaves; and the same tree whole."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from vstar_tpu_torch.core.params import Init
+    gen = torch.Generator().manual_seed(41)
+    whole = {
+        "uneven": torch.randn((5, 3), generator=gen),
+        "tail": torch.randn((7,), generator=gen),
+        "bf16": torch.randn((4, 6), generator=gen).to(torch.bfloat16),
+        "ids": torch.arange(12, dtype=torch.int64).reshape(3, 4),
+        "scalar": torch.tensor(2.5),
+        "layers": {"wq": torch.randn((3, 4, 8), generator=gen)}}
+    S, R = Shard, Replicate()
+    placements = {"uneven": (S(0), S(0), R), "tail": (R, S(0), R),
+                  "bf16": (S(0), S(1), R), "ids": (R, R, S(1)),
+                  "scalar": (R, R, R)}
+    tree = {k: _placed(whole[k], mesh, pl) for k, pl in placements.items()}
+    # the rules' own placing, clipped where the layer axis (3) does not
+    # divide by fsdp
+    tree["layers"] = M.shard_params({"llama": {"layers": whole["layers"]}},
+                                    mesh)["llama"]["layers"]
+    assert isinstance(tree["layers"]["wq"], DTensor)
+    del Init
+    meta = {"step": 3, "name": "run", "none": None, "mix": [1, 2.5, True]}
+    return {"tensors": tree, "meta": meta}, {"tensors": whole, "meta": meta}
+
+
+def _placed(x, mesh, placements):
+    """The DTensor of whole `x` placed by `placements` on `mesh`, this
+    rank's block taken by core/mesh.global_slice (no communication)."""
+    from torch.distributed.tensor import DTensor
+    local = x[M.slices(*M.global_slice(x.shape, placements, mesh.dims,
+                                       mesh.coords))].clone()
+    return DTensor.from_local(local, mesh.device_mesh, placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def checkpoint_format(work, write_shape, read_shape):
+    """save_params of _format_tree on `write_shape` into `work`, then
+    load_params of it onto the same leaves placed otherwise on
+    `read_shape`, whole (like None) and onto whole tensors. -> on rank 0:
+    {"files": name -> bytes, "tree_bytes": the tree's bytes, "reads":
+    every rank's (blocks read: (piece extent, block offset in the piece,
+    block size); its own slices: leaf shape -> [(offset, extent)];
+    whether each read equals the tree: "mesh", "none", "whole")}."""
+    import os
+    from torch.distributed.tensor import Replicate, Shard
+    from vstar_tpu_torch.core import checkpoint as C
+    mesh = M.make_mesh(write_shape, "cpu")
+    tree, whole = _format_tree(mesh)
+    path = os.path.join(work, "format_ckpt")
+    C.save_params(tree, path)
+    C.save_params(tree, path)         # replaces the first in place
+    other = M.make_mesh(read_shape, "cpu")
+    S, R = Shard, Replicate()
+    again = {"uneven": (R, S(1), S(0)), "tail": (S(0), R, S(0)),
+             "bf16": (R, R, S(0)), "ids": (S(0), S(0), R),
+             "scalar": (R, R, R)}
+    like = {k: _placed(whole["tensors"][k], other, pl)
+            for k, pl in again.items()}
+    like["layers"] = M.shard_params(
+        {"llama": {"layers": whole["tensors"]["layers"]}},
+        other)["llama"]["layers"]
+    reads, read_block = [], C._read_block
+
+    def recorded(data, at, dtype, extent, offset, size):
+        reads.append((tuple(extent), tuple(offset), tuple(size)))
+        return read_block(data, at, dtype, extent, offset, size)
+    C._read_block = recorded
+    try:
+        got = C.load_params(path, {"tensors": like, "meta": whole["meta"]})
+    finally:
+        C._read_block = read_block
+    own = {}
+    for _, x in leaves_with_path(like):
+        own.setdefault(tuple(x.shape), []).append(M.local_slice(x))
+    flat = dict(leaves_with_path(whole["tensors"]))
+    like_flat = dict(leaves_with_path(like))
+    equal = {
+        "mesh": all(torch.equal(x.to_local(),
+                                flat[p][M.slices(*M.local_slice(x))])
+                    and x.placements == like_flat[p].placements
+                    for p, x in leaves_with_path(got["tensors"]))
+        and got["meta"] == whole["meta"],
+        "none": _same_tree(C.load_params(path), whole),
+        "whole": _same_tree(C.load_params(path, whole), whole)}
+    every = [None] * M.world_size()
+    dist.all_gather_object(every, (reads, own, equal))
+    if M.rank() != 0:
+        return None
+    return {"files": {f: os.path.getsize(os.path.join(path, f))
+                      for f in sorted(os.listdir(path))},
+            "tree_bytes": sum(x.numel() * x.element_size()
+                              for x in flat.values()),
+            "reads": every}
+
+
+def _same_tree(a, b):
+    if isinstance(b, dict):
+        return set(a) == set(b) and all(_same_tree(a[k], b[k]) for k in b)
+    if isinstance(b, (list, tuple)):
+        return type(a) is type(b) and len(a) == len(b) and \
+            all(_same_tree(x, y) for x, y in zip(a, b))
+    if isinstance(b, torch.Tensor):
+        return isinstance(a, torch.Tensor) and a.dtype == b.dtype and \
+            torch.equal(a, b)
+    return a == b
+
+
 def world(rank, n, store, job_path, out_path):
     """One rank: every sharded computation of the job on each of its mesh
     shapes; rank 0 saves {shape: {check: result}}."""
     torch.set_num_threads(1)
+    job = torch.load(job_path, weights_only=False)
+    out = {"loops": {}}
+    if rank == 0:   # one device: no process group yet
+        _loops_on(job, None, out["loops"], "first")
     dist.init_process_group("gloo", store=dist.FileStore(store, n),
                             rank=rank, world_size=n)
     try:
-        job = torch.load(job_path, weights_only=False)
-        out = {}
         for shape in job["shapes"]:
             mesh = M.make_mesh(shape, "cpu")
             key = "x".join(map(str, shape))
@@ -753,19 +996,17 @@ def world(rank, n, store, job_path, out_path):
                                                    job["vqa_cfg"], mesh)
             if key == job["tower_shape"]:
                 res["towers"] = tower_structure(mesh)
-            if key in job["loop_shapes"]:
-                res["vqa_loop"] = vqa_loop(job["vqa"], job["vqa_cfg"],
-                                           job["vqa_data"],
-                                           f"{job['work']}/vqa_{key}", key,
-                                           resume=True)
-                res["vsm_loop"] = vsm_loop(job["vsm"], job["vsm_cfg"],
-                                           job["vsm_data"], f"vsm_{key}",
-                                           key, resume=True)
+            _loops_on(job, key, out["loops"], "second")
+            _loops_on(job, key, out["loops"], "first")
+            if key == job["format_shapes"][0]:
+                res["checkpoint_format"] = checkpoint_format(
+                    job["work"], shape, job["format_shapes"][1])
             if key == job["serve_shape"]:
                 res["quantized"] = {
                     mode: (vqa_answers(tree, job["vqa_cfg"], mesh),
                            tp_structure(tree, job["vqa_cfg"], mesh))
                     for mode, tree in job["quantized"].items()}
+                res["act_int8"] = act_int8_checks(job, key, mesh)
                 res["eval_mains"] = eval_mains(
                     job["hf_dirs"], job["bench"],
                     f"{job['work']}/eval_{key}.json", key, job["vqa_cfg"],
@@ -778,15 +1019,19 @@ def world(rank, n, store, job_path, out_path):
             # the VQA engine alone, on a stack of 4 layers (which fsdp 4
             # divides)
             mesh = M.make_mesh(shape, "cpu")
-            out["x".join(map(str, shape))] = {
+            key = "x".join(map(str, shape))
+            out[key] = {
                 "vqa_answers": vqa_answers(deep["vqa"], deep["vqa_cfg"],
                                            mesh),
                 "tp_structure": tp_structure(deep["vqa"], deep["vqa_cfg"],
                                              mesh)}
-        if rank == 0:
-            torch.save(out, out_path)
+            out[key]["act_int8"] = act_int8_checks(job, key, mesh)
+            _loops_on(job, key, out["loops"], "second")
     finally:
         dist.destroy_process_group()
+    if rank == 0:   # one device again: the group is gone
+        _loops_on(job, None, out["loops"], "second")
+        torch.save(out, out_path)
 
 
 def finetune_7b_plan(rank, n, store, model_dir, out_path):

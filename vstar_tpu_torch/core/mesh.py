@@ -64,7 +64,10 @@ layer's rmsnorm moments and its q / k / v and gate / up products are
 f32 partial sums all-reduced over that group, wo and w_down give the
 rank's own columns of D, and `layer_source` hands out the rank's share
 with no collective; quantized entries split so too (their products are
-summed as their kernels return them). Training keeps the owner's
+summed as their kernels return them; under act-int8 each product
+group's row max is all-reduced first, and the int8 entries' partial
+products are summed in int32, as XLA computes vstar_tpu's _w8a8_dot on
+the split). Training keeps the owner's
 broadcast, and so does a stack this split does not take (a hidden size,
 or int4 groups, that F does not divide).
 
@@ -241,6 +244,11 @@ class Mesh:
     def dims(self) -> Tuple[int, int, int]:
         return tuple(self.shape[a] for a in AXES)
 
+    @property
+    def coords(self) -> Tuple[int, int, int]:
+        """This rank's coordinate on each axis, in AXES order."""
+        return tuple(self.coord[a] for a in AXES)
+
     def placements(self, spec: tuple) -> tuple:
         """A clipped spec -> one DTensor placement per mesh axis."""
         return tuple(Shard(spec.index(a)) if a in spec else Replicate()
@@ -357,11 +365,46 @@ def resolve_mesh(mesh_arg, device) -> Optional[Mesh]:
 # Sharding a tree
 # ---------------------------------------------------------------------------
 
+def global_slice(shape: Sequence[int], placements, sizes: Sequence[int],
+                 coord: Sequence[int]) -> Tuple[Tuple[int, ...],
+                                                Tuple[int, ...]]:
+    """(offset, extent) in a leaf of global `shape` of the block that the
+    rank at mesh coordinate `coord` (one index per mesh axis, of `sizes`)
+    holds under `placements` (one per mesh axis): each Shard(d) cuts dim
+    d as torch.chunk and DTensor do, axis after axis (chunks of ceil(n /
+    k), the last one short, ranks past the end empty); Replicate keeps
+    it. The one source of a shard's offsets: shard_params, and the
+    sharded checkpoints' writer and reader (core/checkpoint.py), take
+    theirs from it."""
+    offset, extent = [0] * len(shape), list(shape)
+    for pl, k, i in zip(placements, sizes, coord):
+        if isinstance(pl, Shard):
+            n = extent[pl.dim]
+            step = -(-n // k)
+            lo = min(i * step, n)
+            offset[pl.dim] += lo
+            extent[pl.dim] = min(lo + step, n) - lo
+        elif not isinstance(pl, Replicate):
+            raise ValueError(f"placement {pl}: only Shard and Replicate "
+                             "leaves have a global slice")
+    return tuple(offset), tuple(extent)
+
+
+def local_slice(x: DTensor) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """(offset, extent) of this rank's shard of `x` in the whole leaf."""
+    dm = x.device_mesh
+    return global_slice(x.shape, x.placements, dm.shape,
+                        dm.get_coordinate())
+
+
+def slices(offset: Sequence[int], extent: Sequence[int]) -> tuple:
+    """The index of the block (offset, extent)."""
+    return tuple(slice(o, o + e) for o, e in zip(offset, extent))
+
+
 def _local_chunk(x: torch.Tensor, spec: tuple, mesh: Mesh) -> torch.Tensor:
-    for d, ax in enumerate(spec):
-        if ax is not None:
-            x = x.chunk(mesh.shape[ax], d)[mesh.coord[ax]]
-    return x
+    return x[slices(*global_slice(x.shape, mesh.placements(spec),
+                                  mesh.dims, mesh.coords))]
 
 
 def shard_params(params: Params, mesh: Mesh, rules=DEFAULT_RULES) -> Params:
@@ -717,9 +760,11 @@ TP_BLOCKS = (("attn", ("wq", "wk", "wv"), "wo"),
 # `collectives` too.
 model_collectives: Dict[Tuple[str, str, str], int] = {}
 # The same for an engine's split on the hidden axis (`hidden_split`), over
-# the fsdp group: site "layer" (a decoder layer's moments and partial
-# products) or "residual" (the residual stream gathered whole after the
-# last layer).
+# the fsdp group: site "layer" (a decoder layer's moments and f32 partial
+# products), "residual" (the residual stream gathered whole after the
+# last layer), and under act-int8 (nn/llama.py) "act_max" (a product
+# group's row max, MAX) and "act_int32" (its int8 entries' int32 partial
+# products).
 hidden_collectives: Dict[Tuple[str, str, str], int] = {}
 _build.register_counters(__name__, "model_collectives", "hidden_collectives")
 
@@ -789,8 +834,9 @@ class ModelSplit:
         key = (site or self.site, op, phase)
         counts[key] = counts.get(key, 0) + 1
 
-    def _all_reduce(self, x: torch.Tensor, phase: str, op=None) -> None:
-        self._note("all_reduce", phase)
+    def _all_reduce(self, x: torch.Tensor, phase: str, op=None,
+                    site: Optional[str] = None) -> None:
+        self._note("all_reduce", phase, site)
         if op is None:
             _all_reduce(x, self.group)
         else:
@@ -805,12 +851,14 @@ class ModelSplit:
         self._all_reduce(partial, _phase())
         return partial
 
-    def reduce_many(self, *partials: torch.Tensor
-                    ) -> Tuple[torch.Tensor, ...]:
-        """Several f32 partial sums summed over the group in one all-reduce
-        (XLA's combined all-reduce of a tuple), outside autograd."""
+    def reduce_many(self, *partials: torch.Tensor,
+                    site: Optional[str] = None) -> Tuple[torch.Tensor, ...]:
+        """Several partial sums of one dtype (f32; int32: exact integer
+        products) summed over the group in one all-reduce (XLA's combined
+        all-reduce of a tuple), outside autograd, counted at `site`
+        (default the split's)."""
         flat = torch.cat([p.reshape(-1) for p in partials])
-        self._all_reduce(flat, _phase())
+        self._all_reduce(flat, _phase(), site=site)
         parts = flat.split([p.numel() for p in partials])
         return tuple(y.view(p.shape) for y, p in zip(parts, partials))
 
@@ -824,10 +872,12 @@ class ModelSplit:
             return xs
         return _Enter.apply(self, *xs)
 
-    def max(self, x: torch.Tensor) -> torch.Tensor:
-        """The elementwise max over the model group (no gradient)."""
+    def max(self, x: torch.Tensor, site: Optional[str] = None
+            ) -> torch.Tensor:
+        """The elementwise max over the group (no gradient), counted at
+        `site` (default the split's)."""
         x = x.detach().contiguous().clone()
-        self._all_reduce(x, _phase(), dist.ReduceOp.MAX)
+        self._all_reduce(x, _phase(), dist.ReduceOp.MAX, site)
         return x
 
     def gather(self, x: torch.Tensor, dim: int = -1,

@@ -511,12 +511,15 @@ constexpr int kQuantThreads = 256;
 
 // One block per row r of x [rows, in] (bf16, or f32 with T = float; in %
 // 8 == 0, 16-byte aligned): sx[r] = max(max |x[r]|, 1e-8) / 127 and xq[r]
-// = clamp(rint(x[r] / sx[r]), -127, 127), quantize_activations' bits. It
+// = clamp(rint(x[r] / sx[r]), -127, 127), quantize_activations' bits.
+// With amax not null the row's max |value| is amax[r] (a rank holding part
+// of each row: the max over its group), and the kernel reads x once. It
 // lets the launch dependent on it (K6) start at once.
 template <typename T>
 __global__ void __launch_bounds__(kQuantThreads)
     w4a8_quantize_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
-                         float* __restrict__ sx, long long in) {
+                         float* __restrict__ sx, const float* __restrict__ amax,
+                         long long in) {
   constexpr int EV = 16 / sizeof(T);   // values a 16-byte load
   asm volatile("griddepcontrol.launch_dependents;");
   __shared__ float wmax[kQuantThreads / 32];
@@ -529,18 +532,22 @@ __global__ void __launch_bounds__(kQuantThreads)
       return __uint_as_float(w[e]);
   };
   float m = 0.f;
-  for (long long k = EV * threadIdx.x; k < in; k += EV * kQuantThreads) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(xr + k));
+  if (amax != nullptr) {
+    m = __ldg(amax + blockIdx.x);
+  } else {
+    for (long long k = EV * threadIdx.x; k < in; k += EV * kQuantThreads) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(xr + k));
 #pragma unroll
-    for (int e = 0; e < EV; ++e) m = fmaxf(m, fabsf(value(v, e)));
+      for (int e = 0; e < EV; ++e) m = fmaxf(m, fabsf(value(v, e)));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if ((threadIdx.x & 31) == 0) wmax[threadIdx.x >> 5] = m;
+    __syncthreads();
+    m = 0.f;
+#pragma unroll
+    for (int w = 0; w < kQuantThreads / 32; ++w) m = fmaxf(m, wmax[w]);
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if ((threadIdx.x & 31) == 0) wmax[threadIdx.x >> 5] = m;
-  __syncthreads();
-  m = 0.f;
-#pragma unroll
-  for (int w = 0; w < kQuantThreads / 32; ++w) m = fmaxf(m, wmax[w]);
   const float s = __fdiv_rn(fmaxf(m, 1e-8f), 127.f);
   if (threadIdx.x == 0) sx[blockIdx.x] = s;
   int8_t* qr = xq + blockIdx.x * in;
@@ -602,19 +609,22 @@ extern "C" int vstar_int4_w4a8(const void* xq, const void* q4, const void* s4, c
 }
 
 // The row quantization of K6's qdot: xq [rows, in] int8 and sx [rows] f32
-// from x [rows, in] (bf16, or f32 with x_f32); in % 8 == 0, x 16-byte and
-// xq 8-byte aligned.
-extern "C" int vstar_w4a8_quantize(const void* x, void* xq, void* sx, long long rows,
-                                   long long in, long long x_f32, void* stream) {
+// from x [rows, in] (bf16, or f32 with x_f32), each row's max |value| from
+// amax [rows] f32 where it is not null; in % 8 == 0, x 16-byte and xq
+// 8-byte aligned.
+extern "C" int vstar_w4a8_quantize(const void* x, void* xq, void* sx, const void* amax,
+                                   long long rows, long long in, long long x_f32,
+                                   void* stream) {
   if (rows < 1 || in < 8 || in % 8) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto* q = static_cast<int8_t*>(xq);
   auto* s = static_cast<float*>(sx);
+  auto* m = static_cast<const float*>(amax);
   if (x_f32)
     w4a8_quantize_kernel<float><<<(unsigned)rows, kQuantThreads, 0, st>>>(
-        static_cast<const float*>(x), q, s, in);
+        static_cast<const float*>(x), q, s, m, in);
   else
     w4a8_quantize_kernel<bf16><<<(unsigned)rows, kQuantThreads, 0, st>>>(
-        static_cast<const bf16*>(x), q, s, in);
+        static_cast<const bf16*>(x), q, s, m, in);
   return (int)cudaGetLastError();
 }

@@ -43,7 +43,7 @@ _SIGNATURES = {
     "vstar_int8_matvec": [_P] * 4 + [_LL] * 6 + [_P],
     "vstar_int4_matmul": [_P] * 4 + [_LL] * 7 + [_P],
     "vstar_int4_w4a8": [_P] * 5 + [_LL] * 8 + [_P],
-    "vstar_w4a8_quantize": [_P] * 3 + [_LL] * 3 + [_P],
+    "vstar_w4a8_quantize": [_P] * 4 + [_LL] * 3 + [_P],
     "vstar_w4a8_decode_occupancy": [_LL] * 2 + [_P],
     "vstar_w4a8_kernel_info": [ctypes.c_int, ctypes.POINTER(ctypes.c_char_p),
                                ctypes.POINTER(ctypes.c_longlong)],

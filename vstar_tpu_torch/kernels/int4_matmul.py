@@ -17,9 +17,12 @@ Weight format, from nn/quant.quantize_weight_int4:
                                (K6, the TPU kernel's own function:
                                csrc/int4_matmul.cu, the decode rows on
                                int8 tensor cores, one launch)
-  quantize_rows(x)             x [R, IN] -> per-row int8 xq and f32 sx
+  quantize_rows(x, amax=None)  x [R, IN] -> per-row int8 xq and f32 sx
                                (the row quantization of K6's qdot, one
-                               launch)
+                               launch; with `amax` the rows' largest
+                               |value| comes from outside: a rank of an
+                               engine's hidden split holds part of each
+                               row, nn/llama.py)
   qdot4 / qdot4_w4a8           the qdot entry points over [..., IN]; on a
                                CUDA tensor qdot4_w4a8 is two launches,
                                quantize_rows and K6 with the activation
@@ -36,6 +39,8 @@ or raises.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -304,12 +309,17 @@ def int4_matmul_w4a8(xq: torch.Tensor, q4: torch.Tensor,
     return _launch_w4a8(xq, q4, s4, None, y, pdl=False)
 
 
-def quantize_activations(xf: torch.Tensor):
+def quantize_activations(xf: torch.Tensor,
+                         amax: Optional[torch.Tensor] = None):
     """Per-row symmetric int8 of f32 rows (qdot4_w4a8's rule):
-    (xq int8, sx f32 [R, 1]); the plain version of quantize_rows."""
+    (xq int8, sx f32 [R, 1]); the plain version of quantize_rows. `amax`
+    [R, 1]: the rows' largest |value| where xf holds part of each row;
+    default xf's."""
     if xf.is_cuda:
         plain_calls_cuda["quantize_rows"] += 1
-    amax = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8)
+    if amax is None:
+        amax = xf.abs().amax(dim=-1, keepdim=True)
+    amax = torch.clamp(amax, min=1e-8)
     # divided by a tensor: PyTorch's CUDA division by a Python scalar
     # multiplies by its reciprocal, one ulp off the IEEE quotient (JAX's,
     # and the CPU's) for ~4 % of values
@@ -318,12 +328,14 @@ def quantize_activations(xf: torch.Tensor):
     return xq, sx
 
 
-def quantize_rows(x: torch.Tensor):
+def quantize_rows(x: torch.Tensor, amax: Optional[torch.Tensor] = None):
     """x [R, IN] (bf16 or f32) -> (xq int8 [R, IN], sx f32 [R, 1]) by
-    qdot4_w4a8's rule, the bits of quantize_activations(x.float()) (K6's
-    row quantization, one launch)."""
+    qdot4_w4a8's rule, the bits of quantize_activations(x.float(), amax)
+    (K6's row quantization, one launch). `amax` f32 [R, 1]: the rows'
+    largest |value| taken from outside (x holds part of each row: an
+    engine's hidden split), which the kernel then does not compute."""
     if x.device.type == "cpu":
-        return quantize_activations(x.float())
+        return quantize_activations(x.float(), amax)
     if not x.is_cuda:
         raise ValueError(f"quantize_rows: unsupported device {x.device}")
     if x.dim() != 2 or x.dtype not in (torch.bfloat16, torch.float32):
@@ -332,6 +344,8 @@ def quantize_rows(x: torch.Tensor):
     rows, IN = x.shape
     if IN % 8:
         raise ValueError(f"quantize_rows: IN = {IN} must be a multiple of 8")
+    if amax is not None:
+        check_cuda_operand("amax", amax, torch.float32, (rows, 1), x.device)
     if not x.is_contiguous() or x.data_ptr() % 16:
         x = x.contiguous().clone()
     xq = torch.empty((rows, IN), dtype=torch.int8, device=x.device)
@@ -340,21 +354,24 @@ def quantize_rows(x: torch.Tensor):
         return xq, sx
     lib = _build.library()
     code = _build.launch(lib.vstar_w4a8_quantize, x.device, x.data_ptr(),
-                         xq.data_ptr(), sx.data_ptr(), rows, IN,
+                         xq.data_ptr(), sx.data_ptr(),
+                         None if amax is None else amax.data_ptr(), rows, IN,
                          int(x.dtype == torch.float32))
     _build.check(lib, code, "quantize_rows")
     launches["quantize_rows"] += 1
     return xq, sx
 
 
-def w4a8_applies(x: torch.Tensor, entry) -> bool:
+def w4a8_applies(x: torch.Tensor, entry, split: int = 1) -> bool:
     """The JAX dispatch gate, all three of its conditions: at most 16
     rows, IN % 256 == 0 and OUT % 128 == 0 (the JAX kernel declines every
-    other shape, and qdot then takes W4A16)."""
+    other shape, and qdot then takes W4A16). `split`: x and the entry
+    hold 1/split of each row's inputs and groups (an engine's hidden
+    split), whose whole row the gate reads."""
     rows = x.numel() // x.shape[-1]
-    IN = x.shape[-1]
+    IN = x.shape[-1] * split
     return (rows <= MAX_ROWS and IN % W4A8_IN_MULTIPLE == 0
-            and IN % entry["s4"].shape[-2] == 0
+            and IN % (entry["s4"].shape[-2] * split) == 0
             and entry["q4"].shape[-1] % W4A8_OUT_MULTIPLE == 0)
 
 

@@ -33,7 +33,13 @@ all-reduces its sum of squares over the fsdp group, the q / k / v (and
 LoRA's x @ A) and gate / up products are f32 partial sums all-reduced
 over it in one call each, and wo and w_down give the rank's own columns
 (summed over the model group where the model axis splits them too). The
-KV cache is whole on fsdp.
+KV cache is whole on fsdp. Under act-int8 (nn/quant.set_act_int8) the
+quantized products of q / k / v and gate / up see the whole row: its
+largest |value| is all-reduced over the fsdp group (MAX) first, the int8
+entries' partial products are summed in int32 (the unsharded W8A8
+product's bits, as XLA computes it), and the int4 entries under the
+W4A8 gate run K6 on the rank's rows with the whole row's quantization
+(_act_int8_dots).
 
 Training: LoRA adapters (`layers.attn.lora`, train/lora.py) add their
 delta to q and v before the reshape and rope, as in JAX; `remat`
@@ -56,9 +62,12 @@ from ..core.config import LlamaConfig
 from ..core.mesh import ModelSplit, hidden_split, layer_source, model_split
 from ..core.params import Init, dense_init, embed_init
 from ..kernels.flash_attention import flash_attention
+from ..kernels.int4_matmul import (int4_matmul_w4a8, quantize_rows,
+                                   w4a8_applies)
 from .basic import init_rmsnorm, partial_dot, rmsnorm
-from .quant import (act_int8, qdot, quantize_weight, quantize_weight_int4,
-                    resolve_matrix_quant)
+from .quant import (act_int8, int4_routes, qdot, quantize_weight,
+                    quantize_weight_int4, resolve_matrix_quant, w8a8_acc,
+                    w8a8_quantize, w8a8_scale)
 from .rope import apply_rope, rope_angles
 from ..train.lora import (LORA_TARGETS, lora_delta, split_delta,
                           split_inputs)
@@ -228,17 +237,67 @@ def _hidden_dots(x: torch.Tensor, ws, hidden: ModelSplit
     partial sums added over the fsdp group in one all-reduce (XLA's
     combined all-reduce of the tuple) and cast back to x's dtype. A
     quantized entry's product is summed as its kernel returns it (in x's
-    dtype); the act-int8 routes, which scale each row by its largest
-    |value|, would see only the rank's columns and are refused."""
+    dtype); under act-int8, whose routes scale each row by its largest
+    |value| over the whole row, _act_int8_dots."""
     if act_int8() and any(isinstance(w, dict) for w in ws):
-        raise ValueError("act-int8 quantizes whole rows; an engine's "
-                         "quantized decoder split on the hidden axis "
-                         "(--mesh with fsdp above 1) takes weight-only "
-                         "products")
+        return _act_int8_dots(x, ws, hidden)
     sums = hidden.reduce_many(*(
         qdot(x, w).float() if isinstance(w, dict) else partial_dot(x, w)
         for w in ws))
     return tuple(y.to(x.dtype) for y in sums)
+
+
+def _act_int8_dots(x: torch.Tensor, ws, hidden: ModelSplit
+                   ) -> Tuple[torch.Tensor, ...]:
+    """_hidden_dots under act-int8, as XLA computes vstar_tpu's act-int8
+    products on the split: each row's |x| max over the fsdp group in one
+    f32 all-reduce (MAX; site "act_max"), then
+      * int8 entries: the rows quantized by w8a8_quantize's rule with that
+        max, each rank's exact int32 partial dots summed in one int32
+        all-reduce (site "act_int32"), then the scales: the unsharded
+        _w8a8_dot's bits;
+      * int4 entries whose W4A8 gate holds on the whole row: the rows
+        quantized by quantize_rows with that max (the whole row's bits),
+        K6 on this rank's rows (its f32 group sums), summed over the
+        group with the other f32 partial sums, then times the rows' sx;
+      * other int4 entries (W4A16, K5), raw matrices and LoRA's A: f32
+        partial sums, as without act-int8."""
+    lead, n = x.shape[:-1], x.shape[-1]
+    int8 = [isinstance(w, dict) and "q" in w for w in ws]
+    w4a8 = [isinstance(w, dict) and "q4" in w
+            and w4a8_applies(x, w, hidden.size) for w in ws]
+    xf = x.float()
+    if any(int8) or any(w4a8):
+        amax = hidden.max(xf.abs().amax(dim=-1, keepdim=True),
+                          site="act_max")
+    out = [None] * len(ws)
+    if any(int8):
+        xq, sx = w8a8_quantize(xf, amax)
+        accs = iter(hidden.reduce_many(
+            *(w8a8_acc(xq, w) for w, i8 in zip(ws, int8) if i8),
+            site="act_int32"))
+        for i, w in enumerate(ws):
+            if int8[i]:
+                out[i] = w8a8_scale(next(accs), sx, w, x.dtype)
+    rest = [i for i in range(len(ws)) if not int8[i]]
+    if any(w4a8):
+        xq4, sx4 = quantize_rows(x.reshape(-1, n), amax.reshape(-1, 1))
+        sx4 = sx4.reshape(*lead, 1)
+    parts = []
+    for i in rest:
+        w = ws[i]
+        if w4a8[i]:
+            int4_routes["w4a8"] += 1
+            parts.append(int4_matmul_w4a8(xq4, w["q4"], w["s4"].float())
+                         .reshape(*lead, -1))
+        elif isinstance(w, dict):
+            parts.append(qdot(x, w).float())
+        else:
+            parts.append(partial_dot(x, w))
+    if parts:
+        for i, y in zip(rest, hidden.reduce_many(*parts)):
+            out[i] = (y * sx4 if w4a8[i] else y).to(x.dtype)
+    return tuple(out)
 
 
 def _attention_block(lp: Dict, cfg: LlamaConfig, x: torch.Tensor,

@@ -18,7 +18,7 @@ jnp.round does, and give JAX's bits on the same f32 input.
 
 from __future__ import annotations
 
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -120,8 +120,9 @@ def resolve_matrix_quant(quantize, name: str):
 # every qdot call (the JAX package reads it when it traces).
 _ACT_INT8 = False
 
-# Calls of _w8a8_dot (the act-int8 route of int8 entries: torch._int_mm,
-# no kernel of the port), counted as the kernels count their launches.
+# The int8 products of the act-int8 route of int8 entries (_w8a8_dot, and
+# its partial products on an engine's hidden split: torch._int_mm, no
+# kernel of the port), counted as the kernels count their launches.
 w8a8_calls = 0
 # qdot's route for int4 entries (W4A8 or W4A16), counted on every device
 int4_routes = {"w4a8": 0, "w4a16": 0}
@@ -158,26 +159,39 @@ def _int32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a, b.contiguous())[:M, :N]
 
 
-def w8a8_quantize(xf: torch.Tensor):
+def w8a8_quantize(xf: torch.Tensor, amax: Optional[torch.Tensor] = None):
     """_w8a8_dot's per-row int8 activations of f32 rows: sx = max(amax /
     127, 1e-8) (JAX's order: divide, then clamp), xq = clamp(round(xf /
-    sx), -127, 127); (xq int8, sx f32 [..., 1])."""
-    sx = torch.clamp(_ieee_div(xf.abs().amax(dim=-1, keepdim=True), 127.0),
-                     min=1e-8)
+    sx), -127, 127); (xq int8, sx f32 [..., 1]). `amax` [..., 1]: the
+    rows' largest |value| where the caller holds part of each row (an
+    engine's hidden split: the max over the fsdp group); default xf's."""
+    if amax is None:
+        amax = xf.abs().amax(dim=-1, keepdim=True)
+    sx = torch.clamp(_ieee_div(amax, 127.0), min=1e-8)
     return torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8), sx
+
+
+def w8a8_acc(xq: torch.Tensor, entry) -> torch.Tensor:
+    """The exact int32 product xq [..., IN] @ entry's int8 q [IN, OUT]."""
+    global w8a8_calls
+    w8a8_calls += 1
+    q = entry["q"]
+    acc = _int32_matmul(xq.reshape(-1, xq.shape[-1]), q)
+    return acc.reshape(*xq.shape[:-1], q.shape[-1])
+
+
+def w8a8_scale(acc: torch.Tensor, sx: torch.Tensor, entry, dtype
+               ) -> torch.Tensor:
+    """An int32 product scaled by the rows' sx and the columns' s, in
+    `dtype`."""
+    return (acc.float() * sx * entry["s"].float()[..., 0, :]).to(dtype)
 
 
 def _w8a8_dot(x: torch.Tensor, entry) -> torch.Tensor:
     """Per-row int8 activations against per-channel int8 weights, int32
     accumulation (vstar_tpu nn/quant._w8a8_dot)."""
-    global w8a8_calls
-    w8a8_calls += 1
     xq, sx = w8a8_quantize(x.float())
-    q = entry["q"]
-    acc = _int32_matmul(xq.reshape(-1, x.shape[-1]), q)
-    acc = acc.reshape(*x.shape[:-1], q.shape[-1])
-    out = acc.float() * sx * entry["s"].float()[..., 0, :]
-    return out.to(x.dtype)
+    return w8a8_scale(w8a8_acc(xq, entry), sx, entry, x.dtype)
 
 
 def dequantize_weight(entry: WeightEntry, dtype=torch.float32

@@ -12,7 +12,9 @@ One card (`chip_smoke.py`'s mesh phase calls these):
   * `gloo_split`: two ranks over gloo on one card (NCCL takes one rank a
     device), 7B widths with 2 decoder layers on a 1x2x1 mesh, finetune
     steps against the one-device steps; at 1x1x2 (the decoder and the
-    towers tensor-parallel) also a VSM step, with each rank's counts.
+    towers tensor-parallel) also a VSM step, with each rank's counts;
+    with `resume`, the VSM trainer's checkpoint written at 1x2x1,
+    resumed at 1x1x2 and on one device, and exported.
 
 Serving over the mesh (`chip_smoke.py`'s mesh phase, part (d)): the
 helpers that load a checkpoint pair through the server's
@@ -31,6 +33,14 @@ masters, the tower frozen) on synthetic rows: the plan, the step times,
 each card's allocated and peak memory; with --engine also a sharded
 VQA engine's greedy answer against the unsharded engine's on every rank.
 Rank 0 prints one JSON line and writes chiprun_out/mesh_probe_<mesh>.json.
+With --checkpoint 1x2x2,1x1x4 the state after the steps is written as
+the trainers write it (one checkpoint of global tensors, every rank its
+pieces; core/checkpoint.py) and read back on each of those meshes (each
+rank its slices, into a template of that mesh): GB written, seconds and
+GB/s of the write and of each read, each read's peak device memory
+beside the step's, and every leaf's sum against the written one's:
+    torchrun --nproc-per-node 4 -m vstar_tpu_torch.scripts.mesh_probe \\
+        --mesh 1x4x1 --steps 1 --checkpoint 1x2x2,1x1x4
 `torchrun --nproc-per-node 1 ... --mesh 1x1x1 --layers 16` holds on one
 card the state a card of the full model's 1x2x1 mesh holds. At --mesh
 1x1x4 or 1x2x2 the decoder and the towers are tensor-parallel; each
@@ -57,10 +67,12 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import socket
 import sys
 import tempfile
 import time
+from typing import Dict
 
 import numpy as np
 import torch
@@ -492,8 +504,121 @@ def _split_against_one(rank, dev, mesh, case, lr, steps, micro):
     return result
 
 
+@torch.no_grad()
+def _same_state(a, b) -> bool:
+    """Whether TrainState `b` holds the leaves of `a` bit for bit (the
+    global trees of train_vsm_main.global_state: parameters, masters,
+    moments, counts), each gathered whole. Every rank of `a`'s mesh
+    calls it; `b` may be a one-device state that rank 0 alone holds (None
+    on the others); the answer is rank 0's."""
+    from torch.distributed.tensor import DTensor
+    from ..core import mesh as M
+    from ..core.params import leaves_with_path
+    from ..train.train_vsm_main import global_state
+
+    def flat(state):
+        return dict(leaves_with_path({"t": list(global_state(state))}))
+    mine, theirs = flat(a), None if b is None else flat(b)
+    same = theirs is None or len(theirs) == len(mine)
+    for p, x in mine.items():
+        x = M.full(x) if isinstance(x, DTensor) else x
+        if theirs is None:
+            continue
+        y = theirs.get(p)
+        y = M.full(y) if isinstance(y, DTensor) else y
+        same = same and (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                         else x == y)
+    return bool(same)
+
+
+def _resume_against_one(rank, dev, case, lr, micro, work):
+    """Part (c)'s checkpoint: the VSM case (_vsm_case) one step at 1x2x1,
+    its TrainState written by both ranks (train_vsm_main.save_state: one
+    checkpoint of global tensors), read back at 1x1x2 (both ranks, each
+    its slices) and on one device (rank 0, whole), each read held to the
+    written state bit for bit (_same_state), then one more step from each
+    against the two one-device steps (loss and grad norm a step); the
+    resumed 1x1x2 step's counts on every rank (K1 / K7 / K2 launches);
+    rank 0's export of the checkpoint (export_main, the directory)
+    against the export of the same state written on one device (one
+    file). -> rank 0's report {"one_device": the two one-device steps,
+    "mesh": step 1 at 1x2x1 and step 2 at 1x1x2, "resumed_one_device":
+    step 1 at 1x2x1 and step 2 on one device, each (loss, grad norm,
+    seconds); "read_equal": {"mesh", "one_device"}; "export"; "counts":
+    every rank's; "seconds"}."""
+    from ..core import mesh as M
+    from ..core.checkpoint import load_params, save_params
+    from ..data.vsm_collate import batch_to_torch
+    from ..train import export_main
+    from ..train.train_vsm_main import load_state, save_state
+    from ..train.vsm_train import VSMTrainState
+    cfg, params, mask, opt, rows, step_fn, init = case
+    batch = batch_to_torch(rows, dev)
+
+    def step(state):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch, cfg, opt, mask, grad_accum=micro)
+        torch.cuda.synchronize(dev)
+        return state, (float(m["loss"]), float(m["grad_norm"]),
+                       time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    out = {}
+    if rank == 0:
+        one, s1 = step(init(params, opt))
+        one, s2 = step(one)
+        out["one_device"] = [s1, s2]
+        del one
+    dist.barrier()
+    path = os.path.join(work, "ckpt_model", "state")
+    written, s1 = step(init(M.shard_params(
+        params, M.make_mesh((1, 2, 1), dev.type)), opt))
+    t1 = time.perf_counter()
+    save_state(written, path, M.mesh_of(written.params))
+    save_s = time.perf_counter() - t1
+    mesh = M.make_mesh((1, 1, 2), dev.type)
+    like = init(M.shard_params(params, mesh), opt)
+    t1 = time.perf_counter()
+    st = load_state(VSMTrainState, path, like, dev, mesh)
+    load_s = time.perf_counter() - t1
+    del like
+    out["read_equal"] = {"mesh": _same_state(written, st)}
+    del written
+    one = load_state(VSMTrainState, path, init(params, opt), dev, None) \
+        if rank == 0 else None
+    out["read_equal"]["one_device"] = _same_state(st, one)
+    before = _rank_counts()
+    st, s2 = step(st)
+    counts = _counts_delta(before, _rank_counts())
+    del st
+    every = [None] * M.world_size()
+    dist.all_gather_object(every, counts)
+    if rank == 0:
+        out["mesh"] = [s1, s2]
+        one, s2 = step(one)
+        out["resumed_one_device"] = [s1, s2]
+        del one
+        file = os.path.join(work, "one_device_state")
+        save_params(load_params(path), file)
+        sds = [export_main.main(["--ckpt", ckpt, "--version", work,
+                                 "--save_path", os.path.join(work, name)])
+               for name, ckpt in (("export_mesh", path),
+                                  ("export_one", file))]
+        out["export"] = {
+            "tensors": len(sds[0]),
+            "equal": sds[0].keys() == sds[1].keys() and all(
+                sds[0][k].dtype == sds[1][k].dtype
+                and torch.equal(sds[0][k], sds[1][k]) for k in sds[0]),
+            "checkpoint_files": sorted(os.listdir(path))}
+        out.update(counts=every, save_s=save_s, load_s=load_s,
+                   seconds=time.perf_counter() - t0)
+    dist.barrier()
+    return out
+
+
 def _gloo_rank(rank, world, store, out_path, lr, steps, micro, device,
-               shape, vsm):
+               shape, vsm, resume):
     """One rank of part (c)."""
     from ..core import mesh as M
     dev = torch.device(device)
@@ -511,6 +636,12 @@ def _gloo_rank(rank, world, store, out_path, lr, steps, micro, device,
             torch.cuda.empty_cache()
             result["vsm"] = _split_against_one(
                 rank, dev, mesh, _vsm_case(dev, lr), lr, 1, micro)
+        if resume:
+            gc.collect()
+            torch.cuda.empty_cache()
+            result["resume"] = _resume_against_one(
+                rank, dev, _vsm_case(dev, lr), lr, micro,
+                os.path.dirname(out_path))
     finally:
         dist.destroy_process_group()
     if rank == 0:
@@ -520,7 +651,7 @@ def _gloo_rank(rank, world, store, out_path, lr, steps, micro, device,
 
 def gloo_split(lr: float = 1e-3, steps: int = 2, micro: int = MICRO,
                device: str = "cuda:0", shape=(1, 2, 1),
-               vsm: bool = False) -> dict:
+               vsm: bool = False, resume: bool = False) -> dict:
     """Part (c): two ranks over gloo on one card (spawned processes), 7B
     widths with 2 decoder layers, on the mesh `shape` (1x2x1: the layers
     fsdp-sharded; 1x1x2: the decoder and the towers tensor-parallel):
@@ -528,14 +659,16 @@ def gloo_split(lr: float = 1e-3, steps: int = 2, micro: int = MICRO,
     in `micro` micro-batches, so f32 gradient buffers for micro > 1) and,
     with `vsm`, one VSM step (LoRA, 4 rows in `micro` micro-batches),
     against the one-device steps on rank 0 (_split_against_one:
-    {"finetune": ..., "vsm": ...}). Any failure of a rank fails the
+    {"finetune": ..., "vsm": ...}); with `resume`, the VSM checkpoint
+    written at 1x2x1 and resumed at 1x1x2 and on one device
+    (_resume_against_one: "resume"). Any failure of a rank fails the
     call."""
     import torch.multiprocessing as mp
     with tempfile.TemporaryDirectory() as work:
         out = os.path.join(work, "result.json")
         mp.start_processes(_gloo_rank, args=(2, os.path.join(work, "store"),
                                              out, lr, steps, micro, device,
-                                             tuple(shape), vsm),
+                                             tuple(shape), vsm, resume),
                            nprocs=2, start_method="spawn")
         with open(out) as f:
             return json.load(f)
@@ -785,10 +918,19 @@ def _quant_kernel_counts():
                             i4.plain_calls_cuda["int4_matmul"])}
 
 
+def _w4a8_kernel_counts():
+    """K6's and its row quantization's (launches, plain-version calls on
+    CUDA): the act-int8 route of int4 entries."""
+    from ..kernels import int4_matmul as i4
+    return {k: (i4.launches[k], i4.plain_calls_cuda[k])
+            for k in ("int4_matmul_w4a8", "quantize_rows")}
+
+
 def _rank_counts():
     """This process's counts a rank reports: K1 / K2 (launches,
     plain-version calls on CUDA), K1's launches by query heads, K7's
-    calls and K2's launches by heads, the mesh's collectives by
+    calls and K2's launches by heads, K3 / K5 and K6 / its row
+    quantization (launches, plain calls on CUDA), the mesh's collectives by
     (operation, axis), those of them that fetched decoder layers
     (core/mesh.fetch_collectives), and the model splits' and the hidden
     split's by (site, operation, phase)."""
@@ -797,6 +939,7 @@ def _rank_counts():
     from ..kernels import tower_attention as ta
     return {"kernels": _kernel_counts(),
             "quant_kernels": _quant_kernel_counts(),
+            "w4a8_kernels": _w4a8_kernel_counts(),
             "k1_heads": dict(fa.launches_by_heads),
             "k7_heads": dict(fa.bwd_launches_by_heads),
             "k2_heads": dict(ta.launches_by_heads),
@@ -815,7 +958,7 @@ def _counts_delta(before, after):
     out)."""
     k = {kind: {name: [after[kind][name][i] - before[kind][name][i]
                        for i in range(2)] for name in after[kind]}
-         for kind in ("kernels", "quant_kernels")}
+         for kind in ("kernels", "quant_kernels", "w4a8_kernels")}
     d = {key: {name: n - before[key].get(name, 0)
                for name, n in after[key].items()
                if n != before[key].get(name, 0)}
@@ -839,8 +982,9 @@ def _cache_report(engine) -> dict:
 
 
 def _serve_rank(rank, world, store, out_path, dirs, device, vocab_size,
-                configs, requests, mesh, flags):
+                configs, requests, mesh, flags, act_int8):
     """One rank of gloo_serve."""
+    from ..nn.quant import set_act_int8
     from ..serve import ranks as R
     from ..serve.server import SealService
     dev = torch.device(device)
@@ -858,6 +1002,7 @@ def _serve_rank(rank, world, store, out_path, dirs, device, vocab_size,
         # CUDA graph cannot capture: decode by the engines' traced loop
         for e in (vqa, vsm):
             e.decode_trace = []
+        set_act_int8(act_int8)
         ranks = R.for_engines(vqa, vsm)
         events = [] if ranks.leader else None
         svc = SealService(MarkedTrigger(vqa, events), vsm, ranks=ranks)
@@ -882,23 +1027,27 @@ def _serve_rank(rank, world, store, out_path, dirs, device, vocab_size,
                     "input_norm"]["scale"]).__name__)
         torch.save(report, f"{out_path}.rank{rank}")
     finally:
+        set_act_int8(False)
         dist.destroy_process_group()
 
 
 def gloo_serve(dirs, vocab_size: int, device: str = "cuda:0",
                configs=None, world: int = 2,
-               requests=SERVE_REQUESTS[2:], mesh=None, flags=()) -> dict:
+               requests=SERVE_REQUESTS[2:], mesh=None, flags=(),
+               act_int8: bool = False) -> dict:
     """Parts (d3) and (d4): `world` ranks over gloo on one device (spawned
     processes) load the pair from `dirs` with --mesh `mesh` (default
-    1x{world}x1) and the server's engine `flags` (serving_pair); rank 0
+    1x{world}x1) and the server's engine `flags` (serving_pair), with the
+    act-int8 switch set to `act_int8` on every rank; rank 0
     answers `requests` (by default the forced
     search: gloo carries each collective through the host) over HTTP and
     the others follow. -> rank 0's records, client seconds, load seconds,
     K1 / K2 launches and plain-version calls on CUDA over the requests
     ("counts"), its decodes and searches in order ("events":
     MarkedTrigger's and forced_searches'), and "ranks": every rank's
-    counts (K1's launches by heads, K3's and K5's launches, the
-    collectives by operation and axis) and KV caches (_cache_report). Any
+    counts (K1's launches by heads, K3's and K5's launches, K6's and its
+    row quantization's, the collectives by operation and axis) and KV
+    caches (_cache_report). Any
     failure of a rank fails the call."""
     import torch.multiprocessing as mp
     mesh = mesh or f"1x{world}x1"
@@ -906,7 +1055,7 @@ def gloo_serve(dirs, vocab_size: int, device: str = "cuda:0",
         out = os.path.join(work, "result")
         mp.start_processes(_serve_rank, args=(world, os.path.join(
             work, "store"), out, dirs, device, vocab_size, configs,
-            requests, mesh, tuple(flags)),
+            requests, mesh, tuple(flags), act_int8),
             nprocs=world, start_method="spawn")
         ranks = [torch.load(f"{out}.rank{r}", weights_only=False)
                  for r in range(world)]
@@ -1042,6 +1191,99 @@ def _engine_check(mesh, dev, tokens: int, trace: bool = False) -> dict:
     return out
 
 
+def _state_sums(state) -> Dict[str, float]:
+    """Each leaf of a TrainState's global tree (train_vsm_main's
+    global_state: parameters, masters and moments as the mesh places
+    them) -> the sum of its whole tensor in f64, from the ranks' shards
+    (each divided by the number of ranks holding it), on every rank: a
+    check that a read gave back what was written."""
+    from torch.distributed.tensor import DTensor
+    from ..core import mesh as M
+    from ..core.params import leaves_with_path
+    from ..train.train_vsm_main import global_state
+    flat = [(p, x) for p, x in leaves_with_path(
+        {"t": list(global_state(state))}) if isinstance(x, torch.Tensor)]
+    parts = torch.stack([
+        x.to_local().double().sum() / M.replica_count(x)
+        if isinstance(x, DTensor) else x.double().sum() / M.world_size()
+        for _, x in flat])
+    dist.all_reduce(parts)
+    return {p: float(v) for (p, _), v in zip(flat, parts.tolist())}
+
+
+def _empty_state(meta, mesh, opt, dev):
+    """The finetune's TrainState on `mesh` with uninitialised parameters
+    (each rank allocates its shards only): a checkpoint's template."""
+    from torch.distributed.tensor import DTensor
+    from ..core import mesh as M
+    from ..core.params import map_with_path
+    from ..train.sft import init_train_state
+    params = map_with_path(
+        lambda _, x: M.with_local(x, torch.empty(
+            x.to_local().shape, dtype=x.dtype, device=dev))
+        if isinstance(x, DTensor) else x, M.shard_params(meta, mesh))
+    return init_train_state(params, opt)
+
+
+def checkpoint_check(held, opt, meta, mesh, dev, read_meshes, work
+                     ) -> dict:
+    """The finetune's TrainState (the one item of `held`, taken out so
+    that the state is freed before the reads) written on `mesh`
+    (train_vsm_main.save_state, every rank its pieces, into `work`) and
+    read back on each of `read_meshes` (load_state into a template of
+    that mesh): GB
+    written, seconds and GB/s of each direction, each read's peak device
+    memory, and whether every leaf's sum equals the written one's (f64
+    sums of the same elements over other shards: within 1e-9
+    relative)."""
+    from ..core import mesh as M
+    from ..train.sft import TrainState
+    from ..train.train_vsm_main import load_state, save_state
+    path = os.path.join(work, "state")
+    state = held.pop()
+    written = _state_sums(state)
+    torch.cuda.synchronize(dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    save_state(state, path, mesh)
+    seconds = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(path, f))
+                 for f in os.listdir(path))
+    out = {"write": {"mesh": list(mesh.dims), "bytes": nbytes,
+                     "seconds": seconds, "gb_per_s": nbytes / seconds / 1e9}}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["reads"] = []
+    for shape in read_meshes:
+        other = M.make_mesh(shape, dev.type)
+        like = _empty_state(meta, other, opt, dev)
+        torch.cuda.synchronize(dev)
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        got = load_state(TrainState, path, like, dev, other)
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        del like
+        sums = _state_sums(got)
+        far = max(abs(sums[p] - v) / max(abs(v), 1e-30)
+                  for p, v in written.items())
+        out["reads"].append({
+            "mesh": list(shape), "seconds": seconds,
+            "gb_per_s": nbytes / seconds / 1e9,
+            "state_bytes": before, "peak_bytes": peak,
+            "equal": sums.keys() == written.keys() and far <= 1e-9,
+            "largest_relative_sum_difference": far})
+        del got
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser(__doc__.split("\n")[0])
     p.add_argument("--mesh", default=None)
@@ -1053,6 +1295,16 @@ def main() -> int:
     p.add_argument("--engine-tokens", type=int, default=32)
     p.add_argument("--serve-only", action="store_true",
                    help="no finetune: the engine check alone")
+    p.add_argument("--checkpoint", default=None, metavar="MESHES",
+                   help="after the steps, write the TrainState (one "
+                        "checkpoint of global tensors, in a temporary "
+                        "directory under --checkpoint-dir) and read it "
+                        "back on each of these meshes (comma-separated "
+                        "DxFxM), with bytes, seconds, GB/s and the read's "
+                        "peak memory")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="where the checkpoint is written (default: the "
+                        "system's temporary directory)")
     p.add_argument("--trace", action="store_true",
                    help="the engine check's calls once more, or one more "
                         "training step, under torch.profiler: device time "
@@ -1143,6 +1395,22 @@ def main() -> int:
               "init_s": init_s, "steps": steps,
               "step_counts": step_counts, "trace": trace,
               "rows": ROWS, "seq": SEQ, "micro": MICRO}
+    if args.checkpoint:
+        from ..core.memory import parse_mesh_arg
+        shapes = [parse_mesh_arg(m, M.world_size())
+                  for m in args.checkpoint.split(",")]
+        work = tempfile.mkdtemp(dir=args.checkpoint_dir) \
+            if main_rank else None
+        shared = [work]
+        dist.broadcast_object_list(shared)
+        try:
+            held, state = [state], None
+            report["checkpoint"] = checkpoint_check(
+                held, opt, meta, mesh, dev, shapes, shared[0])
+        finally:
+            dist.barrier()
+            if main_rank:
+                shutil.rmtree(shared[0], ignore_errors=True)
     if args.engine:
         del state, opt
         torch.cuda.empty_cache()

@@ -2,15 +2,21 @@
 the counterpart of VisualSearch/merge_lora_weights_and_save_hf_model.py).
 
 Reads a VSM training checkpoint of the port (train_vsm_main's
-ckpt_model/state, a torch.save tree), merges the LoRA adapters into the
-base decoder and writes a torch-layout safetensors checkpoint that the
-port's loaders (core/checkpoint.load_torch_dir) or the torch reference
-load. The base HF directory's config.json, if it has one, is copied
-beside the shards, so the export loads with the base's shape.
+ckpt_model/state: the file a one-device run writes, or the directory
+the ranks of a mesh write, core/checkpoint.py) whole, in one process
+without torchrun, merges the LoRA adapters into the base decoder and
+writes a torch-layout safetensors checkpoint that the port's loaders
+(core/checkpoint.load_torch_dir) or the torch reference load. The base
+HF directory's config.json, if it has one, is copied beside the shards,
+so the export loads with the base's shape. A VSM finetuned under
+`torchrun ... train_vsm_main --mesh 1x4x1` exports so:
 
   python -m vstar_tpu_torch.train.export_main \\
       --ckpt runs/vsm/ckpt_model/state --version <base seal_vsm dir> \\
       --save_path ./exported_vsm
+
+(CPU test: tests/test_torch_mesh.py, a checkpoint written at 2x2x1
+exported bit for bit as the same state written on one device.)
 """
 
 from __future__ import annotations
@@ -36,9 +42,10 @@ def main(argv=None):
     from ..core.hf_export import save_safetensors, vsm_state_dict
     from .vsm_train import VSMTrainState
 
-    # the port's checkpoint holds the whole tree (LoRA included), so it
-    # needs no template built from the base weights as Orbax does;
-    # --lora_r / --lora_alpha are kept for vstar_tpu's command line
+    # the port's checkpoint holds the whole tree (LoRA included) with its
+    # global shapes, so it needs no template built from the base weights
+    # as Orbax does; --lora_r / --lora_alpha are kept for vstar_tpu's
+    # command line
     state = VSMTrainState(*load_params(args.ckpt))
     has_lora = "lora" in state.params["llama"]["layers"]["attn"]
     if has_lora != (args.lora_r > 0):

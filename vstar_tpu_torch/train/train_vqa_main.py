@@ -27,9 +27,11 @@ Under torchrun every rank builds or loads the whole model on its card
 (cuda:LOCAL_RANK), shards it over the mesh (core/mesh.py; default 1xNx1)
 and drops the rest; every rank reads the same batches (the same
 (data_seed, epoch) permutation) and each data x fsdp rank trains on its
-rows of each (the ranks of a model group on the same rows), the
-checkpoints are one file per rank, and rank 0 alone writes the logs and
-the exported parameters. Both stages build on the card unless main is
+rows of each (the ranks of a model group on the same rows), a
+checkpoint is one checkpoint of the global state that every rank writes
+its pieces of, from which a run resumes on any mesh or on one device
+(train_vsm_main.load_state), and rank 0 alone writes the logs and the
+exported parameters. Both stages build on the card unless main is
 given another device; the tokenizer is the checkpoint's
 (multimodal/tokenizer.load_tokenizer) unless one is given.
 """
@@ -180,7 +182,7 @@ def run_training(args, cfg, params, dataset, collate_fn, tokenizer,
         with open(meta_path) as f:
             meta = json.load(f)
         state = load_state(TrainState, os.path.join(latest_dir, "state"),
-                           state, device, meta, mesh)
+                           state, device, mesh)
         start_epoch, start_step = meta["epoch"], meta["step"] + 1
         if start_step >= n_steps_epoch:
             start_epoch, start_step = start_epoch + 1, 0

@@ -12,8 +12,13 @@ JAX) shards the parameters and the optimizer state over a mesh
 checked against the card's memory; every rank reads the same batches
 and each data x fsdp rank trains on its rows of each (the ranks of a
 model group on the same rows, the decoder tensor-parallel over them for
-M > 1), checkpoints are one file per rank, and rank 0 alone writes the
-logs. `main` builds the model from an HF
+M > 1), a checkpoint is one checkpoint of the global state that every
+rank writes its own pieces of (core/checkpoint.py), and rank 0 alone
+writes the logs. A run resumes from a checkpoint written on any mesh or
+on one device, onto its own mesh (or one device), as vstar_tpu restores
+its Orbax checkpoint onto `like=tuple(state)`: `--auto_resume` after a
+change of --mesh or of the card count continues the same run, and
+export_main reads ckpt_model/state in one process. `main` builds the model from an HF
 checkpoint directory (--version) on the card (each rank's,
 cuda:LOCAL_RANK), with LoRA. TensorBoard scalars are left out;
 metrics.jsonl keeps them.
@@ -34,12 +39,13 @@ import os
 
 import torch
 
-from ..core.checkpoint import (load_params, load_sharded, save_params,
-                               save_sharded)
+from torch.distributed.tensor import DTensor
+
+from ..core.checkpoint import load_params, save_params
 from ..core.memory import (check_memory, device_memory_gb,
                            plan_train_memory, step_memory)
 from ..core.mesh import (is_main_process, mesh_of, rank_device,
-                         resolve_mesh, shard_params)
+                         resolve_mesh, shard_params, with_local)
 from ..core.params import leaves_with_path
 from ..data.prefetch import prefetch
 from ..data.vsm_collate import batch_to_torch, collate_vsm_rows
@@ -124,23 +130,52 @@ def mesh_dims(mesh):
     return None if mesh is None else list(mesh.dims)
 
 
+def global_state(state) -> tuple:
+    """tuple(state) with each optimizer-state tensor that belongs to a
+    sharded parameter (the moments and masters, kept on this rank's
+    shards under the parameter's path) as a DTensor placed as that
+    parameter: the state as global tensors, whatever the mesh."""
+    params = dict(leaves_with_path(state.params))
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: with_local(params[k], v)
+                    if isinstance(v, torch.Tensor)
+                    and isinstance(params.get(k), DTensor) else walk(v)
+                    for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return node
+    return state.params, walk(state.opt_state), state.step
+
+
+def _local_state(node):
+    """The optimizer state's DTensors back to this rank's shards."""
+    if isinstance(node, dict):
+        return {k: _local_state(v) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_local_state(v) for v in node)
+    return node.to_local() if isinstance(node, DTensor) else node
+
+
 def save_state(state, path: str, mesh) -> None:
-    """A TrainState: one file, or one file per rank of a mesh."""
-    if mesh is None:
-        save_params(tuple(state), path)
-    else:
-        save_sharded(tuple(state), path)
+    """A TrainState as one checkpoint of global tensors (every rank of a
+    mesh writes its pieces; on one device one file)."""
+    save_params(tuple(state) if mesh is None else global_state(state),
+                path)
 
 
-def load_state(cls, path: str, state, device, meta: dict, mesh):
-    """The TrainState `save_state` wrote, on the mesh it was written on
-    (meta["mesh"]; a checkpoint without one is a one-device state)."""
-    if meta.get("mesh") != mesh_dims(mesh):
-        raise ValueError(f"{path} was written on mesh {meta.get('mesh')}, "
-                         f"this run is on {mesh_dims(mesh)}")
+def load_state(cls, path: str, state, device, mesh):
+    """The TrainState `save_state` wrote, on any mesh or on one device
+    (the meta's "mesh" is information only), onto this run's layout:
+    `state`'s placements on a mesh (read into its buffers, so that the
+    resumed run holds one state), whole tensors on `device` without
+    one."""
     if mesh is None:
-        return cls(*load_params(path, device))
-    return cls(*load_sharded(path, tuple(state), device))
+        return cls(*load_params(path, tuple(state)))
+    params, opt_state, step = load_params(path, global_state(state),
+                                          device, into=True)
+    return cls(params, _local_state(opt_state), step)
 
 
 def log_memory(what: str, plan, device) -> None:
@@ -232,7 +267,7 @@ def run_vsm_training(args, cfg, params, tokenizer, loc_token_id):
             meta = _read_json(os.path.join(latest_dir, "meta.json"))
             state = load_state(VSMTrainState,
                                os.path.join(latest_dir, "state"), state,
-                               device, meta, mesh)
+                               device, mesh)
             start_epoch = meta["epoch"]
             start_step = meta["step"] + 1
             if start_step >= args.steps_per_epoch:
@@ -245,7 +280,7 @@ def run_vsm_training(args, cfg, params, tokenizer, loc_token_id):
             meta = _read_json(os.path.join(ckpt_dir, "meta.json"))
             state = load_state(VSMTrainState,
                                os.path.join(ckpt_dir, "state"), state,
-                               device, meta, mesh)
+                               device, mesh)
             start_epoch = meta["epoch"] + 1
             resumed_best = meta.get("best_det_acc", meta.get("det_acc"))
             if main_rank:
