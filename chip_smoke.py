@@ -3902,6 +3902,12 @@ MESH_SPLIT_SHARE = 0.03
 # own. A leaf's missing or doubled gradient at M = 2 differs by 1.0.
 MESH_TP_GRAD_TOL = 0.5
 MESH_TP_GRAD_FLOOR = 1e-6
+# Part (c)'s resume in f32 holds the first moments by the same rule (its
+# steps at 1x2x1 and, resumed, at 1x1x2): measured on one H100 80GB HBM3
+# (700 W), at most 1.8e-5 of a leaf's largest after step 1 and 1.8e-4
+# after step 2, where the bf16 resume's SAM leaves were 0.77 apart.
+# Part (a)'s steps: the last one's seconds compare the two runs warm.
+MESH_ONE_RANK_STEPS = 3
 
 
 def _mesh_counts():
@@ -3913,9 +3919,11 @@ def _mesh_counts():
 def phase_mesh(dev):
     """The mesh (core/mesh.py, scripts/mesh_probe.py) on the card:
     (a) a world of one NCCL rank and the 1x1x1 mesh, every leaf a DTensor:
-    two VQA pretrain steps at full 7B equal to the one-device steps bit
-    for bit with the same K1 / K7 launches (32 layers x 2 micro-batches x
-    2: 128 K1, 64 + 64 K7), and a sharded VSM engine's detection (7B
+    MESH_ONE_RANK_STEPS VQA pretrain steps at full 7B equal to the
+    one-device steps bit for bit with the same K1 / K7 launches (32
+    layers x 2 micro-batches x 2: 128 K1, 64 + 64 K7), the last step's
+    seconds and each run's peak logged side by side (the mesh's gathers
+    copy nothing there), and a sharded VSM engine's detection (7B
     widths, 2 decoder layers; its decode graphs hold the mesh's
     collectives) equal to the unsharded engine's, K1 and K2 launched;
     (b) the 7B VQA finetune's plan per card at 1x1x1 (over the budget),
@@ -3925,7 +3933,9 @@ def phase_mesh(dev):
     one-device steps within MESH_SPLIT_BOUNDS and MESH_SPLIT_SHARE; then
     the VSM trainer's checkpoint written by both ranks at 1x2x1 after a
     step, read back bit for bit at 1x1x2 and on one device, a second
-    step from each, and exported (_resume_rules; path mesh_resume);
+    step from each, and exported (_resume_rules; path mesh_resume); the
+    same two steps in f32 with the first moments held
+    (_resume_f32_rules);
     (c2) the same ranks at 1x1x2, the decoder and the towers
     tensor-parallel: the finetune steps and one VSM step (_tp_train);
     (d) serving over the mesh (_mesh_serve).
@@ -3939,11 +3949,16 @@ def phase_mesh(dev):
     def mark(part):
         log(f"[time] mesh {part} done at {time.perf_counter() - t0:.1f} s")
 
-    a = mesh_probe.one_rank_mesh(dev, count)
+    a = mesh_probe.one_rank_mesh(dev, count, steps=MESH_ONE_RANK_STEPS)
+    one_s, mesh_s = a["one_device"][-1][2], a["mesh"][-1][2]
     log(f"[mesh (a) pretrain 1x1x1] leaves {a['leaf_types']}; one device "
         f"{a['one_device']}; mesh {a['mesh']}; equal loss and norm "
         f"{a['equal_loss_and_norm']}, trainable leaves "
-        f"{a['equal_trainable_leaves']}")
+        f"{a['equal_trainable_leaves']}; step {MESH_ONE_RANK_STEPS}: mesh "
+        f"{mesh_s:.4f} s against one device {one_s:.4f} s "
+        f"({mesh_s / one_s:.3f}x); peak "
+        f"{a['peak_bytes_mesh'] / 2**30:.2f} GiB on the mesh against "
+        f"{a['peak_bytes_one_device'] / 2**30:.2f} GiB on one device")
     (one_l, one_p), (mesh_l, mesh_p) = a["counts_one_device"], \
         a["counts_mesh"]
     L = 32
@@ -3994,10 +4009,11 @@ def phase_mesh(dev):
         raise AssertionError(f"mesh (b): plans {plans}")
     report["finetune_plans"] = plans
     c = mesh_probe.gloo_split(lr=MESH_SPLIT_LR, steps=MESH_SPLIT_STEPS,
-                              resume=True)
+                              resume=True, resume_f32=True)
     _split_rules("mesh (c) gloo 1x2x1 on one card", c["finetune"],
                  MESH_SPLIT_STEPS)
     by_path["mesh_resume"] = _resume_rules(c["resume"])
+    _resume_f32_rules(c["resume_f32"])
     mark("(c)")
     report["gloo_split"] = c
     gc.collect()
@@ -4050,6 +4066,42 @@ def _split_rules(label, c, steps, gradients=False):
         raise AssertionError(f"{label}: {c}")
     if not c["frozen_equal"] or len(c["mesh"]) != steps:
         raise AssertionError(f"{label}: {c}")
+
+
+def _resume_f32_rules(r):
+    """Part (c)'s checkpoint in f32 (mesh_probe._resume_against_one with
+    f32: the VSM case's weights and compute in f32, its attention by the
+    kernels' plain versions, which K1, K7 and K2 take bf16 only): the
+    read at 1x1x2 equal to the written state bit for bit, both steps'
+    losses and norms within step 1's MESH_SPLIT_BOUNDS, and the first
+    moments after step 1 (1x2x1) and after step 2 (resumed at 1x1x2)
+    each within MESH_TP_GRAD_TOL of its leaf's largest |value| on one
+    device, for leaves whose largest is at least MESH_TP_GRAD_FLOOR of
+    the tree's: the rule the bf16 resume cannot meet (ROADMAP Queue 3,
+    "Deliberate, kept")."""
+    label = "mesh (c) VSM checkpoint of 1x2x1, f32"
+    held = {}
+    for step in ("moments_step1", "moments_step2"):
+        m = r[step]
+        top = max(v["moment_max"] for v in m.values())
+        held[step] = {p: v["moment_diff"] / v["moment_max"]
+                      for p, v in m.items()
+                      if v["moment_max"] >= MESH_TP_GRAD_FLOOR * top}
+    far = {k: max(h, key=h.get) for k, h in held.items()}
+    log(f"[{label}] one device {r['one_device']}; 1x2x1 then resumed at "
+        f"1x1x2 {r['mesh']}; read equal {r['read_equal']}; first moments: "
+        + "; ".join(f"{k} {len(held[k])} leaves, the most apart {far[k]} "
+                    f"{held[k][far[k]]:.3g} of its largest"
+                    for k in held) + f"; part {r['seconds']:.1f} s")
+    for i, (got, want) in enumerate(zip(r["mesh"], r["one_device"])):
+        for j, key in enumerate(("loss", "grad_norm")):
+            if abs(got[j] - want[j]) > \
+                    MESH_SPLIT_BOUNDS[key][0] * abs(want[j]):
+                raise AssertionError(f"{label}: step {i + 1}'s {key} "
+                                     f"{got[j]} against {want[j]}")
+    if not r["read_equal"]["mesh"] or len(r["mesh"]) != 2 or \
+            any(held[k][far[k]] > MESH_TP_GRAD_TOL for k in held):
+        raise AssertionError(f"{label}: {far}, {r['read_equal']}")
 
 
 def _resume_rules(r):

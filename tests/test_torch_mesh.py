@@ -24,12 +24,18 @@ the tiny configs, and rank 0 hands back the results gathered whole:
     SFT step and VSM value_and_grad compiled at 1x1x4, K1 and K7 at H/M
     heads, no layer gather on the model axis, each rank's 1/M of the
     layer matrices;
+  * where fsdp shards the layer axis (2x2x1; 1x4x1 on a VQA tree of 4
+    layers), the finetune step with each next layer's owner broadcasts
+    in flight behind the current layer (the forward's i + 1, the
+    recompute's i - 1) against the same step with synchronous fetches:
+    the same bits and fetch counts;
   * the VQA and VSM trainer loops written on one layout and resumed on
     another (W.CROSS_LOOPS: 2x2x1 -> 1x2x2, 1x2x2 -> one device, one
     device -> 1x4x1; the one-device runs by rank 0 before the world
     starts or after it ends) against the unsharded loops (the VQA loop
     resumed alike, the VSM loop's two epochs in one go), each last
-    checkpoint holding each piece once; export_main of the VSM's
+    checkpoint holding each piece once, the resumed VSM's first moments
+    under chip_smoke.py's f32 rule (MESH_TP_GRAD_*); export_main of the VSM's
     ckpt_model/state written at 2x2x1 against the same state written
     on one device and vstar_tpu's vsm_state_dict; the checkpoint format
     over the 4 ranks (uneven pieces, read onto other placements);
@@ -116,9 +122,11 @@ from vstar_tpu.train import lora as jl
 from vstar_tpu.train import sft as jsft
 from vstar_tpu.train import vsm_train as jvsm
 from vstar_tpu.train.vsm_train import vsm_loss as j_vsm_loss
+from chip_smoke import MESH_TP_GRAD_FLOOR, MESH_TP_GRAD_TOL
 from vstar_tpu_torch.core import config as tcfg
 from vstar_tpu_torch.core import memory as tmem
 from vstar_tpu_torch.core import mesh as tmesh
+from vstar_tpu_torch.core.checkpoint import load_params
 from vstar_tpu_torch.core.hf_export import (config_json, save_safetensors,
                                             vqa_llm_state_dict,
                                             vsm_state_dict)
@@ -369,6 +377,7 @@ def started(tmp_path_factory):
     act_int8["w4a8"] = ({"llama": init_llama_params(
         Init(9, "cpu"), W4A8_CFG.llama, "int4mix")}, W4A8_CFG)
     job = {"shapes": SHAPES, "deep": deep, "quantized": quantized,
+           "prefetch_shapes": (MESHES[0],),
            "act_int8": act_int8, "act_int8_shapes": ACT_SHAPES,
            "format_shapes": FORMAT_SHAPES, "serve_shape": "2x2x1",
            "tower_shape": MODEL_MESH,
@@ -806,6 +815,71 @@ def test_vsm_loop_written_on_one_device_resumes_on_1x4x1(world,
     """run_vsm_training's first epoch on one device, resumed on 1x4x1,
     against the unsharded loop's two epochs."""
     _vsm_loop_case(world, plain_loops, "one")
+
+
+def _first_moments(state_path):
+    """The Adam first moments (path -> whole tensor) of a trainer's state
+    checkpoint (either form)."""
+    _, opt_state, _ = load_params(state_path)
+    adamw = opt_state[1]
+    return (adamw["inner"] if isinstance(adamw, dict) else adamw)[0]["mu"]
+
+
+@pytest.mark.parametrize("name", list(W.CROSS_LOOPS))
+def test_resumed_vsm_moments_hold_the_f32_card_rule(world, plain_loops,
+                                                    name):
+    """The first moments of the VSM loop written on one layout and
+    resumed on another (W.CROSS_LOOPS, f32) against the unsharded loop's
+    after the same 4 steps, under the rule chip_smoke.py holds its f32
+    card reading of part (c) to: each leaf's largest difference within
+    MESH_TP_GRAD_TOL of its own largest |value|, for every leaf whose
+    largest is at least MESH_TP_GRAD_FLOOR of the tree's."""
+    _, job, _ = world
+    runs = job["vsm_data"] / "runs"
+    got = _first_moments(str(runs / f"vsm_cross_{name}" / "ckpt_latest"
+                             / "state"))
+    want = _first_moments(str(runs / "plain" / "ckpt_latest" / "state"))
+    assert got.keys() == want.keys() and want
+    top = max(float(m.abs().max()) for m in want.values())
+    held = {p: float((got[p] - m).abs().max() / m.abs().max())
+            for p, m in want.items()
+            if float(m.abs().max()) >= MESH_TP_GRAD_FLOOR * top}
+    assert len(held) > len(want) // 2
+    assert max(held.values()) <= MESH_TP_GRAD_TOL, held
+
+
+@pytest.mark.parametrize("mesh", [MESHES[0], DEEP_MESH])
+def test_prefetched_layer_fetch_equals_synchronous(world, mesh):
+    """The f32 finetune step on `mesh` (2x2x1: 2 layers over fsdp 2;
+    1x4x1: 4 layers, one a rank) with each next layer's owner broadcasts
+    issued before the current layer computes, as the trainers run it,
+    against the same step with every fetch synchronous: the losses,
+    norms and updated leaves equal bit for bit (a broadcast is a copy)
+    and so are the fetch counts. In the prefetched run the forward's K1
+    call of layer i comes after layer i + 1's broadcasts went out in
+    flight, and the recompute's (the backward walks down) after layer
+    i - 1's: one layer ahead, never more."""
+    out, _, _ = world
+    got = out[mesh]["prefetch"]
+    (l1, n1, p1), (l2, n2, p2) = got["prefetch"], got["sync"]
+    assert l1 == l2 and n1 == n2 and p1.keys() == p2.keys()
+    for k in p1:
+        assert torch.equal(p1[k], p2[k]), k
+    assert got["prefetch_fetches"] == got["sync_fetches"] and \
+        got["sync_fetches"].get(("broadcast", "fsdp"))
+    layers = DEEP_LAYERS if mesh == DEEP_MESH else T_VQA_CFG.llama.num_layers
+    for phase in ("forward", "recompute"):
+        seq = [e for e in got["events"] if e[-1] == phase]
+        sent = [e for e in seq if e[0] == "broadcast"]
+        per_layer = len(sent) // layers
+        assert per_layer and len(sent) == per_layer * layers, seq
+        k1 = [i for i, e in enumerate(seq) if e[0] == "k1"]
+        assert len(k1) == layers, seq
+        for j, at in enumerate(k1):
+            before = [e for e in seq[:at] if e[0] == "broadcast"]
+            ahead = min(j + 2, layers)
+            assert len(before) == per_layer * ahead, (phase, j, seq)
+            assert sum(e[1] for e in before) == per_layer * (ahead - 1)
 
 
 def test_export_of_a_mesh_checkpoint_equals_one_device_and_jax(world,

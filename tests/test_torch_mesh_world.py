@@ -58,6 +58,44 @@ def sft_steps(params, cfg, batch, stage, steps=1):
     return losses, norms, _flat_full(st.params)
 
 
+def prefetch_check(params, cfg, batch):
+    """The finetune's sft_steps with the layer fetch as it trains (each
+    next layer's owner broadcasts in flight behind the current layer,
+    core/mesh.layer_source's prefetch) and with every fetch synchronous:
+    {"prefetch", "sync": their (losses, norms, final tree), and
+    "<run>_fetches": each run's core/mesh.fetch_collectives;
+    "events": the prefetched run's broadcasts (in flight or not, phase)
+    and K1 calls (phase), in order}."""
+    from vstar_tpu_torch.nn import llama as L
+    source, fa, from_owner = L.layer_source, L.flash_attention, \
+        M._from_owner
+    events, out = [], {}
+
+    def k1(q, *a, **kw):
+        events.append(("k1", M._phase()))
+        return fa(q, *a, **kw)
+
+    def owner(part, mesh, o, async_op=False):
+        events.append(("broadcast", async_op, M._phase()))
+        return from_owner(part, mesh, o, async_op)
+
+    for run in ("prefetch", "sync"):
+        before = dict(M.fetch_collectives)
+        if run == "prefetch":
+            L.flash_attention, M._from_owner = k1, owner
+        else:
+            L.layer_source = lambda stack, prefetch=False: source(stack)
+        try:
+            out[run] = sft_steps(params, cfg, batch, "finetune")
+        finally:
+            L.layer_source, L.flash_attention, M._from_owner = \
+                source, fa, from_owner
+        out[run + "_fetches"] = {k: n - before.get(k, 0) for k, n in
+                                 M.fetch_collectives.items()}
+    out["events"] = events
+    return out
+
+
 def vsm_grads(params, cfg, batch):
     """vsm_loss's metrics and the trainable gradients (whole) of one
     micro-batch in f32: on a sharded tree each rank differentiates its
@@ -982,6 +1020,9 @@ def world(rank, n, store, job_path, out_path):
             res["sft"], res["sft_structure"] = recorded(
                 mesh, vqa["llama"]["layers"], sft_steps, vqa,
                 job["vqa_cfg"], job["sft_batch"], "finetune")
+            if key in job["prefetch_shapes"]:
+                res["prefetch"] = prefetch_check(vqa, job["vqa_cfg"],
+                                                 job["sft_batch"])
             vsm = M.shard_params(job["vsm"], mesh)
             res["vsm_grads"] = vsm_grads(vsm, job["vsm_cfg"],
                                          job["vsm_batch"])
@@ -1026,6 +1067,9 @@ def world(rank, n, store, job_path, out_path):
                 "tp_structure": tp_structure(deep["vqa"], deep["vqa_cfg"],
                                              mesh)}
             out[key]["act_int8"] = act_int8_checks(job, key, mesh)
+            out[key]["prefetch"] = prefetch_check(
+                M.shard_params(deep["vqa"], mesh), deep["vqa_cfg"],
+                job["sft_batch"])
             _loops_on(job, key, out["loops"], "second")
     finally:
         dist.destroy_process_group()

@@ -2,8 +2,11 @@
 the CPU: PhaseTimer's summary and report equal JAX's on the same phases
 under a scripted time.perf_counter (exact: the same floats and strings);
 trace writes a Chrome trace of the block it profiles; device_time is the
-median of its timed calls after one warm call."""
+median of its timed calls after one warm call; scripts/mesh_probe's
+kernel_overlap reads from such a trace how much of NCCL's broadcast time
+other kernels ran beside."""
 
+import gzip
 import json
 
 import numpy as np
@@ -73,3 +76,30 @@ def test_device_time_is_the_median_after_a_warm_call(monkeypatch, iters):
     got = tprof.device_time(fn, 1, 2, iters=iters)
     assert calls == [(1, 2)] * (iters + 1)
     assert got == float(np.median([5.0, 1.0, 3.0, 2.0][:iters]))
+
+
+def test_kernel_overlap_reads_a_chrome_trace(tmp_path):
+    """Two broadcast kernels (10 and 20 us) beside compute kernels that
+    cover 4 + 5 us of the first and 20 us of the second (two of them
+    overlapping each other), an all-reduce and a CPU op left out: 29 of
+    30 us overlapped."""
+    from vstar_tpu_torch.scripts.mesh_probe import kernel_overlap
+
+    def k(name, ts, dur, cat="kernel"):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur,
+                "pid": 0, "tid": 7}
+    events = [k("ncclDevKernel_Broadcast_RING_LL(x)", 100, 10),
+              k("ncclDevKernel_Broadcast_RING_LL(x)", 200, 20),
+              k("ncclDevKernel_AllReduce_Sum_f32_RING_LL", 300, 50),
+              k("nvjet_tst_192x192", 96, 8), k("flash_tile_fwd", 105, 100),
+              k("elementwise", 190, 40), k("aten::mm", 100, 10, "cpu_op")]
+    # compute covers 100-104 and 105-230: the broadcasts' 100-110 (9 us)
+    # and 200-220 (20 us)
+    path = str(tmp_path / "t.json.gz")
+    with gzip.open(path, "wt") as f:
+        json.dump({"traceEvents": events}, f)
+    got = kernel_overlap(path)
+    assert got["kernels"] == 2
+    assert got["ms"] == pytest.approx(0.030)
+    assert got["overlapped_ms"] == pytest.approx(0.029)
+    assert got["share"] == pytest.approx(29 / 30)

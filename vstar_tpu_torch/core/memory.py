@@ -20,9 +20,9 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .mesh import (AXES, DEFAULT_RULES, HIDDEN_RULES, LAYER_STACK,
-                   MODEL_AXIS, TOWER_MATRICES, TP_BLOCKS, _clip_spec_to_leaf,
-                   spec_for, takes_hidden_split)
+from .mesh import (AXES, DEFAULT_RULES, FSDP_AXIS, HIDDEN_RULES,
+                   LAYER_STACK, MODEL_AXIS, TOWER_MATRICES, TP_BLOCKS,
+                   _clip_spec_to_leaf, spec_for, takes_hidden_split)
 from .params import leaves_with_path
 
 
@@ -150,17 +150,22 @@ class StepMemory:
     layer), else nothing of these (its gradient tree is the plan's); and
     the decoder layer the step gathers at a time (`layer_bytes`: every
     leaf of one layer whole but on the model axis, where a block the
-    rules split keeps 1/M of its matrices, H/M heads)."""
+    rules split keeps 1/M of its matrices, H/M heads); and beside it the
+    next layer's slices in flight from their fsdp owners
+    (`prefetch_bytes`: those of its leaves whose layer axis an fsdp axis
+    above 1 shards, core/mesh.layer_source)."""
     accum_bytes: int
     largest_grad_bytes: int
     layer_bytes: int = 0
+    prefetch_bytes: int = 0
 
     def summary(self) -> str:
         gb = 1024 ** 3
         return (f"the step adds f32 accumulation buffers "
                 f"{self.accum_bytes / gb:.2f} GB/chip, largest gradient "
                 f"{self.largest_grad_bytes / gb:.2f} GB, one gathered "
-                f"decoder layer {self.layer_bytes / gb:.2f} GB")
+                f"decoder layer {self.layer_bytes / gb:.2f} GB and the next "
+                f"in flight {self.prefetch_bytes / gb:.2f} GB")
 
 
 def _is_layer_stack(path: str) -> bool:
@@ -173,10 +178,13 @@ def _is_layer_stack(path: str) -> bool:
 
 
 def _gathered_layer_bytes(params: Dict, sizes: Dict[str, int],
-                          rules) -> int:
+                          rules) -> Tuple[int, int]:
     """One layer of the decoder's stack as core/mesh.layer_source hands it
     out: whole, but for the blocks whose matrices the (clipped) rules all
-    split on a model axis above 1 (core/mesh.model_split), 1/M of those."""
+    split on a model axis above 1 (core/mesh.model_split), 1/M of those;
+    and the part of it that its fsdp owners broadcast (the leaves whose
+    layer axis an fsdp axis above 1 shards), which the training step
+    fetches one layer ahead."""
     prefix = LAYER_STACK + "."
     stack = {p[len(prefix):]: x for p, x in leaves_with_path(params)
              if p.startswith(prefix)}
@@ -188,8 +196,15 @@ def _gathered_layer_bytes(params: Dict, sizes: Dict[str, int],
                 spec_for(prefix + p, rules), stack[p].shape, sizes)
                 for p in paths):
             local.update(paths)
-    return sum(x[0].numel() * x.element_size() // (M if p in local else 1)
-               for p, x in stack.items())
+    layer = prefetch = 0
+    for p, x in stack.items():
+        nbytes = x[0].numel() * x.element_size() // (M if p in local else 1)
+        layer += nbytes
+        spec = _clip_spec_to_leaf(spec_for(prefix + p, rules), x.shape,
+                                  sizes)
+        if sizes[FSDP_AXIS] > 1 and spec[:1] == (FSDP_AXIS,):
+            prefetch += nbytes
+    return layer, prefetch
 
 
 def step_memory(params: Dict, mesh=None,
@@ -198,9 +213,9 @@ def step_memory(params: Dict, mesh=None,
     """StepMemory of a step over `num_micro` micro-batches on `mesh` (as
     plan_train_memory takes it); `params` may live on the meta device."""
     sizes = mesh_shape(mesh)
-    layer_bytes = _gathered_layer_bytes(params, sizes, rules)
+    layer_bytes, prefetch = _gathered_layer_bytes(params, sizes, rules)
     if num_micro <= 1:
-        return StepMemory(0, 0, layer_bytes)
+        return StepMemory(0, 0, layer_bytes, prefetch)
     mask = (None if trainable_mask is None
             else dict(leaves_with_path(trainable_mask)))
     accum = largest = 0
@@ -216,7 +231,7 @@ def step_memory(params: Dict, mesh=None,
         if _is_layer_stack(path) and local:
             numel //= local[0]
         largest = max(largest, numel * leaf.element_size())
-    return StepMemory(accum, largest, layer_bytes)
+    return StepMemory(accum, largest, layer_bytes, prefetch)
 
 
 def device_memory_gb(device: Union[str, torch.device]) -> Optional[float]:

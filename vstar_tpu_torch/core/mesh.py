@@ -19,7 +19,13 @@ about to use into plain tensors:
     (embeddings, lm_head, norms, towers, projectors, heads);
   * `layer_source(stack)` gathers decoder layer i alone, from the rank
     of the fsdp axis that holds it, and the layer is dropped after use
-    (and gathered again for the recompute under remat).
+    (and gathered again for the recompute under remat). In training the
+    next layer's broadcast is in flight while layer i computes (the
+    recompute's next is i - 1), as XLA's latency-hiding scheduler moves
+    a layer's gather ahead of the previous layer: two layers live at
+    most.
+Where an axis has one rank nothing is gathered: the gathers hand out a
+view of the shard (no copy) and still route its gradient.
 Both are autograd functions whose backward sums the ranks' partial
 gradients back onto the shards (reduce-scatter along a sharded axis, a
 sum over a replicated one, the owner's sum for a layer), so a step on
@@ -89,7 +95,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..kernels import _build
 from .params import (Params, layer, leaves_with_path, map_with_path,
-                     read_layer)
+                     read_layer, sum_squares)
 
 DATA_AXIS = "data"
 FSDP_AXIS = "fsdp"
@@ -315,18 +321,20 @@ class Mesh:
                     replicas: Dict[str, int]) -> torch.Tensor:
         """sum over leaves of sum(x * x) of the whole (unsharded) tree, from
         the local shards of `tree` (path -> tensor): each leaf's local sum
+        (core/params.sum_squares)
         divided by `replicas[path]`, the number of ranks holding the same
         shard (1 where absent), all leaves reduced at once (in f32), then
         added in the tree's order in the leaves' dtypes, as
         optim.global_norm adds them on one device."""
         dtypes = [x.dtype for x in tree.values()]
-        parts = torch.stack([(x * x).sum().float() for x in tree.values()])
+        parts = torch.stack([sum_squares(x).float() for x in tree.values()])
         reps = [replicas.get(p, 1) for p in tree]
         if any(r != 1 for r in reps):
             parts = parts / torch.tensor(reps, dtype=parts.dtype,
                                          device=parts.device)
-        _count("all_reduce", "world")
-        _all_reduce(parts, None)
+        if self.size > 1:
+            _count("all_reduce", "world")
+            _all_reduce(parts, None)
         total = parts[0].to(dtypes[0])
         for x, dtype in zip(parts[1:], dtypes[1:]):
             total = total + x.to(dtype)
@@ -565,7 +573,7 @@ class _Gather(torch.autograd.Function):
                     not (model_local and ax == MODEL_AXIS):
                 _count("all_gather", ax)
                 out = _all_gather(out, pl.dim, mesh.groups[ax])
-        return out.clone() if out is local else out
+        return out.view_as(out) if out is local else out
 
     @staticmethod
     def backward(ctx, g):
@@ -580,42 +588,48 @@ class _Gather(torch.autograd.Function):
         return _reduce_replicated(g, mesh, placements), None, None, None
 
 
-def _from_owner(part: torch.Tensor, mesh: Mesh, owner: int) -> torch.Tensor:
+def _from_owner(part: torch.Tensor, mesh: Mesh, owner: int,
+                async_op: bool = False):
     """Layer slice `part` of fsdp rank `owner`, broadcast over the fsdp
-    group (the other ranks' `part` only gives shape and dtype)."""
+    group (the other ranks' `part` only gives shape and dtype): (the
+    layer, the broadcast's work while it is in flight (`async_op`), else
+    None). The owner broadcasts a copy of `part`: gloo's CUDA broadcast
+    writes its result back on every rank, the source's too, and `part`
+    is a view of a parameter."""
     group = mesh.groups[FSDP_AXIS]
-    keep = mesh.coord[FSDP_AXIS] == owner
-    out = part.clone() if keep else torch.empty_like(part)
-    if mesh.shape[FSDP_AXIS] > 1:
-        _count("broadcast", FSDP_AXIS, fetch=True)
-        dist.broadcast(out, src=dist.get_global_rank(group, owner),
-                       group=group)
-    return out
+    if mesh.coord[FSDP_AXIS] == owner:
+        out = part.clone(memory_format=torch.contiguous_format)
+    else:
+        out = torch.empty_like(part, memory_format=torch.contiguous_format)
+    _count("broadcast", FSDP_AXIS, fetch=True)
+    return out, dist.broadcast(out, src=dist.get_global_rank(group, owner),
+                               group=group, async_op=async_op)
 
 
 class _GatherLayer(torch.autograd.Function):
     """Layer i of a stack (dim 0 the layer axis), the other axes gathered
     inside the layer (with `model_local`, all but the model axis).
     `owner` is the fsdp rank holding layer i when fsdp shards the layer
-    axis: its slice is broadcast over the fsdp group (`part` is this
-    rank's slice j of its local stack; the others' only give shape and
-    dtype). `owner` None: this rank holds the layer. Backward: the data
-    x fsdp ranks' summed gradient, which on a sharded layer axis only
-    the owner keeps (the other ranks' slices get none from it)."""
+    axis: `fetched` is its slice as broadcast over the fsdp group
+    (`_from_owner`; `part` is this rank's slice j of its local stack,
+    which the owner hands out itself). `owner` None: this rank holds the
+    layer. Nothing gathered: a view of `part`. Backward: the data x fsdp
+    ranks' summed gradient, which on a sharded layer axis only the owner
+    keeps (the other ranks' slices get none from it)."""
 
     @staticmethod
-    def forward(ctx, part, mesh, placements, owner, model_local):
+    def forward(ctx, part, mesh, placements, owner, model_local, fetched):
         ctx.mesh, ctx.placements, ctx.owner = mesh, placements, owner
         ctx.model_local = model_local
         ctx.keep = owner is None or mesh.coord[FSDP_AXIS] == owner
-        out = part if owner is None else _from_owner(part, mesh, owner)
+        out = part if ctx.keep else fetched
         for ax, pl in zip(AXES, placements):
             if isinstance(pl, Shard) and mesh.shape[ax] > 1 and \
                     not (ax == FSDP_AXIS and owner is not None) \
                     and not (ax == MODEL_AXIS and model_local):
                 _count("all_gather", ax, fetch=True)
                 out = _all_gather(out, pl.dim - 1, mesh.groups[ax])
-        return out.clone() if out is part else out
+        return out.view_as(out) if out is part else out
 
     @staticmethod
     def backward(ctx, g):
@@ -633,19 +647,36 @@ class _GatherLayer(torch.autograd.Function):
             _count("all_reduce", FSDP_AXIS)
             _all_reduce(g, mesh.groups[FSDP_AXIS])
         g = _reduce_replicated(g, mesh, placements, skip=stacked)
-        return (g if ctx.keep else None), None, None, None, None
+        return (g if ctx.keep else None), None, None, None, None, None
+
+
+def _moves_nothing(mesh: Mesh, placements, model_local: bool) -> bool:
+    """Whether gathering a leaf placed `placements` runs no collective and
+    touches no value either way: the data and fsdp axes have one rank,
+    and on the model axis the leaf is whole, or kept as this rank's
+    shard (`model_local`), or the axis has one rank too (a 1x1x1 mesh
+    always). Its gather is then the shard itself, as on one device."""
+    if mesh.shape[DATA_AXIS] > 1 or mesh.shape[FSDP_AXIS] > 1:
+        return False
+    return mesh.shape[MODEL_AXIS] == 1 or model_local or \
+        not isinstance(placements[AXES.index(MODEL_AXIS)], Shard)
 
 
 def full(x, split: Optional["ModelSplit"] = None):
     """A DTensor leaf as the whole plain tensor, or with a model `split`
     its shard on the model axis (whole on the others), which then
     carries the split as its `model_split` attribute; differentiable:
-    the backward sums the ranks' gradients onto the shards. Other
-    leaves unchanged."""
+    the backward sums the ranks' gradients onto the shards. Where that
+    moves nothing (`_moves_nothing`), a view of the shard. Other leaves
+    unchanged."""
     if not isinstance(x, DTensor):
         return x
-    out = _Gather.apply(x.to_local(), Mesh.of(x.device_mesh),
-                        tuple(x.placements), split is not None)
+    mesh, placements = Mesh.of(x.device_mesh), tuple(x.placements)
+    local = x.to_local()
+    if _moves_nothing(mesh, placements, split is not None):
+        out = local.view_as(local)
+    else:
+        out = _Gather.apply(local, mesh, placements, split is not None)
     if split is not None:
         out.model_split = split
     return out
@@ -669,25 +700,50 @@ def unshard(tree: Params, keep: Optional[str] = LAYER_STACK,
         else full(x, local.get(path)), tree)
 
 
-def _model_local_layer(part: torch.Tensor, mesh: Mesh,
-                       owner: Optional[int]) -> torch.Tensor:
-    """Layer i of a model-local leaf outside autograd (an engine's
-    forward): this rank's shard on the model axis, fetched from its owner
-    on the fsdp axis, or the rank's own slice itself where no other rank
-    holds it (no copy)."""
-    if owner is None or mesh.shape[FSDP_AXIS] == 1:
-        return part
-    return _from_owner(part, mesh, owner)
+class _SideWork:
+    """A layer's broadcast issued on a side stream: wait() makes the
+    current stream wait for it and marks the layer's buffer as used
+    there (so that its memory is not handed out again before that
+    use)."""
+
+    def __init__(self, done: torch.cuda.Event, buf: torch.Tensor):
+        self.done, self.buf = done, buf
+
+    def wait(self) -> None:
+        stream = torch.cuda.current_stream(self.buf.device)
+        stream.wait_event(self.done)
+        self.buf.record_stream(stream)
 
 
-def layer_source(stack: Params):
+def _layer_owner(pl: tuple, mesh: Mesh, n_layers: int, i: int
+                 ) -> Tuple[Optional[int], int]:
+    """(the fsdp rank holding layer i of a stack leaf placed `pl`, or None
+    where the layer axis is not sharded on fsdp; i's index in that rank's
+    local stack)."""
+    fs = pl[AXES.index(FSDP_AXIS)]
+    if isinstance(fs, Shard) and fs.dim == 0:
+        per = n_layers // mesh.shape[FSDP_AXIS]
+        return i // per, i % per
+    return None, i
+
+
+def layer_source(stack: Params, prefetch: bool = False):
     """i -> layer i of a stacked layer tree as plain tensors. For a stack
     of DTensors the layer is gathered from its owner on the fsdp axis and
     the other axes (the whole stack is never gathered), except on the
     model axis for the matrices of the blocks the model axis splits
     (`model_split`), which keep this rank's shard; an engine's stack on
     the hidden axis (HIDDEN_RULES) is this rank's share as it lies, with
-    no collective; otherwise it is core/params.layer's view."""
+    no collective; otherwise it is core/params.layer's view.
+
+    prefetch (training: the forward and its recompute under remat): the
+    owners' broadcasts of the next layer go out before layer i is handed
+    over (on a card on a side stream, so that they run beside layer i's
+    compute), and that layer waits on them only when it is fetched; the
+    next is i + 1 in the forward and i - 1 in the backward's recompute,
+    which walks the layers down. At most one layer is in flight ahead
+    (core/memory.step_memory counts it). Without, each layer's
+    broadcasts complete before it is handed over."""
     flat = dict(leaves_with_path(stack))
     if not any(isinstance(x, DTensor) for x in flat.values()):
         return lambda i: layer(stack, i)
@@ -706,24 +762,65 @@ def layer_source(stack: Params):
         slices = local.unbind(0) if sink is None else None
         parts[path] = (mesh, pl, local, slices, sink, x.shape[0],
                        path in local_paths)
+    n_layers = next(iter(parts.values()))[5]
+    pending: Dict[int, Dict[str, tuple]] = {}
+    side = []      # the card's side stream of the prefetched broadcasts
+
+    def issue(i: int, ahead: bool) -> Dict[str, tuple]:
+        """Layer i's slices broadcast from their owners: path -> (layer,
+        work to wait on, or None) for each leaf whose layer axis an fsdp
+        axis above 1 shards. `ahead`: left in flight, on a card on a
+        side stream (as FSDP's unshard stream) that starts where the
+        current stream stands, on the CPU as gloo's asynchronous
+        broadcasts."""
+        todo = {}
+        for path, (mesh, pl, local, _, _, n, _) in parts.items():
+            owner, j = _layer_owner(pl, mesh, n, i)
+            if owner is not None and mesh.shape[FSDP_AXIS] > 1:
+                todo[path] = (local.detach()[j], mesh, owner)
+        device = next(iter(todo.values()))[0].device if todo else None
+        if not ahead or device is None or device.type != "cuda":
+            return {path: _from_owner(*args, async_op=ahead)
+                    for path, args in todo.items()}
+        if not side:
+            side.append(torch.cuda.Stream(device))
+        side[0].wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side[0]):
+            out = {path: _from_owner(*args)[0]
+                   for path, args in todo.items()}
+            done = torch.cuda.Event()
+            done.record(side[0])
+        return {path: (buf, _SideWork(done, buf))
+                for path, buf in out.items()}
 
     def fetch(i: int):
+        fetched = pending.pop(i, None)
+        if fetched is None:
+            fetched = issue(i, ahead=False)
+        if prefetch:
+            nxt = i + 1 if _phase() == "forward" else i - 1
+            if 0 <= nxt < n_layers and nxt not in pending:
+                pending[nxt] = issue(nxt, ahead=True)
         got = {}
-        for path, (mesh, pl, local, slices, sink, n_layers,
+        for path, (mesh, pl, local, slices, sink, n,
                    model_local) in parts.items():
-            fs = pl[AXES.index(FSDP_AXIS)]
-            owner, j = None, i
-            if isinstance(fs, Shard) and fs.dim == 0:
-                per = n_layers // mesh.shape[FSDP_AXIS]
-                owner, j = i // per, i % per
+            owner, j = _layer_owner(pl, mesh, n, i)
             part = slices[j] if sink is None else read_layer(local, j, sink)
+            buf = None
+            if path in fetched:
+                buf, work = fetched[path]
+                if work is not None:
+                    work.wait()
+            fs = pl[AXES.index(FSDP_AXIS)]
             if isinstance(fs, Shard) and fs.dim > 0:
                 got[path] = part                # on the hidden axis
+            elif _moves_nothing(mesh, pl, model_local):
+                got[path] = part                # as on one device
             elif model_local and not torch.is_grad_enabled():
-                got[path] = _model_local_layer(part, mesh, owner)
+                got[path] = part if buf is None else buf
             else:
                 got[path] = _GatherLayer.apply(part, mesh, pl, owner,
-                                               model_local)
+                                               model_local, buf)
         return _unflatten(got)
     return fetch
 

@@ -85,6 +85,43 @@ def read_layer(x: torch.Tensor, i: int, sink=None) -> torch.Tensor:
     return _SinkRead.apply(x, i, sink)
 
 
+# A leaf of more elements than this goes through a training step's update
+# (train/sft.apply_step) and the global norm's sum of squares
+# (train/optim.global_norm) in blocks of its flattened elements, so that
+# their temporaries are a block's: XLA fuses the update into one
+# elementwise pass and the squares into the reduction, and holds
+# neither. The update is elementwise: the blocks give it the same bits.
+BLOCK = 1 << 26
+
+
+def blocks(x: torch.Tensor) -> list:
+    """The blocks of a leaf: [None] (the whole leaf) for a leaf of at most
+    BLOCK elements or one not contiguous, else slices of its flattened
+    elements."""
+    n = x.numel()
+    if n <= BLOCK or not x.is_contiguous():
+        return [None]
+    return [slice(i, min(i + BLOCK, n)) for i in range(0, n, BLOCK)]
+
+
+def at(x: torch.Tensor, index) -> torch.Tensor:
+    """x's elements at `index`, a slice of its flattened elements (a
+    view); x itself for None."""
+    return x if index is None else x.view(-1)[index]
+
+
+def sum_squares(x: torch.Tensor) -> torch.Tensor:
+    """sum(x * x) in x's dtype: (x * x).sum() for a leaf of one block;
+    a larger leaf's blocks' sums added in order, one block's squares
+    alive at a time."""
+    total = None
+    for index in blocks(x):
+        b = at(x, index)
+        part = (b * b).sum()
+        total = part if total is None else total + part
+    return total
+
+
 def layer(tree: Params, i: int) -> Params:
     """Layer i of a stacked layer tree (views, no copies); a leaf carrying
     a `layer_grad_sink` attribute is read through read_layer."""

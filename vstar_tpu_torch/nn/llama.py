@@ -12,18 +12,19 @@ Under a mesh (core/mesh.py) the layer stack is a tree of DTensors
 sharded by the partition rules: the loop gathers layer i alone, from its
 owner on the fsdp axis (core/mesh.layer_source), inside the recomputed
 region under remat, so the gathered layer is dropped after the layer and
-gathered again for its backward. On a model axis above 1 (core/mesh
-.model_split, ModelSplit) the decoder is tensor-parallel as vstar_tpu's
-compiled step is, in training and in an engine's forward: each rank's
-layer holds its own heads and MLP columns, whose counts the blocks read
-from the local weights' shapes; a block's normed input (and LoRA's
-leaves) enter the split through `ModelSplit.enter`, whose backward sums
-their partial gradients over the model group; the products of wo and
-w_down are partial sums, reduced over the model group in f32 before the
-residual add; an engine's KV cache holds the rank's own KV heads
-(`kv_heads`). Under remat the recompute runs the attention's reduce
-again and stops before the MLP's (torch.utils.checkpoint stops once
-the saved tensors are back), as XLA's rematted computation does.
+gathered again for its backward; in training the next layer's broadcast
+is in flight while layer i computes. On a model axis above 1
+(core/mesh.model_split, ModelSplit) the decoder is tensor-parallel as
+vstar_tpu's compiled step is, in training and in an engine's forward:
+each rank's layer holds its own heads and MLP columns, whose counts the
+blocks read from the local weights' shapes; a block's normed input (and
+LoRA's leaves) enter the split through `ModelSplit.enter`, whose
+backward sums their partial gradients over the model group; the products
+of wo and w_down are partial sums, reduced over the model group in f32
+before the residual add; an engine's KV cache holds the rank's own KV
+heads (`kv_heads`). Under remat the recompute runs the attention's
+reduce again and stops before the MLP's (torch.utils.checkpoint stops
+once the saved tensors are back), as XLA's rematted computation does.
 
 An engine's stack on an fsdp axis above 1 lies on the hidden axis
 (core/mesh.hidden_split), as vstar_tpu's compiled engine programs
@@ -430,7 +431,7 @@ def llama_forward(params: Dict, cfg: LlamaConfig, hidden: torch.Tensor,
         h = rmsnorm(lp["post_norm"], x, cfg.rms_norm_eps, d_split)
         return x + _mlp_block(lp["mlp"], h, mlp_split, d_split)
 
-    fetch = layer_source(params["layers"])
+    fetch = layer_source(params["layers"], prefetch=torch.is_grad_enabled())
     x = hidden if d_split is None else d_split.columns(hidden)
     for i in range(cfg.num_layers):
         kv = ()

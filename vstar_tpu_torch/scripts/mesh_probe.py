@@ -42,7 +42,12 @@ beside the step's, and every leaf's sum against the written one's:
     torchrun --nproc-per-node 4 -m vstar_tpu_torch.scripts.mesh_probe \\
         --mesh 1x4x1 --steps 1 --checkpoint 1x2x2,1x1x4
 `torchrun --nproc-per-node 1 ... --mesh 1x1x1 --layers 16` holds on one
-card the state a card of the full model's 1x2x1 mesh holds. At --mesh
+card the state a card of the full model's 1x2x1 mesh holds (--micro 1:
+one micro-batch, the gradients in the leaves' dtype). Without torchrun,
+`python -m vstar_tpu_torch.scripts.mesh_probe --one-rank --trace` runs
+part (a) alone: the pretrain steps on the one-rank 1x1x1 mesh against
+one device, and one more step of each traced (device and host time by
+operation; the traces in chiprun_out/one_rank_*_step.json.gz). At --mesh
 1x1x4 or 1x2x2 the decoder and the towers are tensor-parallel; each
 rank reports its last step's counts (collectives by axis and by model
 split, K1 / K7 / K2 launches by heads), and with --trace one more step
@@ -63,7 +68,9 @@ chiprun_out/mesh_probe_<mesh>_decode.json.gz:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -186,13 +193,33 @@ class phase_peaks:
         sft.accumulated_grads = self._orig
 
 
-def one_rank_mesh(dev, count=None, steps: int = 2) -> dict:
+def _traced_step(state, batch, cfg, opt, mask, dev, name):
+    """One more sft_train_step under torch.profiler: (state, the device
+    breakdown (_device_breakdown) with the host's (_host_breakdown)
+    beside it); the chrome trace to chiprun_out/<name>.json.gz."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, one, _ = _steps(state, batch, cfg, opt, mask, 1, dev)
+    out = _device_breakdown(prof, one[0][2])
+    out["host"] = _host_breakdown(prof)
+    os.makedirs("chiprun_out", exist_ok=True)
+    out["file"] = f"chiprun_out/{name}.json.gz"
+    prof.export_chrome_trace(out["file"])
+    return state, out
+
+
+def one_rank_mesh(dev, count=None, steps: int = 2,
+                  trace: bool = False) -> dict:
     """Part (a): the VQA pretrain at full 7B on a world of one NCCL rank,
     the 1x1x1 mesh, every leaf a DTensor, against the one-device steps on
     the same weights and rows. Loss, grad norm and every updated leaf
     must be equal bit for bit; `count` = (zero, read) of the launch
     counters, read around the last step of each run. The peaks are each
-    run's, with the other copy of the weights resident."""
+    run's, with the other copy of the weights resident. trace: one more
+    step of each run under torch.profiler (_traced_step; the traces
+    chiprun_out/one_rank_{one_device,mesh}_step.json.gz), whose
+    breakdowns are "trace_one_device" and "trace_mesh"."""
     from ..core import mesh as M
     from ..core.config import vqa_llm_7b
     from ..core.params import leaves_with_path, map_with_path
@@ -214,6 +241,10 @@ def one_rank_mesh(dev, count=None, steps: int = 2) -> dict:
     one, one_m, one_counts = _steps(init_train_state(params, opt), batch,
                                     cfg, opt, mask, steps, dev, count)
     one_peak = torch.cuda.max_memory_allocated(dev)
+    traces = {}
+    if trace:
+        one, traces["trace_one_device"] = _traced_step(
+            one, batch, cfg, opt, mask, dev, "one_rank_one_device_step")
     one_flat = {p: x for p, x in leaves_with_path(one.params)
                 if p.startswith("proj_image.")}
     del one
@@ -229,12 +260,15 @@ def one_rank_mesh(dev, count=None, steps: int = 2) -> dict:
                                          batch, cfg, opt, mask, steps, dev,
                                          count)
         mesh_peak = torch.cuda.max_memory_allocated(dev)
+        if trace:
+            st, traces["trace_mesh"] = _traced_step(
+                st, batch, cfg, opt, mask, dev, "one_rank_mesh_step")
         flat = dict(leaves_with_path(st.params))
         same = {p: bool(torch.equal(flat[p].to_local(), x))
                 for p, x in one_flat.items()}
     finally:
         dist.destroy_process_group()
-    return {"leaf_types": sorted(kinds),
+    return {**traces, "leaf_types": sorted(kinds),
             "one_device": one_m, "mesh": mesh_m,
             "equal_loss_and_norm": [a[:2] == b[:2]
                                     for a, b in zip(one_m, mesh_m)],
@@ -411,24 +445,74 @@ def _finetune_case(dev, lr):
             sft.init_train_state)
 
 
-def _vsm_case(dev, lr):
+def _vsm_case(dev, lr, dtype=torch.bfloat16):
     """The VSM step at 7B widths with 2 decoder layers, LoRA r=8 on q and
-    v, the reference's trainable set, as _finetune_case."""
+    v, the reference's trainable set, as _finetune_case; weights and
+    compute in `dtype` (f32 masters for bf16 weights)."""
     from ..core.config import vsm_7b
     from ..models.vsm import init_vsm_params
     from ..multimodal.stub_tokenizer import StubTokenizer
     from ..train import vsm_train
     from ..train.lora import add_lora, vsm_trainable_mask
     cfg = _two_layers(vsm_7b())
-    params = init_vsm_params(SEED, cfg, device=dev, dtype=torch.bfloat16)
+    params = init_vsm_params(SEED, cfg, device=dev, dtype=dtype)
     params["llama"] = add_lora(params["llama"], SEED + 1, r=8, alpha=16)
     mask = vsm_trainable_mask(params)
     opt = vsm_train.make_vsm_optimizer(lr=lr, warmup_steps=0,
                                        total_steps=4, trainable_mask=mask,
-                                       master_f32=True)
+                                       master_f32=dtype != torch.float32)
     rows = vsm_rows(cfg, StubTokenizer(cfg.llama.vocab_size))
-    return (cfg, params, mask, opt, rows, vsm_train.vsm_train_step,
+    return (cfg, params, mask, opt, rows,
+            functools.partial(vsm_train.vsm_train_step, compute_dtype=dtype),
             vsm_train.init_train_state)
+
+
+@contextlib.contextmanager
+def plain_f32_attention():
+    """K1, K7 and K2 take bf16 only: an f32 reference run (part (c)'s
+    f32 resume) computes its attention by their plain versions, the
+    kernels' arithmetic step by step in f32, on the one-device and the
+    sharded steps alike. Every other run launches the kernels."""
+    from ..kernels import flash_attention as fa
+    from ..kernels.tower_attention import tower_attention_reference
+    from ..nn import vit
+    saved = fa.flash_attention_lse, fa.flash_attention_bwd, \
+        vit.tower_attention
+    fa.flash_attention_lse, fa.flash_attention_bwd = \
+        fa.mha_forward_lse, fa.mha_backward
+    vit.tower_attention = tower_attention_reference
+    try:
+        yield
+    finally:
+        fa.flash_attention_lse, fa.flash_attention_bwd, \
+            vit.tower_attention = saved
+
+
+def _first_moments(state):
+    """A VSM or finetune TrainState's Adam first moments (inside train/
+    master.with_f32_master where the weights have masters), path -> this
+    rank's tensor."""
+    adamw = state.opt_state[1]
+    return (adamw["inner"] if isinstance(adamw, dict) else adamw)[0]["mu"]
+
+
+@torch.no_grad()
+def _moment_stats(state, want, rank) -> dict:
+    """Each first moment of a sharded `state`, gathered whole, against
+    `want` (rank 0's one-device moments): on rank 0 {path: {"moment_max":
+    the largest |value| on one device, "moment_diff": the largest
+    |difference|}}. Every rank calls it."""
+    from ..core import mesh as M
+    from ..core.params import leaves_with_path
+    like = dict(leaves_with_path(state.params))
+    out = {}
+    for p, x in _first_moments(state).items():
+        m = M.full(M.with_local(like[p], x))
+        if rank == 0:
+            out[p] = {"moment_max": float(want[p].abs().max()),
+                      "moment_diff": float((m - want[p]).abs().max())}
+        del m
+    return out
 
 
 def _split_against_one(rank, dev, mesh, case, lr, steps, micro):
@@ -531,7 +615,7 @@ def _same_state(a, b) -> bool:
     return bool(same)
 
 
-def _resume_against_one(rank, dev, case, lr, micro, work):
+def _resume_against_one(rank, dev, case, lr, micro, work, f32=False):
     """Part (c)'s checkpoint: the VSM case (_vsm_case) one step at 1x2x1,
     its TrainState written by both ranks (train_vsm_main.save_state: one
     checkpoint of global tensors), read back at 1x1x2 (both ranks, each
@@ -545,7 +629,18 @@ def _resume_against_one(rank, dev, case, lr, micro, work):
     "mesh": step 1 at 1x2x1 and step 2 at 1x1x2, "resumed_one_device":
     step 1 at 1x2x1 and step 2 on one device, each (loss, grad norm,
     seconds); "read_equal": {"mesh", "one_device"}; "export"; "counts":
-    every rank's; "seconds"}."""
+    every rank's; "seconds"}.
+
+    f32 (a case in f32, its attention by plain_f32_attention): the
+    one-device read, its step and the export are left out, and the first
+    moments after step 1 (1x2x1) and after step 2 (resumed at 1x1x2) are
+    held against the one-device steps' (_moment_stats: "moments_step1",
+    "moments_step2")."""
+    with plain_f32_attention() if f32 else contextlib.nullcontext():
+        return _resume_steps(rank, dev, case, micro, work, f32)
+
+
+def _resume_steps(rank, dev, case, micro, work, f32):
     from ..core import mesh as M
     from ..core.checkpoint import load_params, save_params
     from ..data.vsm_collate import batch_to_torch
@@ -564,16 +659,21 @@ def _resume_against_one(rank, dev, case, lr, micro, work):
                        time.perf_counter() - t0)
 
     t0 = time.perf_counter()
-    out = {}
+    out, want = {}, [None, None]
     if rank == 0:
         one, s1 = step(init(params, opt))
+        if f32:
+            want[0] = {p: x.clone() for p, x in _first_moments(one).items()}
         one, s2 = step(one)
+        want[1] = _first_moments(one)
         out["one_device"] = [s1, s2]
         del one
     dist.barrier()
     path = os.path.join(work, "ckpt_model", "state")
     written, s1 = step(init(M.shard_params(
         params, M.make_mesh((1, 2, 1), dev.type)), opt))
+    if f32:
+        out["moments_step1"] = _moment_stats(written, want[0], rank)
     t1 = time.perf_counter()
     save_state(written, path, M.mesh_of(written.params))
     save_s = time.perf_counter() - t1
@@ -585,32 +685,37 @@ def _resume_against_one(rank, dev, case, lr, micro, work):
     del like
     out["read_equal"] = {"mesh": _same_state(written, st)}
     del written
-    one = load_state(VSMTrainState, path, init(params, opt), dev, None) \
-        if rank == 0 else None
-    out["read_equal"]["one_device"] = _same_state(st, one)
+    one = None
+    if not f32:
+        one = load_state(VSMTrainState, path, init(params, opt), dev,
+                         None) if rank == 0 else None
+        out["read_equal"]["one_device"] = _same_state(st, one)
     before = _rank_counts()
     st, s2 = step(st)
     counts = _counts_delta(before, _rank_counts())
+    if f32:
+        out["moments_step2"] = _moment_stats(st, want[1], rank)
     del st
     every = [None] * M.world_size()
     dist.all_gather_object(every, counts)
     if rank == 0:
         out["mesh"] = [s1, s2]
-        one, s2 = step(one)
-        out["resumed_one_device"] = [s1, s2]
-        del one
-        file = os.path.join(work, "one_device_state")
-        save_params(load_params(path), file)
-        sds = [export_main.main(["--ckpt", ckpt, "--version", work,
-                                 "--save_path", os.path.join(work, name)])
-               for name, ckpt in (("export_mesh", path),
-                                  ("export_one", file))]
-        out["export"] = {
-            "tensors": len(sds[0]),
-            "equal": sds[0].keys() == sds[1].keys() and all(
-                sds[0][k].dtype == sds[1][k].dtype
-                and torch.equal(sds[0][k], sds[1][k]) for k in sds[0]),
-            "checkpoint_files": sorted(os.listdir(path))}
+        if not f32:
+            one, s2 = step(one)
+            out["resumed_one_device"] = [s1, s2]
+            del one
+            file = os.path.join(work, "one_device_state")
+            save_params(load_params(path), file)
+            sds = [export_main.main(["--ckpt", ckpt, "--version", work,
+                                     "--save_path", os.path.join(work, name)])
+                   for name, ckpt in (("export_mesh", path),
+                                      ("export_one", file))]
+            out["export"] = {
+                "tensors": len(sds[0]),
+                "equal": sds[0].keys() == sds[1].keys() and all(
+                    sds[0][k].dtype == sds[1][k].dtype
+                    and torch.equal(sds[0][k], sds[1][k]) for k in sds[0]),
+                "checkpoint_files": sorted(os.listdir(path))}
         out.update(counts=every, save_s=save_s, load_s=load_s,
                    seconds=time.perf_counter() - t0)
     dist.barrier()
@@ -618,7 +723,7 @@ def _resume_against_one(rank, dev, case, lr, micro, work):
 
 
 def _gloo_rank(rank, world, store, out_path, lr, steps, micro, device,
-               shape, vsm, resume):
+               shape, vsm, resume, resume_f32):
     """One rank of part (c)."""
     from ..core import mesh as M
     dev = torch.device(device)
@@ -642,6 +747,13 @@ def _gloo_rank(rank, world, store, out_path, lr, steps, micro, device,
             result["resume"] = _resume_against_one(
                 rank, dev, _vsm_case(dev, lr), lr, micro,
                 os.path.dirname(out_path))
+        if resume_f32:
+            gc.collect()
+            torch.cuda.empty_cache()
+            work = os.path.join(os.path.dirname(out_path), "f32")
+            result["resume_f32"] = _resume_against_one(
+                rank, dev, _vsm_case(dev, lr, torch.float32), lr, micro,
+                work, f32=True)
     finally:
         dist.destroy_process_group()
     if rank == 0:
@@ -651,7 +763,8 @@ def _gloo_rank(rank, world, store, out_path, lr, steps, micro, device,
 
 def gloo_split(lr: float = 1e-3, steps: int = 2, micro: int = MICRO,
                device: str = "cuda:0", shape=(1, 2, 1),
-               vsm: bool = False, resume: bool = False) -> dict:
+               vsm: bool = False, resume: bool = False,
+               resume_f32: bool = False) -> dict:
     """Part (c): two ranks over gloo on one card (spawned processes), 7B
     widths with 2 decoder layers, on the mesh `shape` (1x2x1: the layers
     fsdp-sharded; 1x1x2: the decoder and the towers tensor-parallel):
@@ -661,14 +774,16 @@ def gloo_split(lr: float = 1e-3, steps: int = 2, micro: int = MICRO,
     against the one-device steps on rank 0 (_split_against_one:
     {"finetune": ..., "vsm": ...}); with `resume`, the VSM checkpoint
     written at 1x2x1 and resumed at 1x1x2 and on one device
-    (_resume_against_one: "resume"). Any failure of a rank fails the
-    call."""
+    (_resume_against_one: "resume"); with `resume_f32` the same in f32
+    with the first moments held ("resume_f32"). Any failure of a rank
+    fails the call."""
     import torch.multiprocessing as mp
     with tempfile.TemporaryDirectory() as work:
         out = os.path.join(work, "result.json")
         mp.start_processes(_gloo_rank, args=(2, os.path.join(work, "store"),
                                              out, lr, steps, micro, device,
-                                             tuple(shape), vsm, resume),
+                                             tuple(shape), vsm, resume,
+                                             resume_f32),
                            nprocs=2, start_method="spawn")
         with open(out) as f:
             return json.load(f)
@@ -1104,6 +1219,48 @@ def _device_breakdown(prof, wall_s: float, top: int = 12) -> dict:
             "top": [[k, ms, n] for k, ms, n in rows[:top]]}
 
 
+def kernel_overlap(trace_file: str, op: str = "broadcast") -> dict:
+    """From a chrome trace of torch.profiler: the device time of NCCL's
+    `op` kernels and the part of it during which a kernel that is not
+    NCCL's ran too (on another stream: the layer's compute behind a
+    fetch in flight): {"kernels", "ms", "overlapped_ms", "share"}."""
+    import bisect
+    import gzip
+    opener = gzip.open if trace_file.endswith(".gz") else open
+    with opener(trace_file, "rt") as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [(e["ts"], e["ts"] + e["dur"], e["name"].lower())
+               for e in events if e.get("cat") == "kernel" and "dur" in e]
+    comm = [(a, b) for a, b, n in kernels if "nccl" in n and op in n]
+    merged = []
+    for a, b, _ in sorted(k for k in kernels if "nccl" not in k[2]):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    starts = [m[0] for m in merged]
+    total = over = 0.0
+    for a, b in comm:
+        total += b - a
+        i = max(bisect.bisect_right(starts, a) - 1, 0)
+        while i < len(merged) and merged[i][0] < b:
+            over += max(0.0, min(b, merged[i][1]) - max(a, merged[i][0]))
+            i += 1
+    return {"kernels": len(comm), "ms": total / 1e3,
+            "overlapped_ms": over / 1e3,
+            "share": over / total if total else None}
+
+
+def _host_breakdown(prof, top: int = 20) -> list:
+    """The `top` host operations of a profiled call by their own host
+    time: [name, ms, calls] (where the host's time goes between the
+    device's kernels: dispatch, copies enqueued, synchronisations)."""
+    rows = [(e.key, e.self_cpu_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.self_cpu_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    return [[k, ms, n] for k, ms, n in rows[:top]]
+
+
 def _engine_check(mesh, dev, tokens: int, trace: bool = False) -> dict:
     """A sharded random-init 7B VQA engine's greedy free-form answer of
     `tokens` new tokens (graph decode) against the one-device engine's,
@@ -1308,11 +1465,33 @@ def main() -> int:
     p.add_argument("--trace", action="store_true",
                    help="the engine check's calls once more, or one more "
                         "training step, under torch.profiler: device time "
-                        "by kernel (rank 0 writes the step's trace)")
+                        "by kernel (rank 0 writes the step's trace, and "
+                        "reads from it how much of the layer broadcasts' "
+                        "device time overlapped compute)")
+    p.add_argument("--one-rank", action="store_true",
+                   help="no torchrun: chip_smoke.py's part (a) alone, the "
+                        "7B VQA pretrain on a world of one NCCL rank "
+                        "(1x1x1) against one device, --steps steps each "
+                        "(with --trace one more, traced)")
+    p.add_argument("--micro", type=int, default=MICRO,
+                   help="micro-batches a step (1: the gradients in the "
+                        "leaves' dtype, no f32 buffers)")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("mesh_probe: no CUDA device", file=sys.stderr)
         return 1
+    if args.one_rank:
+        a = one_rank_mesh(torch.device("cuda", 0), steps=args.steps,
+                          trace=args.trace)
+        a["device"] = torch.cuda.get_device_name(0)
+        line = json.dumps({"one_rank_mesh": a})
+        print(line, flush=True)
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open("chiprun_out/mesh_probe_one_rank.json", "w") as f:
+            f.write(line + "\n")
+        same = all(a["equal_loss_and_norm"]) and \
+            all(a["equal_trainable_leaves"].values())
+        return 0 if same else 1
     from ..core import mesh as M
     from ..core.config import vqa_llm_7b
     from ..core.memory import check_memory, device_memory_gb, \
@@ -1345,7 +1524,8 @@ def main() -> int:
     meta = init_vqa_llm_params(0, cfg, device="meta", dtype=torch.bfloat16)
     mask = frozen_vision_mask(meta)
     plan = plan_train_memory(meta, mesh, trainable_mask=mask)
-    step = step_memory(meta, mesh, trainable_mask=mask, num_micro=MICRO)
+    step = step_memory(meta, mesh, trainable_mask=mask,
+                       num_micro=args.micro)
     check_memory(plan, device_memory_gb(dev), step=step,
                  what=f"7B VQA finetune (mesh {mesh})")
     t0 = time.perf_counter()
@@ -1364,7 +1544,8 @@ def main() -> int:
         steps = []
         for _ in range(args.steps):
             before = _rank_counts()
-            state, one, _ = _steps(state, batch, cfg, opt, mask, 1, dev)
+            state, one, _ = _steps(state, batch, cfg, opt, mask, 1, dev,
+                                   micro=args.micro)
             step_counts = _counts_delta(before, _rank_counts())
             peaks.read_update()
             steps += one
@@ -1374,13 +1555,15 @@ def main() -> int:
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            state, one, _ = _steps(state, batch, cfg, opt, mask, 1, dev)
+            state, one, _ = _steps(state, batch, cfg, opt, mask, 1, dev,
+                                   micro=args.micro)
         trace = _device_breakdown(prof, one[0][2])
         if main_rank:
             os.makedirs("chiprun_out", exist_ok=True)
             name = "x".join(map(str, mesh.dims))
             trace["file"] = f"chiprun_out/mesh_probe_{name}_step.json.gz"
             prof.export_chrome_trace(trace["file"])
+            trace["broadcast_overlap"] = kernel_overlap(trace["file"])
     report = {"mesh": list(mesh.dims), "rank": M.rank(),
               "layers": cfg.llama.num_layers,
               "device": torch.cuda.get_device_name(dev),
@@ -1388,13 +1571,14 @@ def main() -> int:
               "plan_state_bytes": plan.params_bytes + plan.master_bytes
               + plan.moments_bytes, "step_accum_bytes": step.accum_bytes,
               "step_largest_grad_bytes": step.largest_grad_bytes,
+              "step_prefetch_bytes": getattr(step, "prefetch_bytes", None),
               "state_bytes": state_bytes,
               "peak_bytes": peak, "grads_peak_bytes": peaks.grads,
               "update_peak_bytes": peaks.update,
               "alloc_conf": os.environ.get("PYTORCH_CUDA_ALLOC_CONF"),
               "init_s": init_s, "steps": steps,
               "step_counts": step_counts, "trace": trace,
-              "rows": ROWS, "seq": SEQ, "micro": MICRO}
+              "rows": ROWS, "seq": SEQ, "micro": args.micro}
     if args.checkpoint:
         from ..core.memory import parse_mesh_arg
         shapes = [parse_mesh_arg(m, M.world_size())

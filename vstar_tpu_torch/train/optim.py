@@ -16,18 +16,33 @@ What optax does, and torch.optim does not, is kept exactly:
     so adamw's decayed-weights term (u + 0 * p) is left out;
   * a leaf outside the mask gets no state and its (zero) gradient passes
     through.
-A transformation is (init(params) -> state, update(grads, state, params)
--> (updates, state)), as in optax; states are dicts, lists and ints, so a
+A transformation is init(params) -> state and start(updates, state,
+params) -> (leaf, state): `start` does what needs the whole tree (the
+clip's global norm, the step's counts and constants), and leaf(path, u,
+index=None) -> u' updates one leaf, or with `index` the block of its
+flattened elements that `u` is (core/params.blocks, at); the new state
+is whole once every element of every path of `updates` has passed
+through `leaf`. Only a chain's first start reads the updates' values
+(the clip); the others read their paths. optax's update(grads, state,
+params) -> (updates, state) is the same over the whole tree
+(`Transformation.update`). States are dicts, lists and ints, so a
 checkpoint stores them with torch.save.
 
-Like JAX's trainers, which jit their step with the state donated, an
-update consumes what it is given: the clip scales the gradients in
-place, Adam's moments (and train/master.py's f32 masters) are updated in
-place and Adam writes its update into the gradient's buffer, with the
-arithmetic of the functional form (the same bits). Only a leaf whose
-result JAX would promote to another dtype gets a new tensor. A 7B
-finetune's state then needs no second copy of its moments and masters
-during the update.
+Like JAX's trainers, which jit their step with the state donated (XLA
+fuses each leaf's clip, moments, master and parameter into one pass and
+holds no whole tree of updates), a step applies its update one leaf at
+a time, a large leaf block by block (train/sft.apply_step: each leaf's
+temporaries and gradient dropped before the next leaf), and consumes
+what it is given: the clip scales the gradients in place, Adam's
+moments (and train/master.py's f32 masters) are updated in place and
+Adam writes its bias-corrected first moment, then its update, into the
+gradient's buffer, with the arithmetic of the functional form (the same
+bits). Only a leaf whose result JAX would promote to another dtype gets
+a new tensor. A 7B finetune's state then needs no second copy of its
+moments, masters or updates during the update. The global norm sums a
+leaf's squares by the same blocks (core/params.sum_squares): a leaf of
+one block, every leaf of the tests, gives the sum it always gave; a
+larger one's is its blocks' sums added in order.
 
 Under a mesh (core/mesh.py) the optimizer runs on each rank's local
 shards, where every update but the clip is elementwise; the clip's
@@ -44,12 +59,38 @@ from typing import Callable, Dict, NamedTuple, Sequence
 import numpy as np
 import torch
 
+from ..core.params import at, sum_squares
+
 Flat = Dict[str, torch.Tensor]
 
 
 class Transformation(NamedTuple):
     init: Callable
-    update: Callable
+    start: Callable
+
+    def update(self, updates: Flat, state, params=None):
+        """optax's update: every leaf of `updates` through start's `leaf`
+        -> (the updates, the new state)."""
+        leaf, state = self.start(updates, state, params)
+        return {p: leaf(p, u) for p, u in updates.items()}, state
+
+
+def _keep(path: str, u: torch.Tensor, index=None) -> torch.Tensor:
+    return u
+
+
+class _OnDevice:
+    """A step's scalar tensor cast to each (dtype, device) it meets, once
+    (the same value the per-leaf `.to(dtype).to(device)` gives)."""
+
+    def __init__(self, x: torch.Tensor):
+        self.x, self.cast = x, {}
+
+    def like(self, t: torch.Tensor) -> torch.Tensor:
+        key = (t.dtype, t.device)
+        if key not in self.cast:
+            self.cast[key] = self.x.to(t.dtype).to(t.device)
+        return self.cast[key]
 
 
 def apply_updates(params: Flat, updates: Flat) -> Flat:
@@ -66,35 +107,44 @@ def global_norm(tree: Flat, like=None) -> torch.Tensor:
     mesh = getattr(like, "mesh", None)
     if mesh is not None:
         return torch.sqrt(mesh.sum_squares(tree, like.replicas))
-    return torch.sqrt(sum((x * x).sum() for x in tree.values()))
+    return torch.sqrt(sum(sum_squares(x) for x in tree.values()))
 
 
 def chain(*transforms: Transformation) -> Transformation:
+    """Each leaf through the transformations in turn (every start reads
+    `updates` as given: only the first may read its values)."""
     def init(params):
         return [t.init(params) for t in transforms]
 
-    def update(updates, state, params=None):
-        new_state = []
+    def start(updates, state, params=None):
+        leaves, new_state = [], []
         for t, s in zip(transforms, state):
-            updates, s = t.update(updates, s, params)
+            leaf, s = t.start(updates, s, params)
+            leaves.append(leaf)
             new_state.append(s)
-        return updates, new_state
 
-    return Transformation(init, update)
+        def leaf(path, u, index=None):
+            for f in leaves:
+                u = f(path, u, index)
+            return u
+        return leaf, new_state
+
+    return Transformation(init, start)
 
 
 def clip_by_global_norm(max_norm: float) -> Transformation:
-    """optax.clip_by_global_norm, scaling the updates in place (one host
-    read of the norm); on the shards of a sharded tree (`params` its
-    core/mesh.Shards), over the shards of all ranks."""
-    def update(updates, state, params=None):
+    """optax.clip_by_global_norm, scaling each leaf in place (one host
+    read of the norm, at the start); on the shards of a sharded tree
+    (`params` its core/mesh.Shards), over the shards of all ranks."""
+    def start(updates, state, params=None):
         g_norm = global_norm(updates, params)
-        if not bool(g_norm < max_norm):
-            for t in updates.values():
-                t.div_(g_norm.to(t.dtype)).mul_(max_norm)
-        return updates, state
+        if bool(g_norm < max_norm):
+            return _keep, state
+        norm = _OnDevice(g_norm)
+        return (lambda path, t, index=None:
+                t.div_(norm.like(t)).mul_(max_norm)), state
 
-    return Transformation(lambda params: {}, update)
+    return Transformation(lambda params: {}, start)
 
 
 def linear_schedule(init_value: float, end_value: float,
@@ -164,47 +214,55 @@ def scale_by_adam(b1: float, b2: float, eps: float = 1e-8) -> Transformation:
                 "mu": {p: torch.zeros_like(x) for p, x in params.items()},
                 "nu": {p: torch.zeros_like(x) for p, x in params.items()}}
 
-    def update(updates, state, params=None):
+    def start(updates, state, params=None):
         count = state["count"] + 1
-        bc1 = 1 - torch.tensor(b1, dtype=torch.float32) ** count
-        bc2 = 1 - torch.tensor(b2, dtype=torch.float32) ** count
-        mu, nu, out = {}, {}, {}
-        for p, g in updates.items():
-            m = mu[p] = _ema(state["mu"][p], g, b1)
-            v = nu[p] = _ema(state["nu"][p], g * g, b2)
-            m_hat = m / bc1.to(m.dtype).to(m.device)
+        bc1 = _OnDevice(1 - torch.tensor(b1, dtype=torch.float32) ** count)
+        bc2 = _OnDevice(1 - torch.tensor(b2, dtype=torch.float32) ** count)
+        mu, nu = {}, {}
+
+        def leaf(p, g, index=None):
+            m = _ema(state["mu"], mu, p, g, b1, index)
+            v = _ema(state["nu"], nu, p, g * g, b2, index, scratch=True)
+            # the moments keep the gradient's dtype exactly where the
+            # update goes into its buffer (mu and nu share their dtype):
+            # m_hat there first, then m_hat / (sqrt(v_hat) + eps)
+            into = m.dtype == g.dtype
+            m_hat = torch.div(m, bc1.like(m), out=g) if into \
+                else m / bc1.like(m)
             # sqrt(v_hat) + eps, in v_hat's buffer
-            denom = (v / bc2.to(v.dtype).to(v.device)).sqrt_().add_(eps)
-            if torch.promote_types(m_hat.dtype, denom.dtype) == g.dtype:
-                out[p] = torch.div(m_hat, denom, out=g)
-            else:
-                out[p] = m_hat / denom
-            # before the next leaf's moments: held over, this leaf's two
-            # temporaries doubled the update's peak on the largest leaves
-            del m_hat, denom
-        return out, {"count": count, "mu": mu, "nu": nu}
+            denom = (v / bc2.like(v)).sqrt_().add_(eps)
+            return m_hat.div_(denom) if into else m_hat / denom
+        return leaf, {"count": count, "mu": mu, "nu": nu}
 
-    return Transformation(init, update)
+    return Transformation(init, start)
 
 
-def _ema(m: torch.Tensor, x: torch.Tensor, decay: float) -> torch.Tensor:
-    """(1 - decay) x + decay m, into m where the sum keeps m's dtype; where
-    JAX's promotion changes it (a bf16 moment of an f32 gradient), a new
-    tensor of the promoted dtype."""
-    a = (1 - decay) * x
-    if torch.promote_types(a.dtype, m.dtype) != m.dtype:
-        return a + decay * m
+def _ema(old: Flat, new: Flat, p: str, x: torch.Tensor, decay: float,
+         index=None, scratch: bool = False) -> torch.Tensor:
+    """(1 - decay) x + decay m for the moment m = old[p] (its block at
+    `index`), into m where the sum keeps m's dtype (new[p] is old[p]);
+    where JAX's promotion changes it (a bf16 moment of an f32 gradient),
+    into new[p], a new tensor of the promoted dtype. -> the block's new
+    moment. scratch: x is a temporary, scaled in its own buffer."""
+    m = at(old[p], index)
+    a = x.mul_(1 - decay) if scratch else (1 - decay) * x
+    dtype = torch.promote_types(a.dtype, m.dtype)
+    if dtype != m.dtype:
+        if p not in new:
+            new[p] = torch.empty(old[p].shape, dtype=dtype, device=m.device)
+        return torch.add(a, decay * m, out=at(new[p], index))
+    new[p] = old[p]
     return m.mul_(decay).add_(a)
 
 
 def scale_by_schedule(step_size_fn: Callable[[int], np.float32]
                       ) -> Transformation:
-    def update(updates, state, params=None):
+    def start(updates, state, params=None):
         step = float(step_size_fn(state["count"]))
-        return {p: g.mul_(step) for p, g in updates.items()}, \
+        return (lambda p, g, index=None: g.mul_(step)), \
             {"count": state["count"] + 1}
 
-    return Transformation(lambda params: {"count": 0}, update)
+    return Transformation(lambda params: {"count": 0}, start)
 
 
 def adamw(schedule: Callable[[int], np.float32], b1: float, b2: float,
@@ -220,11 +278,12 @@ def masked(inner: Transformation, mask: Dict[str, bool]) -> Transformation:
     def init(params):
         return inner.init({p: x for p, x in params.items() if mask[p]})
 
-    def update(updates, state, params=None):
+    def start(updates, state, params=None):
         sub = {p: u for p, u in updates.items() if mask[p]}
         sub_params = None if params is None else \
             {p: params[p] for p in sub}
-        new, state = inner.update(sub, state, sub_params)
-        return {p: new.get(p, u) for p, u in updates.items()}, state
+        inner_leaf, state = inner.start(sub, state, sub_params)
+        return (lambda p, u, index=None:
+                inner_leaf(p, u, index) if mask[p] else u), state
 
-    return Transformation(init, update)
+    return Transformation(init, start)

@@ -32,7 +32,8 @@ import torch
 from ..core.config import VQALLMConfig
 from ..core.mesh import (ModelSplit, local_leaves, mesh_of,
                          model_local_leaves, unshard, with_local)
-from ..core.params import leaves_with_path, map_with_path, replace_leaves
+from ..core.params import (at, blocks, leaves_with_path, map_with_path,
+                           replace_leaves)
 from ..models.vqa_llm import clip_bank_features, project_bank, \
     spliced_embeds
 from ..multimodal.constants import IGNORE_INDEX
@@ -171,15 +172,33 @@ def apply_step(params: Dict, grads: Dict, opt_state, optimizer
                ) -> Tuple[Dict, Any]:
     """The optimizer's update of `params` (a tree, DTensor leaves updated
     through their local shards) by `grads` (path -> tensor, local shards
-    on a sharded tree, consumed: the optimizer updates in their buffers):
-    (new params, new optimizer state, which reuses the old one's
-    tensors)."""
+    on a sharded tree, consumed: emptied, and the optimizer updates in
+    the gradients' buffers), one leaf at a time as XLA's fused update
+    runs: the clip's norm over the whole tree first, then each leaf's
+    gradient through the optimizer's leaf update into its new parameter
+    (a large leaf block by block, core/params.blocks), its gradient and
+    temporaries dropped before the next leaf. -> (new params, new
+    optimizer state, which reuses the old one's tensors)."""
     flat = dict(leaves_with_path(params))
     local = local_leaves(flat)
-    updates, new_opt = optimizer.update(grads, opt_state, local)
+    leaf, new_opt = optimizer.start(grads, opt_state, local)
     new = {}
-    while updates:      # each update is dropped as soon as it is applied
-        new.update(optim.apply_updates(local, dict([updates.popitem()])))
+    # the largest leaves last: by then the earlier leaves' f32 gradients
+    # have made room for the new parameters
+    for p in sorted(grads, key=lambda p: grads[p].numel()):
+        g, x = grads.pop(p), local[p]
+        parts = blocks(x) if g.is_contiguous() else [None]
+        if parts != [None]:
+            new[p] = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        for index in parts:
+            u = leaf(p, at(g, index), index)
+            y = optim.apply_updates({p: at(x, index)}, {p: u})[p]
+            if index is None:
+                new[p] = y
+            else:
+                at(new[p], index).copy_(y)
+            del u, y
+        del g
     if mesh_of(params) is not None:
         new = {p: with_local(flat[p], x) for p, x in new.items()}
     return replace_leaves(params, new), new_opt
