@@ -144,7 +144,15 @@ Runs on one CUDA card, in phases; any failure exits non-zero:
      same weights and [LOC] id, K1 and K2 (and K3/K5/K6 under int4mix,
      K6 with act-int8) launched in each window; eval_model from the
      directories on two synthetic images, serial and
-     --single-chip-phased without factories;
+     --single-chip-phased without factories; then the checkpoint-day
+     command (vstar_tpu_torch/scripts/validate_weights.py) on the
+     directories, three runs: the key audits, every inference surface and
+     eval_model on two synthetic images (two records with an option);
+     --int8 --sweep (the 8 flag-matrix rows, prompt lookup equal to base,
+     the answers equal to an int8 pair quantized in memory, the compiled
+     search held to the serial one by the lockstep near-tie rule); and
+     --runner-sweep (the five residency rows, parked equal to the phased
+     base), with K1, K2, K3 and K5 launched on the three runs together;
   12. the VQA trainer: three pretrain sft_train_steps of the random-init
      seal_vqa_7b at full depth (bf16, the f32 linear projector the only
      trainable leaf) on 8 rows (2 micro-batches of 4) at a 512-token
@@ -3485,6 +3493,142 @@ def _hf_eval(label, dirs, extra, tok, dev):
     return _check_path(label, ("flash_attention",)), wall
 
 
+# the kernels of the checkpoint-day command's three runs together
+VALIDATE_KERNELS = ("flash_attention", "tower_attention", "int8_matvec",
+                    "int4_matmul")
+
+
+def _validate_run(tag, argv, tok, dev, work, kernels, total):
+    """validate_weights.main(argv) on the card from `work` (where it writes
+    its JSON files), its counts zeroed just before and read just after:
+    every kernel in `kernels` launched; adds the launches to `total`.
+    Returns (the command's report, its record)."""
+    from vstar_tpu_torch.scripts import validate_weights
+    log(f"[validate {tag}] python -m vstar_tpu_torch.scripts."
+        f"validate_weights {' '.join(argv)}")
+    report, cwd = {}, os.getcwd()
+    os.chdir(work)
+    _zero_counts()
+    t0 = time.perf_counter()
+    try:
+        code = validate_weights.main(argv, device=dev, tokenizer=tok,
+                                     report=report)
+    finally:
+        os.chdir(cwd)
+    sys.stdout.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if code != 0 or report.get("passed") is not True:
+        raise AssertionError(f"validate {tag}: exit {code}")
+    counts = _check_path(f"validate {tag}", kernels)
+    for name, (launched, _) in _read_counts().items():
+        if name in total:
+            total[name] += launched
+    log(f"[validate {tag}] exit 0 in {wall:.2f} s")
+    return report, {"seconds": wall, "launches": counts}
+
+
+def _validate(dirs, params, cfgs, tok, dev):
+    """The checkpoint-day command (vstar_tpu_torch/scripts/validate_weights)
+    on the exported directories, three runs: (a) the audits, the smoke of
+    every surface and eval_model on the synthetic V*Bench (one 1024x1024
+    image a task): both audits clean, two records with option_chosen;
+    (b) --int8 --sweep: the 8 flag-matrix rows, prompt-lookup matching
+    base, the smoke's and the base row's answer and option equal to an
+    int8 pair quantized in memory from the same weights, the compiled
+    search held to the serial one by _same_search; (c) --runner-sweep on
+    the same V*Bench: the five residency rows, the parked cell equal to
+    the phased base. Returns (the summed launches of the three runs, the
+    record)."""
+    from vstar_tpu_torch.eval import synthetic
+    from vstar_tpu_torch.eval.flag_matrix import CELLS
+    from vstar_tpu_torch.eval.vqa_engine import VQAEngine
+    from vstar_tpu_torch.scripts import validate_weights as vw
+    t_part = time.perf_counter()
+    paths = ["--vqa-model-path", dirs["vqa"], "--vsm-model-path", dirs["vsm"]]
+    total = dict.fromkeys(SERVING_KERNELS, 0)
+    record = {}
+    with tempfile.TemporaryDirectory() as work:
+        bench = os.path.join(work, "bench")
+        synthetic.make_synthetic_benchmark(bench, n_per_task=1)
+        folder = ["--benchmark-folder", bench]
+
+        rep, record["a"] = _validate_run(
+            "(a)", paths + folder, tok, dev, work,
+            ("flash_attention", "tower_attention"), total)
+        audits = rep["audit"]
+        if any(not a["ok"] or a["aborted"] or not a["consumed"]
+               for a in audits.values()) or set(audits) != {"vqa", "vsm"}:
+            raise AssertionError(f"validate (a): audits {audits}")
+        recs = [r for task in rep["eval"]["results"].values() for r in task]
+        if len(recs) != 2 or any("option_chosen" not in r for r in recs):
+            raise AssertionError(f"validate (a): eval_model gave "
+                                 f"{rep['eval']['results']}")
+        record["a"].update(
+            audit_peak_gb={k: a.get("peak_bytes", 0) / 1e9
+                           for k, a in audits.items()},
+            audit={k: a["summary"] for k, a in audits.items()},
+            records=len(recs))
+
+        with QueueLog() as queues:
+            rep, record["b"] = _validate_run(
+                "(b)", paths + ["--int8", "--sweep", "--skip-audit"], tok,
+                dev, work, VALIDATE_KERNELS, total)
+        rows = {r["cell"]: r for r in rep["flag_matrix"]}
+        errors = {c: r["error"] for c, r in rows.items() if "error" in r}
+        if list(rows) != [c for c, _ in CELLS] or errors:
+            raise AssertionError(f"validate (b): cells {list(rows)}, "
+                                 f"errors {errors}")
+        lookup = rows["prompt-lookup"]
+        if not (lookup["answer_matches_base"] and
+                lookup["option_matches_base"]):
+            raise AssertionError(f"validate (b): prompt-lookup {lookup}")
+        # the int8 pair made in memory from the same weights answers as
+        # the command's loaded pair (outside any count window)
+        img = vw.synthetic_image()
+        memory = VQAEngine(_quantize_like_loader(params["vqa"], True),
+                           cfgs[0], tok, device=dev)
+        want = (memory.free_form(img, vw.FREE_FORM_QUESTION),
+                memory.multiple_choice(img, vw.MC_QUESTION, vw.MC_OPTIONS))
+        del memory
+        got = {"smoke": (rep["vqa"]["free_form"], rep["vqa"]["option"]),
+               "base": (rows["base"]["answer"], rows["base"]["option"])}
+        if any(g != want for g in got.values()):
+            raise AssertionError(f"validate (b): answers {got}, in-memory "
+                                 f"int8 pair {want}")
+        serial, compiled = rep["search"], rep["search_compiled"]
+        record["b"]["search_difference"] = _same_search(
+            "validate (b) compiled search", serial["path"],
+            compiled["path"], queues.scores(0, 0))
+        record["b"]["rows"] = rep["flag_matrix"]
+        log(f"[validate (b)] answer and option {want[1]} equal the "
+            f"in-memory int8 pair's; searches: serial {serial['path_len']} "
+            f"steps found={serial['found']}, compiled "
+            f"{compiled['path_len']} found={compiled['found']}; "
+            f"tokens/forward of prompt lookup "
+            f"{rep['vqa']['tokens_per_forward']}")
+
+        rep, record["c"] = _validate_run(
+            "(c)", paths + ["--runner-sweep", "--skip-audit"] + folder, tok,
+            dev, work, VALIDATE_KERNELS, total)
+        rows = {r["cell"]: r for r in rep["runner_matrix"]}
+        if list(rows) != ["phased", "parked", "coresident",
+                          "mixed-coresident", "int4mix-coresident"] or \
+                any("error" in r or r["accuracy"] is None
+                    for r in rows.values()) or \
+                rows["parked"]["records_match_base"] is not True:
+            raise AssertionError(f"validate (c): {rows}")
+        record["c"]["rows"] = rep["runner_matrix"]
+    missing = [k for k in VALIDATE_KERNELS if total[k] <= 0]
+    record["seconds"] = time.perf_counter() - t_part
+    log(f"[validate] launches {total} (K6 and its row quantization: no "
+        f"default cell sends act-int8 to an int4 entry); part "
+        f"{record['seconds']:.1f} s")
+    if missing:
+        raise AssertionError(f"validate: {missing} never launched")
+    return total, record
+
+
 def phase_hf(dev):
     """Export the two random-init models (7B widths, 2 decoder layers, the
     VSM's embedding and lm_head tilted to answer [LOC]) in bf16 with their
@@ -3493,7 +3637,8 @@ def phase_hf(dev):
     exported ones (bit for bit; quantized, equal to quantizing them in
     memory), and the loaded pair answers and detects as the in-memory
     pair on the same weights and [LOC] id; then eval_model from the
-    directories, serial and --single-chip-phased without factories."""
+    directories, serial and --single-chip-phased without factories; then
+    the checkpoint-day command on the directories (_validate)."""
     from vstar_tpu_torch.core.hf_export import (save_hf_dir,
                                                 vqa_llm_state_dict,
                                                 vsm_state_dict)
@@ -3583,6 +3728,8 @@ def phase_hf(dev):
         counts["hf_phased"], report["phased_s"] = _hf_eval(
             "hf --single-chip-phased", dirs,
             ["--single-chip-phased", "--image-batch", "2"], tok, dev)
+        counts["validate"], report["validate"] = _validate(
+            dirs, params, (vqa_cfg, vsm_cfg), tok, dev)
     del params
     return counts, report
 
